@@ -1,0 +1,56 @@
+"""JAX parameter pytree → the port's parameter dict.
+
+``params_from_jax(tree, cfg, device)`` takes the tree as
+``jax.device_get(flax.core.meta.unbox(params))`` gives it (nested dicts of
+numpy arrays) and returns the same nesting of torch tensors on
+``device``: the stacked ``[layers, ...]`` leaves, ``qkv_kernel`` /
+``qkv_bias`` / ``out_kernel`` / ``out_bias``, ``mlp.wi_*`` / ``wo_*``,
+``ln1`` / ``ln2`` / ``ln_f``, and the tied ``word_embeddings`` plus
+``position_embeddings``. A missing or extra leaf, or a shape that
+differs from ``models/gpt/model.py:param_shapes``, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Union
+
+import numpy as np
+import torch
+
+from fleetx_tpu_torch.models.gpt.model import GPTConfig, param_shapes
+
+
+def _to_tensor(leaf: Any, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes leaf: numpy has no bf16
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    # a copy: device_get leaves are read-only, torch tensors are not
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def params_from_jax(tree: Mapping, cfg: GPTConfig,
+                    device: Union[str, torch.device] = "cpu") -> dict:
+    """Convert an unboxed numpy param tree; raises ``ValueError`` on any
+    structural or shape mismatch."""
+    device = torch.device(device)
+
+    def walk(node: Any, want: Any, path: str) -> Any:
+        if isinstance(want, dict):
+            if not isinstance(node, Mapping):
+                raise ValueError(f"{path or '<root>'}: expected a subtree, "
+                                 f"got {type(node).__name__}")
+            missing = sorted(set(want) - set(node))
+            extra = sorted(set(node) - set(want))
+            if missing or extra:
+                raise ValueError(f"{path or '<root>'}: missing leaves "
+                                 f"{missing}, unexpected leaves {extra}")
+            return {k: walk(node[k], want[k], f"{path}/{k}".lstrip("/"))
+                    for k in want}
+        shape = tuple(np.shape(node))
+        if shape != tuple(want):
+            raise ValueError(f"{path}: shape {shape} != expected "
+                             f"{tuple(want)}")
+        return _to_tensor(node, device)
+
+    return walk(tree, param_shapes(cfg), "")

@@ -1,0 +1,172 @@
+"""Poisson-load serving bench (port of ``fleetx_tpu/serving/bench.py``).
+
+Drives one in-process ``ServingEngine`` with a seeded Poisson request
+stream (exponential inter-arrivals at ``--rate`` req/s, prompt lengths and
+``max_new_tokens`` drawn from the same seed) and emits ONE JSON line in
+the JAX bench's shape — ``{"metric": ..., "value": ...}`` with the
+serving SLO block under ``"serving"``::
+
+    python -m fleetx_tpu_torch.tools.serve --bench -c cfg.yaml > fresh.json
+
+A warmup request runs (and ``reset_stats()`` clears it) before the clock
+starts, so the one-off kernel build and first-call allocations never
+pollute the quantiles. ``device_kind`` names the card the numbers were
+taken on (``torch.cuda.get_device_name``).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Optional
+
+import numpy as np
+
+from fleetx_tpu_torch.serving.engine import ServingEngine
+from fleetx_tpu_torch.utils.log import logger
+
+
+#: fraction of requests drawing a LONG decode length — the bimodal mix
+#: below models the chat-vs-completion split real traffic shows instead
+#: of a flat uniform draw (a uniform mix never pressures the lazy
+#: allocator: every request looks average, nobody grows far past its
+#: admission grant, and the preemption path benches as dead code)
+LONG_DECODE_FRACTION = 0.3
+
+
+def poisson_plan(n_requests: int, rate_rps: float, vocab_size: int,
+                 max_prompt: int, max_new: int, seed: int = 0) -> list:
+    """The seeded request schedule: ``(arrival_s, prompt, max_new)`` rows.
+
+    Deterministic per seed so a bench run is reproducible and two replicas
+    under the same seed serve identical work (the acceptance drill's
+    token-parity check relies on this). Decode lengths draw from a
+    short/long mixture: most requests stop within ``max_new // 4``
+    tokens, a ``LONG_DECODE_FRACTION`` tail runs toward ``max_new`` —
+    the skew that makes lazy admission pay (short requests never claim
+    their worst case) and that exercises page growth + preemption.
+    """
+    rng = np.random.RandomState(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / max(rate_rps, 1e-6),
+                                         size=n_requests))
+    short_hi = max(max_new // 4, 2)
+    long_lo = max(max_new // 2, 1)
+    plan = []
+    for i in range(n_requests):
+        plen = int(rng.randint(1, max(max_prompt, 2)))
+        prompt = rng.randint(0, vocab_size, size=plen).astype(int).tolist()
+        if rng.rand() < LONG_DECODE_FRACTION:
+            new = int(rng.randint(long_lo, max(max_new, long_lo + 1)))
+        else:
+            new = int(rng.randint(1, short_hi))
+        plan.append((float(arrivals[i]), prompt, new))
+    return plan
+
+
+def run_serving_bench(engine: ServingEngine, *, n_requests: int = 32,
+                      rate_rps: float = 8.0, max_prompt: int = 24,
+                      max_new: int = 16, seed: int = 0,
+                      metric: str = "serving_poisson_tokens_per_s") -> dict:
+    """Run the Poisson stream to completion; returns the bench JSON dict."""
+    vocab = engine.cfg.vocab_size - 2  # keep clear of eos/pad ids
+    plan = poisson_plan(n_requests, rate_rps, vocab, max_prompt, max_new,
+                        seed=seed)
+
+    # warmup: build the kernel and run both steps once, off the clock
+    engine.submit(plan[0][1][:4] or [1], 2, request_id="warmup")
+    engine.run_until_drained()
+    engine.reset_stats()
+
+    t0 = time.monotonic()
+    pending = list(plan)
+    done: list = []
+    occupancy_peak = 0.0
+    # mean occupancy samples only WORKED steps: idle spins while waiting
+    # for the next Poisson arrival would dilute the mean toward zero and
+    # make the occupancy band hostage to host timing
+    occupancy_sum, occupancy_samples = 0.0, 0
+    while pending or engine.has_work():
+        now = time.monotonic() - t0
+        while pending and pending[0][0] <= now:
+            _, prompt, new = pending.pop(0)
+            done.append(engine.submit(prompt, new))
+        worked = engine.step()
+        occ = engine.allocator.occupancy()
+        occupancy_peak = max(occupancy_peak, occ)
+        if worked:
+            occupancy_sum += occ
+            occupancy_samples += 1
+        if not worked and pending:
+            time.sleep(min(pending[0][0] - now, 0.005))
+    wall = time.monotonic() - t0
+
+    snap = engine.serving_snapshot()
+    completed = [r for r in done if r.error is None]
+    refused = [r for r in done if r.error is not None]
+    result = {
+        "metric": metric,
+        "value": round(snap["tokens_total"] / max(wall, 1e-9), 3),
+        "unit": "tokens/s",
+        "requests": n_requests,
+        "rate_rps": rate_rps,
+        "wall_s": round(wall, 3),
+        "device_kind": _device_kind(engine),
+        "serving": {
+            "tokens_per_s": round(snap["tokens_total"] / max(wall, 1e-9), 3),
+            "tokens_total": snap["tokens_total"],
+            "completed": len(completed),
+            "refused": len(refused),
+            "ttft_p50_s": snap["ttft_p50_s"],
+            "ttft_p99_s": snap["ttft_p99_s"],
+            "itl_p50_s": snap["itl_p50_s"],
+            "itl_p99_s": snap["itl_p99_s"],
+            "page_occupancy_peak": round(occupancy_peak, 4),
+            "page_occupancy": round(occupancy_peak, 4),
+            # mean occupancy over worked steps is the "how full did we
+            # run" number lazy admission exists to raise; preemption_rate
+            # is swap-outs per completion
+            "page_occupancy_mean": round(
+                occupancy_sum / max(occupancy_samples, 1), 4),
+            "preemptions_total": int(snap.get("requests_preempted") or 0),
+            "preemption_rate": round(
+                int(snap.get("requests_preempted") or 0)
+                / max(len(completed), 1), 4),
+            "decode_path": snap.get("decode_path", "gather"),
+            "requests_per_chip": round(
+                len(completed) / max(engine.n_chips, 1), 3),
+            # the in-process bench has no router: hedges and breaker
+            # opens are honest zeros, kept so the record has the JAX
+            # bench's keys
+            "deadline_sheds": int(snap.get("deadline_sheds") or 0),
+            "hedges_total": 0,
+            "breaker_opens": 0,
+        },
+    }
+    if snap.get("slo_attainment") is not None:
+        result["serving"]["slo_attainment"] = snap["slo_attainment"]
+    logger.info("serving bench: %.1f tokens/s over %d requests "
+                "(ttft p99 %.4fs, itl p99 %.4fs, %d refused, "
+                "%d preempted, mean occupancy %.2f)",
+                result["value"], n_requests,
+                snap["ttft_p99_s"] or 0.0, snap["itl_p99_s"] or 0.0,
+                len(refused), int(snap.get("requests_preempted") or 0),
+                result["serving"]["page_occupancy_mean"])
+    return result
+
+
+def _device_kind(engine: ServingEngine) -> str:
+    """The name of the device the engine ran on (``cpu`` for the CPU)."""
+    import torch
+
+    if engine.device.type == "cuda":
+        return torch.cuda.get_device_name(engine.device)
+    return engine.device.type
+
+
+def emit(result: dict, out: Optional[str] = None) -> None:
+    """Print the one-line JSON (and optionally write it to ``out``)."""
+    line = json.dumps(result)
+    print(line, flush=True)
+    if out:
+        with open(out, "w") as f:
+            f.write(line + "\n")

@@ -1,0 +1,948 @@
+"""Continuous-batching serving engine over the paged KV cache (port of
+``fleetx_tpu/serving/engine.py``).
+
+One ``ServingEngine`` owns the device state (params + page pools + the two
+step functions from ``serving/decode.py``) and the host state (slot
+table, block tables, page allocator, request queues). The scheduler runs
+the vLLM-style loop, one ``step()`` per iteration:
+
+1. **admit** — waiting requests take a free decode slot + a **lazy** page
+   grant: the prompt's pages plus ``alloc_watermark`` headroom pages
+   (vLLM-style; ``lazy_alloc: false`` restores the old reserve-up-front
+   ``ceil((prompt + max_new) / page_size)`` for A/B measurement).
+   Requests the pool could NEVER hold are refused at ``submit`` (OOM
+   admission refusal), requests that merely don't fit *right now* wait;
+2. **prefill** — ONE chunk (``prefill_chunk`` tokens) of the oldest
+   prefilling request is forwarded; long prompts therefore spread over
+   several steps instead of stalling the decode batch, and the final
+   chunk's logits yield the request's first token (TTFT);
+3. **decode** — one token for every RUNNING slot in a single static-shape
+   step; each running request's block table grows one page at a time as
+   its length crosses page boundaries, and when the pool runs dry the
+   YOUNGEST live request is **preempted**: pages freed, state reset,
+   re-enqueued at the head of the admission queue (decode is idempotent —
+   the re-run regenerates the same greedy tokens, the loss-free-recovery
+   property the router's re-dispatch already relies on). New requests
+   join at the next step boundary, finished ones (eos /
+   ``max_new_tokens``) free their pages and leave — every shape stays
+   static in every direction.
+
+Telemetry rides the metrics registry (``serving_ttft`` /
+``serving_inter_token`` histograms; queue-depth / active-request /
+page-occupancy gauges), serving events land in the flight ring, and
+``serving_snapshot()`` emits the same record shape as the JAX engine.
+
+The engine runs on ``cuda`` unless ``device="cpu"`` is passed; its
+sampling generator is a ``torch.Generator`` on that device, seeded from
+``Global.seed``. Not ported yet, and refused loudly: quantized decode
+(ROADMAP.md, port queue item 2), the mesh-sharded pool (item 4) and MoE
+stacks (item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from fleetx_tpu_torch.observability import flight, tsan
+from fleetx_tpu_torch.observability.flight import EventRing
+from fleetx_tpu_torch.observability.metrics import get_registry
+from fleetx_tpu_torch.observability.slo import SLORegistry
+from fleetx_tpu_torch.serving.decode import (SamplingParams, make_step_fns,
+                                             paged_kernel_enabled,
+                                             prepare_params)
+from fleetx_tpu_torch.serving.paged_cache import (NULL_PAGE, PageAllocator,
+                                                  init_pool)
+from fleetx_tpu_torch.utils.device import resolve_device
+from fleetx_tpu_torch.utils.log import logger
+
+#: request lifecycle states
+WAITING, PREFILL, RUNNING, FINISHED, REFUSED = (
+    "waiting", "prefill", "running", "finished", "refused")
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    """The ``Serving:`` YAML section (docs/serving.md "Sizing the pool")."""
+
+    max_batch: int = 8          # decode slots (static batch dim)
+    page_size: int = 16         # tokens per KV page
+    num_pages: int = 64         # pool pages INCLUDING the reserved null page
+    max_seq_len: int = 0        # 0 → model max_position_embeddings
+    prefill_chunk: int = 32     # prompt tokens forwarded per step
+    # int8-act decode: not ported yet, True raises (ROADMAP.md, port
+    # queue item 2)
+    quantize_decode: bool = False
+    # decode attention path: when True AND ``ops/paged_attention.py``'s
+    # support predicate admits the geometry, decode runs the CUDA
+    # page-walk kernel — no ``[B, pages*page_size]`` gather
+    # materialization. The gather path serves otherwise. The choice is
+    # made ONCE at engine construction and reported as ``decode_path``.
+    paged_kernel: bool = True
+    # page lifecycle: True (default) admits on prompt pages +
+    # ``alloc_watermark`` headroom and grows page-by-page during decode,
+    # preempting the youngest request when the pool runs dry; False
+    # restores reserve-up-front (``prompt + max_new`` pages at admission)
+    # for A/B measurement
+    lazy_alloc: bool = True
+    alloc_watermark: int = 1    # headroom pages granted at lazy admission
+    # checkpoint and LoRA adapter directories: not ported yet,
+    # tools/serve.py refuses them (ROADMAP.md, port queue item 3); None =
+    # seeded init
+    ckpt_dir: Optional[str] = None
+    adapter_dir: Optional[str] = None
+    # per-request lifecycle tracing (docs/serving.md "Observability"):
+    # how many finished/refused timelines stay retrievable behind the
+    # ``trace`` verb, and the per-timeline event-ring capacity
+    trace_requests: int = 256
+    trace_events: int = 128
+    # declarative SLO targets (observability/slo.py) — the ``Serving.slo``
+    # YAML block; None disables SLO evaluation entirely
+    slo: Optional[dict] = None
+    # admission-queue bound (docs/serving.md "Fault tolerance"): submissions
+    # past this many waiting requests are refused ``overloaded`` with a
+    # ``retry_after_s`` hint instead of queueing unboundedly; 0 = unbounded
+    max_queue: int = 256
+    # router behaviour block (``Serving.router``) — validated eagerly in
+    # ``process_serving_config``; the engine itself never reads it
+    router: Optional[dict] = None
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "ServingConfig":
+        """Build from a YAML ``Serving`` section (unknown keys rejected)."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        d = dict(d or {})
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown Serving config keys: {sorted(unknown)}")
+        return cls(**{k: v for k, v in d.items() if v is not None})
+
+
+@dataclasses.dataclass
+class ServingRequest:
+    """One in-flight generation request and its bookkeeping."""
+
+    id: str
+    prompt: list
+    max_new_tokens: int
+    callback: Optional[Callable] = None
+    state: str = WAITING
+    slot: int = -1
+    pages: list = dataclasses.field(default_factory=list)
+    prefill_pos: int = 0
+    tokens: list = dataclasses.field(default_factory=list)
+    error: Optional[str] = None
+    submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
+    last_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    # admission recency: monotonically minted at every (re-)admission —
+    # the preemption policy's youngest-first ordering key
+    admit_seq: int = -1
+    preemptions: int = 0
+    # client deadline (seconds from submission); None = no deadline. An
+    # admission-time refusal classifies it (``overloaded``/``unmeetable``)
+    # and fills ``retry_after_s``; an in-flight expiry sheds the request
+    # at the next decode-tick boundary (``deadline_shed``)
+    deadline_s: Optional[float] = None
+    retry_after_s: Optional[float] = None
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Seconds from submission to the first generated token."""
+        if self.first_token_at is None:
+            return None
+        return self.first_token_at - self.submitted_at
+
+
+#: lifecycle event taxonomy (docs/serving.md "Observability") — the order
+#: a healthy request walks them; ``refused`` replaces the admitted→finished
+#: span for drain/OOM refusals, ``drain`` marks a replica preemption
+#: landing while the request was live, ``page_grow`` stamps each lazy
+#: block-table extension, and ``preempted`` marks a pool-pressure swap-out
+#: (the request loops back to ``admitted`` afterwards)
+TIMELINE_EVENTS = ("queued", "admitted", "prefill_chunk", "first_token",
+                   "decode_tick", "page_grow", "preempted", "finished",
+                   "refused", "drain", "deadline_shed")
+
+#: milestone events whose first timestamp is pinned outside the ring so
+#: attribution survives decode-tick eviction on long generations
+_MILESTONES = ("queued", "admitted", "first_token", "finished", "refused")
+
+
+class RequestTimeline:
+    """One request's bounded lifecycle event ring + derived attribution.
+
+    Events ride an ``observability/flight.py``-style ``EventRing``: a
+    long decode drops its oldest ticks (counted, never silent) while the
+    milestone timestamps are pinned on the object, so the queue/prefill/
+    decode decomposition stays exact however many events fell off.
+    """
+
+    def __init__(self, rid: str, capacity: int = 128):
+        self.id = str(rid)
+        self.ring = EventRing(capacity)
+        self.state = "open"  # open | finished | refused
+        self._marks: dict = {}
+        self._pages = 0
+        self._chunks = 0
+        self._ticks = 0
+
+    def note(self, name: str, **data: Any) -> None:
+        """Append one wall-clock-stamped lifecycle event."""
+        evt = {**data, "t": time.time(), "name": name}
+        if name in _MILESTONES and name not in self._marks:
+            self._marks[name] = evt["t"]
+            if name == "admitted":
+                self._pages = int(data.get("pages") or 0)
+        if name == "prefill_chunk":
+            self._chunks += 1
+        elif name == "decode_tick":
+            self._ticks += 1
+        self.ring.append(evt)
+
+    def events(self) -> list:
+        """Snapshot of the event ring, oldest first."""
+        return self.ring.snapshot()
+
+    def attribution(self) -> dict:
+        """Per-phase latency decomposition from the milestone timestamps.
+
+        ``queue_s`` (queued→admitted) + ``prefill_s`` (admitted→first
+        token) = ``ttft_s``, then ``decode_s`` (first token→finished) —
+        the request-path analogue of ``perf.py``'s step-time
+        decomposition: TTFT regressions name their phase. Spans whose
+        endpoints haven't happened are None, never a fake zero.
+        """
+        t = self._marks
+
+        def span(a: str, b: str) -> Optional[float]:
+            return (t[b] - t[a]) if a in t and b in t else None
+
+        total = span("queued", "finished")
+        if total is None:
+            total = span("queued", "refused")
+        return {
+            "queue_s": span("queued", "admitted"),
+            "prefill_s": span("admitted", "first_token"),
+            "decode_s": span("first_token", "finished"),
+            "ttft_s": span("queued", "first_token"),
+            "total_s": total,
+            "pages": self._pages,
+            "prefill_chunks": self._chunks,
+            "decode_ticks": self._ticks,
+        }
+
+    def to_dict(self) -> dict:
+        """The ``trace`` verb's JSON payload for this request."""
+        return {
+            "id": self.id, "state": self.state, "events": self.events(),
+            "events_total": self.ring.total,
+            "events_dropped": self.ring.dropped,
+            "attribution": self.attribution(),
+        }
+
+
+class TimelineStore:
+    """Bounded id → timeline map behind the ``trace`` verb.
+
+    The engine thread writes; connection-handler threads read
+    concurrently, so every map mutation holds the lock (the per-timeline
+    rings carry their own). Finished timelines stay retrievable until
+    ``max_requests`` newer requests evict them, insertion-ordered — the
+    flight-ring stance applied per request.
+    """
+
+    def __init__(self, max_requests: int = 256,
+                 events_per_request: int = 128):
+        self.max_requests = max(int(max_requests), 1)
+        self.events_per_request = max(int(events_per_request), 8)
+        self._lock = tsan.lock("serving.timelines")
+        self._timelines: "OrderedDict[str, RequestTimeline]" = OrderedDict()
+
+    def open(self, rid: str) -> RequestTimeline:
+        """Get-or-create the timeline for one request id."""
+        with self._lock:
+            tl = self._timelines.get(str(rid))
+            if tl is None:
+                tl = RequestTimeline(rid, self.events_per_request)
+                self._timelines[str(rid)] = tl
+                while len(self._timelines) > self.max_requests:
+                    self._timelines.popitem(last=False)
+            return tl
+
+    def get(self, rid: str) -> Optional[RequestTimeline]:
+        """The timeline for ``rid`` (None when unknown or evicted)."""
+        with self._lock:
+            return self._timelines.get(str(rid))
+
+    def note(self, rid: str, name: str, **data: Any) -> None:
+        """Append one event onto an existing timeline (no-op on unknown
+        ids — a timeline evicted mid-flight must not resurrect empty)."""
+        tl = self.get(rid)
+        if tl is not None:
+            tl.note(name, **data)
+
+    def live(self) -> list:
+        """Every still-open timeline (the drain/crash dump set)."""
+        with self._lock:
+            return [tl for tl in self._timelines.values()
+                    if tl.state == "open"]
+
+
+class ServingEngine:
+    """Request-level decode runtime (see module docstring for the loop)."""
+
+    def __init__(self, model_cfg: Any, params: dict,
+                 serving: Optional[ServingConfig] = None,
+                 sampling: Optional[SamplingParams] = None,
+                 eos_token_id: int = 50256, seed: int = 0,
+                 device: Optional[Any] = None):
+        self.device = resolve_device(device)
+        self.cfg = model_cfg
+        self.serving = serving or ServingConfig()
+        self.sampling = sampling or SamplingParams()
+        self.eos_token_id = int(eos_token_id)
+        sc = self.serving
+        if sc.quantize_decode:
+            raise NotImplementedError(
+                "Serving.quantize_decode needs ops/quantization.py:fake_quant"
+                ", not ported yet (ROADMAP.md, port queue item 2)")
+        if int(getattr(model_cfg, "moe_num_experts", 0) or 0) > 0:
+            raise NotImplementedError(
+                "MoE decode stacks are not ported yet (ROADMAP.md, port "
+                "queue item 7)")
+        self.max_seq_len = int(sc.max_seq_len) or model_cfg.max_position_embeddings
+        if self.max_seq_len > model_cfg.max_position_embeddings:
+            raise ValueError(
+                "Serving.max_seq_len exceeds the model's position table")
+        self.pages_per_req = -(-self.max_seq_len // sc.page_size)
+
+        self.params = prepare_params(params, model_cfg, self.device)
+        self.allocator = PageAllocator(sc.num_pages, sc.page_size)
+        self.pool_k, self.pool_v = init_pool(model_cfg, sc.num_pages,
+                                             sc.page_size, device=self.device)
+        # kernel-vs-gather is decided HERE, once: the support predicate is
+        # a static function of the config and pool geometry
+        self.paged_kernel_active = bool(sc.paged_kernel) and \
+            paged_kernel_enabled(model_cfg, page_size=sc.page_size,
+                                 pages_per_req=self.pages_per_req)
+        self._fns = make_step_fns(
+            model_cfg, prefill_chunk=sc.prefill_chunk,
+            sampling=self.sampling, paged_kernel=self.paged_kernel_active)
+
+        # host-side scheduler state
+        self._slots: list = [None] * sc.max_batch
+        self._block_tables = np.full((sc.max_batch, self.pages_per_req),
+                                     NULL_PAGE, np.int32)
+        self._lens = np.full((sc.max_batch,), -1, np.int32)
+        self._last_tokens = np.zeros((sc.max_batch,), np.int32)
+        self._waiting: deque = deque()
+        self._prefilling: deque = deque()
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(int(seed))
+        self.draining = False
+        self.steps = 0
+        self._started_at = time.monotonic()
+        self.metrics = get_registry()
+        # monotonic id mint: never reset (reset_stats() zeroing the
+        # request counter used to recycle ids across bench windows,
+        # silently merging two requests' timelines and router bookkeeping)
+        self._rid_counter = 0
+        # admission recency mint for the preempt-youngest policy; never
+        # reset, so ordering survives bench-window stat resets too
+        self._admit_seq = 0
+        # engine-local gauge freshness: the registry is process-global, so
+        # a prior engine's gauge values must not read as THIS engine's
+        self._gauges_current = False
+        self.timelines = TimelineStore(sc.trace_requests, sc.trace_events)
+        self.slo = SLORegistry.from_config(sc.slo, registry=self.metrics)
+        # chips this replica occupies (one: the sharded pool is not
+        # ported) — the denominator of requests-per-chip
+        self.n_chips = 1
+        # scheduler state is engine-thread-confined by design: handler
+        # threads must go through the server's submission queue, never
+        # call submit()/step() directly. FLEETX_TSAN=1 enforces that.
+        tsan.register_object(self, "serving-engine")
+        logger.info(
+            "serving engine on %s: max_batch=%d pages=%d x %d tokens "
+            "(capacity %d token slots/layer), prefill_chunk=%d, "
+            "decode=%s, alloc=%s", self.device,
+            sc.max_batch, self.allocator.usable_pages,
+            sc.page_size, self.allocator.usable_pages * sc.page_size,
+            sc.prefill_chunk,
+            "paged_kernel" if self.paged_kernel_active else "gather",
+            "lazy" if sc.lazy_alloc else "reserve")
+
+    # ------------------------------------------------------------ submission
+    def submit(self, prompt: list, max_new_tokens: int,
+               request_id: Optional[str] = None,
+               callback: Optional[Callable] = None,
+               deadline_s: Optional[float] = None) -> ServingRequest:
+        """Queue one request; refusals (drain / permanent OOM / deadline)
+        come back with ``state == REFUSED`` and ``error`` set, never
+        queued. ``deadline_s`` makes admission deadline-aware: a request
+        whose projected completion exceeds its deadline is refused up
+        front — ``unmeetable`` (its own service time alone blows the
+        deadline; retrying won't help until the deadline grows) or
+        ``overloaded`` (the queue ahead of it does; ``retry_after_s``
+        names the projected drain)."""
+        tsan.note_access(self, "submit")
+        rid = request_id if request_id is not None \
+            else f"req{self._rid_counter}"
+        self._rid_counter += 1
+        req = ServingRequest(id=str(rid), prompt=[int(t) for t in prompt],
+                             max_new_tokens=int(max_new_tokens),
+                             callback=callback, submitted_at=time.monotonic(),
+                             deadline_s=(float(deadline_s)
+                                         if deadline_s is not None else None))
+        self.metrics.counter("serving_requests_total").inc()
+        self.timelines.open(req.id).note(
+            "queued", prompt_len=len(req.prompt),
+            max_new=req.max_new_tokens)
+        need_tokens = len(req.prompt) + req.max_new_tokens
+        need_pages = self.allocator.pages_needed(need_tokens)
+        if self.draining:
+            return self._refuse(req, "draining")
+        if not req.prompt or need_tokens > self.max_seq_len or \
+                not self.allocator.fits_ever(need_pages):
+            return self._refuse(
+                req, f"oom: request needs {need_pages} pages / "
+                     f"{need_tokens} tokens; pool holds "
+                     f"{self.allocator.usable_pages} pages of "
+                     f"{self.allocator.page_size}")
+        max_queue = int(self.serving.max_queue or 0)
+        if max_queue and len(self._waiting) >= max_queue:
+            service, eta = self.projected_completion_s(
+                len(req.prompt), req.max_new_tokens)
+            req.retry_after_s = round(max(
+                (eta or 0.0) - (service or 0.0), 0.05), 3)
+            self.metrics.counter("serving_refusals_overloaded").inc()
+            return self._refuse(
+                req, f"overloaded: admission queue full "
+                     f"({len(self._waiting)} >= {max_queue})")
+        if req.deadline_s is not None:
+            service, eta = self.projected_completion_s(
+                len(req.prompt), req.max_new_tokens)
+            if service is not None and service > req.deadline_s:
+                req.retry_after_s = round(service, 3)
+                self.metrics.counter("serving_refusals_unmeetable").inc()
+                return self._refuse(
+                    req, f"unmeetable: projected service {service:.3f}s "
+                         f"exceeds deadline {req.deadline_s:.3f}s")
+            if eta is not None and eta > req.deadline_s:
+                req.retry_after_s = round(eta - service, 3)
+                self.metrics.counter("serving_refusals_overloaded").inc()
+                return self._refuse(
+                    req, f"overloaded: projected completion {eta:.3f}s "
+                         f"(queue {len(self._waiting)}) exceeds deadline "
+                         f"{req.deadline_s:.3f}s")
+        self._waiting.append(req)
+        flight.note("serving", "submit", id=req.id,
+                    prompt_len=len(req.prompt))
+        return req
+
+    def _measured_mean(self, name: str) -> Optional[float]:
+        """Mean of a registry histogram, None before any observation."""
+        h = self.metrics.histogram(name)
+        count = int(getattr(h, "total_count", 0) or 0)
+        if count <= 0:
+            return None
+        return float(h.total_sum) / count
+
+    def projected_completion_s(self, prompt_len: int, max_new: int):
+        """``(service_s, eta_s)`` estimate for a fresh submission.
+
+        ``service_s`` is the request's own cost — prefill chunks at the
+        measured mean ``serving_prefill_step`` plus ``max_new`` tokens at
+        the measured mean inter-token latency. ``eta_s`` adds the queue
+        ahead of it: every waiting/prefilling request's own service
+        estimate, divided by the decode batch width (decode is batched,
+        so queued work drains ``max_batch``-wide, not serially). Both are
+        None until the engine has measured at least one prefill chunk and
+        one decode tick — admission never refuses on guesswork."""
+        pf = self._measured_mean("serving_prefill_step")
+        itl = self._measured_mean("serving_inter_token")
+        if pf is None or itl is None:
+            return None, None
+        chunk = max(int(self.serving.prefill_chunk), 1)
+
+        def est(plen: int, new: int) -> float:
+            return -(-plen // chunk) * pf + new * itl
+
+        service = est(max(int(prompt_len), 1), max(int(max_new), 1))
+        ahead = sum(est(max(len(r.prompt), 1), max(r.max_new_tokens, 1))
+                    for r in list(self._waiting) + list(self._prefilling))
+        eta = service + ahead / max(int(self.serving.max_batch), 1)
+        return service, eta
+
+    def _refuse(self, req: ServingRequest, why: str) -> ServingRequest:
+        req.state, req.error = REFUSED, why
+        req.finished_at = time.monotonic()
+        self.metrics.counter("serving_requests_refused").inc()
+        tl = self.timelines.get(req.id)
+        if tl is not None:
+            tl.note("refused", why=why)
+            tl.state = "refused"
+        flight.note("serving", "refuse", id=req.id, why=why)
+        if req.callback:
+            req.callback(req)
+        return req
+
+    # -------------------------------------------------------------- schedule
+    def _admit(self) -> None:
+        """Waiting → prefill while a slot AND a page grant fit (strict
+        FIFO: head-of-line blocking keeps admission fair).
+
+        The grant is the admission policy: lazy (default) asks for the
+        prompt's pages plus ``alloc_watermark`` headroom — decode grows
+        the rest page-by-page in ``_grow_or_preempt`` — while
+        ``lazy_alloc: false`` reserves the worst case up front. Both are
+        capped at the worst case, so a zero-decode request never
+        over-reserves."""
+        sc = self.serving
+        while self._waiting:
+            req = self._waiting[0]
+            try:
+                slot = self._slots.index(None)
+            except ValueError:
+                return
+            worst = self.allocator.pages_needed(
+                len(req.prompt) + req.max_new_tokens)
+            if sc.lazy_alloc:
+                need = min(self.allocator.pages_needed(len(req.prompt))
+                           + max(int(sc.alloc_watermark), 0), worst)
+            else:
+                need = worst
+            pages = self.allocator.alloc(need)
+            if pages is None:
+                return
+            self._waiting.popleft()
+            req.state, req.slot, req.pages = PREFILL, slot, pages
+            req.admit_seq = self._admit_seq
+            self._admit_seq += 1
+            self._slots[slot] = req
+            self._block_tables[slot] = NULL_PAGE
+            self._block_tables[slot, :need] = pages
+            self._lens[slot] = -1  # joins the decode batch after prefill
+            self._prefilling.append(req)
+            self.timelines.note(req.id, "admitted", slot=slot, pages=need,
+                                occupancy=self.allocator.occupancy())
+            flight.note("serving", "admit", id=req.id, slot=slot,
+                        pages=need)
+
+    def _next_rng(self) -> torch.Generator:
+        # one stateful generator advances across draws, where JAX splits
+        # a fresh key per step
+        return self._rng
+
+    def _prefill_step(self) -> bool:
+        """Forward one chunk of the oldest prefilling request."""
+        if not self._prefilling:
+            return False
+        req = self._prefilling[0]
+        sc = self.serving
+        pos = req.prefill_pos
+        chunk = req.prompt[pos:pos + sc.prefill_chunk]
+        n_valid = len(chunk)
+        tokens = np.zeros((1, sc.prefill_chunk), np.int32)
+        tokens[0, :n_valid] = chunk
+        table = self._block_tables[req.slot:req.slot + 1]
+        with self.metrics.timer("serving_prefill_step"):
+            self.pool_k, self.pool_v, tok, _ = self._fns["prefill"](
+                self.params, self.pool_k, self.pool_v, tokens, table,
+                np.int32(pos), np.int32(n_valid), self._next_rng())
+            req.prefill_pos = pos + n_valid
+            self.timelines.note(req.id, "prefill_chunk",
+                                chunk=pos // max(sc.prefill_chunk, 1),
+                                tokens=n_valid)
+            if req.prefill_pos >= len(req.prompt):
+                first = int(tok[0].item())
+                self._prefilling.popleft()
+                now = time.monotonic()
+                req.first_token_at = req.last_token_at = now
+                self.metrics.histogram("serving_ttft").record(req.ttft_s)
+                self.timelines.note(req.id, "first_token", token=first)
+                self._emit(req, first)
+                if req.state != FINISHED:
+                    req.state = RUNNING
+                    self._lens[req.slot] = len(req.prompt)
+                    self._last_tokens[req.slot] = first
+                flight.note("serving", "first_token", id=req.id)
+        return True
+
+    def _grow_or_preempt(self) -> None:
+        """Extend each RUNNING request's block table to cover the token
+        the next decode step will write; when the pool is dry, preempt
+        the YOUNGEST live request and retry.
+
+        Preempting youngest (highest ``admit_seq``) keeps the oldest
+        request making forward progress, which bounds the scheme: each
+        preemption frees at least one page, live requests always hold at
+        least one, and the head of the FIFO eventually finishes — no
+        livelock. A request can preempt ITSELF (it was the youngest);
+        it simply sits out this decode step and re-enters the queue."""
+        for req in list(self._slots):
+            if req is None or req.state != RUNNING:
+                continue  # freed or preempted earlier in this pass
+            need = self.allocator.pages_needed(int(self._lens[req.slot]) + 1)
+            while len(req.pages) < need:
+                got = self.allocator.alloc(1)
+                if got is not None:
+                    self._block_tables[req.slot, len(req.pages)] = got[0]
+                    req.pages.extend(got)
+                    self.timelines.note(
+                        req.id, "page_grow", pages=len(req.pages),
+                        occupancy=self.allocator.occupancy())
+                    continue
+                victim = self._youngest_live()
+                if victim is None:
+                    break  # unreachable: req itself is live
+                self._preempt(victim)
+                if victim is req:
+                    break
+
+    def _youngest_live(self) -> Optional[ServingRequest]:
+        """The most recently admitted request still holding pages."""
+        live = [r for r in self._slots if r is not None]
+        return max(live, key=lambda r: r.admit_seq, default=None)
+
+    def _preempt(self, req: ServingRequest) -> None:
+        """Swap ``req`` out: free its pages and re-enqueue it at the HEAD
+        of the admission queue with all generation state reset — decode
+        is deterministic (greedy or seeded), so the re-run regenerates
+        the same tokens and the caller never observes the eviction beyond
+        latency."""
+        tsan.note_access(self, "preempt")
+        pages_freed = len(req.pages)
+        self.allocator.free(req.pages)
+        slot = req.slot
+        self._slots[slot] = None
+        self._block_tables[slot] = NULL_PAGE
+        self._lens[slot] = -1
+        self._last_tokens[slot] = 0
+        if req in self._prefilling:
+            self._prefilling.remove(req)
+        req.state, req.slot, req.pages = WAITING, -1, []
+        req.prefill_pos = 0
+        req.tokens = []
+        req.first_token_at = None
+        req.last_token_at = None
+        req.preemptions += 1
+        # head-of-queue re-entry: victims are picked youngest-first, so
+        # appendleft keeps the relative admission order among them
+        self._waiting.appendleft(req)
+        self.metrics.counter("serving_requests_preempted").inc()
+        self.timelines.note(req.id, "preempted", pages_freed=pages_freed,
+                            occupancy=self.allocator.occupancy(),
+                            preemptions=req.preemptions)
+        flight.note("serving", "preempt", id=req.id,
+                    pages_freed=pages_freed)
+
+    def _shed_expired(self) -> None:
+        """Drop every request whose deadline already passed — queued OR
+        in-flight — at the decode-tick boundary (the only point where a
+        slot can be reclaimed without tearing a step in half). Sheds are
+        classified refusals: the caller gets an error response, never
+        silence, and the ``serving_deadline_sheds`` counter + the
+        ``deadline_shed`` timeline event make every one attributable."""
+        now = time.monotonic()
+
+        def expired(r: ServingRequest) -> bool:
+            return r.deadline_s is not None and \
+                now - r.submitted_at > r.deadline_s
+
+        for req in [r for r in self._waiting if expired(r)]:
+            self._waiting.remove(req)
+            self._shed(req, now)
+        for req in list(self._slots):
+            if req is not None and req.state in (PREFILL, RUNNING) \
+                    and expired(req):
+                self._shed(req, now)
+
+    def _release_slot(self, req: ServingRequest) -> None:
+        """Free any slot/pages ``req`` holds (shed/cancel teardown)."""
+        if req.slot >= 0:
+            self.allocator.free(req.pages)
+            slot = req.slot
+            self._slots[slot] = None
+            self._block_tables[slot] = NULL_PAGE
+            self._lens[slot] = -1
+            self._last_tokens[slot] = 0
+            if req in self._prefilling:
+                self._prefilling.remove(req)
+        req.slot, req.pages = -1, []
+
+    def _shed(self, req: ServingRequest, now: float) -> None:
+        """Refuse one expired request, freeing any slot/pages it holds."""
+        tsan.note_access(self, "shed")
+        age = now - req.submitted_at
+        self._release_slot(req)
+        req.state = REFUSED
+        req.error = (f"deadline_shed: expired {age:.3f}s into a "
+                     f"{req.deadline_s:.3f}s deadline")
+        req.finished_at = now
+        self.metrics.counter("serving_deadline_sheds").inc()
+        self.metrics.counter("serving_requests_refused").inc()
+        tl = self.timelines.get(req.id)
+        if tl is not None:
+            tl.note("deadline_shed", age_s=round(age, 4),
+                    deadline_s=req.deadline_s,
+                    tokens_dropped=len(req.tokens))
+            tl.state = "refused"
+        flight.note("serving", "deadline_shed", id=req.id,
+                    age_s=round(age, 4), deadline_s=req.deadline_s)
+        if req.callback:
+            req.callback(req)
+
+    def cancel(self, request_id: str) -> bool:
+        """Cancel one queued or in-flight request (the ``cancel`` verb —
+        hedged dispatch tears down the losing replica's copy with this).
+        Runs on the engine thread via the server's control queue, so the
+        teardown lands at a step boundary like every other slot
+        transition. Returns False when the id is unknown, already
+        finished, or already refused."""
+        tsan.note_access(self, "cancel")
+        rid = str(request_id)
+        req = next((r for r in self._waiting if r.id == rid), None)
+        if req is not None:
+            self._waiting.remove(req)
+        else:
+            req = next((r for r in self._slots
+                        if r is not None and r.id == rid
+                        and r.state in (PREFILL, RUNNING)), None)
+        if req is None:
+            return False
+        self._release_slot(req)
+        req.state, req.error = REFUSED, "cancelled"
+        req.finished_at = time.monotonic()
+        self.metrics.counter("serving_requests_refused").inc()
+        tl = self.timelines.get(req.id)
+        if tl is not None:
+            tl.note("refused", why="cancelled")
+            tl.state = "refused"
+        flight.note("serving", "cancel", id=req.id)
+        if req.callback:
+            req.callback(req)
+        return True
+
+    def _decode_step(self) -> bool:
+        """One token for every RUNNING slot (static batch; masked rows)."""
+        self._shed_expired()
+        if self.serving.lazy_alloc:
+            self._grow_or_preempt()
+        running = [r for r in self._slots
+                   if r is not None and r.state == RUNNING]
+        if not running:
+            return False
+        with self.metrics.timer("serving_decode_step"):
+            self.pool_k, self.pool_v, toks, _ = self._fns["decode"](
+                self.params, self.pool_k, self.pool_v, self._last_tokens,
+                self._block_tables, self._lens, self._next_rng())
+            toks = toks.cpu().numpy()
+            now = time.monotonic()
+            for req in running:
+                tok = int(toks[req.slot])
+                self._lens[req.slot] += 1  # the step wrote position `lens`
+                self.metrics.histogram("serving_inter_token").record(
+                    now - req.last_token_at)
+                req.last_token_at = now
+                self.timelines.note(req.id, "decode_tick",
+                                    pos=int(self._lens[req.slot]))
+                self._emit(req, tok)
+                if req.state != FINISHED:
+                    self._last_tokens[req.slot] = tok
+        return True
+
+    def _emit(self, req: ServingRequest, token: int) -> None:
+        """Record one generated token and finish on eos / length."""
+        req.tokens.append(token)
+        self.metrics.counter("serving_tokens_total").inc()
+        if token == self.eos_token_id or \
+                len(req.tokens) >= req.max_new_tokens:
+            self._finish(req)
+
+    def _finish(self, req: ServingRequest) -> None:
+        req.state = FINISHED
+        req.finished_at = time.monotonic()
+        self.allocator.free(req.pages)
+        slot = req.slot
+        self._slots[slot] = None
+        self._block_tables[slot] = NULL_PAGE
+        self._lens[slot] = -1
+        self._last_tokens[slot] = 0
+        self.metrics.counter("serving_requests_completed").inc()
+        tl = self.timelines.get(req.id)
+        if tl is not None:
+            tl.note("finished", new_tokens=len(req.tokens),
+                    pages_freed=len(req.pages),
+                    occupancy=self.allocator.occupancy())
+            tl.state = "finished"
+        flight.note("serving", "finish", id=req.id,
+                    new_tokens=len(req.tokens))
+        if req.callback:
+            req.callback(req)
+
+    # ------------------------------------------------------------------ loop
+    def step(self) -> bool:
+        """One scheduler iteration; True when any device work ran."""
+        tsan.note_access(self, "step")
+        self._admit()
+        worked = self._prefill_step()
+        worked = self._decode_step() or worked
+        if worked:
+            self.steps += 1
+        self._update_gauges()
+        return worked
+
+    def has_work(self) -> bool:
+        """Anything queued, prefilling or decoding?"""
+        return bool(self._waiting or self._prefilling
+                    or any(r is not None for r in self._slots))
+
+    def run_until_drained(self, max_steps: int = 100_000) -> None:
+        """Step until every queued request has finished (tests/bench)."""
+        steps = 0
+        while self.has_work():
+            self.step()
+            steps += 1
+            if steps >= max_steps:
+                raise RuntimeError("serving loop failed to drain")
+
+    def begin_drain(self) -> None:
+        """Stop admitting NEW submissions; everything already queued or in
+        flight runs to completion (the graceful-preemption contract)."""
+        if not self.draining:
+            self.draining = True
+            flight.note("serving", "drain",
+                        active=sum(r is not None for r in self._slots),
+                        queued=len(self._waiting))
+            # stamp the preemption onto every live timeline, then spill
+            # them into the flight ring: the post-mortem (and the router's
+            # merged trace) sees exactly where each request was when the
+            # reclaim landed
+            for tl in self.timelines.live():
+                tl.note("drain")
+            self.dump_timelines()
+            logger.warning("serving engine draining: finishing %d in-flight "
+                           "request(s)", sum(r is not None
+                                             for r in self._slots)
+                           + len(self._waiting))
+
+    def dump_timelines(self) -> int:
+        """Spill every live timeline into the flight ring (crash/drain
+        evidence for ``flight.dump``); returns how many were spilled."""
+        live = self.timelines.live()
+        for tl in live:
+            flight.note("serving_timeline", tl.id, state=tl.state,
+                        events=tl.events(), dropped=tl.ring.dropped,
+                        attribution=tl.attribution())
+        return len(live)
+
+    def request_trace(self, rid: str) -> Optional[dict]:
+        """The ``trace`` verb's payload for one request id: the bounded
+        event timeline + the phase attribution (None when the id is
+        unknown or already evicted from the timeline store)."""
+        tl = self.timelines.get(rid)
+        return tl.to_dict() if tl is not None else None
+
+    # ------------------------------------------------------------- telemetry
+    def reset_stats(self) -> None:
+        """Zero the serving counters/histograms and restart the throughput
+        clock — the bench calls this after its warmup request so the
+        one-off kernel build and first-call allocations never pollute
+        tokens/s or the latency quantiles."""
+        for name in ("serving_requests_total", "serving_requests_completed",
+                     "serving_requests_refused", "serving_requests_preempted",
+                     "serving_tokens_total", "serving_deadline_sheds",
+                     "serving_refusals_overloaded",
+                     "serving_refusals_unmeetable"):
+            self.metrics.counter(name).reset()
+        for name in ("serving_ttft", "serving_inter_token",
+                     "serving_prefill_step", "serving_decode_step"):
+            h = self.metrics.histogram(name)
+            h.reset()
+            h.total_count = 0
+            h.total_sum = 0.0
+        self._started_at = time.monotonic()
+
+    def _used_slots(self) -> int:
+        """Token positions actually written across live requests."""
+        used = int(self._lens[self._lens >= 0].sum())
+        used += sum(r.prefill_pos for r in self._prefilling)
+        return used
+
+    def _update_gauges(self) -> None:
+        self._gauges_current = True
+        self.metrics.gauge("serving_queue_depth").set(len(self._waiting))
+        self.metrics.gauge("serving_active_requests").set(
+            sum(r is not None for r in self._slots))
+        self.metrics.gauge("serving_page_occupancy").set(
+            self.allocator.occupancy())
+        self.metrics.gauge("serving_kv_fragmentation").set(
+            self.allocator.internal_fragmentation(self._used_slots()))
+
+    def serving_snapshot(self) -> dict:
+        """One JSON-ready record in the ``SERVING_RECORD_SCHEMA`` shape."""
+        m = self.metrics
+        wall = max(time.monotonic() - self._started_at, 1e-9)
+        ttft = m.histogram("serving_ttft").summary()
+        itl = m.histogram("serving_inter_token").summary()
+        tokens = m.counter("serving_tokens_total").value
+        completed = int(m.counter("serving_requests_completed").value)
+        if self._gauges_current:
+            gauges = {
+                "queue_depth": int(m.gauge("serving_queue_depth").value),
+                "active_requests": int(
+                    m.gauge("serving_active_requests").value),
+                "page_occupancy": float(
+                    m.gauge("serving_page_occupancy").value),
+                "kv_fragmentation": float(
+                    m.gauge("serving_kv_fragmentation").value),
+                "scheduler_gauges": "ok",
+            }
+        else:
+            # this engine has never stepped: null + an explicit marker
+            # (the hbm_stats convention) instead of a fake-zero occupancy
+            gauges = {"queue_depth": None, "active_requests": None,
+                      "page_occupancy": None, "kv_fragmentation": None,
+                      "scheduler_gauges": "unavailable"}
+        snap = {
+            "ts": time.time(),
+            "scope": "serving",
+            "schema_version": 2,
+            "requests_admitted": int(
+                m.counter("serving_requests_total").value
+                - m.counter("serving_requests_refused").value),
+            "requests_completed": completed,
+            "requests_refused": int(
+                m.counter("serving_requests_refused").value),
+            "requests_preempted": int(
+                m.counter("serving_requests_preempted").value),
+            "deadline_sheds": int(
+                m.counter("serving_deadline_sheds").value),
+            "decode_path": ("paged_kernel" if self.paged_kernel_active
+                            else "gather"),
+            **gauges,
+            "tokens_total": int(tokens),
+            "tokens_per_sec": tokens / wall,
+            "ttft_p50_s": ttft.get("p50"),
+            "ttft_p99_s": ttft.get("p99"),
+            "itl_p50_s": itl.get("p50"),
+            "itl_p99_s": itl.get("p99"),
+            # full windowed summaries: the router pools these
+            # count-weighted into its fleet record
+            "ttft": ttft,
+            "itl": itl,
+            "chips": int(self.n_chips),
+            "requests_per_chip": completed / max(self.n_chips, 1),
+        }
+        if self.slo is not None:
+            snap["slo_attainment"] = self.slo.observe(snap)["attainment"]
+        return snap

@@ -1,0 +1,302 @@
+"""One serving replica behind a JSON-lines TCP front, with graceful drain
+(port of ``fleetx_tpu/serving/server.py``; the wire protocol and the four
+verbs are byte-compatible, so a client of the JAX replica talks to this
+one unchanged).
+
+Wire protocol (one request per connection, newline-delimited JSON)::
+
+    → {"id": "r1", "prompt": [5, 9, 23], "max_new_tokens": 8,
+       "deadline_s": 2.5}                        # deadline optional
+    ← {"id": "r1", "tokens": [41, 3, ...], "ttft_s": 0.01, "latency_s": 0.2}
+    ← {"id": "r1", "error": "draining"}          # replica is being reclaimed
+    ← {"id": "r1", "error": "overloaded: ...", "retry_after_s": 0.8}
+
+Refusals are CLASSIFIED (docs/serving.md "Fault tolerance"): ``draining``
+means the replica is being reclaimed (re-dispatch elsewhere),
+``overloaded``/``unmeetable`` are deadline-admission verdicts carrying a
+``retry_after_s`` hint, and ``deadline_shed``/``cancelled`` end requests
+that were already in flight.
+
+Four **verbs** ride the same protocol (docs/serving.md "Observability") —
+the router polls the first two, operators ask the third, hedged dispatch
+fires the fourth::
+
+    → {"verb": "stats"}                    ← one serving_snapshot() record
+    → {"verb": "ping"}                     ← {"ok": true, "draining": false}
+                                             (answered on the HANDLER
+                                             thread — cheap liveness for
+                                             the router's health probes,
+                                             never queued behind decode)
+    → {"verb": "trace", "id": "r1"}        ← the request's lifecycle
+                                             timeline + phase attribution
+    → {"verb": "cancel", "id": "r1"}       ← {"id": "r1", "cancelled": true}
+                                             (frees the request's slot at
+                                             the next step boundary — the
+                                             hedge loser's teardown)
+
+The engine loop stays on the caller's (main) thread — connection handler
+threads only enqueue submissions (and verb thunks, which the loop services
+at every step boundary) and wait on completion events, so all device work
+AND all engine-state reads are single-threaded and the
+``PreemptionHandler`` can be installed normally. On a latched preemption the replica **drains**: new
+requests are answered ``"draining"`` (the router re-dispatches them),
+in-flight decodes run to completion, and ``run()`` returns so
+``tools/serve.py`` can exit with the preemption code — the supervisor then
+treats the reclaim as a clean stop instead of crash-restarting a machine
+that is going away.
+
+The chaos knobs of the JAX replica (``resilience/faults.py`` fault plans)
+are not ported yet (ROADMAP.md, port queue item 8).
+"""
+
+from __future__ import annotations
+
+import json
+import queue
+import socket
+import threading
+import time
+from typing import Optional
+
+from fleetx_tpu_torch.observability import flight, tsan
+from fleetx_tpu_torch.utils.log import logger
+
+#: per-request completion wait bound (covers queue time under load)
+REQUEST_TIMEOUT_S = 300.0
+
+
+def read_json_line(conn: socket.socket, timeout: float) -> Optional[dict]:
+    """Read one newline-terminated JSON object from ``conn`` (None on EOF
+    or parse failure)."""
+    conn.settimeout(timeout)
+    buf = b""
+    while not buf.endswith(b"\n"):
+        chunk = conn.recv(4096)
+        if not chunk:
+            break
+        buf += chunk
+    if not buf.strip():
+        return None
+    try:
+        return json.loads(buf.decode("utf-8"))
+    except (ValueError, UnicodeDecodeError):
+        return None
+
+
+def send_json_line(conn: socket.socket, payload: dict) -> None:
+    """Write one JSON object + newline."""
+    conn.sendall((json.dumps(payload) + "\n").encode("utf-8"))
+
+
+def request(addr: tuple, payload: dict, timeout: float = 60.0) -> dict:
+    """One round trip against a replica/router: connect, send, await the
+    response line. Raises ``OSError`` on transport failure — the caller
+    (router, tests) decides whether to re-dispatch."""
+    with socket.create_connection(addr, timeout=timeout) as conn:
+        send_json_line(conn, payload)
+        resp = read_json_line(conn, timeout)
+    if resp is None:
+        raise ConnectionError(f"no response from {addr}")
+    return resp
+
+
+class ReplicaServer:
+    """Socket front + scheduler loop around one ``ServingEngine``."""
+
+    def __init__(self, engine, host: str = "127.0.0.1", port: int = 0):
+        self.engine = engine
+        self.host = host
+        self.port = int(port)
+        self._submissions: queue.Queue = queue.Queue()
+        self._control: queue.Queue = queue.Queue()
+        self._listener: Optional[socket.socket] = None
+        self._stop = threading.Event()
+
+    # ------------------------------------------------------------- listener
+    def start(self) -> int:
+        """Bind + start the accept thread; returns the bound port."""
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listener.bind((self.host, self.port))
+        self._listener.listen(64)
+        self.port = self._listener.getsockname()[1]
+        threading.Thread(target=self._accept_loop, daemon=True,
+                         name="serving-accept").start()
+        logger.info("serving replica listening on %s:%d", self.host,
+                    self.port)
+        return self.port
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return  # listener closed
+            threading.Thread(target=self._handle, args=(conn,),
+                             daemon=True).start()
+
+    def _handle(self, conn: socket.socket) -> None:
+        """One connection = one request: enqueue for the engine thread,
+        wait for completion, answer."""
+        try:
+            msg = read_json_line(conn, REQUEST_TIMEOUT_S)
+            if not isinstance(msg, dict):
+                send_json_line(conn, {"error": "bad request"})
+                return
+            verb = msg.get("verb")
+            if verb == "ping":
+                # liveness answers on THIS thread, never queued behind
+                # decode: a busy replica still pings, a hung one doesn't —
+                # exactly the distinction the router's breakers probe for
+                send_json_line(conn, {"ok": True,
+                                      "draining":
+                                          bool(self.engine.draining)})
+                return
+            if verb in ("stats", "trace", "cancel"):
+                send_json_line(conn, self._control_call(verb, msg))
+                return
+            if "prompt" not in msg:
+                send_json_line(conn, {"error": "bad request"})
+                return
+            if self.engine.draining:
+                # explicit signal (vs. a dropped connection) so the router
+                # marks this backend draining and re-dispatches immediately
+                send_json_line(conn, {"id": msg.get("id"),
+                                      "error": "draining"})
+                return
+            done = threading.Event()
+            box: dict = {}
+
+            def on_done(req) -> None:
+                box["req"] = req
+                done.set()
+
+            self._submissions.put((msg, on_done))
+            if not done.wait(REQUEST_TIMEOUT_S):
+                send_json_line(conn, {"id": msg.get("id"),
+                                      "error": "timeout"})
+                return
+            req = box["req"]
+            if req.error:
+                resp = {"id": req.id, "error": req.error}
+                if getattr(req, "retry_after_s", None) is not None:
+                    resp["retry_after_s"] = req.retry_after_s
+                send_json_line(conn, resp)
+            else:
+                send_json_line(conn, {
+                    "id": req.id, "tokens": req.tokens,
+                    "ttft_s": req.ttft_s,
+                    "latency_s": req.finished_at - req.submitted_at})
+        except OSError:
+            pass  # client went away; the engine finishes the work regardless
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _control_call(self, verb: str, msg: dict,
+                      timeout: float = 30.0) -> dict:
+        """Run one read-only verb on the engine thread.
+
+        The loop services the control queue at every step boundary (and
+        through the drain grace window), so snapshots and timeline reads
+        never race a scheduler step mutating histograms/slot state.
+        """
+        done = threading.Event()
+        box: dict = {}
+
+        def run() -> None:
+            try:
+                if verb == "stats":
+                    box["resp"] = self.engine.serving_snapshot()
+                elif verb == "cancel":
+                    rid = str(msg.get("id"))
+                    box["resp"] = {"id": rid,
+                                   "cancelled": self.engine.cancel(rid)}
+                else:
+                    rid = str(msg.get("id"))
+                    tr = self.engine.request_trace(rid)
+                    box["resp"] = tr if tr is not None else \
+                        {"id": rid, "error": "unknown request id"}
+            except Exception as e:  # noqa: BLE001 — answer, don't kill the loop
+                box["resp"] = {"error": f"{type(e).__name__}: {e}"}
+            done.set()
+
+        self._control.put(run)
+        if not done.wait(timeout):
+            return {"error": "control timeout"}
+        return box["resp"]
+
+    # ----------------------------------------------------------------- loop
+    def _serve_control(self) -> None:
+        while True:
+            try:
+                fn = self._control.get_nowait()
+            except queue.Empty:
+                return
+            fn()
+
+    def _drain_submissions(self) -> None:
+        while True:
+            try:
+                msg, on_done = self._submissions.get_nowait()
+            except queue.Empty:
+                return
+            deadline = msg.get("deadline_s")
+            self.engine.submit(msg["prompt"],
+                               int(msg.get("max_new_tokens") or 16),
+                               request_id=msg.get("id"), callback=on_done,
+                               deadline_s=(float(deadline)
+                                           if deadline is not None
+                                           else None))
+
+    def run(self, preemption=None, idle_sleep: float = 0.002) -> None:
+        """The scheduler loop; returns once a latched preemption has fully
+        drained. ``preemption``: a ``PreemptionHandler`` (or anything with
+        ``.triggered``) polled at every step boundary."""
+        # this loop's thread owns the engine from here on: handler threads
+        # must reach engine state only via the submission/control queues,
+        # and FLEETX_TSAN=1 flags any direct touch
+        tsan.register_object(self.engine, "serving-engine")
+        # the allocator moves with its engine: the preemption path frees
+        # and re-grants pages mid-decode, so the kill-one drill runs it
+        # under the same thread-confinement sanitizer
+        tsan.register_object(self.engine.allocator, "page-allocator")
+        work_steps = 0
+        while True:
+            if preemption is not None and preemption.triggered and \
+                    not self.engine.draining:
+                self.engine.begin_drain()
+            self._drain_submissions()
+            self._serve_control()
+            worked = self.engine.step()
+            if worked:
+                work_steps += 1
+            else:
+                if self.engine.draining and self._submissions.empty():
+                    break
+                time.sleep(idle_sleep)
+        # grace window: a handler that passed its drain check just before
+        # the loop exited may still be enqueueing — keep refusing
+        # (engine.submit answers "draining") for a bounded moment so those
+        # clients get the explicit refusal. A connection that arrives
+        # AFTER this window sees the socket close on process exit, which
+        # the router treats like any transport failure (re-dispatch).
+        grace_deadline = time.monotonic() + 0.5
+        while time.monotonic() < grace_deadline:
+            self._drain_submissions()
+            self._serve_control()
+            time.sleep(0.02)
+        flight.note("serving", "drained", steps=work_steps)
+        logger.warning("serving replica drained after %d work steps",
+                       work_steps)
+
+    def close(self) -> None:
+        """Tear down the listener socket."""
+        self._stop.set()
+        if self._listener is not None:
+            try:
+                self._listener.close()
+            except OSError:
+                pass

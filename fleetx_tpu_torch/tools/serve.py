@@ -1,0 +1,196 @@
+"""Serving entry point of the port: replica or Poisson bench.
+
+Port of ``tools/serve.py``, with the same flags::
+
+    python -m fleetx_tpu_torch.tools.serve \
+        -c fleetx_tpu/configs/nlp/gpt/serving_gpt_345M.yaml [-o Key.Sub=v]
+        [--device cuda|cpu] [--port N] [--ready-file f] [--bench]
+
+- **replica** (default): build the model from ``-c cfg.yaml`` (seeded
+  init from ``Global.seed``), run one ``ServingEngine`` behind the
+  JSON-lines TCP front. SIGTERM/SIGINT latch the preemption handler → the
+  replica stops admitting, finishes every in-flight decode, and exits
+  with ``--preemption-code``.
+- **bench** (``--bench``): the in-process Poisson serving bench; prints
+  one JSON line.
+
+The replica runs on ``cuda`` unless ``--device cpu`` is given. What the
+slice does not cover raises ``NotImplementedError`` naming its ROADMAP
+item: ``--router``, ``Serving.ckpt_dir`` / ``adapter_dir``,
+``Serving.quantize_decode`` and any ``Distributed`` degree above 1.
+Under a supervisor gang (``FLEETX_PROCESS_ID`` set) the replica offsets
+its port by the member id.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import sys
+
+#: ``Distributed`` keys whose value above 1 would shard the replica
+_DEGREE_KEYS = ("dp_degree", "mp_degree", "pp_degree", "fsdp_degree",
+                "seq_degree")
+
+
+def _check_ported(cfg: dict) -> None:
+    """Refuse the config values the serving slice does not cover."""
+    serving = dict(cfg.get("Serving") or {})
+    for key in ("ckpt_dir", "adapter_dir"):
+        if serving.get(key):
+            raise NotImplementedError(
+                f"Serving.{key} needs the checkpoint loader and LoRA merge, "
+                f"not ported yet (ROADMAP.md, port queue item 3)")
+    dist = dict(cfg.get("Distributed") or {})
+    degrees = {k: dist.get(k) for k in _DEGREE_KEYS}
+    degrees["sharding_degree"] = (dist.get("sharding") or {}).get(
+        "sharding_degree")
+    sharded = {k: v for k, v in degrees.items()
+               if v is not None and int(v) > 1}
+    if sharded:
+        raise NotImplementedError(
+            f"Distributed degrees {sharded} need the sharded pool, not "
+            f"ported yet (ROADMAP.md, port queue item 4)")
+
+
+def build_engine(cfg: dict, device=None):
+    """Config sections → a ready ``ServingEngine`` with seeded weights."""
+    from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
+    from fleetx_tpu_torch.serving.decode import SamplingParams
+    from fleetx_tpu_torch.serving.engine import ServingConfig, ServingEngine
+    from fleetx_tpu_torch.utils.device import resolve_device
+
+    _check_ported(cfg)
+    device = resolve_device(device)
+    model_cfg = config_from_dict(dict(cfg.get("Model") or {}))
+    serving = ServingConfig.from_dict(dict(cfg.get("Serving") or {}))
+
+    gen = dict(cfg.get("Generation") or {})
+    strategy = gen.get("decode_strategy") or "greedy_search"
+    sampling = SamplingParams(
+        do_sample=strategy == "sampling",
+        temperature=float(gen.get("temperature", 1.0)),
+        top_k=int(gen.get("top_k", 0)),
+        top_p=float(gen.get("top_p", 0.0)))
+    eos = int(gen.get("eos_token_id", 50256))
+    seed = int((cfg.get("Global") or {}).get("seed", 0))
+    params = init_params(model_cfg, seed=seed, device=device)
+    return ServingEngine(model_cfg, params, serving, sampling,
+                         eos_token_id=eos, seed=seed, device=device)
+
+
+def _run_replica(args, cfg: dict) -> int:
+    """Replica role: engine + socket front + preemption-drain loop."""
+    from fleetx_tpu_torch.observability import flight
+    from fleetx_tpu_torch.resilience.preemption import PreemptionHandler
+    from fleetx_tpu_torch.serving.server import ReplicaServer
+    from fleetx_tpu_torch.utils.log import logger
+
+    flight_dir = os.environ.get(flight.ENV_DIR) or "./flight_recorder"
+    flight.install(flight.FlightRecorder(flight_dir))
+
+    port = args.port
+    member = os.environ.get("FLEETX_PROCESS_ID")
+    if port and member:
+        port += int(member)
+
+    engine = build_engine(cfg, device=args.device)
+    server = ReplicaServer(engine, host=args.host, port=port)
+    bound = server.start()
+    if args.ready_file:
+        with open(args.ready_file, "w") as f:
+            json.dump({"pid": os.getpid(), "port": bound}, f)
+    handler = PreemptionHandler()
+    with handler.installed():
+        try:
+            server.run(preemption=handler)
+        finally:
+            server.close()
+    if args.metrics_out:
+        with open(args.metrics_out, "a") as f:
+            f.write(json.dumps(engine.serving_snapshot()) + "\n")
+    flight.dump("serving preemption drain")
+    logger.warning("replica drained — exiting with preemption code %d",
+                   args.preemption_code)
+    return args.preemption_code
+
+
+def _run_bench(args, cfg: dict) -> int:
+    """Bench role: in-process Poisson load, one JSON line on stdout."""
+    from fleetx_tpu_torch.serving import bench as B
+
+    engine = build_engine(cfg, device=args.device)
+    bcfg = dict(cfg.get("ServingBench") or {})
+    result = B.run_serving_bench(
+        engine,
+        n_requests=args.requests or int(bcfg.get("requests", 32)),
+        rate_rps=args.rate or float(bcfg.get("rate_rps", 8.0)),
+        max_prompt=int(bcfg.get("max_prompt", 24)),
+        max_new=int(bcfg.get("max_new", 16)),
+        seed=args.seed,
+        metric=str(bcfg.get("metric", "serving_poisson_tokens_per_s")))
+    B.emit(result, out=args.json_out)
+    return 0
+
+
+def load_config(path: str, overrides=None):
+    """Parse + override + validate the Serving block (the training
+    post-processing has no meaning for a serving process)."""
+    from fleetx_tpu_torch.utils import config as config_mod
+
+    cfg = config_mod.parse_config(path)
+    config_mod.override_config(cfg, overrides)
+    config_mod.process_serving_config(cfg)
+    return cfg
+
+
+def main(argv=None) -> int:
+    """CLI dispatch across the replica and bench roles."""
+    ap = argparse.ArgumentParser(description="fleetx serving runtime "
+                                             "(PyTorch/CUDA port)")
+    ap.add_argument("-c", "--config", help="YAML config (replica/bench)")
+    ap.add_argument("-o", "--override", action="append", default=[],
+                    help="dotted config overrides")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0,
+                    help="listen port (0 = OS-assigned; offset by "
+                         "FLEETX_PROCESS_ID under a supervisor gang)")
+    ap.add_argument("--ready-file", default=None,
+                    help="write {pid, port} JSON here once listening")
+    ap.add_argument("--metrics-out", default=None,
+                    help="append the final serving snapshot JSONL here")
+    ap.add_argument("--preemption-code", type=int, default=75,
+                    help="exit code after a graceful drain")
+    ap.add_argument("--router", action="store_true",
+                    help="the request router (not ported yet)")
+    ap.add_argument("--bench", action="store_true",
+                    help="run the Poisson serving bench and exit")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="bench: request count (0 = config/default)")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="bench: Poisson arrival rate, req/s")
+    ap.add_argument("--seed", type=int, default=0, help="bench: stream seed")
+    ap.add_argument("--json-out", default=None,
+                    help="bench: also write the JSON line to this path")
+    args = ap.parse_args(argv)
+
+    if args.router:
+        raise NotImplementedError(
+            "--router is not ported yet (ROADMAP.md, port queue item 5)")
+    if not args.config:
+        ap.error("replica/bench mode requires -c config.yaml")
+    cfg = load_config(args.config, args.override)
+    if args.bench:
+        return _run_bench(args, cfg)
+    return _run_replica(args, cfg)
+
+
+if __name__ == "__main__":
+    # die by default signal only until the preemption handler is installed;
+    # afterwards SIGTERM means "drain gracefully"
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    sys.exit(main())

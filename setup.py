@@ -19,10 +19,13 @@ setup(
     version="0.1.0",
     description="TPU-native large-model training framework "
                 "(JAX/XLA/Pallas re-design of PaddleFleetX)",
-    packages=find_packages(include=("fleetx_tpu", "fleetx_tpu.*")),
+    packages=find_packages(include=("fleetx_tpu", "fleetx_tpu.*",
+                                    "fleetx_tpu_torch",
+                                    "fleetx_tpu_torch.*")),
     package_data={"fleetx_tpu": ["configs/**/*.yaml",
                                  "data/native/*.cpp",
-                                 "data/native/Makefile"]},
+                                 "data/native/Makefile"],
+                  "fleetx_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=read_requirements(),
 )

@@ -1,0 +1,193 @@
+"""The port's boundary: no JAX, no ``fleetx_tpu``, no silent CPU path.
+
+- every ``.py`` under ``fleetx_tpu_torch/`` imports none of ``jax``,
+  ``jaxlib``, ``flax``, ``optax``, ``fleetx_tpu`` or ``fleetx_tpu.*``
+  (an AST scan, plus a fresh interpreter's ``sys.modules``);
+- an engine asked for no device on a host without CUDA raises;
+- config values the slice does not cover raise ``NotImplementedError``;
+- a CPU replica started by the real CLI answers over TCP with the
+  in-process engine's tokens and drains on SIGTERM with rc 75.
+"""
+
+import ast
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+import yaml
+
+pytestmark = pytest.mark.torch_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "fleetx_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fleetx_tpu")
+
+MODEL_DICT = dict(vocab_size=97, hidden_size=64, num_layers=2,
+                  num_attention_heads=4, max_position_embeddings=64,
+                  hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                  dtype="float32", param_dtype="float32")
+EOS = 96
+
+
+def _forbidden(module: str) -> bool:
+    """Exact top-level match: ``fleetx_tpu_torch`` is not ``fleetx_tpu``."""
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_port_sources_import_no_jax_and_no_reference_package():
+    offenders = []
+    n_files = 0
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            n_files += 1
+            path = os.path.join(root, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), filename=path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module or ""]
+                else:
+                    continue
+                offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} "
+                              f"{m}" for m in mods if _forbidden(m)]
+    assert n_files >= 15
+    assert not offenders, offenders
+    assert not _forbidden("fleetx_tpu_torch.serving")
+    assert _forbidden("fleetx_tpu.serving") and _forbidden("jax.numpy")
+
+
+def test_entry_points_load_no_jax_modules():
+    code = ("import sys, json\n"
+            "import fleetx_tpu_torch.tools.serve\n"
+            "import fleetx_tpu_torch.serving.engine\n"
+            "import fleetx_tpu_torch.serving.bench\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "fleetx_tpu_torch.serving.engine" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def _tiny_cfg(**serving_over):
+    serving = dict(max_batch=4, page_size=4, num_pages=33, max_seq_len=32,
+                   prefill_chunk=8)
+    serving.update(serving_over)
+    return {"Model": dict(MODEL_DICT), "Serving": serving,
+            "Generation": {"decode_strategy": "greedy_search",
+                           "eos_token_id": EOS, "pad_token_id": 0},
+            "Global": {"seed": 7}}
+
+
+def test_engine_without_device_raises_when_no_cuda(monkeypatch):
+    from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
+    from fleetx_tpu_torch.serving.engine import ServingEngine
+    from fleetx_tpu_torch.tools.serve import build_engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config_from_dict(MODEL_DICT)
+    params = init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine(_tiny_cfg())
+    assert ServingEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("what", ["quantize_decode", "ckpt_dir",
+                                  "adapter_dir", "mp_degree", "router"])
+def test_uncovered_config_values_raise(what):
+    from fleetx_tpu_torch.tools import serve
+
+    cfg = _tiny_cfg()
+    if what == "router":
+        with pytest.raises(NotImplementedError, match="item 5"):
+            serve.main(["--router", "-c", "unused.yaml"])
+        return
+    item = {"quantize_decode": "item 2", "ckpt_dir": "item 3",
+            "adapter_dir": "item 3", "mp_degree": "item 4"}[what]
+    if what == "mp_degree":
+        cfg["Distributed"] = {"mp_degree": 2}
+    else:
+        cfg["Serving"][what] = True if what == "quantize_decode" else "/x"
+    with pytest.raises(NotImplementedError, match=item):
+        serve.build_engine(cfg, device="cpu")
+
+
+def _loopback_available() -> bool:
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+    except OSError:
+        return False
+    return True
+
+
+def test_cpu_replica_round_trip_and_sigterm_drain(tmp_path):
+    if not _loopback_available():
+        pytest.skip("loopback networking unavailable")
+    from fleetx_tpu_torch.serving.server import request
+    from fleetx_tpu_torch.tools.serve import build_engine
+
+    cfg = _tiny_cfg()
+    path = tmp_path / "serving.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    ready = tmp_path / "ready.json"
+    env = dict(os.environ, PYTHONPATH=REPO,
+               FLEETX_FLIGHT_DIR=str(tmp_path / "flight"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fleetx_tpu_torch.tools.serve", "-c",
+         str(path), "--device", "cpu", "--ready-file", str(ready),
+         "--metrics-out", str(tmp_path / "metrics.jsonl")],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 120
+        info = None
+        while info is None:
+            assert proc.poll() is None, f"replica died rc={proc.returncode}"
+            assert time.monotonic() < deadline, "replica never became ready"
+            if ready.exists():
+                try:
+                    info = json.loads(ready.read_text())
+                except ValueError:
+                    pass  # torn write — retry
+            time.sleep(0.1)
+        addr = ("127.0.0.1", info["port"])
+        prompt = [5, 9, 23, 41]
+        resp = request(addr, {"id": "t0", "prompt": prompt,
+                              "max_new_tokens": 6}, timeout=90)
+        engine = build_engine(cfg, device="cpu")
+        want = engine.submit(prompt, 6, request_id="t0")
+        engine.run_until_drained()
+        assert resp["id"] == "t0" and resp["tokens"] == want.tokens
+        assert resp["ttft_s"] >= 0 and resp["latency_s"] >= resp["ttft_s"]
+        assert request(addr, {"verb": "ping"}) == {"ok": True,
+                                                   "draining": False}
+        stats = request(addr, {"verb": "stats"})
+        assert stats["decode_path"] == "paged_kernel"
+        assert stats["requests_completed"] == 1
+        trace = request(addr, {"verb": "trace", "id": "t0"})
+        assert trace["state"] == "finished"
+        assert request(addr, {"verb": "cancel", "id": "t0"}) == \
+            {"id": "t0", "cancelled": False}
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 75
+        snap = json.loads((tmp_path / "metrics.jsonl").read_text())
+        assert snap["tokens_total"] == len(want.tokens)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
