@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: build, check and time its
-kernels, then serve GPT-345M at full width through the port's replica.
+kernels, serve GPT-345M at full width through the port's replica, and
+train GPT-345M at full width through the port's trainer.
 
     python3 chip_smoke.py
 
@@ -23,10 +24,36 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    of every decode step.
    Then a short trace on the same engine: host wall per decode step,
    device time per step by kernel (``torch.profiler``), device busy share.
+1b. training kernels: flash-attention forward and fused backward
+   (q/k/v ``[128, 1024, 64]``, causal, dropout 0.1) and the fused
+   residual+LayerNorm forward and backward (``[8, 1024, 1024]``, with the
+   residual / ``ds_in``), at the GPT-345M training shapes in f32 and bf16:
+   each held to its plain version, timed beside its plain version and one
+   library call (SDPA's flash backend forward / its autograd backward;
+   ``F.layer_norm`` after the add / its autograd backward), with its
+   bound. The dropout masks of the flash kernels are recovered bit for
+   bit with identity probes (q = k = 0, v or do one-hot) and must equal
+   the plain version's hash mask; the keep rate is printed.
 3. kernel against gather on the main path: the same full-width engine
    built twice on the same weights, ``Serving.paged_kernel`` on and off;
    f32 greedy tokens must be identical, and in bf16 the one-step logit
    difference and the share of agreeing tokens are printed.
+4. training main path: ``pretrain_gpt_345M_synthetic.yaml`` through the
+   port's config loader and ``tools/train.py`` (``build_trainer`` →
+   ``EagerEngine.fit``) at full width, uncut, for 10 steps
+   (``Engine.max_steps=10``, ``logging_freq=1``). Launch counts are
+   zeroed just before and read just after: 24 flash forward, 24 fused
+   backward, 49 norm forward and 49 norm backward launches per step.
+   Every loss and grad norm is finite and the first loss is within 0.1
+   of the untrained model's expectation ``ln(vocab) + hidden·r²/2`` (the
+   tied head's logits have variance ``hidden·r²`` at init range r).
+   Step time, tokens/s, MFU against the card's bf16 dense peak and peak
+   memory are printed; then a ``torch.profiler`` trace of 3 more steps:
+   device time per step by kernel and the device busy share.
+5. kernels against plain on the training path: the same full-width
+   weights and batch in f32 with dropout 0, one loss+grad evaluation with
+   ``use_flash_attention``/``fused_residual_norm`` on and one with them
+   off; the bf16 loss and grad differences are printed.
 
 Tolerances, kernel against its plain version (both compute in f32 after
 casting q and k; only the summation order differs): ``acc`` and ``l``
@@ -34,7 +61,16 @@ rtol 1e-5 / atol 1e-4 (sums of up to 1024 O(1) terms), ``m`` rtol 1e-5 /
 atol 1e-5; the normalised output atol 1e-5 with rtol 1e-5 in f32 and
 one bf16 ulp (2**-7) in bf16.
 
-The second-to-last line is the ``kernels`` JSON record; the last line is
+Tolerances of the training kernels against their plain versions (both
+compute in f32 from the same operands; only summation order and the
+rounding of a bf16 output differ): f32 outputs rtol 1e-5 / atol 1e-5
+(flash ``out``/``lse``/dq/dk/dv, norm ``out``/``mean``/``var``/dx);
+bf16 outputs one bf16 ulp (rtol 2**-7, atol 1e-5); the norm's ``s`` and
+the dropout masks exactly. Training path, kernels on against off (f32):
+loss within 1e-4 and every grad leaf within 1e-3 of its largest
+magnitude (24 layers of f32 summed in another order).
+
+The third-to-last line is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
 """
@@ -53,11 +89,14 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
                     "serving_gpt_345M.yaml")
+TRAIN_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                          "pretrain_gpt_345M_synthetic.yaml")
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and f32
-#: FLOP/s outside the tensor cores
+#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32
+#: FLOP/s outside the tensor cores, bf16 dense tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 # 345M serving decode geometry (serving_gpt_345M.yaml)
 B, NH, HD, PS, PPR, PAGES = 16, 16, 64, 16, 64, 513
@@ -216,6 +255,238 @@ def phase_kernels(build, dev: torch.device) -> dict:
     return result
 
 
+# -------------------------------------------------------------- phase 1b
+#: GPT-345M training shapes (pretrain_gpt_345M_synthetic.yaml): batch 8,
+#: seq 1024, 16 heads of 64, hidden 1024; attention dropout 0.1
+TB, TS, TNH, THD, TH, RATE = 8, 1024, 16, 64, 1024, 0.1
+TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+       torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+
+
+def _peak_flops(dtype: torch.dtype) -> float:
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+
+def _bound(nbytes: float, flops: float, dtype: torch.dtype):
+    """(bound_ms, bound_by): bytes over HBM rate vs ops over the dtype's
+    peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / _peak_flops(dtype)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _max_err(pairs) -> float:
+    return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+
+
+def _flash_case(dtype: torch.dtype, dev: torch.device):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    shape = (TB * TNH, TS, THD)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for _ in range(4)]
+
+
+def _flash_rows(dtype, dev, flush) -> dict:
+    """Flash forward and fused backward against their plain versions, with
+    dropout 0.1, and their timings."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from fleetx_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, do = _flash_case(dtype, dev)
+    seed, scale = 20240607, THD ** -0.5
+    out, lse = FA.fwd_call(q, k, v, seed, scale, True, RATE)
+    p_out, p_lse = FA.fwd_plain(q, k, v, seed, scale, True, RATE)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, p_out, **TOL[dtype])
+    torch.testing.assert_close(lse, p_lse, **TOL[torch.float32])
+    delta = (out.float() * do.float()).sum(-1)
+    dq, dk, dv = FA.bwd_call(q, k, v, do, lse, delta, seed, scale, True, RATE)
+    p_dq, p_dk, p_dv = FA.bwd_plain(q, k, v, do, lse, delta, seed, scale,
+                                    True, RATE)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dq, p_dq, **TOL[torch.float32])
+    torch.testing.assert_close(dk, p_dk, **TOL[dtype])
+    torch.testing.assert_close(dv, p_dv, **TOL[dtype])
+    fwd_err = _max_err([(out, p_out), (lse, p_lse)])
+    bwd_err = _max_err([(dq, p_dq), (dk, p_dk), (dv, p_dv)])
+    del p_out, p_lse, p_dq, p_dk, p_dv
+
+    # the yardsticks: SDPA (flash backend in bf16) forward and its autograd
+    # backward on the same data in [b, heads, s, d] (never called by the
+    # port)
+    def four(t):
+        return t.reshape(TB, TNH, TS, THD)
+
+    backend = ([SDPBackend.FLASH_ATTENTION] if dtype == torch.bfloat16 else
+               [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH])
+    sq, sk, sv = (four(t).detach().clone().requires_grad_(True)
+                  for t in (q, k, v))
+    with sdpa_kernel(backend):
+        def lib_fwd():
+            return torch.nn.functional.scaled_dot_product_attention(
+                four(q), four(k), four(v), dropout_p=RATE, is_causal=True)
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, dropout_p=RATE, is_causal=True)
+        fwd_lib_ms = time_ms(lib_fwd, flush)
+        bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (sq, sk, sv), four(do), retain_graph=True), flush)
+    del lib_out, sq, sk, sv
+
+    bh = TB * TNH
+    pairs = TS * (TS + 1) // 2          # causal (row, col) pairs per head
+    item = q.element_size()
+    fwd_bytes = 4 * bh * TS * THD * item + bh * TS * 4   # q,k,v,out + lse
+    bwd_bytes = (6 * bh * TS * THD * item + 2 * bh * TS * 4  # q,k,v,do,dk,dv
+                 + bh * TS * THD * 4)                        # + lse,delta,dq
+    fwd = dict(
+        max_abs_err=fwd_err,
+        ms=time_ms(lambda: FA.fwd_call(q, k, v, seed, scale, True, RATE),
+                   flush),
+        plain_ms=time_ms(lambda: FA.fwd_plain(q, k, v, seed, scale, True,
+                                              RATE), flush, iters=10),
+        library_ms=fwd_lib_ms)
+    fwd["bound_ms"], fwd["bound_by"] = _bound(
+        fwd_bytes, 2 * 2 * pairs * THD * bh, dtype)
+    bwd = dict(
+        max_abs_err=bwd_err,
+        ms=time_ms(lambda: FA.bwd_call(q, k, v, do, lse, delta, seed, scale,
+                                       True, RATE), flush, iters=20),
+        plain_ms=time_ms(lambda: FA.bwd_plain(q, k, v, do, lse, delta, seed,
+                                              scale, True, RATE), flush,
+                         iters=10),
+        library_ms=bwd_lib_ms)
+    bwd["bound_ms"], bwd["bound_by"] = _bound(
+        bwd_bytes, 5 * 2 * pairs * THD * bh, dtype)
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd_fused": bwd}
+
+
+def _norm_rows(dtype, dev, flush) -> dict:
+    """Fused residual+LayerNorm forward and backward against their plain
+    versions, with and without the residual / ``ds_in``, and timings."""
+    from fleetx_tpu_torch.ops import fused_norm as FN
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    shape, eps = (TB, TS, TH), 1e-5
+    x, r, dout, ds_in = (torch.randn(shape, generator=gen, device=dev).to(
+        dtype) for _ in range(4))
+    w = 1.0 + 0.1 * torch.randn(TH, generator=gen, device=dev)
+    b = 0.1 * torch.randn(TH, generator=gen, device=dev)
+    errs = {"fwd": [], "bwd": []}
+    for res in (r, None):
+        got = FN.fwd_call(x, res, w, b, eps, dtype)
+        want = FN.fwd_plain(x, res, w, b, eps, dtype)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0], **TOL[dtype])
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        for i in (2, 3):
+            torch.testing.assert_close(got[i], want[i],
+                                       **TOL[torch.float32])
+        errs["fwd"].append(_max_err(zip(got, want)))
+        s, mean, var = got[1], got[2], got[3]
+        for dsi in (ds_in, None):
+            dx = FN.bwd_call(s, w, mean, var, dout, eps, dsi)
+            p_dx = FN.bwd_plain(s, w, mean, var, dout, eps, dsi)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(dx, p_dx, **TOL[dtype])
+            errs["bwd"].append(_max_err([(dx, p_dx)]))
+    out, s, mean, var = FN.fwd_call(x, r, w, b, eps, dtype)
+
+    # the yardsticks: F.layer_norm after the add, and its autograd
+    # backward for the input plus the downstream ds_in (layer_norm takes
+    # its affine parameters in the input dtype)
+    lw, lb = w.to(dtype), b.to(dtype)
+    s_leaf = (r + x).detach().requires_grad_(True)
+    lib_out = torch.nn.functional.layer_norm(s_leaf, (TH,), lw, lb, eps)
+    fwd_lib_ms = time_ms(lambda: torch.nn.functional.layer_norm(
+        r + x, (TH,), lw, lb, eps), flush)
+    bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, s_leaf, dout, retain_graph=True)[0] + ds_in, flush)
+    del lib_out, s_leaf
+
+    item, n, rows = x.element_size(), x.numel(), TB * TS
+    fwd = dict(
+        max_abs_err=max(errs["fwd"]),
+        ms=time_ms(lambda: FN.fwd_call(x, r, w, b, eps, dtype), flush),
+        plain_ms=time_ms(lambda: FN.fwd_plain(x, r, w, b, eps, dtype),
+                         flush, iters=20),
+        library_ms=fwd_lib_ms)
+    # x, residual read; out, s written; scale/bias read; mean/var written
+    fwd["bound_ms"], fwd["bound_by"] = _bound(
+        4 * n * item + 2 * TH * 4 + 2 * rows * 4, 8 * n, torch.float32)
+    bwd = dict(
+        max_abs_err=max(errs["bwd"]),
+        ms=time_ms(lambda: FN.bwd_call(s, w, mean, var, dout, eps, ds_in),
+                   flush),
+        plain_ms=time_ms(lambda: FN.bwd_plain(s, w, mean, var, dout, eps,
+                                              ds_in), flush, iters=20),
+        library_ms=bwd_lib_ms)
+    # s, dout, ds_in read; dx written; scale, mean, var read
+    bwd["bound_ms"], bwd["bound_by"] = _bound(
+        4 * n * item + TH * 4 + 2 * rows * 4, 14 * n, torch.float32)
+    return {"fused_norm_fwd": fwd, "fused_norm_bwd": bwd}
+
+
+def _dropout_probes(dev: torch.device) -> float:
+    """Recover the flash kernels' dropout masks bit for bit at the 345M
+    shapes and hold them to the plain version's hash mask; returns the
+    kernel's keep rate over the causal triangle.
+
+    With q = k = 0 every score is 0, so P = 1/(row+1) below the diagonal.
+    Forward: v one-hot on columns [64p, 64p+64) makes
+    ``out[h, r, d] > 0`` exactly where column 64p+d is kept for row r.
+    Backward: do one-hot on rows [64p, 64p+64) makes ``dv[h, c, d] > 0``
+    exactly where row 64p+d keeps column c."""
+    from fleetx_tpu_torch.ops import flash_attention as FA
+
+    bh, seed, scale = TB * TNH, 424242, THD ** -0.5
+    zero = torch.zeros((bh, TS, THD), dtype=torch.bfloat16, device=dev)
+    tril = torch.ones((TS, TS), dtype=torch.bool, device=dev).tril()
+    fwd_keep = torch.zeros((bh, TS, TS), dtype=torch.bool, device=dev)
+    bwd_keep = torch.zeros((bh, TS, TS), dtype=torch.bool, device=dev)
+    eye = torch.eye(THD, dtype=torch.bfloat16, device=dev)
+    _, lse = FA.fwd_call(zero, zero, zero, seed, scale, True, RATE)
+    for p in range(TS // THD):
+        cols = slice(p * THD, (p + 1) * THD)
+        probe = zero.clone()
+        probe[:, cols, :] = eye
+        out, _ = FA.fwd_call(zero, zero, probe, seed, scale, True, RATE)
+        fwd_keep[:, :, cols] = out > 0
+        delta = torch.zeros((bh, TS), device=dev)
+        _, _, dv = FA.bwd_call(zero, zero, zero, probe, lse, delta, seed,
+                               scale, True, RATE)
+        bwd_keep[:, cols, :] = (dv > 0).transpose(1, 2)
+    want = FA.dropout_keep(seed, bh, TS, TS, RATE, dev) & tril
+    check(torch.equal(fwd_keep & tril, want),
+          "flash forward dropout mask differs from the plain version's")
+    check(torch.equal(bwd_keep & tril, want),
+          "flash backward dropout mask differs from the plain version's")
+    return float(want.sum()) / float(bh * tril.sum())
+
+
+def phase_train_kernels(dev: torch.device) -> dict:
+    """Phase 1b: the four training kernels against their plain versions,
+    timed, in f32 and bf16; then the dropout-mask probes."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    result = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        rows = {**_flash_rows(dtype, dev, flush),
+                **_norm_rows(dtype, dev, flush)}
+        for kernel, row in rows.items():
+            emit("kernel", name=kernel, dtype=name, **row)
+        result[name] = rows
+        torch.cuda.empty_cache()
+    keep_rate = _dropout_probes(dev)
+    emit("dropout_masks", rate=RATE, shape=[TB * TNH, TS, TS],
+         fwd_bit_identical=True, bwd_bit_identical=True,
+         keep_rate=keep_rate)
+    torch.cuda.empty_cache()
+    return result
+
+
 # --------------------------------------------------------------- phase 2
 class _Stop:
     """Preemption stand-in the client thread latches once it is done."""
@@ -237,7 +508,6 @@ def _prompts(seed: int, lengths, vocab: int = 50000):
 
 
 def phase_main_path(dev: torch.device, card: str) -> dict:
-    from fleetx_tpu_torch.ops import paged_attention as PA
     from fleetx_tpu_torch.serving.server import ReplicaServer, request
     from fleetx_tpu_torch.tools.serve import build_engine, load_config
 
@@ -283,7 +553,7 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
 
     decode_hist = engine.metrics.histogram("serving_decode_step")
     steps0 = decode_hist.total_count
-    PA.paged_call.launches = 0        # zero every count just before
+    zero_counts()                     # zero every count just before
     worker = threading.Thread(target=client, name="chip-smoke-client")
     worker.start()
     try:
@@ -291,7 +561,7 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     finally:
         server.close()
     worker.join(timeout=60)
-    launches = PA.paged_call.launches  # read just after
+    launches = read_counts()["paged_attention_decode"]  # read just after
     decode_steps = decode_hist.total_count - steps0
 
     check(not worker.is_alive(), "client thread did not finish")
@@ -436,6 +706,203 @@ def phase_kernel_vs_gather(dev: torch.device, card: str) -> None:
          nvidia_smi=card)
 
 
+# --------------------------------------------------------------- phase 4
+TRAIN_STEPS = 10
+#: per training step at GPT-345M: one flash forward and one fused
+#: backward per layer; one norm forward and backward per LayerNorm call
+#: (ln1 and ln2 in each of 24 layers, plus ln_f)
+PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd_fused": 24,
+            "fused_norm_fwd": 49, "fused_norm_bwd": 49}
+
+
+def _counters() -> dict:
+    """Name → the wrapper whose ``launches`` counts that kernel."""
+    from fleetx_tpu_torch.ops import flash_attention as FA
+    from fleetx_tpu_torch.ops import fused_norm as FN
+    from fleetx_tpu_torch.ops import paged_attention as PA
+
+    return {"paged_attention_decode": PA.paged_call,
+            "flash_attention_fwd": FA.fwd_call,
+            "flash_attention_bwd_fused": FA.bwd_call,
+            "fused_norm_fwd": FN.fwd_call, "fused_norm_bwd": FN.bwd_call}
+
+
+def zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def phase_trainer(dev: torch.device, card: str) -> dict:
+    """Phase 4: the training main path for ``TRAIN_STEPS`` steps with the
+    launch counts zeroed before and read after, then a short trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+    from fleetx_tpu_torch.utils.hardware import peak_flops
+
+    cfg = load_config(TRAIN_YAML, [f"Engine.max_steps={TRAIN_STEPS}",
+                                   "Engine.logging_freq=1"])
+    engine, train_dl, _ = build_trainer(cfg, device=dev)
+    mc = engine.module.model_cfg
+    glb = cfg["Global"]
+    check(mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+          and mc.dtype == torch.bfloat16 and glb["max_seq_len"] == 1024
+          and glb["global_batch_size"] == 8 and engine.accumulate_steps == 1
+          and mc.use_flash_attention and mc.flash_fused_bwd
+          and mc.fused_residual_norm and not mc.use_recompute
+          and mc.hidden_dropout_prob == 0.1
+          and mc.attention_probs_dropout_prob == 0.1,
+          "not the full-width 345M training recipe")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                   # every count to 0 just before
+    losses = engine.fit(train_dl)
+    torch.cuda.synchronize()
+    counts = read_counts()          # read just after
+    for name, per_step in PER_STEP.items():
+        check(counts[name] == per_step * TRAIN_STEPS,
+              f"{name}: {counts[name]} launches, want {per_step} x "
+              f"{TRAIN_STEPS} steps")
+    check(counts["paged_attention_decode"] == 0, "paged kernel in training")
+    hist = engine.history
+    check(len(losses) == TRAIN_STEPS and len(hist) == TRAIN_STEPS,
+          "a step was not logged")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    norms = [h["grad_norm"] for h in hist]
+    check(all(np.isfinite(norms)), f"non-finite grad norm: {norms}")
+    expect = float(np.log(mc.vocab_size)
+                   + mc.hidden_size * mc.initializer_range ** 2 / 2)
+    check(abs(losses[0] - expect) < 0.1,
+          f"first loss {losses[0]} is not within 0.1 of {expect}")
+    step_s = statistics.median(h["train_cost"] for h in hist[1:])
+    tokens = glb["global_batch_size"] * glb["max_seq_len"]
+    fpt = engine.module.flops_per_token()
+    peak = peak_flops(torch.cuda.get_device_name(dev)) or PEAK_BF16_FLOPS
+    out = dict(steps=TRAIN_STEPS, losses=losses, grad_norms=norms,
+               first_loss=losses[0], expected_first_loss=expect,
+               first_loss_minus_ln_vocab=losses[0] - float(
+                   np.log(mc.vocab_size)),
+               step_ms_median=step_s * 1e3,
+               step_ms=[h["train_cost"] * 1e3 for h in hist],
+               tokens_per_s=tokens / step_s,
+               model_flops_per_step=fpt * tokens,
+               mfu=fpt * tokens / step_s / peak, peak_flops=peak,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev)
+               / 2 ** 30,
+               launches=counts,
+               launches_per_step={k: counts[k] / TRAIN_STEPS
+                                  for k in PER_STEP},
+               nvidia_smi=card)
+    emit("train_main_path", **out)
+
+    # where a step's time goes: 3 unprofiled steps for the wall, 3 more
+    # under the profiler for device time by kernel
+    batch = engine.to_device(next(iter(train_dl)))
+    n_steps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        engine.train_step(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            engine.train_step(batch)
+        torch.cuda.synchronize()
+    rows = [(e.key, _device_us(e)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows = [(k, us) for k, us in rows if us > 0]
+    per_step = lambda us: us / 1e3 / n_steps  # noqa: E731
+
+    def share(pattern: str) -> float:
+        return per_step(sum(us for k, us in rows if pattern in k))
+
+    device_ms = per_step(sum(us for _, us in rows))
+    top = sorted(rows, key=lambda r: -r[1])[:12]
+    matmul_ms = per_step(sum(us for k, us in rows if any(
+        m in k for m in ("nvjet", "gemm", "cutlass", "sm90_xmma"))))
+    kernels_ms = sum(share(p) for p in ("flash_fwd_kernel",
+                                        "flash_bwd_kernel",
+                                        "fused_norm_fwd_kernel",
+                                        "fused_norm_bwd_kernel"))
+    emit("train_trace", steps=n_steps, wall_ms_per_step=wall_ms,
+         matmul_ms_per_step=matmul_ms,
+         other_ms_per_step=device_ms - matmul_ms - kernels_ms,
+         device_ms_per_step=device_ms if rows else None,
+         device_busy_share=device_ms / wall_ms if rows else None,
+         flash_fwd_ms_per_step=share("flash_fwd_kernel"),
+         flash_bwd_ms_per_step=share("flash_bwd_kernel"),
+         norm_fwd_ms_per_step=share("fused_norm_fwd_kernel"),
+         norm_bwd_ms_per_step=share("fused_norm_bwd_kernel"),
+         top_kernels_ms_per_step=[[k[:80], per_step(us)] for k, us in top],
+         nvidia_smi=card)
+    del engine, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 5
+def _loss_and_grads(cfg_overrides: list, params: dict, batch: dict):
+    from fleetx_tpu_torch.core.module import GPTModule
+    from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
+    from fleetx_tpu_torch.tools.train import load_config
+
+    module = GPTModule(load_config(TRAIN_YAML, cfg_overrides))
+    leaves = [p for _, p in tree_leaves_with_path(params)]
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = module.training_loss(params, batch, seed=0, step=0)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.detach() for g in grads]
+
+
+def phase_train_kernel_vs_plain(dev: torch.device, card: str) -> None:
+    """The training path's loss and grads with the kernels on and off, on
+    the same full-width weights and batch, dropout 0."""
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
+    from fleetx_tpu_torch.tools.train import load_config
+
+    cfg = load_config(TRAIN_YAML)
+    glb = cfg["Global"]
+    batch_np = next(iter(build_dataloader(
+        cfg["Data"], "Train", batch_size=glb["global_batch_size"],
+        seq_length=glb["max_seq_len"], vocab_size=cfg["Model"]["vocab_size"])))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    result = {}
+    for dtype in ("float32", "bfloat16"):
+        base = [f"Model.dtype={dtype}", "Model.hidden_dropout_prob=0.0",
+                "Model.attention_probs_dropout_prob=0.0"]
+        params = init_params(config_from_dict(dict(cfg["Model"])), seed=0,
+                             device=dev)
+        runs = []
+        for on in (True, False):
+            runs.append(_loss_and_grads(
+                base + [f"Model.use_flash_attention={on}",
+                        f"Model.fused_residual_norm={on}"], params, batch))
+            torch.cuda.empty_cache()
+        (loss_on, g_on), (loss_off, g_off) = runs
+        rel = max(float((a.float() - b.float()).abs().max())
+                  / max(float(b.float().abs().max()), 1e-30)
+                  for a, b in zip(g_on, g_off))
+        result[dtype] = dict(loss_on=loss_on, loss_off=loss_off,
+                             loss_diff=abs(loss_on - loss_off),
+                             max_grad_diff_over_leaf_max=rel)
+        if dtype == "float32":
+            check(abs(loss_on - loss_off) <= 1e-4,
+                  f"f32 loss kernels on {loss_on} vs off {loss_off}")
+            check(rel <= 1e-3, f"f32 grads kernels on vs off: {rel}")
+        del params, runs, g_on, g_off
+        torch.cuda.empty_cache()
+    emit("train_kernel_vs_plain", **result, nvidia_smi=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -445,11 +912,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_env(build)
     kernels = phase_kernels(build, dev)
+    train_kernels = phase_train_kernels(dev)
     main_path = phase_main_path(dev, card)
     phase_trace(dev, card)
     phase_kernel_vs_gather(dev, card)
+    trainer = phase_trainer(dev, card)
+    phase_train_kernel_vs_plain(dev, card)
     bf16 = kernels["bfloat16"]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "paged_attention_decode", "route": "cuda",
         "source": "fleetx_tpu_torch/csrc/paged_attention.cu",
         "replaces": "fleetx_tpu/ops/paged_attention.py:144",
@@ -457,7 +927,25 @@ def main() -> int:
         "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
         "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
         "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
-    }]}), flush=True)
+    }]
+    for name, source, replaces in (
+            ("flash_attention_fwd", "flash_attention.cu",
+             "fleetx_tpu/ops/flash_attention.py:170"),
+            ("flash_attention_bwd_fused", "flash_attention.cu",
+             "fleetx_tpu/ops/flash_attention.py:431"),
+            ("fused_norm_fwd", "fused_norm.cu",
+             "fleetx_tpu/ops/fused_norm.py:110"),
+            ("fused_norm_bwd", "fused_norm.cu",
+             "fleetx_tpu/ops/fused_norm.py:133")):
+        row = train_kernels["bfloat16"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"fleetx_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": trainer["launches"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,155 @@
+"""Task modules: the GPT pretraining recipe (port of
+``fleetx_tpu/core/module.py:86-281``).
+
+A module builds the model config from the YAML ``Model`` section, makes
+seeded parameters, and exposes the losses the engine differentiates:
+``GPTModule.training_loss(params, batch, seed, step)`` (dropout on, its
+randomness from one generator seeded by ``seed`` with ``step`` folded in)
+and ``validation_loss(params, batch)`` (dropout off). The host-side log
+hooks print the reference's line: loss, step time, tokens/s and, on a
+card the peak table knows, MFU against its bf16 dense peak.
+
+Model knobs this slice does not cover raise ``NotImplementedError``
+naming their ROADMAP item (``check_model_config``).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from fleetx_tpu_torch.models.gpt import model as M
+from fleetx_tpu_torch.utils.log import logger
+
+#: (predicate on GPTConfig, what, ROADMAP port queue item)
+_UNCOVERED = (
+    (lambda c: c.use_recompute, "Model.use_recompute", 9),
+    (lambda c: bool(c.vocab_chunk), "Model.vocab_chunk", 10),
+    (lambda c: c.use_flash_attention and not c.flash_fused_bwd,
+     "Model.flash_fused_bwd: False (the split flash backward, kernels 2/3)",
+     1),
+    (lambda c: c.use_ring_attention, "Model.use_ring_attention", 1),
+    (lambda c: c.sequence_parallel, "Model.sequence_parallel", 12),
+    (lambda c: c.moe_num_experts > 0, "Model.moe_num_experts > 0 (MoE)", 7),
+    (lambda c: c.use_qat, "QAT (Model.use_qat / Quantization.enable)", 7),
+)
+
+
+def check_model_config(cfg: M.GPTConfig) -> None:
+    """Raise on a model knob the training slice does not cover."""
+    for uncovered, what, item in _UNCOVERED:
+        if uncovered(cfg):
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md, port queue item "
+                f"{item})")
+
+
+class LanguageModule:
+    """Shared GPT-family glue: the token/ips/MFU log line and the
+    model-size banner."""
+
+    tokens_per_sample: int = 1024
+
+    def __init__(self, cfg: Any):
+        self.cfg = cfg
+
+    def flops_per_token(self):
+        """fwd+bwd model FLOPs per trained token (for the MFU line)."""
+        from fleetx_tpu_torch.utils.hardware import gpt_flops_per_token
+
+        c = getattr(self, "model_cfg", None)
+        if c is None:
+            return None
+        return gpt_flops_per_token(c.num_layers, c.hidden_size,
+                                   self.tokens_per_sample,
+                                   vocab_size=c.vocab_size)
+
+    def pretreating_batch(self, batch: dict) -> dict:
+        return batch
+
+    def training_step_end(self, log_dict: dict) -> None:
+        """``log_dict['device']`` names the device the step ran on; MFU is
+        printed only for a card in the peak table."""
+        from fleetx_tpu_torch.utils.hardware import peak_flops
+
+        speed = 1.0 / max(log_dict.get("train_cost", 1e-9), 1e-9)
+        tokens = log_dict.get("global_batch_size",
+                              log_dict.get("batch_size", 1)) \
+            * self.tokens_per_sample
+        mfu = ""
+        fpt = self.flops_per_token()
+        device = log_dict.get("device")
+        if fpt and device is not None and torch.device(device).type == "cuda":
+            peak = peak_flops(torch.cuda.get_device_name(device))
+            if peak:
+                mfu = f", mfu: {fpt * tokens * speed / peak:.1%}"
+        logger.info(
+            "[train] global step %d, epoch: %d, batch: %d, loss: %.9f, "
+            "avg_batch_cost: %.5f sec, speed: %.2f step/s, "
+            "ips_total: %.0f tokens/s, ips: %.0f tokens/s, learning rate: "
+            "%.5e%s", log_dict["global_step"], log_dict.get("epoch", 0),
+            log_dict["batch"], log_dict["loss"],
+            log_dict.get("train_cost", 0.0), speed, tokens * speed,
+            tokens * speed, log_dict.get("lr", 0.0), mfu)
+
+    def validation_step_end(self, log_dict: dict) -> None:
+        speed = 1.0 / max(log_dict.get("eval_cost", 1e-9), 1e-9)
+        logger.info(
+            "[eval] step %d, batch: %d, loss: %.9f, avg_eval_cost: %.5f sec, "
+            "speed: %.2f step/s", log_dict.get("global_step", 0),
+            log_dict["batch"], log_dict["loss"],
+            log_dict.get("eval_cost", 0.0), speed)
+
+    @staticmethod
+    def model_size(num_layers: int, hidden_size: int,
+                   vocab_size: int) -> float:
+        """Parameter-count formula in billions."""
+        return (num_layers * (12.0 * hidden_size * hidden_size)
+                + vocab_size * hidden_size) / 1e9
+
+
+class GPTModule(LanguageModule):
+    """GPT pretraining task."""
+
+    def __init__(self, cfg: Any):
+        model_cfg = dict(cfg.get("Model", cfg)) if isinstance(cfg, dict) \
+            else dict(cfg)
+        if isinstance(cfg, dict) and (cfg.get("Quantization") or {}).get(
+                "enable"):
+            model_cfg["use_qat"] = True
+        self.model_cfg = M.config_from_dict(model_cfg)
+        check_model_config(self.model_cfg)
+        self.tokens_per_sample = self.model_cfg.max_position_embeddings
+        super().__init__(cfg)
+        c = self.model_cfg
+        logger.info("GPT model: layers=%d hidden=%d heads=%d vocab=%d "
+                    "(~%.2fB params)", c.num_layers, c.hidden_size,
+                    c.num_attention_heads, c.vocab_size,
+                    self.model_size(c.num_layers, c.hidden_size,
+                                    c.vocab_size))
+
+    def init_params(self, seed: int, device) -> dict:
+        """Seeded parameters in the JAX layout on ``device``."""
+        return M.init_params(self.model_cfg, seed=seed, device=device)
+
+    def training_loss(self, params: dict, batch: dict, seed: int,
+                      step: int):
+        """``(loss, metrics)`` with dropout on."""
+        c = self.model_cfg
+        rng = M.dropout_rng(seed, step, c.num_layers, batch["tokens"].device)
+        logits = M.gpt_for_pretraining(
+            params, c, batch["tokens"], batch["position_ids"],
+            deterministic=False, rng=rng)
+        loss = M.cross_entropy_loss(logits, batch["labels"],
+                                    batch["loss_mask"])
+        return loss, {"loss": loss}
+
+    def validation_loss(self, params: dict, batch: dict):
+        """``(loss, metrics)`` with dropout off."""
+        logits = M.gpt_for_pretraining(
+            params, self.model_cfg, batch["tokens"], batch["position_ids"],
+            deterministic=True)
+        loss = M.cross_entropy_loss(logits, batch["labels"],
+                                    batch["loss_mask"])
+        return loss, {"loss": loss}

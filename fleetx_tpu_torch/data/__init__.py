@@ -1,0 +1,84 @@
+"""Config-driven data builders (port of ``fleetx_tpu/data/__init__.py:41-106``).
+
+The GPT entries are ported: ``GPTDataset``, ``SyntheticGPTDataset``,
+``GPTBatchSampler`` and ``DistributedBatchSampler``. The other families'
+datasets (ERNIE, vision, Imagen) and the blended corpus raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from fleetx_tpu_torch.data.dataloader import DataLoader, default_collate
+from fleetx_tpu_torch.data.dataset.gpt_dataset import (
+    GPTDataset, SyntheticGPTDataset)
+from fleetx_tpu_torch.data.sampler.batch_sampler import (
+    DistributedBatchSampler, GPTBatchSampler)
+
+DATASETS = {"GPTDataset": GPTDataset,
+            "SyntheticGPTDataset": SyntheticGPTDataset}
+SAMPLERS = {"GPTBatchSampler": GPTBatchSampler,
+            "DistributedBatchSampler": DistributedBatchSampler}
+#: dataset name -> ROADMAP port queue item that ports it
+NOT_PORTED = {"BlendedDataset": 13, "ErnieDataset": 7,
+              "SyntheticErnieDataset": 7, "GeneralClsDataset": 7,
+              "ImageFolder": 7, "CIFAR10": 7, "SyntheticVisionDataset": 7,
+              "ImagenDataset": 7, "SyntheticImagenDataset": 7}
+
+__all__ = ["DataLoader", "default_collate", "GPTDataset",
+           "SyntheticGPTDataset", "DistributedBatchSampler",
+           "GPTBatchSampler", "build_dataset", "build_dataloader"]
+
+
+def build_dataset(cfg: dict, mode: str = "Train", **overrides):
+    """Build a dataset from a config ``Data.{mode}.dataset`` section."""
+    section = dict((cfg.get(mode) or cfg).get("dataset") or {})
+    name = section.pop("name", "GPTDataset")
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"dataset {name} is not ported yet (ROADMAP.md, port queue item "
+            f"{NOT_PORTED[name]})")
+    cls = DATASETS.get(name)
+    if cls is None:
+        raise ValueError(f"unknown dataset {name!r}")
+    section.pop("split", None)
+    section.update(overrides)
+    input_dir = section.pop("input_dir", None)
+    if input_dir is not None and "data_prefix" not in section:
+        section["data_prefix"] = input_dir
+    section.setdefault("seq_length", section.pop("max_seq_len", 1024))
+    if name != "SyntheticGPTDataset":
+        # the token range of a corpus is its own; the synthetic set takes
+        # the model's vocabulary
+        section.pop("vocab_size", None)
+    return cls(**section)
+
+
+def build_dataloader(cfg: dict, mode: str = "Train", *,
+                     num_replicas: int = 1, rank: int = 0,
+                     consumed_samples: int = 0,
+                     batch_size: Optional[int] = None, **dataset_overrides):
+    """Dataset + sampler + loader from a config ``Data.{mode}`` section;
+    ``batch_size`` overrides the config value."""
+    section = dict(cfg.get(mode) or cfg)
+    dataset = build_dataset(cfg, mode, **dataset_overrides)
+    sampler_cfg = dict(section.get("sampler") or {})
+    name = sampler_cfg.pop("name",
+                           "GPTBatchSampler" if mode == "Train"
+                           else "DistributedBatchSampler")
+    loader_cfg = dict(section.get("loader") or {})
+    if batch_size is None:
+        batch_size = int(loader_cfg.get("batch_size",
+                                        sampler_cfg.pop("batch_size", 1)))
+    sampler_cfg.pop("batch_size", None)
+    kwargs = dict(num_replicas=num_replicas, rank=rank,
+                  drop_last=bool(sampler_cfg.pop("drop_last", True)))
+    if name == "GPTBatchSampler":
+        kwargs["consumed_samples"] = consumed_samples
+    else:
+        kwargs["shuffle"] = bool(sampler_cfg.pop("shuffle", False))
+    kwargs.update(sampler_cfg)
+    sampler = SAMPLERS[name](len(dataset), batch_size, **kwargs)
+    return DataLoader(dataset, sampler,
+                      prefetch=int(loader_cfg.get("prefetch", 2)))

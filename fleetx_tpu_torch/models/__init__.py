@@ -1,1 +1,18 @@
-"""Model families of the port (GPT so far)."""
+"""Model families of the port (GPT so far) and the module registry
+(port of ``fleetx_tpu/models/__init__.py:46-54``)."""
+
+from __future__ import annotations
+
+__all__ = ["build_module"]
+
+
+def build_module(cfg):
+    """Instantiate the task module named by ``cfg.Model.module``; only
+    ``GPTModule`` is ported (the others: ROADMAP.md, port queue item 7)."""
+    from fleetx_tpu_torch.core.module import GPTModule
+
+    name = (cfg.get("Model") or {}).get("module", "GPTModule")
+    if name != "GPTModule":
+        raise NotImplementedError(f"module {name} is not ported yet "
+                                  f"(ROADMAP.md, port queue item 7)")
+    return GPTModule(cfg)

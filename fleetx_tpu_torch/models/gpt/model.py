@@ -1,21 +1,41 @@
-"""GPT config and parameters in the JAX package's layout.
+"""GPT config, parameters and the training forward in the JAX layout.
 
-Port of ``fleetx_tpu/models/gpt/model.py:45-136`` (the ``GPTConfig``
-fields serving reads) and ``:871-895`` (``PRESETS``,
-``config_from_dict``). Parameters are a nested dict of tensors shaped
-exactly like the flax pytree (``nn.scan`` stacks layer leaves on a
-leading ``[num_layers]`` dim; ``qkv_kernel [h, 3, nh, hd]``,
-``out_kernel [nh, hd, h]``, ``model.py:315-327``), so converted JAX
-weights and the port's own seeded init are interchangeable and tests
-compare like with like.
+Port of ``fleetx_tpu/models/gpt/model.py``: ``GPTConfig`` (:45-136) with
+the training knobs, ``PRESETS`` / ``config_from_dict`` (:871-895), and the
+forward of ``GPTEmbeddings``, ``MultiHeadAttention._core_attn``,
+``GPTMlp``, ``LayerNorm``, ``TransformerDecoderLayer``, ``GPTModel`` and
+``GPTForPretraining`` (:299-767) with ``cross_entropy_per_token``,
+``masked_mean`` and ``cross_entropy_loss`` (:846-866).
+
+Parameters are a nested dict of tensors shaped exactly like the flax
+pytree (``nn.scan`` stacks layer leaves on a leading ``[num_layers]`` dim;
+``qkv_kernel [h, 3, nh, hd]``, ``out_kernel [nh, hd, h]``,
+``model.py:315-327``), so converted JAX weights and the port's own seeded
+init are interchangeable and tests compare like with like. The forward is
+plain functions over that dict: ``nn.scan`` becomes a Python loop over
+the layer index of the stacked leaves (``unbind`` once per call, so the
+backward stacks the per-layer grads in one pass).
+
+The reference's cast points are kept: weights ``.to(dtype)`` at use (one
+cast per use, so a tied leaf's two grads sum in f32 at the leaf), a
+compute-dtype residual stream, f32 LayerNorm, an f32 softmax and f32
+logsumexp. ``use_flash_attention`` and ``fused_residual_norm`` pick the
+hand-written kernels (``ops/flash_attention.py``, ``ops/fused_norm.py``)
+where their gates admit the shape, and the plain ``finfo.min``-masked
+softmax / unfused LayerNorm otherwise, as the JAX module does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Union
 
 import torch
+import torch.nn.functional as F
+
+from fleetx_tpu_torch.ops import flash_attention as FA
+from fleetx_tpu_torch.ops import fused_norm as FN
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -31,8 +51,21 @@ class GPTConfig:
     num_attention_heads: int = 16
     ffn_hidden_size: Optional[int] = None  # defaults to 4*hidden
     max_position_embeddings: int = 1024
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
+    use_recompute: bool = False
+    # dtype of the gradient-accumulation carry; None ("native") keeps the
+    # grads' own dtype
+    grad_accum_dtype: Optional[torch.dtype] = torch.float32
+    use_flash_attention: bool = True
+    flash_fused_bwd: bool = True
+    fused_residual_norm: bool = True
+    sequence_parallel: bool = False
+    use_ring_attention: bool = False
+    vocab_chunk: Optional[int] = None
+    use_qat: bool = False
     moe_num_experts: int = 0   # 0 = dense FFN; MoE is not ported yet
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -57,12 +90,13 @@ PRESETS = {
 
 
 def config_from_dict(d: dict) -> GPTConfig:
-    """Build a GPTConfig from a YAML ``Model:`` section; keys that only
-    the training path reads (dropout, recompute, flash/fused-norm knobs)
-    are ignored here, as the JAX loader ignores unknown keys."""
+    """Build a GPTConfig from a YAML ``Model:`` section; keys it does not
+    know are ignored, as the JAX loader ignores them."""
     known = {f.name for f in dataclasses.fields(GPTConfig)}
     kwargs = {k: v for k, v in d.items() if k in known and v is not None}
-    for key in ("dtype", "param_dtype"):
+    if str(kwargs.get("grad_accum_dtype")).lower() == "native":
+        kwargs["grad_accum_dtype"] = None
+    for key in ("dtype", "param_dtype", "grad_accum_dtype"):
         if isinstance(kwargs.get(key), str):
             kwargs[key] = DTYPES[kwargs[key]]
     return GPTConfig(**kwargs)
@@ -123,3 +157,186 @@ def init_params(cfg: GPTConfig, seed: int = 0,
         return torch.full(node, fill, dtype=cfg.param_dtype, device=device)
 
     return build(param_shapes(cfg), ())
+
+
+# ------------------------------------------------------------ forward
+@dataclasses.dataclass
+class DropoutRng:
+    """One training step's dropout randomness: a hash seed per layer for
+    the flash kernels' in-kernel attention dropout, and a device generator
+    for every other dropout mask."""
+
+    layer_seeds: list
+    gen: torch.Generator
+
+
+def dropout_rng(seed: int, step: int, num_layers: int,
+                device: Union[str, torch.device]) -> DropoutRng:
+    """Step ``step``'s randomness from ONE generator seeded by ``seed``
+    with the step folded in (as ``jax.random.fold_in(rng, step)`` in the
+    JAX ``GPTModule.training_loss``)."""
+    host = torch.Generator()
+    host.manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
+                     | (int(step) & 0xFFFFFFFF))
+    draws = torch.randint(0, 2 ** 31 - 1, (num_layers + 1,),
+                          generator=host).tolist()
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(draws[-1])
+    return DropoutRng(draws[:-1], gen)
+
+
+def _dropout(x: torch.Tensor, rate: float, rng: DropoutRng) -> torch.Tensor:
+    """``flax.linen.Dropout``: keep with probability ``1 - rate``, scale
+    kept values by ``1 / (1 - rate)`` in ``x``'s dtype."""
+    keep = torch.rand(x.shape, generator=rng.gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def layer_norm(p: dict, x: torch.Tensor, cfg: GPTConfig,
+               residual: Optional[torch.Tensor] = None):
+    """``LayerNorm``: f32 pre-norm; with ``residual`` it folds the block
+    residual add and returns ``(out, s)`` with ``s = residual + x``."""
+    if cfg.fused_residual_norm and FN.fused_norm_supported(x, residual):
+        out, s = FN.fused_residual_norm(
+            x, p["scale"], p["bias"], residual=residual,
+            eps=cfg.layer_norm_epsilon, out_dtype=cfg.dtype)
+        return out if residual is None else (out, s)
+    s = x if residual is None else residual + x
+    x32 = s.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + cfg.layer_norm_epsilon)
+    out = (y * p["scale"] + p["bias"]).to(cfg.dtype)
+    return out if residual is None else (out, s)
+
+
+def core_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              cfg: GPTConfig, *, deterministic: bool,
+              rng: Optional[DropoutRng], layer: int) -> torch.Tensor:
+    """``MultiHeadAttention._core_attn``: causal attention over
+    ``[b, s, heads, head_dim]``, the flash kernels where ``supported``
+    admits the shape, else the ``finfo.min``-masked f32 softmax."""
+    rate = 0.0 if deterministic else cfg.attention_probs_dropout_prob
+    if cfg.use_flash_attention and FA.supported(q, k):
+        seed = rng.layer_seeds[layer] if rate > 0.0 else 0
+        return FA.flash_attention(q, k, v, causal=True,
+                                  fused_bwd=cfg.flash_fused_bwd,
+                                  dropout_rate=rate, dropout_seed=seed)
+    root = torch.tensor(math.sqrt(cfg.head_dim), dtype=torch.float32)
+    scores = torch.einsum("bqnd,bknd->bnqk", q, k) / \
+        root.to(device=q.device, dtype=q.dtype)
+    s = q.shape[1]
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(causal, scores, torch.full_like(
+        scores, torch.finfo(scores.dtype).min))
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    if rate > 0.0:
+        probs = _dropout(probs, rate, rng)
+    return torch.einsum("bnqk,bknd->bqnd", probs, v)
+
+
+def attention(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
+              deterministic: bool, rng: Optional[DropoutRng],
+              layer: int) -> torch.Tensor:
+    """``MultiHeadAttention`` without a cache: fused qkv, core, out."""
+    b, s, h = x.shape
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    x = x.to(cfg.dtype)
+    w = p["qkv_kernel"].to(cfg.dtype).reshape(h, 3 * nh * hd)
+    qkv = (x @ w).reshape(b, s, 3, nh, hd) + p["qkv_bias"].to(cfg.dtype)
+    q, k, v = qkv.unbind(2)
+    out = core_attn(q, k, v, cfg, deterministic=deterministic, rng=rng,
+                    layer=layer)
+    w_out = p["out_kernel"].to(cfg.dtype).reshape(nh * hd, h)
+    return out.reshape(b, s, nh * hd) @ w_out + p["out_bias"].to(cfg.dtype)
+
+
+def mlp(p: dict, x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """``GPTMlp``: dense 4h FFN with tanh-approximate GELU."""
+    x = x.to(cfg.dtype)
+    y = x @ p["wi_kernel"].to(cfg.dtype) + p["wi_bias"].to(cfg.dtype)
+    y = F.gelu(y, approximate="tanh")
+    return y @ p["wo_kernel"].to(cfg.dtype) + p["wo_bias"].to(cfg.dtype)
+
+
+def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
+                  deterministic: bool, rng: Optional[DropoutRng],
+                  layer: int) -> torch.Tensor:
+    """``TransformerDecoderLayer``: pre-norm attention and MLP blocks, the
+    post-attention residual add folded into ``ln2``."""
+    drop = cfg.hidden_dropout_prob > 0.0 and not deterministic
+    residual = x
+    y = layer_norm(p["ln1"], x, cfg)
+    y = attention(p["attn"], y, cfg, deterministic=deterministic, rng=rng,
+                  layer=layer)
+    if drop:
+        y = _dropout(y, cfg.hidden_dropout_prob, rng)
+    y, x = layer_norm(p["ln2"], y, cfg, residual=residual)
+    residual = x
+    y = mlp(p["mlp"], y, cfg)
+    if drop:
+        y = _dropout(y, cfg.hidden_dropout_prob, rng)
+    return residual + y
+
+
+def _unstack(node: Any, n: int) -> list:
+    """Stacked ``[layers, ...]`` leaves → one dict per layer (views)."""
+    if isinstance(node, dict):
+        per_key = {k: _unstack(v, n) for k, v in node.items()}
+        return [{k: per_key[k][i] for k in node} for i in range(n)]
+    return list(node.unbind(0))
+
+
+def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
+              position_ids: Optional[torch.Tensor] = None, *,
+              deterministic: bool = True,
+              rng: Optional[DropoutRng] = None) -> torch.Tensor:
+    """``GPTModel`` without a cache: embeddings, decoder stack, ``ln_f``."""
+    p = params["gpt"]
+    if position_ids is None:
+        position_ids = torch.arange(tokens.shape[1], device=tokens.device
+                                    ).expand(tokens.shape)
+    emb = p["embeddings"]
+    x = (F.embedding(tokens, emb["word_embeddings"].to(cfg.dtype))
+         + F.embedding(position_ids, emb["position_embeddings"].to(
+             cfg.dtype)))
+    if cfg.hidden_dropout_prob > 0.0 and not deterministic:
+        x = _dropout(x, cfg.hidden_dropout_prob, rng)
+    for i, lp in enumerate(_unstack(p["layers"], cfg.num_layers)):
+        x = decoder_layer(lp, x, cfg, deterministic=deterministic, rng=rng,
+                          layer=i)
+    return layer_norm(p["ln_f"], x, cfg)
+
+
+def gpt_for_pretraining(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
+                        position_ids: Optional[torch.Tensor] = None, *,
+                        deterministic: bool = True,
+                        rng: Optional[DropoutRng] = None) -> torch.Tensor:
+    """``GPTForPretraining``: logits ``[b, s, vocab]`` in the compute dtype
+    from the tied embedding head."""
+    x = gpt_model(params, cfg, tokens, position_ids,
+                  deterministic=deterministic, rng=rng)
+    wte = params["gpt"]["embeddings"]["word_embeddings"].to(cfg.dtype)
+    return torch.einsum("bsh,vh->bsv", x, wte)
+
+
+def cross_entropy_per_token(logits: torch.Tensor,
+                            labels: torch.Tensor) -> torch.Tensor:
+    """Unreduced token-level LM loss, f32 logsumexp."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = logits.gather(-1, labels[..., None].long())[..., 0]
+    return logz - label_logits
+
+
+def masked_mean(losses: torch.Tensor,
+                loss_mask: torch.Tensor) -> torch.Tensor:
+    """Mask-weighted mean of per-token losses."""
+    loss_mask = loss_mask.float().reshape(losses.shape)
+    return (losses * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       loss_mask: torch.Tensor) -> torch.Tensor:
+    """Masked LM loss (``cross_entropy_loss``)."""
+    return masked_mean(cross_entropy_per_token(logits, labels), loss_mask)

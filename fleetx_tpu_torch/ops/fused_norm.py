@@ -1,0 +1,303 @@
+"""Fused residual-add + f32 LayerNorm + cast: Hopper kernels, plain
+versions, gate and autograd wrapper.
+
+Port of ``fleetx_tpu/ops/fused_norm.py``. The TPU kernels (``_fwd_kernel``
+launched by ``_fwd_call``, ``_bwd_kernel`` launched by ``_bwd_call``) run
+one VMEM-resident pass per row block. Here the same two functions are the
+CUDA kernels in ``csrc/fused_norm.cu`` (built by ``kernels/build.py``,
+bound with ``ctypes``): one block per row, the row held in registers.
+
+- ``fwd_call(x, residual, scale, bias, eps, out_dtype)`` returns
+  ``(out, s, mean, var)``: ``s = residual + x`` in the input dtype (``x``
+  itself without a residual), f32 mean/var over the last dim, ``out =
+  ((s - mean) * rsqrt(var + eps) * scale + bias).to(out_dtype)``;
+- ``bwd_call(s, scale, mean, var, dout, eps, ds_in)`` returns ``dx`` in
+  ``s.dtype``, transcribing ``_bwd_kernel``'s op order (``rstd`` from the
+  saved ``var + eps``, ``dxc_b`` before ``dxc_a``, ``ds_in`` joining
+  first, ``dmean`` summed per branch);
+- ``param_grads`` reduces ``dscale``/``dbias`` outside the kernel in
+  plain torch, as ``_param_grads`` does.
+
+On a CUDA tensor each ``*_call`` launches its kernel or raises; on a CPU
+tensor it runs its plain version (``fwd_plain`` / ``bwd_plain``), which
+the CPU tests hold against the Pallas kernels and ``chip_smoke.py`` holds
+the kernels against on the card. ``fwd_call.launches`` and
+``bwd_call.launches`` count kernel launches only.
+
+``fused_norm_supported`` mirrors the JAX gate where it is not about VMEM:
+rank >= 2, hidden a multiple of 128 (up to 32768, what one block of at
+most 1024 threads holds in registers), f32/bf16/f16, residual of the same
+shape and dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: widest row one block holds in registers (1024 threads x 32 values)
+MAX_HIDDEN = 32768
+
+
+def fused_norm_supported(x: torch.Tensor,
+                         residual: Optional[torch.Tensor] = None) -> bool:
+    """True when the fused kernels take this activation shape."""
+    if x.dim() < 2:
+        return False
+    if residual is not None and (residual.shape != x.shape
+                                 or residual.dtype != x.dtype):
+        return False
+    if x.dtype not in _DTYPE_CODES:
+        return False
+    hidden = x.shape[-1]
+    return 128 <= hidden <= MAX_HIDDEN and hidden % 128 == 0
+
+
+# ------------------------------------------------------------- plain
+def fwd_plain(x: torch.Tensor, residual: Optional[torch.Tensor],
+              scale: torch.Tensor, bias: torch.Tensor, eps: float,
+              out_dtype: torch.dtype):
+    """The forward kernel's function in plain PyTorch (``_fwd_kernel``)."""
+    s = x if residual is None else residual + x
+    x32 = s.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    out = (y * scale.float() + bias.float()).to(out_dtype)
+    return out, s, mean, var
+
+
+def bwd_plain(s: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
+              var: torch.Tensor, dout: torch.Tensor, eps: float,
+              ds_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The backward kernel's function in plain PyTorch (``_bwd_kernel``)."""
+    hidden = s.shape[-1]
+    s32 = s.float()
+    u = var + eps
+    rstd = torch.rsqrt(u)
+    xc = s32 - mean
+    dy = dout.float() * scale.float()
+    dxc_a = dy * rstd
+    drstd = (xc * dy).sum(-1, keepdim=True)
+    e_res = -0.5 * (rstd / u)
+    f_res = 2.0 * xc
+    dxc_b = ((drstd * e_res) / hidden) * f_res
+    if ds_in is not None:
+        acc = (ds_in.float() + dxc_b) + dxc_a
+    else:
+        acc = dxc_b + dxc_a
+    dmean = ((-dxc_b).sum(-1, keepdim=True)
+             + (-dxc_a).sum(-1, keepdim=True))
+    return (acc + dmean / hidden).to(s.dtype)
+
+
+def param_grads(s: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                dout: torch.Tensor, eps: float, scale_dtype: torch.dtype):
+    """``dscale``/``dbias`` from the saved stats (``_param_grads``)."""
+    lead = tuple(range(dout.dim() - 1))
+    y = (s.float() - mean) * torch.rsqrt(var + eps)
+    dout32 = dout.float()
+    dscale = (y * dout32).sum(dim=lead).to(scale_dtype)
+    dbias = dout32.sum(dim=lead).to(scale_dtype)
+    return dscale, dbias
+
+
+# ------------------------------------------------------------ kernels
+def _fns():
+    """The two C entry points with their argument types declared."""
+    from fleetx_tpu_torch.kernels import build
+
+    lib = build.load("fused_norm")
+    fwd, bwd = lib.fleetx_fused_norm_fwd, lib.fleetx_fused_norm_bwd
+    if fwd.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fwd.argtypes = [ptr] * 8 + [i32] * 4 + [ctypes.c_float, ptr]
+        fwd.restype = i32
+        bwd.argtypes = [ptr] * 7 + [i32] * 3 + [ctypes.c_float, ptr]
+        bwd.restype = i32
+    return fwd, bwd
+
+
+def _check(name: str, x: torch.Tensor, *others) -> None:
+    """Raise on anything the kernels do not take."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {x.dtype} not in float32/bfloat16/"
+                        f"float16")
+    hidden = x.shape[-1]
+    if x.dim() < 2 or hidden % 128 or not 128 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} outside what the "
+                         f"kernel takes (hidden a multiple of 128 up to "
+                         f"{MAX_HIDDEN})")
+    for t in (x,) + others:
+        if t.device != x.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operand is not 16-byte aligned")
+
+
+def _vec(v: torch.Tensor, hidden: int, device) -> torch.Tensor:
+    """A scale/bias vector as contiguous f32 ``[hidden]`` on ``device``."""
+    v = v.reshape(-1)
+    if v.shape[0] != hidden:
+        raise ValueError(f"vector of {v.shape[0]} != hidden {hidden}")
+    return v.to(device=device, dtype=torch.float32).contiguous()
+
+
+def fwd_call(x: torch.Tensor, residual: Optional[torch.Tensor],
+             scale: torch.Tensor, bias: torch.Tensor, eps: float,
+             out_dtype: torch.dtype):
+    """Forward (``_fwd_call``'s contract): ``(out, s, mean, var)`` with
+    ``mean``/``var`` f32 of shape ``x.shape[:-1] + (1,)``."""
+    if x.device.type == "cpu":
+        return fwd_plain(x, residual, scale, bias, eps, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_norm: no kernel for device {x.device}")
+    if residual is not None and (residual.shape != x.shape
+                                 or residual.dtype != x.dtype):
+        raise ValueError("fused_norm: residual must match x in shape and "
+                         "dtype")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"fused_norm: out dtype {out_dtype} is neither "
+                        f"{x.dtype} nor float32")
+    _check("fused_norm fwd", x, *(() if residual is None else (residual,)))
+    hidden = x.shape[-1]
+    rows = x.numel() // hidden
+    scale_v = _vec(scale, hidden, x.device)
+    bias_v = _vec(bias, hidden, x.device)
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    s = x if residual is None else torch.empty_like(x)
+    stat_shape = tuple(x.shape[:-1]) + (1,)
+    mean = torch.empty(stat_shape, dtype=torch.float32, device=x.device)
+    var = torch.empty(stat_shape, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fwd, _ = _fns()
+    err = fwd(x.data_ptr(), residual.data_ptr() if residual is not None
+              else None, scale_v.data_ptr(), bias_v.data_ptr(),
+              out.data_ptr(), s.data_ptr() if residual is not None else None,
+              mean.data_ptr(), var.data_ptr(), rows, hidden,
+              _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], float(eps),
+              stream)
+    if err != 0:
+        raise RuntimeError(f"fused norm forward kernel launch failed: CUDA "
+                           f"error {err}")
+    fwd_call.launches += 1
+    return out, s, mean, var
+
+
+fwd_call.launches = 0
+
+
+def bwd_call(s: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
+             var: torch.Tensor, dout: torch.Tensor, eps: float,
+             ds_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Backward (``_bwd_call``'s contract): ``dx`` in ``s.dtype``."""
+    if s.device.type == "cpu":
+        return bwd_plain(s, scale, mean, var, dout, eps, ds_in)
+    if s.device.type != "cuda":
+        raise ValueError(f"fused_norm: no kernel for device {s.device}")
+    for name, t in (("dout", dout), ("ds_in", ds_in)):
+        if t is not None and (t.shape != s.shape or t.dtype
+                              not in _DTYPE_CODES):
+            raise ValueError(f"fused_norm bwd: {name} {tuple(t.shape)} "
+                             f"{t.dtype} does not match s "
+                             f"{tuple(s.shape)}")
+    if dout.dtype != s.dtype or (ds_in is not None
+                                 and ds_in.dtype != s.dtype):
+        raise TypeError("fused_norm bwd: dout and ds_in must share s's "
+                        "dtype")
+    hidden = s.shape[-1]
+    rows = s.numel() // hidden
+    if mean.numel() != rows or var.numel() != rows or \
+            mean.dtype != torch.float32 or var.dtype != torch.float32:
+        raise ValueError("fused_norm bwd: mean/var must be f32, one per row")
+    _check("fused_norm bwd", s, dout, mean, var,
+           *(() if ds_in is None else (ds_in,)))
+    scale_v = _vec(scale, hidden, s.device)
+    dx = torch.empty_like(s)
+    stream = torch.cuda.current_stream(s.device).cuda_stream
+    _, bwd = _fns()
+    err = bwd(s.data_ptr(), scale_v.data_ptr(), mean.data_ptr(),
+              var.data_ptr(), dout.data_ptr(),
+              ds_in.data_ptr() if ds_in is not None else None,
+              dx.data_ptr(), rows, hidden,
+              _DTYPE_CODES[s.dtype] | (_DTYPE_CODES[dout.dtype] << 4),
+              float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"fused norm backward kernel launch failed: CUDA "
+                           f"error {err}")
+    bwd_call.launches += 1
+    return dx
+
+
+bwd_call.launches = 0
+
+
+# ----------------------------------------------------------- autograd
+class _FusedAddNorm(torch.autograd.Function):
+    """``(out, s) = (LN(residual + x).to(out_dtype), residual + x)``."""
+
+    @staticmethod
+    def forward(ctx, x, residual, scale, bias, eps, out_dtype):
+        """Forward kernel; saves ``(s, scale, mean, var)``."""
+        out, s, mean, var = fwd_call(x.contiguous(), residual.contiguous(),
+                                     scale, bias, eps, out_dtype)
+        ctx.save_for_backward(s, scale, mean, var)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        return out, s
+
+    @staticmethod
+    def backward(ctx, dout, ds_in):
+        """Backward kernel with ``ds_in`` folded in; the same ``ds`` for
+        ``x`` and ``residual``."""
+        s, scale, mean, var = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(s)
+        ds = bwd_call(s, scale, mean, var, dout.contiguous(), ctx.eps,
+                      ds_in=None if ds_in is None else ds_in.contiguous())
+        dscale, dbias = param_grads(s, mean, var, dout, ctx.eps, scale.dtype)
+        return ds, ds, dscale, dbias, None, None
+
+
+class _FusedNorm(torch.autograd.Function):
+    """``LN(x).to(out_dtype)`` with no residual add."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, out_dtype):
+        """Forward kernel without a residual; saves ``(x, scale, mean,
+        var)``."""
+        x = x.contiguous()
+        out, _, mean, var = fwd_call(x, None, scale, bias, eps, out_dtype)
+        ctx.save_for_backward(x, scale, mean, var)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        """Backward kernel for ``dx``; ``dscale``/``dbias`` outside it."""
+        s, scale, mean, var = ctx.saved_tensors
+        dout = dout.contiguous()
+        dx = bwd_call(s, scale, mean, var, dout, ctx.eps)
+        dscale, dbias = param_grads(s, mean, var, dout, ctx.eps, scale.dtype)
+        return dx, dscale, dbias, None, None
+
+
+def fused_residual_norm(x: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None, *,
+                        eps: float = 1e-5,
+                        out_dtype: torch.dtype = torch.float32):
+    """Fused (residual-add +) f32 LayerNorm + cast; returns ``(out, s)``
+    with ``s = residual + x`` (``x`` itself without a residual). Callers
+    gate on ``fused_norm_supported`` first, as in the JAX package."""
+    if residual is None:
+        return _FusedNorm.apply(x, scale, bias, float(eps), out_dtype), x
+    return _FusedAddNorm.apply(x, residual, scale, bias, float(eps),
+                               out_dtype)

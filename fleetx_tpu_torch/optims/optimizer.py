@@ -1,0 +1,138 @@
+"""AdamW with the name-based decay mask and one global-norm clip (port of
+``fleetx_tpu/optims/optimizer.py:30-135, 153-184``).
+
+The JAX package chains ``clip_by_precomputed_norm`` → ``scale_by_adam``
+(f32 moments) → ``add_decayed_weights`` (masked) →
+``scale_by_learning_rate``. ``AdamW.update`` is that chain written out as
+a loop over the parameter tensors, updating them in place:
+
+- one global norm ``sqrt(sum of squares)`` over every grad; grads are
+  scaled by ``max_norm / g_norm`` only when ``g_norm >= max_norm`` (a NaN
+  norm propagates into the update). This is not
+  ``torch.nn.utils.clip_grad_norm_``, which adds 1e-6 to the norm;
+- ``mu = (1-b1)·g + b1·mu``, ``nu = (1-b2)·g² + b2·nu``, bias-corrected
+  with the step count ``t + 1``, ``u = mu_hat / (sqrt(nu_hat) + eps)``;
+- ``u += weight_decay · p`` where the decay mask is True;
+- ``p += -lr(t) · u``.
+
+SGD/Momentum belongs to the vision family and raises
+``NotImplementedError`` (ROADMAP.md, port queue item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, Optional
+
+import torch
+
+NO_DECAY_SUBSTRINGS = ("bias", "norm", "layernorm")
+NO_DECAY_EXACT = ("ln", "ln1", "ln2", "ln_f")
+
+
+def tree_leaves_with_path(tree: Any, path: tuple = ()) -> Iterator:
+    """``(path, leaf)`` pairs of a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves_with_path(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def is_no_decay_path(path: tuple) -> bool:
+    """True if a param path is excluded from weight decay: a key contains
+    "bias" or "norm", or is a LayerNorm module name."""
+    for k in (str(p).lower() for p in path):
+        if any(tok in k for tok in NO_DECAY_SUBSTRINGS) or k in NO_DECAY_EXACT:
+            return True
+    return False
+
+
+def decay_mask(params: Any, path: tuple = ()) -> Any:
+    """Nested dict of bools: True where weight decay applies."""
+    if isinstance(params, dict):
+        return {k: decay_mask(v, path + (k,)) for k, v in params.items()}
+    return not is_no_decay_path(path)
+
+
+def global_norm(grads: list) -> torch.Tensor:
+    """``sqrt`` of the sum of every grad's sum of squares (a 0-d tensor)."""
+    return torch.sqrt(sum((g * g).sum() for g in grads))
+
+
+class AdamW:
+    """AdamW + global-norm clip + name-based decay mask, f32 moments."""
+
+    def __init__(self, learning_rate: Callable[[int], float], *,
+                 beta1: float = 0.9, beta2: float = 0.999,
+                 epsilon: float = 1e-8, weight_decay: float = 0.01,
+                 grad_clip: Optional[float] = 1.0,
+                 multi_precision: bool = True):
+        self.learning_rate = learning_rate
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.weight_decay = weight_decay
+        self.grad_clip = grad_clip if grad_clip and grad_clip > 0 else None
+        self.multi_precision = multi_precision
+
+    def init(self, params: dict) -> dict:
+        """Optimizer state: step count, moments, decay flags (flat lists
+        in ``tree_leaves_with_path`` order)."""
+        leaves = list(tree_leaves_with_path(params))
+        mu_dtype = torch.float32 if self.multi_precision else None
+        return {
+            "count": 0,
+            "mu": [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
+                   for _, p in leaves],
+            "nu": [torch.zeros_like(p) for _, p in leaves],
+            "decay": [not is_no_decay_path(path) for path, _ in leaves],
+        }
+
+    @torch.no_grad()
+    def update(self, params: list, grads: list, state: dict) -> torch.Tensor:
+        """One step on the flat parameter list, in place; returns the
+        global grad norm (before clipping) as a 0-d tensor."""
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+        g_norm = global_norm(grads)
+        count = state["count"]
+        lr = float(self.learning_rate(count))
+        t = count + 1
+        c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+        if self.grad_clip is not None:
+            trigger = g_norm < self.grad_clip
+        for i, (p, g) in enumerate(zip(params, grads)):
+            if self.grad_clip is not None:
+                g = torch.where(trigger, g, (g / g_norm) * self.grad_clip)
+            mu, nu = state["mu"][i], state["nu"][i]
+            mu.mul_(b1).add_(g.to(mu.dtype), alpha=1.0 - b1)
+            nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
+            u = (mu / c1) / (torch.sqrt(nu / c2) + eps)
+            if self.weight_decay and state["decay"][i]:
+                u = u + self.weight_decay * p
+            p.add_((u * -lr).to(p.dtype))
+        state["count"] = t
+        return g_norm
+
+
+def build_optimizer(cfg: dict, lr_schedule) -> AdamW:
+    """Config-driven optimizer factory (the reference YAML keys: ``name``,
+    ``beta1/beta2/epsilon``, ``weight_decay``, ``grad_clip.clip_norm``,
+    ``multi_precision``)."""
+    cfg = dict(cfg or {})
+    name = cfg.get("name", "AdamW")
+    if name in ("Momentum", "sgd"):
+        raise NotImplementedError(f"optimizer {name} belongs to the vision "
+                                  f"family (ROADMAP.md, port queue item 7)")
+    if name not in ("FusedAdamW", "AdamW", "adamw"):
+        raise ValueError(f"unknown optimizer {name!r}")
+    clip = cfg.get("grad_clip")
+    clip_norm = None
+    if isinstance(clip, dict):
+        clip_norm = float(clip.get("clip_norm", 1.0))
+    elif clip is not None:
+        clip_norm = float(clip)
+    return AdamW(lr_schedule,
+                 beta1=float(cfg.get("beta1", 0.9)),
+                 beta2=float(cfg.get("beta2", 0.999)),
+                 epsilon=float(cfg.get("epsilon", 1e-8)),
+                 weight_decay=float(cfg.get("weight_decay", 0.01)),
+                 grad_clip=clip_norm,
+                 multi_precision=bool(cfg.get("multi_precision", True)))

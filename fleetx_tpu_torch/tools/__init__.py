@@ -1,2 +1,3 @@
 """Command-line entry points of the port (``python -m
-fleetx_tpu_torch.tools.serve``)."""
+fleetx_tpu_torch.tools.serve`` and ``python -m
+fleetx_tpu_torch.tools.train``)."""

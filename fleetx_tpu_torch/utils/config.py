@@ -1,23 +1,30 @@
-"""YAML config loading with ``_base_`` inheritance and dotted overrides.
+"""YAML config loading with ``_base_`` inheritance, dotted overrides and
+the training derivations.
 
-The port's copy of ``fleetx_tpu/utils/config.py:38-135`` (``AttrDict``,
-``_merge``, ``parse_config``, ``_literal``, ``override_config``) and
-``:334-376`` (``process_serving_config``). It reads the same YAML files
-by path. The mesh-degree and batch derivations of the training recipes
-are not part of the serving slice and are not copied.
+The port's copy of ``fleetx_tpu/utils/config.py``: ``AttrDict``,
+``_merge``, ``parse_config``, ``_literal``, ``override_config``
+(:38-135), ``process_dist_config`` / ``process_global_configs`` /
+``process_engine_config`` (:139-241), ``process_serving_config``
+(:334-376), ``get_config`` (:379) and ``parse_args`` (:454). It reads the
+same YAML files by path. The port trains on one device: a ``Distributed``
+degree above 1 raises ``NotImplementedError`` (ROADMAP.md, port queue
+item 12), and the auto-layout planner is not copied.
 """
 
 from __future__ import annotations
 
+import argparse
 import ast
 import copy
 import os
-from typing import Any
+from typing import Any, Optional
 
 import yaml
 
 __all__ = ["AttrDict", "parse_config", "override_config",
-           "process_serving_config"]
+           "process_dist_config", "process_global_configs",
+           "process_engine_config", "process_serving_config", "get_config",
+           "parse_args"]
 
 
 class AttrDict(dict):
@@ -130,3 +137,125 @@ def process_serving_config(config: AttrDict) -> AttrDict:
         except (AssertionError, TypeError, ValueError) as e:
             raise ValueError(f"Serving.router invalid: {e}") from e
     return config
+
+
+#: ``Distributed`` keys whose value above 1 would shard the run
+DEGREE_KEYS = ("dp_degree", "mp_degree", "pp_degree", "fsdp_degree",
+               "seq_degree")
+
+
+def check_single_device(dist: dict) -> None:
+    """Raise when a ``Distributed`` section asks for more than one device
+    (a degree above 1, or sequence parallelism)."""
+    degrees = {k: dist.get(k) for k in DEGREE_KEYS}
+    degrees["sharding.sharding_degree"] = (dist.get("sharding") or {}).get(
+        "sharding_degree")
+    sharded = {k: v for k, v in degrees.items()
+               if v not in (None, -1) and int(v) > 1}
+    if sharded or dist.get("sequence_parallel"):
+        raise NotImplementedError(
+            f"Distributed {sharded or 'sequence_parallel'} needs distributed "
+            f"training, not ported yet (ROADMAP.md, port queue item 12)")
+
+
+def process_dist_config(config: AttrDict) -> AttrDict:
+    """Fill the mesh degrees for ONE device (``process_dist_config`` with
+    a device count of 1): every degree resolves to 1, and a degree above
+    1 raises."""
+    dist = config.setdefault("Distributed", AttrDict())
+    check_single_device(dist)
+    for k in DEGREE_KEYS:
+        dist[k] = 1
+    sharding = dist.setdefault("sharding", AttrDict())
+    sharding.setdefault("sharding_degree", 1)
+    sharding.setdefault("sharding_stage", 0)
+    sharding.setdefault("sharding_offload", False)
+    return config
+
+
+def process_global_configs(config: AttrDict) -> AttrDict:
+    """Resolve global/local/micro batch relations (``config.py:68-117``)::
+
+        global = local * dp_world ;  accumulate_steps = local // micro
+    """
+    glb = config.setdefault("Global", AttrDict())
+    dist = config.get("Distributed", AttrDict())
+    dp_world = int(dist.get("dp_degree", 1)) * int(dist.get("fsdp_degree", 1))
+    gbs = glb.get("global_batch_size")
+    lbs = glb.get("local_batch_size")
+    mbs = glb.get("micro_batch_size")
+    if gbs is None and lbs is None:
+        raise ValueError("global_batch_size or local_batch_size must be set")
+    if lbs is None:
+        if gbs % dp_world:
+            raise ValueError(f"global_batch_size {gbs} not divisible by dp "
+                             f"world {dp_world}")
+        lbs = gbs // dp_world
+    if gbs is None:
+        gbs = lbs * dp_world
+    if mbs is None:
+        mbs = lbs
+    if lbs % mbs:
+        raise ValueError(f"local_batch_size {lbs} % micro_batch_size {mbs} "
+                         f"!= 0")
+    if gbs != lbs * dp_world:
+        raise ValueError(f"global_batch_size {gbs} != local_batch_size {lbs} "
+                         f"* dp world {dp_world}")
+    glb.global_batch_size = int(gbs)
+    glb.local_batch_size = int(lbs)
+    glb.micro_batch_size = int(mbs)
+    glb.setdefault("seed", 1024)
+    eng = config.setdefault("Engine", AttrDict())
+    if eng.get("accumulate_steps") in (None, 0):
+        eng.accumulate_steps = glb.local_batch_size // glb.micro_batch_size
+    return config
+
+
+def process_engine_config(config: AttrDict) -> AttrDict:
+    """Fill Engine defaults (``process_engine_config``)."""
+    eng = config.setdefault("Engine", AttrDict())
+    eng.setdefault("run_mode", "step")
+    eng.setdefault("num_train_epochs", 1)
+    eng.setdefault("max_steps", 500000)
+    eng.setdefault("logging_freq", 10)
+    eng.setdefault("eval_freq", None)
+    eng.setdefault("eval_iters", 10)
+    mp = eng.setdefault("mix_precision", AttrDict())
+    mp.setdefault("enable", True)
+    mp.setdefault("dtype", "bfloat16")
+    mp.setdefault("param_dtype", "float32")
+    mp.setdefault("scale_loss", None)
+    sl = eng.setdefault("save_load", AttrDict())
+    sl.setdefault("save_steps", None)
+    sl.setdefault("save_epoch", 1)
+    sl.setdefault("output_dir", "./output")
+    sl.setdefault("ckpt_dir", None)
+    return config
+
+
+def get_config(fname: str, overrides: Optional[list] = None) -> AttrDict:
+    """Load + override + post-process a training config
+    (``get_config``, one device)."""
+    if not os.path.exists(fname):
+        raise FileNotFoundError(f"config file {fname} not found")
+    config = parse_config(fname)
+    override_config(config, overrides)
+    process_dist_config(config)
+    process_global_configs(config)
+    process_engine_config(config)
+    process_serving_config(config)
+    return config
+
+
+def parse_args(description: str = "fleetx_tpu_torch",
+               argv: Optional[list] = None) -> argparse.Namespace:
+    """``-c config.yaml -o A.B=v [--device cuda|cpu]`` (``parse_args``)."""
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("-c", "--config", required=True,
+                        help="path to YAML config")
+    parser.add_argument("-o", "--override", action="append", default=[],
+                        help="dotted config overrides, e.g. "
+                             "-o Engine.max_steps=10")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default) or cpu")
+    return parser.parse_args(argv)

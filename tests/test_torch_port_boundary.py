@@ -3,7 +3,8 @@
 - every ``.py`` under ``fleetx_tpu_torch/`` imports none of ``jax``,
   ``jaxlib``, ``flax``, ``optax``, ``fleetx_tpu`` or ``fleetx_tpu.*``
   (an AST scan, plus a fresh interpreter's ``sys.modules``);
-- an engine asked for no device on a host without CUDA raises;
+- an engine asked for no device on a host without CUDA raises, and so
+  does the training CLI without ``--device cpu``;
 - config values the slice does not cover raise ``NotImplementedError``;
 - a CPU replica started by the real CLI answers over TCP with the
   in-process engine's tokens and drains on SIGTERM with rc 75.
@@ -69,6 +70,8 @@ def test_port_sources_import_no_jax_and_no_reference_package():
 def test_entry_points_load_no_jax_modules():
     code = ("import sys, json\n"
             "import fleetx_tpu_torch.tools.serve\n"
+            "import fleetx_tpu_torch.tools.train\n"
+            "import fleetx_tpu_torch.core.engine\n"
             "import fleetx_tpu_torch.serving.engine\n"
             "import fleetx_tpu_torch.serving.bench\n"
             "print(json.dumps(sorted(sys.modules)))\n")
@@ -78,7 +81,25 @@ def test_entry_points_load_no_jax_modules():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "fleetx_tpu_torch.serving.engine" in loaded
+    assert "fleetx_tpu_torch.core.engine.eager_engine" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_train_cli_without_device_raises_when_no_cuda():
+    """``python -m fleetx_tpu_torch.tools.train`` defaults to cuda: on a
+    host without a GPU it fails instead of training on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    yaml_path = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                             "pretrain_gpt_345M_synthetic.yaml")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-m", "fleetx_tpu_torch.tools.train", "-c",
+         yaml_path, "-o", "Model.num_layers=1", "-o", "Engine.max_steps=1"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "[train]" not in out.stderr
 
 
 def _tiny_cfg(**serving_over):
