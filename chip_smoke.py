@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: build, check and time its
-kernels, serve GPT-345M at full width through the port's replica, and
-train GPT-345M at full width through the port's trainer.
+kernels, serve GPT-345M at full width through the port's replica, train
+GPT-345M at full width and GPT-1.3B at seq 8192 at full width and depth
+through the port's trainer.
 
     python3 chip_smoke.py
 
@@ -34,6 +35,18 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    bound. The dropout masks of the flash kernels are recovered bit for
    bit with identity probes (q = k = 0, v or do one-hot) and must equal
    the plain version's hash mask; the keep rate is printed.
+1c. split backward kernels: the dq and dk/dv kernels against their plain
+   versions at ``[8, 1024, d]`` for d 64/128/256, f32 and bf16, causal
+   and not (also sq 1024 / sk 512), dropout 0 and 0.1, fed an lse that is
+   not the rows' own (the ring's global-lse contract); the split pair
+   against the fused kernel (d <= 128, dropout 0.1, f32); their dropout
+   masks are recovered by the phase-1b probes. Then the seq-8192 path's
+   kernels at its shapes (forward, dq, dk/dv at ``[32, 8192, 128]`` bf16
+   causal; the norms at ``[2, 8192, 2048]``): each against its plain
+   version (the attention ones on 4 of the 32 heads), timed over three
+   calls beside its bound, the plain version (attention at bh 4) and the
+   yardstick (SDPA flash forward / one SDPA flash backward giving dq, dk
+   and dv together; ``F.layer_norm``).
 3. kernel against gather on the main path: the same full-width engine
    built twice on the same weights, ``Serving.paged_kernel`` on and off;
    f32 greedy tokens must be identical, and in bf16 the one-step logit
@@ -54,6 +67,23 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    weights and batch in f32 with dropout 0, one loss+grad evaluation with
    ``use_flash_attention``/``fused_residual_norm`` on and one with them
    off; the bf16 loss and grad differences are printed.
+6. long-context main path: ``pretrain_gpt_1.3B_seq8k_ring.yaml`` with
+   ``SEQ8K_OVERRIDES`` (one card, synthetic data, 3 steps) through
+   ``build_trainer`` → ``fit`` at full width and depth: ring attention at
+   ring size 1, full recompute, the chunked LM head, 4 micro-batches of
+   2. Launch counts zeroed just before and read just after: per step 192
+   flash forwards, 96 dq, 96 dk/dv, 0 fused backward, 388 norm forwards
+   and 196 norm backwards. Finite losses and grad norms, the first loss
+   within 0.1 of ``ln(vocab) + hidden·r²/2``; step time (median of steps
+   2-3), tokens/s, MFU, peak memory; then one profiled step.
+7. split against fused and recompute on against off, on the 345M
+   training path cut to 4 layers, one loss+grad evaluation each on the
+   same weights, batch and seed: attention dropout 0.1 with
+   ``flash_fused_bwd`` on and off (f32: loss within 1e-6, grads within
+   1e-5 of each leaf's largest magnitude; bf16 printed); hidden and
+   attention dropout 0.1, f32, ``use_recompute`` full / full_attn /
+   core_attn against off (loss within 1e-6, grads within 1e-6 of each
+   leaf's largest magnitude).
 
 Tolerances, kernel against its plain version (both compute in f32 after
 casting q and k; only the summation order differs): ``acc`` and ``l``
@@ -64,7 +94,8 @@ one bf16 ulp (2**-7) in bf16.
 Tolerances of the training kernels against their plain versions (both
 compute in f32 from the same operands; only summation order and the
 rounding of a bf16 output differ): f32 outputs rtol 1e-5 / atol 1e-5
-(flash ``out``/``lse``/dq/dk/dv, norm ``out``/``mean``/``var``/dx);
+(flash ``out``/``lse``/dq/dk/dv of the fused and split backward, norm
+``out``/``mean``/``var``/dx; the split pair against the fused kernel);
 bf16 outputs one bf16 ulp (rtol 2**-7, atol 1e-5); the norm's ``s`` and
 the dropout masks exactly. Training path, kernels on against off (f32):
 loss within 1e-4 and every grad leaf within 1e-3 of its largest
@@ -91,6 +122,15 @@ YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
                     "serving_gpt_345M.yaml")
 TRAIN_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
                           "pretrain_gpt_345M_synthetic.yaml")
+SEQ8K_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                          "pretrain_gpt_1.3B_seq8k_ring.yaml")
+#: the long-context recipe on one card with synthetic data (README)
+SEQ8K_OVERRIDES = ["Distributed.dp_degree=1", "Distributed.seq_degree=1",
+                   "Data.Train.dataset.name=SyntheticGPTDataset",
+                   "Data.Train.dataset.seq_length=8192",
+                   "Data.Train.dataset.vocab_size=50304",
+                   "Engine.max_steps=3", "Engine.eval_freq=0",
+                   "Engine.save_load.save_steps=0"]
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32
 #: FLOP/s outside the tensor cores, bf16 dense tensor-core FLOP/s
@@ -362,18 +402,19 @@ def _flash_rows(dtype, dev, flush) -> dict:
     return {"flash_attention_fwd": fwd, "flash_attention_bwd_fused": bwd}
 
 
-def _norm_rows(dtype, dev, flush) -> dict:
+def _norm_rows(dtype, dev, flush, shape=(TB, TS, TH)) -> dict:
     """Fused residual+LayerNorm forward and backward against their plain
-    versions, with and without the residual / ``ds_in``, and timings."""
+    versions, with and without the residual / ``ds_in``, and timings, at
+    ``shape`` (default: the GPT-345M training rows)."""
     from fleetx_tpu_torch.ops import fused_norm as FN
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    shape, eps = (TB, TS, TH), 1e-5
+    hidden, eps = shape[-1], 1e-5
     x, r, dout, ds_in = (torch.randn(shape, generator=gen, device=dev).to(
         dtype) for _ in range(4))
-    w = 1.0 + 0.1 * torch.randn(TH, generator=gen, device=dev)
-    b = 0.1 * torch.randn(TH, generator=gen, device=dev)
+    w = 1.0 + 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    b = 0.1 * torch.randn(hidden, generator=gen, device=dev)
     errs = {"fwd": [], "bwd": []}
     for res in (r, None):
         got = FN.fwd_call(x, res, w, b, eps, dtype)
@@ -399,14 +440,15 @@ def _norm_rows(dtype, dev, flush) -> dict:
     # its affine parameters in the input dtype)
     lw, lb = w.to(dtype), b.to(dtype)
     s_leaf = (r + x).detach().requires_grad_(True)
-    lib_out = torch.nn.functional.layer_norm(s_leaf, (TH,), lw, lb, eps)
+    lib_out = torch.nn.functional.layer_norm(s_leaf, (hidden,), lw, lb, eps)
     fwd_lib_ms = time_ms(lambda: torch.nn.functional.layer_norm(
-        r + x, (TH,), lw, lb, eps), flush)
+        r + x, (hidden,), lw, lb, eps), flush)
     bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
         lib_out, s_leaf, dout, retain_graph=True)[0] + ds_in, flush)
     del lib_out, s_leaf
 
-    item, n, rows = x.element_size(), x.numel(), TB * TS
+    item, n = x.element_size(), x.numel()
+    rows = n // hidden
     fwd = dict(
         max_abs_err=max(errs["fwd"]),
         ms=time_ms(lambda: FN.fwd_call(x, r, w, b, eps, dtype), flush),
@@ -415,7 +457,7 @@ def _norm_rows(dtype, dev, flush) -> dict:
         library_ms=fwd_lib_ms)
     # x, residual read; out, s written; scale/bias read; mean/var written
     fwd["bound_ms"], fwd["bound_by"] = _bound(
-        4 * n * item + 2 * TH * 4 + 2 * rows * 4, 8 * n, torch.float32)
+        4 * n * item + 2 * hidden * 4 + 2 * rows * 4, 8 * n, torch.float32)
     bwd = dict(
         max_abs_err=max(errs["bwd"]),
         ms=time_ms(lambda: FN.bwd_call(s, w, mean, var, dout, eps, ds_in),
@@ -425,7 +467,7 @@ def _norm_rows(dtype, dev, flush) -> dict:
         library_ms=bwd_lib_ms)
     # s, dout, ds_in read; dx written; scale, mean, var read
     bwd["bound_ms"], bwd["bound_by"] = _bound(
-        4 * n * item + TH * 4 + 2 * rows * 4, 14 * n, torch.float32)
+        4 * n * item + hidden * 4 + 2 * rows * 4, 14 * n, torch.float32)
     return {"fused_norm_fwd": fwd, "fused_norm_bwd": bwd}
 
 
@@ -434,36 +476,245 @@ def _dropout_probes(dev: torch.device) -> float:
     shapes and hold them to the plain version's hash mask; returns the
     kernel's keep rate over the causal triangle.
 
-    With q = k = 0 every score is 0, so P = 1/(row+1) below the diagonal.
-    Forward: v one-hot on columns [64p, 64p+64) makes
+    With q = 0 every score is 0, so P = 1/(row+1) below the diagonal.
+    Forward: k = 0, v one-hot on columns [64p, 64p+64) makes
     ``out[h, r, d] > 0`` exactly where column 64p+d is kept for row r.
-    Backward: do one-hot on rows [64p, 64p+64) makes ``dv[h, c, d] > 0``
-    exactly where row 64p+d keeps column c."""
+    Fused and dk/dv backward: k = v = 0, do one-hot on rows [64p, 64p+64)
+    makes ``dv[h, c, d] > 0`` exactly where row 64p+d keeps column c. dq
+    backward: k one-hot on columns [64p, 64p+64), v = e_0, do = e_0 and
+    delta = 0 make dP = 1, so ``dq[h, r, d] > 0`` exactly where column
+    64p+d is kept for row r."""
     from fleetx_tpu_torch.ops import flash_attention as FA
 
     bh, seed, scale = TB * TNH, 424242, THD ** -0.5
     zero = torch.zeros((bh, TS, THD), dtype=torch.bfloat16, device=dev)
+    e0 = zero.clone()
+    e0[:, :, 0] = 1
     tril = torch.ones((TS, TS), dtype=torch.bool, device=dev).tril()
-    fwd_keep = torch.zeros((bh, TS, TS), dtype=torch.bool, device=dev)
-    bwd_keep = torch.zeros((bh, TS, TS), dtype=torch.bool, device=dev)
+    keeps = {name: torch.zeros((bh, TS, TS), dtype=torch.bool, device=dev)
+             for name in ("forward", "fused backward", "dk/dv backward",
+                          "dq backward")}
     eye = torch.eye(THD, dtype=torch.bfloat16, device=dev)
     _, lse = FA.fwd_call(zero, zero, zero, seed, scale, True, RATE)
+    delta = torch.zeros((bh, TS), device=dev)
     for p in range(TS // THD):
         cols = slice(p * THD, (p + 1) * THD)
         probe = zero.clone()
         probe[:, cols, :] = eye
         out, _ = FA.fwd_call(zero, zero, probe, seed, scale, True, RATE)
-        fwd_keep[:, :, cols] = out > 0
-        delta = torch.zeros((bh, TS), device=dev)
+        keeps["forward"][:, :, cols] = out > 0
         _, _, dv = FA.bwd_call(zero, zero, zero, probe, lse, delta, seed,
                                scale, True, RATE)
-        bwd_keep[:, cols, :] = (dv > 0).transpose(1, 2)
+        keeps["fused backward"][:, cols, :] = (dv > 0).transpose(1, 2)
+        _, dv = FA.bwd_dkv_call(zero, zero, zero, probe, lse, delta, seed,
+                                scale, True, RATE)
+        keeps["dk/dv backward"][:, cols, :] = (dv > 0).transpose(1, 2)
+        dq = FA.bwd_dq_call(zero, probe, e0, e0, lse, delta, seed, scale,
+                            True, RATE)
+        keeps["dq backward"][:, :, cols] = dq > 0
     want = FA.dropout_keep(seed, bh, TS, TS, RATE, dev) & tril
-    check(torch.equal(fwd_keep & tril, want),
-          "flash forward dropout mask differs from the plain version's")
-    check(torch.equal(bwd_keep & tril, want),
-          "flash backward dropout mask differs from the plain version's")
+    for name, keep in keeps.items():
+        check(torch.equal(keep & tril, want),
+              f"flash {name} dropout mask differs from the plain version's")
     return float(want.sum()) / float(bh * tril.sum())
+
+
+# -------------------------------------------------------------- phase 1c
+#: split-kernel check shapes: bh 8, seq 1024 (and sk 512 non-causal); the
+#: kernels' q and k tiles differ (dk/dv at head_dim 128: BQ 32, BK 64), so
+#: the diagonal crosses tiles unevenly
+SB, SS = 8, 1024
+#: the GPT-1.3B seq-8192 path: micro-batch 2 x 16 heads, head_dim 128
+LB, LS, LHD = 32, 8192, 128
+
+
+def _split_case(dtype, dev, sq, sk, d, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, do = (torch.randn((SB, sq, d), generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((SB, sk, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _split_checks(dev: torch.device) -> dict:
+    """The split kernels against their plain versions at ``[8, 1024, d]``
+    for d 64/128/256, f32 and bf16, causal and not (also sq 1024 / sk
+    512), dropout 0 and 0.1, with an lse that is not the rows' own (the
+    forward's plus 0.25: the ring's global-lse contract); then the split
+    pair against the fused kernel (d <= 128, dropout 0.1, f32)."""
+    from fleetx_tpu_torch.ops import flash_attention as FA
+
+    errs = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    cases = 0
+    for d in (64, 128, 256):
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            for causal, sk in ((True, SS), (False, SS), (False, SS // 2)):
+                q, k, v, do = _split_case(dtype, dev, SS, sk, d, d + sk)
+                scale = d ** -0.5
+                out, lse = FA.fwd_call(q, k, v, 0, scale, causal, 0.0)
+                lse = lse + 0.25
+                delta = (out.float() * do.float()).sum(-1)
+                for rate in (0.0, 0.1):
+                    args = (q, k, v, do, lse, delta, 77 + d, scale, causal,
+                            rate)
+                    dq = FA.bwd_dq_call(*args)
+                    dk, dv = FA.bwd_dkv_call(*args)
+                    p_dq = FA.bwd_dq_plain(*args)
+                    p_dk, p_dv = FA.bwd_dkv_plain(*args)
+                    torch.cuda.synchronize()
+                    check(dq.dtype == dtype and dk.dtype == dtype
+                          and dv.dtype == dtype, "split grads' dtypes")
+                    for got, want in ((dq, p_dq), (dk, p_dk), (dv, p_dv)):
+                        torch.testing.assert_close(got, want, **TOL[dtype])
+                    errs[name][0] = max(errs[name][0], _max_err([(dq, p_dq)]))
+                    errs[name][1] = max(errs[name][1], _max_err(
+                        [(dk, p_dk), (dv, p_dv)]))
+                    cases += 1
+                    del p_dq, p_dk, p_dv
+    fused_err = 0.0
+    for d in (64, 128):
+        q, k, v, do = _split_case(torch.float32, dev, SS, SS, d, 5 * d)
+        scale = d ** -0.5
+        out, lse = FA.fwd_call(q, k, v, 99, scale, True, 0.1)
+        delta = (out.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, 99, scale, True, 0.1)
+        f_dq, f_dk, f_dv = FA.bwd_call(*args)
+        dq = FA.bwd_dq_call(*args)
+        dk, dv = FA.bwd_dkv_call(*args)
+        torch.cuda.synchronize()
+        for got, want in ((dq, f_dq), (dk, f_dk), (dv, f_dv)):
+            torch.testing.assert_close(got, want, **TOL[torch.float32])
+        fused_err = max(fused_err, _max_err([(dq, f_dq), (dk, f_dk),
+                                             (dv, f_dv)]))
+    torch.cuda.empty_cache()
+    out = dict(cases=cases, dq_max_abs_err=errs["float32"][0],
+               dkv_max_abs_err=errs["float32"][1],
+               bf16_dq_max_abs_err=errs["bfloat16"][0],
+               bf16_dkv_max_abs_err=errs["bfloat16"][1],
+               split_vs_fused_max_abs_err=fused_err)
+    emit("split_kernels_vs_plain", **out)
+    return out
+
+
+def _split_timings(dev: torch.device, flush: torch.Tensor) -> dict:
+    """dq, dk/dv and the forward at ``[32, 8192, 128]`` bf16 causal (the
+    seq-8192 path's shape): CUDA events, L2 flushed, median of three calls;
+    each with its bound, the plain version at bh 4 (dense f32 scores there
+    are 1 GB a tensor; at bh 32 they would be 8.6 GB) and the yardstick:
+    one SDPA flash backward at ``[2, 16, 8192, 128]``, which gives dq, dk
+    and dv together, and the SDPA flash forward."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from fleetx_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    q, k, v, do = (torch.randn((LB, LS, LHD), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    scale = LHD ** -0.5
+    out, lse = FA.fwd_call(q, k, v, 0, scale, True, 0.0)
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, 0, scale, True, 0.0)
+    small = tuple(t[:4].contiguous() for t in (q, k, v, do, lse, delta))
+    small_args = small + (0, scale, True, 0.0)
+    # the kernels against their plain versions at the full sequence, on
+    # the first 4 heads (the plain versions' dense scores at bh 32 would
+    # not fit beside the rest)
+    errs = {}
+    got = FA.fwd_call(*small[:3], 0, scale, True, 0.0)
+    want = FA.fwd_plain(*small[:3], 0, scale, True, 0.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **TOL[torch.bfloat16])
+    torch.testing.assert_close(got[1], want[1], **TOL[torch.float32])
+    errs["flash_attention_fwd"] = _max_err(zip(got, want))
+    for name, call, plain in (
+            ("flash_attention_bwd_dq", FA.bwd_dq_call, FA.bwd_dq_plain),
+            ("flash_attention_bwd_dkv", FA.bwd_dkv_call, FA.bwd_dkv_plain)):
+        got, want = call(*small_args), plain(*small_args)
+        got, want = ((got,), (want,)) if name.endswith("dq") else (got, want)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **TOL[torch.bfloat16])
+        errs[name] = _max_err(zip(got, want))
+    del got, want
+    torch.cuda.empty_cache()
+    few = dict(iters=3, warmup=1)
+    rows = {
+        "flash_attention_fwd": dict(
+            ms=time_ms(lambda: FA.fwd_call(q, k, v, 0, scale, True, 0.0),
+                       flush, **few),
+            plain_ms=time_ms(lambda: FA.fwd_plain(
+                *small[:3], 0, scale, True, 0.0), flush, **few)),
+        "flash_attention_bwd_dq": dict(
+            ms=time_ms(lambda: FA.bwd_dq_call(*args), flush, **few),
+            plain_ms=time_ms(lambda: FA.bwd_dq_plain(*small_args), flush,
+                             **few)),
+        "flash_attention_bwd_dkv": dict(
+            ms=time_ms(lambda: FA.bwd_dkv_call(*args), flush, **few),
+            plain_ms=time_ms(lambda: FA.bwd_dkv_plain(*small_args), flush,
+                             **few)),
+    }
+
+    def four(t):
+        return t.reshape(LB // 16, 16, LS, LHD)
+
+    sq_, sk_, sv_ = (four(t).detach().clone().requires_grad_(True)
+                     for t in (q, k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            sq_, sk_, sv_, is_causal=True)
+        rows["flash_attention_fwd"]["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                four(q), four(k), four(v), is_causal=True), flush, **few)
+        bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, (sq_, sk_, sv_), four(do), retain_graph=True), flush,
+            **few)
+    del lib_out, sq_, sk_, sv_
+    rows["flash_attention_bwd_dq"]["library_ms"] = bwd_lib_ms
+    rows["flash_attention_bwd_dkv"]["library_ms"] = bwd_lib_ms
+
+    bh, item = LB, q.element_size()
+    pairs = LS * (LS + 1) // 2
+    tensor = bh * LS * LHD * item
+    vec = bh * LS * 4
+    # bytes: each input read once, each output written once
+    for name, nbytes, products in (
+            ("flash_attention_fwd", 4 * tensor + vec, 2),      # q,k,v,out,lse
+            ("flash_attention_bwd_dq", 5 * tensor + 2 * vec, 3),  # +do,delta
+            ("flash_attention_bwd_dkv", 6 * tensor + 2 * vec, 4)):
+        rows[name]["max_abs_err"] = errs[name]
+        rows[name]["bound_ms"], rows[name]["bound_by"] = _bound(
+            nbytes, products * 2 * pairs * LHD * bh, torch.bfloat16)
+        emit("kernel_seq8k", name=name, shape=[LB, LS, LHD],
+             dtype="bfloat16", causal=True, plain_bh=4, **rows[name])
+    pair_ms = rows["flash_attention_bwd_dq"]["ms"] + \
+        rows["flash_attention_bwd_dkv"]["ms"]
+    emit("split_pair_vs_sdpa_backward", split_pair_ms=pair_ms,
+         sdpa_flash_backward_ms=bwd_lib_ms, ratio=pair_ms / bwd_lib_ms)
+    del q, k, v, do, out, lse, delta, args, small, small_args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_split_kernels(dev: torch.device) -> dict:
+    """Phase 1c: the split backward kernels against their plain versions
+    and the fused kernel; then the kernels of the seq-8192 path at its
+    shapes, each against its plain version and timed (the dropout masks
+    are probed in phase 1b's ``_dropout_probes``)."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    _split_checks(dev)
+    rows = _split_timings(dev, flush)
+    # the norms at the seq-8192 path's rows: micro-batch 2 x 8192, 2048
+    norms = _norm_rows(torch.bfloat16, dev, flush, shape=(2, LS, 2048))
+    for name, row in norms.items():
+        emit("kernel_seq8k", name=name, shape=[2, LS, 2048],
+             dtype="bfloat16", **row)
+    rows.update(norms)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_train_kernels(dev: torch.device) -> dict:
@@ -482,6 +733,7 @@ def phase_train_kernels(dev: torch.device) -> dict:
     keep_rate = _dropout_probes(dev)
     emit("dropout_masks", rate=RATE, shape=[TB * TNH, TS, TS],
          fwd_bit_identical=True, bwd_bit_identical=True,
+         dq_bit_identical=True, dkv_bit_identical=True,
          keep_rate=keep_rate)
     torch.cuda.empty_cache()
     return result
@@ -712,6 +964,7 @@ TRAIN_STEPS = 10
 #: backward per layer; one norm forward and backward per LayerNorm call
 #: (ln1 and ln2 in each of 24 layers, plus ln_f)
 PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd_fused": 24,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "fused_norm_fwd": 49, "fused_norm_bwd": 49}
 
 
@@ -724,6 +977,8 @@ def _counters() -> dict:
     return {"paged_attention_decode": PA.paged_call,
             "flash_attention_fwd": FA.fwd_call,
             "flash_attention_bwd_fused": FA.bwd_call,
+            "flash_attention_bwd_dq": FA.bwd_dq_call,
+            "flash_attention_bwd_dkv": FA.bwd_dkv_call,
             "fused_norm_fwd": FN.fwd_call, "fused_norm_bwd": FN.bwd_call}
 
 
@@ -903,6 +1158,211 @@ def phase_train_kernel_vs_plain(dev: torch.device, card: str) -> None:
     emit("train_kernel_vs_plain", **result, nvidia_smi=card)
 
 
+# --------------------------------------------------------------- phase 6
+SEQ8K_STEPS = 3
+#: per step of the seq-8192 path (24 layers x 4 micro-batches, full
+#: recompute): the forward and the norm forwards inside each layer run
+#: twice (forward, then recomputed in the backward), ln_f once; one split
+#: backward pair per layer; the fused backward never
+SEQ8K_PER_STEP = {"flash_attention_fwd": 2 * 24 * 4,
+                  "flash_attention_bwd_dq": 24 * 4,
+                  "flash_attention_bwd_dkv": 24 * 4,
+                  "flash_attention_bwd_fused": 0,
+                  "fused_norm_fwd": (2 * 48 + 1) * 4,
+                  "fused_norm_bwd": 49 * 4,
+                  "paged_attention_decode": 0}
+
+
+def _trace_rows(prof) -> list:
+    """(kernel name, self device us) of every device row with time."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, _device_us(e)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return [(k, us) for k, us in rows if us > 0]
+
+
+def phase_seq8k_trainer(dev: torch.device, card: str) -> dict:
+    """Phase 6: GPT-1.3B at seq 8192 (``pretrain_gpt_1.3B_seq8k_ring.yaml``
+    with ``SEQ8K_OVERRIDES``: ring attention at ring size 1, full
+    recompute, the chunked LM head, 4 micro-batches of 2) through
+    ``build_trainer`` / ``fit`` at full width and depth for
+    ``SEQ8K_STEPS`` steps, the launch counts zeroed just before and read
+    just after; then one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+    from fleetx_tpu_torch.utils.hardware import peak_flops
+
+    cfg = load_config(SEQ8K_YAML, SEQ8K_OVERRIDES + ["Engine.logging_freq=1"])
+    engine, train_dl, _ = build_trainer(cfg, device=dev)
+    mc = engine.module.model_cfg
+    glb = cfg["Global"]
+    check(mc.num_layers == 24 and mc.hidden_size == 2048
+          and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+          and mc.dtype == torch.bfloat16 and glb["max_seq_len"] == 8192
+          and mc.max_position_embeddings == 8192
+          and glb["global_batch_size"] == 8 and glb["micro_batch_size"] == 2
+          and engine.accumulate_steps == 4 and mc.use_ring_attention
+          and mc.use_recompute
+          and mc.recompute_granularity == "full" and mc.vocab_chunk == 6288
+          and mc.hidden_dropout_prob == 0.1
+          and mc.attention_probs_dropout_prob == 0.0,
+          "not the full-width GPT-1.3B seq-8192 recipe")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                   # every count to 0 just before
+    losses = engine.fit(train_dl)
+    torch.cuda.synchronize()
+    counts = read_counts()          # read just after
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    for name, per_step in SEQ8K_PER_STEP.items():
+        check(counts[name] == per_step * SEQ8K_STEPS,
+              f"seq8k {name}: {counts[name]} launches, want {per_step} x "
+              f"{SEQ8K_STEPS} steps")
+    hist = engine.history
+    check(len(losses) == SEQ8K_STEPS and len(hist) == SEQ8K_STEPS,
+          "a step was not logged")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    norms = [h["grad_norm"] for h in hist]
+    check(all(np.isfinite(norms)), f"non-finite grad norm: {norms}")
+    expect = float(np.log(mc.vocab_size)
+                   + mc.hidden_size * mc.initializer_range ** 2 / 2)
+    check(abs(losses[0] - expect) < 0.1,
+          f"first loss {losses[0]} is not within 0.1 of {expect}")
+    step_s = statistics.median(h["train_cost"] for h in hist[1:])
+    tokens = glb["global_batch_size"] * glb["max_seq_len"]
+    fpt = engine.module.flops_per_token()
+    peak = peak_flops(torch.cuda.get_device_name(dev)) or PEAK_BF16_FLOPS
+    out = dict(steps=SEQ8K_STEPS, losses=losses, grad_norms=norms,
+               first_loss=losses[0], expected_first_loss=expect,
+               step_ms=[h["train_cost"] * 1e3 for h in hist],
+               step_ms_median_of_steps_2_3=step_s * 1e3,
+               tokens_per_step=tokens, tokens_per_s=tokens / step_s,
+               model_flops_per_step=fpt * tokens,
+               mfu=fpt * tokens / step_s / peak, peak_flops=peak,
+               max_memory_allocated_gb=peak_gb, launches=counts,
+               launches_per_step={k: counts[k] / SEQ8K_STEPS
+                                  for k in SEQ8K_PER_STEP},
+               nvidia_smi=card)
+    emit("seq8k_train_main_path", **out)
+
+    # where one step's time goes, from a profiled step
+    batch = engine.to_device(next(iter(train_dl)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.train_step(batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _trace_rows(prof)
+    ms = lambda us: us / 1e3  # noqa: E731
+
+    def share(pattern: str) -> float:
+        return ms(sum(us for k, us in rows if pattern in k))
+
+    device_ms = ms(sum(us for _, us in rows))
+    matmul_ms = ms(sum(us for k, us in rows if any(
+        m in k for m in ("nvjet", "gemm", "cutlass", "sm90_xmma"))))
+    kernels = {"flash_fwd_ms": share("flash_fwd_kernel"),
+               "flash_bwd_dq_ms": share("flash_bwd_dq_kernel"),
+               "flash_bwd_dkv_ms": share("flash_bwd_dkv_kernel"),
+               "norm_fwd_ms": share("fused_norm_fwd_kernel"),
+               "norm_bwd_ms": share("fused_norm_bwd_kernel")}
+    top = sorted(rows, key=lambda r: -r[1])[:12]
+    emit("seq8k_train_trace", steps=1, profiled_wall_ms=wall_ms,
+         unprofiled_step_ms=step_s * 1e3,
+         device_ms=device_ms if rows else None,
+         device_busy_share=device_ms / (step_s * 1e3) if rows else None,
+         matmul_ms=matmul_ms,
+         other_ms=device_ms - matmul_ms - sum(kernels.values()),
+         **kernels,
+         top_kernels_ms=[[k[:80], ms(us)] for k, us in top],
+         nvidia_smi=card)
+    del engine, batch, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- phase 7
+#: the training path at reduced depth for the on/off comparisons
+SHORT = ["Model.num_layers=4"]
+
+
+def phase_split_and_recompute_on_path(dev: torch.device, card: str) -> None:
+    """Phase 7, on ``pretrain_gpt_345M_synthetic.yaml`` cut to 4 layers,
+    one loss+grad evaluation per variant on the same weights, batch and
+    seed: (a) attention dropout 0.1, ``flash_fused_bwd`` on against off
+    (fused kernel against the split pair), f32 and bf16; (b) hidden and
+    attention dropout 0.1, f32, ``use_recompute`` with each granularity
+    against off."""
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
+    from fleetx_tpu_torch.tools.train import load_config
+
+    cfg = load_config(TRAIN_YAML, SHORT)
+    glb = cfg["Global"]
+    batch_np = next(iter(build_dataloader(
+        cfg["Data"], "Train", batch_size=glb["global_batch_size"],
+        seq_length=glb["max_seq_len"], vocab_size=cfg["Model"]["vocab_size"])))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+
+    def rel(g_a, g_b) -> float:
+        return max(float((a.float() - b.float()).abs().max())
+                   / max(float(b.float().abs().max()), 1e-30)
+                   for a, b in zip(g_a, g_b))
+
+    result = {}
+    for dtype in ("float32", "bfloat16"):
+        base = SHORT + [f"Model.dtype={dtype}",
+                        "Model.hidden_dropout_prob=0.0",
+                        "Model.attention_probs_dropout_prob=0.1"]
+        params = init_params(config_from_dict(dict(cfg["Model"])), seed=0,
+                             device=dev)
+        zero_counts()
+        fused = _loss_and_grads(base, params, batch)
+        split = _loss_and_grads(base + ["Model.flash_fused_bwd=False"],
+                                params, batch)
+        counts = read_counts()
+        layers = int(cfg["Model"]["num_layers"])
+        check(counts["flash_attention_bwd_fused"] == layers
+              and counts["flash_attention_bwd_dq"] == layers
+              and counts["flash_attention_bwd_dkv"] == layers,
+              f"split vs fused: launches {counts}")
+        diff = rel(split[1], fused[1])
+        result[f"split_vs_fused_{dtype}"] = dict(
+            loss_fused=fused[0], loss_split=split[0],
+            loss_diff=abs(fused[0] - split[0]),
+            max_grad_diff_over_leaf_max=diff)
+        if dtype == "float32":
+            check(abs(fused[0] - split[0]) <= 1e-6,
+                  f"f32 loss fused {fused[0]} vs split {split[0]}")
+            check(diff <= 1e-5, f"f32 grads split vs fused: {diff}")
+        del fused, split
+        torch.cuda.empty_cache()
+    base = SHORT + ["Model.dtype=float32", "Model.hidden_dropout_prob=0.1",
+                    "Model.attention_probs_dropout_prob=0.1"]
+    off = _loss_and_grads(base, params, batch)
+    for granularity in ("full", "full_attn", "core_attn"):
+        on = _loss_and_grads(base + ["Model.use_recompute=True",
+                                     f"Model.recompute_granularity="
+                                     f"{granularity}"], params, batch)
+        diff = rel(on[1], off[1])
+        result[f"recompute_{granularity}_vs_off_float32"] = dict(
+            loss_on=on[0], loss_off=off[0], loss_diff=abs(on[0] - off[0]),
+            max_grad_diff_over_leaf_max=diff)
+        check(abs(on[0] - off[0]) <= 1e-6,
+              f"recompute {granularity}: loss {on[0]} vs {off[0]}")
+        check(diff <= 1e-6, f"recompute {granularity}: grads {diff}")
+        del on
+        torch.cuda.empty_cache()
+    del params, off
+    torch.cuda.empty_cache()
+    emit("split_and_recompute_on_path", layers=int(cfg["Model"]["num_layers"]),
+         **result, nvidia_smi=card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -913,11 +1373,14 @@ def main() -> int:
     card = phase_env(build)
     kernels = phase_kernels(build, dev)
     train_kernels = phase_train_kernels(dev)
+    seq8k_kernels = phase_split_kernels(dev)
     main_path = phase_main_path(dev, card)
     phase_trace(dev, card)
     phase_kernel_vs_gather(dev, card)
     trainer = phase_trainer(dev, card)
     phase_train_kernel_vs_plain(dev, card)
+    seq8k = phase_seq8k_trainer(dev, card)
+    phase_split_and_recompute_on_path(dev, card)
     bf16 = kernels["bfloat16"]
     rows = [{
         "name": "paged_attention_decode", "route": "cuda",
@@ -928,20 +1391,28 @@ def main() -> int:
         "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
         "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
     }]
-    for name, source, replaces in (
+    # timings at the shapes of the path whose run gives the launches: the
+    # seq-8192 trainer (phase 6) for the forward, the split pair and the
+    # norms; the 345M trainer (phase 4) for the fused backward
+    for name, source, replaces, timing, run in (
             ("flash_attention_fwd", "flash_attention.cu",
-             "fleetx_tpu/ops/flash_attention.py:170"),
+             "fleetx_tpu/ops/flash_attention.py:170", seq8k_kernels, seq8k),
+            ("flash_attention_bwd_dq", "flash_attention.cu",
+             "fleetx_tpu/ops/flash_attention.py:268", seq8k_kernels, seq8k),
+            ("flash_attention_bwd_dkv", "flash_attention.cu",
+             "fleetx_tpu/ops/flash_attention.py:313", seq8k_kernels, seq8k),
             ("flash_attention_bwd_fused", "flash_attention.cu",
-             "fleetx_tpu/ops/flash_attention.py:431"),
+             "fleetx_tpu/ops/flash_attention.py:431",
+             train_kernels["bfloat16"], trainer),
             ("fused_norm_fwd", "fused_norm.cu",
-             "fleetx_tpu/ops/fused_norm.py:110"),
+             "fleetx_tpu/ops/fused_norm.py:110", seq8k_kernels, seq8k),
             ("fused_norm_bwd", "fused_norm.cu",
-             "fleetx_tpu/ops/fused_norm.py:133")):
-        row = train_kernels["bfloat16"][name]
+             "fleetx_tpu/ops/fused_norm.py:133", seq8k_kernels, seq8k)):
+        row = timing[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"fleetx_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": trainer["launches"][name],
+            "replaces": replaces, "launches": run["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

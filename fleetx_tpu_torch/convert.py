@@ -8,6 +8,9 @@ numpy arrays) and returns the same nesting of torch tensors on
 ``ln1`` / ``ln2`` / ``ln_f``, and the tied ``word_embeddings`` plus
 ``position_embeddings``. A missing or extra leaf, or a shape that
 differs from ``models/gpt/model.py:param_shapes``, raises.
+``check_tree(tree, cfg)`` runs the same checks on anything with a
+``.shape`` (``jax.eval_shape`` output) without converting a byte, so a
+full-size tree (GPT-1.3B) can be checked without its weights.
 """
 
 from __future__ import annotations
@@ -29,28 +32,36 @@ def _to_tensor(leaf: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
+def _walk(node: Any, want: Any, path: str, leaf) -> Any:
+    """``want``'s nesting with ``leaf(node)`` at each leaf; raises
+    ``ValueError`` on a missing or extra leaf or a shape mismatch."""
+    if isinstance(want, dict):
+        if not isinstance(node, Mapping):
+            raise ValueError(f"{path or '<root>'}: expected a subtree, "
+                             f"got {type(node).__name__}")
+        missing = sorted(set(want) - set(node))
+        extra = sorted(set(node) - set(want))
+        if missing or extra:
+            raise ValueError(f"{path or '<root>'}: missing leaves "
+                             f"{missing}, unexpected leaves {extra}")
+        return {k: _walk(node[k], want[k], f"{path}/{k}".lstrip("/"), leaf)
+                for k in want}
+    shape = tuple(getattr(node, "shape", None) or np.shape(node))
+    if shape != tuple(want):
+        raise ValueError(f"{path}: shape {shape} != expected "
+                         f"{tuple(want)}")
+    return leaf(node)
+
+
+def check_tree(tree: Mapping, cfg: GPTConfig) -> None:
+    """Structure and shape checks of ``params_from_jax`` alone."""
+    _walk(tree, param_shapes(cfg), "", lambda node: None)
+
+
 def params_from_jax(tree: Mapping, cfg: GPTConfig,
                     device: Union[str, torch.device] = "cpu") -> dict:
     """Convert an unboxed numpy param tree; raises ``ValueError`` on any
     structural or shape mismatch."""
     device = torch.device(device)
-
-    def walk(node: Any, want: Any, path: str) -> Any:
-        if isinstance(want, dict):
-            if not isinstance(node, Mapping):
-                raise ValueError(f"{path or '<root>'}: expected a subtree, "
-                                 f"got {type(node).__name__}")
-            missing = sorted(set(want) - set(node))
-            extra = sorted(set(node) - set(want))
-            if missing or extra:
-                raise ValueError(f"{path or '<root>'}: missing leaves "
-                                 f"{missing}, unexpected leaves {extra}")
-            return {k: walk(node[k], want[k], f"{path}/{k}".lstrip("/"))
-                    for k in want}
-        shape = tuple(np.shape(node))
-        if shape != tuple(want):
-            raise ValueError(f"{path}: shape {shape} != expected "
-                             f"{tuple(want)}")
-        return _to_tensor(node, device)
-
-    return walk(tree, param_shapes(cfg), "")
+    return _walk(tree, param_shapes(cfg), "",
+                 lambda node: _to_tensor(node, device))

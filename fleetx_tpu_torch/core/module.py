@@ -10,7 +10,23 @@ hooks print the reference's line: loss, step time, tokens/s and, on a
 card the peak table knows, MFU against its bf16 dense peak.
 
 Model knobs this slice does not cover raise ``NotImplementedError``
-naming their ROADMAP item (``check_model_config``).
+naming their ROADMAP item (``check_model_config``). With
+``Model.vocab_chunk`` set, both losses go through the chunked LM head
+(the model returns the masked loss, never the ``[b, s, vocab]`` logits),
+as the JAX module does.
+
+Knobs of the long-context recipe (``pretrain_gpt_1.3B_seq8k_ring.yaml``)
+and what they do here: ``use_ring_attention`` routes attention through
+``ops/ring_attention.py`` at ring size 1 (the training slice runs on one
+device: ``Distributed.seq_degree`` above 1 raises in the config loader,
+port queue item 12); ``ring_kv_chunk`` acts only on the ring's
+einsum path, which the recipe's shapes (seq 8192, head_dim 128) never
+take;
+``attention_probs_dropout_prob`` must be 0.0 there, as JAX asserts;
+``use_recompute`` with ``recompute_granularity`` full / full_attn /
+core_attn checkpoints the layer / the attention call / the attention
+core. ``fused_linear``, ``scan_layers`` and ``scan_unroll`` are XLA
+compile knobs with no effect on this eager port and are read by nothing.
 """
 
 from __future__ import annotations
@@ -24,20 +40,26 @@ from fleetx_tpu_torch.utils.log import logger
 
 #: (predicate on GPTConfig, what, ROADMAP port queue item)
 _UNCOVERED = (
-    (lambda c: c.use_recompute, "Model.use_recompute", 9),
-    (lambda c: bool(c.vocab_chunk), "Model.vocab_chunk", 10),
-    (lambda c: c.use_flash_attention and not c.flash_fused_bwd,
-     "Model.flash_fused_bwd: False (the split flash backward, kernels 2/3)",
-     1),
-    (lambda c: c.use_ring_attention, "Model.use_ring_attention", 1),
+    (lambda c: c.use_recompute and c.recompute_granularity == "dots",
+     "Model.recompute_granularity: dots (the saved-dots remat policy with "
+     "remat_save_dtype / remat_consumed_layout)", 9),
     (lambda c: c.sequence_parallel, "Model.sequence_parallel", 12),
     (lambda c: c.moe_num_experts > 0, "Model.moe_num_experts > 0 (MoE)", 7),
     (lambda c: c.use_qat, "QAT (Model.use_qat / Quantization.enable)", 7),
 )
 
 
+#: recompute granularities the port implements (``dots`` raises above)
+RECOMPUTE_GRANULARITIES = ("full", "full_attn", "core_attn", "dots")
+
+
 def check_model_config(cfg: M.GPTConfig) -> None:
     """Raise on a model knob the training slice does not cover."""
+    if cfg.use_recompute and \
+            cfg.recompute_granularity not in RECOMPUTE_GRANULARITIES:
+        raise ValueError(f"Model.recompute_granularity "
+                         f"{cfg.recompute_granularity!r} is not one of "
+                         f"{RECOMPUTE_GRANULARITIES}")
     for uncovered, what, item in _UNCOVERED:
         if uncovered(cfg):
             raise NotImplementedError(
@@ -138,18 +160,26 @@ class GPTModule(LanguageModule):
         """``(loss, metrics)`` with dropout on."""
         c = self.model_cfg
         rng = M.dropout_rng(seed, step, c.num_layers, batch["tokens"].device)
-        logits = M.gpt_for_pretraining(
-            params, c, batch["tokens"], batch["position_ids"],
-            deterministic=False, rng=rng)
-        loss = M.cross_entropy_loss(logits, batch["labels"],
-                                    batch["loss_mask"])
+        loss = self._loss(params, batch, deterministic=False, rng=rng)
         return loss, {"loss": loss}
 
     def validation_loss(self, params: dict, batch: dict):
         """``(loss, metrics)`` with dropout off."""
-        logits = M.gpt_for_pretraining(
-            params, self.model_cfg, batch["tokens"], batch["position_ids"],
-            deterministic=True)
-        loss = M.cross_entropy_loss(logits, batch["labels"],
-                                    batch["loss_mask"])
+        loss = self._loss(params, batch, deterministic=True, rng=None)
         return loss, {"loss": loss}
+
+    def _loss(self, params: dict, batch: dict, *, deterministic: bool,
+              rng):
+        """The masked LM loss: through the chunked head when
+        ``vocab_chunk`` is set, else from the full logits."""
+        c = self.model_cfg
+        if c.vocab_chunk:
+            return M.gpt_for_pretraining(
+                params, c, batch["tokens"], batch["position_ids"],
+                deterministic=deterministic, rng=rng,
+                labels=batch["labels"], loss_mask=batch["loss_mask"])
+        logits = M.gpt_for_pretraining(
+            params, c, batch["tokens"], batch["position_ids"],
+            deterministic=deterministic, rng=rng)
+        return M.cross_entropy_loss(logits, batch["labels"],
+                                    batch["loss_mask"])

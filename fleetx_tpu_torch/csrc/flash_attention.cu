@@ -1,7 +1,7 @@
-// Causal flash attention for Hopper (sm_90a): the forward and the fused
-// single-pass backward.
+// Causal flash attention for Hopper (sm_90a): the forward, the fused
+// single-pass backward and the split backward (dq; dk/dv).
 //
-// Replaces two Pallas TPU kernels of fleetx_tpu/ops/flash_attention.py:
+// Replaces four Pallas TPU kernels of fleetx_tpu/ops/flash_attention.py:
 //   * _fwd_kernel (launched by _fwd): FlashAttention-2 forward over
 //     [b*heads, seq, head_dim]. Scores q.k * scale in f32, -1e30 above the
 //     diagonal, f32 online softmax whose normaliser l uses the UNdropped p;
@@ -12,6 +12,12 @@
 //     mask (_bwd_fused_kernel:484-493), ds = p * (dp - delta) * scale, and
 //     emits dq (f32), dk and dv (input dtype). delta = sum(out * do) is
 //     computed outside the kernel, as _bwd does.
+//   * _bwd_dq_kernel (launched by _bwd_dq) and _bwd_dkv_kernel (launched by
+//     _bwd_dkv): the split FlashAttention-2 backward, taken where the fused
+//     kernel does not apply (fused_bwd off, head_dim 256) and always by the
+//     ring path, which feeds them the GLOBAL logsumexp. dq comes back in
+//     the operand dtype, dk/dv in the k/v dtype; sq != sk is allowed when
+//     not causal.
 //
 // Dropout: the TPU draws its mask from the hardware PRNG per block; here
 // one counter-based hash per ELEMENT, keyed by (seed, b*head, row, col):
@@ -45,6 +51,17 @@
 //   device memory (the first k tile writes them). Each thread always owns
 //   the same dq elements, so no other thread or block ever touches them.
 //   128 blocks at the 345M shape: one wave on 132 SMs.
+//   Split backward: the TPU kernels carry their dq (resp. dk/dv)
+//   accumulator across a sequential grid dimension; here that dimension is
+//   a loop inside one block. dq: one block per (q tile, head) walking the k
+//   tiles up to the diagonal; dk/dv: one block per (k tile, head) walking
+//   the q tiles from the diagonal down. Each recomputes S and dP for its
+//   tiles (the price of the split: 3 and 4 products where the fused kernel
+//   does 5 for both) and keeps its accumulators in registers, written once:
+//   deterministic, no atomics. At the GPT-1.3B seq-8192 shape
+//   ([32, 8192, 128] causal) that is 4096 blocks each, many waves; bound by
+//   operations (~0.83 ms and ~1.11 ms at the bf16 tensor rate), run here on
+//   the SIMT cores in f32 like the kernels above.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -133,7 +150,8 @@ struct IO<__half> {
   }
 };
 
-// N consecutive f32 from shared memory (N = 2 or 4, 8/16-byte aligned)
+// N consecutive f32 from shared memory (N = 1, 2 or 4; 4/8/16-byte
+// aligned)
 template <int N>
 __device__ __forceinline__ void lds(const float* p, float* o);
 
@@ -147,6 +165,11 @@ template <>
 __device__ __forceinline__ void lds<2>(const float* p, float* o) {
   const float2 v = *reinterpret_cast<const float2*>(p);
   o[0] = v.x; o[1] = v.y;
+}
+
+template <>
+__device__ __forceinline__ void lds<1>(const float* p, float* o) {
+  o[0] = *p;
 }
 
 // g[R][D] (row-major, type T) -> s[d * ld + r] (d-major f32). Consecutive
@@ -538,6 +561,322 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(
   }
 }
 
+// ------------------------------------------------- split backward: dq
+// One block per (q tile of BQ rows, head), heaviest causal tiles first.
+// Q and dO stay in shared memory (d-major) for the whole block; the block
+// walks the k tiles (BK rows) from 0 to the diagonal (all of them when not
+// causal). Per k tile: S = Q K^T and dP = dO V^T (TM x TN per thread),
+// P = exp(S*scale - lse) from the GIVEN lse (any logsumexp: the ring feeds
+// the global one), dP masked by the dropout hash and divided by the keep
+// probability (_bwd_dq_kernel:301-305), dS = P (dP - delta) scale staged
+// column-major, then dQ += dS K into registers. dQ is written once, in the
+// operand dtype; no atomics.
+template <int D, int BQ, int BK>
+struct DqSmem {
+  static constexpr int LQ = BQ + 4;  // Qt / dOt / dSt row stride
+  static constexpr int LK = BK + 4;  // Kt / Vt row stride
+  static constexpr int LD = D + 4;   // Kr row stride
+  static constexpr int kFloats = 2 * D * LQ + 2 * D * LK + BK * LD + BK * LQ
+                                 + 2 * BQ;  // lse, delta
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+};
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
+    int causal, float scale, uint32_t seed, uint32_t thresh, int dropout,
+    float keep_prob) {
+  constexpr int TM = BQ / 16;  // q rows per thread (S, dP, dQ)
+  constexpr int TN = BK / 16;  // k columns per thread (S, dP)
+  constexpr int DC = D / 64;   // 64-wide dQ column groups
+  using S = DqSmem<D, BQ, BK>;
+  extern __shared__ __align__(16) float smem[];
+  float* Qt = smem;                  // [D][LQ]
+  float* dOt = Qt + D * S::LQ;       // [D][LQ]
+  float* Kt = dOt + D * S::LQ;       // [D][LK]
+  float* Vt = Kt + D * S::LK;        // [D][LK]
+  float* Kr = Vt + D * S::LK;        // [BK][LD]
+  float* dSt = Kr + BK * S::LD;      // [BK][LQ]
+  float* lse_s = dSt + BK * S::LQ;   // [BQ]
+  float* delta_s = lse_s + BQ;       // [BQ]
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const size_t head = static_cast<size_t>(bh);
+  const T* kg = k + head * sk * D;
+  const T* vg = v + head * sk * D;
+  const uint32_t kh = head_key(seed, bh);
+
+  load_t<T, D>(q + (head * sq + q0) * D, BQ, Qt, S::LQ);
+  load_t<T, D>(dout + (head * sq + q0) * D, BQ, dOt, S::LQ);
+  if (threadIdx.x < BQ) {
+    lse_s[threadIdx.x] = lse[head * sq + q0 + threadIdx.x];
+    delta_s[threadIdx.x] = delta[head * sq + q0 + threadIdx.x];
+  }
+
+  float dq_acc[TM][DC * 4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < DC * 4; ++c) dq_acc[i][c] = 0.f;
+
+  const int nk = causal ? (q0 + BQ - 1) / BK + 1 : sk / BK;
+  for (int kj = 0; kj < nk; ++kj) {
+    const int k0 = kj * BK;
+    __syncthreads();  // the previous tile's readers of Kt/Vt/Kr/dSt are done
+    load_t<T, D>(kg + static_cast<size_t>(k0) * D, BK, Kt, S::LK);
+    load_t<T, D>(vg + static_cast<size_t>(k0) * D, BK, Vt, S::LK);
+    load_r<T, D>(kg + static_cast<size_t>(k0) * D, BK, Kr, S::LD);
+    __syncthreads();
+
+    float s[TM][TN];
+    float dp[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        s[i][j] = 0.f;
+        dp[i][j] = 0.f;
+      }
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[TM];
+      float g[TM];
+      float b[TN];
+      float w[TN];
+      lds<TM>(Qt + d * S::LQ + ty * TM, a);
+      lds<TM>(dOt + d * S::LQ + ty * TM, g);
+      lds<TN>(Kt + d * S::LK + tx * TN, b);
+      lds<TN>(Vt + d * S::LK + tx * TN, w);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          s[i][j] += a[i] * b[j];
+          dp[i][j] += g[i] * w[j];
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = ty * TM + i;
+      const int row = q0 + r;
+      const float L = lse_s[r];
+      const float Dl = delta_s[r];
+      const uint32_t rk = mix32(kh ^ static_cast<uint32_t>(row));
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = tx * TN + j;
+        const int col = k0 + c;
+        float x = s[i][j] * scale;
+        if (causal && col > row) x = kNegInf;
+        const float p = expf(x - L);
+        float dpv = dp[i][j];
+        if (dropout)
+          dpv = drop_bits(rk, col) >= thresh ? dpv / keep_prob : 0.f;
+        dSt[c * S::LQ + r] = p * (dpv - Dl) * scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float a[TM];
+      lds<TM>(dSt + c * S::LQ + ty * TM, a);
+#pragma unroll
+      for (int g = 0; g < DC; ++g) {
+        float b[4];
+        lds<4>(Kr + c * S::LD + g * 64 + tx * 4, b);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dq_acc[i][g * 4 + j] += a[i] * b[j];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    T* drow = dq + (head * sq + q0 + ty * TM + i) * D;
+#pragma unroll
+    for (int g = 0; g < DC; ++g)
+      IO<T>::store4(drow + g * 64 + tx * 4, &dq_acc[i][g * 4]);
+  }
+}
+
+// ---------------------------------------------- split backward: dk / dv
+// One block per (k tile of BK rows, head), heaviest causal tiles (the
+// first ones) first. K and V stay in shared memory (d-major); the block
+// walks the q tiles from the first whose last row reaches k0 (k0 / BQ
+// under causal, 0 otherwise) to the end. Per q tile: S and dP as in the dq
+// kernel, the dropped P / (1 - rate) for dV and dP masked and multiplied
+// by 1 / (1 - rate) (_bwd_dkv_kernel:347-360), dS = P (dP - delta) scale;
+// P and dS staged row-major, then dV += P^T dO and dK += dS^T Q into
+// registers (TN k rows x head_dim/16 columns per thread). dK and dV are
+// written once, in the k/v dtype; no atomics.
+template <int D, int BQ, int BK>
+struct DkvSmem {
+  static constexpr int LQ = BQ + 4;  // Qt / dOt row stride
+  static constexpr int LK = BK + 4;  // Kt / Vt / Pr / dSr row stride
+  static constexpr int LD = D + 4;   // Qr / dOr row stride
+  static constexpr int kFloats = 2 * D * LK + 2 * D * LQ + 2 * BQ * LD
+                                 + 2 * BQ * LK + 2 * BQ;  // lse, delta
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+};
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int sq, int sk, int causal, float scale, uint32_t seed, uint32_t thresh,
+    int dropout, float inv) {
+  constexpr int TM = BQ / 16;  // q rows per thread (S, dP)
+  constexpr int TN = BK / 16;  // k columns per thread (S, dP); k rows (dK, dV)
+  constexpr int DC = D / 64;   // 64-wide dK/dV column groups
+  using S = DkvSmem<D, BQ, BK>;
+  extern __shared__ __align__(16) float smem[];
+  float* Kt = smem;                   // [D][LK]
+  float* Vt = Kt + D * S::LK;         // [D][LK]
+  float* Qt = Vt + D * S::LK;         // [D][LQ]
+  float* dOt = Qt + D * S::LQ;        // [D][LQ]
+  float* Qr = dOt + D * S::LQ;        // [BQ][LD]
+  float* dOr = Qr + BQ * S::LD;       // [BQ][LD]
+  float* Pr = dOr + BQ * S::LD;       // [BQ][LK]
+  float* dSr = Pr + BQ * S::LK;       // [BQ][LK]
+  float* lse_s = dSr + BQ * S::LK;    // [BQ]
+  float* delta_s = lse_s + BQ;        // [BQ]
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BK;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const size_t head = static_cast<size_t>(bh);
+  const T* qg = q + head * sq * D;
+  const T* dog = dout + head * sq * D;
+  const uint32_t kh = head_key(seed, bh);
+
+  load_t<T, D>(k + (head * sk + k0) * D, BK, Kt, S::LK);
+  load_t<T, D>(v + (head * sk + k0) * D, BK, Vt, S::LK);
+
+  float dk_acc[TN][DC * 4];
+  float dv_acc[TN][DC * 4];
+#pragma unroll
+  for (int i = 0; i < TN; ++i)
+#pragma unroll
+    for (int c = 0; c < DC * 4; ++c) {
+      dk_acc[i][c] = 0.f;
+      dv_acc[i][c] = 0.f;
+    }
+
+  // causal: the first q tile whose last row q0 + BQ - 1 reaches k0
+  for (int qi = causal ? k0 / BQ : 0; qi < sq / BQ; ++qi) {
+    const int q0 = qi * BQ;
+    __syncthreads();  // the previous q tile's readers are done
+    load_t<T, D>(qg + static_cast<size_t>(q0) * D, BQ, Qt, S::LQ);
+    load_t<T, D>(dog + static_cast<size_t>(q0) * D, BQ, dOt, S::LQ);
+    load_r<T, D>(qg + static_cast<size_t>(q0) * D, BQ, Qr, S::LD);
+    load_r<T, D>(dog + static_cast<size_t>(q0) * D, BQ, dOr, S::LD);
+    if (threadIdx.x < BQ) {
+      lse_s[threadIdx.x] = lse[head * sq + q0 + threadIdx.x];
+      delta_s[threadIdx.x] = delta[head * sq + q0 + threadIdx.x];
+    }
+    __syncthreads();
+
+    float s[TM][TN];
+    float dp[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        s[i][j] = 0.f;
+        dp[i][j] = 0.f;
+      }
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[TM];
+      float g[TM];
+      float b[TN];
+      float w[TN];
+      lds<TM>(Qt + d * S::LQ + ty * TM, a);
+      lds<TM>(dOt + d * S::LQ + ty * TM, g);
+      lds<TN>(Kt + d * S::LK + tx * TN, b);
+      lds<TN>(Vt + d * S::LK + tx * TN, w);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          s[i][j] += a[i] * b[j];
+          dp[i][j] += g[i] * w[j];
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = ty * TM + i;
+      const int row = q0 + r;
+      const float L = lse_s[r];
+      const float Dl = delta_s[r];
+      const uint32_t rk = mix32(kh ^ static_cast<uint32_t>(row));
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = tx * TN + j;
+        const int col = k0 + c;
+        float x = s[i][j] * scale;
+        if (causal && col > row) x = kNegInf;
+        const float p = expf(x - L);
+        float dpv = dp[i][j];
+        float pd = p;
+        if (dropout) {
+          const bool keep = drop_bits(rk, col) >= thresh;
+          pd = keep ? p * inv : 0.f;
+          dpv = keep ? dpv * inv : 0.f;
+        }
+        Pr[r * S::LK + c] = pd;
+        dSr[r * S::LK + c] = p * (dpv - Dl) * scale;
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q: k rows ty*TN+i of the tile
+#pragma unroll 2
+    for (int r = 0; r < BQ; ++r) {
+      float pa[TN];
+      float sa[TN];
+      lds<TN>(Pr + r * S::LK + ty * TN, pa);
+      lds<TN>(dSr + r * S::LK + ty * TN, sa);
+#pragma unroll
+      for (int g = 0; g < DC; ++g) {
+        float go[4];
+        float qv[4];
+        lds<4>(dOr + r * S::LD + g * 64 + tx * 4, go);
+        lds<4>(Qr + r * S::LD + g * 64 + tx * 4, qv);
+#pragma unroll
+        for (int i = 0; i < TN; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            dv_acc[i][g * 4 + j] += pa[i] * go[j];
+            dk_acc[i][g * 4 + j] += sa[i] * qv[j];
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TN; ++i) {
+    const size_t row = head * sk + k0 + ty * TN + i;
+#pragma unroll
+    for (int g = 0; g < DC; ++g) {
+      IO<T>::store4(dk + row * D + g * 64 + tx * 4, &dk_acc[i][g * 4]);
+      IO<T>::store4(dv + row * D + g * 64 + tx * 4, &dv_acc[i][g * 4]);
+    }
+  }
+}
+
 template <typename T, int D, int BQ>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, float* lse, int bh, int sq, int sk,
@@ -577,6 +916,101 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, causal, scale, seed,
       thresh, dropout, inv);
   return cudaGetLastError();
+}
+
+template <typename T, int D, int BQ, int BK>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int bh, int sq, int sk, int causal,
+                      float scale, uint32_t seed, uint32_t thresh,
+                      int dropout, float keep_prob, cudaStream_t stream) {
+  if (sq % BQ || sk % BK) return cudaErrorInvalidValue;
+  const size_t bytes = DqSmem<D, BQ, BK>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D, BQ, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(sq / BQ, bh);
+  flash_bwd_dq_kernel<T, D, BQ, BK><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), sq, sk, causal, scale, seed, thresh, dropout,
+      keep_prob);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, int BQ, int BK>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int bh, int sq,
+                       int sk, int causal, float scale, uint32_t seed,
+                       uint32_t thresh, int dropout, float inv,
+                       cudaStream_t stream) {
+  if (sq % BQ || sk % BK) return cudaErrorInvalidValue;
+  const size_t bytes = DkvSmem<D, BQ, BK>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D, BQ, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(sk / BK, bh);
+  flash_bwd_dkv_kernel<T, D, BQ, BK><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, causal, scale, seed,
+      thresh, dropout, inv);
+  return cudaGetLastError();
+}
+
+// Tiles (BQ, BK) per head_dim. Shared memory per block: dq 104,960 /
+// 190,976 / 185,600 bytes and dk/dv 139,776 / 157,952 / 223,488 bytes for
+// head_dim 64 / 128 / 256, under the 232,448 a block may use.
+template <typename T>
+cudaError_t dq_by_dim(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int bh, int sq, int sk, int d, int causal,
+                      float scale, uint32_t seed, uint32_t thresh,
+                      int dropout, float keep_prob, cudaStream_t st) {
+  switch (d) {
+    case 64:
+      return launch_dq<T, 64, 64, 64>(q, k, v, dout, lse, delta, dq, bh, sq,
+                                      sk, causal, scale, seed, thresh,
+                                      dropout, keep_prob, st);
+    case 128:
+      return launch_dq<T, 128, 64, 64>(q, k, v, dout, lse, delta, dq, bh, sq,
+                                       sk, causal, scale, seed, thresh,
+                                       dropout, keep_prob, st);
+    case 256:
+      return launch_dq<T, 256, 32, 32>(q, k, v, dout, lse, delta, dq, bh, sq,
+                                       sk, causal, scale, seed, thresh,
+                                       dropout, keep_prob, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dkv_by_dim(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int bh, int sq,
+                       int sk, int d, int causal, float scale, uint32_t seed,
+                       uint32_t thresh, int dropout, float inv,
+                       cudaStream_t st) {
+  switch (d) {
+    case 64:
+      return launch_dkv<T, 64, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                       sq, sk, causal, scale, seed, thresh,
+                                       dropout, inv, st);
+    case 128:
+      return launch_dkv<T, 128, 32, 64>(q, k, v, dout, lse, delta, dk, dv,
+                                        bh, sq, sk, causal, scale, seed,
+                                        thresh, dropout, inv, st);
+    case 256:
+      return launch_dkv<T, 256, 32, 32>(q, k, v, dout, lse, delta, dk, dv,
+                                        bh, sq, sk, causal, scale, seed,
+                                        thresh, dropout, inv, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -683,6 +1117,66 @@ extern "C" int fleetx_flash_bwd_fused(const void* q, const void* k,
     err = bwd_by_dim<__half>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq,
                              sk, d, causal, scale, seed, thresh, dropout,
                              inv, st);
+  }
+  return static_cast<int>(err);
+}
+
+// Split backward. dq [bh, sq, d] in the operand dtype; dk/dv [bh, sk, d] in
+// the operand dtype. lse may be any logsumexp of the rows (the ring feeds
+// the global one). keep_prob = 1 - rate (dq divides by it, as
+// _bwd_dq_kernel does); inv = 1 / (1 - rate) (dk/dv multiply by it, as
+// _bwd_dkv_kernel does).
+extern "C" int fleetx_flash_bwd_dq(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const float* lse, const float* delta,
+                                   void* dq, int bh, int sq, int sk, int d,
+                                   int causal, int dtype, float scale,
+                                   uint32_t seed, uint32_t thresh,
+                                   int dropout, float keep_prob,
+                                   void* stream) {
+  if (!geometry_ok(bh, sq, sk, causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = dq_by_dim<float>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                           causal, scale, seed, thresh, dropout, keep_prob,
+                           st);
+  } else if (dtype == 1) {
+    err = dq_by_dim<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, sq, sk,
+                                   d, causal, scale, seed, thresh, dropout,
+                                   keep_prob, st);
+  } else if (dtype == 2) {
+    err = dq_by_dim<__half>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                            causal, scale, seed, thresh, dropout, keep_prob,
+                            st);
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" int fleetx_flash_bwd_dkv(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* lse, const float* delta,
+                                    void* dk, void* dv, int bh, int sq,
+                                    int sk, int d, int causal, int dtype,
+                                    float scale, uint32_t seed,
+                                    uint32_t thresh, int dropout, float inv,
+                                    void* stream) {
+  if (!geometry_ok(bh, sq, sk, causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = dkv_by_dim<float>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
+                            causal, scale, seed, thresh, dropout, inv, st);
+  } else if (dtype == 1) {
+    err = dkv_by_dim<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                    sq, sk, d, causal, scale, seed, thresh,
+                                    dropout, inv, st);
+  } else if (dtype == 2) {
+    err = dkv_by_dim<__half>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                             d, causal, scale, seed, thresh, dropout, inv,
+                             st);
   }
   return static_cast<int>(err);
 }

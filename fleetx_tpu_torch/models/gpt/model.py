@@ -4,8 +4,11 @@ Port of ``fleetx_tpu/models/gpt/model.py``: ``GPTConfig`` (:45-136) with
 the training knobs, ``PRESETS`` / ``config_from_dict`` (:871-895), and the
 forward of ``GPTEmbeddings``, ``MultiHeadAttention._core_attn``,
 ``GPTMlp``, ``LayerNorm``, ``TransformerDecoderLayer``, ``GPTModel`` and
-``GPTForPretraining`` (:299-767) with ``cross_entropy_per_token``,
-``masked_mean`` and ``cross_entropy_loss`` (:846-866).
+``GPTForPretraining`` (:299-767) with the remat granularities ``full``,
+``full_attn`` and ``core_attn`` (:423, :547-555, :639-651; ``recompute``
+here), ``chunked_cross_entropy_per_token`` (:770-843),
+``cross_entropy_per_token``, ``masked_mean`` and ``cross_entropy_loss``
+(:846-866).
 
 Parameters are a nested dict of tensors shaped exactly like the flax
 pytree (``nn.scan`` stacks layer leaves on a leading ``[num_layers]`` dim;
@@ -19,8 +22,9 @@ backward stacks the per-layer grads in one pass).
 The reference's cast points are kept: weights ``.to(dtype)`` at use (one
 cast per use, so a tied leaf's two grads sum in f32 at the leaf), a
 compute-dtype residual stream, f32 LayerNorm, an f32 softmax and f32
-logsumexp. ``use_flash_attention`` and ``fused_residual_norm`` pick the
-hand-written kernels (``ops/flash_attention.py``, ``ops/fused_norm.py``)
+logsumexp. ``use_ring_attention`` routes attention through
+``ops/ring_attention.py``; otherwise ``use_flash_attention`` and
+``fused_residual_norm`` pick the hand-written kernels (``ops/flash_attention.py``, ``ops/fused_norm.py``)
 where their gates admit the shape, and the plain ``finfo.min``-masked
 softmax / unfused LayerNorm otherwise, as the JAX module does.
 """
@@ -28,14 +32,17 @@ softmax / unfused LayerNorm otherwise, as the JAX module does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from fleetx_tpu_torch.ops import flash_attention as FA
 from fleetx_tpu_torch.ops import fused_norm as FN
+from fleetx_tpu_torch.ops import ring_attention as RA
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -56,6 +63,8 @@ class GPTConfig:
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
     use_recompute: bool = False
+    # full | full_attn | core_attn (``dots`` is not ported: ROADMAP item 9)
+    recompute_granularity: str = "full"
     # dtype of the gradient-accumulation carry; None ("native") keeps the
     # grads' own dtype
     grad_accum_dtype: Optional[torch.dtype] = torch.float32
@@ -64,6 +73,9 @@ class GPTConfig:
     fused_residual_norm: bool = True
     sequence_parallel: bool = False
     use_ring_attention: bool = False
+    # stream the einsum ring path's K/V in chunks of this many tokens
+    ring_kv_chunk: Optional[int] = None
+    # the chunked LM head's vocab chunk (memory cap); None = full logits
     vocab_chunk: Optional[int] = None
     use_qat: bool = False
     moe_num_experts: int = 0   # 0 = dense FFN; MoE is not ported yet
@@ -192,6 +204,42 @@ def _dropout(x: torch.Tensor, rate: float, rng: DropoutRng) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+def recompute(fn, rng: Optional[DropoutRng], *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward, as ``jax.checkpoint`` / ``nn.remat`` do.
+
+    Every hidden-dropout mask draws from ``rng.gen``, an explicit
+    generator that checkpointing does not restore, so the recomputation
+    would draw other masks than the forward and the grads would be
+    silently wrong. The generator's state is taken at the start of the
+    span, set back to it when the recomputation starts, and returned to
+    where the first forward left it when the recomputation ends (also when
+    it stops early). The flash kernels' attention dropout is a hash of
+    ``(layer seed, head, row, col)`` and needs nothing. No draw uses the
+    default generators, so checkpoint's own RNG stash is off.
+    """
+    if rng is None:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    start = rng.gen.get_state()
+    ran = []
+
+    def replay(*a):
+        if not ran:  # the first forward
+            ran.append(True)
+            return fn(*a)
+        resume = rng.gen.get_state()
+        rng.gen.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            rng.gen.set_state(resume)
+
+    return checkpoint(replay, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def layer_norm(p: dict, x: torch.Tensor, cfg: GPTConfig,
                residual: Optional[torch.Tensor] = None):
     """``LayerNorm``: f32 pre-norm; with ``residual`` it folds the block
@@ -210,18 +258,10 @@ def layer_norm(p: dict, x: torch.Tensor, cfg: GPTConfig,
     return out if residual is None else (out, s)
 
 
-def core_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              cfg: GPTConfig, *, deterministic: bool,
-              rng: Optional[DropoutRng], layer: int) -> torch.Tensor:
-    """``MultiHeadAttention._core_attn``: causal attention over
-    ``[b, s, heads, head_dim]``, the flash kernels where ``supported``
-    admits the shape, else the ``finfo.min``-masked f32 softmax."""
-    rate = 0.0 if deterministic else cfg.attention_probs_dropout_prob
-    if cfg.use_flash_attention and FA.supported(q, k):
-        seed = rng.layer_seeds[layer] if rate > 0.0 else 0
-        return FA.flash_attention(q, k, v, causal=True,
-                                  fused_bwd=cfg.flash_fused_bwd,
-                                  dropout_rate=rate, dropout_seed=seed)
+def _plain_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                cfg: GPTConfig, rate: float,
+                rng: Optional[DropoutRng]) -> torch.Tensor:
+    """The ``finfo.min``-masked f32 softmax attention (``plain``)."""
     root = torch.tensor(math.sqrt(cfg.head_dim), dtype=torch.float32)
     scores = torch.einsum("bqnd,bknd->bnqk", q, k) / \
         root.to(device=q.device, dtype=q.dtype)
@@ -233,6 +273,35 @@ def core_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rate > 0.0:
         probs = _dropout(probs, rate, rng)
     return torch.einsum("bnqk,bknd->bqnd", probs, v)
+
+
+def core_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              cfg: GPTConfig, *, deterministic: bool,
+              rng: Optional[DropoutRng], layer: int) -> torch.Tensor:
+    """``MultiHeadAttention._core_attn``: causal attention over
+    ``[b, s, heads, head_dim]``: the ring path under
+    ``use_ring_attention`` (no attention dropout there, as in JAX), else
+    the flash kernels where ``supported`` admits the shape, else the
+    ``finfo.min``-masked f32 softmax; recomputed in the backward under
+    the ``core_attn`` granularity."""
+    rate = 0.0 if deterministic else cfg.attention_probs_dropout_prob
+    if cfg.use_ring_attention:
+        if rate > 0.0:
+            raise ValueError("ring attention does not support attention "
+                             "dropout (Model.attention_probs_dropout_prob "
+                             "must be 0.0)")
+        fn = functools.partial(RA.ring_attention, causal=True,
+                               kv_chunk=cfg.ring_kv_chunk)
+    elif cfg.use_flash_attention and FA.supported(q, k):
+        seed = rng.layer_seeds[layer] if rate > 0.0 else 0
+        fn = functools.partial(FA.flash_attention, causal=True,
+                               fused_bwd=cfg.flash_fused_bwd,
+                               dropout_rate=rate, dropout_seed=seed)
+    else:
+        fn = functools.partial(_plain_attn, cfg=cfg, rate=rate, rng=rng)
+    if cfg.use_recompute and cfg.recompute_granularity == "core_attn":
+        return recompute(fn, rng, q, k, v)
+    return fn(q, k, v)
 
 
 def attention(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
@@ -263,12 +332,20 @@ def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
                   deterministic: bool, rng: Optional[DropoutRng],
                   layer: int) -> torch.Tensor:
     """``TransformerDecoderLayer``: pre-norm attention and MLP blocks, the
-    post-attention residual add folded into ``ln2``."""
+    post-attention residual add folded into ``ln2``; the attention call
+    recomputed in the backward under the ``full_attn`` granularity."""
     drop = cfg.hidden_dropout_prob > 0.0 and not deterministic
     residual = x
     y = layer_norm(p["ln1"], x, cfg)
-    y = attention(p["attn"], y, cfg, deterministic=deterministic, rng=rng,
-                  layer=layer)
+
+    def attn(y):
+        return attention(p["attn"], y, cfg, deterministic=deterministic,
+                         rng=rng, layer=layer)
+
+    if cfg.use_recompute and cfg.recompute_granularity == "full_attn":
+        y = recompute(attn, rng, y)
+    else:
+        y = attn(y)
     if drop:
         y = _dropout(y, cfg.hidden_dropout_prob, rng)
     y, x = layer_norm(p["ln2"], y, cfg, residual=residual)
@@ -291,7 +368,9 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
               position_ids: Optional[torch.Tensor] = None, *,
               deterministic: bool = True,
               rng: Optional[DropoutRng] = None) -> torch.Tensor:
-    """``GPTModel`` without a cache: embeddings, decoder stack, ``ln_f``."""
+    """``GPTModel`` without a cache: embeddings, decoder stack, ``ln_f``;
+    each decoder layer recomputed in the backward under the ``full``
+    granularity (only the layer inputs stay live)."""
     p = params["gpt"]
     if position_ids is None:
         position_ids = torch.arange(tokens.shape[1], device=tokens.device
@@ -302,22 +381,105 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
              cfg.dtype)))
     if cfg.hidden_dropout_prob > 0.0 and not deterministic:
         x = _dropout(x, cfg.hidden_dropout_prob, rng)
+    full = cfg.use_recompute and cfg.recompute_granularity == "full"
     for i, lp in enumerate(_unstack(p["layers"], cfg.num_layers)):
-        x = decoder_layer(lp, x, cfg, deterministic=deterministic, rng=rng,
-                          layer=i)
+        layer = functools.partial(decoder_layer, lp, cfg=cfg,
+                                  deterministic=deterministic, rng=rng,
+                                  layer=i)
+        x = recompute(layer, rng, x) if full else layer(x)
     return layer_norm(p["ln_f"], x, cfg)
 
 
 def gpt_for_pretraining(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
                         position_ids: Optional[torch.Tensor] = None, *,
                         deterministic: bool = True,
-                        rng: Optional[DropoutRng] = None) -> torch.Tensor:
+                        rng: Optional[DropoutRng] = None,
+                        labels: Optional[torch.Tensor] = None,
+                        loss_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """``GPTForPretraining``: logits ``[b, s, vocab]`` in the compute dtype
-    from the tied embedding head."""
+    from the tied embedding head; with ``cfg.vocab_chunk`` set and
+    ``labels`` given, the masked LM loss through the chunked head instead
+    (the ``[b, s, vocab]`` logits are never built)."""
     x = gpt_model(params, cfg, tokens, position_ids,
                   deterministic=deterministic, rng=rng)
     wte = params["gpt"]["embeddings"]["word_embeddings"].to(cfg.dtype)
+    if cfg.vocab_chunk and labels is not None:
+        losses = chunked_cross_entropy_per_token(x, wte, labels,
+                                                 int(cfg.vocab_chunk))
+        mask = torch.ones_like(losses) if loss_mask is None else loss_mask
+        return masked_mean(losses, mask)
     return torch.einsum("bsh,vh->bsv", x, wte)
+
+
+def chunk_geometry(vocab: int, vocab_chunk: int):
+    """``(chunk, n_chunks, pad)``: the cap snapped to the smallest chunk
+    with the same count, re-aligned up to 128 and never above the cap
+    (``model.py:799-806``)."""
+    cap = min(int(vocab_chunk), vocab)
+    n_chunks = -(-vocab // cap)
+    base = -(-vocab // n_chunks)
+    chunk = min(-(-base // 128) * 128, cap)
+    n_chunks = -(-vocab // chunk)
+    return chunk, n_chunks, n_chunks * chunk - vocab
+
+
+#: above this many chunks the stats fold into running (m, l, label) as
+#: they come (the JAX ``lax.scan`` path) instead of being merged at once
+_MAX_UNROLLED_CHUNKS = 32
+
+
+def chunked_cross_entropy_per_token(x: torch.Tensor, wte: torch.Tensor,
+                                    labels: torch.Tensor,
+                                    vocab_chunk: int) -> torch.Tensor:
+    """Token-level LM loss without the ``[b, s, V]`` logits
+    (``chunked_cross_entropy_per_token``, ``model.py:770-843``).
+
+    Each vocab chunk's (row max, sum of exp at that max, label logit) is
+    computed independently from ``x @ w_chunkᵀ`` in f32 and the stats are
+    merged into the exact logsumexp. Each chunk runs under ``checkpoint``,
+    so its ``[b, s, chunk]`` f32 logits are freed after its stats and
+    rebuilt in the backward: at most one such block is live. Padded ids of
+    the last chunk score -1e30.
+    """
+    vocab = wte.shape[0]
+    chunk, n_chunks, pad = chunk_geometry(vocab, vocab_chunk)
+    wte_p = F.pad(wte, (0, 0, 0, pad)) if pad else wte
+    labels = labels.long()
+
+    def one_chunk(x, w, ci):
+        logits = torch.einsum("bsh,vh->bsv", x, w).float()
+        if pad:
+            ids = ci * chunk + torch.arange(chunk, device=x.device)
+            logits = torch.where(ids < vocab, logits,
+                                 torch.full_like(logits, -1e30))
+        m = logits.amax(dim=-1)
+        l = torch.exp(logits - m[..., None]).sum(dim=-1)
+        local = torch.clamp(labels - ci * chunk, 0, chunk - 1)
+        ll = logits.gather(-1, local[..., None])[..., 0]
+        in_ch = (labels >= ci * chunk) & (labels < (ci + 1) * chunk)
+        return m, l, torch.where(in_ch, ll, torch.zeros_like(ll))
+
+    def stats(ci):
+        return checkpoint(one_chunk, x, wte_p[ci * chunk:(ci + 1) * chunk],
+                          ci, use_reentrant=False, preserve_rng_state=False)
+
+    if n_chunks <= _MAX_UNROLLED_CHUNKS:
+        parts = [stats(ci) for ci in range(n_chunks)]
+        m = functools.reduce(torch.maximum, [p[0] for p in parts])
+        l = sum(p[1] * torch.exp(p[0] - m) for p in parts)
+        lab = sum(p[2] for p in parts)  # the label lands in one chunk
+        return m + torch.log(l) - lab
+    b, s = labels.shape
+    m = torch.full((b, s), -1e30, dtype=torch.float32, device=x.device)
+    l = torch.zeros((b, s), dtype=torch.float32, device=x.device)
+    lab = torch.zeros((b, s), dtype=torch.float32, device=x.device)
+    for ci in range(n_chunks):
+        cm, cl, clab = stats(ci)
+        m_new = torch.maximum(m, cm)
+        l = l * torch.exp(m - m_new) + cl * torch.exp(cm - m_new)
+        m, lab = m_new, lab + clab
+    return m + torch.log(l) - lab
 
 
 def cross_entropy_per_token(logits: torch.Tensor,

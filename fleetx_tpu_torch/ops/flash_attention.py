@@ -1,12 +1,13 @@
-"""Causal flash attention: the Hopper forward and fused-backward kernels,
-their plain versions, the gates, the dropout hash and the autograd
-wrapper.
+"""Causal flash attention: the Hopper forward, fused-backward and split-
+backward kernels, their plain versions, the gates, the dropout hash and
+the autograd wrapper.
 
 Port of ``fleetx_tpu/ops/flash_attention.py``. The TPU kernels are
-``_fwd_kernel`` (launched by ``_fwd``) and ``_bwd_fused_kernel``
-(launched by ``_bwd_fused``); here the same two functions are the CUDA
-kernels in ``csrc/flash_attention.cu`` (built by ``kernels/build.py``,
-bound with ``ctypes``).
+``_fwd_kernel`` (launched by ``_fwd``), ``_bwd_fused_kernel`` (launched
+by ``_bwd_fused``), ``_bwd_dq_kernel`` (``_bwd_dq``) and
+``_bwd_dkv_kernel`` (``_bwd_dkv``); here the same four functions are the
+CUDA kernels in ``csrc/flash_attention.cu`` (built by
+``kernels/build.py``, bound with ``ctypes``).
 
 - ``fwd_call(q3, k3, v3, seed, scale, causal, rate)`` → ``(out, lse)``:
   FlashAttention-2 forward over ``[b·heads, seq, head_dim]``: f32 scores,
@@ -17,28 +18,41 @@ bound with ``ctypes``).
   ``(dq f32, dk, dv)``: the single-pass fused backward, P recomputed from
   ``lse``, ``dv``/``dp`` masked as ``_bwd_fused_kernel:484-493``;
   ``delta = sum(out · do)`` is computed outside, as ``_bwd`` does.
+- ``bwd_dq_call(...)`` → ``dq`` in the operand dtype and
+  ``bwd_dkv_call(...)`` → ``(dk, dv)`` in the k/v dtype: the split
+  backward, same arguments. ``lse``/``delta`` are f32 ``[bh, sq]`` (the
+  port's layout for JAX's ``[bn, sq, 1]``) and ``lse`` may be any
+  logsumexp of the rows: the ring path feeds the global one. ``sq != sk``
+  is allowed when not causal.
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor it
-runs its dense plain version (``fwd_plain`` / ``bwd_plain``), which the
-CPU tests hold against the Pallas kernels and ``chip_smoke.py`` holds the
-kernels against on the card. ``fwd_call.launches`` / ``bwd_call.launches``
-count kernel launches only.
+runs its dense plain version (``fwd_plain``, ``bwd_plain``,
+``bwd_dq_plain``, ``bwd_dkv_plain``), which the CPU tests hold against
+the Pallas kernels and ``chip_smoke.py`` holds the kernels against on the
+card. Each wrapper's ``launches`` counts kernel launches only.
 
 Dropout. The TPU kernel draws its mask from the TPU's hardware PRNG per
 block; those bits cannot be had on a GPU. Here the mask is one
 counter-based hash keyed per ELEMENT by ``(seed, b·head, row, col)``
 (``dropout_bits``: three rounds of a 32-bit integer mixer), written
 identically in the CUDA source and below in int64 arithmetic masked to
-32 bits. Forward and backward therefore see the same mask whatever
-their tiling, and kernel and plain version use bit-identical masks. An
-element is kept when ``bits >= rate·2^32`` and scaled by ``1/(1-rate)``,
-as ``_dropout_mask`` decides.
+32 bits. Forward, fused and split backward therefore see the same mask
+whatever their tiling, and kernel and plain version use bit-identical
+masks. An element is kept when ``bits >= rate·2^32`` and scaled by
+``1/(1-rate)``, as ``_dropout_mask`` decides.
 
 The gates keep the JAX contract: ``supported`` (rank 4, seq a multiple of
 128, ``sq == sk`` under causal, head_dim in {64, 128, 256}) and
-``fused_backward_supported`` (that, and head_dim <= 128). The TPU's VMEM
-budgets do not apply. A shape the fused backward rejects needs the split
-backward kernels, which are not ported yet.
+``fused_backward_supported`` (that, and head_dim <= 128). The backward
+takes the fused kernel where ``fused_bwd`` is on and
+``fused_backward_supported`` admits the shape, and the split pair
+otherwise (``fused_bwd`` off, head_dim 256), as ``_bwd`` does. One
+difference is kept on purpose: JAX's predicate also rejects a
+full-sequence f32 dq window ``(seq + 2·block)·head_dim·4`` above 4 MiB, a
+TPU VMEM budget with no counterpart here (the CUDA fused kernel keeps dq
+in device memory). So a non-ring seq-8192 head_dim-128 call takes the
+fused kernel in the port and the split pair in JAX; both compute the same
+function.
 """
 
 from __future__ import annotations
@@ -51,11 +65,6 @@ import torch
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASK32 = 0xFFFFFFFF
-
-SPLIT_BWD = ("the split flash backward (kernels 2/3, _bwd_dq_kernel and "
-             "_bwd_dkv_kernel) is not ported yet (ROADMAP.md, kernel queue "
-             "items 2-3)")
-
 
 def supported(q: torch.Tensor, k: Optional[torch.Tensor] = None,
               causal: bool = True) -> bool:
@@ -79,7 +88,9 @@ def supported(q: torch.Tensor, k: Optional[torch.Tensor] = None,
 def fused_backward_supported(q: torch.Tensor,
                              k: Optional[torch.Tensor] = None,
                              causal: bool = True) -> bool:
-    """True when the single-pass fused backward kernel applies."""
+    """True when the single-pass fused backward kernel applies: the base
+    contract and head_dim <= 128. JAX's 4 MiB dq-window rule (a TPU VMEM
+    budget) is left out: the CUDA kernel's dq lives in device memory."""
     return supported(q, k, causal=causal) and q.shape[3] <= 128
 
 
@@ -155,45 +166,86 @@ def fwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     return out, m + torch.log(l_safe)
 
 
+def _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate):
+    """``p = exp(s - lse)``, ``dp = do · vᵀ`` and the keep mask (None
+    without dropout), in f32, as every backward kernel recomputes them."""
+    p = torch.exp(_scores(q3, k3, scale, causal) - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v3.float())
+    keep = None
+    if rate > 0.0:
+        keep = dropout_keep(seed, q3.shape[0], q3.shape[1], k3.shape[1],
+                            rate, q3.device)
+    return p, dp, keep
+
+
+def _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal, rate):
+    """``(ds, dk, dv)`` in f32, kept ``p`` and ``dp`` multiplied by
+    ``1 / (1 - rate)`` (``_bwd_fused_kernel:484-493``,
+    ``_bwd_dkv_kernel:347-360``)."""
+    p, dp, keep = _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate)
+    pd = p
+    if keep is not None:
+        inv = 1.0 / (1.0 - rate)
+        zero = torch.zeros_like(p)
+        pd = torch.where(keep, p * inv, zero)
+        dp = torch.where(keep, dp * inv, zero)
+    dv = torch.einsum("bqk,bqd->bkd", pd, do.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q3.float())
+    return ds, dk, dv
+
+
 def bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
               do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
               seed: int, scale: float, causal: bool = True,
               rate: float = 0.0):
     """The fused backward kernel's function, dense: ``(dq f32, dk, dv)``."""
-    q, k, v, g = q3.float(), k3.float(), v3.float(), do.float()
-    p = torch.exp(_scores(q3, k3, scale, causal) - lse[..., None])
-    dp = torch.einsum("bqd,bkd->bqk", g, v)
-    if rate > 0.0:
-        keep = dropout_keep(seed, q3.shape[0], q3.shape[1], k3.shape[1],
-                            rate, q3.device)
-        inv = 1.0 / (1.0 - rate)
-        zero = torch.zeros_like(p)
-        dv = torch.einsum("bqk,bqd->bkd", torch.where(keep, p * inv, zero),
-                          g)
-        dp = torch.where(keep, dp * inv, zero)
-    else:
-        dv = torch.einsum("bqk,bqd->bkd", p, g)
-    ds = p * (dp - delta[..., None]) * scale
-    dk = torch.einsum("bqk,bqd->bkd", ds, q)
-    dq = torch.einsum("bqk,bkd->bqd", ds, k)
+    ds, dk, dv = _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal,
+                           rate)
+    dq = torch.einsum("bqk,bkd->bqd", ds, k3.float())
     return dq, dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+def bwd_dq_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 seed: int, scale: float, causal: bool = True,
+                 rate: float = 0.0) -> torch.Tensor:
+    """The dq kernel's function, dense: dq in the operand dtype. Kept
+    ``dp`` is divided by ``1 - rate`` (``_bwd_dq_kernel:301-305``)."""
+    p, dp, keep = _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate)
+    if keep is not None:
+        dp = torch.where(keep, dp / (1.0 - rate), torch.zeros_like(dp))
+    ds = p * (dp - delta[..., None]) * scale
+    return torch.einsum("bqk,bkd->bqd", ds, k3.float()).to(q3.dtype)
+
+
+def bwd_dkv_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  seed: int, scale: float, causal: bool = True,
+                  rate: float = 0.0):
+    """The dk/dv kernel's function, dense: ``(dk, dv)`` in the k/v
+    dtype."""
+    _, dk, dv = _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal,
+                          rate)
+    return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
 # ------------------------------------------------------------ kernels
 def _fns():
-    """The two C entry points with their argument types declared."""
+    """The four C entry points (forward, fused, dq, dk/dv) with their
+    argument types declared."""
     from fleetx_tpu_torch.kernels import build
 
     lib = build.load("flash_attention")
-    fwd, bwd = lib.fleetx_flash_fwd, lib.fleetx_flash_bwd_fused
-    if fwd.argtypes is None:
+    fns = (lib.fleetx_flash_fwd, lib.fleetx_flash_bwd_fused,
+           lib.fleetx_flash_bwd_dq, lib.fleetx_flash_bwd_dkv)
+    if fns[0].argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        f32 = ctypes.c_float
-        fwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32, u32, u32, i32, f32, ptr]
-        fwd.restype = i32
-        bwd.argtypes = [ptr] * 9 + [i32] * 6 + [f32, u32, u32, i32, f32, ptr]
-        bwd.restype = i32
-    return fwd, bwd
+        tail = [ctypes.c_float, u32, u32, i32, ctypes.c_float, ptr]
+        for fn, n_ptrs in zip(fns, (5, 9, 7, 8)):
+            fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + tail
+            fn.restype = i32
+    return fns
 
 
 def _check(name: str, tensors, shapes) -> None:
@@ -225,15 +277,45 @@ def _geometry(q3, k3, causal):
     return bh, sq, sk, d
 
 
+def _launch(name: str, fn, *args) -> None:
+    """Call one C entry point on the current stream; raise on an error."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _on_card(name: str, q3: torch.Tensor) -> None:
+    """Raise for a tensor that is neither on the CPU nor on a card."""
+    if q3.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q3.device}")
+
+
+def _bwd_operands(name: str, q3, k3, v3, do, lse, delta, causal):
+    """Check the backward kernels' operands; returns ``(bh, sq, sk, d)``."""
+    bh, sq, sk, d = _geometry(q3, k3, causal)
+    _check(name, (q3, k3, v3, do), ((bh, sq, d), (bh, sk, d), (bh, sk, d),
+                                    (bh, sq, d)))
+    if len({t.dtype for t in (q3, k3, v3, do)}) != 1:
+        raise TypeError(f"{name}: q, k, v and do must share one dtype")
+    for what, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (bh, sq) \
+                or not t.is_contiguous() or t.device != q3.device:
+            raise ValueError(f"{name}: {what} must be contiguous f32 "
+                             f"[{bh}, {sq}] on {q3.device}")
+    return bh, sq, sk, d
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def fwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
              seed: int, scale: float, causal: bool = True,
              rate: float = 0.0):
     """Forward over ``[b·heads, seq, head_dim]``: ``(out, lse f32)``."""
     if q3.device.type == "cpu":
         return fwd_plain(q3, k3, v3, seed, scale, causal, rate)
-    if q3.device.type != "cuda":
-        raise ValueError(f"flash attention: no kernel for device "
-                         f"{q3.device}")
+    _on_card("flash attention", q3)
     bh, sq, sk, d = _geometry(q3, k3, causal)
     _check("flash fwd", (q3, k3, v3), ((bh, sq, d), (bh, sk, d),
                                        (bh, sk, d)))
@@ -241,16 +323,11 @@ def fwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         raise TypeError("flash fwd: q, k and v must share one dtype")
     out = torch.empty_like(q3)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
-    stream = torch.cuda.current_stream(q3.device).cuda_stream
-    fwd, _ = _fns()
-    err = fwd(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
-              lse.data_ptr(), bh, sq, sk, d, int(causal),
-              _DTYPE_CODES[q3.dtype], float(scale), int(seed) & _MASK32,
-              keep_threshold(rate), int(rate > 0.0), 1.0 - float(rate),
-              stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention forward kernel launch failed: "
-                           f"CUDA error {err}")
+    _launch("flash attention forward", _fns()[0], q3.data_ptr(),
+            k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
+            sq, sk, d, int(causal), _DTYPE_CODES[q3.dtype], float(scale),
+            int(seed) & _MASK32, keep_threshold(rate), int(rate > 0.0),
+            1.0 - float(rate), _stream(q3))
     fwd_call.launches += 1
     return out, lse
 
@@ -262,41 +339,28 @@ def bwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
              seed: int, scale: float, causal: bool = True,
              rate: float = 0.0):
-    """Fused backward: ``(dq f32, dk, dv)`` (dk/dv in the input dtype)."""
+    """Fused backward: ``(dq f32, dk, dv)`` (dk/dv in the input dtype);
+    head_dim <= 128 (``fused_backward_supported``)."""
     if q3.device.type == "cpu":
         return bwd_plain(q3, k3, v3, do, lse, delta, seed, scale, causal,
                          rate)
-    if q3.device.type != "cuda":
-        raise ValueError(f"flash attention: no kernel for device "
-                         f"{q3.device}")
-    bh, sq, sk, d = _geometry(q3, k3, causal)
+    _on_card("flash attention", q3)
+    bh, sq, sk, d = _bwd_operands("flash bwd", q3, k3, v3, do, lse, delta,
+                                  causal)
     if d > 128:
-        raise NotImplementedError(
-            f"fused flash backward takes head_dim <= 128, got {d}: "
-            f"{SPLIT_BWD}")
-    _check("flash bwd", (q3, k3, v3, do), ((bh, sq, d), (bh, sk, d),
-                                           (bh, sk, d), (bh, sq, d)))
-    if len({t.dtype for t in (q3, k3, v3, do)}) != 1:
-        raise TypeError("flash bwd: q, k, v and do must share one dtype")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (bh, sq) \
-                or not t.is_contiguous() or t.device != q3.device:
-            raise ValueError(f"flash bwd: {name} must be contiguous f32 "
-                             f"[{bh}, {sq}] on {q3.device}")
+        raise ValueError(f"fused flash backward takes head_dim <= 128, got "
+                         f"{d}: the split pair (bwd_dq_call, bwd_dkv_call) "
+                         f"takes it")
     dq = torch.empty((bh, sq, d), dtype=torch.float32, device=q3.device)
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
-    stream = torch.cuda.current_stream(q3.device).cuda_stream
-    _, bwd = _fns()
     inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
-    err = bwd(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-              dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d, int(causal),
-              _DTYPE_CODES[q3.dtype], float(scale), int(seed) & _MASK32,
-              keep_threshold(rate), int(rate > 0.0), float(inv), stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention backward kernel launch failed: "
-                           f"CUDA error {err}")
+    _launch("flash attention backward", _fns()[1], q3.data_ptr(),
+            k3.data_ptr(), v3.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+            sq, sk, d, int(causal), _DTYPE_CODES[q3.dtype], float(scale),
+            int(seed) & _MASK32, keep_threshold(rate), int(rate > 0.0),
+            float(inv), _stream(q3))
     bwd_call.launches += 1
     return dq, dk, dv
 
@@ -304,29 +368,87 @@ def bwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
 bwd_call.launches = 0
 
 
+def bwd_dq_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                seed: int, scale: float, causal: bool = True,
+                rate: float = 0.0) -> torch.Tensor:
+    """Split backward, dq kernel: dq in the operand dtype."""
+    if q3.device.type == "cpu":
+        return bwd_dq_plain(q3, k3, v3, do, lse, delta, seed, scale, causal,
+                            rate)
+    _on_card("flash attention", q3)
+    bh, sq, sk, d = _bwd_operands("flash bwd dq", q3, k3, v3, do, lse,
+                                  delta, causal)
+    dq = torch.empty_like(q3)
+    _launch("flash attention dq", _fns()[2], q3.data_ptr(), k3.data_ptr(),
+            v3.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), bh, sq, sk, d, int(causal),
+            _DTYPE_CODES[q3.dtype], float(scale), int(seed) & _MASK32,
+            keep_threshold(rate), int(rate > 0.0), 1.0 - float(rate),
+            _stream(q3))
+    bwd_dq_call.launches += 1
+    return dq
+
+
+bwd_dq_call.launches = 0
+
+
+def bwd_dkv_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 seed: int, scale: float, causal: bool = True,
+                 rate: float = 0.0):
+    """Split backward, dk/dv kernel: ``(dk, dv)`` in the k/v dtype."""
+    if q3.device.type == "cpu":
+        return bwd_dkv_plain(q3, k3, v3, do, lse, delta, seed, scale,
+                             causal, rate)
+    _on_card("flash attention", q3)
+    bh, sq, sk, d = _bwd_operands("flash bwd dkv", q3, k3, v3, do, lse,
+                                  delta, causal)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    _launch("flash attention dk/dv", _fns()[3], q3.data_ptr(),
+            k3.data_ptr(), v3.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
+            int(causal), _DTYPE_CODES[q3.dtype], float(scale),
+            int(seed) & _MASK32, keep_threshold(rate), int(rate > 0.0),
+            float(inv), _stream(q3))
+    bwd_dkv_call.launches += 1
+    return dk, dv
+
+
+bwd_dkv_call.launches = 0
+
+
 # ----------------------------------------------------------- autograd
 class _Flash3(torch.autograd.Function):
     """Flash attention on ``[b·heads, seq, head_dim]`` operands."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, seed, scale, causal, rate):
-        """Forward kernel; saves the operands, ``out`` and ``lse``."""
+    def forward(ctx, q3, k3, v3, seed, scale, causal, rate, fused=True):
+        """Forward kernel; saves the operands, ``out`` and ``lse``;
+        ``fused`` picks the backward kernel(s)."""
         out, lse = fwd_call(q3, k3, v3, seed, scale, causal, rate)
         ctx.save_for_backward(q3, k3, v3, out, lse)
-        ctx.args = (seed, scale, causal, rate)
+        ctx.args = (seed, scale, causal, rate, fused)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        """``delta = sum(out · do)`` here, then the fused backward kernel;
-        dq comes back f32 and is cast to the operand dtype."""
+        """``delta = sum(out · do)`` here, then the fused kernel (its f32
+        dq cast to the operand dtype) or the split dq + dk/dv pair."""
         q3, k3, v3, out, lse = ctx.saved_tensors
-        seed, scale, causal, rate = ctx.args
+        seed, scale, causal, rate, fused = ctx.args
         g = g.contiguous()
         delta = (out.float() * g.float()).sum(dim=-1)
-        dq, dk, dv = bwd_call(q3, k3, v3, g, lse, delta, seed, scale,
-                              causal, rate)
-        return dq.to(q3.dtype), dk, dv, None, None, None, None
+        args = (q3, k3, v3, g, lse, delta, seed, scale, causal, rate)
+        if fused:
+            dq, dk, dv = bwd_call(*args)
+            dq = dq.to(q3.dtype)
+        else:
+            dq = bwd_dq_call(*args)
+            dk, dv = bwd_dkv_call(*args)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -337,29 +459,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``dropout_rate`` > 0 applies attention-probability dropout inside the
     kernels with the hash mask keyed by ``dropout_seed`` (vary it per step
-    and layer). A backward the fused kernel cannot take (``fused_bwd``
-    off, or head_dim > 128) raises ``NotImplementedError`` when gradients
-    are needed.
+    and layer). The backward takes the single-pass fused kernel where
+    ``fused_bwd`` is on and ``fused_backward_supported`` admits the shape,
+    and the split dq + dk/dv kernels otherwise (``fused_bwd`` off, head_dim
+    256), as the JAX ``flash_attention`` does. The port's fused predicate
+    omits JAX's 4 MiB dq-window rule (a TPU VMEM budget), so a seq-8192
+    head_dim-128 call takes the fused kernel here and the split pair in
+    JAX: the same function either way.
     """
     b, sq, n, d = q.shape
     sk = k.shape[1]
     if causal and sq != sk:
         raise ValueError(f"flash_attention(causal=True) requires q and k to "
                          f"share a seq length; got sq={sq}, sk={sk}")
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
-    if needs_grad and not (fused_bwd and fused_backward_supported(
-            q, k, causal=causal)):
-        raise NotImplementedError(
-            f"flash attention backward for head_dim {d} with "
-            f"fused_bwd={fused_bwd}: {SPLIT_BWD}")
     scale = scale if scale is not None else d ** -0.5
+    fused = bool(fused_bwd) and fused_backward_supported(q, k, causal=causal)
 
     def to3(x, s):
         return x.transpose(1, 2).reshape(b * n, s, d).contiguous()
 
     out3 = _Flash3.apply(to3(q, sq), to3(k, sk), to3(v, sk),
                          int(dropout_seed), float(scale), bool(causal),
-                         float(dropout_rate))
+                         float(dropout_rate), fused)
     return out3.reshape(b, n, sq, d).transpose(1, 2)
-

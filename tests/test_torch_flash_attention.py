@@ -238,14 +238,3 @@ def test_device_without_kernel_raises_instead_of_falling_back():
     lse = torch.empty((2, 128), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         FA.bwd_call(q3, q3, q3, q3, lse, lse, 0, 0.125)
-
-
-@pytest.mark.parametrize("case", ["fused_bwd_off", "wide_head"])
-def test_backward_the_fused_kernel_cannot_take_raises(case):
-    d = 256 if case == "wide_head" else 64
-    q, k, v = (torch.tensor(a, requires_grad=True)
-               for a in _qkv(6, d=d)[:3])
-    with pytest.raises(NotImplementedError, match="kernels 2/3"):
-        FA.flash_attention(q, k, v, fused_bwd=case != "fused_bwd_off")
-    with torch.no_grad():  # the forward alone is fine
-        assert FA.flash_attention(q, k, v, fused_bwd=False).shape == q.shape

@@ -333,10 +333,11 @@ def test_train_cli_on_cpu_runs_and_logs():
 
 
 UNCOVERED = {
-    "use_recompute": (["Model.use_recompute=True"], "item 9"),
-    "vocab_chunk": (["Model.vocab_chunk=64"], "item 10"),
-    "flash_fused_bwd": (["Model.flash_fused_bwd=False"], "item 1"),
-    "ring_attention": (["Model.use_ring_attention=True"], "item 1"),
+    "recompute_dots": (["Model.use_recompute=True",
+                        "Model.recompute_granularity=dots"], "item 9"),
+    "seq_degree": (["Distributed.seq_degree=2",
+                    "Model.use_ring_attention=True",
+                    "Model.attention_probs_dropout_prob=0.0"], "item 12"),
     "moe": (["Model.moe_num_experts=4"], "item 7"),
     "qat": (["Quantization.enable=True"], "item 7"),
     "fp16": (["Engine.mix_precision.use_pure_fp16=True",
