@@ -29,7 +29,9 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    (q/k/v ``[128, 1024, 64]``, causal, dropout 0.1) and the fused
    residual+LayerNorm forward and backward (``[8, 1024, 1024]``, with the
    residual / ``ds_in``), at the GPT-345M training shapes in f32 and bf16:
-   each held to its plain version, timed beside its plain version and one
+   each held to its plain version (the bf16 forward, on the tensor cores,
+   to the rounded one and within the drift bound to the unrounded one:
+   see Tolerances), timed beside its plain version and one
    library call (SDPA's flash backend forward / its autograd backward;
    ``F.layer_norm`` after the add / its autograd backward), with its
    bound. The dropout masks of the flash kernels are recovered bit for
@@ -38,7 +40,10 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
 1c. split backward kernels: the dq and dk/dv kernels against their plain
    versions at ``[8, 1024, d]`` for d 64/128/256, f32 and bf16, causal
    and not (also sq 1024 / sk 512), dropout 0 and 0.1, fed an lse that is
-   not the rows' own (the ring's global-lse contract); the split pair
+   not the rows' own (the ring's global-lse contract); where bf16 / fp16
+   at d 64/128 take the tensor-core forward and dk/dv, both held to the
+   rounded plain version and within the drift bound to the unrounded one
+   in every one of those cases (fp16: those two kernels only); the split pair
    against the fused kernel (d <= 128, dropout 0.1, f32); their dropout
    masks are recovered by the phase-1b probes. Then the seq-8192 path's
    kernels at its shapes (forward, dq, dk/dv at ``[32, 8192, 128]`` bf16
@@ -55,8 +60,9 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    port's config loader and ``tools/train.py`` (``build_trainer`` →
    ``EagerEngine.fit``) at full width, uncut, for 10 steps
    (``Engine.max_steps=10``, ``logging_freq=1``). Launch counts are
-   zeroed just before and read just after: 24 flash forward, 24 fused
-   backward, 49 norm forward and 49 norm backward launches per step.
+   zeroed just before and read just after: 24 flash forward (all 24 on
+   the tensor cores: ``fwd_call.tc_launches``), 24 fused backward, 49
+   norm forward and 49 norm backward launches per step.
    Every loss and grad norm is finite and the first loss is within 0.1
    of the untrained model's expectation ``ln(vocab) + hidden·r²/2`` (the
    tied head's logits have variance ``hidden·r²`` at init range r).
@@ -73,8 +79,12 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    ring size 1, full recompute, the chunked LM head, 4 micro-batches of
    2. Launch counts zeroed just before and read just after: per step 192
    flash forwards, 96 dq, 96 dk/dv, 0 fused backward, 388 norm forwards
-   and 196 norm backwards. Finite losses and grad norms, the first loss
-   within 0.1 of ``ln(vocab) + hidden·r²/2``; step time (median of steps
+   and 196 norm backwards; every forward and dk/dv launch on the tensor
+   cores (``tc_launches``), dq on the SIMT kernel. Finite losses and grad
+   norms, the first loss within 0.1 of ``ln(vocab) + hidden·r²/2``, the
+   losses within 1e-3 (step 1, which depends only on the forward) and
+   1e-2 (steps 2-3) of a run on the SIMT kernels (``SEQ8K_SIMT_LOSSES``);
+   step time (median of steps
    2-3), tokens/s, MFU, peak memory; then one profiled step.
 7. split against fused and recompute on against off, on the 345M
    training path cut to 4 layers, one loss+grad evaluation each on the
@@ -97,7 +107,13 @@ rounding of a bf16 output differ): f32 outputs rtol 1e-5 / atol 1e-5
 (flash ``out``/``lse``/dq/dk/dv of the fused and split backward, norm
 ``out``/``mean``/``var``/dx; the split pair against the fused kernel);
 bf16 outputs one bf16 ulp (rtol 2**-7, atol 1e-5); the norm's ``s`` and
-the dropout masks exactly. Training path, kernels on against off (f32):
+the dropout masks exactly. The tensor-core forward and dk/dv (bf16 / fp16
+at head_dim 64 and 128) round P and dS to the operand type before their
+products, as every GPU FlashAttention does; they are held to the plain
+version that rounds at the same places (``round_operands``) within
+``TC_RTOL`` of each element plus ``TC_ATOL_SHARE`` of the largest
+magnitude, and to the unrounded plain version within ``TC_DRIFT`` of the
+largest magnitude (reasons beside the constants). Training path, kernels on against off (f32):
 loss within 1e-4 and every grad leaf within 1e-3 of its largest
 magnitude (24 layers of f32 summed in another order).
 
@@ -108,6 +124,7 @@ and prints no result.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -236,6 +253,25 @@ def paged_bound(itemsize: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _ptxas_summary(log: str, pattern: str) -> list:
+    """``[kernel, "Used ... registers ... smem", "... spill ..."]`` of
+    every kernel whose name holds ``pattern``, from ``nvcc -Xptxas -v``
+    (the smem there is the static part; the tiles are dynamic)."""
+    out = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            short = re.search(r"([a-z_]+_kernel_tc)I\d+(\w+?)Li(\d+)E",
+                              name)
+            if short:  # e.g. flash_fwd_kernel_tc<__nv_bfloat16, 128>
+                name = f"{short[1]}<{short[2]}, {short[3]}>"
+            out.append([name] if pattern in name else None)
+        elif out and out[-1] is not None and (
+                "spill" in line or "Used" in line):
+            out[-1].append(line.strip())
+    return [entry for entry in out if entry is not None]
+
+
 def phase_kernels(build, dev: torch.device) -> dict:
     from fleetx_tpu_torch.ops import paged_attention as PA
 
@@ -245,7 +281,9 @@ def phase_kernels(build, dev: torch.device) -> dict:
     emit("build", seconds=build_s, libraries=sorted(build.SOURCES),
          ptxas=[l for log in build.build_logs.values()
                 for l in log.splitlines() if "registers" in l
-                or "Compiling entry" in l])
+                or "Compiling entry" in l or "spill" in l])
+    emit("ptxas_tensor_core", kernels=_ptxas_summary(
+        build.build_logs.get("flash_attention", ""), "_kernel_tc"))
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     result = {}
     for name, dtype in (("float32", torch.float32),
@@ -301,6 +339,35 @@ def phase_kernels(build, dev: torch.device) -> dict:
 TB, TS, TNH, THD, TH, RATE = 8, 1024, 16, 64, 1024, 0.1
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+#: the tensor-core kernels (forward and dk/dv, bf16 / fp16 at head_dim 64
+#: and 128) against the plain version that rounds P / dS where they do
+#: (``round_operands``): one bf16 ulp of each element (rtol 2**-7) plus
+#: one bf16 ulp of the tensor's largest magnitude (the forward rounds P
+#: against the running max, the plain version against the final one, and
+#: exp2 is not exp, so single P terms may round to neighbouring bf16
+#: values; a layout or pipeline fault moves outputs by O(largest))
+TC_RTOL, TC_ATOL_SHARE = 2.0 ** -7, 2.0 ** -7
+#: ... and against the unrounded plain version: the largest difference at
+#: most 2**-6 of the tensor's largest magnitude (one bf16 rounding of a P
+#: or dS term is a relative error of at most 2**-9; summed over a row with
+#: mixed signs the drift stays within a few bf16 ulps of the largest
+#: output)
+TC_DRIFT = 2.0 ** -6
+
+
+def _hold_tc(got, rounded, unrounded, what: str):
+    """Hold a tensor-core output to the rounded plain version (tight) and
+    to the unrounded one (drift bound); returns both largest errors."""
+    got, rounded, unrounded = (t.float() for t in (got, rounded, unrounded))
+    torch.testing.assert_close(
+        got, rounded, rtol=TC_RTOL,
+        atol=TC_ATOL_SHARE * float(rounded.abs().max()), msg=what)
+    err = float((got - rounded).abs().max())
+    drift = float((got - unrounded).abs().max())
+    check(drift <= TC_DRIFT * float(unrounded.abs().max()),
+          f"{what}: drift {drift} from the unrounded plain version exceeds "
+          f"2**-6 of its largest magnitude")
+    return err, drift
 
 
 def _peak_flops(dtype: torch.dtype) -> float:
@@ -336,10 +403,18 @@ def _flash_rows(dtype, dev, flush) -> dict:
 
     q, k, v, do = _flash_case(dtype, dev)
     seed, scale = 20240607, THD ** -0.5
+    tc = FA.tc_route(dtype, THD)
     out, lse = FA.fwd_call(q, k, v, seed, scale, True, RATE)
-    p_out, p_lse = FA.fwd_plain(q, k, v, seed, scale, True, RATE)
+    p_out, p_lse = FA.fwd_plain(q, k, v, seed, scale, True, RATE,
+                                round_operands=tc)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, p_out, **TOL[dtype])
+    tc_errs = {}
+    if tc:
+        tc_errs["fwd_vs_rounded"], tc_errs["fwd_drift"] = _hold_tc(
+            out, p_out, FA.fwd_plain(q, k, v, seed, scale, True, RATE)[0],
+            "flash fwd (tensor cores)")
+    else:
+        torch.testing.assert_close(out, p_out, **TOL[dtype])
     torch.testing.assert_close(lse, p_lse, **TOL[torch.float32])
     delta = (out.float() * do.float()).sum(-1)
     dq, dk, dv = FA.bwd_call(q, k, v, do, lse, delta, seed, scale, True, RATE)
@@ -381,7 +456,7 @@ def _flash_rows(dtype, dev, flush) -> dict:
     bwd_bytes = (6 * bh * TS * THD * item + 2 * bh * TS * 4  # q,k,v,do,dk,dv
                  + bh * TS * THD * 4)                        # + lse,delta,dq
     fwd = dict(
-        max_abs_err=fwd_err,
+        max_abs_err=fwd_err, variant="wgmma" if tc else "simt", **tc_errs,
         ms=time_ms(lambda: FA.fwd_call(q, k, v, seed, scale, True, RATE),
                    flush),
         plain_ms=time_ms(lambda: FA.fwd_plain(q, k, v, seed, scale, True,
@@ -547,10 +622,25 @@ def _split_checks(dev: torch.device) -> dict:
     from fleetx_tpu_torch.ops import flash_attention as FA
 
     errs = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
-    cases = 0
+    # tensor-core route: largest error against the rounded plain version
+    # and drift from the unrounded one, forward and dk/dv, per dtype
+    tc_errs = {}
+    cases = tc_cases = 0
+
+    def hold_tc(dtype, kernel, got, rounded, unrounded, what):
+        err, drift = _hold_tc(got, rounded, unrounded, what)
+        key = f"{str(dtype)[6:]}_{kernel}"
+        tc_errs[f"{key}_vs_rounded"] = max(
+            tc_errs.get(f"{key}_vs_rounded", 0.0), err)
+        tc_errs[f"{key}_drift"] = max(tc_errs.get(f"{key}_drift", 0.0), drift)
+
     for d in (64, 128, 256):
         for name, dtype in (("float32", torch.float32),
-                            ("bfloat16", torch.bfloat16)):
+                            ("bfloat16", torch.bfloat16),
+                            ("float16", torch.float16)):
+            tc = FA.tc_route(dtype, d)
+            if dtype == torch.float16 and not tc:
+                continue  # fp16 is checked on its tensor-core route only
             for causal, sk in ((True, SS), (False, SS), (False, SS // 2)):
                 q, k, v, do = _split_case(dtype, dev, SS, sk, d, d + sk)
                 scale = d ** -0.5
@@ -558,20 +648,43 @@ def _split_checks(dev: torch.device) -> dict:
                 lse = lse + 0.25
                 delta = (out.float() * do.float()).sum(-1)
                 for rate in (0.0, 0.1):
+                    tag = f"{name} d{d} causal {causal} sk {sk} rate {rate}"
                     args = (q, k, v, do, lse, delta, 77 + d, scale, causal,
                             rate)
-                    dq = FA.bwd_dq_call(*args)
                     dk, dv = FA.bwd_dkv_call(*args)
-                    p_dq = FA.bwd_dq_plain(*args)
-                    p_dk, p_dv = FA.bwd_dkv_plain(*args)
+                    p_dk, p_dv = FA.bwd_dkv_plain(*args, round_operands=tc)
                     torch.cuda.synchronize()
-                    check(dq.dtype == dtype and dk.dtype == dtype
-                          and dv.dtype == dtype, "split grads' dtypes")
-                    for got, want in ((dq, p_dq), (dk, p_dk), (dv, p_dv)):
-                        torch.testing.assert_close(got, want, **TOL[dtype])
+                    check(dk.dtype == dtype and dv.dtype == dtype,
+                          "split grads' dtypes")
+                    if tc:
+                        u_dk, u_dv = FA.bwd_dkv_plain(*args)
+                        hold_tc(dtype, "dkv", dk, p_dk, u_dk, f"dk {tag}")
+                        hold_tc(dtype, "dkv", dv, p_dv, u_dv, f"dv {tag}")
+                        fwd = (q, k, v, 5 + d, scale, causal, rate)
+                        f_out, f_lse = FA.fwd_call(*fwd)
+                        r_out, r_lse = FA.fwd_plain(*fwd, round_operands=True)
+                        u_out = FA.fwd_plain(*fwd)[0]
+                        torch.cuda.synchronize()
+                        hold_tc(dtype, "fwd", f_out, r_out, u_out,
+                                f"fwd {tag}")
+                        torch.testing.assert_close(f_lse, r_lse,
+                                                   **TOL[torch.float32])
+                        tc_cases += 1
+                        del u_dk, u_dv, f_out, f_lse, r_out, r_lse, u_out
+                        if dtype == torch.float16:
+                            continue
+                    else:
+                        for got, want in ((dk, p_dk), (dv, p_dv)):
+                            torch.testing.assert_close(got, want,
+                                                       **TOL[dtype])
+                        errs[name][1] = max(errs[name][1], _max_err(
+                            [(dk, p_dk), (dv, p_dv)]))
+                    dq = FA.bwd_dq_call(*args)
+                    p_dq = FA.bwd_dq_plain(*args)
+                    torch.cuda.synchronize()
+                    check(dq.dtype == dtype, "split dq's dtype")
+                    torch.testing.assert_close(dq, p_dq, **TOL[dtype])
                     errs[name][0] = max(errs[name][0], _max_err([(dq, p_dq)]))
-                    errs[name][1] = max(errs[name][1], _max_err(
-                        [(dk, p_dk), (dv, p_dv)]))
                     cases += 1
                     del p_dq, p_dk, p_dv
     fused_err = 0.0
@@ -590,11 +703,12 @@ def _split_checks(dev: torch.device) -> dict:
         fused_err = max(fused_err, _max_err([(dq, f_dq), (dk, f_dk),
                                              (dv, f_dv)]))
     torch.cuda.empty_cache()
-    out = dict(cases=cases, dq_max_abs_err=errs["float32"][0],
+    out = dict(cases=cases, tc_cases=tc_cases,
+               dq_max_abs_err=errs["float32"][0],
                dkv_max_abs_err=errs["float32"][1],
                bf16_dq_max_abs_err=errs["bfloat16"][0],
-               bf16_dkv_max_abs_err=errs["bfloat16"][1],
-               split_vs_fused_max_abs_err=fused_err)
+               bf16_simt_dkv_max_abs_err=errs["bfloat16"][1],
+               tensor_core=tc_errs, split_vs_fused_max_abs_err=fused_err)
     emit("split_kernels_vs_plain", **out)
     return out
 
@@ -623,22 +737,32 @@ def _split_timings(dev: torch.device, flush: torch.Tensor) -> dict:
     # the kernels against their plain versions at the full sequence, on
     # the first 4 heads (the plain versions' dense scores at bh 32 would
     # not fit beside the rest)
-    errs = {}
+    # (the forward and dk/dv take the tensor-core route here: held to the
+    # rounded plain version and, within the drift bound, to the unrounded)
+    errs, drifts = {}, {}
     got = FA.fwd_call(*small[:3], 0, scale, True, 0.0)
-    want = FA.fwd_plain(*small[:3], 0, scale, True, 0.0)
+    want = FA.fwd_plain(*small[:3], 0, scale, True, 0.0, round_operands=True)
+    plain = FA.fwd_plain(*small[:3], 0, scale, True, 0.0)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got[0], want[0], **TOL[torch.bfloat16])
+    _, drifts["flash_attention_fwd"] = _hold_tc(got[0], want[0], plain[0],
+                                                "seq-8192 forward")
     torch.testing.assert_close(got[1], want[1], **TOL[torch.float32])
     errs["flash_attention_fwd"] = _max_err(zip(got, want))
-    for name, call, plain in (
-            ("flash_attention_bwd_dq", FA.bwd_dq_call, FA.bwd_dq_plain),
-            ("flash_attention_bwd_dkv", FA.bwd_dkv_call, FA.bwd_dkv_plain)):
-        got, want = call(*small_args), plain(*small_args)
-        got, want = ((got,), (want,)) if name.endswith("dq") else (got, want)
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, **TOL[torch.bfloat16])
-        errs[name] = _max_err(zip(got, want))
+    del plain
+    got = FA.bwd_dkv_call(*small_args)
+    want = FA.bwd_dkv_plain(*small_args, round_operands=True)
+    plain = FA.bwd_dkv_plain(*small_args)
+    torch.cuda.synchronize()
+    drifts["flash_attention_bwd_dkv"] = max(
+        _hold_tc(a, b, c, f"seq-8192 {n}")[1]
+        for a, b, c, n in zip(got, want, plain, ("dk", "dv")))
+    errs["flash_attention_bwd_dkv"] = _max_err(zip(got, want))
+    del plain
+    got = FA.bwd_dq_call(*small_args)
+    want = FA.bwd_dq_plain(*small_args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+    errs["flash_attention_bwd_dq"] = _max_err([(got, want)])
     del got, want
     torch.cuda.empty_cache()
     few = dict(iters=3, warmup=1)
@@ -685,11 +809,15 @@ def _split_timings(dev: torch.device, flush: torch.Tensor) -> dict:
             ("flash_attention_fwd", 4 * tensor + vec, 2),      # q,k,v,out,lse
             ("flash_attention_bwd_dq", 5 * tensor + 2 * vec, 3),  # +do,delta
             ("flash_attention_bwd_dkv", 6 * tensor + 2 * vec, 4)):
+        flops = products * 2 * pairs * LHD * bh
         rows[name]["max_abs_err"] = errs[name]
+        rows[name]["variant"] = "wgmma" if name in drifts else "simt"
         rows[name]["bound_ms"], rows[name]["bound_by"] = _bound(
-            nbytes, products * 2 * pairs * LHD * bh, torch.bfloat16)
+            nbytes, flops, torch.bfloat16)
         emit("kernel_seq8k", name=name, shape=[LB, LS, LHD],
-             dtype="bfloat16", causal=True, plain_bh=4, **rows[name])
+             dtype="bfloat16", causal=True, plain_bh=4,
+             drift_from_unrounded=drifts.get(name),
+             tflop_s=flops / rows[name]["ms"] / 1e9, **rows[name])
     pair_ms = rows["flash_attention_bwd_dq"]["ms"] + \
         rows["flash_attention_bwd_dkv"]["ms"]
     emit("split_pair_vs_sdpa_backward", split_pair_ms=pair_ms,
@@ -965,7 +1093,9 @@ TRAIN_STEPS = 10
 #: (ln1 and ln2 in each of 24 layers, plus ln_f)
 PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd_fused": 24,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "fused_norm_fwd": 49, "fused_norm_bwd": 49}
+            "fused_norm_fwd": 49, "fused_norm_bwd": 49,
+            # bf16 at head_dim 64: every forward on the tensor cores
+            "flash_attention_fwd_tc": 24, "flash_attention_bwd_dkv_tc": 0}
 
 
 def _counters() -> dict:
@@ -982,13 +1112,26 @@ def _counters() -> dict:
             "fused_norm_fwd": FN.fwd_call, "fused_norm_bwd": FN.bwd_call}
 
 
+#: the per-route counts: launches of the tensor-core forward and dk/dv
+#: (``tc_launches``, a subset of ``launches``), under these names
+TC_COUNTS = {"flash_attention_fwd_tc": "flash_attention_fwd",
+             "flash_attention_bwd_dkv_tc": "flash_attention_bwd_dkv"}
+
+
 def zero_counts() -> None:
-    for fn in _counters().values():
+    counters = _counters()
+    for fn in counters.values():
         fn.launches = 0
+    for kernel in TC_COUNTS.values():
+        counters[kernel].tc_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    counters = _counters()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    counts.update({name: counters[kernel].tc_launches
+                   for name, kernel in TC_COUNTS.items()})
+    return counts
 
 
 def phase_trainer(dev: torch.device, card: str) -> dict:
@@ -1092,6 +1235,7 @@ def phase_trainer(dev: torch.device, card: str) -> dict:
          device_ms_per_step=device_ms if rows else None,
          device_busy_share=device_ms / wall_ms if rows else None,
          flash_fwd_ms_per_step=share("flash_fwd_kernel"),
+         flash_fwd_tc_ms_per_step=share("flash_fwd_kernel_tc"),
          flash_bwd_ms_per_step=share("flash_bwd_kernel"),
          norm_fwd_ms_per_step=share("fused_norm_fwd_kernel"),
          norm_bwd_ms_per_step=share("fused_norm_bwd_kernel"),
@@ -1170,7 +1314,17 @@ SEQ8K_PER_STEP = {"flash_attention_fwd": 2 * 24 * 4,
                   "flash_attention_bwd_fused": 0,
                   "fused_norm_fwd": (2 * 48 + 1) * 4,
                   "fused_norm_bwd": 49 * 4,
-                  "paged_attention_decode": 0}
+                  "paged_attention_decode": 0,
+                  # bf16 at head_dim 128: every forward and dk/dv launch on
+                  # the tensor cores (dq stays on the SIMT kernel)
+                  "flash_attention_fwd_tc": 2 * 24 * 4,
+                  "flash_attention_bwd_dkv_tc": 24 * 4}
+#: the seq-8192 losses of a run on the SIMT forward and dk/dv (same seeds,
+#: every product in f32; NVIDIA H100 80GB HBM3, 700 W): the first depends
+#: only on the forward, steps 2-3 on the backward too
+SEQ8K_SIMT_LOSSES = (11.234864234924316, 11.242216110229492,
+                    11.232942581176758)
+SEQ8K_LOSS_TOL = (1e-3, 1e-2, 1e-2)
 
 
 def _trace_rows(prof) -> list:
@@ -1230,11 +1384,17 @@ def phase_seq8k_trainer(dev: torch.device, card: str) -> dict:
                    + mc.hidden_size * mc.initializer_range ** 2 / 2)
     check(abs(losses[0] - expect) < 0.1,
           f"first loss {losses[0]} is not within 0.1 of {expect}")
+    loss_diffs = [abs(a - b) for a, b in zip(losses, SEQ8K_SIMT_LOSSES)]
+    check(all(d <= tol for d, tol in zip(loss_diffs, SEQ8K_LOSS_TOL)),
+          f"seq8k losses {losses} against the SIMT run's "
+          f"{SEQ8K_SIMT_LOSSES}: "
+          f"differences {loss_diffs} exceed {SEQ8K_LOSS_TOL}")
     step_s = statistics.median(h["train_cost"] for h in hist[1:])
     tokens = glb["global_batch_size"] * glb["max_seq_len"]
     fpt = engine.module.flops_per_token()
     peak = peak_flops(torch.cuda.get_device_name(dev)) or PEAK_BF16_FLOPS
     out = dict(steps=SEQ8K_STEPS, losses=losses, grad_norms=norms,
+               loss_diffs_from_simt_run=loss_diffs,
                first_loss=losses[0], expected_first_loss=expect,
                step_ms=[h["train_cost"] * 1e3 for h in hist],
                step_ms_median_of_steps_2_3=step_s * 1e3,
@@ -1265,6 +1425,8 @@ def phase_seq8k_trainer(dev: torch.device, card: str) -> dict:
     device_ms = ms(sum(us for _, us in rows))
     matmul_ms = ms(sum(us for k, us in rows if any(
         m in k for m in ("nvjet", "gemm", "cutlass", "sm90_xmma"))))
+    # "flash_fwd_kernel" / "flash_bwd_dkv_kernel" also match the
+    # tensor-core kernels (``..._kernel_tc``), whose own rows are shown too
     kernels = {"flash_fwd_ms": share("flash_fwd_kernel"),
                "flash_bwd_dq_ms": share("flash_bwd_dq_kernel"),
                "flash_bwd_dkv_ms": share("flash_bwd_dkv_kernel"),
@@ -1272,6 +1434,8 @@ def phase_seq8k_trainer(dev: torch.device, card: str) -> dict:
                "norm_bwd_ms": share("fused_norm_bwd_kernel")}
     top = sorted(rows, key=lambda r: -r[1])[:12]
     emit("seq8k_train_trace", steps=1, profiled_wall_ms=wall_ms,
+         flash_fwd_tc_ms=share("flash_fwd_kernel_tc"),
+         flash_bwd_dkv_tc_ms=share("flash_bwd_dkv_kernel_tc"),
          unprofiled_step_ms=step_s * 1e3,
          device_ms=device_ms if rows else None,
          device_busy_share=device_ms / (step_s * 1e3) if rows else None,
@@ -1415,7 +1579,10 @@ def main() -> int:
             "replaces": replaces, "launches": run["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            # the flash rows: which kernel of the route ran ("wgmma": the
+            # tensor-core forward and dk/dv; "simt": f32 products)
+            **({"variant": row["variant"]} if "variant" in row else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,15 +26,24 @@
 // same words come out whatever the tiling, so forward and backward agree,
 // and ops/flash_attention.py:dropout_bits computes them bit for bit.
 //
+// Routes. bf16 / fp16 operands at head_dim 64 and 128 run the forward and
+// the dk/dv kernel on the tensor cores (flash_fwd_kernel_tc,
+// flash_bwd_dkv_kernel_tc, below: wgmma on 16-bit tiles that TMA brings
+// into shared memory, f32 accumulation; P and dS are rounded to the
+// operand type before their products, as every GPU FlashAttention does).
+// f32 at every head_dim and 16-bit types at head_dim 256, and the dq and
+// fused backward kernels at every type, run the SIMT kernels, which keep
+// every product in f32 and so compute what the TPU kernels' f32 casts
+// compute, up to summation order. The C entry points take the route from
+// the caller and refuse one that disagrees with tc_route().
+//
 // What bounds it on the H100: operations. At the GPT-345M training shape
 // (128 heads, seq 1024, head_dim 64) the causal forward does ~17 GFLOP on
 // ~67 MB and the backward ~43 GFLOP on ~135 MB: far above the ridge
-// point. This first version keeps every product in f32 (bf16 x bf16 is
-// exact in f32, so it computes what the TPU kernel's f32 casts compute, up
-// to summation order) on the SIMT cores, whose peak is 67 TFLOP/s, not
-// the tensor cores' 989; wgmma/TMA are later work.
+// point. The SIMT kernels run on the f32 cores, whose peak is 67 TFLOP/s,
+// not the tensor cores' 989.
 //
-// Design.
+// Design of the SIMT kernels.
 //   Forward: one block of 256 threads per (q tile of BQ rows, head); the
 //   heaviest causal tiles launch first. The block walks the k tiles (64
 //   rows) up to the diagonal: Q^T, K^T (d-major) and V (row-major) in
@@ -67,6 +76,10 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -877,6 +890,473 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
   }
 }
 
+// ------------------------------------------- tensor-core forward (wgmma)
+// Replaces _fwd_kernel for bf16 / fp16 operands at head_dim 64 and 128.
+// Bound at [32, 8192, 128] causal: operations (5.5e11 FLOP at 989 TFLOP/s
+// bf16 = 0.56 ms against 0.07 GB of traffic, 0.02 ms).
+//
+// One CTA of 384 threads per (q tile of 128 rows, head), heaviest causal
+// tiles first. Warpgroup 2 is the producer: one lane loads Q once and streams
+// [128, d] K and V tiles by TMA into a ring of kTcStages stages, 128-byte
+// swizzled for wgmma, with a full barrier per tile (K and V apart, so
+// S = Q K^T starts before V lands) and an empty barrier per stage that the
+// eight consumer warps release. Warpgroups 0 and 1 are the consumers, 64 q
+// rows each. Per k tile: S = Q K^T as wgmma m64n128k16 (A = Q, B = K, both
+// K-major in shared memory) into f32 registers; the online softmax of
+// _fwd_kernel:201-215 in f32 (the normaliser l sums the UNdropped,
+// unrounded p; each row's 128 columns lie on the 4 threads of a quad, so
+// its max takes two shuffles, and l is summed per thread and reduced once
+// at the end); the causal mask only on the diagonal tile; the dropout hash
+// at each accumulator element's own (row, col); the dropped P rounded to
+// the operand type in registers, where the accumulator fragment of S is
+// the A fragment of O += P V (wgmma m64n{d}k16, B = V MN-major), so P
+// never goes through shared memory. The producer keeps 24 registers and
+// the consumers take 240 (setmaxnreg). O / l goes out in the operand type
+// and lse = m + log(l) in f32, the contract the dq and fused kernels read.
+// Two consumer warpgroups and a producer warpgroup. Under the launch bound
+// of 384 threads every thread starts with 168 registers; the producer then
+// gives its share to the consumers (4 x 32 x 24 + 8 x 32 x 240 = 64,512 of
+// the SM's 65,536), which hold O and S (forward) or dK, dV, S^T and dP^T
+// (dk/dv) in f32 registers without spilling.
+constexpr int kTcThreads = 384;
+constexpr int kTcProducerRegs = 24;
+constexpr int kTcConsumerRegs = 240;
+constexpr int kTcStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct TcFwdSmem {
+  static constexpr int kTile = (D / 64) * 128 * 128;  // [128, D] 16-bit
+  static constexpr size_t kBytes = 1024 + kTile * (1 + 2 * kTcStages);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, 1) flash_fwd_kernel_tc(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out,
+    float* __restrict__ lse, int sq, int sk, int causal, float scale,
+    uint32_t seed, uint32_t thresh, int dropout, float keep_prob) {
+  using namespace hopper;
+  constexpr int kTile = TcFwdSmem<D>::kTile;
+  constexpr int kRegion = 128 * 128;  // one 64-column region of a tile
+  __shared__ __align__(8) uint64_t bar_q;
+  __shared__ __align__(8) uint64_t bar_k[kTcStages];
+  __shared__ __align__(8) uint64_t bar_v[kTcStages];
+  __shared__ __align__(8) uint64_t bar_empty[kTcStages];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sK = sQ + kTile;                 // stage s at sK + s * kTile
+  uint8_t* sV = sK + kTcStages * kTile;
+
+  const int bh = blockIdx.y;
+  const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int q0 = qi * 128;
+  const int nk = causal ? qi + 1 : sk / 128;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // ---- producer warpgroup: one lane issues the TMA
+    setmaxnreg_dec<kTcProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      const int qrow = bh * sq + q0;
+      mbar_expect_tx(&bar_q, kTile);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_2d(sQ + c * kRegion, &tm_q, &bar_q, c * 64, qrow);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % kTcStages;
+        mbar_wait(&bar_empty[s], ((j / kTcStages) & 1) ^ 1);
+        const int krow = bh * sk + j * 128;
+        mbar_expect_tx(&bar_k[s], kTile);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_2d(sK + s * kTile + c * kRegion, &tm_k, &bar_k[s], c * 64,
+                      krow);
+        mbar_expect_tx(&bar_v[s], kTile);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_2d(sV + s * kTile + c * kRegion, &tm_v, &bar_v[s], c * 64,
+                      krow);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63
+  setmaxnreg_inc<kTcConsumerRegs>();
+  const int wg = warp / 4;
+  const int w = warp % 4;
+  const int t4 = lane % 4;
+  const int row0 = q0 + wg * 64 + w * 16 + lane / 4;  // and row0 + 8
+  const float sl2 = scale * kLog2e;  // scores in the log2 domain
+  const float inv_keep = 1.f / keep_prob;
+  uint32_t rkey[2] = {0u, 0u};
+  if (dropout) {
+    const uint32_t kh = head_key(seed, bh);
+    rkey[0] = mix32(kh ^ static_cast<uint32_t>(row0));
+    rkey[1] = mix32(kh ^ static_cast<uint32_t>(row0 + 8));
+  }
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+
+  const uint64_t desc_q = sw128_desc(sQ + wg * 64 * 128, 0, 1024);
+  mbar_wait(&bar_q, 0);
+  for (int j = 0; j < nk; ++j) {
+    const int s = j % kTcStages;
+    const uint32_t phase = (j / kTcStages) & 1;
+    const int k0 = j * 128;
+    float sc[64];
+    mbar_wait(&bar_k[s], phase);
+    const uint64_t desc_k = sw128_desc(sK + s * kTile, 0, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kRegion + (kk % 4) * 32;
+      wgmma_ss<128, T>(sc, desc_add(desc_q, off), desc_add(desc_k, off),
+                       kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<64>(sc);
+
+    const bool diag = causal && j == nk - 1;
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      float mx = m[i];
+#pragma unroll
+      for (int jb = 0; jb < 16; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = sc[4 * jb + 2 * i + e] * sl2;
+          if (diag && k0 + 8 * jb + 2 * t4 + e > row) x = kNegInf;
+          sc[4 * jb + 2 * i + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[i] = exp2f(m[i] - mx);
+      m[i] = mx;
+      float rs = 0.f;
+#pragma unroll
+      for (int jb = 0; jb < 16; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = exp2f(sc[4 * jb + 2 * i + e] - mx);
+          rs += p;
+          if (dropout)
+            p = drop_bits(rkey[i], k0 + 8 * jb + 2 * t4 + e) >= thresh
+                    ? p * inv_keep
+                    : 0.f;
+          sc[4 * jb + 2 * i + e] = p;
+        }
+      l[i] = l[i] * alpha[i] + rs;
+    }
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[4 * jb + 2 * i] *= alpha[i];
+        o[4 * jb + 2 * i + 1] *= alpha[i];
+      }
+    uint32_t pa[8][4];  // the dropped P as A fragments, one per k16 slice
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack2<T>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    mbar_wait(&bar_v[s], phase);
+    const uint64_t desc_v = sw128_desc(sV + s * kTile, kRegion, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs<D, T>(o, pa[kk], desc_add(desc_v, kk * 16 * 128), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+    fence_regs<32>(&pa[0][0]);
+    if (lane == 0) mbar_arrive(&bar_empty[s]);  // K and V of stage s read
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const float l_safe = li == 0.f ? 1.f : li;
+    const int row = row0 + 8 * i;
+    T* orow = out + (static_cast<size_t>(bh) * sq + row) * D;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jb + 2 * t4) =
+          pack2<T>(o[4 * jb + 2 * i] / l_safe, o[4 * jb + 2 * i + 1] / l_safe);
+    if (t4 == 0)
+      lse[static_cast<size_t>(bh) * sq + row] = m[i] * kLn2 + logf(l_safe);
+  }
+}
+
+// --------------------------------------- tensor-core dk / dv (wgmma)
+// Replaces _bwd_dkv_kernel for bf16 / fp16 operands at head_dim 64 and
+// 128. Bound at [32, 8192, 128] causal: operations (4 products, 1.1e12
+// FLOP at 989 TFLOP/s = 1.11 ms).
+//
+// One CTA of 384 threads per (k tile of 128 rows, head), heaviest causal
+// tiles (the first) first; sq != sk is allowed when not causal. K and V
+// stay in shared memory (loaded once by TMA). Warp 8, in the producer
+// warpgroup, streams [64, d] Q and dO tiles by TMA through kTcStages
+// stages, its 32 lanes copying the tiles' lse and delta slices beside them (plain loads,
+// released to the consumers by the full barrier's arrive). The q tiles run
+// from the first whose last row reaches the k tile (k0 / 64 under causal)
+// to the end. Warpgroups 0 and 1 own 64 k rows each and compute the
+// transposed scores, so the k row is the row index throughout:
+//   S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, A = K / V and
+//   B = Q / dO, all K-major in shared memory);
+//   P^T = exp(S^T scale - lse[col]) from the GIVEN lse (any logsumexp: the
+//   ring feeds the global one), the dropped P^T * inv for dV, and
+//   dS^T = P^T (dP^T mask inv - delta[col]) scale (_bwd_dkv_kernel:
+//   344-362), in f32; the causal mask only on the two q tiles that cross
+//   the diagonal; the dropout hash at (row = q, col = k), its per-q half
+//   mix32(kh ^ q) once per column a thread holds;
+//   dV += P^T_dropped dO and dK += dS^T Q (wgmma m64n{d}k16, A from
+//   registers: the S^T / dP^T accumulators rounded to the operand type in
+//   place; B = dO / Q MN-major, the same shared-memory tiles read the
+//   other way).
+// The loop is software-pipelined: the products of q tile i and the dV / dK
+// update of tile i - 1 are issued together, and the elementwise work on
+// tile i runs while that update is still on the tensor cores (one wgmma
+// wait per q tile; on the H100 this ran faster than waiting after each
+// product).
+// dK and dV are written once, in the k/v type: deterministic, no atomics.
+template <int D>
+struct TcDkvSmem {
+  static constexpr int kKV = (D / 64) * 128 * 128;  // [128, D] K or V
+  static constexpr int kQ = (D / 64) * 64 * 128;    // [64, D] Q or dO
+  static constexpr size_t kBytes = 1024 + 2 * kKV + 2 * kTcStages * kQ;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_dkv_kernel_tc(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int sq, int sk, int causal, float scale, uint32_t seed, uint32_t thresh,
+    int dropout, float inv) {
+  using namespace hopper;
+  constexpr int kKV = TcDkvSmem<D>::kKV;
+  constexpr int kQ = TcDkvSmem<D>::kQ;
+  constexpr int kKRegion = 128 * 128;  // 64-column region of a K/V tile
+  constexpr int kQRegion = 64 * 128;   // 64-column region of a Q/dO tile
+  __shared__ __align__(8) uint64_t bar_kv;
+  __shared__ __align__(8) uint64_t bar_full[kTcStages];
+  __shared__ __align__(8) uint64_t bar_empty[kTcStages];
+  __shared__ float s_lse[kTcStages][64];
+  __shared__ float s_delta[kTcStages][64];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);
+  uint8_t* sV = sK + kKV;
+  uint8_t* sQ = sV + kKV;                 // stage s at sQ + s * kQ
+  uint8_t* sdO = sQ + kTcStages * kQ;
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * 128;
+  const int qt0 = causal ? k0 / 64 : 0;  // first q tile reaching k0
+  const int nq = sq / 64 - qt0;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_kv, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&bar_full[s], 32);  // the producer warp's lanes
+      mbar_init(&bar_empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // ---- producer warpgroup: warp 8 streams the tiles
+    setmaxnreg_dec<kTcProducerRegs>();
+    if (warp > 8) return;
+    if (lane == 0) {
+      const int krow = bh * sk + k0;
+      mbar_expect_tx(&bar_kv, 2 * kKV);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_2d(sK + c * kKRegion, &tm_k, &bar_kv, c * 64, krow);
+        tma_load_2d(sV + c * kKRegion, &tm_v, &bar_kv, c * 64, krow);
+      }
+    }
+    for (int it = 0; it < nq; ++it) {
+      const int s = it % kTcStages;
+      mbar_wait(&bar_empty[s], ((it / kTcStages) & 1) ^ 1);
+      const size_t qrow = static_cast<size_t>(bh) * sq + (qt0 + it) * 64;
+      s_lse[s][lane] = lse[qrow + lane];
+      s_lse[s][lane + 32] = lse[qrow + lane + 32];
+      s_delta[s][lane] = delta[qrow + lane];
+      s_delta[s][lane + 32] = delta[qrow + lane + 32];
+      if (lane == 0) {
+        mbar_expect_tx(&bar_full[s], 2 * kQ);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_2d(sQ + s * kQ + c * kQRegion, &tm_q, &bar_full[s], c * 64,
+                      static_cast<int>(qrow));
+          tma_load_2d(sdO + s * kQ + c * kQRegion, &tm_do, &bar_full[s],
+                      c * 64, static_cast<int>(qrow));
+        }
+      } else {
+        mbar_arrive(&bar_full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns k rows k0 + 64 wg .. + 63
+  setmaxnreg_inc<kTcConsumerRegs>();
+  const int wg = warp / 4;
+  const int w = warp % 4;
+  const int t4 = lane % 4;
+  const int krow0 = k0 + wg * 64 + w * 16 + lane / 4;  // and krow0 + 8
+  const uint32_t kh = head_key(seed, bh);
+  const float sl2 = scale * kLog2e;
+  float dka[D / 2];
+  float dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+  const uint64_t desc_k = sw128_desc(sK + wg * 64 * 128, 0, 1024);
+  const uint64_t desc_v = sw128_desc(sV + wg * 64 * 128, 0, 1024);
+  float st[32];       // S^T of one q tile, then the dropped P^T (f32)
+  float dpt[32];      // dP^T, then dS^T (f32)
+  uint32_t pa[4][4];  // dropped P^T, A fragments per k16 slice of q
+  uint32_t sa[4][4];  // dS^T
+  // Software pipeline, one wgmma wait per q tile. Step it issues
+  // S^T_it, dP^T_it and dV, dK += (P^T, dS^T)_{it-1} (Q, dO)_{it-1} as two
+  // commit groups; the elementwise work on tile it runs as soon as its
+  // products land, while tile it - 1's are still on the tensor cores.
+  mbar_wait(&bar_kv, 0);
+  for (int it = 0; it <= nq; ++it) {
+    const bool has_s = it < nq;  // S^T_it and dP^T_it
+    const bool has_g = it > 0;   // dV, dK from tile it - 1
+    const int s = it % kTcStages;
+    const int sp = (it + kTcStages - 1) % kTcStages;  // stage of tile it-1
+    if (has_s) mbar_wait(&bar_full[s], (it / kTcStages) & 1);
+    wgmma_fence();
+    if (has_s) {
+      const uint64_t desc_q = sw128_desc(sQ + s * kQ, 0, 1024);
+      const uint64_t desc_do = sw128_desc(sdO + s * kQ, 0, 1024);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64, T>(st,
+                        desc_add(desc_k, (kk / 4) * kKRegion + (kk % 4) * 32),
+                        desc_add(desc_q, (kk / 4) * kQRegion + (kk % 4) * 32),
+                        kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64, T>(dpt,
+                        desc_add(desc_v, (kk / 4) * kKRegion + (kk % 4) * 32),
+                        desc_add(desc_do, (kk / 4) * kQRegion + (kk % 4) * 32),
+                        kk > 0);
+    }
+    wgmma_commit();
+    if (has_g) {
+      const uint64_t desc_dot = sw128_desc(sdO + sp * kQ, kQRegion, 1024);
+      const uint64_t desc_qt = sw128_desc(sQ + sp * kQ, kQRegion, 1024);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D, T>(dva, pa[kk], desc_add(desc_dot, kk * 16 * 128), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D, T>(dka, sa[kk], desc_add(desc_qt, kk * 16 * 128), 1);
+    }
+    wgmma_commit();
+    if (has_s) {
+      wgmma_wait<1>();  // S^T_it and dP^T_it have landed
+      fence_regs<32>(st);
+      fence_regs<32>(dpt);
+      const int q0 = (qt0 + it) * 64;
+      const bool diag = causal && q0 < k0 + 128;
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * jb + 2 * t4 + e;  // q column in the tile
+          const int q = q0 + c;
+          const float L2 = s_lse[s][c] * kLog2e;
+          const float Dl = s_delta[s][c];
+          const uint32_t qkey =
+              dropout ? mix32(kh ^ static_cast<uint32_t>(q)) : 0u;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int idx = 4 * jb + 2 * i + e;
+            const int krow = krow0 + 8 * i;
+            float x = st[idx] * sl2 - L2;
+            if (diag && krow > q) x = kNegInf;
+            const float p = exp2f(x);
+            float dpv = dpt[idx];
+            float pd = p;
+            if (dropout) {
+              const bool keep = drop_bits(qkey, krow) >= thresh;
+              pd = keep ? p * inv : 0.f;
+              dpv = keep ? dpv * inv : 0.f;
+            }
+            st[idx] = pd;
+            dpt[idx] = p * (dpv - Dl) * scale;
+          }
+        }
+    }
+    wgmma_wait<0>();  // dV, dK of tile it - 1 have landed
+    fence_regs<D / 2>(dva);
+    fence_regs<D / 2>(dka);
+    fence_regs<16>(&pa[0][0]);
+    fence_regs<16>(&sa[0][0]);
+    if (has_g && lane == 0)
+      mbar_arrive(&bar_empty[sp]);  // Q, dO, lse, delta of tile it-1 read
+    if (has_s) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack2<T>(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          sa[kk][r] =
+              pack2<T>(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t row = static_cast<size_t>(bh) * sk + krow0 + 8 * i;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb) {
+      const int col = 8 * jb + 2 * t4;
+      *reinterpret_cast<uint32_t*>(dk + row * D + col) =
+          pack2<T>(dka[4 * jb + 2 * i], dka[4 * jb + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + row * D + col) =
+          pack2<T>(dva[4 * jb + 2 * i], dva[4 * jb + 2 * i + 1]);
+    }
+  }
+}
+
 template <typename T, int D, int BQ>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, float* lse, int bh, int sq, int sk,
@@ -988,6 +1468,8 @@ cudaError_t dq_by_dim(const void* q, const void* k, const void* v,
   }
 }
 
+// SIMT dk/dv: f32 at every head_dim, 16-bit types at head_dim 256 only
+// (16-bit at 64 and 128 take the tensor-core kernel).
 template <typename T>
 cudaError_t dkv_by_dim(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
@@ -995,46 +1477,157 @@ cudaError_t dkv_by_dim(const void* q, const void* k, const void* v,
                        int sk, int d, int causal, float scale, uint32_t seed,
                        uint32_t thresh, int dropout, float inv,
                        cudaStream_t st) {
-  switch (d) {
-    case 64:
+  if constexpr (std::is_same<T, float>::value) {
+    if (d == 64)
       return launch_dkv<T, 64, 64, 64>(q, k, v, dout, lse, delta, dk, dv, bh,
                                        sq, sk, causal, scale, seed, thresh,
                                        dropout, inv, st);
-    case 128:
+    if (d == 128)
       return launch_dkv<T, 128, 32, 64>(q, k, v, dout, lse, delta, dk, dv,
                                         bh, sq, sk, causal, scale, seed,
                                         thresh, dropout, inv, st);
-    case 256:
-      return launch_dkv<T, 256, 32, 32>(q, k, v, dout, lse, delta, dk, dv,
-                                        bh, sq, sk, causal, scale, seed,
-                                        thresh, dropout, inv, st);
-    default:
-      return cudaErrorInvalidValue;
   }
+  if (d == 256)
+    return launch_dkv<T, 256, 32, 32>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                      sq, sk, causal, scale, seed, thresh,
+                                      dropout, inv, st);
+  return cudaErrorInvalidValue;
 }
 
+// SIMT forward: f32 at every head_dim, 16-bit types at head_dim 256 only.
 template <typename T>
 cudaError_t fwd_by_dim(const void* q, const void* k, const void* v,
                        void* out, float* lse, int bh, int sq, int sk, int d,
                        int causal, float scale, uint32_t seed,
                        uint32_t thresh, int dropout, float keep_prob,
                        cudaStream_t st) {
-  switch (d) {
-    case 64:
+  if constexpr (std::is_same<T, float>::value) {
+    if (d == 64)
       return launch_fwd<T, 64, 64>(q, k, v, out, lse, bh, sq, sk, causal,
                                    scale, seed, thresh, dropout, keep_prob,
                                    st);
-    case 128:
+    if (d == 128)
       return launch_fwd<T, 128, 64>(q, k, v, out, lse, bh, sq, sk, causal,
                                     scale, seed, thresh, dropout, keep_prob,
                                     st);
-    case 256:
-      return launch_fwd<T, 256, 32>(q, k, v, out, lse, bh, sq, sk, causal,
-                                    scale, seed, thresh, dropout, keep_prob,
-                                    st);
-    default:
-      return cudaErrorInvalidValue;
   }
+  if (d == 256)
+    return launch_fwd<T, 256, 32>(q, k, v, out, lse, bh, sq, sk, causal,
+                                  scale, seed, thresh, dropout, keep_prob,
+                                  st);
+  return cudaErrorInvalidValue;
+}
+
+// Tensor-core launchers. A tensor map that cannot be encoded returns
+// cudaErrorNotSupported.
+template <typename T, int D>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
+                          void* out, float* lse, int dtype, int bh, int sq,
+                          int sk, int causal, float scale, uint32_t seed,
+                          uint32_t thresh, int dropout, float keep_prob,
+                          cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!hopper::make_tile_map(&mq, q, dtype, static_cast<uint64_t>(bh) * sq,
+                             D, 128) ||
+      !hopper::make_tile_map(&mk, k, dtype, static_cast<uint64_t>(bh) * sk,
+                             D, 128) ||
+      !hopper::make_tile_map(&mv, v, dtype, static_cast<uint64_t>(bh) * sk,
+                             D, 128))
+    return cudaErrorNotSupported;
+  const size_t bytes = TcFwdSmem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(sq / 128, bh);
+  flash_fwd_kernel_tc<T, D><<<grid, kTcThreads, bytes, stream>>>(
+      mq, mk, mv, static_cast<T*>(out), lse, sq, sk, causal, scale, seed,
+      thresh, dropout, keep_prob);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, void* dk, void* dv, int dtype,
+                          int bh, int sq, int sk, int causal, float scale,
+                          uint32_t seed, uint32_t thresh, int dropout,
+                          float inv, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  const uint64_t rq = static_cast<uint64_t>(bh) * sq;
+  const uint64_t rk = static_cast<uint64_t>(bh) * sk;
+  if (!hopper::make_tile_map(&mq, q, dtype, rq, D, 64) ||
+      !hopper::make_tile_map(&mk, k, dtype, rk, D, 128) ||
+      !hopper::make_tile_map(&mv, v, dtype, rk, D, 128) ||
+      !hopper::make_tile_map(&mdo, dout, dtype, rq, D, 64))
+    return cudaErrorNotSupported;
+  const size_t bytes = TcDkvSmem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel_tc<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(sk / 128, bh);
+  flash_bwd_dkv_kernel_tc<T, D><<<grid, kTcThreads, bytes, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      sq, sk, causal, scale, seed, thresh, dropout, inv);
+  return cudaGetLastError();
+}
+
+// The route: bf16 / fp16 operands at head_dim 64 and 128 take the
+// tensor-core kernels, everything else the SIMT ones. The Python wrappers
+// decide it too (ops/flash_attention.py:tc_route) and pass it in; an entry
+// point refuses a route that disagrees with this one.
+bool tc_route(int dtype, int d) {
+  return (dtype == 1 || dtype == 2) && (d == 64 || d == 128);
+}
+
+cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int dtype, int bh, int sq, int sk, int d,
+                   int causal, float scale, uint32_t seed, uint32_t thresh,
+                   int dropout, float keep_prob, cudaStream_t st) {
+  if (dtype == 1 && d == 64)
+    return launch_fwd_tc<__nv_bfloat16, 64>(q, k, v, out, lse, dtype, bh, sq,
+                                            sk, causal, scale, seed, thresh,
+                                            dropout, keep_prob, st);
+  if (dtype == 1 && d == 128)
+    return launch_fwd_tc<__nv_bfloat16, 128>(q, k, v, out, lse, dtype, bh,
+                                             sq, sk, causal, scale, seed,
+                                             thresh, dropout, keep_prob, st);
+  if (dtype == 2 && d == 64)
+    return launch_fwd_tc<__half, 64>(q, k, v, out, lse, dtype, bh, sq, sk,
+                                     causal, scale, seed, thresh, dropout,
+                                     keep_prob, st);
+  if (dtype == 2 && d == 128)
+    return launch_fwd_tc<__half, 128>(q, k, v, out, lse, dtype, bh, sq, sk,
+                                      causal, scale, seed, thresh, dropout,
+                                      keep_prob, st);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dkv_tc(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, int dtype, int bh, int sq, int sk,
+                   int d, int causal, float scale, uint32_t seed,
+                   uint32_t thresh, int dropout, float inv, cudaStream_t st) {
+  if (dtype == 1 && d == 64)
+    return launch_dkv_tc<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk,
+                                            dv, dtype, bh, sq, sk, causal,
+                                            scale, seed, thresh, dropout, inv,
+                                            st);
+  if (dtype == 1 && d == 128)
+    return launch_dkv_tc<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk,
+                                             dv, dtype, bh, sq, sk, causal,
+                                             scale, seed, thresh, dropout,
+                                             inv, st);
+  if (dtype == 2 && d == 64)
+    return launch_dkv_tc<__half, 64>(q, k, v, dout, lse, delta, dk, dv, dtype,
+                                     bh, sq, sk, causal, scale, seed, thresh,
+                                     dropout, inv, st);
+  if (dtype == 2 && d == 128)
+    return launch_dkv_tc<__half, 128>(q, k, v, dout, lse, delta, dk, dv,
+                                      dtype, bh, sq, sk, causal, scale, seed,
+                                      thresh, dropout, inv, st);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -1066,7 +1659,8 @@ bool geometry_ok(int bh, int sq, int sk, int causal) {
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
-// 2 = float16. q/k/v/out/dout are [bh, seq, d] contiguous; lse/delta
+// 2 = float16; tc (forward, dk/dv): 1 for the tensor-core route, which
+// must equal tc_route(dtype, d). q/k/v/out/dout are [bh, seq, d] contiguous; lse/delta
 // [bh, sq] f32; dq [bh, sq, d] f32. dropout != 0 keeps an element when its
 // hash word is >= thresh. Returns 0 on success, else a cudaError_t (a
 // refused launch, or a geometry outside what the kernels take).
@@ -1074,12 +1668,15 @@ extern "C" int fleetx_flash_fwd(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int bh, int sq, int sk,
                                 int d, int causal, int dtype, float scale,
                                 uint32_t seed, uint32_t thresh, int dropout,
-                                float keep_prob, void* stream) {
-  if (!geometry_ok(bh, sq, sk, causal))
+                                float keep_prob, int tc, void* stream) {
+  if (!geometry_ok(bh, sq, sk, causal) || (tc != 0) != tc_route(dtype, d))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
+  if (tc) {
+    err = fwd_tc(q, k, v, out, lse, dtype, bh, sq, sk, d, causal, scale, seed,
+                 thresh, dropout, keep_prob, st);
+  } else if (dtype == 0) {
     err = fwd_by_dim<float>(q, k, v, out, lse, bh, sq, sk, d, causal, scale,
                             seed, thresh, dropout, keep_prob, st);
   } else if (dtype == 1) {
@@ -1161,12 +1758,15 @@ extern "C" int fleetx_flash_bwd_dkv(const void* q, const void* k,
                                     int sk, int d, int causal, int dtype,
                                     float scale, uint32_t seed,
                                     uint32_t thresh, int dropout, float inv,
-                                    void* stream) {
-  if (!geometry_ok(bh, sq, sk, causal))
+                                    int tc, void* stream) {
+  if (!geometry_ok(bh, sq, sk, causal) || (tc != 0) != tc_route(dtype, d))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
+  if (tc) {
+    err = dkv_tc(q, k, v, dout, lse, delta, dk, dv, dtype, bh, sq, sk, d,
+                 causal, scale, seed, thresh, dropout, inv, st);
+  } else if (dtype == 0) {
     err = dkv_by_dim<float>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
                             causal, scale, seed, thresh, dropout, inv, st);
   } else if (dtype == 1) {

@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). Libraries land in ``fleetx_tpu_torch/_build/``
-under a name keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing builds at
+under a name keyed by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused. Nothing builds at
 import: the first CUDA call of a kernel's wrapper builds it, and
 ``build()`` compiles several missing sources at once, one ``nvcc``
 process each, all started together.
@@ -60,9 +61,16 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where kernel ``name``'s library goes, keyed by source + flags."""
+    """Where kernel ``name``'s library goes, keyed by its source, every
+    header beside it (``csrc/*.cuh``, which a source may include) and the
+    flags: an edited header rebuilds every library."""
     with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
         digest = hashlib.sha256(f.read())
+    for header in sorted(n for n in os.listdir(CSRC_DIR)
+                         if n.endswith(".cuh")):
+        digest.update(header.encode())
+        with open(os.path.join(CSRC_DIR, header), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 

@@ -31,6 +31,21 @@ runs its dense plain version (``fwd_plain``, ``bwd_plain``,
 the Pallas kernels and ``chip_smoke.py`` holds the kernels against on the
 card. Each wrapper's ``launches`` counts kernel launches only.
 
+Routes (``tc_route``). bf16 / fp16 operands at head_dim 64 and 128 take
+the tensor-core forward and dk/dv kernels (wgmma on 16-bit tiles, f32
+accumulation); ``fwd_call.tc_launches`` and ``bwd_dkv_call.tc_launches``
+count those launches beside ``launches``, which counts both routes. f32,
+head_dim 256, and the dq and fused backward kernels stay on the SIMT
+kernels, every product in f32. The route is a dispatch on dtype and
+head_dim, not a fallback: a tensor-core kernel that fails raises. The
+tensor-core kernels round the dropped ``p`` (forward) and ``pᵀ``, ``dsᵀ``
+(dk/dv) to the operand dtype before their products, as every GPU
+FlashAttention does; the JAX kernels and the plain versions by default
+keep them in f32. ``round_operands=True`` makes ``fwd_plain`` and
+``bwd_dkv_plain`` round them exactly where the kernels do: the card holds
+each tensor-core kernel to that variant with a tight tolerance and to
+the unrounded one within a drift bound (``chip_smoke.py``).
+
 Dropout. The TPU kernel draws its mask from the TPU's hardware PRNG per
 block; those bits cannot be had on a GPU. Here the mask is one
 counter-based hash keyed per ELEMENT by ``(seed, b·head, row, col)``
@@ -65,6 +80,17 @@ import torch
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASK32 = 0xFFFFFFFF
+#: operand dtypes and head_dims of the tensor-core forward and dk/dv
+TC_DTYPES = (torch.bfloat16, torch.float16)
+TC_HEAD_DIMS = (64, 128)
+
+
+def tc_route(dtype: torch.dtype, head_dim: int) -> bool:
+    """True where the forward and dk/dv kernels run on the tensor cores
+    (bf16 / fp16 at head_dim 64 and 128); the C entry points refuse any
+    other answer."""
+    return dtype in TC_DTYPES and int(head_dim) in TC_HEAD_DIMS
+
 
 def supported(q: torch.Tensor, k: Optional[torch.Tensor] = None,
               causal: bool = True) -> bool:
@@ -150,8 +176,11 @@ def _scores(q3, k3, scale, causal):
 
 def fwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
               seed: int, scale: float, causal: bool = True,
-              rate: float = 0.0):
-    """The forward kernel's function, dense: ``(out, lse)``."""
+              rate: float = 0.0, round_operands: bool = False):
+    """The forward kernel's function, dense: ``(out, lse)``.
+    ``round_operands`` rounds the dropped ``p`` to q's dtype before
+    ``p @ v``, as the tensor-core kernel does; the normaliser keeps the
+    unrounded ``p``."""
     s = _scores(q3, k3, scale, causal)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
@@ -160,6 +189,8 @@ def fwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         keep = dropout_keep(seed, q3.shape[0], q3.shape[1], k3.shape[1],
                             rate, q3.device)
         p = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
+    if round_operands:
+        p = p.to(q3.dtype).float()
     acc = torch.einsum("bqk,bkd->bqd", p, v3.float())
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (acc / l_safe[..., None]).to(q3.dtype)
@@ -178,10 +209,13 @@ def _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate):
     return p, dp, keep
 
 
-def _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal, rate):
+def _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal, rate,
+              round_operands=False):
     """``(ds, dk, dv)`` in f32, kept ``p`` and ``dp`` multiplied by
     ``1 / (1 - rate)`` (``_bwd_fused_kernel:484-493``,
-    ``_bwd_dkv_kernel:347-360``)."""
+    ``_bwd_dkv_kernel:347-360``); ``round_operands`` rounds the dropped
+    ``p`` and ``ds`` to q's dtype before their products (``ds`` comes back
+    unrounded)."""
     p, dp, keep = _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate)
     pd = p
     if keep is not None:
@@ -189,9 +223,12 @@ def _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal, rate):
         zero = torch.zeros_like(p)
         pd = torch.where(keep, p * inv, zero)
         dp = torch.where(keep, dp * inv, zero)
-    dv = torch.einsum("bqk,bqd->bkd", pd, do.float())
+    def rnd(x):
+        return x.to(q3.dtype).float() if round_operands else x
+
+    dv = torch.einsum("bqk,bqd->bkd", rnd(pd), do.float())
     ds = p * (dp - delta[..., None]) * scale
-    dk = torch.einsum("bqk,bqd->bkd", ds, q3.float())
+    dk = torch.einsum("bqk,bqd->bkd", rnd(ds), q3.float())
     return ds, dk, dv
 
 
@@ -222,11 +259,13 @@ def bwd_dq_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
 def bwd_dkv_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   seed: int, scale: float, causal: bool = True,
-                  rate: float = 0.0):
+                  rate: float = 0.0, round_operands: bool = False):
     """The dk/dv kernel's function, dense: ``(dk, dv)`` in the k/v
-    dtype."""
+    dtype. ``round_operands`` rounds the dropped ``pᵀ`` and ``dsᵀ`` to q's
+    dtype before ``dv += pᵀ do`` and ``dk += dsᵀ q``, as the tensor-core
+    kernel does."""
     _, dk, dv = _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal,
-                          rate)
+                          rate, round_operands)
     return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
@@ -241,9 +280,11 @@ def _fns():
            lib.fleetx_flash_bwd_dq, lib.fleetx_flash_bwd_dkv)
     if fns[0].argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        tail = [ctypes.c_float, u32, u32, i32, ctypes.c_float, ptr]
-        for fn, n_ptrs in zip(fns, (5, 9, 7, 8)):
-            fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + tail
+        tail = [ctypes.c_float, u32, u32, i32, ctypes.c_float]
+        # the forward and dk/dv entry points also take the route (tc)
+        for fn, n_ptrs, route in zip(fns, (5, 9, 7, 8),
+                                     ([i32], [], [], [i32])):
+            fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + tail + route + [ptr]
             fn.restype = i32
     return fns
 
@@ -323,16 +364,19 @@ def fwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         raise TypeError("flash fwd: q, k and v must share one dtype")
     out = torch.empty_like(q3)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q3.device)
+    tc = tc_route(q3.dtype, d)
     _launch("flash attention forward", _fns()[0], q3.data_ptr(),
             k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
             sq, sk, d, int(causal), _DTYPE_CODES[q3.dtype], float(scale),
             int(seed) & _MASK32, keep_threshold(rate), int(rate > 0.0),
-            1.0 - float(rate), _stream(q3))
+            1.0 - float(rate), int(tc), _stream(q3))
     fwd_call.launches += 1
+    fwd_call.tc_launches += int(tc)
     return out, lse
 
 
 fwd_call.launches = 0
+fwd_call.tc_launches = 0
 
 
 def bwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -407,17 +451,20 @@ def bwd_dkv_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
     inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    tc = tc_route(q3.dtype, d)
     _launch("flash attention dk/dv", _fns()[3], q3.data_ptr(),
             k3.data_ptr(), v3.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
             int(causal), _DTYPE_CODES[q3.dtype], float(scale),
             int(seed) & _MASK32, keep_threshold(rate), int(rate > 0.0),
-            float(inv), _stream(q3))
+            float(inv), int(tc), _stream(q3))
     bwd_dkv_call.launches += 1
+    bwd_dkv_call.tc_launches += int(tc)
     return dk, dv
 
 
 bwd_dkv_call.launches = 0
+bwd_dkv_call.tc_launches = 0
 
 
 # ----------------------------------------------------------- autograd
