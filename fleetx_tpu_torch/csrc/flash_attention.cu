@@ -26,16 +26,16 @@
 // same words come out whatever the tiling, so forward and backward agree,
 // and ops/flash_attention.py:dropout_bits computes them bit for bit.
 //
-// Routes. bf16 / fp16 operands at head_dim 64 and 128 run the forward and
-// the dk/dv kernel on the tensor cores (flash_fwd_kernel_tc,
-// flash_bwd_dkv_kernel_tc, below: wgmma on 16-bit tiles that TMA brings
-// into shared memory, f32 accumulation; P and dS are rounded to the
-// operand type before their products, as every GPU FlashAttention does).
-// f32 at every head_dim and 16-bit types at head_dim 256, and the dq and
-// fused backward kernels at every type, run the SIMT kernels, which keep
-// every product in f32 and so compute what the TPU kernels' f32 casts
-// compute, up to summation order. The C entry points take the route from
-// the caller and refuse one that disagrees with tc_route().
+// Routes. bf16 / fp16 operands at head_dim 64 and 128 run all four
+// kernels on the tensor cores (flash_fwd_kernel_tc, flash_bwd_kernel_tc,
+// flash_bwd_dq_kernel_tc, flash_bwd_dkv_kernel_tc, below: wgmma on 16-bit
+// tiles that TMA brings into shared memory, f32 accumulation; P and dS are
+// rounded to the operand type before their products, as every GPU
+// FlashAttention does). f32 at every head_dim and 16-bit types at head_dim
+// 256 run the SIMT kernels, which keep every product in f32 and so compute
+// what the TPU kernels' f32 casts compute, up to summation order. The C
+// entry points take the route from the caller and refuse one that
+// disagrees with tc_route().
 //
 // What bounds it on the H100: operations. At the GPT-345M training shape
 // (128 heads, seq 1024, head_dim 64) the causal forward does ~17 GFLOP on
@@ -59,7 +59,8 @@
 //   and dQ += dS K read-modify-written in the head's own f32 dq rows in
 //   device memory (the first k tile writes them). Each thread always owns
 //   the same dq elements, so no other thread or block ever touches them.
-//   128 blocks at the 345M shape: one wave on 132 SMs.
+//   128 blocks at the 345M shape: one wave on 132 SMs. (f32 only: 16-bit
+//   operands take flash_bwd_kernel_tc, the same sweep on the tensor cores.)
 //   Split backward: the TPU kernels carry their dq (resp. dk/dv)
 //   accumulator across a sequential grid dimension; here that dimension is
 //   a loop inside one block. dq: one block per (q tile, head) walking the k
@@ -69,8 +70,8 @@
 //   does 5 for both) and keeps its accumulators in registers, written once:
 //   deterministic, no atomics. At the GPT-1.3B seq-8192 shape
 //   ([32, 8192, 128] causal) that is 4096 blocks each, many waves; bound by
-//   operations (~0.83 ms and ~1.11 ms at the bf16 tensor rate), run here on
-//   the SIMT cores in f32 like the kernels above.
+//   operations (~0.83 ms and ~1.11 ms at the bf16 tensor rate). The SIMT
+//   versions keep f32 and head_dim 256.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -1357,6 +1358,532 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_dkv_kernel_tc(
   }
 }
 
+// ------------------------------------------------- tensor-core dq (wgmma)
+// Replaces _bwd_dq_kernel (fleetx_tpu/ops/flash_attention.py:268, launched
+// by _bwd_dq at :378) for bf16 / fp16 operands at head_dim 64 and 128.
+// Bound at the seq-8192 path's shape ([32, 8192, 128] causal): operations
+// (3 products, 8.25e11 FLOP at 989 TFLOP/s bf16 = 0.834 ms, against
+// 0.08 GB of traffic, 0.02 ms).
+//
+// One CTA of 384 threads per (q tile of 128 rows, head); the grid runs the
+// heaviest causal tiles of every head first (blockIdx.y counts down the q
+// tiles, blockIdx.x is the head). Warp 8's lane 0 loads Q and dO once by
+// TMA, then streams [64, d] K and V tiles through a ring of kDqStages
+// stages (one full barrier per stage for both, one empty barrier per
+// stage that the eight consumer warps release): from k tile 0 to the
+// diagonal under causal, over all of sk otherwise (sq != sk is allowed
+// when not causal). Warpgroups 0 and 1 own 64 q rows each; their lse and
+// delta rows stay in registers. Per k tile:
+//   S = Q K^T and dP = dO V^T (wgmma m64n64k16, A = Q / dO and B = K / V,
+//   all K-major in shared memory, as the forward reads Q and K);
+//   P = exp2(S scale log2e - lse log2e) from the GIVEN lse (any
+//   logsumexp: the ring feeds the global one), the causal mask only on the
+//   two k tiles that reach the block's rows, the dropout hash at each
+//   accumulator element's own (row = q, col = k), kept dP DIVIDED by the
+//   keep probability (_bwd_dq_kernel:301-305; dk/dv multiplies by its
+//   reciprocal), dS = P (dP - delta) scale in f32;
+//   dS rounded to the operand type in registers, where the accumulator
+//   fragment is the A fragment of dQ += dS K (wgmma m64n{d}k16, B = the
+//   same K tile read MN-major with the transpose bit).
+// The loop is software-pipelined as the dk/dv kernel's: step j issues S_j,
+// dP_j and dQ += dS_{j-1} K_{j-1} together, and the elementwise work on
+// tile j runs while the dQ product is on the tensor cores (one wgmma wait
+// per tile). Three stages let the producer load tile j + 1 while tile
+// j - 1 is still read. dQ accumulates in f32 registers (d / 2 a thread)
+// and is written once, in the operand type: deterministic, no atomics.
+constexpr int kDqBK = 64;     // k rows per streamed tile
+constexpr int kDqStages = 3;  // depth of the K / V ring
+
+template <int D>
+struct TcDqSmem {
+  static constexpr int kQ = (D / 64) * 128 * 128;     // [128, D] Q or dO
+  static constexpr int kKV = (D / 64) * kDqBK * 128;  // [64, D] K or V
+  static constexpr size_t kBytes = 1024 + 2 * kQ + 2 * kDqStages * kKV;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_dq_kernel_tc(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
+    int causal, float scale, uint32_t seed, uint32_t thresh, int dropout,
+    float keep_prob) {
+  using namespace hopper;
+  using Smem = TcDqSmem<D>;
+  constexpr int kQRegion = 128 * 128;    // 64-column region of a Q/dO tile
+  constexpr int kKRegion = kDqBK * 128;  // 64-column region of a K/V tile
+  __shared__ __align__(8) uint64_t bar_q;
+  __shared__ __align__(8) uint64_t bar_full[kDqStages];
+  __shared__ __align__(8) uint64_t bar_empty[kDqStages];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sdO = sQ + Smem::kQ;
+  uint8_t* sK = sdO + Smem::kQ;            // stage s at sK + s * kKV
+  uint8_t* sV = sK + kDqStages * Smem::kKV;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;  // heaviest first
+  const int nk = causal ? (q0 + 128) / kDqBK : sk / kDqBK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // ---- producer warpgroup: one lane issues the TMA
+    setmaxnreg_dec<kTcProducerRegs>();
+    if (warp == 8 && lane == 0) {
+      const int qrow = bh * sq + q0;
+      mbar_expect_tx(&bar_q, 2 * Smem::kQ);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_2d(sQ + c * kQRegion, &tm_q, &bar_q, c * 64, qrow);
+        tma_load_2d(sdO + c * kQRegion, &tm_do, &bar_q, c * 64, qrow);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % kDqStages;
+        mbar_wait(&bar_empty[s], ((j / kDqStages) & 1) ^ 1);
+        const int krow = bh * sk + j * kDqBK;
+        mbar_expect_tx(&bar_full[s], 2 * Smem::kKV);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_2d(sK + s * Smem::kKV + c * kKRegion, &tm_k, &bar_full[s],
+                      c * 64, krow);
+          tma_load_2d(sV + s * Smem::kKV + c * kKRegion, &tm_v, &bar_full[s],
+                      c * 64, krow);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63
+  setmaxnreg_inc<kTcConsumerRegs>();
+  const int wg = warp / 4;
+  const int w = warp % 4;
+  const int t4 = lane % 4;
+  const int row0 = q0 + wg * 64 + w * 16 + lane / 4;  // and row0 + 8
+  const float sl2 = scale * kLog2e;
+  const uint32_t kh = head_key(seed, bh);
+  float L2[2];  // lse of the two rows, log2 domain
+  float Dl[2];  // delta of the two rows
+  uint32_t rkey[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t r = static_cast<size_t>(bh) * sq + row0 + 8 * i;
+    L2[i] = lse[r] * kLog2e;
+    Dl[i] = delta[r];
+    rkey[i] = mix32(kh ^ static_cast<uint32_t>(row0 + 8 * i));
+  }
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  float sc[32];        // S of one k tile (f32)
+  float dps[32];       // dP, then dS (f32)
+  uint32_t sa[4][4];   // dS rounded, A fragments per k16 slice of the tile
+  const uint64_t desc_q = sw128_desc(sQ + wg * 64 * 128, 0, 1024);
+  const uint64_t desc_do = sw128_desc(sdO + wg * 64 * 128, 0, 1024);
+  mbar_wait(&bar_q, 0);
+  for (int j = 0; j <= nk; ++j) {
+    const bool has_s = j < nk;  // S_j and dP_j
+    const bool has_g = j > 0;   // dQ += dS_{j-1} K_{j-1}
+    const int s = j % kDqStages;
+    const int sp = (j + kDqStages - 1) % kDqStages;  // stage of tile j-1
+    if (has_s) mbar_wait(&bar_full[s], (j / kDqStages) & 1);
+    wgmma_fence();
+    if (has_s) {
+      const uint64_t desc_k = sw128_desc(sK + s * Smem::kKV, 0, 1024);
+      const uint64_t desc_v = sw128_desc(sV + s * Smem::kKV, 0, 1024);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64, T>(sc,
+                        desc_add(desc_q, (kk / 4) * kQRegion + (kk % 4) * 32),
+                        desc_add(desc_k, (kk / 4) * kKRegion + (kk % 4) * 32),
+                        kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64, T>(dps,
+                        desc_add(desc_do, (kk / 4) * kQRegion + (kk % 4) * 32),
+                        desc_add(desc_v, (kk / 4) * kKRegion + (kk % 4) * 32),
+                        kk > 0);
+    }
+    wgmma_commit();
+    if (has_g) {
+      const uint64_t desc_kt = sw128_desc(sK + sp * Smem::kKV, kKRegion, 1024);
+#pragma unroll
+      for (int kk = 0; kk < kDqBK / 16; ++kk)
+        wgmma_rs<D, T>(dqa, sa[kk], desc_add(desc_kt, kk * 16 * 128), 1);
+    }
+    wgmma_commit();
+    if (has_s) {
+      wgmma_wait<1>();  // S_j and dP_j have landed
+      fence_regs<32>(sc);
+      fence_regs<32>(dps);
+      const int k0 = j * kDqBK;
+      const bool diag = causal && k0 + kDqBK > q0;
+#pragma unroll
+      for (int jb = 0; jb < kDqBK / 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * jb + 2 * t4 + e;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int idx = 4 * jb + 2 * i + e;
+            float x = sc[idx] * sl2 - L2[i];
+            if (diag && col > row0 + 8 * i) x = kNegInf;
+            const float p = exp2f(x);
+            float dpv = dps[idx];
+            if (dropout)
+              dpv = drop_bits(rkey[i], col) >= thresh ? dpv / keep_prob : 0.f;
+            dps[idx] = p * (dpv - Dl[i]) * scale;
+          }
+        }
+    }
+    wgmma_wait<0>();  // dQ += dS_{j-1} K_{j-1} has landed
+    fence_regs<D / 2>(dqa);
+    fence_regs<16>(&sa[0][0]);
+    if (has_g && lane == 0)
+      mbar_arrive(&bar_empty[sp]);  // K and V of tile j-1 read
+    if (has_s) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          sa[kk][r] = pack2<T>(dps[8 * kk + 2 * r], dps[8 * kk + 2 * r + 1]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    T* orow = dq + (static_cast<size_t>(bh) * sq + row0 + 8 * i) * D;
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jb + 2 * t4) =
+          pack2<T>(dqa[4 * jb + 2 * i], dqa[4 * jb + 2 * i + 1]);
+  }
+}
+
+// ------------------------------------ tensor-core fused backward (wgmma)
+// Replaces _bwd_fused_kernel (fleetx_tpu/ops/flash_attention.py:431,
+// launched by _bwd_fused at :519) for bf16 / fp16 operands at head_dim 64
+// and 128. Bound at the GPT-345M training shape ([128, 1024, 64] causal):
+// operations (5 products, 4.29e10 FLOP at 989 TFLOP/s bf16 = 0.0435 ms,
+// against 0.07 GB of traffic, 0.02 ms).
+//
+// Deterministic, as _bwd_fused_kernel and the SIMT kernel are: one CTA of
+// 384 threads per head owns the head's whole sweep. It walks the k tiles
+// of 128 rows IN ORDER; warpgroups 0 and 1 own 64 k rows each, as in
+// flash_bwd_dkv_kernel_tc. Warp 8 loads K and V once per k tile by TMA
+// (a full and an empty barrier), and streams [64, d] Q and dO tiles with
+// their lse and delta slices through a ring of kTcStages stages, flat over
+// the sweep: for each k tile the q tiles from the first that reaches it
+// (k0 / 64 under causal, 0 otherwise) to the end. Per (k tile, q tile) the
+// dk/dv kernel's four products, then a fifth:
+//   S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, all K-major);
+//   P^T = exp2(S^T scale log2e - lse log2e), the dropped P^T * inv for dV,
+//   dS^T = P^T (dP^T mask inv - delta) scale (_bwd_fused_kernel:484-493:
+//   both multiply by inv), in f32; the causal mask only on the two q tiles
+//   that cross the diagonal;
+//   dV += P^T dO and dK += dS^T Q (wgmma m64n{d}k16, A from registers: the
+//   accumulators rounded to the operand type in place; B = dO / Q
+//   MN-major);
+//   dQ_tile = dS K: dS must reach the tensor cores with q as the row index,
+//   so both warpgroups store their rounded dS^T rows into one
+//   [128 k, 64 q] 128-byte-swizzled tile (double-buffered; a named barrier
+//   over the 256 consumer threads hands it over), which wgmma reads as A
+//   MN-major; B = the resident K tile, MN-major. The warpgroups split dQ's
+//   d columns (wgmma m64n{d/2}k16 over the 128 k rows): warpgroup wg owns
+//   columns wg d/2 .. + d/2 - 1 of the q tile's 64 rows;
+//   each thread adds its dQ partial to the head's f32 dq rows in device
+//   memory (read while the products run, added, written back; the first
+//   k tile writes them).
+// The steps run one after another: a software-pipelined loop (tile i's
+// updates issued with tile i + 1's products, as in the dk/dv kernel) gave
+// bit-identical results and ran slower on the H100 at d 64 and no faster
+// at d 128, so the serial loop stays.
+// Why it is deterministic: a thread's dQ elements are the same (row,
+// column) pairs at every k tile, so each thread reads, adds to and writes
+// back the same elements in program order; no other thread or CTA touches
+// them, there are no atomics, and the sums run in one fixed order. The
+// head's f32 dq window (1024 x 64 x 4 B = 256 KB at the 345M shape, 32 MB
+// over 128 heads) stays in the 50 MB L2 cache: the counterpart of the JAX
+// kernel's VMEM-resident dq window. dK and dV are written once per k tile,
+// in the k/v type. Registers at d 64: dK 32 + dV 32 + S^T 32 + dP^T 32 +
+// dQ 16 + fragments 32 per consumer thread.
+template <int D>
+struct TcBwdSmem {
+  static constexpr int kKV = (D / 64) * 128 * 128;  // [128, D] K or V
+  static constexpr int kQ = (D / 64) * 64 * 128;    // [64, D] Q or dO
+  static constexpr int kDs = 128 * 128;             // [128 k, 64 q] dS^T
+  static constexpr size_t kBytes =
+      1024 + 2 * kKV + 2 * kTcStages * kQ + 2 * kDs;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_kernel_tc(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq,
+    T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int causal,
+    float scale, uint32_t seed, uint32_t thresh, int dropout, float inv) {
+  using namespace hopper;
+  using Smem = TcBwdSmem<D>;
+  constexpr int kKRegion = 128 * 128;  // 64-column region of a K/V tile
+  constexpr int kQRegion = 64 * 128;   // 64-column region of a Q/dO tile
+  constexpr int kN = D / 2;            // dQ columns per warpgroup
+  __shared__ __align__(8) uint64_t bar_kv_full;
+  __shared__ __align__(8) uint64_t bar_kv_empty;
+  __shared__ __align__(8) uint64_t bar_full[kTcStages];
+  __shared__ __align__(8) uint64_t bar_empty[kTcStages];
+  __shared__ float s_lse[kTcStages][64];
+  __shared__ float s_delta[kTcStages][64];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);
+  uint8_t* sV = sK + Smem::kKV;
+  uint8_t* sQ = sV + Smem::kKV;              // stage s at sQ + s * kQ
+  uint8_t* sdO = sQ + kTcStages * Smem::kQ;
+  uint8_t* sdS = sdO + kTcStages * Smem::kQ;  // buffer b at sdS + b * kDs
+
+  const int bh = blockIdx.x;
+  const int nkt = sk / 128;
+  const int nqt = sq / 64;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_kv_full, 1);
+    mbar_init(&bar_kv_empty, 8);   // lane 0 of each consumer warp
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&bar_full[s], 32);  // the producer warp's lanes
+      mbar_init(&bar_empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // ---- producer warpgroup: warp 8 streams the tiles
+    setmaxnreg_dec<kTcProducerRegs>();
+    if (warp > 8) return;
+    int g = 0;  // q-tile step, flat over the sweep
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int k0 = kt * 128;
+      if (lane == 0) {
+        mbar_wait(&bar_kv_empty, (kt & 1) ^ 1);  // k tile kt-1 done
+        mbar_expect_tx(&bar_kv_full, 2 * Smem::kKV);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_2d(sK + c * kKRegion, &tm_k, &bar_kv_full, c * 64,
+                      bh * sk + k0);
+          tma_load_2d(sV + c * kKRegion, &tm_v, &bar_kv_full, c * 64,
+                      bh * sk + k0);
+        }
+      }
+      for (int qt = causal ? k0 / 64 : 0; qt < nqt; ++qt, ++g) {
+        const int s = g % kTcStages;
+        mbar_wait(&bar_empty[s], ((g / kTcStages) & 1) ^ 1);
+        const size_t qrow = static_cast<size_t>(bh) * sq + qt * 64;
+        s_lse[s][lane] = lse[qrow + lane];
+        s_lse[s][lane + 32] = lse[qrow + lane + 32];
+        s_delta[s][lane] = delta[qrow + lane];
+        s_delta[s][lane + 32] = delta[qrow + lane + 32];
+        if (lane == 0) {
+          mbar_expect_tx(&bar_full[s], 2 * Smem::kQ);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_2d(sQ + s * Smem::kQ + c * kQRegion, &tm_q, &bar_full[s],
+                        c * 64, static_cast<int>(qrow));
+            tma_load_2d(sdO + s * Smem::kQ + c * kQRegion, &tm_do,
+                        &bar_full[s], c * 64, static_cast<int>(qrow));
+          }
+        } else {
+          mbar_arrive(&bar_full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns k rows k0 + 64 wg .. + 63 of each k
+  // tile, and dQ columns wg kN .. + kN - 1 of each q tile
+  setmaxnreg_inc<kTcConsumerRegs>();
+  const int wg = warp / 4;
+  const int w = warp % 4;
+  const int t4 = lane % 4;
+  const int r0 = wg * 64 + w * 16 + lane / 4;  // k row in the tile (and +8)
+  const uint32_t kh = head_key(seed, bh);
+  const float sl2 = scale * kLog2e;
+  const uint64_t desc_k = sw128_desc(sK + wg * 64 * 128, 0, 1024);
+  const uint64_t desc_v = sw128_desc(sV + wg * 64 * 128, 0, 1024);
+  // B of dQ_tile = dS K: K MN-major, this warpgroup's kN columns (a
+  // region of its own at d 128, a 64-byte offset inside the one region at
+  // d 64: the swizzle acts on address bits, so the offset reads columns
+  // 32-63 as they were stored)
+  const uint64_t desc_kb =
+      sw128_desc(sK + wg * (D == 128 ? kKRegion : kN * 2), kKRegion, 1024);
+  float dka[D / 2];
+  float dva[D / 2];
+  float st[32];       // S^T of one q tile, then the dropped P^T (f32)
+  float dpt[32];      // dP^T, then dS^T (f32)
+  float dqa[kN / 2];  // this warpgroup's dQ columns of the q tile
+  uint32_t pa[4][4];  // dropped P^T, A fragments per k16 slice of q
+  uint32_t sa[4][4];  // dS^T
+  int g = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * 128;
+    const int krow0 = k0 + r0;  // and krow0 + 8
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      dka[i] = 0.f;
+      dva[i] = 0.f;
+    }
+    mbar_wait(&bar_kv_full, kt & 1);
+    for (int qt = causal ? k0 / 64 : 0; qt < nqt; ++qt, ++g) {
+      const int s = g % kTcStages;
+      const int q0 = qt * 64;
+      uint8_t* ds_tile = sdS + (g & 1) * Smem::kDs;
+      mbar_wait(&bar_full[s], (g / kTcStages) & 1);
+      const uint64_t desc_q = sw128_desc(sQ + s * Smem::kQ, 0, 1024);
+      const uint64_t desc_do = sw128_desc(sdO + s * Smem::kQ, 0, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64, T>(st,
+                        desc_add(desc_k, (kk / 4) * kKRegion + (kk % 4) * 32),
+                        desc_add(desc_q, (kk / 4) * kQRegion + (kk % 4) * 32),
+                        kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64, T>(dpt,
+                        desc_add(desc_v, (kk / 4) * kKRegion + (kk % 4) * 32),
+                        desc_add(desc_do, (kk / 4) * kQRegion + (kk % 4) * 32),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32>(st);
+      fence_regs<32>(dpt);
+
+      const bool diag = causal && q0 < k0 + 128;
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * jb + 2 * t4 + e;  // q column in the tile
+          const int q = q0 + c;
+          const float L2 = s_lse[s][c] * kLog2e;
+          const float Dl = s_delta[s][c];
+          const uint32_t qkey =
+              dropout ? mix32(kh ^ static_cast<uint32_t>(q)) : 0u;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int idx = 4 * jb + 2 * i + e;
+            const int krow = krow0 + 8 * i;
+            float x = st[idx] * sl2 - L2;
+            if (diag && krow > q) x = kNegInf;
+            const float p = exp2f(x);
+            float dpv = dpt[idx];
+            float pd = p;
+            if (dropout) {
+              const bool keep = drop_bits(qkey, krow) >= thresh;
+              pd = keep ? p * inv : 0.f;
+              dpv = keep ? dpv * inv : 0.f;
+            }
+            st[idx] = pd;
+            dpt[idx] = p * (dpv - Dl) * scale;
+          }
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack2<T>(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          sa[kk][r] = pack2<T>(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+        }
+      // the rounded dS^T rows into the shared tile: register 2h + i of
+      // slice kk holds k row r0 + 8i, q columns 16kk + 8h + 2 t4 + {0, 1},
+      // i.e. 16-byte chunk 2kk + h of the row, at chunk (2kk + h) ^ (row %
+      // 8) under the 128-byte swizzle (a warp's 32 stores hit 32 banks)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = r0 + 8 * i;
+            *reinterpret_cast<uint32_t*>(
+                ds_tile + row * 128 + (((2 * kk + h) ^ (row & 7)) << 4) +
+                t4 * 4) = sa[kk][2 * h + i];
+          }
+      fence_proxy_async();
+      named_barrier(1, 256);  // both halves of dS^T are in the tile
+
+      const uint64_t desc_dot = sw128_desc(sdO + s * Smem::kQ, kQRegion, 1024);
+      const uint64_t desc_qt = sw128_desc(sQ + s * Smem::kQ, kQRegion, 1024);
+      const uint64_t desc_ds = sw128_desc(ds_tile, Smem::kDs, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D, T>(dva, pa[kk], desc_add(desc_dot, kk * 16 * 128), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D, T>(dka, sa[kk], desc_add(desc_qt, kk * 16 * 128), 1);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_ss_tt<kN, T>(dqa, desc_add(desc_ds, kk * 16 * 128),
+                           desc_add(desc_kb, kk * 16 * 128), kk > 0);
+      wgmma_commit();
+      // this thread's dq elements: rows q0 + 16w + l/4 + 8i, columns
+      // wg kN + 8jb + 2 t4 + {0, 1}; read while the products run
+      float* dq_rows = dq + (static_cast<size_t>(bh) * sq + q0 + w * 16 +
+                             lane / 4) * D + wg * kN + 2 * t4;
+      float2 cur[kN / 8][2];
+#pragma unroll
+      for (int jb = 0; jb < kN / 8; ++jb)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          cur[jb][i] = kt > 0 ? *reinterpret_cast<const float2*>(
+                                    dq_rows + 8 * i * D + 8 * jb)
+                              : make_float2(0.f, 0.f);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(dva);
+      fence_regs<D / 2>(dka);
+      fence_regs<kN / 2>(dqa);
+      fence_regs<16>(&pa[0][0]);
+      fence_regs<16>(&sa[0][0]);
+      if (lane == 0) mbar_arrive(&bar_empty[s]);  // Q, dO, lse, delta read
+#pragma unroll
+      for (int jb = 0; jb < kN / 8; ++jb)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<float2*>(dq_rows + 8 * i * D + 8 * jb) =
+              make_float2(cur[jb][i].x + dqa[4 * jb + 2 * i],
+                          cur[jb][i].y + dqa[4 * jb + 2 * i + 1]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const size_t row = static_cast<size_t>(bh) * sk + krow0 + 8 * i;
+#pragma unroll
+      for (int jb = 0; jb < D / 8; ++jb) {
+        const int col = 8 * jb + 2 * t4;
+        *reinterpret_cast<uint32_t*>(dk + row * D + col) =
+            pack2<T>(dka[4 * jb + 2 * i], dka[4 * jb + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + row * D + col) =
+            pack2<T>(dva[4 * jb + 2 * i], dva[4 * jb + 2 * i + 1]);
+      }
+    }
+    if (lane == 0) mbar_arrive(&bar_kv_empty);  // K and V of this tile read
+  }
+}
+
 template <typename T, int D, int BQ>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, float* lse, int bh, int sq, int sk,
@@ -1444,28 +1971,29 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // Tiles (BQ, BK) per head_dim. Shared memory per block: dq 104,960 /
 // 190,976 / 185,600 bytes and dk/dv 139,776 / 157,952 / 223,488 bytes for
 // head_dim 64 / 128 / 256, under the 232,448 a block may use.
+// SIMT dq: f32 at every head_dim, 16-bit types at head_dim 256 only
+// (16-bit at 64 and 128 take the tensor-core kernel).
 template <typename T>
 cudaError_t dq_by_dim(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int bh, int sq, int sk, int d, int causal,
                       float scale, uint32_t seed, uint32_t thresh,
                       int dropout, float keep_prob, cudaStream_t st) {
-  switch (d) {
-    case 64:
+  if constexpr (std::is_same<T, float>::value) {
+    if (d == 64)
       return launch_dq<T, 64, 64, 64>(q, k, v, dout, lse, delta, dq, bh, sq,
                                       sk, causal, scale, seed, thresh,
                                       dropout, keep_prob, st);
-    case 128:
+    if (d == 128)
       return launch_dq<T, 128, 64, 64>(q, k, v, dout, lse, delta, dq, bh, sq,
                                        sk, causal, scale, seed, thresh,
                                        dropout, keep_prob, st);
-    case 256:
-      return launch_dq<T, 256, 32, 32>(q, k, v, dout, lse, delta, dq, bh, sq,
-                                       sk, causal, scale, seed, thresh,
-                                       dropout, keep_prob, st);
-    default:
-      return cudaErrorInvalidValue;
   }
+  if (d == 256)
+    return launch_dq<T, 256, 32, 32>(q, k, v, dout, lse, delta, dq, bh, sq,
+                                     sk, causal, scale, seed, thresh,
+                                     dropout, keep_prob, st);
+  return cudaErrorInvalidValue;
 }
 
 // SIMT dk/dv: f32 at every head_dim, 16-bit types at head_dim 256 only
@@ -1573,8 +2101,62 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The route: bf16 / fp16 operands at head_dim 64 and 128 take the
-// tensor-core kernels, everything else the SIMT ones. The Python wrappers
+template <typename T, int D>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* delta, void* dq, int dtype, int bh,
+                         int sq, int sk, int causal, float scale,
+                         uint32_t seed, uint32_t thresh, int dropout,
+                         float keep_prob, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  const uint64_t rq = static_cast<uint64_t>(bh) * sq;
+  const uint64_t rk = static_cast<uint64_t>(bh) * sk;
+  if (!hopper::make_tile_map(&mq, q, dtype, rq, D, 128) ||
+      !hopper::make_tile_map(&mk, k, dtype, rk, D, kDqBK) ||
+      !hopper::make_tile_map(&mv, v, dtype, rk, D, kDqBK) ||
+      !hopper::make_tile_map(&mdo, dout, dtype, rq, D, 128))
+    return cudaErrorNotSupported;
+  const size_t bytes = TcDqSmem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel_tc<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, sq / 128);
+  flash_bwd_dq_kernel_tc<T, D><<<grid, kTcThreads, bytes, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dq), sq, sk, causal,
+      scale, seed, thresh, dropout, keep_prob);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, float* dq, void* dk, void* dv,
+                          int dtype, int bh, int sq, int sk, int causal,
+                          float scale, uint32_t seed, uint32_t thresh,
+                          int dropout, float inv, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  const uint64_t rq = static_cast<uint64_t>(bh) * sq;
+  const uint64_t rk = static_cast<uint64_t>(bh) * sk;
+  if (!hopper::make_tile_map(&mq, q, dtype, rq, D, 64) ||
+      !hopper::make_tile_map(&mk, k, dtype, rk, D, 128) ||
+      !hopper::make_tile_map(&mv, v, dtype, rk, D, 128) ||
+      !hopper::make_tile_map(&mdo, dout, dtype, rq, D, 64))
+    return cudaErrorNotSupported;
+  const size_t bytes = TcBwdSmem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_kernel_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  flash_bwd_kernel_tc<T, D><<<bh, kTcThreads, bytes, stream>>>(
+      mq, mk, mv, mdo, lse, delta, dq, static_cast<T*>(dk),
+      static_cast<T*>(dv), sq, sk, causal, scale, seed, thresh, dropout, inv);
+  return cudaGetLastError();
+}
+
+// The route, one predicate for all four kernels: bf16 / fp16 operands at
+// head_dim 64 and 128 take the tensor-core kernels, everything else the
+// SIMT ones. The Python wrappers
 // decide it too (ops/flash_attention.py:tc_route) and pass it in; an entry
 // point refuses a route that disagrees with this one.
 bool tc_route(int dtype, int d) {
@@ -1630,25 +2212,75 @@ cudaError_t dkv_tc(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t bwd_by_dim(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, float* dq, void* dk, void* dv,
-                       int bh, int sq, int sk, int d, int causal, float scale,
-                       uint32_t seed, uint32_t thresh, int dropout, float inv,
-                       cudaStream_t st) {
-  switch (d) {
-    case 64:
-      return launch_bwd<T, 64, 64>(q, k, v, dout, lse, delta, dq, dk, dv, bh,
-                                   sq, sk, causal, scale, seed, thresh,
-                                   dropout, inv, st);
-    case 128:
-      return launch_bwd<T, 128, 32>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                    bh, sq, sk, causal, scale, seed, thresh,
-                                    dropout, inv, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t dq_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, int dtype, int bh, int sq, int sk, int d,
+                  int causal, float scale, uint32_t seed, uint32_t thresh,
+                  int dropout, float keep_prob, cudaStream_t st) {
+  if (dtype == 1 && d == 64)
+    return launch_dq_tc<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq,
+                                           dtype, bh, sq, sk, causal, scale,
+                                           seed, thresh, dropout, keep_prob,
+                                           st);
+  if (dtype == 1 && d == 128)
+    return launch_dq_tc<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq,
+                                            dtype, bh, sq, sk, causal, scale,
+                                            seed, thresh, dropout, keep_prob,
+                                            st);
+  if (dtype == 2 && d == 64)
+    return launch_dq_tc<__half, 64>(q, k, v, dout, lse, delta, dq, dtype, bh,
+                                    sq, sk, causal, scale, seed, thresh,
+                                    dropout, keep_prob, st);
+  if (dtype == 2 && d == 128)
+    return launch_dq_tc<__half, 128>(q, k, v, dout, lse, delta, dq, dtype,
+                                     bh, sq, sk, causal, scale, seed, thresh,
+                                     dropout, keep_prob, st);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t bwd_tc(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   float* dq, void* dk, void* dv, int dtype, int bh, int sq,
+                   int sk, int d, int causal, float scale, uint32_t seed,
+                   uint32_t thresh, int dropout, float inv, cudaStream_t st) {
+  if (dtype == 1 && d == 64)
+    return launch_bwd_tc<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq,
+                                            dk, dv, dtype, bh, sq, sk, causal,
+                                            scale, seed, thresh, dropout, inv,
+                                            st);
+  if (dtype == 1 && d == 128)
+    return launch_bwd_tc<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq,
+                                             dk, dv, dtype, bh, sq, sk,
+                                             causal, scale, seed, thresh,
+                                             dropout, inv, st);
+  if (dtype == 2 && d == 64)
+    return launch_bwd_tc<__half, 64>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                     dtype, bh, sq, sk, causal, scale, seed,
+                                     thresh, dropout, inv, st);
+  if (dtype == 2 && d == 128)
+    return launch_bwd_tc<__half, 128>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                      dtype, bh, sq, sk, causal, scale, seed,
+                                      thresh, dropout, inv, st);
+  return cudaErrorInvalidValue;
+}
+
+// SIMT fused backward: f32 at head_dim 64 and 128 (16-bit types there take
+// the tensor-core kernel; the fused kernel takes no head_dim above 128).
+cudaError_t bwd_f32(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    float* dq, void* dk, void* dv, int bh, int sq, int sk,
+                    int d, int causal, float scale, uint32_t seed,
+                    uint32_t thresh, int dropout, float inv,
+                    cudaStream_t st) {
+  if (d == 64)
+    return launch_bwd<float, 64, 64>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                     bh, sq, sk, causal, scale, seed, thresh,
+                                     dropout, inv, st);
+  if (d == 128)
+    return launch_bwd<float, 128, 32>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                      bh, sq, sk, causal, scale, seed,
+                                      thresh, dropout, inv, st);
+  return cudaErrorInvalidValue;
 }
 
 bool geometry_ok(int bh, int sq, int sk, int causal) {
@@ -1659,9 +2291,10 @@ bool geometry_ok(int bh, int sq, int sk, int causal) {
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
-// 2 = float16; tc (forward, dk/dv): 1 for the tensor-core route, which
-// must equal tc_route(dtype, d). q/k/v/out/dout are [bh, seq, d] contiguous; lse/delta
-// [bh, sq] f32; dq [bh, sq, d] f32. dropout != 0 keeps an element when its
+// 2 = float16; tc: 1 for the tensor-core route, which must equal
+// tc_route(dtype, d) (every entry point takes it). q/k/v/out/dout are
+// [bh, seq, d] contiguous; lse/delta [bh, sq] f32; the fused kernel's dq
+// [bh, sq, d] f32. dropout != 0 keeps an element when its
 // hash word is >= thresh. Returns 0 on success, else a cudaError_t (a
 // refused launch, or a geometry outside what the kernels take).
 extern "C" int fleetx_flash_fwd(const void* q, const void* k, const void* v,
@@ -1697,23 +2330,17 @@ extern "C" int fleetx_flash_bwd_fused(const void* q, const void* k,
                                       int sq, int sk, int d, int causal,
                                       int dtype, float scale, uint32_t seed,
                                       uint32_t thresh, int dropout, float inv,
-                                      void* stream) {
-  if (!geometry_ok(bh, sq, sk, causal))
+                                      int tc, void* stream) {
+  if (!geometry_ok(bh, sq, sk, causal) || (tc != 0) != tc_route(dtype, d))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    err = bwd_by_dim<float>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq,
-                            sk, d, causal, scale, seed, thresh, dropout, inv,
-                            st);
-  } else if (dtype == 1) {
-    err = bwd_by_dim<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                    bh, sq, sk, d, causal, scale, seed,
-                                    thresh, dropout, inv, st);
-  } else if (dtype == 2) {
-    err = bwd_by_dim<__half>(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq,
-                             sk, d, causal, scale, seed, thresh, dropout,
-                             inv, st);
+  if (tc) {
+    err = bwd_tc(q, k, v, dout, lse, delta, dq, dk, dv, dtype, bh, sq, sk, d,
+                 causal, scale, seed, thresh, dropout, inv, st);
+  } else if (dtype == 0) {
+    err = bwd_f32(q, k, v, dout, lse, delta, dq, dk, dv, bh, sq, sk, d,
+                  causal, scale, seed, thresh, dropout, inv, st);
   }
   return static_cast<int>(err);
 }
@@ -1729,13 +2356,16 @@ extern "C" int fleetx_flash_bwd_dq(const void* q, const void* k,
                                    void* dq, int bh, int sq, int sk, int d,
                                    int causal, int dtype, float scale,
                                    uint32_t seed, uint32_t thresh,
-                                   int dropout, float keep_prob,
+                                   int dropout, float keep_prob, int tc,
                                    void* stream) {
-  if (!geometry_ok(bh, sq, sk, causal))
+  if (!geometry_ok(bh, sq, sk, causal) || (tc != 0) != tc_route(dtype, d))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
+  if (tc) {
+    err = dq_tc(q, k, v, dout, lse, delta, dq, dtype, bh, sq, sk, d, causal,
+                scale, seed, thresh, dropout, keep_prob, st);
+  } else if (dtype == 0) {
     err = dq_by_dim<float>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
                            causal, scale, seed, thresh, dropout, keep_prob,
                            st);
@@ -1779,4 +2409,28 @@ extern "C" int fleetx_flash_bwd_dkv(const void* q, const void* k,
                              st);
   }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory of a tensor-core kernel's launch at head_dim d (64
+// or 128; else 0): kernel 0 = forward, 1 = fused backward, 2 = dq, 3 =
+// dk/dv. ptxas -v reports only the static part.
+extern "C" int fleetx_flash_tc_smem_bytes(int kernel, int d) {
+  if (d != 64 && d != 128) return 0;
+  const bool wide = d == 128;
+  switch (kernel) {
+    case 0:
+      return static_cast<int>(wide ? TcFwdSmem<128>::kBytes
+                                   : TcFwdSmem<64>::kBytes);
+    case 1:
+      return static_cast<int>(wide ? TcBwdSmem<128>::kBytes
+                                   : TcBwdSmem<64>::kBytes);
+    case 2:
+      return static_cast<int>(wide ? TcDqSmem<128>::kBytes
+                                   : TcDqSmem<64>::kBytes);
+    case 3:
+      return static_cast<int>(wide ? TcDkvSmem<128>::kBytes
+                                   : TcDkvSmem<64>::kBytes);
+    default:
+      return 0;
+  }
 }

@@ -31,20 +31,23 @@ runs its dense plain version (``fwd_plain``, ``bwd_plain``,
 the Pallas kernels and ``chip_smoke.py`` holds the kernels against on the
 card. Each wrapper's ``launches`` counts kernel launches only.
 
-Routes (``tc_route``). bf16 / fp16 operands at head_dim 64 and 128 take
-the tensor-core forward and dk/dv kernels (wgmma on 16-bit tiles, f32
-accumulation); ``fwd_call.tc_launches`` and ``bwd_dkv_call.tc_launches``
-count those launches beside ``launches``, which counts both routes. f32,
-head_dim 256, and the dq and fused backward kernels stay on the SIMT
-kernels, every product in f32. The route is a dispatch on dtype and
-head_dim, not a fallback: a tensor-core kernel that fails raises. The
-tensor-core kernels round the dropped ``p`` (forward) and ``pᵀ``, ``dsᵀ``
-(dk/dv) to the operand dtype before their products, as every GPU
-FlashAttention does; the JAX kernels and the plain versions by default
-keep them in f32. ``round_operands=True`` makes ``fwd_plain`` and
-``bwd_dkv_plain`` round them exactly where the kernels do: the card holds
-each tensor-core kernel to that variant with a tight tolerance and to
-the unrounded one within a drift bound (``chip_smoke.py``).
+Routes (``tc_route``, one predicate for all four kernels). bf16 / fp16
+operands at head_dim 64 and 128 take the tensor-core forward, fused
+backward, dq and dk/dv kernels (wgmma on 16-bit tiles, f32
+accumulation); each wrapper's ``tc_launches`` counts those launches
+beside ``launches``, which counts both routes. f32 and head_dim 256 stay
+on the SIMT kernels, every product in f32. The route is a dispatch on
+dtype and head_dim, not a fallback: a tensor-core kernel that fails
+raises. The tensor-core kernels round the dropped ``p`` (forward, and
+``pᵀ`` for dv) and ``ds`` (for dk and dq) to the operand dtype before
+their products, as every GPU FlashAttention does; the JAX kernels and the
+plain versions by default keep them in f32. ``round_operands=True`` makes
+``fwd_plain``, ``bwd_plain``, ``bwd_dq_plain`` and ``bwd_dkv_plain``
+round them exactly where the kernels do: the card holds each tensor-core
+kernel to that variant with a tight tolerance and to the unrounded one
+within a drift bound (``chip_smoke.py``). The fused tensor-core kernel,
+like the SIMT one and ``_bwd_fused_kernel``, is deterministic: one CTA
+owns a head and adds its dq partials in a fixed order, without atomics.
 
 Dropout. The TPU kernel draws its mask from the TPU's hardware PRNG per
 block; those bits cannot be had on a GPU. Here the mask is one
@@ -80,15 +83,15 @@ import torch
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MASK32 = 0xFFFFFFFF
-#: operand dtypes and head_dims of the tensor-core forward and dk/dv
+#: operand dtypes and head_dims of the tensor-core kernels
 TC_DTYPES = (torch.bfloat16, torch.float16)
 TC_HEAD_DIMS = (64, 128)
 
 
 def tc_route(dtype: torch.dtype, head_dim: int) -> bool:
-    """True where the forward and dk/dv kernels run on the tensor cores
-    (bf16 / fp16 at head_dim 64 and 128); the C entry points refuse any
-    other answer."""
+    """True where the flash kernels (forward, fused backward, dq, dk/dv)
+    run on the tensor cores (bf16 / fp16 at head_dim 64 and 128); the C
+    entry points refuse any other answer."""
     return dtype in TC_DTYPES and int(head_dim) in TC_HEAD_DIMS
 
 
@@ -235,10 +238,15 @@ def _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal, rate,
 def bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
               do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
               seed: int, scale: float, causal: bool = True,
-              rate: float = 0.0):
-    """The fused backward kernel's function, dense: ``(dq f32, dk, dv)``."""
+              rate: float = 0.0, round_operands: bool = False):
+    """The fused backward kernel's function, dense: ``(dq f32, dk, dv)``.
+    ``round_operands`` rounds the dropped ``p`` (for dv) and ``ds`` (for
+    dk and dq) to q's dtype before their products, as the tensor-core
+    kernel does."""
     ds, dk, dv = _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal,
-                           rate)
+                           rate, round_operands)
+    if round_operands:
+        ds = ds.to(q3.dtype).float()
     dq = torch.einsum("bqk,bkd->bqd", ds, k3.float())
     return dq, dk.to(k3.dtype), dv.to(v3.dtype)
 
@@ -246,13 +254,18 @@ def bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
 def bwd_dq_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  seed: int, scale: float, causal: bool = True,
-                 rate: float = 0.0) -> torch.Tensor:
+                 rate: float = 0.0,
+                 round_operands: bool = False) -> torch.Tensor:
     """The dq kernel's function, dense: dq in the operand dtype. Kept
-    ``dp`` is divided by ``1 - rate`` (``_bwd_dq_kernel:301-305``)."""
+    ``dp`` is divided by ``1 - rate`` (``_bwd_dq_kernel:301-305``).
+    ``round_operands`` rounds ``ds`` to q's dtype before ``dq = ds k``, as
+    the tensor-core kernel does."""
     p, dp, keep = _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate)
     if keep is not None:
         dp = torch.where(keep, dp / (1.0 - rate), torch.zeros_like(dp))
     ds = p * (dp - delta[..., None]) * scale
+    if round_operands:
+        ds = ds.to(q3.dtype).float()
     return torch.einsum("bqk,bkd->bqd", ds, k3.float()).to(q3.dtype)
 
 
@@ -280,11 +293,10 @@ def _fns():
            lib.fleetx_flash_bwd_dq, lib.fleetx_flash_bwd_dkv)
     if fns[0].argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        tail = [ctypes.c_float, u32, u32, i32, ctypes.c_float]
-        # the forward and dk/dv entry points also take the route (tc)
-        for fn, n_ptrs, route in zip(fns, (5, 9, 7, 8),
-                                     ([i32], [], [], [i32])):
-            fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + tail + route + [ptr]
+        # ..., scale, seed, thresh, dropout, keep_prob / inv, the route (tc)
+        tail = [ctypes.c_float, u32, u32, i32, ctypes.c_float, i32]
+        for fn, n_ptrs in zip(fns, (5, 9, 7, 8)):
+            fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + tail + [ptr]
             fn.restype = i32
     return fns
 
@@ -399,17 +411,20 @@ def bwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
     inv = 1.0 / (1.0 - rate) if rate > 0.0 else 1.0
+    tc = tc_route(q3.dtype, d)
     _launch("flash attention backward", _fns()[1], q3.data_ptr(),
             k3.data_ptr(), v3.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
             sq, sk, d, int(causal), _DTYPE_CODES[q3.dtype], float(scale),
             int(seed) & _MASK32, keep_threshold(rate), int(rate > 0.0),
-            float(inv), _stream(q3))
+            float(inv), int(tc), _stream(q3))
     bwd_call.launches += 1
+    bwd_call.tc_launches += int(tc)
     return dq, dk, dv
 
 
 bwd_call.launches = 0
+bwd_call.tc_launches = 0
 
 
 def bwd_dq_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -424,17 +439,20 @@ def bwd_dq_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     bh, sq, sk, d = _bwd_operands("flash bwd dq", q3, k3, v3, do, lse,
                                   delta, causal)
     dq = torch.empty_like(q3)
+    tc = tc_route(q3.dtype, d)
     _launch("flash attention dq", _fns()[2], q3.data_ptr(), k3.data_ptr(),
             v3.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), bh, sq, sk, d, int(causal),
             _DTYPE_CODES[q3.dtype], float(scale), int(seed) & _MASK32,
             keep_threshold(rate), int(rate > 0.0), 1.0 - float(rate),
-            _stream(q3))
+            int(tc), _stream(q3))
     bwd_dq_call.launches += 1
+    bwd_dq_call.tc_launches += int(tc)
     return dq
 
 
 bwd_dq_call.launches = 0
+bwd_dq_call.tc_launches = 0
 
 
 def bwd_dkv_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
