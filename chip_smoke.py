@@ -5,18 +5,27 @@ GPT-345M at full width and GPT-1.3B at seq 8192 at full width and depth
 through the port's trainer.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
+    python3 chip_smoke.py --serving        # phase 2 and its trace alone
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
 0. environment: torch/CUDA versions, ``nvcc --version``, the card's name
    and power limit; TF32 is switched off for matmuls and cuDNN.
-1. kernels: build every CUDA kernel from ``fleetx_tpu_torch/csrc``, run
-   each at the shapes GPT-345M serving gives it (B 16, nh 16, hd 64,
-   page 16, 64 pages per request, 513 pages) in f32 and bf16, hold it to
-   its plain PyTorch version, and time it, the plain version and one
-   PyTorch library call computing the same function (the yardstick; the
-   port never calls it), each the median of CUDA-event timings with the
-   L2 cache flushed before every launch.
+1. kernels: build every CUDA kernel from ``fleetx_tpu_torch/csrc``. The
+   paged decode kernel at the shapes GPT-345M serving gives it (B 16, nh
+   16, hd 64, page 16, 64 pages per request, 513 pages) with three lens
+   sets (``PAGED_SHAPES``: ragged, the main path's decode step, the full
+   pool) in f32 and bf16, and at ``PAGED_GEOMETRIES`` (hd 128, page 8, a
+   head block that does not divide nh, hd 256 in f32, B 1): held to its
+   plain version and to the split plain version at the kernel's own
+   chunking, inactive rows exact zeros, a repeated call bitwise
+   identical, the planner's shared memory equal to the kernel's. Then the
+   three bf16 shapes timed: the kernel, the plain version and one PyTorch
+   library call computing the same function (the yardstick; the port
+   never calls it), each the median of CUDA-event timings with the L2
+   cache flushed before every launch, and the kernel's device time from
+   ``torch.profiler`` (``device_ms``).
 2. main path: ``serving_gpt_345M.yaml`` through the port's own config
    loader and ``build_engine`` (seeded bf16 weights, full width), an
    in-process ``ReplicaServer`` answering concurrent requests over TCP.
@@ -34,7 +43,9 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    the unrounded one: see Tolerances), timed beside its plain version and
    one library call (SDPA's flash backend forward / its autograd
    backward; ``F.layer_norm`` after the add / its autograd backward), with
-   its bound. The bf16 fused backward is called twice on the same inputs
+   its bound; the bf16 norms and their yardsticks five times more at the
+   345M shape (``norm_spread``: median and range). The bf16 fused backward
+   is called twice on the same inputs
    and must give bitwise-identical dq, dk and dv (it is deterministic).
    The dropout masks of the flash kernels are recovered bit for bit with
    identity probes (q = k = 0, v or do one-hot) and must equal the plain
@@ -227,60 +238,163 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 50,
     return statistics.median(times)
 
 
-def decode_case(dtype: torch.dtype, dev: torch.device):
-    """Seeded inputs at the 345M decode shapes: pools, q, raw tables
-    (NULL_PAGE tails), localized tables (-1 tails), lens."""
+#: the three decode shapes row 7 is timed at (B, NH, HD, PS, PPR, PAGES
+#: as above; bf16): ``LENS`` (ragged), the main path's decode step as the
+#: trace phase runs it (8 rows at ~100 positions, 8 inactive slots), and
+#: the full pool (512 usable pages, every row at 511)
+PAGED_SHAPES = {"ragged": LENS,
+                "main_path": [100, 101, 102, 103, 104, 100, 101, 102]
+                + [-1] * 8,
+                "full_pool": [511] * 16}
+#: geometries beyond the 345M one the kernel is held to its plain
+#: versions at: (name, dtype, B, nh, hd, ps, pages per request, pages,
+#: lens). nh 14: head blocks of 4, 4, 4 and 2 (the last box reads two
+#: heads past the row as zeros); hd 256 at ps 32 in f32: a page is two row
+#: tiles of one head; B 1: one request split over the most chunks, merged
+#: by one block
+PAGED_GEOMETRIES = (
+    ("hd128", torch.bfloat16, 16, 16, 128, 16, 64, 513, LENS),
+    ("hd128_f32", torch.float32, 16, 16, 128, 16, 64, 513, LENS),
+    ("ps8", torch.bfloat16, 16, 16, 64, 8, 128, 1025, LENS),
+    ("nh14", torch.bfloat16, 16, 14, 64, 16, 64, 513, LENS),
+    ("hd256_ps32_f32", torch.float32, 4, 3, 256, 32, 32, 129,
+     [-1, 1023, 40, 31]),
+    ("b1", torch.bfloat16, 1, 16, 64, 16, 64, 65, [1023]),
+)
+
+
+def device_ms(fn, flush: torch.Tensor, pattern: str, iters: int = 20) -> float:
+    """Device time per call of ``fn`` spent in the kernels whose name holds
+    ``pattern``, each call after an L2 flush: ``torch.profiler``'s record
+    of the kernel alone, without the launch and event overhead that
+    ``time_ms`` also holds (about 5 µs for an empty op)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and pattern in e.key) / 1e3 / iters
+
+
+def decode_case(dtype: torch.dtype, dev: torch.device, lens=LENS, b=B,
+                nh=NH, hd=HD, ps=PS, ppr=PPR, pages=PAGES):
+    """Seeded inputs at one decode geometry (default: 345M's): pools, q,
+    raw tables (NULL_PAGE tails), localized tables (-1 tails), lens. Each
+    row holds the pages its lens need, drawn without replacement."""
     from fleetx_tpu_torch.serving.paged_cache import NULL_PAGE
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    shape = (PAGES, PS, NH, HD)
+    shape = (pages, ps, nh, hd)
     pk = torch.randn(shape, generator=gen, device=dev).to(dtype)
     pv = torch.randn(shape, generator=gen, device=dev).to(dtype)
-    q = torch.randn((B, NH, HD), generator=gen, device=dev).to(dtype)
+    q = torch.randn((b, nh, hd), generator=gen, device=dev).to(dtype)
     rng = np.random.RandomState(0)
-    free = list(rng.permutation(np.arange(1, PAGES)))
-    tables = np.full((B, PPR), NULL_PAGE, np.int32)
-    for b, n in enumerate(LENS):
-        used = -(-(n + 1) // PS) if n >= 0 else 0
-        tables[b, :used] = [free.pop() for _ in range(used)]
+    free = list(rng.permutation(np.arange(1, pages)))
+    tables = np.full((b, ppr), NULL_PAGE, np.int32)
+    for row, n in enumerate(lens):
+        used = -(-(n + 1) // ps) if n >= 0 else 0
+        tables[row, :used] = [free.pop() for _ in range(used)]
     local = np.where(tables != NULL_PAGE, tables, -1).astype(np.int32)
     as_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return (q, pk, pv, as_dev(tables), as_dev(local),
-            as_dev(np.asarray(LENS, np.int32)))
+            as_dev(np.asarray(lens, np.int32)))
 
 
-def paged_bound(itemsize: int):
+def paged_bound(itemsize: int, lens=LENS, b=B, nh=NH, hd=HD, ppr=PPR):
     """(bound_ms, bound_by): each input read once, each output written
     once, the K/V rows this run's lens need and no more."""
-    rows = sum(n + 1 for n in LENS if n >= 0)
-    nbytes = (B * NH * HD * itemsize              # q
-              + rows * NH * HD * 2 * itemsize     # K and V rows read
-              + B * PPR * 4 + B * 4               # tables, lens
-              + B * NH * HD * 4 + 2 * B * NH * 4)  # acc, m, l
-    flops = rows * NH * HD * 4                    # q.k and p.v, f32 FMAs
+    rows = sum(n + 1 for n in lens if n >= 0)
+    nbytes = (b * nh * hd * itemsize              # q
+              + rows * nh * hd * 2 * itemsize     # K and V rows read
+              + b * ppr * 4 + b * 4               # tables, lens
+              + b * nh * hd * 4 + 2 * b * nh * 4)  # acc, m, l
+    flops = rows * nh * hd * 4                    # q.k and p.v, f32 FMAs
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _ptxas_summary(log: str, pattern: str) -> list:
-    """``[kernel, "Used ... registers ... smem", "... spill ..."]`` of
-    every kernel whose name holds ``pattern``, from ``nvcc -Xptxas -v``
-    (the smem there is the static part; the tiles are dynamic)."""
-    out = []
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1] if "'" in line else line
-            short = re.search(r"([a-z_]+_kernel_tc)I\d+(\w+?)Li(\d+)E",
-                              name)
-            if short:  # e.g. flash_fwd_kernel_tc<__nv_bfloat16, 128>
-                name = f"{short[1]}<{short[2]}, {short[3]}>"
-            out.append([name] if pattern in name else None)
-        elif out and out[-1] is not None and (
-                "spill" in line or "Used" in line):
-            out[-1].append(line.strip())
-    return [entry for entry in out if entry is not None]
+def _hold_paged(PA, case, lens, what: str) -> dict:
+    """Hold the kernel to both plain versions (the split one at the
+    kernel's own chunking) on one case: the inactive row exact zeros, a
+    repeated call bitwise identical. Returns the largest errors."""
+    q, pk, pv, tables, local, lens_t = case
+    acc, m, l = PA.paged_call(q, pk, pv, local, lens_t)
+    again = PA.paged_call(q, pk, pv, local, lens_t)
+    plan = PA._plan_for(q, pk, local)
+    refs = {"plain": PA.paged_call_plain(q, pk, pv, local, lens_t),
+            "plain_split": PA.paged_call_plain_split(
+                q, pk, pv, local, lens_t, plan.pages_per_chunk)}
+    torch.cuda.synchronize()
+    errs = {}
+    for name, (r_acc, r_m, r_l) in refs.items():
+        msg = f"paged {what} vs {name}"
+        torch.testing.assert_close(acc, r_acc, rtol=1e-5, atol=1e-4, msg=msg)
+        torch.testing.assert_close(l, r_l, rtol=1e-5, atol=1e-4, msg=msg)
+        torch.testing.assert_close(m, r_m, rtol=1e-5, atol=1e-5, msg=msg)
+        errs[f"{name}_max_abs_err"] = _max_err(
+            [(acc, r_acc), (m, r_m), (l, r_l)])
+    check(all(torch.equal(x, y) for x, y in zip((acc, m, l), again)),
+          f"paged {what}: a repeated call is not bitwise identical")
+    dtype = q.dtype
+    out = PA.paged_attention(q, pk, pv, tables, lens_t)
+    ref = PA._normalize(refs["plain"][0], refs["plain"][2], dtype)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=1e-5,
+                               msg=f"paged {what} normalised")
+    for row, n in enumerate(lens):
+        if n < 0:
+            check(bool((out[row] == 0).all()),
+                  f"paged {what}: inactive row {row} is not exact zeros")
+    errs["out_max_abs_err"] = float((out.float() - ref.float()).abs().max())
+    errs["plan"] = [plan.route, plan.head_block, plan.rows_per_tile,
+                    plan.pages_per_chunk, plan.slots, plan.smem_bytes]
+    return errs
+
+
+def time_paged(PA, dev: torch.device, flush: torch.Tensor) -> dict:
+    """Row 7 at the three bf16 decode shapes: the kernel, its plain
+    version and gather + SDPA (the yardstick; the port never calls it),
+    each with the bound of that shape's lens. Uses only ``paged_call``
+    and ``paged_call_plain``, so ``--paged-shapes`` can time an earlier
+    tree's kernel too."""
+    out = {}
+    for shape, lens in PAGED_SHAPES.items():
+        q, pk, pv, _, local, lens_t = decode_case(torch.bfloat16, dev, lens)
+        safe = torch.where(local >= 0, local, 0).long()
+        pos = torch.arange(PPR * PS, device=dev)
+        mask = ((local >= 0).repeat_interleave(PS, dim=1)
+                & (pos[None] <= lens_t[:, None].long())
+                & (lens_t[:, None] >= 0))[:, None, None, :]
+
+        def library():
+            kd = pk[safe].reshape(B, PPR * PS, NH, HD).transpose(1, 2)
+            vd = pv[safe].reshape(B, PPR * PS, NH, HD).transpose(1, 2)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kd, vd, attn_mask=mask)
+
+        kernel = lambda: PA.paged_call(q, pk, pv, local, lens_t)  # noqa: E731
+        ms = time_ms(kernel, flush)
+        plain_ms = time_ms(
+            lambda: PA.paged_call_plain(q, pk, pv, local, lens_t), flush)
+        library_ms = time_ms(library, flush)
+        bound_ms, bound_by = paged_bound(pk.element_size(), lens)
+        rows = sum(n + 1 for n in lens if n >= 0)
+        out[shape] = dict(ms=ms, device_ms=device_ms(kernel, flush, "paged_"),
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          kv_bytes=rows * NH * HD * 2 * pk.element_size())
+        emit("paged_shape", shape=shape, **out[shape])
+    return out
 
 
 def phase_kernels(build, dev: torch.device) -> dict:
@@ -301,53 +415,55 @@ def phase_kernels(build, dev: torch.device) -> dict:
         dynamic_smem_bytes={
             name: {d: smem_bytes(i, d) for d in (64, 128)}
             for i, name in enumerate(TC_KERNELS)})
+    paged_smem = build.load("paged_attention").fleetx_paged_smem_bytes
+    paged_smem.argtypes = [ctypes.c_int] * 6
+    paged_smem.restype = ctypes.c_int
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     result = {}
     for name, dtype in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
-        q, pk, pv, tables, local, lens = decode_case(dtype, dev)
-        acc, m, l = PA.paged_call(q, pk, pv, local, lens)
-        r_acc, r_m, r_l = PA.paged_call_plain(q, pk, pv, local, lens)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(acc, r_acc, rtol=1e-5, atol=1e-4)
-        torch.testing.assert_close(l, r_l, rtol=1e-5, atol=1e-4)
-        torch.testing.assert_close(m, r_m, rtol=1e-5, atol=1e-5)
-        out = PA.paged_attention(q, pk, pv, tables, lens)
-        ref = PA._normalize(r_acc, r_l, dtype)
-        rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
-        torch.testing.assert_close(out, ref, rtol=rtol, atol=1e-5)
-        check(bool((out[LENS.index(-1)] == 0).all()),
-              "inactive row is not exact zeros")
-        err = float((out.float() - ref.float()).abs().max())
-
-        # the yardstick: one gather + PyTorch's fused attention with the
-        # same mask (never called by the port)
-        safe = torch.where(local >= 0, local, 0).long()
-        pos = torch.arange(PPR * PS, device=dev)
-        mask = ((local >= 0).repeat_interleave(PS, dim=1)
-                & (pos[None] <= lens[:, None].long())
-                & (lens[:, None] >= 0))[:, None, None, :]
-
-        def library():
-            kd = pk[safe].reshape(B, PPR * PS, NH, HD).transpose(1, 2)
-            vd = pv[safe].reshape(B, PPR * PS, NH, HD).transpose(1, 2)
-            return torch.nn.functional.scaled_dot_product_attention(
-                q[:, :, None], kd, vd, attn_mask=mask)
-
-        ms = time_ms(lambda: PA.paged_call(q, pk, pv, local, lens), flush)
-        plain_ms = time_ms(
-            lambda: PA.paged_call_plain(q, pk, pv, local, lens), flush)
-        library_ms = time_ms(library, flush)
-        bound_ms, bound_by = paged_bound(pk.element_size())
-        result[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
-        emit("kernel", name="paged_attention_decode", dtype=name,
-             acc_max_abs_err=float((acc - r_acc).abs().max()),
-             m_max_abs_err=float((m - r_m).abs().max()),
-             l_max_abs_err=float((l - r_l).abs().max()),
-             **result[name])
+        for shape, lens in PAGED_SHAPES.items():
+            errs = _hold_paged(PA, decode_case(dtype, dev, lens), lens,
+                               f"{name} {shape}")
+            emit("paged_check", dtype=name, shape=shape, **errs)
+            if shape == "ragged":
+                result[name] = dict(max_abs_err=errs["out_max_abs_err"],
+                                    variant=errs["plan"][0])
+    for what, dtype, b, nh, hd, ps, ppr, pages, lens in PAGED_GEOMETRIES:
+        case = decode_case(dtype, dev, lens, b, nh, hd, ps, ppr, pages)
+        errs = _hold_paged(PA, case, lens, what)
+        _, hb, rb, ppc, slots, smem = errs["plan"]
+        check(paged_smem(hb, rb, hd, case[1].element_size(), slots,
+                         ppc) == smem,
+              f"paged {what}: plan_split's shared memory differs from the "
+              f"kernel's")
+        emit("paged_check", geometry=what, dtype=str(dtype), B=b, nh=nh,
+             hd=hd, ps=ps, pages_per_req=ppr, **errs)
+    shapes = time_paged(PA, dev, flush)
+    result["bfloat16"].update(shapes["ragged"])
+    result["bfloat16"]["shapes"] = shapes
+    emit("kernel", name="paged_attention_decode", dtype="bfloat16",
+         **{k: v for k, v in result["bfloat16"].items() if k != "shapes"})
     return result
+
+
+def _ptxas_summary(log: str, pattern: str) -> list:
+    """``[kernel, "Used ... registers ... smem", "... spill ..."]`` of
+    every kernel whose name holds ``pattern``, from ``nvcc -Xptxas -v``
+    (the smem there is the static part; the tiles are dynamic)."""
+    out = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            short = re.search(r"([a-z_]+_kernel_tc)I\d+(\w+?)Li(\d+)E",
+                              name)
+            if short:  # e.g. flash_fwd_kernel_tc<__nv_bfloat16, 128>
+                name = f"{short[1]}<{short[2]}, {short[3]}>"
+            out.append([name] if pattern in name else None)
+        elif out and out[-1] is not None and (
+                "spill" in line or "Used" in line):
+            out[-1].append(line.strip())
+    return [entry for entry in out if entry is not None]
 
 
 # -------------------------------------------------------------- phase 1b
@@ -909,9 +1025,53 @@ def phase_split_kernels(dev: torch.device) -> dict:
     return rows
 
 
+#: repeats of the norm timings at the 345M shape (``norm_spread``)
+NORM_REPEATS = 5
+
+
+def _norm_spread(dev: torch.device, flush: torch.Tensor) -> dict:
+    """The fused norm forward and backward at the 345M shape in bf16,
+    each ``time_ms`` (L2 flushed) ``NORM_REPEATS`` times beside its
+    yardstick (add + ``F.layer_norm`` / its autograd backward + add):
+    median and range of each; and each kernel's ``device_ms``."""
+    from fleetx_tpu_torch.ops import fused_norm as FN
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    dtype, hidden, eps = torch.bfloat16, TH, 1e-5
+    x, r, dout, ds_in = (torch.randn((TB, TS, TH), generator=gen,
+                                     device=dev).to(dtype) for _ in range(4))
+    w = 1.0 + 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    b = 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    _, s, mean, var = FN.fwd_call(x, r, w, b, eps, dtype)
+    lw, lb = w.to(dtype), b.to(dtype)
+    s_leaf = (r + x).detach().requires_grad_(True)
+    lib_out = torch.nn.functional.layer_norm(s_leaf, (hidden,), lw, lb, eps)
+    fns = {
+        "fwd": lambda: FN.fwd_call(x, r, w, b, eps, dtype),
+        "fwd_library": lambda: torch.nn.functional.layer_norm(
+            r + x, (hidden,), lw, lb, eps),
+        "bwd": lambda: FN.bwd_call(s, w, mean, var, dout, eps, ds_in),
+        "bwd_library": lambda: torch.autograd.grad(
+            lib_out, s_leaf, dout, retain_graph=True)[0] + ds_in}
+    out = {}
+    for name, fn in fns.items():
+        times = [time_ms(fn, flush) for _ in range(NORM_REPEATS)]
+        out[name] = dict(median_ms=statistics.median(times),
+                         min_ms=min(times), max_ms=max(times), ms=times)
+    # the kernels' own device time, without launch and event overhead
+    for name in ("fwd", "bwd"):
+        out[name]["device_ms"] = device_ms(fns[name], flush,
+                                           f"fused_norm_{name}_kernel")
+    emit("norm_spread", shape=[TB, TS, TH], dtype="bfloat16",
+         repeats=NORM_REPEATS, **out)
+    return out
+
+
 def phase_train_kernels(dev: torch.device) -> dict:
     """Phase 1b: the four training kernels against their plain versions,
-    timed, in f32 and bf16; then the dropout-mask probes."""
+    timed, in f32 and bf16; the norms' spread at the 345M shape; then the
+    dropout-mask probes."""
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     result = {}
     for name, dtype in (("float32", torch.float32),
@@ -922,6 +1082,7 @@ def phase_train_kernels(dev: torch.device) -> dict:
             emit("kernel", name=kernel, dtype=name, **row)
         result[name] = rows
         torch.cuda.empty_cache()
+    result["norm_spread"] = _norm_spread(dev, flush)
     keep_rate = _dropout_probes(dev)
     emit("dropout_masks", rate=RATE, shape=[TB * TNH, TS, TS],
          fwd_bit_identical=True, bwd_bit_identical=True,
@@ -1083,8 +1244,9 @@ def phase_trace(dev: torch.device, card: str, n_steps: int = 10) -> None:
             if e.device_type == DeviceType.CUDA]
     rows = [(k, us) for k, us in rows if us > 0]
     device_ms = sum(us for _, us in rows) / 1e3 / n_steps
-    paged_ms = sum(us for k, us in rows
-                   if "paged_decode_kernel" in k) / 1e3 / n_steps
+    # the decode kernel's rows (paged_split_kernel; an earlier tree's
+    # paged_decode_kernel under --serving)
+    paged_ms = sum(us for k, us in rows if "paged_" in k) / 1e3 / n_steps
     top = sorted(rows, key=lambda r: -r[1])[:8]
     engine.run_until_drained()
     del engine
@@ -1600,7 +1762,7 @@ def phase_split_and_recompute_on_path(dev: torch.device, card: str) -> None:
          **result, nvidia_smi=card)
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1608,6 +1770,27 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = phase_env(build)
+    modes = {"--paged-shapes", "--serving"}
+    if argv:
+        # a part of the run alone, on whatever tree this script sits in (an
+        # earlier commit's included, to compare in one call); no result
+        # line. --paged-shapes: row 7's three timings; --serving: phase 2
+        # and its trace
+        if not set(argv) <= modes:
+            print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+            return 2
+        build.build(["paged_attention"])
+        if "--paged-shapes" in argv:
+            from fleetx_tpu_torch.ops import paged_attention as PA
+
+            flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+            time_paged(PA, dev, flush)
+            del flush
+        if "--serving" in argv:
+            phase_main_path(dev, card)
+            phase_trace(dev, card)
+        print(smi_line(), flush=True)
+        return 0
     kernels = phase_kernels(build, dev)
     train_kernels = phase_train_kernels(dev)
     seq8k_kernels = phase_split_kernels(dev)
@@ -1627,6 +1810,11 @@ def main() -> int:
         "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
         "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
         "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
+        # "bulk_split": the split page walk with bulk copies (every
+        # geometry the gate admits); the ragged shape above, all three
+        # shapes below, launches per decode step of phase 2
+        "variant": bf16["variant"], "shapes": bf16["shapes"],
+        "launches_per_decode_step": main_path["launches_per_decode_step"],
     }]
     # timings at the shapes of the path whose run gives the launches: the
     # seq-8192 trainer (phase 6) for the forward, the split pair and the
@@ -1665,4 +1853,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tile loads and the host-side tensor map, the wgmma shared-
-// memory descriptor for 128-byte-swizzled tiles, wgmma fences and the
-// m64nNk16 products (bf16 / fp16 operands, f32 accumulators).
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
+// and the paged decode kernel: mbarriers, TMA tile loads (2-D swizzled
+// tiles, 3-D boxes of head rows) and their host-side tensor maps, the
+// wgmma shared-memory descriptor for 128-byte-swizzled tiles, wgmma fences
+// and the m64nNk16 products (bf16 / fp16 operands, f32 accumulators).
 //
 // Tile layout. Every operand tile is [R rows, 64 columns] of a 16-bit type
 // (128 bytes a row), loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B into a
@@ -113,6 +114,27 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Start fetching a tensor map (a __grid_constant__ kernel parameter) into
+// the TMA unit's descriptor cache, ahead of its first use.
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory (128-byte aligned); completion adds the box's bytes, out-of-bounds
+// elements included (filled with zeros), to `bar`'s transaction count.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled, taken from the driver through the runtime so the
 // library needs no -lcuda.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -155,6 +177,31 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, int dtype,
                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
             2, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major [rows, heads, hd] tensor (dtype 0 = f32, 1 = bf16) read in
+// [box_rows, box_heads, hd] boxes without swizzle: a box lands in shared
+// memory as box_rows * box_heads head rows of hd elements, packed. Rows
+// and heads past the tensor's end read as zeros. False on failure (a box
+// dimension above 256, a row of hd not a multiple of 16 bytes).
+inline bool make_rows_map(CUtensorMap* map, const void* base, int dtype,
+                          uint64_t rows, uint64_t heads, uint64_t hd,
+                          uint32_t box_rows, uint32_t box_heads) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || (dtype != 0 && dtype != 1)) return false;
+  const uint64_t item = dtype == 0 ? 4 : 2;
+  const cuuint64_t dims[3] = {hd, heads, rows};
+  const cuuint64_t strides[2] = {hd * item, heads * hd * item};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(hd), box_heads,
+                             box_rows};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map,
+            dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

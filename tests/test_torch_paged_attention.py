@@ -19,7 +19,9 @@ Tolerances:
   lands on the other side of a tie (on the CPU the two agree exactly).
 """
 
+import ctypes
 import importlib
+import types
 
 import numpy as np
 import pytest
@@ -150,8 +152,10 @@ def test_kernel_predicate_admits_345m_geometry():
 
 def test_import_builds_nothing_and_never_falls_back(monkeypatch):
     """Importing the module and running it on CPU tensors starts no
-    compiler; a tensor on a device with no kernel raises instead of
-    running the plain version."""
+    compiler (the split plain version and the planner included, and no
+    kernel workspace is allocated); a tensor on a device with no kernel
+    raises instead of running the plain version; the entry point is
+    declared with the split kernel's argument list."""
     from fleetx_tpu_torch.kernels import build
 
     def no_compiler(*a, **k):
@@ -163,8 +167,22 @@ def test_import_builds_nothing_and_never_falls_back(monkeypatch):
     _, (tq, tk, tv, tt, tl) = _both([q, pk, pv, tables, lens], "float32")
     launches = mod.paged_call.launches
     mod.paged_attention(tq, tk, tv, tt, tl)
+    local = mod._localize_tables(tt, tk.shape[0])
+    mod.paged_call_plain_split(tq, tk, tv, local, tl, 2)
+    assert mod._plan_for(tq, tk, local).route == "plain"
     assert mod.paged_call.launches == launches  # the plain version ran
     assert "paged_attention" not in build.loaded()
+    assert mod._workspaces == {}
     with pytest.raises(ValueError, match="no kernel for device"):
         mod.paged_call(tq.to("meta"), tk.to("meta"), tv.to("meta"),
                        tt.to("meta"), tl.to("meta"))
+    # ten pointers (q, both pools, tables, lens, acc, m, l, the workspace,
+    # the counters), eleven ints (batch, heads, head_dim, pages, page size,
+    # pages per request, head block, rows per tile, pages per chunk, ring
+    # slots, dtype), the scale and the stream
+    lib = types.SimpleNamespace(fleetx_paged_attention_decode=(
+        types.SimpleNamespace(argtypes=None, restype=None)))
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    assert mod._kernel_fn().argtypes == ([ptr] * 10 + [i32] * 11
+                                         + [ctypes.c_float, ptr])
