@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one GPU: build, check and time its
 kernels, serve GPT-345M at full width through the port's replica, train
 GPT-345M at full width and GPT-1.3B at seq 8192 at full width and depth
-through the port's trainer.
+through the port's trainer, save, audit and resume GPT-345M training,
+and generate from its checkpoint with the port's generation task.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
@@ -113,6 +114,43 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    core_attn against off (loss within 1e-6, grads within 1e-6 of each
    leaf's largest magnitude).
 
+8. checkpoint: ``pretrain_gpt_345M_synthetic.yaml`` at full width, uncut
+   (after checking the temp dir has 10 GB free): a fresh engine trains 5
+   steps and saves step 5 (``save_steps`` 5); a new engine with
+   ``ckpt_dir`` on that dir restores it (params, AdamW moments, step and
+   ``consumed_samples`` equal to the saved ones bit for bit) and trains
+   to step 10, saving step 10. Launch counts zeroed just before the
+   resumed run and read just after: phase 4's per-step counts × 5. The
+   resumed run's first batch must be the one phase 4 took at step 6, and
+   its losses must equal phase 4's steps 6-10 bit for bit (dropout is a
+   function of seed and step; every kernel and op of the step is
+   deterministic). Then
+   ``tools/verify_ckpt`` reports both steps ``ok``; one flipped byte of
+   step 10's payload makes it exit 1 with ``corrupt`` and ``load()``
+   fall back to step 5 with its warning; the byte flipped back, both are
+   ``ok`` again. Save and load seconds and GB/s, peak memory.
+9. generation: ``generation_gpt_345M_single_card.yaml`` through the
+   port's config loader and ``tasks/gpt/generation.py``'s ``build`` at
+   full width (bf16) with phase 8's checkpoint, a tokenizer trained with
+   ``train_bpe`` on README.md (vocab 2000) and read back through
+   ``Generation.tokenizer_dir``; the YAML's ``input_text`` and a batch of
+   8 prompts of 5-300 tokens, 64 new tokens, for ``sampling`` (the
+   YAML's top-k 50, top-p 0.75), ``greedy_search`` and ``beam_search``
+   (4 beams, 2 returned). Launch counts zeroed just before each batch
+   and read just after: 49 norm forwards a model call, nothing else.
+   Each batch's ``generate_ids`` is timed whole, its prefill (the first
+   model call) within it: prefill ms, ms per decode step (the rest of
+   the wall over the decode steps), new tokens/s (the returned rows'
+   tokens up to eos), computed row-steps/s (every row of the batched
+   forward, beams included, each model call) and peak memory.
+   Then in f32, greedy ``generate`` of 32 tokens on 4 prompts against
+   the replica ``tools/serve.build_engine`` builds with
+   ``Serving.ckpt_dir`` on the same checkpoint (the paged kernel): the
+   tokens must be identical, or differ only where the top-two logit gap
+   is under 1e-3. The temp dirs are removed whether the run passed or
+   failed. Last, row 5 at the decode shape ``[8, 1, 1024]`` bf16 against
+   its plain version, timed beside its bound and ``F.layer_norm``.
+
 Tolerances, kernel against its plain version (both compute in f32 after
 casting q and k; only the summation order differs): ``acc`` and ``l``
 rtol 1e-5 / atol 1e-4 (sums of up to 1024 O(1) terms), ``m`` rtol 1e-5 /
@@ -138,20 +176,25 @@ magnitude (24 layers of f32 summed in another order).
 
 The build also prints ``ptxas -v`` of every tensor-core kernel
 (registers, spill bytes) beside its dynamic shared memory. The
-third-to-last line is the ``kernels`` JSON record; the last line is
-``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
-and prints no result.
+third-to-last line is the ``kernels`` JSON record (each row's
+``launches`` from its main path, and ``launches_by_path`` from every
+path that runs it, each counted from 0 around its own run); the last
+line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
+non-zero and prints no result.
 """
 
 import ctypes
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -263,11 +306,13 @@ PAGED_GEOMETRIES = (
 )
 
 
-def device_ms(fn, flush: torch.Tensor, pattern: str, iters: int = 20) -> float:
+def device_ms(fn, flush: Optional[torch.Tensor], pattern: str = "",
+              iters: int = 20) -> float:
     """Device time per call of ``fn`` spent in the kernels whose name holds
-    ``pattern``, each call after an L2 flush: ``torch.profiler``'s record
-    of the kernel alone, without the launch and event overhead that
-    ``time_ms`` also holds (about 5 µs for an empty op)."""
+    ``pattern`` (every kernel: ""), each call after an L2 flush (L2 warm
+    when ``flush`` is None): ``torch.profiler``'s record of the kernel
+    alone, without the launch and event overhead that ``time_ms`` also
+    holds (about 5 µs for an empty op)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -276,7 +321,8 @@ def device_ms(fn, flush: torch.Tensor, pattern: str, iters: int = 20) -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            flush.zero_()
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     return sum(_device_us(e) for e in prof.key_averages()
@@ -1207,15 +1253,59 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _trace_rows(prof) -> list:
+    """(kernel name, self device us) of every device row with time: a
+    CPU op's row carries its kernels' device time too, and would count it
+    twice."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, _device_us(e)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return [(k, us) for k, us in rows if us > 0]
+
+
+def _trace_window(step, n_steps: int, n_top: int = 8) -> tuple:
+    """Run ``step`` ``n_steps`` times unprofiled (host wall per step), then
+    ``n_steps`` more under ``torch.profiler``: ``(fields, per_step)``, the
+    fields every trace reports (wall and device ms per step, the device
+    busy share = device time / unprofiled wall, the top kernels) and
+    ``per_step(*patterns)``, the device ms per step of the kernels whose
+    name holds any of ``patterns`` (all kernels without one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    rows = _trace_rows(prof)
+
+    def per_step(*patterns) -> float:
+        return sum(us for k, us in rows if not patterns
+                   or any(p in k for p in patterns)) / 1e3 / n_steps
+
+    device_ms = per_step()
+    top = sorted(rows, key=lambda r: -r[1])[:n_top]
+    fields = dict(steps=n_steps, wall_ms_per_step=wall_ms,
+                  device_ms_per_step=device_ms if rows else None,
+                  device_busy_share=device_ms / wall_ms if rows else None,
+                  top_kernels_ms_per_step=[[k[:80], us / 1e3 / n_steps]
+                                           for k, us in top])
+    return fields, per_step
+
+
 def phase_trace(dev: torch.device, card: str, n_steps: int = 10) -> None:
     """Where a decode step's time goes on the main path's engine
     (``serving_gpt_345M.yaml``, 8 running requests): host wall per step
     (unprofiled), device time per step by kernel (``torch.profiler`` over
     a second, profiled window), and the device busy share = device time /
     unprofiled wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from fleetx_tpu_torch.tools.serve import build_engine, load_config
 
     engine = build_engine(load_config(YAML), device=dev)
@@ -1227,37 +1317,15 @@ def phase_trace(dev: torch.device, card: str, n_steps: int = 10) -> None:
         engine.step()
     check(sum(r is not None and r.state == "running"
               for r in engine._slots) == 8, "trace: 8 requests running")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        engine.step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            engine.step()
-        torch.cuda.synchronize()
-    # device-side rows only (kernels, copies): a CPU op's row carries its
-    # kernels' device time too, and would count it twice
-    rows = [(e.key, _device_us(e)) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    rows = [(k, us) for k, us in rows if us > 0]
-    device_ms = sum(us for _, us in rows) / 1e3 / n_steps
-    # the decode kernel's rows (paged_split_kernel; an earlier tree's
-    # paged_decode_kernel under --serving)
-    paged_ms = sum(us for k, us in rows if "paged_" in k) / 1e3 / n_steps
-    top = sorted(rows, key=lambda r: -r[1])[:8]
+    fields, per_step = _trace_window(engine.step, n_steps)
     engine.run_until_drained()
     del engine
     torch.cuda.empty_cache()
-    emit("trace", decode_batch=8, context_tokens=100, steps=n_steps,
-         wall_ms_per_step=wall_ms,
-         device_ms_per_step=device_ms if rows else None,
-         device_busy_share=device_ms / wall_ms if rows else None,
-         paged_kernel_ms_per_step=paged_ms if rows else None,
-         top_kernels_ms_per_step=[[k[:80], us / 1e3 / n_steps]
-                                  for k, us in top],
+    # the decode kernel's rows (paged_split_kernel; an earlier tree's
+    # paged_decode_kernel under --serving)
+    emit("trace", decode_batch=8, context_tokens=100, **fields,
+         paged_kernel_ms_per_step=per_step("paged_")
+         if fields["device_ms_per_step"] is not None else None,
          nvidia_smi=card)
 
 
@@ -1367,9 +1435,6 @@ def read_counts() -> dict:
 def phase_trainer(dev: torch.device, card: str) -> dict:
     """Phase 4: the training main path for ``TRAIN_STEPS`` steps with the
     launch counts zeroed before and read after, then a short trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from fleetx_tpu_torch.tools.train import build_trainer, load_config
     from fleetx_tpu_torch.utils.hardware import peak_flops
 
@@ -1431,46 +1496,19 @@ def phase_trainer(dev: torch.device, card: str) -> dict:
     # where a step's time goes: 3 unprofiled steps for the wall, 3 more
     # under the profiler for device time by kernel
     batch = engine.to_device(next(iter(train_dl)))
-    n_steps = 3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        engine.train_step(batch)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            engine.train_step(batch)
-        torch.cuda.synchronize()
-    rows = [(e.key, _device_us(e)) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    rows = [(k, us) for k, us in rows if us > 0]
-    per_step = lambda us: us / 1e3 / n_steps  # noqa: E731
-
-    def share(pattern: str) -> float:
-        return per_step(sum(us for k, us in rows if pattern in k))
-
-    device_ms = per_step(sum(us for _, us in rows))
-    top = sorted(rows, key=lambda r: -r[1])[:12]
-    matmul_ms = per_step(sum(us for k, us in rows if any(
-        m in k for m in ("nvjet", "gemm", "cutlass", "sm90_xmma"))))
-    kernels_ms = sum(share(p) for p in ("flash_fwd_kernel",
-                                        "flash_bwd_kernel",
-                                        "fused_norm_fwd_kernel",
-                                        "fused_norm_bwd_kernel"))
-    emit("train_trace", steps=n_steps, wall_ms_per_step=wall_ms,
-         matmul_ms_per_step=matmul_ms,
-         other_ms_per_step=device_ms - matmul_ms - kernels_ms,
-         device_ms_per_step=device_ms if rows else None,
-         device_busy_share=device_ms / wall_ms if rows else None,
+    fields, share = _trace_window(lambda: engine.train_step(batch), 3,
+                                  n_top=12)
+    matmul_ms = share("nvjet", "gemm", "cutlass", "sm90_xmma")
+    kernels_ms = share("flash_fwd_kernel", "flash_bwd_kernel",
+                       "fused_norm_fwd_kernel", "fused_norm_bwd_kernel")
+    emit("train_trace", **fields, matmul_ms_per_step=matmul_ms,
+         other_ms_per_step=share() - matmul_ms - kernels_ms,
          flash_fwd_ms_per_step=share("flash_fwd_kernel"),
          flash_fwd_tc_ms_per_step=share("flash_fwd_kernel_tc"),
          flash_bwd_ms_per_step=share("flash_bwd_kernel"),
          flash_bwd_tc_ms_per_step=share("flash_bwd_kernel_tc"),
          norm_fwd_ms_per_step=share("fused_norm_fwd_kernel"),
          norm_bwd_ms_per_step=share("fused_norm_bwd_kernel"),
-         top_kernels_ms_per_step=[[k[:80], per_step(us)] for k, us in top],
          nvidia_smi=card)
     del engine, batch
     torch.cuda.empty_cache()
@@ -1558,15 +1596,6 @@ SEQ8K_PER_STEP = {"flash_attention_fwd": 2 * 24 * 4,
 SEQ8K_SIMT_LOSSES = (11.234864234924316, 11.242216110229492,
                     11.232942581176758)
 SEQ8K_LOSS_TOL = (1e-3, 1e-2, 1e-2)
-
-
-def _trace_rows(prof) -> list:
-    """(kernel name, self device us) of every device row with time."""
-    from torch.autograd import DeviceType
-
-    rows = [(e.key, _device_us(e)) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return [(k, us) for k, us in rows if us > 0]
 
 
 def phase_seq8k_trainer(dev: torch.device, card: str) -> dict:
@@ -1762,6 +1791,488 @@ def phase_split_and_recompute_on_path(dev: torch.device, card: str) -> None:
          **result, nvidia_smi=card)
 
 
+# --------------------------------------------------------------- phase 8
+GEN_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                        "generation_gpt_345M_single_card.yaml")
+#: the resume run: steps 1-5 saved by one engine, 6-10 by a new one
+CKPT_STEPS = 5
+#: a 345M state is ~4.3 GB (f32 params and two AdamW moments, ~355 M x
+#: 12 B); two steps of it and room to spare
+CKPT_MIN_FREE_BYTES = 10e9
+
+
+class _Records:
+    """Log records of the port's logger (it does not propagate)."""
+
+    def __init__(self):
+        import logging
+
+        self.lines: list = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda rec: self.lines.append(rec.getMessage())
+
+    def __enter__(self):
+        from fleetx_tpu_torch.utils.log import logger
+
+        logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        from fleetx_tpu_torch.utils.log import logger
+
+        logger.removeHandler(self.handler)
+
+
+def _timed(obj, name: str, times: list) -> None:
+    """Record the host wall of every call of ``obj.name`` in ``times``
+    (device work synchronised before and after)."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def _first_batch(engine, out: list) -> None:
+    """Keep in ``out`` the tokens of the first batch ``engine`` trains on
+    (on the host)."""
+    fn = engine.train_step
+
+    def wrapper(batch, *a, **k):
+        if not out:
+            out.append(batch["tokens"].cpu())
+        return fn(batch, *a, **k)
+
+    engine.train_step = wrapper
+
+
+def _nth_batch(cfg: dict, n: int) -> torch.Tensor:
+    """The tokens of batch ``n`` (from 0) of a fresh train loader of
+    ``cfg``: the batch an uninterrupted run trains on at step ``n + 1``."""
+    from fleetx_tpu_torch.data import build_dataloader
+
+    glb = cfg["Global"]
+    it = iter(build_dataloader(
+        cfg["Data"], "Train", batch_size=glb["global_batch_size"],
+        seq_length=glb["max_seq_len"], vocab_size=cfg["Model"]["vocab_size"]))
+    for _ in range(n):
+        next(it)
+    return torch.from_numpy(next(it)["tokens"])
+
+
+def _state_bytes(state: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in state.values()
+               if torch.is_tensor(v))
+
+
+def phase_checkpoint(dev: torch.device, card: str, uninterrupted: list,
+                     root: str) -> dict:
+    """Phase 8: save at step 5 of the 345M recipe, resume to step 10 in a
+    new engine, audit, corrupt, fall back."""
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.tools import verify_ckpt
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+
+    free = shutil.disk_usage(root).free
+    check(free >= CKPT_MIN_FREE_BYTES,
+          f"{root} has {free / 1e9:.1f} GB free; the 345M checkpoints need "
+          f"{CKPT_MIN_FREE_BYTES / 1e9:.0f} GB")
+    out = os.path.join(root, "ckpt")
+    base = ["Engine.logging_freq=1",
+            f"Engine.save_load.save_steps={CKPT_STEPS}",
+            f"Engine.save_load.output_dir={out}"]
+    cfg = load_config(TRAIN_YAML, base + [f"Engine.max_steps={CKPT_STEPS}"])
+    first, dl, _ = build_trainer(cfg, device=dev)
+    mc = first.module.model_cfg
+    check(mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+          and mc.dtype == torch.bfloat16 and mc.hidden_dropout_prob == 0.1,
+          "not the full-width 345M training recipe")
+    save_s: list = []
+    _timed(first, "save", save_s)
+    torch.cuda.reset_peak_memory_stats(dev)
+    head = first.fit(dl)
+    check(C.completed_steps(out) == [CKPT_STEPS] and len(save_s) == 1,
+          f"steps saved: {C.completed_steps(out)}")
+    saved = first.state_dict()
+    nbytes = _state_bytes(saved)
+    payload = os.path.getsize(os.path.join(C.step_dir(out, CKPT_STEPS),
+                                           C.STATE_NAME))
+
+    second, dl2, _ = build_trainer(load_config(TRAIN_YAML, base + [
+        f"Engine.max_steps={2 * CKPT_STEPS}",
+        f"Engine.save_load.ckpt_dir={out}"]), device=dev)
+    load_s: list = []
+    _timed(second, "load", load_s)
+    _timed(second, "save", save_s)
+    trained: list = []
+    _first_batch(second, trained)
+    second.prepare()
+    restored = second.state_dict()
+    check(sorted(restored) == sorted(saved), "restored leaf names")
+    for k, v in saved.items():
+        same = torch.equal(restored[k], v) if torch.is_tensor(v) \
+            else restored[k] == v
+        check(same, f"restored {k} differs from the saved one")
+    check(second.consumed_samples == first.consumed_samples
+          == CKPT_STEPS * 8, f"consumed_samples {second.consumed_samples}")
+    del first, saved, restored
+    torch.cuda.empty_cache()
+    zero_counts()                   # every count to 0 just before
+    tail = second.fit(dl2)
+    torch.cuda.synchronize()
+    counts = read_counts()          # read just after
+    for name, per_step in PER_STEP.items():
+        check(counts[name] == per_step * CKPT_STEPS,
+              f"resume: {name} {counts[name]} launches, want {per_step} x "
+              f"{CKPT_STEPS}")
+    check(C.completed_steps(out) == [CKPT_STEPS, 2 * CKPT_STEPS],
+          f"steps saved: {C.completed_steps(out)}")
+    # the data position: the first batch after the resume is the one the
+    # uninterrupted run took at step 6
+    check(torch.equal(trained[0], _nth_batch(cfg, CKPT_STEPS)),
+          f"the resumed run's first batch is not batch {CKPT_STEPS + 1}")
+    # bitwise: dropout is a function of seed and step, and every kernel
+    # and op of the step is deterministic
+    want = uninterrupted[CKPT_STEPS:2 * CKPT_STEPS]
+    diffs = [abs(a - b) for a, b in zip(tail, want)]
+    check(len(tail) == CKPT_STEPS and max(diffs) == 0.0,
+          f"resumed losses {tail} vs phase 4's {want}")
+    check(head == uninterrupted[:CKPT_STEPS],
+          f"first five losses {head} vs phase 4's")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    # the auditor: both steps ok; a flipped byte of step 10's payload is
+    # corrupt (exit 1) and load() falls back to step 5; flipped back, ok
+    audit = verify_ckpt.audit_directory(out)
+    statuses = [r["status"] for r in audit["steps"]]
+    check(statuses == ["ok", "ok"], f"audit {statuses}")
+    target = os.path.join(C.step_dir(out, 2 * CKPT_STEPS), C.STATE_NAME)
+
+    def flip():
+        with open(target, "r+b") as f:
+            f.seek(payload // 2)
+            byte = f.read(1)
+            f.seek(payload // 2)
+            f.write(bytes([byte[0] ^ 0xFF]))
+
+    flip()
+    code = verify_ckpt.main([out, "--step", str(2 * CKPT_STEPS)])
+    bad = verify_ckpt.audit_directory(out, step=2 * CKPT_STEPS)["steps"][0]
+    check(code == 1 and bad["status"] == "corrupt",
+          f"flipped payload: exit {code}, {bad['status']}")
+    with _Records() as records:
+        check(second.load(out), "load() restored nothing")
+    check(second.step == CKPT_STEPS
+          and second.consumed_samples == CKPT_STEPS * 8,
+          f"fallback landed at step {second.step}")
+    warned = [l for l in records.lines if "falling back past corrupt "
+              f"checkpoint step {2 * CKPT_STEPS}" in l]
+    check(len(warned) == 1, f"fallback warning: {records.lines}")
+    flip()
+    statuses = [r["status"] for r in verify_ckpt.audit_directory(out)["steps"]]
+    check(statuses == ["ok", "ok"], f"audit after the flip back {statuses}")
+    del second
+    torch.cuda.empty_cache()
+    result = dict(
+        steps=[CKPT_STEPS, 2 * CKPT_STEPS], first_losses=head,
+        resumed_losses=tail, uninterrupted_losses=want,
+        max_abs_loss_diff=max(diffs), bitwise=max(diffs) == 0.0,
+        resumed_batch_equal=True,
+        state_gb=nbytes / 1e9, payload_gb=payload / 1e9,
+        save_s=save_s, save_gb_per_s=[payload / 1e9 / t for t in save_s],
+        load_s=load_s[0], load_gb_per_s=payload / 1e9 / load_s[0],
+        fallback_load_s=load_s[1], audit=statuses,
+        corrupt_exit_code=code, fallback_step=CKPT_STEPS,
+        fallback_warning=warned[0], peak_memory_gb=peak_gb,
+        launches=counts, disk_free_gb=free / 1e9, nvidia_smi=card)
+    emit("checkpoint", **result)
+    return result
+
+
+# --------------------------------------------------------------- phase 9
+#: the batch of generation prompts, tokens (cut from README.md's ids)
+GEN_PROMPT_LENS = (300, 5, 37, 120, 64, 200, 16, 90)
+#: the strategies: the YAML's own (sampling, top-k 50, top-p 0.75),
+#: greedy, and beam search
+GEN_STRATEGIES = (
+    ("sampling", []),
+    ("greedy_search", ["Generation.decode_strategy=greedy_search"]),
+    ("beam_search", ["Generation.decode_strategy=beam_search",
+                     "Generation.num_beams=4",
+                     "Generation.num_return_sequences=2"]),
+)
+#: the f32 cross-check against the replica: prompts, new tokens
+CROSS_PROMPT_LENS = (150, 40, 7, 64)
+CROSS_NEW = 32
+
+
+class _CountCalls:
+    """Count the model calls of the generation path (the forward the
+    decoders call) while the context is open, and time the first (the
+    prefill) on the host's clock, device work synchronised around it."""
+
+    def __init__(self):
+        from fleetx_tpu_torch.models.gpt import model as M
+
+        self.M, self.calls, self.real = M, 0, M.gpt_for_pretraining
+        self.prefill_s = None
+
+    def __enter__(self):
+        def counting(*a, **k):
+            self.calls += 1
+            if self.calls > 1:
+                return self.real(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(*a, **k)
+            torch.cuda.synchronize()
+            self.prefill_s = time.perf_counter() - t0
+            return out
+
+        self.M.gpt_for_pretraining = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.M.gpt_for_pretraining = self.real
+
+
+def _top2_gap(cfg, params, ids: list) -> float:
+    """The gap between the two largest next-token logits after ``ids``."""
+    from fleetx_tpu_torch.models.gpt import model as M
+
+    with torch.no_grad():
+        logits = M.gpt_for_pretraining(
+            params, cfg, torch.tensor([ids], device=params["gpt"][
+                "embeddings"]["word_embeddings"].device))[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def _generation_trace(dev: torch.device, card: str, base: list,
+                      prompts: list, n_steps: int = 8) -> dict:
+    """Where a greedy dense-cache decode step's time goes on ``prompts``
+    (``_trace_window``), and the fused norm's share."""
+    from fleetx_tpu_torch.models.gpt import generation as G
+    from fleetx_tpu_torch.tasks.gpt import generation as task
+
+    module, params, _ = task.build(task.load_config(GEN_YAML, base + [
+        "Generation.decode_strategy=greedy_search"]), device=dev)
+    mc, gc = module.model_cfg, module.gen_cfg
+    tokens, mask = G.to_tensors(*G.left_pad(prompts, gc.pad_token_id), dev)
+    # a warm window, then the unprofiled and the profiled one
+    with torch.no_grad():
+        logits, cache = G._prefill(mc, params, tokens, mask, 3 * n_steps)
+    pos = mask.sum(dim=1)
+    state = dict(tok=torch.argmax(logits, dim=-1), i=0)
+
+    @torch.no_grad()
+    def step():
+        state["tok"] = torch.argmax(G._step(mc, params, state["tok"],
+                                            pos + state["i"], cache), dim=-1)
+        state["i"] += 1
+
+    for _ in range(n_steps):
+        step()
+    fields, per_step = _trace_window(step, n_steps)
+    out = dict(batch=len(prompts), context_tokens=int(tokens.shape[1]),
+               **fields, norm_ms_per_step=per_step("fused_norm"),
+               nvidia_smi=card)
+    emit("generation_trace", **out)
+    del module, params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_generation(dev: torch.device, card: str, ckpt_dir: str,
+                     root: str) -> dict:
+    """Phase 9: the generation task from phase 8's checkpoint, three
+    strategies at full width; f32 greedy against the replica serving the
+    same checkpoint through the paged kernel."""
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import train_bpe
+    from fleetx_tpu_torch.models.gpt import generation as G
+    from fleetx_tpu_torch.tasks.gpt import generation as task
+    from fleetx_tpu_torch.tools.serve import build_engine
+    from fleetx_tpu_torch.tools.serve import load_config as serve_config
+
+    with open(os.path.join(REPO, "README.md"), encoding="utf-8") as f:
+        readme = f.read()
+    tok = train_bpe([readme], 2000)
+    tok_dir = os.path.join(root, "tokenizer")
+    tok.save_pretrained(tok_dir)
+    ids = tok.encode(readme)
+    check(tok.vocab_size <= 2000 and max(ids) < 50304
+          and len(ids) >= sum(GEN_PROMPT_LENS), "tokenizer")
+    offsets = np.cumsum((0,) + GEN_PROMPT_LENS)
+    prompts = [ids[o:o + n] for o, n in zip(offsets, GEN_PROMPT_LENS)]
+    base = [f"Generation.tokenizer_dir={tok_dir}",
+            f"Engine.save_load.ckpt_dir={ckpt_dir}"]
+    per_model_call = None
+    strategies = {}
+    for name, extra in GEN_STRATEGIES:
+        cfg = task.load_config(GEN_YAML, base + extra)
+        with _Records() as records:
+            module, params, gen = task.build(cfg, device=dev)
+        check(any("restored params from" in l for l in records.lines),
+              "params did not come from the checkpoint")
+        mc = module.model_cfg
+        check(mc.num_layers == 24 and mc.hidden_size == 1024
+              and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+              and mc.dtype == torch.bfloat16, "not the full-width 345M model")
+        per_model_call = 2 * mc.num_layers + 1
+        texts = module.generate(params, [cfg["Generation"]["input_text"]],
+                                gen)
+        # the batch: one untimed prefill at its shape (a first call's
+        # costs), then generate_ids timed whole, its prefill within it
+        tokens, mask = G.to_tensors(*G.left_pad(
+            prompts, module.gen_cfg.pad_token_id), dev)
+        with torch.no_grad():
+            G._prefill(mc, params, tokens, mask,
+                       module.gen_cfg.max_new_tokens)
+        del tokens, mask
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()               # every count to 0 just before
+        with _CountCalls() as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = module.generate_ids(params, prompts, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts()      # read just after
+        check(counts["fused_norm_fwd"] == per_model_call * calls.calls,
+              f"{name}: {counts['fused_norm_fwd']} norm launches for "
+              f"{calls.calls} model calls")
+        check(all(counts[k] == 0 for k in counts if k != "fused_norm_fwd"),
+              f"{name}: other kernels launched {counts}")
+        rows = out.shape[0]
+        check(rows == len(prompts) * module.gen_cfg.num_return_sequences
+              and out.shape[1] == module.gen_cfg.max_new_tokens
+              and int(out.max()) < 50304 and int(out.min()) >= 0,
+              f"{name}: output {out.shape}")
+        # new tokens: each returned row's up to and including its eos (the
+        # padding after it is not generated); computed rows: every row of
+        # the batched forward (beam search: every beam), finished or not
+        eos = module.gen_cfg.eos_token_id
+        new_tokens = sum(int(np.argmax(r == eos)) + 1 if (r == eos).any()
+                         else len(r) for r in out)
+        computed = len(prompts) * (module.gen_cfg.num_beams
+                                   if module.use_beam_search else
+                                   module.gen_cfg.num_return_sequences)
+        decode_steps = calls.calls - 1
+        strategies[name] = dict(
+            input_text=cfg["Generation"]["input_text"],
+            continuations=texts, rows=rows, computed_rows=computed,
+            model_calls=calls.calls, wall_s=wall,
+            prefill_ms=calls.prefill_s * 1e3,
+            # the rest of the call's wall per decode step: the step's
+            # forward and its host-side selection
+            ms_per_decode_step=(wall - calls.prefill_s) * 1e3 / max(
+                decode_steps, 1),
+            new_tokens=new_tokens, new_tokens_per_s=new_tokens / wall,
+            computed_row_steps_per_s=computed * calls.calls / wall,
+            peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            fused_norm_fwd_launches=counts["fused_norm_fwd"],
+            beams=module.gen_cfg.num_beams)
+        print(f"generation {name}: {texts!r}", flush=True)
+        del module, params, out
+        torch.cuda.empty_cache()
+
+    trace = _generation_trace(dev, card, base, prompts)
+
+    # f32 greedy against the replica on the same checkpoint
+    cross = [ids[o:o + n] for o, n in zip(np.cumsum(
+        (0,) + CROSS_PROMPT_LENS), CROSS_PROMPT_LENS)]
+    cfg = task.load_config(GEN_YAML, base + [
+        "Generation.decode_strategy=greedy_search", "Model.dtype=float32",
+        f"Generation.max_dec_len={CROSS_NEW}"])
+    module, params, _ = task.build(cfg, device=dev)
+    gen_rows = module.generate_ids(params, cross)
+    eos = module.gen_cfg.eos_token_id
+    replica = build_engine(serve_config(YAML, [
+        f"Serving.ckpt_dir={ckpt_dir}", "Model.dtype=float32"]), device=dev)
+    check(replica.paged_kernel_active, "replica not on the paged kernel")
+    check(replica.eos_token_id == eos, "eos ids differ")
+    zero_counts()                   # every count to 0 just before
+    reqs = [replica.submit(p, CROSS_NEW, request_id=f"x{i}")
+            for i, p in enumerate(cross)]
+    replica.run_until_drained()
+    paged = read_counts()["paged_attention_decode"]  # read just after
+    check(paged > 0, "the replica launched no paged kernel")
+    mismatches = []
+    for i, (req, row) in enumerate(zip(reqs, gen_rows)):
+        want = [int(t) for t in row]
+        if eos in want:
+            want = want[:want.index(eos) + 1]
+        got = list(req.tokens)
+        if got != want:
+            pos = next((j for j, (a, b) in enumerate(zip(got, want))
+                        if a != b), min(len(got), len(want)))
+            gap = _top2_gap(module.model_cfg, params,
+                            cross[i] + want[:pos])
+            mismatches.append(dict(prompt=i, position=pos, top2_gap=gap))
+            check(gap < 1e-3, f"prompt {i}: replica and generate differ at "
+                              f"{pos} with a top-two logit gap of {gap}")
+    del module, params, replica
+    torch.cuda.empty_cache()
+    result = dict(strategies=strategies, per_model_call=per_model_call,
+                  trace=trace,
+                  tokenizer_vocab=tok.vocab_size, prompt_lens=list(
+                      GEN_PROMPT_LENS),
+                  cross_check=dict(prompt_lens=list(CROSS_PROMPT_LENS),
+                                   new_tokens=CROSS_NEW,
+                                   identical=not mismatches,
+                                   mismatches=mismatches,
+                                   replica_paged_launches=paged),
+                  nvidia_smi=card)
+    emit("generation", **{k: v for k, v in result.items()
+                          if k != "strategies"},
+         strategies={k: {kk: vv for kk, vv in v.items()
+                         if kk != "continuations"}
+                     for k, v in strategies.items()})
+    return result
+
+
+def phase_decode_norm(dev: torch.device, card: str) -> dict:
+    """Row 5 at the generation path's one-token shape ``[8, 1, 1024]``
+    bf16: held to its plain version and timed beside its bound and
+    add + ``F.layer_norm`` (a launch-bound size): CUDA-event ``ms`` as
+    for every row, and ``device_ms`` of the kernels alone, L2 warm (a
+    decode step's norm reads what the op before it just wrote)."""
+    from fleetx_tpu_torch.ops import fused_norm as FN
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = _norm_rows(torch.bfloat16, dev, flush, shape=DECODE_NORM_SHAPE)
+    del flush
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    x, r = (torch.randn(DECODE_NORM_SHAPE, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    w = torch.ones(DECODE_NORM_SHAPE[-1], device=dev)
+    b = torch.zeros(DECODE_NORM_SHAPE[-1], device=dev)
+    lw, lb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    out = dict(rows["fused_norm_fwd"], shape=list(DECODE_NORM_SHAPE),
+               device_ms=device_ms(
+                   lambda: FN.fwd_call(x, r, w, b, 1e-5, torch.bfloat16),
+                   None, iters=50),
+               library_device_ms=device_ms(
+                   lambda: torch.nn.functional.layer_norm(
+                       r + x, (DECODE_NORM_SHAPE[-1],), lw, lb, 1e-5),
+                   None, iters=50))
+    emit("decode_norm", **out, backward=rows["fused_norm_bwd"],
+         nvidia_smi=card)
+    return out
+
+
+#: a decode step's LayerNorm rows on the generation path (8 prompts)
+DECODE_NORM_SHAPE = (8, 1, 1024)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1801,6 +2312,24 @@ def main(argv) -> int:
     phase_train_kernel_vs_plain(dev, card)
     seq8k = phase_seq8k_trainer(dev, card)
     phase_split_and_recompute_on_path(dev, card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        resume = phase_checkpoint(dev, card, trainer["losses"], root)
+        generation = phase_generation(dev, card, os.path.join(root, "ckpt"),
+                                      root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    decode_norm = phase_decode_norm(dev, card)
+    gen_norm = sum(v["fused_norm_fwd_launches"]
+                   for v in generation["strategies"].values())
+    by_path = {
+        name: {"train_345M": trainer["launches"][name],
+               "seq8k": seq8k["launches"][name],
+               "resume": resume["launches"][name]}
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv", "flash_attention_bwd_fused",
+                     "fused_norm_fwd", "fused_norm_bwd")}
+    by_path["fused_norm_fwd"]["generation"] = gen_norm
     bf16 = kernels["bfloat16"]
     rows = [{
         "name": "paged_attention_decode", "route": "cuda",
@@ -1815,6 +2344,10 @@ def main(argv) -> int:
         # shapes below, launches per decode step of phase 2
         "variant": bf16["variant"], "shapes": bf16["shapes"],
         "launches_per_decode_step": main_path["launches_per_decode_step"],
+        "launches_by_path": {
+            "serving": main_path["kernel_launches"],
+            "serving_from_ckpt": generation["cross_check"][
+                "replica_paged_launches"]},
     }]
     # timings at the shapes of the path whose run gives the launches: the
     # seq-8192 trainer (phase 6) for the forward, the split pair and the
@@ -1843,7 +2376,13 @@ def main(argv) -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             # the flash rows: which kernel of the route ran ("wgmma": the
             # tensor-core kernels; "simt": f32 products)
-            **({"variant": row["variant"]} if "variant" in row else {})})
+            **({"variant": row["variant"]} if "variant" in row else {}),
+            # launches on every path that runs the kernel, each counted
+            # from 0 around its own run
+            "launches_by_path": by_path[name],
+            # the norm at one-token decode rows (the generation path)
+            **({"decode_shape": decode_norm}
+               if name == "fused_norm_fwd" else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

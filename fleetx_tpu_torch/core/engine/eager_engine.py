@@ -18,12 +18,26 @@
   returns the logged losses. ``history`` keeps each logged step's loss,
   grad norm, lr and wall time.
 
+Checkpoints (``save`` :1674, ``load`` :1746, the resume at engine build
+:447 and the sampler rewind :846-884): with ``Engine.save_load.save_steps``
+set, ``fit`` saves every ``save_steps`` steps under ``output_dir``
+(``core/checkpoint.py``: params, the AdamW state, the step, and meta
+``consumed_samples`` / ``epoch`` / ``seed``), then prunes to
+``keep_last`` / ``keep_every``. With ``ckpt_dir`` set, ``prepare``
+restores the newest step there that verifies, falling back past a
+corrupt step to the newest older one, and ``fit`` points the loader's
+``consumed_samples`` sampler at the restored position, so the next batch
+is the one the uninterrupted run would take. The step's dropout
+randomness is a function of ``Global.seed`` and the step, so a resumed
+run replays it.
+
 Input batches move to the card through pinned memory with non-blocking
 copies. What this slice does not cover raises ``NotImplementedError``
-naming its ROADMAP item: checkpoint save/resume (``save_steps``,
-``ckpt_dir``), fp16 with the loss scaler and ``Resilience.enable`` (the
-non-finite skip runs only under those two), ``Profiler.enable``, the
-epoch run mode, and any ``Distributed`` degree above 1.
+naming its ROADMAP item: per-rank checkpoint directories (item 12) and
+asynchronous saves (item 8), fp16 with the loss scaler and
+``Resilience.enable`` (the non-finite skip runs only under those two;
+item 11), ``Profiler.enable``, the epoch run mode, and any
+``Distributed`` degree above 1.
 """
 
 from __future__ import annotations
@@ -34,7 +48,8 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
+from fleetx_tpu_torch.core import checkpoint as ckpt_lib
+from fleetx_tpu_torch.optims.optimizer import AdamW, tree_leaves_with_path
 from fleetx_tpu_torch.utils.config import check_single_device
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
@@ -50,10 +65,14 @@ def check_engine_config(cfg: dict) -> None:
     training slice does not cover."""
     eng = dict(cfg.get("Engine") or {})
     save_load = dict(eng.get("save_load") or {})
-    if save_load.get("save_steps") or save_load.get("ckpt_dir"):
+    if save_load.get("per_rank_dirs"):
         raise NotImplementedError(
-            "Engine.save_load.save_steps / ckpt_dir need training checkpoint "
-            "save/resume, not ported yet (ROADMAP.md, port queue item 3)")
+            "Engine.save_load.per_rank_dirs needs a multi-rank gang, not "
+            "ported yet (ROADMAP.md, port queue item 12)")
+    if save_load.get("async_save"):
+        raise NotImplementedError(
+            "Engine.save_load.async_save is not ported yet (ROADMAP.md, "
+            "port queue item 8)")
     mp = dict(eng.get("mix_precision") or {})
     model_dtype = str((cfg.get("Model") or {}).get("dtype") or "")
     if mp.get("use_pure_fp16") or model_dtype == "float16":
@@ -91,12 +110,25 @@ class EagerEngine:
         self.eval_iters = _int(eng, "eval_iters", 10)
         self.accumulate_steps = max(_int(eng, "accumulate_steps", 1), 1)
         self.seed = int((self.cfg.get("Global") or {}).get("seed", 1234))
+        save_load = dict(eng.get("save_load") or {})
+        self.save_steps = _int(save_load, "save_steps", 0)
+        self.output_dir = save_load.get("output_dir") or "./output"
+        self.ckpt_dir = save_load.get("ckpt_dir")
+        # retention: the newest keep_last completed steps (+ every
+        # keep_every-th); 0 keeps everything
+        self.keep_last = _int(save_load, "keep_last", 0)
+        self.keep_every = _int(save_load, "keep_every", 0)
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.params: Optional[dict] = None
         self.opt_state: Optional[dict] = None
         self.step = 0
         self.history: list = []
+        self.consumed_samples = 0
+        self.epoch = 0
+        # None: no restore tried yet; True once a checkpoint was restored
+        self._restored: Optional[bool] = None
+        self.last_saved_step: Optional[int] = None  # step of the last save
 
     # ------------------------------------------------------------ state
     def prepare(self) -> dict:
@@ -115,6 +147,9 @@ class EagerEngine:
             p.requires_grad_(True)
         if self.optimizer is not None and self.opt_state is None:
             self.opt_state = self.optimizer.init(self.params)
+        if self.ckpt_dir and self._restored is None:
+            self._restored = False
+            self.load(self.ckpt_dir)
         return self.params
 
     def to_device(self, batch: dict) -> dict:
@@ -179,20 +214,22 @@ class EagerEngine:
         losses: list = []
         if self.step >= self.max_steps:
             return losses
+        if self._restored:
+            _rewind_sampler(train_data_loader, self.consumed_samples)
         t_last = time.time()
         window = 0
-        epoch = 0
         it = iter(train_data_loader)
         while self.step < self.max_steps:
             batch = next(it, None)
             if batch is None:  # re-iterate epochs over the same loader
-                epoch += 1
+                self.epoch += 1
                 it = iter(train_data_loader)
                 batch = next(it, None)
                 if batch is None:
                     break
             batch = self.to_device(self.module.pretreating_batch(batch))
             metrics = self.train_step(batch)
+            self.consumed_samples += int(batch["tokens"].shape[0])
             window += 1
             if window % self.logging_freq == 0:
                 loss = float(metrics["loss"])  # one sync per window
@@ -202,7 +239,7 @@ class EagerEngine:
                 losses.append(loss)
                 grad_norm = metrics.get("grad_norm")
                 record = {
-                    "global_step": self.step, "epoch": epoch,
+                    "global_step": self.step, "epoch": self.epoch,
                     "batch": window, "loss": loss, "train_cost": cost,
                     "global_batch_size": int(batch["tokens"].shape[0]),
                     "lr": metrics.get("lr", 0.0), "device": self.device,
@@ -213,6 +250,8 @@ class EagerEngine:
             if self.eval_freq and valid_data_loader is not None and \
                     self.step % self.eval_freq == 0:
                 self.evaluate(valid_data_loader, global_step=self.step)
+            if self.save_steps and self.step % self.save_steps == 0:
+                self.save()
         return losses
 
     @torch.no_grad()
@@ -235,3 +274,114 @@ class EagerEngine:
                 "loss": total / count,
                 "eval_cost": (time.time() - t0) / count})
         return total / max(count, 1)
+
+    # ------------------------------------------------------ checkpoints
+    def state_dict(self) -> dict:
+        """The flat training state a checkpoint holds: ``step``,
+        ``params/<path>`` and ``opt_state/<name>`` (``AdamW.flat_state``);
+        the tensors themselves, not copies."""
+        state = {"step": self.step}
+        state.update(ckpt_lib.flatten(self.params, "params/"))
+        if self.opt_state is not None:
+            flat = AdamW.flat_state(self.opt_state, self.params)
+            state.update({f"opt_state/{k}": v for k, v in flat.items()})
+        return state
+
+    def save(self) -> str:
+        """Save the state at the current step under ``output_dir`` with
+        meta ``consumed_samples`` / ``epoch`` / ``seed``, then apply the
+        retention (the step just saved, the newest, always survives)."""
+        self.prepare()
+        path = ckpt_lib.save_checkpoint(
+            self.output_dir, self.step, self.state_dict(),
+            meta={"consumed_samples": self.consumed_samples,
+                  "epoch": self.epoch, "seed": self.seed})
+        self.last_saved_step = self.step
+        if self.keep_last:
+            ckpt_lib.gc_checkpoints(self.output_dir, self.keep_last,
+                                    self.keep_every)
+        return path
+
+    def load(self, directory: Optional[str] = None) -> bool:
+        """Restore the newest completed step under ``directory`` (default
+        ``output_dir``) into the engine's params, optimizer state, step
+        and data position; True when a step was restored.
+
+        A step that fails digest verification is refused with an error
+        log and the newest older completed step is tried, until one
+        verifies; if every step fails, this raises. With no completed
+        step at all it warns and leaves the fresh state (the first run of
+        a command that resumes on restart).
+        """
+        directory = directory or self.output_dir
+        if self.params is None:
+            self.prepare()
+        step = ckpt_lib.latest_step(directory)
+        refused: list = []
+        while True:
+            if step is None:
+                if refused:
+                    raise RuntimeError(
+                        f"every checkpoint under {directory} failed "
+                        f"integrity verification (refused steps: "
+                        f"{refused}) — refusing to restore corrupt state")
+                logger.warning("no completed checkpoint under %s — training "
+                               "starts from step 0", directory)
+                return False
+            try:
+                state, meta = ckpt_lib.load_checkpoint(directory, step)
+                break
+            except ckpt_lib.CheckpointIntegrityError as e:
+                logger.error("refusing checkpoint step %d: %s", step, e)
+                refused.append(step)
+                older = [s for s in ckpt_lib.completed_steps(directory)
+                         if s < step]
+                step = older[-1] if older else None
+                logger.warning("falling back past corrupt checkpoint step %d "
+                               "to the newest older completed step (%s)",
+                               refused[-1], step)
+        self._apply_state(state)
+        self.consumed_samples = int(meta.get("consumed_samples", 0))
+        self.epoch = int(meta.get("epoch", 0))
+        self._restored = True
+        return True
+
+    @torch.no_grad()
+    def _apply_state(self, state: dict) -> None:
+        """Copy a loaded flat state into the live tensors, bit for bit;
+        raises on a missing or unexpected leaf or a shape that differs."""
+        want = set(self.state_dict())
+        have = {k for k in state if self.opt_state is not None
+                or not k.startswith("opt_state/")}
+        missing, extra = sorted(want - have), sorted(have - want)
+        if missing or extra:
+            raise ValueError(f"checkpoint does not match this engine's "
+                             f"state: missing {missing}, unexpected {extra}")
+        for name, p in ckpt_lib.flatten(self.params, "params/").items():
+            if tuple(state[name].shape) != tuple(p.shape):
+                raise ValueError(f"{name}: checkpoint shape "
+                                 f"{tuple(state[name].shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(state[name])
+        if self.opt_state is not None:
+            AdamW.load_flat_state(
+                self.opt_state,
+                {k[len("opt_state/"):]: v for k, v in state.items()
+                 if k.startswith("opt_state/")}, self.params)
+        self.step = int(state["step"])
+
+
+def _rewind_sampler(loader, consumed: int) -> bool:
+    """Point a ``consumed_samples`` sampler (``GPTBatchSampler``) at a
+    global sample position; warns and returns False when the loader has
+    none (the caller must then hand a stream already at that position)."""
+    sampler = getattr(loader, "batch_sampler", None)
+    if sampler is not None and hasattr(sampler, "consumed_samples"):
+        sampler.consumed_samples = int(consumed)
+        logger.info("resume: sampler rewound to consumed_samples=%d",
+                    consumed)
+        return True
+    logger.warning("resume: the loader has no consumed_samples sampler — "
+                   "assuming the stream is already at global sample %d",
+                   consumed)
+    return False

@@ -1,5 +1,5 @@
-"""Task modules: the GPT pretraining recipe (port of
-``fleetx_tpu/core/module.py:86-281``).
+"""Task modules: the GPT pretraining recipe and text generation (port of
+``fleetx_tpu/core/module.py:86-281, 336-410``).
 
 A module builds the model config from the YAML ``Model`` section, makes
 seeded parameters, and exposes the losses the engine differentiates:
@@ -31,7 +31,7 @@ compile knobs with no effect on this eager port and are read by nothing.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -183,3 +183,93 @@ class GPTModule(LanguageModule):
             deterministic=deterministic, rng=rng)
         return M.cross_entropy_loss(logits, batch["labels"],
                                     batch["loss_mask"])
+
+
+#: ``Generation.decode_strategy`` values
+DECODE_STRATEGIES = ("sampling", "greedy_search", "beam_search")
+
+
+class GPTGenerationModule(GPTModule):
+    """Text generation (port of ``fleetx_tpu/core/module.py:336-410``):
+    the ``Generation`` section → a ``GenerationConfig``, and the host glue
+    around ``models/gpt/generation.py``: tokenize, left-pad, decode,
+    detokenize.
+
+    ``decode_strategy`` is ``sampling``, ``greedy_search`` or
+    ``beam_search``; without one, ``use_topp_sampling`` (default True)
+    picks sampling. Set ``module.tokenizer`` before ``generate``."""
+
+    def __init__(self, cfg: Any):
+        from fleetx_tpu_torch.models.gpt.generation import GenerationConfig
+
+        gen = dict(cfg.get("Generation") or {}) if isinstance(cfg, dict) \
+            else {}
+        strategy = gen.get("decode_strategy")
+        if strategy is not None:
+            if strategy not in DECODE_STRATEGIES:
+                raise ValueError(f"Generation.decode_strategy {strategy!r} "
+                                 f"is not one of {DECODE_STRATEGIES}")
+            do_sample = strategy == "sampling"
+        else:
+            do_sample = bool(gen.get("use_topp_sampling", True))
+        self.use_beam_search = strategy == "beam_search"
+        self.gen_cfg = GenerationConfig(
+            max_new_tokens=int(gen.get("max_dec_len", 64)),
+            min_new_tokens=int(gen.get("min_dec_len", 0)),
+            temperature=float(gen.get("temperature", 1.0)),
+            top_k=int(gen.get("top_k", 0)),
+            top_p=float(gen.get("top_p", 0.0)),
+            repetition_penalty=float(gen.get("repetition_penalty", 1.0)),
+            do_sample=do_sample,
+            num_return_sequences=int(gen.get("num_return_sequences", 1)),
+            eos_token_id=int(gen.get("eos_token_id", 50256)),
+            pad_token_id=int(gen.get("pad_token_id", 50256)),
+            num_beams=int(gen.get("num_beams", 1)),
+            num_beam_groups=int(gen.get("num_beam_groups", 1)),
+            diversity_rate=float(gen.get("diversity_rate", 0.0)),
+            length_penalty=float(gen.get("length_penalty", 0.0)))
+        if self.use_beam_search and \
+                self.gen_cfg.num_return_sequences > self.gen_cfg.num_beams:
+            raise ValueError("Generation.num_return_sequences exceeds "
+                             "num_beams under beam_search")
+        self.tokenizer = None
+        super().__init__(cfg)
+
+    def generate_ids(self, params: dict, prompts: list,
+                     generator: Optional[torch.Generator] = None):
+        """Token-id prompts → ``[len(prompts) * num_return_sequences,
+        max_new_tokens]`` numpy ids, prompt-major (rows ``i*n .. i*n+n-1``
+        continue prompt ``i``); the device is the params'."""
+        from fleetx_tpu_torch.models.gpt import generation as G
+
+        device = params["gpt"]["embeddings"]["word_embeddings"].device
+        tokens, mask = G.to_tensors(
+            *G.left_pad(prompts, self.gen_cfg.pad_token_id), device)
+        if self.use_beam_search:
+            seqs, _ = G.beam_search(self.model_cfg, params, self.gen_cfg,
+                                    tokens, mask)
+            # beams come back best-first per prompt: keep the first
+            # num_return_sequences of each prompt's num_beams
+            nb, nr = self.gen_cfg.num_beams, \
+                self.gen_cfg.num_return_sequences
+            seqs = seqs.reshape(len(prompts), nb, -1)[:, :nr]
+            return seqs.reshape(len(prompts) * nr, -1).cpu().numpy()
+        out = G.generate(self.model_cfg, params, self.gen_cfg, tokens, mask,
+                         generator)
+        return out.cpu().numpy()
+
+    def generate(self, params: dict, texts: list,
+                 generator: Optional[torch.Generator] = None) -> list:
+        """Texts → continuations (one per returned sample, cut at eos)."""
+        if self.tokenizer is None:
+            raise ValueError("set module.tokenizer before generate()")
+        prompts = [self.tokenizer.encode(t) for t in texts]
+        out = self.generate_ids(params, prompts, generator)
+        eos = self.gen_cfg.eos_token_id
+        results = []
+        for row in out:
+            ids = [int(t) for t in row]
+            if eos in ids:
+                ids = ids[:ids.index(eos)]
+            results.append(self.tokenizer.decode(ids))
+        return results

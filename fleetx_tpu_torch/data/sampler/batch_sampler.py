@@ -3,7 +3,11 @@
 
 Global batches are laid out over the data-parallel ranks and
 ``consumed_samples`` lets a restarted run continue from the exact sample
-a checkpoint stopped at.
+a checkpoint stopped at: a sampler built or rewound (``EagerEngine.fit``
+after a restore) to a checkpoint's ``consumed_samples`` yields next the
+batch the uninterrupted run would have taken. A prefetching loader moves
+the sampler's own count ahead of training, so the engine keeps the
+trained count it saves.
 """
 
 from __future__ import annotations

@@ -7,12 +7,13 @@ __all__ = ["build_module"]
 
 
 def build_module(cfg):
-    """Instantiate the task module named by ``cfg.Model.module``; only
-    ``GPTModule`` is ported (the others: ROADMAP.md, port queue item 7)."""
-    from fleetx_tpu_torch.core.module import GPTModule
+    """Instantiate the task module named by ``cfg.Model.module``:
+    ``GPTModule`` or ``GPTGenerationModule`` (the other families:
+    ROADMAP.md, port queue item 7)."""
+    from fleetx_tpu_torch.core import module as modules
 
     name = (cfg.get("Model") or {}).get("module", "GPTModule")
-    if name != "GPTModule":
+    if name not in ("GPTModule", "GPTGenerationModule"):
         raise NotImplementedError(f"module {name} is not ported yet "
                                   f"(ROADMAP.md, port queue item 7)")
-    return GPTModule(cfg)
+    return getattr(modules, name)(cfg)

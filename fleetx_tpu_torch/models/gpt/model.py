@@ -8,7 +8,10 @@ forward of ``GPTEmbeddings``, ``MultiHeadAttention._core_attn``,
 ``full_attn`` and ``core_attn`` (:423, :547-555, :639-651; ``recompute``
 here), ``chunked_cross_entropy_per_token`` (:770-843),
 ``cross_entropy_per_token``, ``masked_mean`` and ``cross_entropy_loss``
-(:846-866).
+(:846-866), and the dense decode cache generation runs on:
+``DecodeCache`` / ``init_cache`` (:275-297), the cache path of
+``MultiHeadAttention`` (:346-363) with ``_decode_attention`` (:443-460),
+and position ids from the cache index or the left-pad mask (:621-640).
 
 Parameters are a nested dict of tensors shaped exactly like the flax
 pytree (``nn.scan`` stacks layer leaves on a leading ``[num_layers]`` dim;
@@ -27,6 +30,13 @@ logsumexp. ``use_ring_attention`` routes attention through
 ``fused_residual_norm`` pick the hand-written kernels (``ops/flash_attention.py``, ``ops/fused_norm.py``)
 where their gates admit the shape, and the plain ``finfo.min``-masked
 softmax / unfused LayerNorm otherwise, as the JAX module does.
+
+With a cache, attention never reaches the flash kernels (the prompt too
+goes through ``_decode_attention``, as in the JAX module), while every
+LayerNorm still takes the fused kernel where its gate admits the shape
+(``[b, s, hidden]`` at any ``s``): 2 × layers + 1 launches a model call.
+The port's cache is written in place by the call that fills it and its
+``index`` is a host int; a call returns the same cache object.
 """
 
 from __future__ import annotations
@@ -258,6 +268,56 @@ def layer_norm(p: dict, x: torch.Tensor, cfg: GPTConfig,
     return out if residual is None else (out, s)
 
 
+@dataclasses.dataclass
+class DecodeCache:
+    """KV cache for autoregressive decode. ``mask`` marks the cached key
+    positions that hold a real token: left-pad prompt positions stay
+    masked for good."""
+
+    key: torch.Tensor    # [layers, batch, max_len, heads, head_dim]
+    value: torch.Tensor  # [layers, batch, max_len, heads, head_dim]
+    index: int           # number of positions already written
+    mask: torch.Tensor   # [batch, max_len] bool, True where a key is real
+
+    def select(self, rows: torch.Tensor) -> "DecodeCache":
+        """A cache of the batch rows ``rows`` (repeats and the beam
+        reorder)."""
+        return DecodeCache(self.key[:, rows], self.value[:, rows],
+                           self.index, self.mask[rows])
+
+
+def init_cache(cfg: GPTConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None,
+               device: Union[str, torch.device] = "cpu") -> DecodeCache:
+    """An empty decode cache for ``batch`` rows of ``max_len``."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_attention_heads,
+             cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return DecodeCache(
+        key=torch.zeros(shape, dtype=dtype, device=device),
+        value=torch.zeros(shape, dtype=dtype, device=device), index=0,
+        mask=torch.zeros((batch, max_len), dtype=torch.bool, device=device))
+
+
+def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cache_index: int, key_mask: torch.Tensor
+                      ) -> torch.Tensor:
+    """Attention of ``q`` (the tokens written at ``cache_index`` on) over
+    the whole cache: a key counts when its slot is at or before the
+    query's and ``key_mask`` marks it real; ``finfo.min``-masked f32
+    softmax."""
+    root = torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32)
+    scores = torch.einsum("bqnd,bknd->bnqk", q, k) / \
+        root.to(device=q.device, dtype=q.dtype)
+    q_pos = cache_index + torch.arange(q.shape[1], device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = (k_pos <= q_pos)[None] & key_mask[:, None, :]
+    scores = torch.where(mask[:, None], scores, torch.full_like(
+        scores, torch.finfo(scores.dtype).min))
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bknd->bqnd", probs, v)
+
+
 def _plain_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 cfg: GPTConfig, rate: float,
                 rng: Optional[DropoutRng]) -> torch.Tensor:
@@ -306,16 +366,26 @@ def core_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
               deterministic: bool, rng: Optional[DropoutRng],
-              layer: int) -> torch.Tensor:
-    """``MultiHeadAttention`` without a cache: fused qkv, core, out."""
+              layer: int, cache: Optional[DecodeCache] = None
+              ) -> torch.Tensor:
+    """``MultiHeadAttention``: fused qkv, core, out. With a cache, this
+    call's k/v go into layer ``layer``'s slots from ``cache.index`` on and
+    attention runs over the whole cache (``_decode_attention``)."""
     b, s, h = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     x = x.to(cfg.dtype)
     w = p["qkv_kernel"].to(cfg.dtype).reshape(h, 3 * nh * hd)
     qkv = (x @ w).reshape(b, s, 3, nh, hd) + p["qkv_bias"].to(cfg.dtype)
     q, k, v = qkv.unbind(2)
-    out = core_attn(q, k, v, cfg, deterministic=deterministic, rng=rng,
-                    layer=layer)
+    if cache is not None:
+        idx = cache.index
+        cache.key[layer, :, idx:idx + s] = k
+        cache.value[layer, :, idx:idx + s] = v
+        out = _decode_attention(q, cache.key[layer], cache.value[layer],
+                                idx, cache.mask)
+    else:
+        out = core_attn(q, k, v, cfg, deterministic=deterministic, rng=rng,
+                        layer=layer)
     w_out = p["out_kernel"].to(cfg.dtype).reshape(nh * hd, h)
     return out.reshape(b, s, nh * hd) @ w_out + p["out_bias"].to(cfg.dtype)
 
@@ -330,19 +400,22 @@ def mlp(p: dict, x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
 
 def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
                   deterministic: bool, rng: Optional[DropoutRng],
-                  layer: int) -> torch.Tensor:
+                  layer: int, cache: Optional[DecodeCache] = None
+                  ) -> torch.Tensor:
     """``TransformerDecoderLayer``: pre-norm attention and MLP blocks, the
     post-attention residual add folded into ``ln2``; the attention call
-    recomputed in the backward under the ``full_attn`` granularity."""
+    recomputed in the backward under the ``full_attn`` granularity (never
+    with a cache: decode has no backward)."""
     drop = cfg.hidden_dropout_prob > 0.0 and not deterministic
     residual = x
     y = layer_norm(p["ln1"], x, cfg)
 
     def attn(y):
         return attention(p["attn"], y, cfg, deterministic=deterministic,
-                         rng=rng, layer=layer)
+                         rng=rng, layer=layer, cache=cache)
 
-    if cfg.use_recompute and cfg.recompute_granularity == "full_attn":
+    if cfg.use_recompute and cfg.recompute_granularity == "full_attn" \
+            and cache is None:
         y = recompute(attn, rng, y)
     else:
         y = attn(y)
@@ -367,26 +440,50 @@ def _unstack(node: Any, n: int) -> list:
 def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
               position_ids: Optional[torch.Tensor] = None, *,
               deterministic: bool = True,
-              rng: Optional[DropoutRng] = None) -> torch.Tensor:
-    """``GPTModel`` without a cache: embeddings, decoder stack, ``ln_f``;
-    each decoder layer recomputed in the backward under the ``full``
-    granularity (only the layer inputs stay live)."""
+              rng: Optional[DropoutRng] = None,
+              cache: Optional[DecodeCache] = None,
+              attention_mask: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """``GPTModel``: embeddings, decoder stack, ``ln_f``; each decoder
+    layer recomputed in the backward under the ``full`` granularity (only
+    the layer inputs stay live).
+
+    With a cache, the call writes its tokens at ``cache.index`` on, marks
+    those key slots real where ``attention_mask`` says so (all of them
+    without one), and advances the index. Position ids default to the
+    count of real tokens before each one for a left-padded prefill
+    (``attention_mask`` with a cache), else to ``cache.index`` (0 without
+    a cache) plus the offset in the call.
+    """
     p = params["gpt"]
+    s = tokens.shape[1]
     if position_ids is None:
-        position_ids = torch.arange(tokens.shape[1], device=tokens.device
-                                    ).expand(tokens.shape)
+        if attention_mask is not None and cache is not None:
+            position_ids = torch.clamp(
+                torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1,
+                min=0)
+        else:
+            start = cache.index if cache is not None else 0
+            position_ids = (start + torch.arange(
+                s, device=tokens.device)).expand(tokens.shape)
+    if cache is not None:
+        cache.mask[:, cache.index:cache.index + s] = (
+            True if attention_mask is None else attention_mask.bool())
     emb = p["embeddings"]
     x = (F.embedding(tokens, emb["word_embeddings"].to(cfg.dtype))
          + F.embedding(position_ids, emb["position_embeddings"].to(
              cfg.dtype)))
     if cfg.hidden_dropout_prob > 0.0 and not deterministic:
         x = _dropout(x, cfg.hidden_dropout_prob, rng)
-    full = cfg.use_recompute and cfg.recompute_granularity == "full"
+    full = cfg.use_recompute and cfg.recompute_granularity == "full" \
+        and cache is None
     for i, lp in enumerate(_unstack(p["layers"], cfg.num_layers)):
         layer = functools.partial(decoder_layer, lp, cfg=cfg,
                                   deterministic=deterministic, rng=rng,
-                                  layer=i)
+                                  layer=i, cache=cache)
         x = recompute(layer, rng, x) if full else layer(x)
+    if cache is not None:
+        cache.index += s
     return layer_norm(p["ln_f"], x, cfg)
 
 
@@ -395,15 +492,20 @@ def gpt_for_pretraining(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
                         deterministic: bool = True,
                         rng: Optional[DropoutRng] = None,
                         labels: Optional[torch.Tensor] = None,
-                        loss_mask: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        loss_mask: Optional[torch.Tensor] = None,
+                        cache: Optional[DecodeCache] = None,
+                        attention_mask: Optional[torch.Tensor] = None):
     """``GPTForPretraining``: logits ``[b, s, vocab]`` in the compute dtype
     from the tied embedding head; with ``cfg.vocab_chunk`` set and
-    ``labels`` given, the masked LM loss through the chunked head instead
-    (the ``[b, s, vocab]`` logits are never built)."""
+    ``labels`` given (and no cache), the masked LM loss through the
+    chunked head instead (the ``[b, s, vocab]`` logits are never built).
+    With a cache (generation), ``(logits, cache)``."""
     x = gpt_model(params, cfg, tokens, position_ids,
-                  deterministic=deterministic, rng=rng)
+                  deterministic=deterministic, rng=rng, cache=cache,
+                  attention_mask=attention_mask)
     wte = params["gpt"]["embeddings"]["word_embeddings"].to(cfg.dtype)
+    if cache is not None:
+        return torch.einsum("bsh,vh->bsv", x, wte), cache
     if cfg.vocab_chunk and labels is not None:
         losses = chunked_cross_entropy_per_token(x, wte, labels,
                                                  int(cfg.vocab_chunk))

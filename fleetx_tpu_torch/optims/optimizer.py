@@ -15,6 +15,10 @@ a loop over the parameter tensors, updating them in place:
 - ``u += weight_decay · p`` where the decay mask is True;
 - ``p += -lr(t) · u``.
 
+``flat_state`` / ``load_flat_state`` turn the state into the flat named
+dict a checkpoint holds (``count``, ``decay``, ``mu/<leaf path>``,
+``nu/<leaf path>``) and back, bit for bit.
+
 SGD/Momentum belongs to the vision family and raises
 ``NotImplementedError`` (ROADMAP.md, port queue item 7).
 """
@@ -110,6 +114,39 @@ class AdamW:
             p.add_((u * -lr).to(p.dtype))
         state["count"] = t
         return g_norm
+
+    @staticmethod
+    def flat_state(state: dict, params: dict) -> dict:
+        """The state as a flat named dict for a checkpoint: ``count``,
+        ``decay`` (one flag per leaf) and ``mu/<leaf path>`` /
+        ``nu/<leaf path>``, the tensors themselves (not copies)."""
+        paths = ["/".join(p) for p, _ in tree_leaves_with_path(params)]
+        flat = {"count": int(state["count"]),
+                "decay": [bool(d) for d in state["decay"]]}
+        for key in ("mu", "nu"):
+            flat.update({f"{key}/{p}": t for p, t in zip(paths, state[key])})
+        return flat
+
+    @staticmethod
+    def load_flat_state(state: dict, flat: dict, params: dict) -> None:
+        """Restore ``flat_state`` output into ``state`` in place, bit for
+        bit (the moments are copied into the existing tensors); raises on
+        a missing leaf or a shape that differs."""
+        paths = ["/".join(p) for p, _ in tree_leaves_with_path(params)]
+        decay = [bool(d) for d in torch.as_tensor(flat["decay"]).tolist()]
+        if len(decay) != len(paths):
+            raise ValueError(f"checkpoint has {len(decay)} decay flags for "
+                             f"{len(paths)} parameters")
+        for key in ("mu", "nu"):
+            for p, t in zip(paths, state[key]):
+                saved = flat[f"{key}/{p}"]
+                if tuple(saved.shape) != tuple(t.shape):
+                    raise ValueError(f"{key}/{p}: checkpoint shape "
+                                     f"{tuple(saved.shape)} != "
+                                     f"{tuple(t.shape)}")
+                t.copy_(saved)
+        state["count"] = int(flat["count"])
+        state["decay"] = decay
 
 
 def build_optimizer(cfg: dict, lr_schedule) -> AdamW:

@@ -1,0 +1,1 @@
+"""Task entry points of the port (``python -m fleetx_tpu_torch.tasks.gpt.generation``)."""

@@ -6,8 +6,10 @@ Port of ``tools/serve.py``, with the same flags::
         -c fleetx_tpu/configs/nlp/gpt/serving_gpt_345M.yaml [-o Key.Sub=v]
         [--device cuda|cpu] [--port N] [--ready-file f] [--bench]
 
-- **replica** (default): build the model from ``-c cfg.yaml`` (seeded
-  init from ``Global.seed``), run one ``ServingEngine`` behind the
+- **replica** (default): build the model from ``-c cfg.yaml`` (the
+  params of the newest checkpoint under ``Serving.ckpt_dir`` when given,
+  verified against its digests; else seeded init from ``Global.seed``),
+  run one ``ServingEngine`` behind the
   JSON-lines TCP front. SIGTERM/SIGINT latch the preemption handler → the
   replica stops admitting, finishes every in-flight decode, and exits
   with ``--preemption-code``.
@@ -16,7 +18,7 @@ Port of ``tools/serve.py``, with the same flags::
 
 The replica runs on ``cuda`` unless ``--device cpu`` is given. What the
 slice does not cover raises ``NotImplementedError`` naming its ROADMAP
-item: ``--router``, ``Serving.ckpt_dir`` / ``adapter_dir``,
+item: ``--router``, ``Serving.adapter_dir`` (the LoRA merge),
 ``Serving.quantize_decode`` and any ``Distributed`` degree above 1.
 Under a supervisor gang (``FLEETX_PROCESS_ID`` set) the replica offsets
 its port by the member id.
@@ -38,11 +40,10 @@ _DEGREE_KEYS = ("dp_degree", "mp_degree", "pp_degree", "fsdp_degree",
 def _check_ported(cfg: dict) -> None:
     """Refuse the config values the serving slice does not cover."""
     serving = dict(cfg.get("Serving") or {})
-    for key in ("ckpt_dir", "adapter_dir"):
-        if serving.get(key):
-            raise NotImplementedError(
-                f"Serving.{key} needs the checkpoint loader and LoRA merge, "
-                f"not ported yet (ROADMAP.md, port queue item 3)")
+    if serving.get("adapter_dir"):
+        raise NotImplementedError(
+            "Serving.adapter_dir needs the LoRA adapter merge, not ported "
+            "yet (ROADMAP.md, port queue item 7.1)")
     dist = dict(cfg.get("Distributed") or {})
     degrees = {k: dist.get(k) for k in _DEGREE_KEYS}
     degrees["sharding_degree"] = (dist.get("sharding") or {}).get(
@@ -56,7 +57,10 @@ def _check_ported(cfg: dict) -> None:
 
 
 def build_engine(cfg: dict, device=None):
-    """Config sections → a ready ``ServingEngine`` with seeded weights."""
+    """Config sections → a ready ``ServingEngine``: the params of
+    ``Serving.ckpt_dir``'s newest checkpoint when it is set (a checkpoint
+    that is missing or fails its digests raises), else seeded weights."""
+    from fleetx_tpu_torch.core.checkpoint import load_params
     from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
     from fleetx_tpu_torch.serving.decode import SamplingParams
     from fleetx_tpu_torch.serving.engine import ServingConfig, ServingEngine
@@ -76,7 +80,13 @@ def build_engine(cfg: dict, device=None):
         top_p=float(gen.get("top_p", 0.0)))
     eos = int(gen.get("eos_token_id", 50256))
     seed = int((cfg.get("Global") or {}).get("seed", 0))
-    params = init_params(model_cfg, seed=seed, device=device)
+    if serving.ckpt_dir:
+        from fleetx_tpu_torch.convert import check_tree
+
+        params = load_params(str(serving.ckpt_dir), device=device)
+        check_tree(params, model_cfg)
+    else:
+        params = init_params(model_cfg, seed=seed, device=device)
     return ServingEngine(model_cfg, params, serving, sampling,
                          eos_token_id=eos, seed=seed, device=device)
 

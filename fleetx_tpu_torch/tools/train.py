@@ -11,6 +11,12 @@ eval dataset is named), and fits until ``Engine.max_steps``. It runs on
 ``cuda`` unless ``--device cpu`` is given; without a GPU and without
 ``--device cpu`` it raises. Config values the slice does not cover raise
 ``NotImplementedError`` naming their ROADMAP item.
+
+With ``Engine.save_load.save_steps`` set, the trainer saves every
+``save_steps`` steps and once more at the end (``output_dir``); with
+``Engine.save_load.ckpt_dir`` set it resumes from the newest step there
+that verifies (``core/engine/eager_engine.py``). Audit a checkpoint
+directory with ``python -m fleetx_tpu_torch.tools.verify_ckpt``.
 """
 
 from __future__ import annotations
@@ -57,9 +63,12 @@ def build_trainer(cfg: dict, device=None):
 
 
 def run(cfg: dict, device=None):
-    """Build the trainer and fit; returns ``(engine, logged losses)``."""
+    """Build the trainer, fit, and save the final step when ``save_steps``
+    is set; returns ``(engine, logged losses)``."""
     engine, train_dl, valid_dl = build_trainer(cfg, device)
     losses = engine.fit(train_dl, valid_dl)
+    if engine.save_steps and engine.last_saved_step != engine.step:
+        engine.save()
     return engine, losses
 
 

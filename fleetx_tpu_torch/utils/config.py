@@ -6,9 +6,13 @@ The port's copy of ``fleetx_tpu/utils/config.py``: ``AttrDict``,
 (:38-135), ``process_dist_config`` / ``process_global_configs`` /
 ``process_engine_config`` (:139-241), ``process_serving_config``
 (:334-376), ``get_config`` (:379) and ``parse_args`` (:454). It reads the
-same YAML files by path. The port trains on one device: a ``Distributed``
-degree above 1 raises ``NotImplementedError`` (ROADMAP.md, port queue
-item 12), and the auto-layout planner is not copied.
+same YAML files by path, ``_base_`` chains included (the generation
+recipe inherits the 345M one, ``save_steps: 1000`` with it); sections
+the loader does not derive (``Generation``, ``Serving`` past its
+validation) pass through to their modules. The port trains on one
+device: a ``Distributed`` degree above 1 raises ``NotImplementedError``
+(ROADMAP.md, port queue item 12), and the auto-layout planner is not
+copied.
 """
 
 from __future__ import annotations

@@ -41,26 +41,42 @@ def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN
 
 
+def _port_sources() -> list:
+    """Every ``.py`` of the package, and ``chip_smoke.py``."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    return sorted(paths)
+
+
+def test_the_scan_reaches_every_module_of_the_port():
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("chip_smoke.py",
+                "fleetx_tpu_torch/tasks/gpt/generation.py",
+                "fleetx_tpu_torch/tools/verify_ckpt.py",
+                "fleetx_tpu_torch/core/checkpoint.py",
+                "fleetx_tpu_torch/resilience/integrity.py",
+                "fleetx_tpu_torch/data/tokenizers/gpt_tokenizer.py",
+                "fleetx_tpu_torch/models/gpt/generation.py"):
+        assert rel in scanned, rel
+
+
 def test_port_sources_import_no_jax_and_no_reference_package():
     offenders = []
     n_files = 0
-    for root, _, files in os.walk(PKG):
-        for name in files:
-            if not name.endswith(".py"):
+    for path in _port_sources():
+        n_files += 1
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
                 continue
-            n_files += 1
-            path = os.path.join(root, name)
-            with open(path) as f:
-                tree = ast.parse(f.read(), filename=path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    mods = [node.module or ""]
-                else:
-                    continue
-                offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} "
-                              f"{m}" for m in mods if _forbidden(m)]
+            offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} "
+                          f"{m}" for m in mods if _forbidden(m)]
     assert n_files >= 15
     assert not offenders, offenders
     assert not _forbidden("fleetx_tpu_torch.serving")
@@ -74,6 +90,10 @@ def test_entry_points_load_no_jax_modules():
             "import fleetx_tpu_torch.core.engine\n"
             "import fleetx_tpu_torch.serving.engine\n"
             "import fleetx_tpu_torch.serving.bench\n"
+            "import fleetx_tpu_torch.tasks.gpt.generation\n"
+            "import fleetx_tpu_torch.tools.verify_ckpt\n"
+            "import fleetx_tpu_torch.core.checkpoint\n"
+            "import fleetx_tpu_torch.data.tokenizers.gpt_tokenizer\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -82,6 +102,8 @@ def test_entry_points_load_no_jax_modules():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "fleetx_tpu_torch.serving.engine" in loaded
     assert "fleetx_tpu_torch.core.engine.eager_engine" in loaded
+    assert "fleetx_tpu_torch.tasks.gpt.generation" in loaded
+    assert "regex" not in loaded  # the card's machine has no regex
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -137,8 +159,16 @@ def test_uncovered_config_values_raise(what):
         with pytest.raises(NotImplementedError, match="item 5"):
             serve.main(["--router", "-c", "unused.yaml"])
         return
-    item = {"quantize_decode": "item 2", "ckpt_dir": "item 3",
-            "adapter_dir": "item 3", "mp_degree": "item 4"}[what]
+    if what == "ckpt_dir":
+        # the checkpoint loader is ported: a configured checkpoint that is
+        # not there is refused, never replaced by seeded weights
+        cfg["Serving"][what] = "/x"
+        with pytest.raises(FileNotFoundError, match="no completed "
+                                                    "checkpoint"):
+            serve.build_engine(cfg, device="cpu")
+        return
+    item = {"quantize_decode": "item 2", "adapter_dir": "item 7.1",
+            "mp_degree": "item 4"}[what]
     if what == "mp_degree":
         cfg["Distributed"] = {"mp_degree": 2}
     else:

@@ -343,8 +343,11 @@ UNCOVERED = {
     "fp16": (["Engine.mix_precision.use_pure_fp16=True",
               "Model.dtype=float16"], "item 11"),
     "resilience": (["Resilience.enable=True"], "item 11"),
-    "save_steps": (["Engine.save_load.save_steps=10"], "item 3"),
-    "ckpt_dir": (["Engine.save_load.ckpt_dir=/nonexistent"], "item 3"),
+    # checkpoints are ported; their multi-rank options are not
+    "save_steps": (["Engine.save_load.save_steps=10",
+                    "Engine.save_load.per_rank_dirs=True"], "item 12"),
+    "ckpt_dir": (["Engine.save_load.ckpt_dir=/nonexistent",
+                  "Engine.save_load.async_save=True"], "item 8"),
     "dp_degree": (["Distributed.dp_degree=2",
                    "Global.global_batch_size=4"], "item 12"),
     "sequence_parallel": (["Distributed.sequence_parallel=True"],
