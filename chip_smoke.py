@@ -3,11 +3,14 @@
 kernels, serve GPT-345M at full width through the port's replica, train
 GPT-345M at full width and GPT-1.3B at seq 8192 at full width and depth
 through the port's trainer, save, audit and resume GPT-345M training,
-and generate from its checkpoint with the port's generation task.
+generate from its checkpoint with the port's generation task, evaluate
+it offline, export it and run the exported programs.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
     python3 chip_smoke.py --serving        # phase 2 and its trace alone
+    python3 chip_smoke.py --eval-export    # phases 10-11 and row 1 at the
+                                           # eval shape, seeded weights
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -147,9 +150,42 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    the replica ``tools/serve.build_engine`` builds with
    ``Serving.ckpt_dir`` on the same checkpoint (the paged kernel): the
    tokens must be identical, or differ only where the top-two logit gap
-   is under 1e-3. The temp dirs are removed whether the run passed or
-   failed. Last, row 5 at the decode shape ``[8, 1, 1024]`` bf16 against
-   its plain version, timed beside its bound and ``F.layer_norm``.
+   is under 1e-3.
+10. offline eval: ``python -m fleetx_tpu_torch.tools.eval`` on
+   ``eval_gpt_345M_single_card.yaml`` as its own process, from phase 8's
+   checkpoint with phase 9's tokenizer, on ``docs/*.md`` sorted and
+   concatenated (the repository's own English text; wikitext-103 and
+   LAMBADA are not in the repository): ``eval_type: ppl`` (windows of
+   1024 at stride 32) and ``acc`` (a cloze jsonl of the same text's
+   paragraphs of five words or more, the last word of each the target).
+   Each prints its results, window and batch counts, ms per batch, window
+   tokens/s, peak memory and the launches of kernels 1 and 5 (24 and 49
+   per batch). In this process the same eval on its first
+   ``EVAL_PREFIX`` windows with both kernels off must agree with it on
+   the loss within ``EVAL_F32_RTOL`` (f32) and ``EVAL_BF16_RTOL`` (bf16;
+   reasons beside the constants); one batch is traced. The ``Data.Eval``
+   path (a ``GPTDataset`` of the same text written by the port's
+   ``tools.preprocess_data``) runs 3 batches as its own process.
+11. export and inference: ``python -m fleetx_tpu_torch.tools.export`` of
+   ``inference_gpt_345M_single_card.yaml`` from the checkpoint, target
+   ``forward`` and then ``generation`` (batch 1, prompt 128, 64 new
+   tokens), each its own process. The exported forward at ``[1, 1024]``
+   must equal the eager forward bit for bit and launch kernels 1 and 5 24
+   and 49 times a call; its first call and warm p50 / p99 over 20 calls
+   are printed beside the program alone and the eager forward. Through
+   the generation programs, greedy (bf16, and an f32 export made in this
+   process) and seeded sampling must equal eager generation token for
+   token, with 49 launches of kernel 5 a model call; ms per decode step
+   and new tokens/s. ``tools.inference`` and ``tasks.gpt.inference`` run
+   the bf16 export as their own processes. The temp dirs are removed
+   whether the run passed or failed.
+
+Last, row 5 at the decode shape ``[8, 1, 1024]`` bf16 against its plain
+version, timed beside its bound and ``F.layer_norm``; and row 1 at the
+eval shape ``[128, 1024, 64]`` bf16 causal with no dropout against its
+plain versions, timed (CUDA events with the L2 flushed, and profiler
+device time) beside SDPA's flash forward and its bound, and again at
+rate 0.1 in the same call.
 
 Tolerances, kernel against its plain version (both compute in f32 after
 casting q and k; only the summation order differs): ``acc`` and ``l``
@@ -184,6 +220,7 @@ non-zero and prints no result.
 """
 
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -2273,6 +2310,585 @@ def phase_decode_norm(dev: torch.device, card: str) -> dict:
 DECODE_NORM_SHAPE = (8, 1, 1024)
 
 
+# -------------------------------------------------------------- phase 10
+EVAL_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                         "eval_gpt_345M_single_card.yaml")
+PRETRAIN_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                             "pretrain_gpt_345M_single_card.yaml")
+INF_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                        "inference_gpt_345M_single_card.yaml")
+#: the in-process comparisons of phase 10 (kernels on against off, f32 and
+#: bf16) run on the first EVAL_PREFIX windows of the ppl eval
+EVAL_PREFIX = 256
+#: kernels on against off in bf16, relative on the eval loss: the flash
+#: kernel rounds the unnormalised P to bf16 against the running max, the
+#: plain path the normalised probabilities, so each attention output moves
+#: by a few bf16 ulps (2**-8 relative) either way; the loss is a mean over
+#: ~10**5 tokens, where such differences average out (phase 5 measures
+#: 9.6e-5 on an 11.03 loss at the training shape, 9e-6 relative): 1e-3,
+#: a hundred times that
+EVAL_BF16_RTOL = 1e-3
+#: ... and in f32 (both paths compute every product in f32)
+EVAL_F32_RTOL = 1e-5
+#: the eval recipe's batch (``Offline_Eval.batch_size``)
+EVAL_BATCH = 8
+#: exported forward: calls timed after the first
+FORWARD_CALLS = 20
+
+
+def _cli_start(module: str, args: list) -> tuple:
+    """Start ``python -m fleetx_tpu_torch.<module> <args>`` as its own
+    process on this card; ``_cli_wait`` collects it."""
+    return module, subprocess.Popen(
+        [sys.executable, "-m", f"fleetx_tpu_torch.{module}"] + args,
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO))
+
+
+def _cli_wait(started: tuple, timeout: int = 600) -> tuple:
+    """(its JSON lines, its stdout); a failure raises with its stderr, and
+    a process past ``timeout`` is killed."""
+    module, proc = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}: "
+                                f"{stderr[-3000:]}")
+    lines = [json.loads(line) for line in stdout.splitlines()
+             if line.startswith("{")]
+    return lines, stdout
+
+
+def _cli(module: str, args: list) -> tuple:
+    """``_cli_start`` then ``_cli_wait``."""
+    return _cli_wait(_cli_start(module, args))
+
+
+def _overrides(pairs: list) -> list:
+    return sum((["-o", p] for p in pairs), [])
+
+
+def _eval_texts(root: str) -> tuple:
+    """``docs/*.md`` sorted and concatenated (the ppl text), and a cloze
+    jsonl of its paragraphs of five words or more, the last word of each
+    the target (the acc text)."""
+    import glob
+
+    text = "".join(open(p, encoding="utf-8").read()
+                   for p in sorted(glob.glob(os.path.join(REPO, "docs",
+                                                          "*.md"))))
+    os.makedirs(os.path.join(root, "eval"), exist_ok=True)
+    txt = os.path.join(root, "eval", "docs.txt")
+    with open(txt, "w", encoding="utf-8") as f:
+        f.write(text)
+    jsonl = os.path.join(root, "eval", "docs_cloze.jsonl")
+    n = 0
+    with open(jsonl, "w", encoding="utf-8") as f:
+        for para in text.split("\n\n"):
+            para = " ".join(para.split())
+            if len(para.split()) >= 5:
+                f.write(json.dumps({"text": para}) + "\n")
+                n += 1
+    return txt, jsonl, n
+
+
+def _eval_loader(ds):
+    from fleetx_tpu_torch.data.dataloader import DataLoader
+    from fleetx_tpu_torch.data.sampler.batch_sampler import \
+        DistributedBatchSampler
+
+    return DataLoader(ds, DistributedBatchSampler(
+        len(ds), EVAL_BATCH, num_replicas=1, rank=0, drop_last=False))
+
+
+def _eval_module(dtype: str, kernels: bool):
+    from fleetx_tpu_torch.core.module import GPTEvalModule
+    from fleetx_tpu_torch.tools.eval import load_config
+
+    return GPTEvalModule(load_config(EVAL_YAML, [
+        f"Model.dtype={dtype}", f"Model.use_flash_attention={kernels}",
+        f"Model.fused_residual_norm={kernels}"]))
+
+
+def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
+               tok_dir: str, params: dict) -> dict:
+    """Phase 10: ``tools.eval`` on ``eval_gpt_345M_single_card.yaml`` from
+    phase 8's checkpoint, ppl and acc, each its own process; the
+    ``Data.Eval`` path on a corpus written by the port's
+    ``preprocess_data``; in this process kernels on against off (f32 and
+    bf16) and one traced batch."""
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+    from fleetx_tpu_torch.tools.eval import eval_dataset, load_config
+
+    txt, jsonl, n_cloze = _eval_texts(root)
+    base = [f"Engine.save_load.ckpt_dir={ckpt_dir}",
+            f"Offline_Eval.tokenizer_dir={tok_dir}"]
+    runs = {}
+    for kind, path in (("ppl", txt), ("acc", jsonl)):
+        lines, _ = _cli("tools.eval", ["-c", EVAL_YAML] + _overrides(
+            base + [f"Offline_Eval.eval_path={path}",
+                    f"Offline_Eval.eval_type={kind}"]))
+        rec = lines[-1]
+        check(rec["eval_type"] == kind and rec["device"].startswith("cuda"),
+              f"eval {kind}: {rec}")
+        check(np.isfinite(rec["loss"]) and np.isfinite(rec["ppl"])
+              and (kind != "acc" or 0.0 <= rec["acc"] <= 1.0),
+              f"eval {kind}: {rec}")
+        per_batch = {k: v / rec["batches"]
+                     for k, v in rec["launches"].items()}
+        check(per_batch == {"flash_attention_fwd": 24, "fused_norm_fwd": 49},
+              f"eval {kind}: launches per batch {per_batch}")
+        runs[kind] = dict(rec, launches_per_batch=per_batch)
+    tok = GPTTokenizer.from_pretrained(tok_dir)
+    stream = len(tok.encode(open(txt, encoding="utf-8").read()))
+    check(runs["ppl"]["stream_tokens"] == stream
+          and runs["acc"]["windows"] == n_cloze,
+          f"eval sizes: {stream} tokens, {n_cloze} cloze paragraphs")
+
+    # the Data.Eval path, in its own process while this one compares: a
+    # GPTDataset of the same text written by the port's preprocessing
+    # tool, a few batches through EagerEngine(mode="eval")
+    prefix_path = os.path.join(root, "eval", "docs_corpus")
+    _cli("tools.preprocess_data", [
+        "--input", txt, "--tokenizer", tok_dir, "--output-prefix",
+        prefix_path, "--workers", "4", "--append-eos"])
+    data_eval_run = _cli_start("tools.eval", ["-c", PRETRAIN_YAML]
+                               + _overrides([
+        f"Engine.save_load.ckpt_dir={ckpt_dir}",
+        f"Data.Eval.dataset.input_dir={prefix_path}",
+        "Data.Eval.dataset.num_samples=32",
+        f"Data.Eval.dataset.eos_id={tok.eos_token_id}",
+        "Engine.eval_iters=3"]))
+
+    # in this process: the same eval on its first EVAL_PREFIX windows with
+    # the kernels on and off, f32 and bf16, on the checkpoint's params
+    cfg = load_config(EVAL_YAML, base + [f"Offline_Eval.eval_path={txt}"])
+    ds = eval_dataset(cfg)
+    prefix = torch.utils.data.Subset(ds, range(min(EVAL_PREFIX, len(ds))))
+    compare = {}
+    for dtype, rtol in (("float32", EVAL_F32_RTOL),
+                        ("bfloat16", EVAL_BF16_RTOL)):
+        res = {k: _eval_module(dtype, k).run_offline_eval(
+            params, _eval_loader(prefix)) for k in (True, False)}
+        rel = abs(res[True]["loss"] - res[False]["loss"]) / abs(
+            res[False]["loss"])
+        check(rel <= rtol, f"eval {dtype}: kernels on {res[True]['loss']} "
+                           f"vs off {res[False]['loss']} ({rel} > {rtol})")
+        compare[dtype] = dict(loss_on=res[True]["loss"],
+                              loss_off=res[False]["loss"],
+                              ppl_on=res[True]["ppl"],
+                              ppl_off=res[False]["ppl"], rel_diff=rel,
+                              bound=rtol)
+        torch.cuda.empty_cache()
+
+    _, stdout = _cli_wait(data_eval_run)
+    # one traced batch (bf16, kernels on), the card to itself again
+    module = _eval_module("bfloat16", True)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             next(iter(_eval_loader(prefix))).items()}
+    trace, _ = _trace_window(lambda: module.batch_metrics(params, batch), 3)
+
+    data_eval = float([l for l in stdout.splitlines()
+                       if l.startswith("eval loss:")][-1].split(": ")[1])
+    check(np.isfinite(data_eval), f"Data.Eval loss {data_eval}")
+    for rec in runs.values():
+        # window tokens over the wall after the first batch (which pays the
+        # process's one-off costs: module imports on the custom ops' first
+        # call, cuBLAS and kernel-library loads)
+        rec["warm_tokens_per_s"] = (rec["windows"] - EVAL_BATCH) * \
+            rec["seq_length"] / (rec["wall_s"] - rec["first_batch_ms"] / 1e3)
+    out = dict(text="docs/*.md", stream_tokens=stream,
+               cloze_paragraphs=n_cloze, ppl=runs["ppl"], acc=runs["acc"],
+               kernels_vs_plain=compare, prefix_windows=len(prefix),
+               trace=trace, data_eval_loss=data_eval, data_eval_batches=3,
+               nvidia_smi=card)
+    emit("eval", **out)
+    del module, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# -------------------------------------------------------------- phase 11
+def p50_ms(fn, calls: int = FORWARD_CALLS) -> float:
+    """Median host wall of ``fn`` over ``calls`` calls after one, device
+    work synchronised around each."""
+    fn()
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e3
+
+
+def graph_ms(fn, n: int = 20, replays: int = 10) -> float:
+    """Device time per call of ``fn``: ``n`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events (median per
+    call). No host work and no L2 flush: every input of the calls timed
+    with it exceeds the L2's 50 MB, so each call reads its inputs from
+    memory all the same. ``device_ms`` reads the same quantity from
+    ``torch.profiler``, whose sessions can misattribute kernels when many
+    have run in one process; this does not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
+def _timed_decoder(eng) -> dict:
+    """Count the model calls of ``eng``'s decoder and time its prefill
+    (device work synchronised around it); the record it fills."""
+    rec = {"calls": 0, "prefill_s": None}
+    prefill, step = eng.decoder.prefill, eng.decoder.step
+
+    def timed_prefill(*a):
+        rec["calls"] += 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(*a)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        return out
+
+    def counted_step(*a):
+        rec["calls"] += 1
+        return step(*a)
+
+    eng.decoder.prefill, eng.decoder.step = timed_prefill, counted_step
+    return rec
+
+
+def _generate_timed(eng, inputs: list) -> tuple:
+    """``eng.predict(inputs)`` with its model calls counted and its launch
+    counts zeroed before and read after: (ids, record)."""
+    rec = _timed_decoder(eng)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = eng.predict(inputs)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rec.update(wall_s=wall, ms_per_decode_step=(wall - rec["prefill_s"])
+               * 1e3 / max(rec["calls"] - 1, 1),
+               new_tokens=int(ids.size), new_tokens_per_s=ids.size / wall,
+               fused_norm_fwd=counts["fused_norm_fwd"],
+               other_launches=sum(v for k, v in counts.items()
+                                  if k != "fused_norm_fwd"))
+    check(rec["fused_norm_fwd"] == 49 * rec["calls"]
+          and rec["other_launches"] == 0,
+          f"generation: {counts} launches for {rec['calls']} model calls")
+    return ids, rec
+
+
+def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
+                 tok_dir: str, params: dict) -> dict:
+    """Phase 11: ``tools.export`` of both targets of
+    ``inference_gpt_345M_single_card.yaml`` from phase 8's checkpoint,
+    the exported forward against the eager one with its latencies, the
+    generation programs against eager generation (greedy in bf16 and f32,
+    sampling under one seed), ``tools.inference`` and
+    ``tasks.gpt.inference`` as their own processes."""
+    from fleetx_tpu_torch.core.checkpoint import flatten
+    from fleetx_tpu_torch.core.engine.inference_engine import \
+        InferenceEngine
+    from fleetx_tpu_torch.core.module import GPTGenerationModule
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+    from fleetx_tpu_torch.models.gpt import generation as G
+    from fleetx_tpu_torch.models.gpt import model as M
+    from fleetx_tpu_torch.tools import export as X
+    from fleetx_tpu_torch.utils.export import export_model
+
+    base = [f"Engine.save_load.ckpt_dir={ckpt_dir}"]
+    fwd_dir = os.path.join(root, "exported_forward")
+    gen_dir = os.path.join(root, "exported_generation")
+    exports = {}
+    for target, d in (("forward", fwd_dir), ("generation", gen_dir)):
+        lines, _ = _cli("tools.export", ["-c", INF_YAML] + _overrides(
+            base + [f"Inference.model_dir={d}",
+                    f"Inference.target={target}"]))
+        exports[target] = lines[-1]
+        check(lines[-1]["target"] == target, f"export {lines[-1]}")
+
+    # the forward program at [1, 1024] against the eager forward, both on
+    # the checkpoint's params (the artifact's params.npz holds them)
+    eng = InferenceEngine(fwd_dir, device=dev)
+    want_params = flatten(params)
+    got_params = flatten(eng.params)
+    check(sorted(got_params) == sorted(want_params)
+          and all(torch.equal(v, want_params[k])
+                  for k, v in got_params.items()),
+          "the exported params are not the checkpoint's")
+    cfg = GPTGenerationModule(X.load_config(INF_YAML, base)).model_cfg
+    seq, vocab = cfg.max_position_embeddings, cfg.vocab_size
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(11)
+    tokens = torch.randint(0, vocab, (1, seq), generator=gen)
+    pos = torch.arange(seq)[None]
+    zero_counts()
+    times = []
+    for _ in range(FORWARD_CALLS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = eng.predict([tokens.numpy(), pos.numpy()])[0]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+
+    # where predict's time goes: the program alone on device inputs, and
+    # the eager forward it was exported from
+    dev_in = (tokens.to(dev), pos.to(dev))
+    with torch.no_grad():
+        program_ms = p50_ms(lambda: eng.programs["model"](eng.params,
+                                                          *dev_in))
+        eager_ms = p50_ms(lambda: M.gpt_for_pretraining(params, cfg,
+                                                        *dev_in))
+    per_call = {k: counts[k] / len(times) for k in ("flash_attention_fwd",
+                                                    "fused_norm_fwd")}
+    check(per_call == {"flash_attention_fwd": 24, "fused_norm_fwd": 49},
+          f"exported forward: launches per call {per_call}")
+    with torch.no_grad():
+        want = M.gpt_for_pretraining(params, cfg, tokens.to(dev),
+                                     pos.to(dev)).float().cpu().numpy()
+    fwd_diff = float(np.abs(logits - want).max())
+    check(logits.shape == (1, seq, vocab) and np.isfinite(logits).all(),
+          f"exported forward logits {logits.shape}")
+    check(fwd_diff == 0.0, f"exported forward differs from the eager "
+                           f"forward by {fwd_diff}")
+    warm = sorted(times[1:])
+    forward = dict(export=exports["forward"], load_s=eng.load_s,
+                   first_call_ms=times[0] * 1e3,
+                   warm_p50_ms=float(np.percentile(warm, 50)) * 1e3,
+                   warm_p99_ms=float(np.percentile(warm, 99)) * 1e3,
+                   program_p50_ms=program_ms, eager_p50_ms=eager_ms,
+                   calls=len(times), launches=counts,
+                   launches_per_call=per_call, max_abs_diff=fwd_diff,
+                   bitwise=fwd_diff == 0.0)
+    del eng, logits, want
+    torch.cuda.empty_cache()
+
+    # the generation programs (batch 1, prompt 128, 64 new tokens)
+    tok = GPTTokenizer.from_pretrained(tok_dir)
+    text = open(os.path.join(REPO, "README.md"), encoding="utf-8").read()
+    gcfg = X.load_config(INF_YAML, base)
+    width = int(gcfg["Inference"]["prompt_len"])
+    new_tokens = int(gcfg["Generation"]["max_dec_len"])
+    # a prompt of about three quarters of the exported width, left-padded
+    prompt = tok.encode(text)[:width * 3 // 4]
+    tokens, mask = G.left_pad([prompt], int(gcfg["Generation"][
+        "pad_token_id"]), width=width)
+    seed = np.array([0, int(gcfg["Global"]["seed"])], np.uint32)
+    generation = {"export": exports["generation"]}
+    launches = 0
+    eng = InferenceEngine(gen_dir, device=dev)
+    sampling_cfg = eng.gen_cfg
+    generation["load_s"] = eng.load_s
+    _generate_timed(eng, [tokens, mask, seed])  # the first call
+    for name, extra in (("greedy", ["Generation.decode_strategy="
+                                    "greedy_search"]), ("sampling", [])):
+        # the programs do not depend on the strategy: greedy is the
+        # sampling export's engine with do_sample off
+        eng.gen_cfg = dataclasses.replace(sampling_cfg,
+                                          do_sample=name == "sampling")
+        ids, rec = _generate_timed(eng, [tokens, mask, seed])
+        launches += rec["fused_norm_fwd"]
+        module = GPTGenerationModule(X.load_config(INF_YAML, base + extra))
+        check(module.gen_cfg == eng.gen_cfg, f"{name}: generation configs "
+                                             f"differ")
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(seed[1]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = G.generate_rows(module.model_cfg, params, module.gen_cfg,
+                               *G.to_tensors(tokens, mask, dev), False,
+                               g).cpu().numpy()
+        eager_s = time.perf_counter() - t0
+        check(np.array_equal(ids, want), f"generation {name}: exported "
+                                         f"{ids.tolist()} vs eager "
+                                         f"{want.tolist()}")
+        generation[name] = dict(rec, identical=True, eager_wall_s=eager_s,
+                                eager_ms_per_model_call=eager_s * 1e3
+                                / rec["calls"], ids=ids[0, :16].tolist())
+    # one decode step alone on a prefilled cache: the exported program
+    # (with the module's input checks) against the eager step
+    tok_t, mask_t = G.to_tensors(tokens, mask, dev)
+    with torch.no_grad():
+        _, cache = G._prefill(cfg, params, tok_t, mask_t, new_tokens)
+        last = tok_t[:, -1]
+        step_pos = mask_t.sum(dim=1)
+        index = torch.full((), width, dtype=torch.long, device=dev)
+        decode = eng.programs["decode"]
+        generation["decode_program_p50_ms"] = p50_ms(lambda: decode(
+            eng.params, last, step_pos, cache.key, cache.value, cache.mask,
+            index))
+        generation["eager_step_p50_ms"] = p50_ms(lambda: G._step(
+            cfg, params, last, step_pos, M.DecodeCache(
+                cache.key, cache.value, width, cache.mask)))
+    del eng, cache
+
+    # f32 greedy: an f32 export of the same target in this process, on the
+    # params already loaded
+    f32_dir = os.path.join(root, "exported_generation_f32")
+    module = GPTGenerationModule(X.load_config(INF_YAML, base + [
+        "Model.dtype=float32", "Generation.decode_strategy=greedy_search"]))
+    _, fns, example, meta = X.programs(X.load_config(INF_YAML, base + [
+        "Model.dtype=float32", "Generation.decode_strategy=greedy_search"]),
+        module, dev)
+    t0 = time.perf_counter()
+    export_model(fns, example, f32_dir, params, meta=meta)
+    f32_export_s = time.perf_counter() - t0
+    del example
+    eng = InferenceEngine(f32_dir, device=dev)
+    ids, rec = _generate_timed(eng, [tokens, mask, seed])
+    want = G.generate_rows(module.model_cfg, params, module.gen_cfg,
+                           *G.to_tensors(tokens, mask, dev), False
+                           ).cpu().numpy()
+    check(np.array_equal(ids, want), "generation f32 greedy: exported vs "
+                                     "eager")
+    generation["greedy_f32"] = dict(rec, identical=True,
+                                    export_s=f32_export_s)
+    del eng
+    torch.cuda.empty_cache()
+
+    # the entry points as processes, on the bf16 generation export
+    args = ["-c", INF_YAML] + _overrides(base + [
+        f"Inference.model_dir={gen_dir}",
+        f"Generation.tokenizer_dir={tok_dir}"])
+    started = [_cli_start(m, args) for m in ("tools.inference",
+                                             "tasks.gpt.inference")]
+    demo, _ = _cli_wait(started[0])
+    _, task_out = _cli_wait(started[1])
+    check(demo[0]["shape"] == [1, new_tokens], f"tools.inference {demo}")
+    task_lines = task_out.strip().splitlines()
+    check(task_lines[-2].startswith("prompt: ")
+          and task_lines[-1].startswith("continuation: "),
+          f"tasks.gpt.inference printed {task_lines[-2:]}")
+    out = dict(forward=forward, generation=generation,
+               inference_demo=demo, task_output=task_lines[-2:],
+               inference_generation_launches=launches, nvidia_smi=card)
+    emit("export", **out)
+    return out
+
+
+def phase_row1_eval_shape(dev: torch.device, card: str,
+                          rate01_ms: float) -> dict:
+    """Row 1 at the eval path's shape ``[128, 1024, 64]`` bf16 causal with
+    no dropout, held to its plain versions, timed (CUDA events with the L2
+    flushed, profiler device time, and device time from CUDA-graph
+    replays) beside SDPA's flash forward at the same shape and its bound;
+    the same at rate 0.1 in this call, to tell what the dropout hash
+    costs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from fleetx_tpu_torch.ops import flash_attention as FA
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    q, k, v, _ = _flash_case(torch.bfloat16, dev)
+    scale = THD ** -0.5
+    out, lse = FA.fwd_call(q, k, v, 0, scale, True, 0.0)
+    err, drift = _hold_tc(out, FA.fwd_plain(q, k, v, 0, scale, True, 0.0,
+                                            round_operands=True)[0],
+                          FA.fwd_plain(q, k, v, 0, scale, True, 0.0)[0],
+                          "flash fwd at rate 0 (tensor cores)")
+    bh = TB * TNH
+    pairs = TS * (TS + 1) // 2
+    bound, bound_by = _bound(4 * bh * TS * THD * 2 + bh * TS * 4,
+                             2 * 2 * pairs * THD * bh, torch.bfloat16)
+
+    def four(t):
+        return t.reshape(TB, TNH, TS, THD)
+
+    result = dict(shape=[bh, TS, THD], dtype="bfloat16", causal=True,
+                  max_abs_err=err, drift=drift, bound_ms=bound,
+                  bound_by=bound_by, rate01_ms_phase1b=rate01_ms)
+    for rate in (0.0, RATE):
+        def kernel():
+            return FA.fwd_call(q, k, v, 20240607, scale, True, rate)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                four(q), four(k), four(v), dropout_p=rate, is_causal=True)
+
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            lib_ms = time_ms(sdpa, flush)
+            lib_dev = device_ms(sdpa, flush, "pytorch_flash::flash_fwd")
+            lib_graph = graph_ms(sdpa)
+        result[f"rate_{rate}"] = dict(
+            ms=time_ms(kernel, flush), device_ms=device_ms(
+                kernel, flush, "flash_fwd_kernel_tc"),
+            graph_ms=graph_ms(kernel), library_ms=lib_ms,
+            library_device_ms=lib_dev, library_graph_ms=lib_graph)
+    del flush
+    torch.cuda.empty_cache()
+    emit("row1_eval_shape", **result, nvidia_smi=card)
+    return result
+
+
+def eval_and_export(dev: torch.device, card: str, root: str,
+                    ckpt_dir: str, tok_dir: str) -> tuple:
+    """Phases 10 and 11 on the checkpoint under ``ckpt_dir``, its params
+    loaded once in this process for the in-process comparisons."""
+    from fleetx_tpu_torch.core.checkpoint import load_params
+
+    params = load_params(ckpt_dir, device=dev)
+    evaluation = phase_eval(dev, card, root, ckpt_dir, tok_dir, params)
+    export = phase_export(dev, card, root, ckpt_dir, tok_dir, params)
+    del params
+    torch.cuda.empty_cache()
+    return evaluation, export
+
+
+def eval_export_alone(dev: torch.device, card: str) -> None:
+    """``--eval-export``: phases 10-11 and row 1 at the eval shape on a
+    checkpoint of the 345M recipe's seeded params (no training), with the
+    tokenizer phase 9 trains."""
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.core.module import GPTModule
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import train_bpe
+    from fleetx_tpu_torch.tools.train import load_config
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        module = GPTModule(load_config(TRAIN_YAML))
+        params = module.init_params(1234, dev)
+        C.save_checkpoint(os.path.join(root, "ckpt"), 1, dict(
+            step=1, **C.flatten(params, "params/")), meta={
+                "consumed_samples": 0, "epoch": 0, "seed": 1234})
+        del params
+        with open(os.path.join(REPO, "README.md"), encoding="utf-8") as f:
+            train_bpe([f.read()], 2000).save_pretrained(
+                os.path.join(root, "tokenizer"))
+        eval_and_export(dev, card, root, os.path.join(root, "ckpt"),
+                        os.path.join(root, "tokenizer"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_row1_eval_shape(dev, card, float("nan"))
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2281,15 +2897,21 @@ def main(argv) -> int:
 
     dev = torch.device("cuda", 0)
     card = phase_env(build)
-    modes = {"--paged-shapes", "--serving"}
+    modes = {"--paged-shapes", "--serving", "--eval-export"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
         # line. --paged-shapes: row 7's three timings; --serving: phase 2
-        # and its trace
+        # and its trace; --eval-export: phases 10-11 and row 1 at the eval
+        # shape on a checkpoint of seeded weights
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
+        if "--eval-export" in argv:
+            build.build(["flash_attention", "fused_norm"])
+            eval_export_alone(dev, card)
+            print(smi_line(), flush=True)
+            return 0
         build.build(["paged_attention"])
         if "--paged-shapes" in argv:
             from fleetx_tpu_torch.ops import paged_attention as PA
@@ -2315,11 +2937,15 @@ def main(argv) -> int:
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         resume = phase_checkpoint(dev, card, trainer["losses"], root)
-        generation = phase_generation(dev, card, os.path.join(root, "ckpt"),
-                                      root)
+        ckpt_dir = os.path.join(root, "ckpt")
+        generation = phase_generation(dev, card, ckpt_dir, root)
+        evaluation, export = eval_and_export(
+            dev, card, root, ckpt_dir, os.path.join(root, "tokenizer"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     decode_norm = phase_decode_norm(dev, card)
+    row1_eval = phase_row1_eval_shape(
+        dev, card, train_kernels["bfloat16"]["flash_attention_fwd"]["ms"])
     gen_norm = sum(v["fused_norm_fwd_launches"]
                    for v in generation["strategies"].values())
     by_path = {
@@ -2330,6 +2956,16 @@ def main(argv) -> int:
                      "flash_attention_bwd_dkv", "flash_attention_bwd_fused",
                      "fused_norm_fwd", "fused_norm_bwd")}
     by_path["fused_norm_fwd"]["generation"] = gen_norm
+    # phases 10-11: the eval passes (ppl and acc), the timed calls of the
+    # exported forward, the measured generation calls through the exported
+    # programs
+    for name in ("flash_attention_fwd", "fused_norm_fwd"):
+        by_path[name]["eval"] = sum(evaluation[k]["launches"][name]
+                                    for k in ("ppl", "acc"))
+        by_path[name]["export_forward"] = \
+            export["forward"]["launches"][name]
+    by_path["fused_norm_fwd"]["inference_generation"] = \
+        export["inference_generation_launches"]
     bf16 = kernels["bfloat16"]
     rows = [{
         "name": "paged_attention_decode", "route": "cuda",
@@ -2382,7 +3018,10 @@ def main(argv) -> int:
             "launches_by_path": by_path[name],
             # the norm at one-token decode rows (the generation path)
             **({"decode_shape": decode_norm}
-               if name == "fused_norm_fwd" else {})})
+               if name == "fused_norm_fwd" else {}),
+            # the forward at the eval path's shape, no dropout
+            **({"eval_shape": row1_eval}
+               if name == "flash_attention_fwd" else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

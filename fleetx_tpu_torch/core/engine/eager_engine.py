@@ -1,6 +1,6 @@
 """The training engine (port of ``fleetx_tpu/core/engine/eager_engine.py``:
 ``__init__`` :117-357, ``train_step`` :554-648, ``fit`` :836-1496,
-``evaluate`` :1614).
+``evaluate`` :1614, ``predict`` :1639, ``inference`` :1662).
 
 ``EagerEngine`` reads the ``Engine`` section and drives one device:
 
@@ -30,6 +30,15 @@ corrupt step to the newest older one, and ``fit`` points the loader's
 is the one the uninterrupted run would take. The step's dropout
 randomness is a function of ``Global.seed`` and the step, so a resumed
 run replays it.
+
+``mode`` is ``"train"`` (the default), ``"eval"`` or ``"inference"``. An
+eval engine needs no optimizer: ``prepare`` takes the parameters from the
+newest checkpoint under ``ckpt_dir`` through ``core/checkpoint.load_params``
+(params only, verified; a checkpoint that fails its audit raises), or,
+with no checkpoint there, warns and makes seeded ones; nothing requires
+grad. ``predict`` runs ``module.predict_step`` over a loader (host numpy
+out); ``inference`` hands numpy inputs to the ``InferenceEngine`` of
+``Inference.model_dir``.
 
 Input batches move to the card through pinned memory with non-blocking
 copies. What this slice does not cover raises ``NotImplementedError``
@@ -94,12 +103,19 @@ def check_engine_config(cfg: dict) -> None:
     check_single_device(dict(cfg.get("Distributed") or {}))
 
 
+#: ``EagerEngine`` modes
+MODES = ("train", "eval", "inference")
+
+
 class EagerEngine:
     """Single-device trainer with the reference's loop semantics."""
 
     def __init__(self, cfg: dict, module, optimizer=None, lr_schedule=None,
-                 device=None):
+                 device=None, mode: str = "train"):
         check_engine_config(cfg or {})
+        if mode not in MODES:
+            raise ValueError(f"engine mode {mode!r} is not one of {MODES}")
+        self.mode = mode
         self.cfg = cfg or {}
         self.module = module
         self.device = resolve_device(device)
@@ -132,7 +148,11 @@ class EagerEngine:
 
     # ------------------------------------------------------------ state
     def prepare(self) -> dict:
-        """Seeded parameters (unless already set) and optimizer state."""
+        """Seeded parameters (unless already set) and optimizer state; in
+        eval mode the checkpoint's parameters, or seeded ones with a
+        warning."""
+        if self.mode != "train":
+            return self._prepare_eval()
         if self.params is None:
             t0 = time.time()
             self.params = self.module.init_params(self.seed, self.device)
@@ -150,6 +170,28 @@ class EagerEngine:
         if self.ckpt_dir and self._restored is None:
             self._restored = False
             self.load(self.ckpt_dir)
+        return self.params
+
+    def _prepare_eval(self) -> dict:
+        """Parameters for eval and inference: from ``ckpt_dir`` (params
+        only) when it holds a checkpoint, else seeded with a warning."""
+        if self.params is not None:
+            return self.params
+        step = ckpt_lib.latest_step(self.ckpt_dir) if self.ckpt_dir \
+            else None
+        if step is not None:
+            from fleetx_tpu_torch.convert import check_tree
+
+            self.params = ckpt_lib.load_params(self.ckpt_dir, step,
+                                               device=self.device)
+            check_tree(self.params, self.module.model_cfg)
+        else:
+            logger.warning(
+                "NO CHECKPOINT FOUND (ckpt_dir=%r) — %s RANDOMLY "
+                "INITIALIZED weights; the numbers below are meaningless for "
+                "any trained model", self.ckpt_dir,
+                "evaluating" if self.mode == "eval" else "exporting")
+            self.params = self.module.init_params(self.seed, self.device)
         return self.params
 
     def to_device(self, batch: dict) -> dict:
@@ -274,6 +316,36 @@ class EagerEngine:
                 "loss": total / count,
                 "eval_cost": (time.time() - t0) / count})
         return total / max(count, 1)
+
+    @torch.no_grad()
+    def predict(self, data_loader: Iterable, max_batches: int = 0) -> list:
+        """``module.predict_step`` over the loader (at most
+        ``max_batches`` batches when set): one host numpy array per
+        batch."""
+        self.prepare()
+        outputs = []
+        for i, batch in enumerate(data_loader):
+            if max_batches and i >= max_batches:
+                break
+            batch = self.to_device(self.module.pretreating_batch(batch))
+            out = self.module.predict_step(self.params, batch)
+            outputs.append(out.float().cpu().numpy()
+                           if out.dtype == torch.bfloat16
+                           else out.cpu().numpy())
+        return outputs
+
+    def inference(self, data: list) -> list:
+        """Numpy inputs through the exported program of
+        ``Inference.model_dir`` (the ``InferenceEngine``, loaded on the
+        first call onto the engine's device): numpy outputs."""
+        if getattr(self, "_inference_engine", None) is None:
+            from fleetx_tpu_torch.core.engine.inference_engine import \
+                InferenceEngine
+
+            inf = dict(self.cfg.get("Inference") or {})
+            self._inference_engine = InferenceEngine(
+                inf.get("model_dir", "./exported"), device=self.device)
+        return self._inference_engine.predict(data)
 
     # ------------------------------------------------------ checkpoints
     def state_dict(self) -> dict:

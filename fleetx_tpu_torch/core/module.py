@@ -1,11 +1,14 @@
-"""Task modules: the GPT pretraining recipe and text generation (port of
-``fleetx_tpu/core/module.py:86-281, 336-410``).
+"""Task modules: the GPT pretraining recipe, offline eval and text
+generation (port of ``fleetx_tpu/core/module.py:86-410``).
 
 A module builds the model config from the YAML ``Model`` section, makes
 seeded parameters, and exposes the losses the engine differentiates:
 ``GPTModule.training_loss(params, batch, seed, step)`` (dropout on, its
 randomness from one generator seeded by ``seed`` with ``step`` folded in)
-and ``validation_loss(params, batch)`` (dropout off). The host-side log
+and ``validation_loss(params, batch)`` (dropout off), ``predict_step``
+(the logits) and ``input_spec`` (the forward's export signature).
+``GPTEvalModule`` aggregates WikiText-style perplexity and LAMBADA-style
+cloze accuracy over a loader (``run_offline_eval``). The host-side log
 hooks print the reference's line: loss, step time, tokens/s and, on a
 card the peak table knows, MFU against its bf16 dense peak.
 
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from fleetx_tpu_torch.models.gpt import model as M
@@ -184,6 +188,84 @@ class GPTModule(LanguageModule):
         return M.cross_entropy_loss(logits, batch["labels"],
                                     batch["loss_mask"])
 
+    @torch.no_grad()
+    def predict_step(self, params: dict, batch: dict) -> torch.Tensor:
+        """The forward's logits ``[b, s, vocab]``, dropout off."""
+        return M.gpt_for_pretraining(params, self.model_cfg,
+                                     batch["tokens"],
+                                     batch.get("position_ids"))
+
+    def input_spec(self) -> dict:
+        """The forward's inputs as the exporter traces them: name →
+        ``(shape, dtype)``, one row of ``max_position_embeddings``."""
+        s = self.model_cfg.max_position_embeddings
+        return {"tokens": ((1, s), torch.int64),
+                "position_ids": ((1, s), torch.int64)}
+
+
+#: ``Offline_Eval.eval_type`` values
+EVAL_TYPES = ("ppl", "acc")
+
+
+class GPTEvalModule(GPTModule):
+    """Offline eval (port of ``fleetx_tpu/core/module.py:283-333``):
+    WikiText-style perplexity (``eval_type: ppl``) or LAMBADA-style cloze
+    accuracy (``acc``) from the ``Offline_Eval`` section."""
+
+    def __init__(self, cfg: Any):
+        ev = dict(cfg.get("Offline_Eval") or {}) if isinstance(cfg, dict) \
+            else {}
+        self.eval_type = ev.get("eval_type", "ppl")
+        if self.eval_type not in EVAL_TYPES:
+            raise ValueError(f"Offline_Eval.eval_type {self.eval_type!r} "
+                             f"is not one of {EVAL_TYPES}")
+        super().__init__(cfg)
+
+    @torch.no_grad()
+    def batch_metrics(self, params: dict, batch: dict) -> dict:
+        """One batch's sums: the masked loss sum, the token count, the rows
+        whose every target token is the argmax prediction, and the rows
+        with a target."""
+        logits = M.gpt_for_pretraining(params, self.model_cfg,
+                                       batch["tokens"],
+                                       batch["position_ids"])
+        losses = M.cross_entropy_per_token(logits, batch["labels"])
+        mask = batch["loss_mask"].float()
+        preds = torch.argmax(logits, dim=-1)
+        tok_correct = torch.where(mask > 0, preds == batch["labels"],
+                                  torch.ones_like(mask, dtype=torch.bool))
+        row_has_target = mask.sum(dim=1) > 0
+        row_correct = tok_correct.all(dim=1) & row_has_target
+        return {"loss_sum": (losses * mask).sum(),
+                "token_count": mask.sum(),
+                "correct": row_correct.sum(),
+                "rows": row_has_target.sum()}
+
+    def run_offline_eval(self, params: dict, data_loader) -> dict:
+        """Aggregate over a loader of numpy batches: ``loss`` (the mean
+        over counted tokens), ``ppl = exp(min(loss, 30))`` and, under
+        ``eval_type: acc``, ``acc`` (correct rows / rows), with the
+        sums."""
+        device = params["gpt"]["embeddings"]["word_embeddings"].device
+        totals = {"loss_sum": 0.0, "token_count": 0.0, "correct": 0.0,
+                  "rows": 0.0}
+        for batch in data_loader:
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                     for k, v in batch.items()}
+            out = self.batch_metrics(params, batch)
+            for k in totals:
+                totals[k] += float(out[k])
+        results: dict = dict(totals)
+        if totals["token_count"]:
+            avg = totals["loss_sum"] / totals["token_count"]
+            results["loss"] = avg
+            results["ppl"] = float(np.exp(min(avg, 30.0)))
+        if self.eval_type == "acc" and totals["rows"]:
+            results["acc"] = totals["correct"] / totals["rows"]
+        logger.info("[eval] offline results: %s",
+                    {k: round(v, 6) for k, v in results.items()})
+        return results
+
 
 #: ``Generation.decode_strategy`` values
 DECODE_STRATEGIES = ("sampling", "greedy_search", "beam_search")
@@ -245,18 +327,9 @@ class GPTGenerationModule(GPTModule):
         device = params["gpt"]["embeddings"]["word_embeddings"].device
         tokens, mask = G.to_tensors(
             *G.left_pad(prompts, self.gen_cfg.pad_token_id), device)
-        if self.use_beam_search:
-            seqs, _ = G.beam_search(self.model_cfg, params, self.gen_cfg,
-                                    tokens, mask)
-            # beams come back best-first per prompt: keep the first
-            # num_return_sequences of each prompt's num_beams
-            nb, nr = self.gen_cfg.num_beams, \
-                self.gen_cfg.num_return_sequences
-            seqs = seqs.reshape(len(prompts), nb, -1)[:, :nr]
-            return seqs.reshape(len(prompts) * nr, -1).cpu().numpy()
-        out = G.generate(self.model_cfg, params, self.gen_cfg, tokens, mask,
-                         generator)
-        return out.cpu().numpy()
+        return G.generate_rows(self.model_cfg, params, self.gen_cfg, tokens,
+                               mask, self.use_beam_search,
+                               generator).cpu().numpy()
 
     def generate(self, params: dict, texts: list,
                  generator: Optional[torch.Generator] = None) -> list:

@@ -1,8 +1,9 @@
 """Config-driven data builders (port of ``fleetx_tpu/data/__init__.py:41-106``).
 
 The GPT entries are ported: ``GPTDataset``, ``SyntheticGPTDataset``,
-``GPTBatchSampler`` and ``DistributedBatchSampler``. The other families'
-datasets (ERNIE, vision, Imagen) and the blended corpus raise
+``BlendedDataset`` (its children built recursively with the same shape
+overrides), ``GPTBatchSampler`` and ``DistributedBatchSampler``. The
+other families' datasets (ERNIE, vision, Imagen) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -12,22 +13,24 @@ from typing import Optional
 
 from fleetx_tpu_torch.data.dataloader import DataLoader, default_collate
 from fleetx_tpu_torch.data.dataset.gpt_dataset import (
-    GPTDataset, SyntheticGPTDataset)
+    BlendedDataset, GPTDataset, SyntheticGPTDataset, write_corpus)
 from fleetx_tpu_torch.data.sampler.batch_sampler import (
     DistributedBatchSampler, GPTBatchSampler)
 
 DATASETS = {"GPTDataset": GPTDataset,
-            "SyntheticGPTDataset": SyntheticGPTDataset}
+            "SyntheticGPTDataset": SyntheticGPTDataset,
+            "BlendedDataset": BlendedDataset}
 SAMPLERS = {"GPTBatchSampler": GPTBatchSampler,
             "DistributedBatchSampler": DistributedBatchSampler}
 #: dataset name -> ROADMAP port queue item that ports it
-NOT_PORTED = {"BlendedDataset": 13, "ErnieDataset": 7,
+NOT_PORTED = {"ErnieDataset": 7,
               "SyntheticErnieDataset": 7, "GeneralClsDataset": 7,
               "ImageFolder": 7, "CIFAR10": 7, "SyntheticVisionDataset": 7,
               "ImagenDataset": 7, "SyntheticImagenDataset": 7}
 
 __all__ = ["DataLoader", "default_collate", "GPTDataset",
-           "SyntheticGPTDataset", "DistributedBatchSampler",
+           "SyntheticGPTDataset", "BlendedDataset", "write_corpus",
+           "DistributedBatchSampler",
            "GPTBatchSampler", "build_dataset", "build_dataloader"]
 
 
@@ -43,6 +46,13 @@ def build_dataset(cfg: dict, mode: str = "Train", **overrides):
     if cls is None:
         raise ValueError(f"unknown dataset {name!r}")
     section.pop("split", None)
+    if name == "BlendedDataset":
+        # each child built recursively with the same shape overrides
+        children = [build_dataset({"dataset": child}, mode="_child_",
+                                  **overrides)
+                    for child in (section.get("datasets") or [])]
+        return BlendedDataset(children, section.get("weights"),
+                              int(section.get("num_samples")))
     section.update(overrides)
     input_dir = section.pop("input_dir", None)
     if input_dir is not None and "data_prefix" not in section:

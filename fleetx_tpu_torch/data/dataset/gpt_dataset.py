@@ -1,5 +1,5 @@
 """Megatron-style memmap pretraining dataset (a copy of
-``fleetx_tpu/data/dataset/gpt_dataset.py:36-240, 289-312``).
+``fleetx_tpu/data/dataset/gpt_dataset.py:36-320``).
 
 - ``GPTDataset`` over ``{prefix}_ids.npy`` (one flat token stream) and
   ``{prefix}_idx.npz`` (per-document lengths), with the doc/sample/shuffle
@@ -7,7 +7,12 @@
   seed) by the vectorised numpy builders and cached next to the data. The
   native C++ index builder is not ported (ROADMAP.md, port queue item
   13); its output is byte-identical to the numpy path.
+- ``BlendedDataset``: a weighted mixture of datasets, its sample order
+  from ``build_blending_indices`` (the numpy builder; the native one is
+  item 13's).
 - ``SyntheticGPTDataset``: deterministic random tokens, no data files.
+- ``write_corpus``: documents of token ids → the ``_ids.npy`` /
+  ``_idx.npz`` pair ``GPTDataset`` reads.
 
 Samples are ``{tokens, position_ids, labels, loss_mask}`` numpy arrays,
 labels shifted by one, loss masked at eos.
@@ -204,6 +209,47 @@ class GPTDataset:
                 "labels": labels, "loss_mask": loss_mask}
 
 
+def build_blending_indices(weights: np.ndarray,
+                           num_samples: int) -> tuple:
+    """Greedy weighted assignment of samples to datasets: sample ``i``
+    goes to the dataset furthest behind its share ``weights * (i + 1)``
+    (ties to the lower index); ``(dataset index [n] int32, sample index
+    within it [n] int64)``."""
+    weights = np.asarray(weights, np.float64)
+    counts = np.zeros(len(weights), np.int64)
+    ds_idx = np.empty(num_samples, np.int32)
+    ds_sample_idx = np.empty(num_samples, np.int64)
+    for i in range(num_samples):
+        errs = weights * (i + 1) - counts
+        best = int(np.argmax(errs))
+        ds_idx[i] = best
+        ds_sample_idx[i] = counts[best]
+        counts[best] += 1
+    return ds_idx, ds_sample_idx
+
+
+class BlendedDataset:
+    """Weighted mixture of map-style datasets; ``weights`` are normalised,
+    and sample ``i`` of the blend is sample ``dataset_sample_index[i] %
+    len`` of ``datasets[dataset_index[i]]``."""
+
+    def __init__(self, datasets: list, weights: list, num_samples: int):
+        if not datasets or len(datasets) != len(weights):
+            raise ValueError(f"BlendedDataset: {len(datasets)} datasets and "
+                             f"{len(weights)} weights")
+        w = np.asarray(weights, np.float64)
+        self.datasets = datasets
+        self.dataset_index, self.dataset_sample_index = \
+            build_blending_indices(w / w.sum(), int(num_samples))
+
+    def __len__(self) -> int:
+        return len(self.dataset_index)
+
+    def __getitem__(self, i: int) -> dict:
+        ds = self.datasets[int(self.dataset_index[i])]
+        return ds[int(self.dataset_sample_index[i]) % len(ds)]
+
+
 class SyntheticGPTDataset:
     """Deterministic random-token dataset for smoke runs and benchmarking —
     lets ``tools/train.py`` run with zero data files (the reference demands a
@@ -229,3 +275,11 @@ class SyntheticGPTDataset:
             "loss_mask": np.ones(self.seq_length, np.float32),
         }
 
+
+def write_corpus(prefix: str, docs: list, dtype=np.uint16) -> None:
+    """Write documents of token ids as ``{prefix}_ids.npy`` (the flat
+    stream in ``dtype``) and ``{prefix}_idx.npz`` (``lens``, int64)."""
+    flat = np.concatenate([np.asarray(d, dtype=dtype) for d in docs])
+    np.save(prefix + "_ids.npy", flat, allow_pickle=False)
+    np.savez(prefix + "_idx.npz",
+             lens=np.array([len(d) for d in docs], np.int64))

@@ -8,12 +8,12 @@ __all__ = ["build_module"]
 
 def build_module(cfg):
     """Instantiate the task module named by ``cfg.Model.module``:
-    ``GPTModule`` or ``GPTGenerationModule`` (the other families:
-    ROADMAP.md, port queue item 7)."""
+    ``GPTModule``, ``GPTEvalModule`` or ``GPTGenerationModule`` (the other
+    families: ROADMAP.md, port queue item 7)."""
     from fleetx_tpu_torch.core import module as modules
 
     name = (cfg.get("Model") or {}).get("module", "GPTModule")
-    if name not in ("GPTModule", "GPTGenerationModule"):
+    if name not in ("GPTModule", "GPTEvalModule", "GPTGenerationModule"):
         raise NotImplementedError(f"module {name} is not ported yet "
                                   f"(ROADMAP.md, port queue item 7)")
     return getattr(modules, name)(cfg)

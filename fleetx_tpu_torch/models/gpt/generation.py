@@ -11,6 +11,17 @@ steps against it. The JAX ``lax.while_loop`` is a Python loop here that
 stops once every row is done (or at ``max_new_tokens``); the cache is
 written in place.
 
+The two model calls go through a ``Decoder``: ``prefill(tokens, mask,
+max_new) -> (logits, cache)`` and ``step(tok, pos, cache) -> logits``.
+``eager_decoder`` runs the model's forward (``_prefill`` / ``_step``);
+``exported_decoder`` runs the two programs ``torch.export`` made of the
+same functions (``prefill_program`` / ``decode_program``, exported by
+``utils/export.py``), the cache crossing the boundary as its four
+tensors with the write position a 0-d tensor, so one decode program
+serves every step. The loop itself stays here in Python: the JAX
+export is one ``lax.while_loop`` program, the port's is two programs
+and this loop.
+
 Sampling draws from an explicit ``torch.Generator`` by the Gumbel-max
 rule (``argmax(logits + Gumbel noise)``, the rule of
 ``jax.random.categorical``): the same distribution and support as the
@@ -24,7 +35,8 @@ equal scores go to the lower index, as ``argmax`` and ``lax.top_k`` do
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+import functools
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -264,21 +276,89 @@ def _step(cfg: M.GPTConfig, params: dict, tok: torch.Tensor,
     return logits[:, -1].float()
 
 
+@dataclasses.dataclass
+class Decoder:
+    """The decoders' two model calls: ``prefill(tokens, attention_mask,
+    max_new) -> (last position's f32 logits, cache)`` and ``step(tok,
+    pos, cache) -> f32 logits`` (the cache advanced in place)."""
+
+    prefill: Callable
+    step: Callable
+
+
+def eager_decoder(cfg: M.GPTConfig, params: dict) -> Decoder:
+    """The model's own forward."""
+    return Decoder(functools.partial(_prefill, cfg, params),
+                   functools.partial(_step, cfg, params))
+
+
+def prefill_program(cfg: M.GPTConfig, max_new: int) -> Callable:
+    """``fn(params, tokens, attention_mask) -> (logits, key, value,
+    mask)``: the prefill with the fresh cache's tensors as outputs (what
+    ``torch.export`` traces)."""
+
+    def fn(params, tokens, attention_mask):
+        logits, cache = _prefill(cfg, params, tokens, attention_mask,
+                                 max_new)
+        return logits, cache.key, cache.value, cache.mask
+
+    return fn
+
+
+def decode_program(cfg: M.GPTConfig) -> Callable:
+    """``fn(params, tok, pos, key, value, mask, index) -> logits``: one
+    step against the cache's tensors, written in place at ``index`` (a
+    0-d int64 tensor)."""
+
+    def fn(params, tok, pos, key, value, mask, index):
+        return _step(cfg, params, tok, pos,
+                     M.DecodeCache(key, value, index, mask))
+
+    return fn
+
+
+def exported_decoder(prefill: Callable, decode: Callable,
+                     params: dict) -> Decoder:
+    """A ``Decoder`` over the two exported programs (``prefill_program``
+    and ``decode_program`` as ``torch.export`` saved them, each called
+    with ``params`` first); the cache index lives on the device."""
+
+    def run_prefill(tokens, attention_mask, max_new):
+        logits, key, value, mask = prefill(params, tokens, attention_mask)
+        if key.shape[2] != tokens.shape[1] + max_new:
+            raise ValueError(f"the exported prefill holds a cache of "
+                             f"{key.shape[2]} positions, not prompt "
+                             f"{tokens.shape[1]} + {max_new} new tokens")
+        index = torch.full((), tokens.shape[1], dtype=torch.long,
+                           device=tokens.device)
+        return logits, M.DecodeCache(key, value, index, mask)
+
+    def run_step(tok, pos, cache):
+        logits = decode(params, tok, pos, cache.key, cache.value,
+                        cache.mask, cache.index)
+        cache.index = cache.index + 1
+        return logits
+
+    return Decoder(run_prefill, run_step)
+
+
 @torch.no_grad()
 def generate(cfg: M.GPTConfig, params: dict, gen_cfg: GenerationConfig,
              tokens: torch.Tensor, attention_mask: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             decoder: Optional[Decoder] = None) -> torch.Tensor:
     """Continue left-padded prompts (``tokens`` / ``attention_mask``
     ``[b, prompt_len]``): ``[b * num_return_sequences, max_new_tokens]``
     int32, prompt-major, padded with ``pad_token_id`` after a row emits
-    eos. Greedy unless ``do_sample``; sampling draws from ``generator``."""
+    eos. Greedy unless ``do_sample``; sampling draws from ``generator``.
+    The model calls go through ``decoder`` (default: the eager model)."""
+    decoder = decoder or eager_decoder(cfg, params)
     n_ret = max(int(gen_cfg.num_return_sequences), 1)
     max_new = int(gen_cfg.max_new_tokens)
     pad, eos = gen_cfg.pad_token_id, gen_cfg.eos_token_id
     tokens, attention_mask = tokens.long(), attention_mask.long()
     b0, prompt_len = tokens.shape
-    next_logits, cache = _prefill(cfg, params, tokens, attention_mask,
-                                  max_new)
+    next_logits, cache = decoder.prefill(tokens, attention_mask, max_new)
     if n_ret > 1:
         # prefill ran once per prompt; the decode rows repeat it
         # prompt-major
@@ -309,7 +389,7 @@ def generate(cfg: M.GPTConfig, params: dict, gen_cfg: GenerationConfig,
     step = 1
     while step < max_new and not bool(done.all()):
         tok = torch.where(done, torch.full_like(last, pad), last)
-        logits = _step(cfg, params, tok, base_pos + step - 1, cache)
+        logits = decoder.step(tok, base_pos + step - 1, cache)
         nxt = sample_token(logits, step, ctx)
         nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
         ctx[:, prompt_len + step] = nxt
@@ -328,7 +408,8 @@ def _top(scores: torch.Tensor, k: int):
 
 @torch.no_grad()
 def beam_search(cfg: M.GPTConfig, params: dict, gen_cfg: GenerationConfig,
-                tokens: torch.Tensor, attention_mask: torch.Tensor):
+                tokens: torch.Tensor, attention_mask: torch.Tensor,
+                decoder: Optional[Decoder] = None):
     """Diverse group beam search: ``(sequences, scores)``,
     ``[b * num_beams, max_new_tokens]`` int32 (prompt-major, best-first
     per prompt) and ``[b, num_beams]`` length-penalised scores in that
@@ -341,7 +422,9 @@ def beam_search(cfg: M.GPTConfig, params: dict, gen_cfg: GenerationConfig,
     ``group_size`` over ``group_size × vocab`` candidates are kept. The
     cache follows the chosen parents. A finished beam (it emitted eos)
     proposes only the pad token at zero added score, so its total stays.
+    The model calls go through ``decoder`` (default: the eager model).
     """
+    decoder = decoder or eager_decoder(cfg, params)
     nb, ng = int(gen_cfg.num_beams), max(int(gen_cfg.num_beam_groups), 1)
     if nb < 1 or nb % ng:
         raise ValueError(f"num_beams {nb} is not a positive multiple of "
@@ -355,8 +438,7 @@ def beam_search(cfg: M.GPTConfig, params: dict, gen_cfg: GenerationConfig,
     max_new = int(gen_cfg.max_new_tokens)
     div = hamming_diversity_processor(gen_cfg.diversity_rate, nb, ng)
 
-    first_logits, cache = _prefill(cfg, params, tokens, attention_mask,
-                                   max_new)
+    first_logits, cache = decoder.prefill(tokens, attention_mask, max_new)
     V = first_logits.shape[-1]
     rows = torch.arange(b0, device=dev).repeat_interleave(nb)
     cache = cache.select(rows)
@@ -422,7 +504,7 @@ def beam_search(cfg: M.GPTConfig, params: dict, gen_cfg: GenerationConfig,
     while step < max_new and not bool(done.all()):
         tok_in = torch.where(done.reshape(-1), torch.full_like(last, pad),
                              last)
-        logits = _step(cfg, params, tok_in, base_pos + step - 1, cache)
+        logits = decoder.step(tok_in, base_pos + step - 1, cache)
         lp = torch.log_softmax(process_logits(logits, seqs, step), dim=-1)
         parent, tok, scores = select(lp, scores, done)
         cache, seqs, done, lens, last = reorder(parent, tok, cache, seqs,
@@ -436,6 +518,26 @@ def beam_search(cfg: M.GPTConfig, params: dict, gen_cfg: GenerationConfig,
     order = torch.sort(-final, dim=1, stable=True).indices
     flat = (torch.arange(b0, device=dev)[:, None] * nb + order).reshape(-1)
     return seqs[flat].to(torch.int32), torch.gather(final, 1, order)
+
+
+def generate_rows(cfg: Optional[M.GPTConfig], params: Optional[dict],
+                  gen_cfg: GenerationConfig, tokens: torch.Tensor,
+                  attention_mask: torch.Tensor, beam: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  decoder: Optional[Decoder] = None) -> torch.Tensor:
+    """``[b * num_return_sequences, max_new_tokens]`` int32, prompt-major:
+    ``generate``'s rows, or under ``beam`` the first
+    ``num_return_sequences`` of each prompt's best-first beams. ``cfg`` and
+    ``params`` serve the eager decoder only."""
+    if not beam:
+        return generate(cfg, params, gen_cfg, tokens, attention_mask,
+                        generator, decoder)
+    seqs, _ = beam_search(cfg, params, gen_cfg, tokens, attention_mask,
+                          decoder)
+    b0 = tokens.shape[0]
+    nb, nr = gen_cfg.num_beams, gen_cfg.num_return_sequences
+    seqs = seqs.reshape(b0, nb, -1)[:, :nr]
+    return seqs.reshape(b0 * nr, -1)
 
 
 def to_tensors(tokens: Any, mask: Any, device) -> tuple:

@@ -35,8 +35,12 @@ With a cache, attention never reaches the flash kernels (the prompt too
 goes through ``_decode_attention``, as in the JAX module), while every
 LayerNorm still takes the fused kernel where its gate admits the shape
 (``[b, s, hidden]`` at any ``s``): 2 × layers + 1 launches a model call.
-The port's cache is written in place by the call that fills it and its
-``index`` is a host int; a call returns the same cache object.
+The port's cache is written in place by the call that fills it (at the
+positions ``index + arange(s)``, an ``index_copy_``), and a call returns
+the same cache object with ``index`` advanced. ``index`` is a host int in
+eager generation or a 0-d int64 tensor: an exported decode step
+(``torch.export``) takes the write position as an input, so one program
+serves every step.
 """
 
 from __future__ import annotations
@@ -276,8 +280,14 @@ class DecodeCache:
 
     key: torch.Tensor    # [layers, batch, max_len, heads, head_dim]
     value: torch.Tensor  # [layers, batch, max_len, heads, head_dim]
-    index: int           # number of positions already written
+    # number of positions already written: a host int, or a 0-d int64
+    # tensor on the cache's device
+    index: Union[int, torch.Tensor]
     mask: torch.Tensor   # [batch, max_len] bool, True where a key is real
+
+    def positions(self, s: int) -> torch.Tensor:
+        """The ``s`` slots the next call writes: ``index + arange(s)``."""
+        return self.index + torch.arange(s, device=self.mask.device)
 
     def select(self, rows: torch.Tensor) -> "DecodeCache":
         """A cache of the batch rows ``rows`` (repeats and the beam
@@ -300,8 +310,8 @@ def init_cache(cfg: GPTConfig, batch: int, max_len: int,
 
 
 def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      cache_index: int, key_mask: torch.Tensor
-                      ) -> torch.Tensor:
+                      cache_index: Union[int, torch.Tensor],
+                      key_mask: torch.Tensor) -> torch.Tensor:
     """Attention of ``q`` (the tokens written at ``cache_index`` on) over
     the whole cache: a key counts when its slot is at or before the
     query's and ``key_mask`` marks it real; ``finfo.min``-masked f32
@@ -378,11 +388,11 @@ def attention(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
     qkv = (x @ w).reshape(b, s, 3, nh, hd) + p["qkv_bias"].to(cfg.dtype)
     q, k, v = qkv.unbind(2)
     if cache is not None:
-        idx = cache.index
-        cache.key[layer, :, idx:idx + s] = k
-        cache.value[layer, :, idx:idx + s] = v
+        slots = cache.positions(s)
+        cache.key[layer].index_copy_(1, slots, k.to(cache.key.dtype))
+        cache.value[layer].index_copy_(1, slots, v.to(cache.value.dtype))
         out = _decode_attention(q, cache.key[layer], cache.value[layer],
-                                idx, cache.mask)
+                                cache.index, cache.mask)
     else:
         out = core_attn(q, k, v, cfg, deterministic=deterministic, rng=rng,
                         layer=layer)
@@ -467,8 +477,10 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
             position_ids = (start + torch.arange(
                 s, device=tokens.device)).expand(tokens.shape)
     if cache is not None:
-        cache.mask[:, cache.index:cache.index + s] = (
-            True if attention_mask is None else attention_mask.bool())
+        cache.mask.index_copy_(
+            1, cache.positions(s),
+            torch.ones_like(tokens, dtype=torch.bool)
+            if attention_mask is None else attention_mask.bool())
     emb = p["embeddings"]
     x = (F.embedding(tokens, emb["word_embeddings"].to(cfg.dtype))
          + F.embedding(position_ids, emb["position_embeddings"].to(
@@ -483,7 +495,7 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
                                   layer=i, cache=cache)
         x = recompute(layer, rng, x) if full else layer(x)
     if cache is not None:
-        cache.index += s
+        cache.index = cache.index + s
     return layer_norm(p["ln_f"], x, cfg)
 
 

@@ -31,6 +31,13 @@ runs its dense plain version (``fwd_plain``, ``bwd_plain``,
 the Pallas kernels and ``chip_smoke.py`` holds the kernels against on the
 card. Each wrapper's ``launches`` counts kernel launches only.
 
+The forward is also the custom op ``torch.ops.fleetx_tpu_torch.flash_fwd``
+(``flash_fwd``, with a fake implementation for tracing), so that
+``torch.export`` can record it: ``flash_attention`` calls the op where
+autograd does not record the call (eval, generation, an export trace)
+and the autograd wrapper around ``fwd_call`` where it does (training).
+Both launch the same kernel, counted in ``fwd_call``.
+
 Routes (``tc_route``, one predicate for all four kernels). bf16 / fp16
 operands at head_dim 64 and 128 take the tensor-core forward, fused
 backward, dq and dk/dv kernels (wgmma on 16-bit tiles, f32
@@ -391,6 +398,26 @@ fwd_call.launches = 0
 fwd_call.tc_launches = 0
 
 
+@torch.library.custom_op(
+    "fleetx_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q3, Tensor k3, Tensor v3, int seed, float scale, "
+           "bool causal, float rate) -> (Tensor, Tensor)")
+def flash_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+              seed: int, scale: float, causal: bool, rate: float):
+    """``fwd_call`` as the custom op ``torch.ops.fleetx_tpu_torch.flash_fwd``:
+    what an exported program (``torch.export``) records in place of the
+    ctypes launch, which a fake tensor cannot trace. Its implementation is
+    ``fwd_call`` itself (the plain version on a CPU tensor), so a run of an
+    exported program counts its launches."""
+    return fwd_call(q3, k3, v3, seed, scale, causal, rate)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q3, k3, v3, seed, scale, causal, rate):
+    return (torch.empty_like(q3),
+            q3.new_empty((q3.shape[0], q3.shape[1]), dtype=torch.float32))
+
+
 def bwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
              seed: int, scale: float, causal: bool = True,
@@ -486,6 +513,14 @@ bwd_dkv_call.tc_launches = 0
 
 
 # ----------------------------------------------------------- autograd
+def needs_grad(*tensors) -> bool:
+    """True when autograd records a call on these operands: the autograd
+    wrapper then runs; otherwise (eval, generation, an export trace) the
+    custom op does."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 class _Flash3(torch.autograd.Function):
     """Flash attention on ``[b·heads, seq, head_dim]`` operands."""
 
@@ -543,7 +578,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     def to3(x, s):
         return x.transpose(1, 2).reshape(b * n, s, d).contiguous()
 
-    out3 = _Flash3.apply(to3(q, sq), to3(k, sk), to3(v, sk),
-                         int(dropout_seed), float(scale), bool(causal),
-                         float(dropout_rate), fused)
+    args = (to3(q, sq), to3(k, sk), to3(v, sk), int(dropout_seed),
+            float(scale), bool(causal), float(dropout_rate))
+    if needs_grad(q, k, v):
+        out3 = _Flash3.apply(*args, fused)
+    else:
+        out3 = flash_fwd(*args)[0]
     return out3.reshape(b, n, sq, d).transpose(1, 2)

@@ -22,7 +22,10 @@ On a CUDA tensor each ``*_call`` launches its kernel or raises; on a CPU
 tensor it runs its plain version (``fwd_plain`` / ``bwd_plain``), which
 the CPU tests hold against the Pallas kernels and ``chip_smoke.py`` holds
 the kernels against on the card. ``fwd_call.launches`` and
-``bwd_call.launches`` count kernel launches only.
+``bwd_call.launches`` count kernel launches only. The forward is also the
+custom op ``torch.ops.fleetx_tpu_torch.fused_norm_fwd`` (with a fake
+implementation, so ``torch.export`` can record it), which
+``fused_residual_norm`` calls where autograd does not record the call.
 
 ``fused_norm_supported`` mirrors the JAX gate where it is not about VMEM:
 rank >= 2, hidden a multiple of 128 (up to 32768, what one block of at
@@ -36,6 +39,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from fleetx_tpu_torch.ops.flash_attention import needs_grad
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -194,6 +199,36 @@ def fwd_call(x: torch.Tensor, residual: Optional[torch.Tensor],
 fwd_call.launches = 0
 
 
+@torch.library.custom_op(
+    "fleetx_tpu_torch::fused_norm_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor? residual, Tensor scale, Tensor bias, "
+           "float eps, ScalarType out_dtype) -> (Tensor, Tensor, Tensor, "
+           "Tensor)")
+def fused_norm_fwd(x: torch.Tensor, residual: Optional[torch.Tensor],
+                   scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                   out_dtype: torch.dtype):
+    """``fwd_call`` as the custom op
+    ``torch.ops.fleetx_tpu_torch.fused_norm_fwd``: what an exported
+    program (``torch.export``) records in place of the ctypes launch. Its
+    implementation is ``fwd_call`` itself (the plain version on a CPU
+    tensor), so a run of an exported program counts its launches. Without
+    a residual ``s`` is ``x`` itself, which an op may not return: it comes
+    back empty and the caller keeps ``x``."""
+    out, s, mean, var = fwd_call(x, residual, scale, bias, eps, out_dtype)
+    if residual is None:
+        s = x.new_empty((0,))
+    return out, s, mean, var
+
+
+@fused_norm_fwd.register_fake
+def _fused_norm_fwd_fake(x, residual, scale, bias, eps, out_dtype):
+    stat = tuple(x.shape[:-1]) + (1,)
+    return (x.new_empty(x.shape, dtype=out_dtype),
+            x.new_empty((0,)) if residual is None else torch.empty_like(x),
+            x.new_empty(stat, dtype=torch.float32),
+            x.new_empty(stat, dtype=torch.float32))
+
+
 def bwd_call(s: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
              var: torch.Tensor, dout: torch.Tensor, eps: float,
              ds_in: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -296,7 +331,14 @@ def fused_residual_norm(x: torch.Tensor, scale: torch.Tensor,
                         out_dtype: torch.dtype = torch.float32):
     """Fused (residual-add +) f32 LayerNorm + cast; returns ``(out, s)``
     with ``s = residual + x`` (``x`` itself without a residual). Callers
-    gate on ``fused_norm_supported`` first, as in the JAX package."""
+    gate on ``fused_norm_supported`` first, as in the JAX package. Where
+    autograd records the call the autograd wrappers run, else (eval,
+    generation, an export trace) the custom op."""
+    if not needs_grad(x, residual, scale, bias):
+        out, s, _, _ = fused_norm_fwd(
+            x.contiguous(), None if residual is None
+            else residual.contiguous(), scale, bias, float(eps), out_dtype)
+        return out, x if residual is None else s
     if residual is None:
         return _FusedNorm.apply(x, scale, bias, float(eps), out_dtype), x
     return _FusedAddNorm.apply(x, residual, scale, bias, float(eps),

@@ -1,1 +1,2 @@
-"""Task entry points of the port (``python -m fleetx_tpu_torch.tasks.gpt.generation``)."""
+"""Task entry points of the port (``python -m
+fleetx_tpu_torch.tasks.gpt.generation`` and ``.inference``)."""

@@ -1,1 +1,1 @@
-"""GPT tasks of the port (generation)."""
+"""GPT tasks of the port (generation, inference over an export)."""

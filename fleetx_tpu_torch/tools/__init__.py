@@ -1,3 +1,3 @@
 """Command-line entry points of the port (``python -m
-fleetx_tpu_torch.tools.serve``, ``python -m fleetx_tpu_torch.tools.train``
-and ``python -m fleetx_tpu_torch.tools.verify_ckpt``)."""
+fleetx_tpu_torch.tools.<name>``): ``serve``, ``train``, ``verify_ckpt``,
+``eval``, ``export``, ``inference`` and ``preprocess_data``."""

@@ -4,7 +4,8 @@
   ``jaxlib``, ``flax``, ``optax``, ``fleetx_tpu`` or ``fleetx_tpu.*``
   (an AST scan, plus a fresh interpreter's ``sys.modules``);
 - an engine asked for no device on a host without CUDA raises, and so
-  does the training CLI without ``--device cpu``;
+  do the training, eval, export, inference and preprocessing CLIs without
+  ``--device cpu``;
 - config values the slice does not cover raise ``NotImplementedError``;
 - a CPU replica started by the real CLI answers over TCP with the
   in-process engine's tokens and drains on SIGTERM with rc 75.
@@ -57,7 +58,15 @@ def test_the_scan_reaches_every_module_of_the_port():
                 "fleetx_tpu_torch/core/checkpoint.py",
                 "fleetx_tpu_torch/resilience/integrity.py",
                 "fleetx_tpu_torch/data/tokenizers/gpt_tokenizer.py",
-                "fleetx_tpu_torch/models/gpt/generation.py"):
+                "fleetx_tpu_torch/models/gpt/generation.py",
+                "fleetx_tpu_torch/data/dataset/eval_dataset.py",
+                "fleetx_tpu_torch/core/engine/inference_engine.py",
+                "fleetx_tpu_torch/utils/export.py",
+                "fleetx_tpu_torch/tools/eval.py",
+                "fleetx_tpu_torch/tools/export.py",
+                "fleetx_tpu_torch/tools/inference.py",
+                "fleetx_tpu_torch/tools/preprocess_data.py",
+                "fleetx_tpu_torch/tasks/gpt/inference.py"):
         assert rel in scanned, rel
 
 
@@ -94,6 +103,14 @@ def test_entry_points_load_no_jax_modules():
             "import fleetx_tpu_torch.tools.verify_ckpt\n"
             "import fleetx_tpu_torch.core.checkpoint\n"
             "import fleetx_tpu_torch.data.tokenizers.gpt_tokenizer\n"
+            "import fleetx_tpu_torch.data.dataset.eval_dataset\n"
+            "import fleetx_tpu_torch.core.engine.inference_engine\n"
+            "import fleetx_tpu_torch.utils.export\n"
+            "import fleetx_tpu_torch.tools.eval\n"
+            "import fleetx_tpu_torch.tools.export\n"
+            "import fleetx_tpu_torch.tools.inference\n"
+            "import fleetx_tpu_torch.tools.preprocess_data\n"
+            "import fleetx_tpu_torch.tasks.gpt.inference\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -103,6 +120,8 @@ def test_entry_points_load_no_jax_modules():
     assert "fleetx_tpu_torch.serving.engine" in loaded
     assert "fleetx_tpu_torch.core.engine.eager_engine" in loaded
     assert "fleetx_tpu_torch.tasks.gpt.generation" in loaded
+    assert "fleetx_tpu_torch.core.engine.inference_engine" in loaded
+    assert "fleetx_tpu_torch.tasks.gpt.inference" in loaded
     assert "regex" not in loaded  # the card's machine has no regex
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -122,6 +141,38 @@ def test_train_cli_without_device_raises_when_no_cuda():
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert "[train]" not in out.stderr
+
+
+#: the slice-8 entry points and the arguments that reach their device
+#: choice; each defaults to cuda
+_SLICE8_CLIS = {
+    "tools.eval": ["-c", "fleetx_tpu/configs/nlp/gpt/"
+                   "eval_gpt_345M_single_card.yaml"],
+    "tools.export": ["-c", "fleetx_tpu/configs/nlp/gpt/"
+                     "inference_gpt_345M_single_card.yaml"],
+    "tools.inference": ["-c", "fleetx_tpu/configs/nlp/gpt/"
+                        "inference_gpt_345M_single_card.yaml"],
+    "tasks.gpt.inference": ["-c", "fleetx_tpu/configs/nlp/gpt/"
+                            "inference_gpt_345M_single_card.yaml"],
+    "tools.preprocess_data": ["--input", "README.md", "--tokenizer",
+                              "no_such_dir", "--output-prefix",
+                              "no_such_prefix"],
+}
+
+
+@pytest.mark.parametrize("cli", sorted(_SLICE8_CLIS))
+def test_slice8_clis_without_device_raise_when_no_cuda(cli, tmp_path):
+    """Each eval / export / inference / preprocessing entry point defaults
+    to cuda: on a host without a GPU it fails before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, "-m", f"fleetx_tpu_torch.{cli}"]
+        + _SLICE8_CLIS[cli], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr[-2000:]
+    assert not os.path.exists(os.path.join(REPO, "no_such_prefix_ids.npy"))
 
 
 def _tiny_cfg(**serving_over):
