@@ -4,13 +4,16 @@ kernels, serve GPT-345M at full width through the port's replica, train
 GPT-345M at full width and GPT-1.3B at seq 8192 at full width and depth
 through the port's trainer, save, audit and resume GPT-345M training,
 generate from its checkpoint with the port's generation task, evaluate
-it offline, export it and run the exported programs.
+it offline, export it and run the exported programs, train GPT-345M in
+fp16 under the loss scaler and run the resilience drills.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
     python3 chip_smoke.py --serving        # phase 2 and its trace alone
     python3 chip_smoke.py --eval-export    # phases 10-11 and row 1 at the
                                            # eval shape, seeded weights
+    python3 chip_smoke.py --fp16-resilience  # 1b's fp16 rows, 4 and 12
+    python3 chip_smoke.py --train-paths    # phases 4 and 6 alone
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -41,7 +44,8 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
 1b. training kernels: flash-attention forward and fused backward
    (q/k/v ``[128, 1024, 64]``, causal, dropout 0.1) and the fused
    residual+LayerNorm forward and backward (``[8, 1024, 1024]``, with the
-   residual / ``ds_in``), at the GPT-345M training shapes in f32 and bf16:
+   residual / ``ds_in``), at the GPT-345M training shapes in f32, bf16 and
+   fp16:
    each held to its plain version (the bf16 forward and fused backward,
    on the tensor cores, to the rounded one and within the drift bound to
    the unrounded one: see Tolerances), timed beside its plain version and
@@ -180,6 +184,30 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    the bf16 export as their own processes. The temp dirs are removed
    whether the run passed or failed.
 
+12. fp16 and resilience (345M full width and depth through
+   ``build_trainer``; each part one JSON line): 20 fp16 steps at
+   ``scale_loss`` 32768 with ``Resilience.enable`` and the step watchdog
+   on (counts zeroed just before and read just after: phase 4's per batch,
+   rows 1 and 4 on the tensor cores, rows 5 and 6 on the ``__half``
+   instantiation; losses, the scale per step, skipped steps, step time,
+   tokens/s, MFU, peak memory, 0 watchdog stalls); rows 1 and 4 on layer
+   24's inputs of a further step, at the real loss-scaled dO, against both
+   plain versions, then with dO pushed past the fp16 range, where every
+   finite output must agree with the f32 reference and the overflow must
+   make the grad norm non-finite; 3 fp16 steps with the kernels on and
+   off (dropout 0) within ``FP16_DRIFT``; the overflow drill (2**125 over
+   5 one-shot batches: step 0, scale 2**120, params and moments bit for
+   bit; a re-iterable run from 2**40 reaches ``max_steps``); the guard
+   skip (bf16, ``nan_loss_at: [3]``: the state bit for bit across the
+   poisoned batch, ``nonfinite_skips`` 1) and the guard's per-step cost
+   (blocks of steps with the check off and on, alternating); rollback then
+   abort (save at 4, batches 5-7 poisoned: the restore of step 4 timed,
+   ``rollbacks_total`` 1, the guard's decisions at every window, then
+   ``TrainingAborted``); a preemption through ``python -m
+   fleetx_tpu_torch.tools.train`` (``sigterm_at: 5``: exit code 75, a
+   verified step-5 checkpoint, the save timed; the same command resumed
+   to step 10: steps 1-10 equal phase 4's losses bit for bit).
+
 Last, row 5 at the decode shape ``[8, 1, 1024]`` bf16 against its plain
 version, timed beside its bound and ``F.layer_norm``; and row 1 at the
 eval shape ``[128, 1024, 64]`` bf16 causal with no dropout against its
@@ -222,6 +250,7 @@ non-zero and prints no result.
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -252,10 +281,13 @@ SEQ8K_OVERRIDES = ["Distributed.dp_degree=1", "Distributed.seq_degree=1",
                    "Engine.save_load.save_steps=0"]
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32
-#: FLOP/s outside the tensor cores, bf16 dense tensor-core FLOP/s
+#: FLOP/s outside the tensor cores, bf16 dense tensor-core FLOP/s (fp16's
+#: dense tensor-core peak is the same)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+#: the dtypes whose products run on the tensor cores at PEAK_BF16_FLOPS
+TC_PEAK_DTYPES = (torch.bfloat16, torch.float16)
 
 # 345M serving decode geometry (serving_gpt_345M.yaml)
 B, NH, HD, PS, PPR, PAGES = 16, 16, 64, 16, 64, 513
@@ -554,7 +586,9 @@ def _ptxas_summary(log: str, pattern: str) -> list:
 #: seq 1024, 16 heads of 64, hidden 1024; attention dropout 0.1
 TB, TS, TNH, THD, TH, RATE = 8, 1024, 16, 64, 1024, 0.1
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
-       torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5)}
+       torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-5),
+       # one fp16 ulp (10 mantissa bits): both round the same f32 value
+       torch.float16: dict(rtol=2.0 ** -10, atol=1e-5)}
 #: the tensor-core kernels (forward and dk/dv, bf16 / fp16 at head_dim 64
 #: and 128) against the plain version that rounds P / dS where they do
 #: (``round_operands``): one bf16 ulp of each element (rtol 2**-7) plus
@@ -590,7 +624,7 @@ def _hold_tc(got, rounded, unrounded, what: str):
 
 
 def _peak_flops(dtype: torch.dtype) -> float:
-    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return PEAK_BF16_FLOPS if dtype in TC_PEAK_DTYPES else PEAK_F32_FLOPS
 
 
 def _bound(nbytes: float, flops: float, dtype: torch.dtype):
@@ -664,13 +698,13 @@ def _flash_rows(dtype, dev, flush) -> dict:
     bwd_err = _max_err([(dq, p_dq), (dk, p_dk), (dv, p_dv)])
     del p_out, p_lse, p_dq, p_dk, p_dv
 
-    # the yardsticks: SDPA (flash backend in bf16) forward and its autograd
-    # backward on the same data in [b, heads, s, d] (never called by the
-    # port)
+    # the yardsticks: SDPA (flash backend in bf16 / fp16) forward and its
+    # autograd backward on the same data in [b, heads, s, d] (never called
+    # by the port)
     def four(t):
         return t.reshape(TB, TNH, TS, THD)
 
-    backend = ([SDPBackend.FLASH_ATTENTION] if dtype == torch.bfloat16 else
+    backend = ([SDPBackend.FLASH_ATTENTION] if dtype in TC_PEAK_DTYPES else
                [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH])
     sq, sk, sv = (four(t).detach().clone().requires_grad_(True)
                   for t in (q, k, v))
@@ -1151,20 +1185,32 @@ def _norm_spread(dev: torch.device, flush: torch.Tensor) -> dict:
     return out
 
 
-def phase_train_kernels(dev: torch.device) -> dict:
-    """Phase 1b: the four training kernels against their plain versions,
-    timed, in f32 and bf16; the norms' spread at the 345M shape; then the
-    dropout-mask probes."""
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+#: phase 1b's dtypes
+TRAIN_DTYPES = (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                ("float16", torch.float16))
+
+
+def _train_kernel_rows(dev: torch.device, flush: torch.Tensor,
+                       dtypes=TRAIN_DTYPES) -> dict:
+    """The four training kernels against their plain versions, timed, at
+    the 345M shapes, in each of ``dtypes``: ``{dtype name: rows}``."""
     result = {}
-    for name, dtype in (("float32", torch.float32),
-                        ("bfloat16", torch.bfloat16)):
+    for name, dtype in dtypes:
         rows = {**_flash_rows(dtype, dev, flush),
                 **_norm_rows(dtype, dev, flush)}
         for kernel, row in rows.items():
             emit("kernel", name=kernel, dtype=name, **row)
         result[name] = rows
         torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_kernels(dev: torch.device) -> dict:
+    """Phase 1b: the four training kernels against their plain versions,
+    timed, in f32, bf16 and fp16; the norms' spread at the 345M shape;
+    then the dropout-mask probes."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    result = _train_kernel_rows(dev, flush)
     result["norm_spread"] = _norm_spread(dev, flush)
     keep_rate = _dropout_probes(dev)
     emit("dropout_masks", rate=RATE, shape=[TB * TNH, TS, TS],
@@ -1451,6 +1497,10 @@ TC_COUNTS = {"flash_attention_fwd_tc": "flash_attention_fwd",
              "flash_attention_bwd_fused_tc": "flash_attention_bwd_fused",
              "flash_attention_bwd_dq_tc": "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv_tc": "flash_attention_bwd_dkv"}
+#: ... and the norms' launches of their fp16 (``__half``) instantiation
+#: (``fp16_launches``)
+FP16_COUNTS = {"fused_norm_fwd_fp16": "fused_norm_fwd",
+               "fused_norm_bwd_fp16": "fused_norm_bwd"}
 
 
 def zero_counts() -> None:
@@ -1459,6 +1509,8 @@ def zero_counts() -> None:
         fn.launches = 0
     for kernel in TC_COUNTS.values():
         counters[kernel].tc_launches = 0
+    for kernel in FP16_COUNTS.values():
+        counters[kernel].fp16_launches = 0
 
 
 def read_counts() -> dict:
@@ -1466,6 +1518,8 @@ def read_counts() -> dict:
     counts = {name: fn.launches for name, fn in counters.items()}
     counts.update({name: counters[kernel].tc_launches
                    for name, kernel in TC_COUNTS.items()})
+    counts.update({name: counters[kernel].fp16_launches
+                   for name, kernel in FP16_COUNTS.items()})
     return counts
 
 
@@ -1889,18 +1943,21 @@ def _first_batch(engine, out: list) -> None:
     engine.train_step = wrapper
 
 
-def _nth_batch(cfg: dict, n: int) -> torch.Tensor:
-    """The tokens of batch ``n`` (from 0) of a fresh train loader of
-    ``cfg``: the batch an uninterrupted run trains on at step ``n + 1``."""
+def _host_batches(cfg: dict, n: int) -> list:
+    """The first ``n`` host batches of a fresh train loader of ``cfg``."""
     from fleetx_tpu_torch.data import build_dataloader
 
     glb = cfg["Global"]
     it = iter(build_dataloader(
         cfg["Data"], "Train", batch_size=glb["global_batch_size"],
         seq_length=glb["max_seq_len"], vocab_size=cfg["Model"]["vocab_size"]))
-    for _ in range(n):
-        next(it)
-    return torch.from_numpy(next(it)["tokens"])
+    return [next(it) for _ in range(n)]
+
+
+def _nth_batch(cfg: dict, n: int) -> torch.Tensor:
+    """The tokens of batch ``n`` (from 0) of a fresh train loader of
+    ``cfg``: the batch an uninterrupted run trains on at step ``n + 1``."""
+    return torch.from_numpy(_host_batches(cfg, n + 1)[-1]["tokens"])
 
 
 def _state_bytes(state: dict) -> int:
@@ -2848,6 +2905,556 @@ def phase_row1_eval_shape(dev: torch.device, card: str,
     return result
 
 
+# -------------------------------------------------------------- phase 12
+#: the fp16 recipe: pure fp16 under the dynamic loss scaler
+FP16 = ["Engine.mix_precision.use_pure_fp16=True", "Model.dtype=float16"]
+FP16_STEPS = 20
+#: the recipe's initial loss scale (pretrain_gpt_base.yaml ``scale_loss``)
+FP16_SCALE = 32768.0
+#: per batch of the fp16 path: phase 4's counts, and every norm launch on
+#: the ``__half`` instantiation
+FP16_PER_STEP = dict(PER_STEP, fused_norm_fwd_fp16=49, fused_norm_bwd_fp16=49)
+#: steps of the kernels-on / kernels-off fp16 pair (dropout 0, the same
+#: seeded weights and batches)
+FP16_OFF_STEPS = 3
+#: their losses' largest allowed difference: both paths round the
+#: attention probabilities and a 24-layer fp16 residual stream, at other
+#: points; one fp16 rounding (2**-11 relative) of an O(1) logit moves a
+#: token's loss by ~5e-4, and the loss is the mean over 8192 tokens, whose
+#: roundings mostly cancel (phase 10 finds the bf16 forward's kernels on
+#: against off within 8.8e-6 relative, ~1e-4 of an 11.0 loss, on an H100
+#: 80GB HBM3 at 700 W; fp16 has 3 more mantissa bits): 2e-3 leaves 20x
+#: that
+FP16_DRIFT = 2e-3
+#: the fp16 range: a value past it rounds to inf
+FP16_MAX = 65504.0
+#: the overflow drill: an initial scale that overflows every scaled
+#: backward, over one-shot batches; then a re-iterable run from a scale
+#: that overflows the first ~25 backwards (8192 tokens: 2**40 / 8192 is
+#: ~2**27 on a logit's cotangent) until it reaches max_steps
+OVERFLOW_SCALE = 2.0 ** 125
+OVERFLOW_BATCHES = 5
+REITER_SCALE = 2.0 ** 40
+REITER_STEPS = 3
+#: the guard skip: the batch index poisoned with a NaN loss_mask
+GUARD_NAN_AT = 3
+GUARD_STEPS = 5
+#: rollback then abort: save every 4 steps, batches 5-7 poisoned, a
+#: streak of 3 rolls back once, the second streak aborts
+ROLLBACK_OVERRIDES = ["Resilience.enable=True",
+                      "Engine.save_load.save_steps=4",
+                      "Resilience.faults.nan_loss_at=[5, 6, 7]",
+                      "Resilience.guard.nonfinite_streak=3",
+                      "Resilience.guard.nonfinite_action=rollback",
+                      "Resilience.guard.max_rollbacks=1",
+                      "Engine.max_steps=10"]
+#: the preemption drill: SIGTERM before step 6 (a step-5 checkpoint), the
+#: exit code, then a resumed process to step 10
+PREEMPT_AT = CKPT_STEPS
+PREEMPT_EXIT = 75
+#: the guard's per-step cost: rounds of check-off / check-on step blocks
+GUARD_COST_ROUNDS, GUARD_COST_STEPS = 3, 6
+
+
+def _trainer_345m(dev: torch.device, overrides: list) -> tuple:
+    """``(cfg, engine, train loader)`` of the 345M recipe at full width
+    and depth through ``build_trainer``, with ``overrides``."""
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+
+    cfg = load_config(TRAIN_YAML, ["Engine.logging_freq=1"] + overrides)
+    engine, dl, _ = build_trainer(cfg, device=dev)
+    mc = engine.module.model_cfg
+    check(mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+          and cfg["Global"]["max_seq_len"] == 1024
+          and cfg["Global"]["global_batch_size"] == 8,
+          "not the full-width 345M training recipe")
+    return cfg, engine, dl
+
+
+def _counter(name: str) -> float:
+    from fleetx_tpu_torch.observability.metrics import get_registry
+
+    return get_registry().counter(name).value
+
+
+def _engine_state(engine) -> list:
+    """Device copies of the params and AdamW moments, and the counters."""
+    from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
+
+    out = [p.detach().clone() for _, p in tree_leaves_with_path(engine.params)]
+    out += [t.clone() for key in ("mu", "nu") for t in engine.opt_state[key]]
+    return out + [engine.opt_state["count"], engine.step]
+
+
+def _same_state(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else x == y
+        for x, y in zip(a, b))
+
+
+def _capture_flash_args(engine, batch: dict) -> tuple:
+    """One train step on ``batch`` recording copies of the arguments of
+    its last flash forward and its first flash backward: layer 24's, whose
+    dO carries the loss scale straight from the head."""
+    from fleetx_tpu_torch.ops import flash_attention as FA
+
+    fwd, bwd = FA.fwd_call, FA.bwd_call
+    seen: dict = {}
+
+    def copy(args):
+        return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+    def rec_fwd(*args):
+        seen["fwd"] = copy(args)
+        return fwd(*args)
+
+    def rec_bwd(*args):
+        seen.setdefault("bwd", copy(args))
+        return bwd(*args)
+
+    # the wrappers count through their module-level names: this step's
+    # launches land on the recorders and are dropped with them
+    for rec in (rec_fwd, rec_bwd):
+        rec.launches = rec.tc_launches = 0
+    FA.fwd_call, FA.bwd_call = rec_fwd, rec_bwd
+    try:
+        engine.train_step(batch)
+    finally:
+        FA.fwd_call, FA.bwd_call = fwd, bwd
+    return seen["fwd"], seen["bwd"]
+
+
+def _flash_at_scaled_cotangents(fwd_args: tuple, bwd_args: tuple) -> dict:
+    """Rows 1 and 4 in fp16 on the inputs of the fp16 path's layer 24 at
+    ``scale_loss`` 32768: held to both plain variants (``_hold_tc``); then
+    dO pushed by a power of two to the top of the fp16 range, where the
+    f32 reference leaves it: every output element the kernel leaves
+    finite must agree with the reference, and an overflow must show as
+    inf/NaN that the engine's finite check (the global grad norm) sees."""
+    from fleetx_tpu_torch.ops import flash_attention as FA
+    from fleetx_tpu_torch.optims.optimizer import global_norm
+
+    q, k, v, seed, scale, causal, rate = fwd_args
+    check(q.dtype == torch.float16 and FA.tc_route(q.dtype, q.shape[-1]),
+          f"layer 24's flash forward took {q.dtype}, not the fp16 "
+          f"tensor-core route")
+    out, lse = FA.fwd_call(*fwd_args)
+    fwd_err, fwd_drift = _hold_tc(
+        out, FA.fwd_plain(*fwd_args, round_operands=True)[0],
+        FA.fwd_plain(*fwd_args)[0], "fp16 flash fwd, layer 24 inputs")
+    bq, bk, bv, do, blse, delta = bwd_args[:6]
+    rest = bwd_args[6:]
+    got = FA.bwd_call(*bwd_args)
+    rounded = FA.bwd_plain(*bwd_args, round_operands=True)
+    unrounded = FA.bwd_plain(*bwd_args)
+    bwd = {}
+    for name, g, r, u in zip(("dq", "dk", "dv"), got, rounded, unrounded):
+        bwd[f"{name}_vs_rounded"], bwd[f"{name}_drift"] = _hold_tc(
+            g, r, u, f"fp16 fused bwd {name}, scaled layer 24 dO")
+    del rounded, unrounded
+    do_max = float(do.float().abs().max())
+    # the largest power of two that keeps dO finite in fp16 (the products
+    # inside the kernel, dS among them, may leave the range there), then
+    # twice that, where dO's largest elements are inf (what an fp16
+    # backward hands the layer when the scale is too high)
+    top = 2.0 ** math.floor(math.log2(FP16_MAX / do_max))
+    pushed = {}
+    for push in (top, 2 * top):
+        do_f = (do.float() * push).to(torch.float16)
+        ref = FA.bwd_plain(bq.float(), bk.float(), bv.float(), do_f.float(),
+                           blse, delta * push, *rest)
+        hot = FA.bwd_call(bq, bk, bv, do_f, blse, delta * push, *rest)
+        torch.cuda.synchronize()
+        report = dict(factor=push, do_max_abs=do_max * push,
+                      do_overflowed=not bool(torch.isfinite(do_f).all()))
+        nonfinite = 0
+        for name, g, r in zip(("dq", "dk", "dv"), hot, ref):
+            fin, ref_fin = torch.isfinite(g), torch.isfinite(r)
+            ref_max = float(r[ref_fin].abs().max()) if bool(ref_fin.any()) \
+                else 0.0
+            # compared where both are finite: with an overflowed dO the
+            # f32 reference also runs 0 x inf through the masked entries
+            # the kernel skips
+            bad = fin & ref_fin & ((g.float() - r).abs() > TC_DRIFT * ref_max)
+            # an fp16 output past the fp16 range must be inf (dq is f32)
+            past = (r.abs() > FP16_MAX) & (g.dtype == torch.float16)
+            check(not bool(bad.any()) and not bool((fin & past).any()),
+                  f"dO x{push}: {int(bad.sum())} finite {name} elements "
+                  f"disagree with the f32 reference, "
+                  f"{int((fin & past).sum())} finite where it is past the "
+                  f"fp16 range (a silent wrong value)")
+            report[name] = dict(nonfinite=int((~fin).sum()),
+                                ref_nonfinite=int((~ref_fin).sum()),
+                                ref_max=ref_max,
+                                ref_past_fp16_max=int(past.sum()))
+            nonfinite += int((~fin).sum())
+        norm = global_norm([t.float() for t in hot])
+        report["grad_norm_finite"] = bool(torch.isfinite(norm))
+        check(report["grad_norm_finite"] == (nonfinite == 0),
+              f"dO x{push}: {nonfinite} non-finite outputs, grad norm "
+              f"{float(norm)}")
+        pushed["finite_dO" if push == top else "overflowed_dO"] = report
+        del ref, hot
+    check(pushed["overflowed_dO"]["do_overflowed"]
+          and not pushed["overflowed_dO"]["grad_norm_finite"],
+          f"an overflowed dO left the grad norm finite: {pushed}")
+    torch.cuda.empty_cache()
+    # how the scale places dO in the fp16 range: zeros, and values under
+    # its smallest normal number (2**-14), which keep fewer bits
+    mag = do.float().abs()
+    return dict(shape=list(q.shape), fwd_vs_rounded=fwd_err,
+                fwd_drift=fwd_drift, **bwd, do_max_abs=do_max,
+                do_zero_share=float((mag == 0).float().mean()),
+                do_subnormal_share=float(((mag > 0) & (mag < 2.0 ** -14))
+                                         .float().mean()),
+                lse_max_err=float((lse - blse).abs().max()),
+                pushed=pushed)
+
+
+def _fp16_train(dev: torch.device, card: str, root: str) -> dict:
+    """The fp16 path: ``FP16_STEPS`` steps of the 345M recipe at
+    ``scale_loss`` 32768 with the step watchdog on; launch counts zeroed
+    just before and read just after. Then layer 24's flash call on a
+    further batch held to its plain versions at the real scaled dO."""
+    from fleetx_tpu_torch.utils.hardware import peak_flops
+
+    cfg, engine, dl = _trainer_345m(dev, FP16 + [
+        f"Engine.max_steps={FP16_STEPS}",
+        f"Engine.mix_precision.scale_loss={FP16_SCALE}",
+        "Resilience.enable=True", "Resilience.watchdog.enable=True",
+        f"Engine.save_load.output_dir={os.path.join(root, 'fp16')}"])
+    mc = engine.module.model_cfg
+    check(mc.dtype == torch.float16 and engine.scaler is not None
+          and engine.check_finite and mc.use_flash_attention
+          and mc.fused_residual_norm and mc.hidden_dropout_prob == 0.1,
+          "not the fp16 recipe under the loss scaler")
+    stalls = _counter("watchdog_stalls")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                   # every count to 0 just before
+    losses = engine.fit(dl)
+    torch.cuda.synchronize()
+    counts = read_counts()          # read just after
+    hist = engine.history
+    batches = len(hist)
+    check(engine.step == FP16_STEPS, f"fp16 run ended at step {engine.step}")
+    for name, per_step in FP16_PER_STEP.items():
+        check(counts[name] == per_step * batches,
+              f"fp16: {name} {counts[name]} launches, want {per_step} x "
+              f"{batches} batches")
+    check(all(np.isfinite(losses)), f"non-finite fp16 loss: {losses}")
+    expect = float(np.log(mc.vocab_size)
+                   + mc.hidden_size * mc.initializer_range ** 2 / 2)
+    check(abs(losses[0] - expect) < 0.1,
+          f"first fp16 loss {losses[0]} is not within 0.1 of {expect}")
+    watchdog_stalls = _counter("watchdog_stalls") - stalls
+    check(watchdog_stalls == 0, f"{watchdog_stalls} watchdog stalls")
+    step_s = statistics.median(h["train_cost"] for h in hist[1:])
+    tokens = cfg["Global"]["global_batch_size"] * cfg["Global"]["max_seq_len"]
+    fpt = engine.module.flops_per_token()
+    peak = peak_flops(torch.cuda.get_device_name(dev)) or PEAK_BF16_FLOPS
+    out = dict(
+        steps=FP16_STEPS, batches=batches, skipped_steps=batches - FP16_STEPS,
+        losses=losses, loss_scale=[h["loss_scale"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist],
+        first_loss=losses[0], expected_first_loss=expect,
+        step_ms_median=step_s * 1e3,
+        step_ms=[h["train_cost"] * 1e3 for h in hist],
+        tokens_per_s=tokens / step_s, mfu=fpt * tokens / step_s / peak,
+        peak_flops=peak,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev)
+        / 2 ** 30, watchdog_stalls=watchdog_stalls, launches=counts,
+        launches_per_batch={k: counts[k] / batches for k in FP16_PER_STEP})
+    batch = engine.to_device(next(iter(dl)))
+    fwd_args, bwd_args = _capture_flash_args(engine, batch)
+    del engine, batch
+    torch.cuda.empty_cache()
+    out["scaled_cotangents"] = _flash_at_scaled_cotangents(fwd_args, bwd_args)
+    del fwd_args, bwd_args
+    torch.cuda.empty_cache()
+    emit("fp16_train", **out, nvidia_smi=card)
+    return out
+
+
+def _fp16_kernels_off(dev: torch.device, card: str, root: str) -> dict:
+    """``FP16_OFF_STEPS`` fp16 steps with the kernels on and then off
+    (dropout 0: the flash kernels' hash masks are not the plain path's
+    generator masks), on the same seeded weights and batches."""
+    runs = {}
+    for on in (True, False):
+        _, engine, dl = _trainer_345m(dev, FP16 + [
+            f"Engine.max_steps={FP16_OFF_STEPS}",
+            "Model.hidden_dropout_prob=0.0",
+            "Model.attention_probs_dropout_prob=0.0",
+            f"Model.use_flash_attention={on}",
+            f"Model.fused_residual_norm={on}",
+            f"Engine.save_load.output_dir={os.path.join(root, 'off')}"])
+        runs[on] = engine.fit(dl)
+        del engine
+        torch.cuda.empty_cache()
+    diffs = [abs(a - b) for a, b in zip(runs[True], runs[False])]
+    check(len(diffs) == FP16_OFF_STEPS and max(diffs) <= FP16_DRIFT,
+          f"fp16 kernels on {runs[True]} vs off {runs[False]}")
+    out = dict(steps=FP16_OFF_STEPS, losses_on=runs[True],
+               losses_off=runs[False], max_abs_diff=max(diffs),
+               bound=FP16_DRIFT)
+    emit("fp16_kernels_vs_plain", **out, nvidia_smi=card)
+    return out
+
+
+def _overflow_drill(dev: torch.device, card: str, root: str) -> dict:
+    """``scale_loss`` 2**125 over ``OVERFLOW_BATCHES`` one-shot batches:
+    the step stays 0, the scale ends at 2**120, the params and moments
+    are bit for bit the initial ones. Then a re-iterable run from
+    ``REITER_SCALE`` reaches ``REITER_STEPS`` optimizer steps."""
+    cfg, engine, _ = _trainer_345m(dev, FP16 + [
+        f"Engine.max_steps={OVERFLOW_BATCHES}",
+        f"Engine.mix_precision.scale_loss={OVERFLOW_SCALE}",
+        f"Engine.save_load.output_dir={os.path.join(root, 'overflow')}"])
+    batches = _host_batches(cfg, OVERFLOW_BATCHES)
+    engine.prepare()
+    before = _engine_state(engine)
+    engine.fit(iter(batches))
+    final_scale = float(engine.scaler["loss_scale"])
+    check(engine.step == 0 and len(engine.history) == OVERFLOW_BATCHES,
+          f"overflow drill: step {engine.step} after "
+          f"{len(engine.history)} batches")
+    check(final_scale == OVERFLOW_SCALE / 2 ** OVERFLOW_BATCHES,
+          f"overflow drill: scale {final_scale}")
+    check(_same_state(before, _engine_state(engine)),
+          "overflow drill: the params or moments moved")
+    del engine, before
+    torch.cuda.empty_cache()
+    _, engine, _ = _trainer_345m(dev, FP16 + [
+        f"Engine.max_steps={REITER_STEPS}",
+        f"Engine.mix_precision.scale_loss={REITER_SCALE}",
+        f"Engine.save_load.output_dir={os.path.join(root, 'overflow')}"])
+    engine.fit(batches)
+    reiter = dict(steps=engine.step, batches=len(engine.history),
+                  initial_scale=REITER_SCALE,
+                  final_scale=float(engine.scaler["loss_scale"]),
+                  losses=[h["loss"] for h in engine.history])
+    check(engine.step == REITER_STEPS
+          and reiter["final_scale"] < REITER_SCALE,
+          f"re-iterable run: {reiter}")
+    del engine
+    torch.cuda.empty_cache()
+    out = dict(initial_scale=OVERFLOW_SCALE, batches=OVERFLOW_BATCHES,
+               final_step=0, final_scale=final_scale, state_bitwise=True,
+               reiterable=reiter)
+    emit("fp16_overflow_drill", **out, nvidia_smi=card)
+    return out
+
+
+def _guard_skip_and_cost(dev: torch.device, card: str, root: str) -> dict:
+    """bf16, ``Resilience.enable``, ``nan_loss_at: [3]``: the poisoned
+    batch leaves the params, moments and counters bit for bit as they
+    were, ``nonfinite_skips`` counts 1, training reaches ``GUARD_STEPS``.
+    Then the guard's per-step check timed on the same engine: blocks of
+    ``GUARD_COST_STEPS`` steps with the check off and on, alternating."""
+    _, engine, dl = _trainer_345m(dev, [
+        f"Engine.max_steps={GUARD_STEPS}", "Resilience.enable=True",
+        f"Resilience.faults.nan_loss_at=[{GUARD_NAN_AT}]",
+        f"Engine.save_load.output_dir={os.path.join(root, 'guard')}"])
+    check(engine.module.model_cfg.dtype == torch.bfloat16
+          and engine.scaler is None and engine.check_finite,
+          "the guard drill is not the bf16 recipe with the guard's check")
+    around = []
+    train_step = engine.train_step
+
+    def spy(batch):
+        poisoned = bool(torch.isnan(batch["loss_mask"]).any())
+        pre = _engine_state(engine) if poisoned else None
+        metrics = train_step(batch)
+        if poisoned:
+            around.append((_same_state(pre, _engine_state(engine)),
+                           metrics["finite"], pre[-1]))
+        return metrics
+
+    engine.train_step = spy
+    skips = _counter("nonfinite_skips")
+    losses = engine.fit(dl)
+    engine.train_step = train_step
+    skipped = _counter("nonfinite_skips") - skips
+    check(len(around) == 1 and around[0][0] and around[0][1] is False,
+          f"guard skip: {around}")
+    check(skipped == 1 and engine.step == GUARD_STEPS
+          and len(losses) == GUARD_STEPS + 1
+          and np.isnan(losses[GUARD_NAN_AT]),
+          f"guard skip: {skipped} skips, step {engine.step}, {losses}")
+    steps = [h["global_step"] for h in engine.history]
+
+    # the check's cost: the same engine going on through fit (its loader,
+    # its per-window loss sync), blocks of steps with the check off and
+    # on, alternating; a block's first step carries fit's own start
+    times = {False: [], True: []}
+    for _ in range(GUARD_COST_ROUNDS):
+        for check_on in (False, True, True, False):
+            engine.check_finite = check_on
+            engine.max_steps = engine.step + GUARD_COST_STEPS
+            first = len(engine.history)
+            engine.fit(dl)
+            times[check_on] += [h["train_cost"] * 1e3
+                                for h in engine.history[first + 1:]]
+    engine.check_finite = True
+    off, on = statistics.median(times[False]), statistics.median(times[True])
+    del engine
+    torch.cuda.empty_cache()
+    out = dict(nan_at=GUARD_NAN_AT, state_bitwise=True,
+               nonfinite_skips=skipped,
+               steps_logged=steps, losses=losses,
+               cost=dict(step_ms_check_off=off, step_ms_check_on=on,
+                         ms_per_step=on - off,
+                         step_ms={"check_off": times[False],
+                                  "check_on": times[True]},
+                         steps_per_block=GUARD_COST_STEPS))
+    emit("guard_skip", **out, nvidia_smi=card)
+    return out
+
+
+def _rollback_drill(dev: torch.device, card: str, root: str) -> dict:
+    """bf16, ``ROLLBACK_OVERRIDES``: the first streak restores step 4
+    (``rollbacks_total`` 1, the restore timed), the second raises
+    ``TrainingAborted``."""
+    from fleetx_tpu_torch.resilience import TrainingAborted
+
+    out_dir = os.path.join(root, "rollback")
+    _, engine, dl = _trainer_345m(dev, ROLLBACK_OVERRIDES + [
+        f"Engine.save_load.output_dir={out_dir}"])
+    save_s, load_s, decisions = [], [], []
+    _timed(engine, "save", save_s)
+    _timed(engine, "load", load_s)
+    observe = engine.resilience.guard.observe
+
+    def recording(step, loss, finite=None):
+        decision = observe(step, loss, finite=finite)
+        decisions.append([int(step), decision])
+        return decision
+
+    engine.resilience.guard.observe = recording
+    rollbacks = _counter("rollbacks_total")
+    aborted = None
+    try:
+        engine.fit(dl)
+    except TrainingAborted as e:
+        aborted = str(e)
+    rolled = _counter("rollbacks_total") - rollbacks
+    check(aborted is not None, "the second streak did not abort")
+    check(rolled == 1 and len(load_s) == 1 and len(save_s) == 1,
+          f"rollbacks {rolled}, loads {load_s}, saves {save_s}")
+    # steps 1-4, the save at 4, step 5, three poisoned windows at 5; the
+    # restore of 4, step 5 again, the same three: the budget is spent
+    want = [[s, None] for s in (1, 2, 3, 4, 5, 5, 5)] + [[5, "rollback"]] + \
+        [[5, None]] * 3 + [[5, "abort"]]
+    check(decisions == want, f"guard decisions {decisions}")
+    step = engine.step
+    del engine
+    torch.cuda.empty_cache()
+    out = dict(restored_step=4, rollbacks_total=rolled, decisions=decisions,
+               aborted=aborted, final_step=step, save_s=save_s[0],
+               restore_s=load_s[0])
+    emit("rollback_drill", **out, nvidia_smi=card)
+    return out
+
+
+def _logged_losses(stderr: str) -> dict:
+    """``{step: loss}`` from the training CLI's ``[train]`` lines."""
+    out = {}
+    for line in stderr.splitlines():
+        m = re.search(r"\[train\] global step (\d+),.* loss: ([0-9.eE+-]+)",
+                      line)
+        if m:
+            out[int(m.group(1))] = float(m.group(2))
+    return out
+
+
+def _preemption_drill(dev: torch.device, card: str, root: str,
+                      uninterrupted: list) -> dict:
+    """``python -m fleetx_tpu_torch.tools.train`` with
+    ``sigterm_at: PREEMPT_AT``: it exits with ``PREEMPT_EXIT`` leaving a
+    verified step-5 checkpoint; the same command without the fault
+    auto-resumes and trains to step 10, with the losses of phase 4's
+    uninterrupted run bit for bit (as f32: the log prints 9 decimals)."""
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.tools import verify_ckpt
+
+    out_dir = os.path.join(root, "preempt")
+    args = ["-c", TRAIN_YAML] + _overrides([
+        f"Engine.max_steps={TRAIN_STEPS}", "Engine.logging_freq=1",
+        f"Engine.save_load.output_dir={out_dir}", "Resilience.enable=True",
+        f"Resilience.preemption.exit_code={PREEMPT_EXIT}"])
+    runs = []
+    for fault in (True, False):
+        cmd = list(args) + (_overrides([
+            f"Resilience.faults.sigterm_at={PREEMPT_AT}"]) if fault else [])
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fleetx_tpu_torch.tools.train"] + cmd,
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=900)
+        runs.append((proc, time.perf_counter() - t0))
+        if fault:
+            check(proc.returncode == PREEMPT_EXIT,
+                  f"preempted run exited {proc.returncode}: "
+                  f"{proc.stderr[-3000:]}")
+            check(C.completed_steps(out_dir) == [PREEMPT_AT],
+                  f"steps saved: {C.completed_steps(out_dir)}")
+            audit = verify_ckpt.audit_directory(out_dir)
+            check([s["status"] for s in audit["steps"]] == ["ok"],
+                  f"audit of the preemption checkpoint: {audit}")
+        else:
+            check(proc.returncode == 0, f"resumed run exited "
+                                        f"{proc.returncode}: "
+                                        f"{proc.stderr[-3000:]}")
+    first, second = (_logged_losses(p.stderr) for p, _ in runs)
+    want = {s + 1: x for s, x in enumerate(uninterrupted[:TRAIN_STEPS])}
+    check(sorted(first) == list(range(1, PREEMPT_AT + 1))
+          and sorted(second) == list(range(PREEMPT_AT + 1, TRAIN_STEPS + 1)),
+          f"logged steps {sorted(first)} then {sorted(second)}")
+    same = all(np.float32(x) == np.float32(want[s])
+               for s, x in {**first, **second}.items())
+    check(same, f"preempted + resumed losses {first} {second} vs phase 4's "
+                f"{want}")
+    saved = re.search(r"preemption: saved step \d+ in ([0-9.]+) s",
+                      runs[0][0].stderr)
+    check(saved is not None and "auto-resume: restoring step "
+          f"{PREEMPT_AT}" in runs[1][0].stderr, "preemption log lines")
+    out = dict(sigterm_at=PREEMPT_AT, exit_code=runs[0][0].returncode,
+               checkpoint_steps=[PREEMPT_AT], audit="ok",
+               losses_before=[first[s] for s in sorted(first)],
+               losses_resumed=[second[s] for s in sorted(second)],
+               bitwise_phase4=same, save_on_exit_s=float(saved.group(1)),
+               process_s=[t for _, t in runs])
+    emit("preemption_drill", **out, nvidia_smi=card)
+    return out
+
+
+def phase_fp16_resilience(dev: torch.device, card: str,
+                          uninterrupted: list) -> dict:
+    """Phase 12: fp16 training under the loss scaler and the resilience
+    drills, at 345M full width and depth; ``uninterrupted`` is phase 4's
+    10 losses. Each part prints one JSON line."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_fp16_")
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= CKPT_MIN_FREE_BYTES,
+              f"{root} has {free / 1e9:.1f} GB free; the 345M checkpoints "
+              f"need {CKPT_MIN_FREE_BYTES / 1e9:.0f} GB")
+        result = dict(
+            fp16_train=_fp16_train(dev, card, root),
+            fp16_kernels_off=_fp16_kernels_off(dev, card, root),
+            overflow=_overflow_drill(dev, card, root),
+            guard=_guard_skip_and_cost(dev, card, root),
+            rollback=_rollback_drill(dev, card, root),
+            preemption=_preemption_drill(dev, card, root, uninterrupted))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t0
+    emit("fp16_resilience", seconds=result["seconds"], nvidia_smi=card)
+    return result
+
+
 def eval_and_export(dev: torch.device, card: str, root: str,
                     ckpt_dir: str, tok_dir: str) -> tuple:
     """Phases 10 and 11 on the checkpoint under ``ckpt_dir``, its params
@@ -2895,21 +3502,39 @@ def main(argv) -> int:
         return 2
     from fleetx_tpu_torch.kernels import build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = phase_env(build)
-    modes = {"--paged-shapes", "--serving", "--eval-export"}
+    modes = {"--paged-shapes", "--serving", "--eval-export",
+             "--fp16-resilience", "--train-paths"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
         # line. --paged-shapes: row 7's three timings; --serving: phase 2
         # and its trace; --eval-export: phases 10-11 and row 1 at the eval
-        # shape on a checkpoint of seeded weights
+        # shape on a checkpoint of seeded weights; --fp16-resilience: phase
+        # 1b's fp16 rows, phase 4 (the uninterrupted losses) and phase 12;
+        # --train-paths: phases 4 and 6
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
         if "--eval-export" in argv:
             build.build(["flash_attention", "fused_norm"])
             eval_export_alone(dev, card)
+            print(smi_line(), flush=True)
+            return 0
+        if "--fp16-resilience" in argv or "--train-paths" in argv:
+            build.build(["flash_attention", "fused_norm"])
+            if "--fp16-resilience" in argv:
+                flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8,
+                                    device=dev)
+                _train_kernel_rows(dev, flush, TRAIN_DTYPES[2:])
+                del flush
+            trainer = phase_trainer(dev, card)
+            if "--train-paths" in argv:
+                phase_seq8k_trainer(dev, card)
+            if "--fp16-resilience" in argv:
+                phase_fp16_resilience(dev, card, trainer["losses"])
             print(smi_line(), flush=True)
             return 0
         build.build(["paged_attention"])
@@ -2943,6 +3568,7 @@ def main(argv) -> int:
             dev, card, root, ckpt_dir, os.path.join(root, "tokenizer"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    fp16 = phase_fp16_resilience(dev, card, trainer["losses"])
     decode_norm = phase_decode_norm(dev, card)
     row1_eval = phase_row1_eval_shape(
         dev, card, train_kernels["bfloat16"]["flash_attention_fwd"]["ms"])
@@ -2966,6 +3592,16 @@ def main(argv) -> int:
             export["forward"]["launches"][name]
     by_path["fused_norm_fwd"]["inference_generation"] = \
         export["inference_generation_launches"]
+    # phase 12's fp16 path (20 steps): rows 1 and 4 on the tensor cores,
+    # rows 5 and 6 on the __half instantiation
+    fp16_counts = fp16["fp16_train"]["launches"]
+    for name, route in (("flash_attention_fwd", "flash_attention_fwd_tc"),
+                        ("flash_attention_bwd_fused",
+                         "flash_attention_bwd_fused_tc"),
+                        ("fused_norm_fwd", "fused_norm_fwd_fp16"),
+                        ("fused_norm_bwd", "fused_norm_bwd_fp16")):
+        by_path[name]["fp16_train"] = fp16_counts[name]
+        by_path[name]["fp16_train_route"] = fp16_counts[route]
     bf16 = kernels["bfloat16"]
     rows = [{
         "name": "paged_attention_decode", "route": "cuda",
@@ -3021,7 +3657,17 @@ def main(argv) -> int:
                if name == "fused_norm_fwd" else {}),
             # the forward at the eval path's shape, no dropout
             **({"eval_shape": row1_eval}
-               if name == "flash_attention_fwd" else {})})
+               if name == "flash_attention_fwd" else {}),
+            # fp16 at the 345M training shape (phase 1b); rows 1 and 4
+            # also on layer 24's inputs at the loss-scaled dO (phase 12)
+            **({"fp16": dict(
+                train_kernels["float16"][name],
+                **({"layer24_scaled_dO": fp16["fp16_train"][
+                    "scaled_cotangents"]}
+                   if name == "flash_attention_bwd_fused" else {}))}
+               if name in train_kernels["float16"] else {})})
+    emit("smoke", seconds=time.perf_counter() - t_start,
+         fp16_resilience_seconds=fp16["seconds"], nvidia_smi=card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,20 +20,28 @@ order:
    epoch, seed). A step directory without it is a half-written save: it
    is skipped by every reader and removed by the next save of that step.
 
-Every write is atomic (temp file, fsync, ``os.replace``). A load
-re-digests the file before decoding a byte and every leaf after, and
-raises ``CheckpointIntegrityError`` on a mismatch; the engine then falls
-back to the newest older step that verifies (``EagerEngine.load``).
+Every write is atomic (temp file, fsync, ``os.replace``) and runs under
+``call_with_retry`` with the process-wide retry policy (the engine's
+``Resilience.retry``): a transient ``OSError`` re-dispatches the write and
+bumps ``ckpt_retries_total``. After the payload is written it is read
+back and every leaf held to the digest taken from the in-memory state
+(the JAX per-rank codec's read-back, :356-370); a mismatch that outlives
+the retries raises ``WriteVerifyError`` and the step never gets its meta.
+A load fires the ``ckpt_restore`` fault point, re-digests the file before
+decoding a byte and every leaf after, and raises
+``CheckpointIntegrityError`` on a mismatch; the engine then falls back to
+the newest older step that verifies (``EagerEngine.load``). The fault
+points are those of the JAX module: ``ckpt_write`` before each write
+attempt, ``ckpt_written`` between the write and its read-back,
+``ckpt_restore`` before a restore (``resilience/faults.py``).
 
 Not ported, because they need more than one rank: Orbax's sharded
 codec, the gang two-phase commit, per-rank directories (ROADMAP item 12)
 and asynchronous saves (item 8); the config values that ask for them
-raise in ``core/engine/eager_engine.py``. The retry policy, the fault
-injection points and the metrics of the JAX module belong to the
-resilience runtime (item 11). The JAX module's process-wide table of the
-newest verified step, which its retention spares, is not kept: a save
-here is synchronous and verified as it is written, so that step is
-always the newest, which retention never prunes.
+raise in ``core/engine/eager_engine.py``. The JAX module's process-wide
+table of the newest verified step, which its retention spares, is not
+kept: a save here is synchronous and verified as it is written, so that
+step is always the newest, which retention never prunes.
 """
 
 from __future__ import annotations
@@ -46,11 +54,16 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from fleetx_tpu_torch.observability.metrics import get_registry
+from fleetx_tpu_torch.resilience import faults as faults_mod
 from fleetx_tpu_torch.resilience import integrity
-from fleetx_tpu_torch.resilience.integrity import CheckpointIntegrityError
+from fleetx_tpu_torch.resilience.integrity import (CheckpointIntegrityError,
+                                                   WriteVerifyError)
+from fleetx_tpu_torch.resilience.policy import call_with_retry
 from fleetx_tpu_torch.utils.log import logger
 
 __all__ = ["STATE_NAME", "META_NAME", "CheckpointIntegrityError",
+           "WriteVerifyError",
            "save_checkpoint", "completed_steps", "latest_step",
            "latest_verified_step", "peek_meta", "gc_checkpoints",
            "load_params", "load_checkpoint", "flatten", "unflatten",
@@ -140,14 +153,18 @@ def _read_meta(path: str) -> Optional[dict]:
 def save_checkpoint(directory: str, step: int, state: dict,
                     meta: Optional[dict] = None) -> str:
     """Write ``state`` (flat ``{name: tensor | array | scalar}``) as step
-    ``step`` under ``directory``: payload, manifest, then the meta marker
-    (``meta`` plus ``step``). A step directory left without its meta by an
-    interrupted save is removed first. Returns the step directory."""
+    ``step`` under ``directory``: payload (read back and verified), then
+    the manifest, then the meta marker (``meta`` plus ``step``), each
+    write retried under the process retry policy. A step directory left
+    without its meta by an interrupted save is removed first. Returns the
+    step directory; raises ``WriteVerifyError`` when the read-back still
+    fails after the retries."""
     path = os.path.abspath(step_dir(directory, step))
     if os.path.isdir(path) and _read_meta(path) is None:
         logger.info("removing half-written checkpoint: %s", path)
         shutil.rmtree(path)
     os.makedirs(path, exist_ok=True)
+    retries = get_registry().counter("ckpt_retries_total")
     arrays, dtypes, digests = {}, [], []
     for i, name in enumerate(state):
         arr, dtype = _to_host(state[name])
@@ -156,12 +173,28 @@ def save_checkpoint(directory: str, step: int, state: dict,
         digests.append(dict(integrity.digest_array(arr), dtype=dtype))
     arrays["__dtypes__"] = np.array(dtypes, dtype=str)
     arrays["__names__"] = np.array(list(state), dtype=str)
-    integrity.atomic_write(os.path.join(path, STATE_NAME),
-                           lambda f: np.savez(f, **arrays), mode="wb")
+
+    def write_state():
+        # the injection point first, so an injected failure takes the
+        # retry path a real I/O error would
+        faults_mod.fire("ckpt_write")
+        integrity.atomic_write(os.path.join(path, STATE_NAME),
+                               lambda f: np.savez(f, **arrays), mode="wb")
+        # a byte rotting between the write and its read-back (the drill)
+        faults_mod.fire_path("ckpt_written", path, int(step))
+        bad = integrity.verify_npz_leaves(path, digests)
+        if bad:
+            raise WriteVerifyError(
+                f"read-back verification of {path} failed: leaves {bad} "
+                f"differ from the digests computed at save")
+
+    call_with_retry(write_state, desc="checkpoint state write",
+                    counter=retries)
     integrity.write_manifest(path, leaves=digests)
     full_meta = dict(meta or {}, step=int(step))
-    integrity.atomic_write(os.path.join(path, META_NAME),
-                           lambda f: json.dump(full_meta, f))
+    call_with_retry(lambda: integrity.atomic_write(
+        os.path.join(path, META_NAME), lambda f: json.dump(full_meta, f)),
+        desc="checkpoint meta write", counter=retries)
     logger.info("saved checkpoint: %s", path)
     return path
 
@@ -238,10 +271,12 @@ def gc_checkpoints(directory: str, keep_last: int,
 
 
 # ----------------------------------------------------------------- load
-def _verify_payload_or_raise(path: str) -> Optional[dict]:
-    """Re-digest every payload file against the manifest before any byte
-    is decoded; the manifest (None when absent: restored unverified, with
-    a log line), or ``CheckpointIntegrityError`` naming the files."""
+def _verify_payload_or_raise(path: str, step: int) -> Optional[dict]:
+    """Fire the ``ckpt_restore`` fault point, then re-digest every payload
+    file against the manifest before any byte is decoded; the manifest
+    (None when absent: restored unverified, with a log line), or
+    ``CheckpointIntegrityError`` naming the files."""
+    faults_mod.fire_path("ckpt_restore", path, int(step))
     manifest = integrity.read_manifest(path)
     if manifest is None:
         logger.info("no integrity manifest under %s — restoring "
@@ -290,7 +325,7 @@ def load_checkpoint(directory: str, step: int) -> tuple:
     verified before decoding and every leaf after, or
     ``CheckpointIntegrityError``."""
     path = os.path.abspath(step_dir(directory, step))
-    manifest = _verify_payload_or_raise(path)
+    manifest = _verify_payload_or_raise(path, step)
     state = _read_state(path, manifest)
     meta = _read_meta(path)
     if meta is None:
@@ -314,7 +349,7 @@ def load_params(directory: str, step: Optional[int] = None,
         raise FileNotFoundError(f"no completed checkpoint under "
                                 f"{directory!r}")
     path = os.path.abspath(step_dir(directory, step))
-    manifest = _verify_payload_or_raise(path)
+    manifest = _verify_payload_or_raise(path, step)
     flat = _read_state(path, manifest,
                        select=lambda name: name.startswith("params/"))
     if not flat:

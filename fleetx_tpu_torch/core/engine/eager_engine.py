@@ -1,6 +1,7 @@
 """The training engine (port of ``fleetx_tpu/core/engine/eager_engine.py``:
-``__init__`` :117-357, ``train_step`` :554-648, ``fit`` :836-1496,
-``evaluate`` :1614, ``predict`` :1639, ``inference`` :1662).
+``ScalerState`` :49, ``__init__`` :117-357, ``train_step`` :505-648,
+``fit`` :836-1496, ``evaluate`` :1614, ``predict`` :1639, ``inference``
+:1662, ``_auto_resume_rewind`` :1706).
 
 ``EagerEngine`` reads the ``Engine`` section and drives one device:
 
@@ -40,17 +41,52 @@ grad. ``predict`` runs ``module.predict_step`` over a loader (host numpy
 out); ``inference`` hands numpy inputs to the ``InferenceEngine`` of
 ``Inference.model_dir``.
 
+The fp16 dynamic loss scaler (``Engine.mix_precision.use_pure_fp16`` with
+``Model.dtype: float16``, ``utils/config.loss_scaler``): the loss is
+scaled by ``loss_scale`` (f32, init ``scale_loss``) before the backward,
+and AdamW unscales the grads by ``1 / loss_scale`` in its leaf loop; the
+scale doubles after ``GROWTH_INTERVAL`` finite steps in a row and halves
+on every non-finite one. ``scaler`` holds the two leaves of the JAX
+``ScalerState`` as host numpy scalars (``loss_scale`` f32,
+``growth_tracker`` i32); checkpoints keep them as
+``scaler/loss_scale`` and ``scaler/growth_tracker``.
+
+The non-finite skip runs when the scaler is on or
+``Resilience.guard.skip_nonfinite_update`` is (``check_finite``), in any
+dtype: ``finite = isfinite(grad_norm) & isfinite(loss)``, and a
+non-finite step leaves the params and the AdamW state as they were and
+advances neither ``step`` (so neither the LR schedule nor the dropout
+randomness) nor ``AdamW``'s count. The JAX step selects the old values
+on the device; here ``step``, the LR and the dropout seeds are host
+values the next step is built from, so the host reads ``finite`` once a
+step (one sync) and skips the update itself, which gives the same bits.
+With the check off the step has no sync and is what it was before.
+
+The resilience runtime (``Resilience``, ``resilience/``; inert unless
+``Resilience.enable``): ``auto_resume`` restores the newest checkpoint
+under ``ckpt_dir`` or ``output_dir``; the fault plan sees every host
+batch and SIGTERMs the process at ``sigterm_at``; a latched SIGTERM /
+SIGINT saves the step, counts ``preemption_exits`` and raises
+``SystemExit(preemption.exit_code)`` at the next step boundary; the step
+watchdog is beaten after every step and suspended around saves,
+restores and evals; the guard reads each logging window and its
+``rollback`` restores the newest completed step under ``output_dir``
+(rewinding the data position, counting ``rollbacks_total``, resetting the
+save and eval markers) and its ``abort`` raises ``TrainingAborted``.
+With a re-iterable loader, ``fit`` runs until ``max_steps`` optimizer
+steps are done, skipped batches not counted.
+
 Input batches move to the card through pinned memory with non-blocking
 copies. What this slice does not cover raises ``NotImplementedError``
 naming its ROADMAP item: per-rank checkpoint directories (item 12) and
-asynchronous saves (item 8), fp16 with the loss scaler and
-``Resilience.enable`` (the non-finite skip runs only under those two;
-item 11), ``Profiler.enable``, the epoch run mode, and any
+asynchronous saves (item 8), the SDC sentinel (item 8) and the gang
+watchdog (item 12), ``Profiler.enable``, the epoch run mode, and any
 ``Distributed`` degree above 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Iterable, Optional
 
@@ -58,10 +94,17 @@ import numpy as np
 import torch
 
 from fleetx_tpu_torch.core import checkpoint as ckpt_lib
+from fleetx_tpu_torch.observability import flight
 from fleetx_tpu_torch.optims.optimizer import AdamW, tree_leaves_with_path
-from fleetx_tpu_torch.utils.config import check_single_device
+from fleetx_tpu_torch.resilience import Resilience, TrainingAborted
+from fleetx_tpu_torch.resilience import coordination
+from fleetx_tpu_torch.utils.config import check_single_device, loss_scaler
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
+
+#: finite steps in a row after which the loss scale doubles (the
+#: reference GradScaler's ``incr_every_n_steps``)
+GROWTH_INTERVAL = 1000
 
 
 def _int(section: dict, key: str, default: int) -> int:
@@ -70,8 +113,9 @@ def _int(section: dict, key: str, default: int) -> int:
 
 
 def check_engine_config(cfg: dict) -> None:
-    """Raise on an Engine/Distributed/Resilience/Profiler value the
-    training slice does not cover."""
+    """Raise on an Engine/Distributed/Profiler value the training slice
+    does not cover (the ``Resilience`` block's raise in
+    ``resilience.Resilience``)."""
     eng = dict(cfg.get("Engine") or {})
     save_load = dict(eng.get("save_load") or {})
     if save_load.get("per_rank_dirs"):
@@ -82,16 +126,6 @@ def check_engine_config(cfg: dict) -> None:
         raise NotImplementedError(
             "Engine.save_load.async_save is not ported yet (ROADMAP.md, "
             "port queue item 8)")
-    mp = dict(eng.get("mix_precision") or {})
-    model_dtype = str((cfg.get("Model") or {}).get("dtype") or "")
-    if mp.get("use_pure_fp16") or model_dtype == "float16":
-        raise NotImplementedError(
-            "fp16 with the dynamic loss scaler is not ported yet "
-            "(ROADMAP.md, port queue item 11)")
-    if (cfg.get("Resilience") or {}).get("enable"):
-        raise NotImplementedError(
-            "Resilience.enable (guard, rollback, non-finite skip) is not "
-            "ported yet (ROADMAP.md, port queue item 11)")
     if (cfg.get("Profiler") or {}).get("enable"):
         raise NotImplementedError(
             "the Profiler window is not ported yet (ROADMAP.md, port queue "
@@ -145,6 +179,19 @@ class EagerEngine:
         # None: no restore tried yet; True once a checkpoint was restored
         self._restored: Optional[bool] = None
         self.last_saved_step: Optional[int] = None  # step of the last save
+        # the fault-tolerant runtime: inert unless Resilience.enable
+        self.resilience = Resilience(self.cfg.get("Resilience"))
+        # every recovery decision goes through the coordinator (world 1)
+        self.coord = coordination.get_coordinator()
+        init_scale = loss_scaler(self.cfg)
+        self.scaler: Optional[dict] = None
+        if init_scale is not None:
+            self.scaler = {"loss_scale": np.float32(init_scale),
+                           "growth_tracker": np.int32(0)}
+        # the in-step non-finite check: the scaler's, or the guard's skip
+        # extended to every dtype
+        self.check_finite = self.scaler is not None or \
+            self.resilience.guard_skip
 
     # ------------------------------------------------------------ state
     def prepare(self) -> dict:
@@ -206,14 +253,21 @@ class EagerEngine:
         return out
 
     # ------------------------------------------------------------- step
-    def _grads(self, batch: dict):
+    def _grads(self, batch: dict, loss_scale: Optional[float] = None):
         loss, metrics = self.module.training_loss(self.params, batch,
                                                   self.seed, self.step)
+        if loss_scale is not None:
+            loss = loss * loss_scale
         grads = torch.autograd.grad(loss, self._leaves)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(self, batch: dict) -> dict:
-        """One optimizer step on a device batch; returns device metrics."""
+        """One optimizer step on a device batch; returns the metrics
+        (device tensors, and host values for ``lr``, ``finite`` and
+        ``loss_scale``). Under ``check_finite`` a non-finite step changes
+        no parameter, moment or counter (only the loss scale)."""
+        scale = None if self.scaler is None else \
+            float(self.scaler["loss_scale"])
         accum = self.accumulate_steps
         if accum > 1:
             lead = batch["tokens"].shape[0]
@@ -227,7 +281,7 @@ class EagerEngine:
             grads, metrics = None, None
             for i in range(accum):
                 micro = {k: v.chunk(accum)[i] for k, v in batch.items()}
-                g, m = self._grads(micro)
+                g, m = self._grads(micro, scale)
                 if grads is None:
                     grads = [x.to(carry_dtype or x.dtype) for x in g]
                     metrics = m
@@ -238,63 +292,271 @@ class EagerEngine:
                      for g, p in zip(grads, self._leaves)]
             metrics = {k: v / accum for k, v in metrics.items()}
         else:
-            grads, metrics = self._grads(batch)
+            grads, metrics = self._grads(batch, scale)
         if self.lr_schedule is not None:
             metrics["lr"] = float(self.lr_schedule(self.step))
-        if self.optimizer is not None:
+        if self.optimizer is None:
+            self.step += 1
+            return metrics
+        # 1 / loss_scale in f32; AdamW folds it into its moment updates
+        inv = 1.0 if scale is None else \
+            float(np.float32(1.0) / self.scaler["loss_scale"])
+        if not self.check_finite:
             metrics["grad_norm"] = self.optimizer.update(
-                self._leaves, list(grads), self.opt_state)
-        self.step += 1
+                self._leaves, list(grads), self.opt_state, grad_scale=inv)
+            self.step += 1
+            return metrics
+        g_norm = self.optimizer.grad_norm(grads, inv)
+        # the step's one host sync: the next step's LR and dropout seeds
+        # depend on whether this one counts
+        finite = bool(torch.isfinite(g_norm) & torch.isfinite(
+            metrics["loss"]))
+        if finite:
+            self.optimizer.update(self._leaves, list(grads), self.opt_state,
+                                  g_norm=g_norm, grad_scale=inv)
+            self.step += 1
+        metrics["grad_norm"] = g_norm
+        metrics["finite"] = finite
+        if self.scaler is not None:
+            self._update_scaler(finite)
+            metrics["loss_scale"] = float(self.scaler["loss_scale"])
         return metrics
+
+    def _update_scaler(self, finite: bool) -> None:
+        """Grow the scale x2 after ``GROWTH_INTERVAL`` finite steps in a
+        row, halve it on a non-finite one (f32 arithmetic, as the JAX
+        ``ScalerState`` update)."""
+        scale = self.scaler["loss_scale"]
+        tracker = self.scaler["growth_tracker"] + np.int32(1) if finite \
+            else np.int32(0)
+        grow = bool(tracker >= GROWTH_INTERVAL)
+        if not finite:
+            scale = scale * np.float32(0.5)
+        elif grow:
+            scale = scale * np.float32(2.0)
+        self.scaler = {"loss_scale": np.float32(scale),
+                       "growth_tracker": np.int32(0 if grow else tracker)}
 
     # -------------------------------------------------------------- fit
     def fit(self, train_data_loader: Iterable,
             valid_data_loader=None) -> list:
         """Train until ``max_steps``, re-iterating the loader; returns the
-        logged losses."""
+        logged losses. The resilience runtime's hooks are inert unless
+        ``Resilience.enable``."""
+        res = self.resilience
+        if res.auto_resume and self._restored is None:
+            self._auto_resume()
         self.prepare()
         losses: list = []
         if self.step >= self.max_steps:
             return losses
-        if self._restored:
-            _rewind_sampler(train_data_loader, self.consumed_samples)
+        if self._restored and \
+                not _rewind_sampler(train_data_loader, self.consumed_samples):
+            logger.warning("resume: the loader has no consumed_samples "
+                           "sampler — assuming the stream is already at "
+                           "global sample %d", self.consumed_samples)
+        start_step = self.step
+        # the sample position at entry: a rollback without a
+        # consumed_samples sampler skips forward from here
+        base_consumed = self.consumed_samples
+        stream: dict = {"batches": None, "loader_iter": None}
+
+        def host_batches(index: int):
+            """Host batches from the loader, re-iterated over epochs, each
+            through the fault plan at its global step index ``index``."""
+            it = iter(train_data_loader)
+            stream["loader_iter"] = it
+            while True:
+                batch = next(it, None)
+                if batch is None:  # re-iterate epochs over the same loader
+                    self.epoch += 1
+                    it = iter(train_data_loader)
+                    stream["loader_iter"] = it
+                    batch = next(it, None)
+                    if batch is None:
+                        return
+                yield res.faults.on_batch(
+                    index, self.module.pretreating_batch(batch))
+                index += 1
+
+        def close_stream() -> None:
+            """Close the batch generator, then the loader iterator (which
+            joins a prefetching loader's producer thread, so nothing moves
+            the sampler afterwards)."""
+            for key in ("batches", "loader_iter"):
+                gen, stream[key] = stream[key], None
+                if gen is not None and hasattr(gen, "close"):
+                    gen.close()
+
+        watchdog = res.make_watchdog(
+            on_stall=lambda: flight.dump("watchdog_stall"))
+
+        def quiet():
+            """Suspend the stall detector around a known-long host phase
+            (checkpoint, restore, eval)."""
+            return (watchdog.suspended() if watchdog is not None
+                    else contextlib.nullcontext())
+
         t_last = time.time()
         window = 0
-        it = iter(train_data_loader)
-        while self.step < self.max_steps:
-            batch = next(it, None)
-            if batch is None:  # re-iterate epochs over the same loader
-                self.epoch += 1
-                it = iter(train_data_loader)
-                batch = next(it, None)
+        last_eval = last_save = -1  # a skipped step can re-visit a step
+        global_batch = 0
+        with contextlib.ExitStack() as cleanup:
+            cleanup.callback(close_stream)
+            if res.preemption is not None:
+                # previous SIGTERM/SIGINT handlers come back on every exit
+                cleanup.enter_context(res.preemption.installed())
+            if watchdog is not None:
+                watchdog.start()
+                cleanup.callback(watchdog.stop)
+            stream["batches"] = host_batches(start_step)
+            while self.step < self.max_steps:
+                res.faults.maybe_sigterm(self.step, start_step=start_step)
+                if res.preempted:
+                    self._preemption_exit(quiet)
+                batch = next(stream["batches"], None)
                 if batch is None:
-                    break
-            batch = self.to_device(self.module.pretreating_batch(batch))
-            metrics = self.train_step(batch)
-            self.consumed_samples += int(batch["tokens"].shape[0])
-            window += 1
-            if window % self.logging_freq == 0:
-                loss = float(metrics["loss"])  # one sync per window
-                now = time.time()
-                cost = (now - t_last) / self.logging_freq
-                t_last = now
-                losses.append(loss)
-                grad_norm = metrics.get("grad_norm")
-                record = {
-                    "global_step": self.step, "epoch": self.epoch,
-                    "batch": window, "loss": loss, "train_cost": cost,
-                    "global_batch_size": int(batch["tokens"].shape[0]),
-                    "lr": metrics.get("lr", 0.0), "device": self.device,
-                    "grad_norm": None if grad_norm is None
-                    else float(grad_norm)}
-                self.module.training_step_end(record)
-                self.history.append(record)
-            if self.eval_freq and valid_data_loader is not None and \
-                    self.step % self.eval_freq == 0:
-                self.evaluate(valid_data_loader, global_step=self.step)
-            if self.save_steps and self.step % self.save_steps == 0:
-                self.save()
+                    break  # fleetx: noqa[FX008] -- one process (world-1 coordinator); the gang's voted exit comes with item 12
+                batch = self.to_device(batch)
+                metrics = self.train_step(batch)
+                global_batch = int(batch["tokens"].shape[0])
+                self.consumed_samples += global_batch
+                window += 1
+                if watchdog is not None:
+                    watchdog.beat(self.step)
+                if window % self.logging_freq == 0:
+                    loss = float(metrics["loss"])  # one sync per window
+                    now = time.time()
+                    cost = (now - t_last) / self.logging_freq
+                    t_last = now
+                    losses.append(loss)
+                    grad_norm = metrics.get("grad_norm")
+                    record = {
+                        "global_step": self.step, "epoch": self.epoch,
+                        "batch": window, "loss": loss, "train_cost": cost,
+                        "global_batch_size": global_batch,
+                        "lr": metrics.get("lr", 0.0), "device": self.device,
+                        "grad_norm": None if grad_norm is None
+                        else float(grad_norm)}
+                    if "loss_scale" in metrics:
+                        record["loss_scale"] = metrics["loss_scale"]
+                    self.module.training_step_end(record)
+                    self.history.append(record)
+                    if res.guard is not None:
+                        decision = coordination.most_severe(
+                            self.coord.all_gather(
+                                "guard_decision", res.guard.observe(
+                                    self.step, loss,
+                                    finite=metrics.get("finite"))).values())
+                        if decision is not None:
+                            flight.note("guard", str(decision),
+                                        step=self.step, loss=loss)
+                        if decision == "rollback":
+                            close_stream()
+                            with quiet():
+                                stream["batches"] = self._rollback(
+                                    train_data_loader, host_batches,
+                                    base_consumed, global_batch)
+                            if self.logging_freq == 1:
+                                # the curve follows the rewound counter
+                                del losses[max(self.step - start_step, 0):]
+                            window = 0
+                            t_last = time.time()
+                            # the replay re-saves / re-evaluates the steps
+                            # the abandoned run already visited
+                            last_eval = last_save = self.step
+                            continue
+                        if decision == "abort":
+                            raise TrainingAborted(
+                                f"training guard abort at step {self.step} "
+                                f"(loss={loss})")
+                if self.eval_freq and valid_data_loader is not None and \
+                        self.step % self.eval_freq == 0 and \
+                        self.step != last_eval:
+                    last_eval = self.step
+                    with quiet():
+                        self.evaluate(valid_data_loader,
+                                      global_step=self.step)
+                if self.save_steps and self.step % self.save_steps == 0 \
+                        and self.step != last_save:
+                    last_save = self.step
+                    with quiet():
+                        self.save()
         return losses
+
+    def _preemption_exit(self, quiet) -> None:
+        """Graceful shutdown at a step boundary: save the step (unless
+        ``save_on_exit`` is off), count ``preemption_exits``, note it in
+        the flight recorder, exit with ``preemption.exit_code``."""
+        res = self.resilience
+        logger.warning("preemption: checkpoint-and-exit at step %d",
+                       self.step)
+        if res.preemption_save:
+            t0 = time.perf_counter()
+            with quiet():
+                self.save()
+            logger.warning("preemption: saved step %d in %.3f s", self.step,
+                           time.perf_counter() - t0)
+        res.registry.counter("preemption_exits").inc()
+        flight.note("preemption", "exit", step=self.step)
+        flight.dump("preemption")
+        raise SystemExit(res.preemption_exit_code)
+
+    def _rollback(self, loader, host_batches, base_consumed: int,
+                  global_batch: int):
+        """Guard rollback: restore the newest completed step under
+        ``output_dir`` (falling back past a corrupt one), point the data
+        stream at its position and return the new batch generator. The
+        caller has closed the old stream, so no producer thread moves the
+        sampler during the rewind."""
+        res = self.resilience
+        self.coord.barrier("rollback_enter")
+        good = self.coord.broadcast("rollback_step",
+                                    ckpt_lib.latest_step(self.output_dir))
+        if good is None:
+            raise TrainingAborted(
+                f"rollback requested at step {self.step} but no completed "
+                f"checkpoint under {self.output_dir}")
+        t0 = time.perf_counter()
+        self.load(self.output_dir)
+        logger.warning("rollback: restored step %d in %.3f s", self.step,
+                       time.perf_counter() - t0)
+        skip = 0
+        if not _rewind_sampler(loader, self.consumed_samples):
+            # no consumed_samples sampler: re-iterate the loader and skip
+            # forward to the restored position (a one-shot iterator is
+            # gone)
+            if iter(loader) is loader:
+                raise TrainingAborted(
+                    "rollback needs a re-iterable data loader or a sampler "
+                    "with consumed_samples")
+            skip = max((self.consumed_samples - base_consumed)
+                       // max(global_batch, 1), 0)
+        batches = host_batches(self.step - skip)
+        for _ in range(skip):
+            if next(batches, None) is None:
+                raise TrainingAborted(  # fleetx: noqa[FX008] -- one process (world-1 coordinator); the gang's vote comes with item 12
+                    "data stream exhausted while rewinding for rollback")
+        res.registry.counter("rollbacks_total").inc()
+        if res.guard is not None:
+            res.guard.note_rollback()
+        flight.note("rollback", "restored", step=self.step)
+        logger.warning("rolled back to checkpoint step %d", self.step)
+        self.coord.barrier("rollback_exit")
+        return batches
+
+    def _auto_resume(self) -> None:
+        """Point ``ckpt_dir`` at ``ckpt_dir`` or ``output_dir`` when its
+        newest checkpoint verifies, so ``prepare`` restores it (and
+        ``fit`` rewinds the sampler to its position)."""
+        target = self.ckpt_dir or self.output_dir
+        meta = self.coord.broadcast(
+            "resume_meta", ckpt_lib.peek_meta(target) if target else None)
+        if not meta:
+            return
+        self.ckpt_dir = target
+        logger.info("auto-resume: restoring step %s from %s",
+                    meta.get("step"), target)
 
     @torch.no_grad()
     def evaluate(self, valid_data_loader: Iterable,
@@ -350,13 +612,18 @@ class EagerEngine:
     # ------------------------------------------------------ checkpoints
     def state_dict(self) -> dict:
         """The flat training state a checkpoint holds: ``step``,
-        ``params/<path>`` and ``opt_state/<name>`` (``AdamW.flat_state``);
-        the tensors themselves, not copies."""
+        ``params/<path>``, ``opt_state/<name>`` (``AdamW.flat_state``) and,
+        under the fp16 scaler, ``scaler/loss_scale`` (f32) and
+        ``scaler/growth_tracker`` (i32); the tensors themselves, not
+        copies."""
         state = {"step": self.step}
         state.update(ckpt_lib.flatten(self.params, "params/"))
         if self.opt_state is not None:
             flat = AdamW.flat_state(self.opt_state, self.params)
             state.update({f"opt_state/{k}": v for k, v in flat.items()})
+        if self.scaler is not None:  # 0-d, as the JAX ScalerState leaves
+            state.update({f"scaler/{k}": torch.tensor(v)
+                          for k, v in self.scaler.items()})
         return state
 
     def save(self) -> str:
@@ -405,6 +672,8 @@ class EagerEngine:
                 break
             except ckpt_lib.CheckpointIntegrityError as e:
                 logger.error("refusing checkpoint step %d: %s", step, e)
+                self.resilience.registry.counter(
+                    "ckpt_verify_fallbacks").inc()
                 refused.append(step)
                 older = [s for s in ckpt_lib.completed_steps(directory)
                          if s < step]
@@ -440,20 +709,21 @@ class EagerEngine:
                 self.opt_state,
                 {k[len("opt_state/"):]: v for k, v in state.items()
                  if k.startswith("opt_state/")}, self.params)
+        if self.scaler is not None:
+            self.scaler = {
+                "loss_scale": np.float32(state["scaler/loss_scale"].item()),
+                "growth_tracker": np.int32(
+                    state["scaler/growth_tracker"].item())}
         self.step = int(state["step"])
 
 
 def _rewind_sampler(loader, consumed: int) -> bool:
     """Point a ``consumed_samples`` sampler (``GPTBatchSampler``) at a
-    global sample position; warns and returns False when the loader has
-    none (the caller must then hand a stream already at that position)."""
+    global sample position; False when the loader has none."""
     sampler = getattr(loader, "batch_sampler", None)
     if sampler is not None and hasattr(sampler, "consumed_samples"):
         sampler.consumed_samples = int(consumed)
         logger.info("resume: sampler rewound to consumed_samples=%d",
                     consumed)
         return True
-    logger.warning("resume: the loader has no consumed_samples sampler — "
-                   "assuming the stream is already at global sample %d",
-                   consumed)
     return False

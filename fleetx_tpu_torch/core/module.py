@@ -10,7 +10,9 @@ and ``validation_loss(params, batch)`` (dropout off), ``predict_step``
 ``GPTEvalModule`` aggregates WikiText-style perplexity and LAMBADA-style
 cloze accuracy over a loader (``run_offline_eval``). The host-side log
 hooks print the reference's line: loss, step time, tokens/s and, on a
-card the peak table knows, MFU against its bf16 dense peak.
+card the peak table knows, MFU against its bf16 dense peak (fp16's dense
+tensor-core peak is the same), and the fp16 loss scale when the scaler
+is on.
 
 Model knobs this slice does not cover raise ``NotImplementedError``
 naming their ROADMAP item (``check_model_config``). With
@@ -110,6 +112,8 @@ class LanguageModule:
             peak = peak_flops(torch.cuda.get_device_name(device))
             if peak:
                 mfu = f", mfu: {fpt * tokens * speed / peak:.1%}"
+        if "loss_scale" in log_dict:  # the fp16 dynamic loss scaler
+            mfu += f", loss_scale: {log_dict['loss_scale']:g}"
         logger.info(
             "[train] global step %d, epoch: %d, batch: %d, loss: %.9f, "
             "avg_batch_cost: %.5f sec, speed: %.2f step/s, "

@@ -22,7 +22,9 @@ On a CUDA tensor each ``*_call`` launches its kernel or raises; on a CPU
 tensor it runs its plain version (``fwd_plain`` / ``bwd_plain``), which
 the CPU tests hold against the Pallas kernels and ``chip_smoke.py`` holds
 the kernels against on the card. ``fwd_call.launches`` and
-``bwd_call.launches`` count kernel launches only. The forward is also the
+``bwd_call.launches`` count kernel launches only, and their
+``fp16_launches`` the launches of the fp16 instantiation (``__half``
+rows, ``Vec8<__half>`` in ``csrc/fused_norm.cu``). The forward is also the
 custom op ``torch.ops.fleetx_tpu_torch.fused_norm_fwd`` (with a fake
 implementation, so ``torch.export`` can record it), which
 ``fused_residual_norm`` calls where autograd does not record the call.
@@ -193,10 +195,12 @@ def fwd_call(x: torch.Tensor, residual: Optional[torch.Tensor],
         raise RuntimeError(f"fused norm forward kernel launch failed: CUDA "
                            f"error {err}")
     fwd_call.launches += 1
+    fwd_call.fp16_launches += int(x.dtype == torch.float16)
     return out, s, mean, var
 
 
 fwd_call.launches = 0
+fwd_call.fp16_launches = 0
 
 
 @torch.library.custom_op(
@@ -268,10 +272,12 @@ def bwd_call(s: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
         raise RuntimeError(f"fused norm backward kernel launch failed: CUDA "
                            f"error {err}")
     bwd_call.launches += 1
+    bwd_call.fp16_launches += int(s.dtype == torch.float16)
     return dx
 
 
 bwd_call.launches = 0
+bwd_call.fp16_launches = 0
 
 
 # ----------------------------------------------------------- autograd

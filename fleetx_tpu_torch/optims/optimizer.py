@@ -91,11 +91,33 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, params: list, grads: list, state: dict) -> torch.Tensor:
-        """One step on the flat parameter list, in place; returns the
-        global grad norm (before clipping) as a 0-d tensor."""
-        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+    def grad_norm(self, grads: list, grad_scale: float = 1.0) -> torch.Tensor:
+        """The global norm of ``grads · grad_scale`` (a 0-d tensor), taken
+        on the grads as given and scaled after: with the loss scaler's
+        power-of-two ``grad_scale`` the product is exact, so this equals
+        the norm of the unscaled grads without a pass that unscales
+        them."""
         g_norm = global_norm(grads)
+        return g_norm if grad_scale == 1.0 else g_norm * grad_scale
+
+    @torch.no_grad()
+    def update(self, params: list, grads: list, state: dict,
+               g_norm: Optional[torch.Tensor] = None,
+               grad_scale: float = 1.0) -> torch.Tensor:
+        """One step on the flat parameter list, in place; returns the
+        global grad norm (before clipping) as a 0-d tensor.
+
+        ``grad_scale`` unscales loss-scaled grads (``1 / loss_scale``, a
+        power of two) without a pass of its own: the clip divides the
+        scaled grads by the unscaled norm, and the moment updates take
+        ``grad_scale`` (squared for ``nu``) into the ``alpha`` they
+        already multiply by. Scaling by a power of two is exact, so the
+        moments and params are bit for bit those of the unscaled grads.
+        ``g_norm`` is ``grad_norm(grads, grad_scale)`` when the caller has
+        it already."""
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+        if g_norm is None:
+            g_norm = self.grad_norm(grads, grad_scale)
         count = state["count"]
         lr = float(self.learning_rate(count))
         t = count + 1
@@ -106,8 +128,8 @@ class AdamW:
             if self.grad_clip is not None:
                 g = torch.where(trigger, g, (g / g_norm) * self.grad_clip)
             mu, nu = state["mu"][i], state["nu"][i]
-            mu.mul_(b1).add_(g.to(mu.dtype), alpha=1.0 - b1)
-            nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
+            mu.mul_(b1).add_(g.to(mu.dtype), alpha=(1.0 - b1) * grad_scale)
+            nu.mul_(b2).add_(g * g, alpha=(1.0 - b2) * grad_scale ** 2)
             u = (mu / c1) / (torch.sqrt(nu / c2) + eps)
             if self.weight_decay and state["decay"][i]:
                 u = u + self.weight_decay * p

@@ -1,6 +1,7 @@
 """Checkpoint integrity: digests, manifests, verification (port of
 ``fleetx_tpu/resilience/integrity.py``: ``CheckpointIntegrityError``
-:58, ``atomic_write`` :79, ``digest_bytes`` :100, ``digest_array`` :105,
+:58, ``WriteVerifyError`` :68, ``atomic_write`` :79, ``digest_bytes``
+:100, ``digest_array`` :105,
 ``file_digests`` :152, ``write_manifest`` / ``read_manifest`` :164-198,
 ``verify_files`` / ``verify_leaves`` :202-240, ``verify_npz_leaves``
 :243 and ``verify_checkpoint_dir`` :270).
@@ -34,7 +35,8 @@ import numpy as np
 
 from fleetx_tpu_torch.utils.log import logger
 
-__all__ = ["MANIFEST_NAME", "CheckpointIntegrityError", "atomic_write",
+__all__ = ["MANIFEST_NAME", "CheckpointIntegrityError", "WriteVerifyError",
+           "atomic_write",
            "digest_bytes", "digest_array", "file_digests", "write_manifest",
            "read_manifest", "verify_files", "verify_leaves",
            "leaf_matches", "verify_npz_leaves", "verify_checkpoint_dir"]
@@ -55,6 +57,16 @@ class CheckpointIntegrityError(RuntimeError):
     Not an ``OSError``: re-reading corrupt bytes does not repair them.
     The caller refuses the step loudly and falls back to the newest older
     step that verifies (``EagerEngine.load``).
+    """
+
+
+class WriteVerifyError(OSError):
+    """A just-written checkpoint failed its read-back verification.
+
+    An ``OSError`` on purpose: a torn write is transient-shaped, so the
+    retry policy re-dispatches the whole write; a sticky failure (a dying
+    disk, the ``corrupt_ckpt_at`` drill) exhausts the retries and surfaces
+    as this error, and the step is never marked complete.
     """
 
 

@@ -17,6 +17,18 @@ With ``Engine.save_load.save_steps`` set, the trainer saves every
 ``Engine.save_load.ckpt_dir`` set it resumes from the newest step there
 that verifies (``core/engine/eager_engine.py``). Audit a checkpoint
 directory with ``python -m fleetx_tpu_torch.tools.verify_ckpt``.
+
+fp16 with the dynamic loss scaler: ``-o
+Engine.mix_precision.use_pure_fp16=True -o Model.dtype=float16``
+(``scale_loss`` is the initial scale). ``-o Resilience.enable=True`` runs
+the resilience runtime (``resilience/``): auto-resume from
+``output_dir``, the guard, the preemption exit, the step watchdog
+(``Resilience.watchdog.enable``) and the fault plan
+(``-o Resilience.faults.<knob>=...`` or ``FLEETX_FAULTS``). Exit codes, as
+the JAX tool's: a preemption exits with ``Resilience.preemption.exit_code``
+after saving the step; a ``TrainingAborted`` from the guard is an error
+exit (1, with its traceback); a watchdog ``action: abort`` ends the
+process with 43.
 """
 
 from __future__ import annotations

@@ -4,12 +4,14 @@ the training derivations.
 The port's copy of ``fleetx_tpu/utils/config.py``: ``AttrDict``,
 ``_merge``, ``parse_config``, ``_literal``, ``override_config``
 (:38-135), ``process_dist_config`` / ``process_global_configs`` /
-``process_engine_config`` (:139-241), ``process_serving_config``
-(:334-376), ``get_config`` (:379) and ``parse_args`` (:454). It reads the
-same YAML files by path, ``_base_`` chains included (the generation
-recipe inherits the 345M one, ``save_steps: 1000`` with it); sections
-the loader does not derive (``Generation``, ``Serving`` past its
-validation) pass through to their modules. The port trains on one
+``process_engine_config`` (:139-241), ``process_resilience_config``
+(:276-330), ``process_serving_config`` (:334-376), ``get_config`` (:379)
+and ``parse_args`` (:454), and the engine's fp16 loss-scaler switch
+(``fleetx_tpu/core/engine/eager_engine.py:211-214``, ``loss_scaler``).
+It reads the same YAML files by path, ``_base_`` chains included (the
+generation recipe inherits the 345M one, ``save_steps: 1000`` with it);
+sections the loader does not derive (``Generation``, ``Serving`` past
+its validation) pass through to their modules. The port trains on one
 device: a ``Distributed`` degree above 1 raises ``NotImplementedError``
 (ROADMAP.md, port queue item 12), and the auto-layout planner is not
 copied.
@@ -27,7 +29,8 @@ import yaml
 
 __all__ = ["AttrDict", "parse_config", "override_config",
            "process_dist_config", "process_global_configs",
-           "process_engine_config", "process_serving_config", "get_config",
+           "process_engine_config", "process_resilience_config",
+           "process_serving_config", "loss_scaler", "get_config",
            "parse_args"]
 
 
@@ -237,6 +240,67 @@ def process_engine_config(config: AttrDict) -> AttrDict:
     return config
 
 
+def process_resilience_config(config: AttrDict) -> AttrDict:
+    """Ensure the ``Resilience`` block exists with ``enable`` (default
+    False: fault handling never changes a recipe's behaviour silently);
+    per-knob defaults live in ``resilience.Resilience``. The knobs whose
+    typo would surface only mid-run are validated here."""
+    res = config.setdefault("Resilience", AttrDict())
+    res.setdefault("enable", False)
+
+    def _positive(block: str, key: str, value) -> None:
+        if value is not None and float(value) <= 0:
+            raise ValueError(
+                f"Resilience.{block}.{key} must be > 0, got {value!r}")
+
+    coord = res.get("coordination") or {}
+    _positive("coordination", "timeout_s", coord.get("timeout_s"))
+    _positive("coordination", "poll_s", coord.get("poll_s"))
+    pre = res.get("preemption") or {}
+    _positive("preemption", "sync_every", pre.get("sync_every"))
+    wd = res.get("watchdog") or {}
+    _positive("watchdog", "gang_timeout_s", wd.get("gang_timeout_s"))
+    gang_steps = wd.get("gang_sync_steps")
+    if gang_steps is not None and int(gang_steps) < 0:
+        raise ValueError(
+            f"Resilience.watchdog.gang_sync_steps must be >= 0 "
+            f"(0 disables the gang barrier), got {gang_steps!r}")
+    integ = res.get("integrity") or {}
+    sentinel = integ.get("sentinel_every")
+    if sentinel is not None and int(sentinel) < 0:
+        raise ValueError(
+            f"Resilience.integrity.sentinel_every must be >= 0 "
+            f"(0 disables the SDC sentinel), got {sentinel!r}")
+    action = integ.get("sentinel_action")
+    if action is not None and action not in ("log", "quarantine", "abort"):
+        raise ValueError(
+            f"Resilience.integrity.sentinel_action must be log | "
+            f"quarantine | abort, got {action!r}")
+    verify = integ.get("verify_checkpoints")
+    if verify is not None and not isinstance(verify, bool):
+        raise ValueError(
+            f"Resilience.integrity.verify_checkpoints must be a bool, "
+            f"got {verify!r}")
+    return config
+
+
+#: the dynamic loss scaler's initial scale when ``scale_loss`` is unset
+DEFAULT_LOSS_SCALE = 32768.0
+
+
+def loss_scaler(config: dict) -> Optional[float]:
+    """The fp16 dynamic loss scaler's initial scale, or None when the
+    scaler is off. It is on only when ``Engine.mix_precision.use_pure_fp16``
+    is set AND ``Model.dtype`` is float16: float16 without
+    ``use_pure_fp16`` trains fp16 with no scaler, and ``use_pure_fp16``
+    with another dtype is a no-op, as in the JAX engine."""
+    mp = dict((config.get("Engine") or {}).get("mix_precision") or {})
+    dtype = str((config.get("Model") or {}).get("dtype") or "")
+    if not mp.get("use_pure_fp16") or dtype != "float16":
+        return None
+    return float(mp.get("scale_loss") or DEFAULT_LOSS_SCALE)
+
+
 def get_config(fname: str, overrides: Optional[list] = None) -> AttrDict:
     """Load + override + post-process a training config
     (``get_config``, one device)."""
@@ -247,6 +311,7 @@ def get_config(fname: str, overrides: Optional[list] = None) -> AttrDict:
     process_dist_config(config)
     process_global_configs(config)
     process_engine_config(config)
+    process_resilience_config(config)
     process_serving_config(config)
     return config
 

@@ -13,10 +13,14 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` → ``cuda``; a CUDA device without a GPU present raises."""
+    """``None`` → ``cuda``; a CUDA device without a GPU present raises. A
+    CUDA device without an index gets the current one (``cuda:0``), so it
+    compares equal to the device of the tensors made on it."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' (--device cpu) "
             "to run the plain PyTorch path on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -66,7 +66,13 @@ def test_the_scan_reaches_every_module_of_the_port():
                 "fleetx_tpu_torch/tools/export.py",
                 "fleetx_tpu_torch/tools/inference.py",
                 "fleetx_tpu_torch/tools/preprocess_data.py",
-                "fleetx_tpu_torch/tasks/gpt/inference.py"):
+                "fleetx_tpu_torch/tasks/gpt/inference.py",
+                "fleetx_tpu_torch/resilience/__init__.py",
+                "fleetx_tpu_torch/resilience/policy.py",
+                "fleetx_tpu_torch/resilience/faults.py",
+                "fleetx_tpu_torch/resilience/guard.py",
+                "fleetx_tpu_torch/resilience/watchdog.py",
+                "fleetx_tpu_torch/resilience/coordination.py"):
         assert rel in scanned, rel
 
 
@@ -111,6 +117,7 @@ def test_entry_points_load_no_jax_modules():
             "import fleetx_tpu_torch.tools.inference\n"
             "import fleetx_tpu_torch.tools.preprocess_data\n"
             "import fleetx_tpu_torch.tasks.gpt.inference\n"
+            "import fleetx_tpu_torch.resilience\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -122,8 +129,23 @@ def test_entry_points_load_no_jax_modules():
     assert "fleetx_tpu_torch.tasks.gpt.generation" in loaded
     assert "fleetx_tpu_torch.core.engine.inference_engine" in loaded
     assert "fleetx_tpu_torch.tasks.gpt.inference" in loaded
+    for name in ("policy", "faults", "guard", "watchdog", "coordination"):
+        assert f"fleetx_tpu_torch.resilience.{name}" in loaded, name
     assert "regex" not in loaded  # the card's machine has no regex
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_a_cuda_device_without_an_index_gets_the_current_one(monkeypatch):
+    """``cuda`` resolves to ``cuda:<current>``, the device tensors made on
+    it report: the trainer compares its parameters' device with it."""
+    from fleetx_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_train_cli_without_device_raises_when_no_cuda():

@@ -340,9 +340,13 @@ UNCOVERED = {
                     "Model.attention_probs_dropout_prob=0.0"], "item 12"),
     "moe": (["Model.moe_num_experts=4"], "item 7"),
     "qat": (["Quantization.enable=True"], "item 7"),
-    "fp16": (["Engine.mix_precision.use_pure_fp16=True",
-              "Model.dtype=float16"], "item 11"),
-    "resilience": (["Resilience.enable=True"], "item 11"),
+    # fp16 and Resilience.enable are ported; the SDC sentinel and the
+    # gang watchdog are not
+    "resilience": (["Resilience.enable=True",
+                    "Resilience.integrity.sentinel_every=5"], "item 8"),
+    "gang_watchdog": (["Resilience.enable=True",
+                       "Resilience.watchdog.enable=True",
+                       "Resilience.watchdog.gang_sync_steps=2"], "item 12"),
     # checkpoints are ported; their multi-rank options are not
     "save_steps": (["Engine.save_load.save_steps=10",
                     "Engine.save_load.per_rank_dirs=True"], "item 12"),
