@@ -4,8 +4,10 @@ kernels, serve GPT-345M at full width through the port's replica, train
 GPT-345M at full width and GPT-1.3B at seq 8192 at full width and depth
 through the port's trainer, save, audit and resume GPT-345M training,
 generate from its checkpoint with the port's generation task, evaluate
-it offline, export it and run the exported programs, train GPT-345M in
-fp16 under the loss scaler and run the resilience drills.
+it offline, export it and run the exported programs, fine-tune it with
+LoRA adapters and serve the merged weights with int8 fake-quant decode,
+train GPT-345M in fp16 under the loss scaler and run the resilience
+drills.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
@@ -14,6 +16,8 @@ fp16 under the loss scaler and run the resilience drills.
                                            # eval shape, seeded weights
     python3 chip_smoke.py --fp16-resilience  # 1b's fp16 rows, 4 and 12
     python3 chip_smoke.py --train-paths    # phases 4 and 6 alone
+    python3 chip_smoke.py --finetune-serving  # phases 2, 4, 8, 9's
+                                           # tokenizer, 10's corpus, 13
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -178,7 +182,8 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    and 49 times a call; its first call and warm p50 / p99 over 20 calls
    are printed beside the program alone and the eager forward. Through
    the generation programs, greedy (bf16, and an f32 export made in this
-   process) and seeded sampling must equal eager generation token for
+   process of the checkpoint's first ``F32_EXPORT_LAYERS`` layers, a depth
+   cut) and seeded sampling must equal eager generation token for
    token, with 49 launches of kernel 5 a model call; ms per decode step
    and new tokens/s. ``tools.inference`` and ``tasks.gpt.inference`` run
    the bf16 export as their own processes. The temp dirs are removed
@@ -207,6 +212,39 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    fleetx_tpu_torch.tools.train`` (``sigterm_at: 5``: exit code 75, a
    verified step-5 checkpoint, the save timed; the same command resumed
    to step 10: steps 1-10 equal phase 4's losses bit for bit).
+13. LoRA fine-tuning and quantized serving (run before phase 12, while
+   phase 8's checkpoint and phase 10's corpus exist): ``python -m
+   fleetx_tpu_torch.tools.finetune`` on ``finetune_gpt_345M_lora.yaml``
+   as its own process, full width and depth (bf16, rank 8, alpha 16),
+   ``FineTune.base_ckpt`` on phase 8's checkpoint, phase 10's
+   ``GPTDataset`` of ``docs/*.md``, 20 steps at a constant LR of 1e-3
+   (``FT_LR``), the fine-tune state saved at step 20. The CLI's counts,
+   zeroed just before its fit and read just after: phase 4's per step
+   (rows 1 and 4 on the tensor cores). Finite losses and grad norms, the
+   mean of the last 5 losses below the first; 3,145,728 adapter
+   parameters (``trainable_params_frac`` ~0.0088); every adapter leaf
+   moved; the artifact and the saved state ``ok`` under
+   ``tools.verify_ckpt``; the artifact's stamped base digests and the
+   saved state's base leaves equal phase 8's checkpoint's, and its
+   adapters the state's, bit for bit. Step time beside phase 4's, tokens/s,
+   peak memory. Then ``tools/serve.build_engine`` on the same yaml
+   (phase 8's checkpoint, the adapters merged, ``quantize_decode``, bf16,
+   16 slots, 513 pages) answers phase 2's requests over TCP, in turns
+   with the unquantized replica of the same merged weights (quantized,
+   unquantized, unquantized, quantized): row 7 in all 24 layers of every
+   decode step, tokens/s, TTFT and ITL of each run, beside phase 2's.
+   ``python -m fleetx_tpu_torch.tools.serve --bench`` on the same yaml,
+   as its own process, must serve its 8 requests on the paged kernel with
+   the adapters verified against the base and ``quantize_decode`` on. In
+   f32 on the same merged weights, quantize on against off: the
+   first-chunk logit drift relative to the largest logit under 0.05 and
+   at least half the greedy tokens agreeing; the unquantized replica
+   against greedy generation from the saved fine-tune state folded in
+   memory (4 prompts × 32 tokens): identical, or apart only where the
+   top-two logit gap is under 1e-3.
+
+Each phase's wall is printed as it ends (``phase_wall``) and collected in
+the ``smoke`` line.
 
 Last, row 5 at the decode shape ``[8, 1, 1024]`` bf16 against its plain
 version, timed beside its bound and ``F.layer_norm``; and row 1 at the
@@ -305,6 +343,20 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+#: phase → seconds of wall, in the order the phases ran
+PHASE_WALLS: dict = {}
+
+
+def timed(phase: str, fn, *args):
+    """``fn(*args)`` with its wall recorded under ``phase`` and printed."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_WALLS[phase] = time.perf_counter() - t0
+        emit("phase_wall", of=phase, seconds=PHASE_WALLS[phase])
 
 
 def smi_line() -> str:
@@ -1241,25 +1293,27 @@ def _prompts(seed: int, lengths, vocab: int = 50000):
     return [rng.randint(0, vocab, size=n).tolist() for n in lengths]
 
 
-def phase_main_path(dev: torch.device, card: str) -> dict:
-    from fleetx_tpu_torch.serving.server import ReplicaServer, request
-    from fleetx_tpu_torch.tools.serve import build_engine, load_config
+#: phase 2's requests: prompt lengths (random ids) and new tokens each
+SERVE_PROMPT_LENS = (200, 37, 5, 90, 128, 16, 300, 64)
+SERVE_MAX_NEW = 32
 
-    cfg = load_config(YAML)
-    engine = build_engine(cfg, device=dev)
-    mc = engine.cfg
-    check(mc.num_layers == 24 and mc.hidden_size == 1024
-          and mc.num_attention_heads == 16 and mc.vocab_size == 50304
-          and mc.dtype == torch.bfloat16, "not the full-width 345M config")
-    # warm-up off the measurement: first-call allocations, cuBLAS handles
+
+def _serve_tcp(engine, prompts: list, max_new: int) -> dict:
+    """Concurrent requests to an in-process ``ReplicaServer`` over TCP on
+    ``engine`` (warmed up first, off the measurement), every launch count
+    zeroed just before and read just after: the responses, the replica's
+    ``stats``, the client's wall, the counts and the decode steps."""
+    from fleetx_tpu_torch.serving.server import ReplicaServer, request
+
+    # an engine an earlier run drained admits again; then a warm-up off the
+    # measurement: first-call allocations, cuBLAS handles
+    engine.draining = False
     engine.submit(_prompts(1, [8])[0], 2, request_id="warmup")
     engine.run_until_drained()
     engine.reset_stats()
 
     server = ReplicaServer(engine)
     port = server.start()
-    max_new = 32
-    prompts = _prompts(2, [200, 37, 5, 90, 128, 16, 300, 64])
     responses = [None] * len(prompts)
     stats = {}
     stop = _Stop()
@@ -1295,34 +1349,58 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     finally:
         server.close()
     worker.join(timeout=60)
-    launches = read_counts()["paged_attention_decode"]  # read just after
-    decode_steps = decode_hist.total_count - steps0
-
+    counts = read_counts()            # read just after
     check(not worker.is_alive(), "client thread did not finish")
+    mc = engine.cfg
     for i, resp in enumerate(responses):
         check(resp is not None and "tokens" in resp,
               f"request {i} got no tokens: {resp}")
         check(1 <= len(resp["tokens"]) <= max_new, f"request {i} length")
         check(all(0 <= t < mc.vocab_size for t in resp["tokens"]),
               f"request {i} token out of vocab")
+    return dict(responses=responses, stats=stats,
+                wall=window["t1"] - window["t0"], counts=counts,
+                decode_steps=decode_hist.total_count - steps0)
+
+
+def _serving_record(run: dict, prompts: list, max_new: int,
+                    layers: int) -> dict:
+    """Phase 2's fields of one ``_serve_tcp`` run; checks that the decode
+    path was the kernel and that it ran in every layer of every decode
+    step."""
+    stats, steps = run["stats"], run["decode_steps"]
+    launches = run["counts"]["paged_attention_decode"]
     check(stats.get("decode_path") == "paged_kernel",
           f"decode_path {stats.get('decode_path')}")
-    check(decode_steps > 0, "no decode step ran")
-    check(launches >= mc.num_layers * decode_steps,
-          f"{launches} kernel launches < {mc.num_layers} x "
-          f"{decode_steps} decode steps")
-    wall = window["t1"] - window["t0"]
-    tokens = sum(len(r["tokens"]) for r in responses)
-    out = dict(requests=len(prompts), prompt_lens=[len(p) for p in prompts],
-               max_new_tokens=max_new, tokens=tokens, wall_s=wall,
-               tokens_per_s=tokens / wall, ttft_p50_s=stats["ttft_p50_s"],
-               ttft_p99_s=stats["ttft_p99_s"], itl_p50_s=stats["itl_p50_s"],
-               itl_p99_s=stats["itl_p99_s"], decode_steps=decode_steps,
-               kernel_launches=launches,
-               launches_per_decode_step=launches / decode_steps,
-               decode_path=stats["decode_path"], nvidia_smi=card)
+    check(steps > 0, "no decode step ran")
+    check(launches == layers * steps,
+          f"{launches} kernel launches != {layers} x {steps} decode steps")
+    tokens = sum(len(r["tokens"]) for r in run["responses"])
+    return dict(requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+                max_new_tokens=max_new, tokens=tokens, wall_s=run["wall"],
+                tokens_per_s=tokens / run["wall"],
+                ttft_p50_s=stats["ttft_p50_s"], ttft_p99_s=stats["ttft_p99_s"],
+                itl_p50_s=stats["itl_p50_s"], itl_p99_s=stats["itl_p99_s"],
+                decode_steps=steps, kernel_launches=launches,
+                launches_per_decode_step=launches / steps,
+                decode_path=stats["decode_path"])
+
+
+def phase_main_path(dev: torch.device, card: str) -> dict:
+    from fleetx_tpu_torch.tools.serve import build_engine, load_config
+
+    cfg = load_config(YAML)
+    engine = build_engine(cfg, device=dev)
+    mc = engine.cfg
+    check(mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+          and mc.dtype == torch.bfloat16, "not the full-width 345M config")
+    prompts = _prompts(2, SERVE_PROMPT_LENS)
+    run = _serve_tcp(engine, prompts, SERVE_MAX_NEW)
+    out = dict(_serving_record(run, prompts, SERVE_MAX_NEW, mc.num_layers),
+               nvidia_smi=card)
     emit("main_path", **out)
-    del engine, server
+    del engine
     torch.cuda.empty_cache()
     return out
 
@@ -2391,6 +2469,9 @@ EVAL_F32_RTOL = 1e-5
 EVAL_BATCH = 8
 #: exported forward: calls timed after the first
 FORWARD_CALLS = 20
+#: depth of phase 11's f32 generation export (the checkpoint's first
+#: layers; the bf16 exports run all 24)
+F32_EXPORT_LAYERS = 4
 
 
 def _cli_start(module: str, args: list) -> tuple:
@@ -2403,8 +2484,8 @@ def _cli_start(module: str, args: list) -> tuple:
 
 
 def _cli_wait(started: tuple, timeout: int = 600) -> tuple:
-    """(its JSON lines, its stdout); a failure raises with its stderr, and
-    a process past ``timeout`` is killed."""
+    """(its JSON lines, its stdout, its stderr); a failure raises with its
+    stderr, and a process past ``timeout`` is killed."""
     module, proc = started
     try:
         stdout, stderr = proc.communicate(timeout=timeout)
@@ -2416,7 +2497,7 @@ def _cli_wait(started: tuple, timeout: int = 600) -> tuple:
                                 f"{stderr[-3000:]}")
     lines = [json.loads(line) for line in stdout.splitlines()
              if line.startswith("{")]
-    return lines, stdout
+    return lines, stdout, stderr
 
 
 def _cli(module: str, args: list) -> tuple:
@@ -2452,6 +2533,17 @@ def _eval_texts(root: str) -> tuple:
     return txt, jsonl, n
 
 
+def _docs_corpus(root: str, txt: str, tok_dir: str) -> str:
+    """``txt`` as a ``GPTDataset`` corpus written by the port's
+    ``tools.preprocess_data`` with the tokenizer of ``tok_dir``; returns
+    its prefix (phases 10 and 13 read it)."""
+    prefix = os.path.join(root, "eval", "docs_corpus")
+    _cli("tools.preprocess_data", [
+        "--input", txt, "--tokenizer", tok_dir, "--output-prefix", prefix,
+        "--workers", "4", "--append-eos"])
+    return prefix
+
+
 def _eval_loader(ds):
     from fleetx_tpu_torch.data.dataloader import DataLoader
     from fleetx_tpu_torch.data.sampler.batch_sampler import \
@@ -2485,7 +2577,7 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
             f"Offline_Eval.tokenizer_dir={tok_dir}"]
     runs = {}
     for kind, path in (("ppl", txt), ("acc", jsonl)):
-        lines, _ = _cli("tools.eval", ["-c", EVAL_YAML] + _overrides(
+        lines, _, _ = _cli("tools.eval", ["-c", EVAL_YAML] + _overrides(
             base + [f"Offline_Eval.eval_path={path}",
                     f"Offline_Eval.eval_type={kind}"]))
         rec = lines[-1]
@@ -2508,10 +2600,7 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
     # the Data.Eval path, in its own process while this one compares: a
     # GPTDataset of the same text written by the port's preprocessing
     # tool, a few batches through EagerEngine(mode="eval")
-    prefix_path = os.path.join(root, "eval", "docs_corpus")
-    _cli("tools.preprocess_data", [
-        "--input", txt, "--tokenizer", tok_dir, "--output-prefix",
-        prefix_path, "--workers", "4", "--append-eos"])
+    prefix_path = _docs_corpus(root, txt, tok_dir)
     data_eval_run = _cli_start("tools.eval", ["-c", PRETRAIN_YAML]
                                + _overrides([
         f"Engine.save_load.ckpt_dir={ckpt_dir}",
@@ -2541,7 +2630,7 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
                               bound=rtol)
         torch.cuda.empty_cache()
 
-    _, stdout = _cli_wait(data_eval_run)
+    _, stdout, _ = _cli_wait(data_eval_run)
     # one traced batch (bf16, kernels on), the card to itself again
     module = _eval_module("bfloat16", True)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
@@ -2558,6 +2647,7 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
         rec["warm_tokens_per_s"] = (rec["windows"] - EVAL_BATCH) * \
             rec["seq_length"] / (rec["wall_s"] - rec["first_batch_ms"] / 1e3)
     out = dict(text="docs/*.md", stream_tokens=stream,
+               corpus_prefix=prefix_path,
                cloze_paragraphs=n_cloze, ppl=runs["ppl"], acc=runs["acc"],
                kernels_vs_plain=compare, prefix_windows=len(prefix),
                trace=trace, data_eval_loss=data_eval, data_eval_batches=3,
@@ -2569,6 +2659,15 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
 
 
 # -------------------------------------------------------------- phase 11
+def _first_layers(params: dict, n: int) -> dict:
+    """``params`` with its stacked ``[layers, ...]`` leaves cut to the
+    first ``n`` layers (views; the other leaves as they are)."""
+    gpt = dict(params["gpt"])
+    gpt["layers"] = {k: {kk: vv[:n] for kk, vv in v.items()}
+                     for k, v in gpt["layers"].items()}
+    return {**params, "gpt": gpt}
+
+
 def p50_ms(fn, calls: int = FORWARD_CALLS) -> float:
     """Median host wall of ``fn`` over ``calls`` calls after one, device
     work synchronised around each."""
@@ -2639,9 +2738,11 @@ def _timed_decoder(eng) -> dict:
     return rec
 
 
-def _generate_timed(eng, inputs: list) -> tuple:
+def _generate_timed(eng, inputs: list, layers: int = 24) -> tuple:
     """``eng.predict(inputs)`` with its model calls counted and its launch
-    counts zeroed before and read after: (ids, record)."""
+    counts zeroed before and read after: (ids, record). Each model call
+    of a ``layers``-layer model launches kernel 5 ``2 * layers + 1``
+    times."""
     rec = _timed_decoder(eng)
     zero_counts()
     torch.cuda.synchronize()
@@ -2656,7 +2757,7 @@ def _generate_timed(eng, inputs: list) -> tuple:
                fused_norm_fwd=counts["fused_norm_fwd"],
                other_launches=sum(v for k, v in counts.items()
                                   if k != "fused_norm_fwd"))
-    check(rec["fused_norm_fwd"] == 49 * rec["calls"]
+    check(rec["fused_norm_fwd"] == (2 * layers + 1) * rec["calls"]
           and rec["other_launches"] == 0,
           f"generation: {counts} launches for {rec['calls']} model calls")
     return ids, rec
@@ -2685,7 +2786,7 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
     gen_dir = os.path.join(root, "exported_generation")
     exports = {}
     for target, d in (("forward", fwd_dir), ("generation", gen_dir)):
-        lines, _ = _cli("tools.export", ["-c", INF_YAML] + _overrides(
+        lines, _, _ = _cli("tools.export", ["-c", INF_YAML] + _overrides(
             base + [f"Inference.model_dir={d}",
                     f"Inference.target={target}"]))
         exports[target] = lines[-1]
@@ -2808,26 +2909,30 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
     del eng, cache
 
     # f32 greedy: an f32 export of the same target in this process, on the
-    # params already loaded
+    # checkpoint's first F32_EXPORT_LAYERS layers (a depth cut: tracing
+    # time grows with the layers, and the f32 check is of the export
+    # itself, which the bf16 programs above run at full depth)
     f32_dir = os.path.join(root, "exported_generation_f32")
-    module = GPTGenerationModule(X.load_config(INF_YAML, base + [
-        "Model.dtype=float32", "Generation.decode_strategy=greedy_search"]))
-    _, fns, example, meta = X.programs(X.load_config(INF_YAML, base + [
-        "Model.dtype=float32", "Generation.decode_strategy=greedy_search"]),
-        module, dev)
+    f32_cfg = X.load_config(INF_YAML, base + [
+        "Model.dtype=float32", "Generation.decode_strategy=greedy_search",
+        f"Model.num_layers={F32_EXPORT_LAYERS}"])
+    module = GPTGenerationModule(f32_cfg)
+    cut = _first_layers(params, F32_EXPORT_LAYERS)
+    _, fns, example, meta = X.programs(f32_cfg, module, dev)
     t0 = time.perf_counter()
-    export_model(fns, example, f32_dir, params, meta=meta)
+    export_model(fns, example, f32_dir, cut, meta=meta)
     f32_export_s = time.perf_counter() - t0
     del example
     eng = InferenceEngine(f32_dir, device=dev)
-    ids, rec = _generate_timed(eng, [tokens, mask, seed])
-    want = G.generate_rows(module.model_cfg, params, module.gen_cfg,
+    ids, rec = _generate_timed(eng, [tokens, mask, seed], F32_EXPORT_LAYERS)
+    want = G.generate_rows(module.model_cfg, cut, module.gen_cfg,
                            *G.to_tensors(tokens, mask, dev), False
                            ).cpu().numpy()
     check(np.array_equal(ids, want), "generation f32 greedy: exported vs "
                                      "eager")
     generation["greedy_f32"] = dict(rec, identical=True,
-                                    export_s=f32_export_s)
+                                    export_s=f32_export_s,
+                                    layers=F32_EXPORT_LAYERS)
     del eng
     torch.cuda.empty_cache()
 
@@ -2837,8 +2942,8 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
         f"Generation.tokenizer_dir={tok_dir}"])
     started = [_cli_start(m, args) for m in ("tools.inference",
                                              "tasks.gpt.inference")]
-    demo, _ = _cli_wait(started[0])
-    _, task_out = _cli_wait(started[1])
+    demo, _, _ = _cli_wait(started[0])
+    _, task_out, _ = _cli_wait(started[1])
     check(demo[0]["shape"] == [1, new_tokens], f"tools.inference {demo}")
     task_lines = task_out.strip().splitlines()
     check(task_lines[-2].startswith("prompt: ")
@@ -3455,6 +3560,348 @@ def phase_fp16_resilience(dev: torch.device, card: str,
     return result
 
 
+# -------------------------------------------------------------- phase 13
+FT_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                       "finetune_gpt_345M_lora.yaml")
+FT_STEPS = 20
+#: the recipe's schedule warms up over 1 % of 360,000 steps (an LR under
+#: 3e-7 for the first 20): the smoke holds it at 1e-3 from step 0
+FT_LR = ["Optimizer.lr.max_lr=1e-3", "Optimizer.lr.min_lr=1e-3",
+         "Optimizer.lr.warmup_rate=0.0"]
+#: the adapter parameters of GPT-345M at rank 8, a layer: qkv (1024·8 +
+#: 8·3072), out (1024·8 + 8·1024), wi (1024·8 + 8·4096), wo (4096·8 +
+#: 8·1024); 24 layers
+FT_ADAPTER_PARAMS = 24 * ((1024 * 8 + 8 * 3072) + (1024 * 8 + 8 * 1024)
+                          + (1024 * 8 + 8 * 4096) + (4096 * 8 + 8 * 1024))
+#: requests of phase 13's ``tools.serve --bench`` process
+SERVE_CLI_REQUESTS = 8
+#: the JAX test's bound on the quantized decode's first-chunk logits,
+#: relative to the largest logit (tests/test_zz_finetune.py)
+QUANT_DRIFT = 0.05
+
+
+def _digest_pairs(digests: dict) -> dict:
+    return {k: (int(v["crc32"]), int(v["nbytes"]))
+            for k, v in digests.items()}
+
+
+def phase_finetune(dev: torch.device, card: str, root: str, ckpt_dir: str,
+                   tok_dir: str, prefix: str, trainer: dict) -> dict:
+    """Phase 13a: ``python -m fleetx_tpu_torch.tools.finetune`` on
+    ``finetune_gpt_345M_lora.yaml`` from phase 8's checkpoint on phase
+    10's corpus, as its own process; its launch counts, loss, frozen base,
+    moved adapters, trainable fraction and artifact."""
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+    from fleetx_tpu_torch.finetune import checkpoint as FT
+    from fleetx_tpu_torch.finetune import lora
+    from fleetx_tpu_torch.tools import verify_ckpt
+    from fleetx_tpu_torch.tools.train import load_config
+
+    tok = GPTTokenizer.from_pretrained(tok_dir)
+    ad_dir = os.path.join(root, "finetune", "adapter")
+    state_dir = os.path.join(root, "finetune", "state")
+    overrides = [f"FineTune.base_ckpt={ckpt_dir}",
+                 f"FineTune.adapter_dir={ad_dir}",
+                 f"Engine.max_steps={FT_STEPS}", "Engine.logging_freq=1",
+                 f"Engine.save_load.save_steps={FT_STEPS}",
+                 f"Engine.save_load.output_dir={state_dir}",
+                 f"Data.Train.dataset.input_dir={prefix}",
+                 f"Data.Train.dataset.num_samples={FT_STEPS * 8}",
+                 f"Data.Train.dataset.eos_id={tok.eos_token_id}"] + FT_LR
+    cfg = load_config(FT_YAML, overrides)
+    mc, ft = cfg["Model"], cfg["FineTune"]
+    check(mc["module"] == "LoRAGPTModule" and mc["num_layers"] == 24
+          and mc["hidden_size"] == 1024 and mc["num_attention_heads"] == 16
+          and mc["dtype"] == "bfloat16" and ft["lora"]["rank"] == 8
+          and float(ft["lora"]["alpha"]) == 16.0
+          and cfg["Global"]["global_batch_size"] == 8,
+          "not the full-width 345M LoRA recipe")
+    t0 = time.perf_counter()
+    lines, _, _ = _cli("tools.finetune",
+                       ["-c", FT_YAML] + _overrides(overrides))
+    process_s = time.perf_counter() - t0
+    rec = lines[-1]
+    check(rec["device"].startswith("cuda") and rec["steps"] == FT_STEPS,
+          f"finetune ran {rec['steps']} steps on {rec['device']}")
+    for name, per_step in PER_STEP.items():
+        check(rec["launches"][name] == per_step * FT_STEPS,
+              f"finetune: {name} {rec['launches'][name]} launches, want "
+              f"{per_step} x {FT_STEPS}")
+    losses, norms = rec["losses"], rec["grad_norms"]
+    check(len(losses) == FT_STEPS and all(np.isfinite(losses))
+          and all(np.isfinite(norms)), f"losses {losses}, norms {norms}")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          f"the last 5 losses {losses[-5:]} are not below the first "
+          f"{losses[0]}")
+    check(rec["trainable_params"] == FT_ADAPTER_PARAMS
+          and rec["trainable_params_frac"] == FT_ADAPTER_PARAMS
+          / rec["total_params"], f"trainable {rec['trainable_params']} of "
+                                 f"{rec['total_params']}")
+    check(len(rec["adapters_moved"]) == 8
+          and min(rec["adapters_moved"].values()) > 0,
+          f"adapters moved {rec['adapters_moved']}")
+    check(rec["adapter_path"] == os.path.join(ad_dir, f"step_{FT_STEPS}"),
+          f"artifact at {rec['adapter_path']}")
+    audits = {d: [s["status"] for s in verify_ckpt.audit_directory(d)[
+        "steps"]] for d in (ad_dir, state_dir)}
+    check(all(v == ["ok"] for v in audits.values()), f"audits {audits}")
+    # the frozen base: the digests the run stamped after its fit, and the
+    # base leaves of its saved step-20 state, are those of phase 8's
+    # checkpoint, computed here; the artifact holds the state's adapters
+    base = lora.base_leaf_digests(C.load_params(ckpt_dir))
+    adapters, meta = FT.load_adapter(ad_dir)
+    state = C.load_params(state_dir)
+    check(_digest_pairs(meta["base_leaves"]) == _digest_pairs(base),
+          "the stamped base digests differ from the checkpoint's")
+    check(_digest_pairs(lora.base_leaf_digests(state))
+          == _digest_pairs(base), "the fine-tuned state's base leaves "
+                                  "differ from the checkpoint's")
+    flat = C.flatten(state)
+    check(sorted(adapters) == sorted(n for n in flat
+                                     if lora.is_adapter_name(n))
+          and all(torch.equal(v, flat[k]) for k, v in adapters.items()),
+          "the artifact's adapters are not the saved state's")
+    del state, flat, adapters
+    out = dict(steps=FT_STEPS, losses=losses, grad_norms=norms,
+               first_loss=losses[0],
+               last5_mean_loss=float(np.mean(losses[-5:])),
+               trainable_params=rec["trainable_params"],
+               total_params=rec["total_params"],
+               trainable_params_frac=rec["trainable_params_frac"],
+               adapter_bytes=rec["adapter_bytes"],
+               adapter_mb=rec["adapter_bytes"] / 1e6,
+               adapters_moved=rec["adapters_moved"], audits=audits,
+               base_frozen=True, base_leaves=len(base),
+               step_ms=rec["step_ms"], step_ms_median=rec["step_ms_median"],
+               phase4_step_ms_median=trainer["step_ms_median"],
+               step_ratio_to_phase4=rec["step_ms_median"]
+               / trainer["step_ms_median"],
+               tokens_per_s=rec["tokens_per_s"],
+               peak_memory_gb=rec.get("peak_memory_gb"),
+               launches=rec["launches"],
+               launches_per_step={k: rec["launches"][k] / FT_STEPS
+                                  for k in PER_STEP},
+               process_s=process_s, lora_alpha=float(meta["lora"]["alpha"]),
+               adapter_dir=ad_dir, state_dir=state_dir, nvidia_smi=card)
+    emit("finetune", **{k: v for k, v in out.items()
+                        if k not in ("adapter_dir", "state_dir")})
+    return out
+
+
+def _first_chunk_logits(engine, prompt: list) -> np.ndarray:
+    """The prefill step's f32 logits after the first chunk of ``prompt``
+    on a drained engine (pages 1.. of a fresh table): the JAX test's drift
+    probe."""
+    chunk = engine.serving.prefill_chunk
+    n = min(len(prompt), chunk)
+    table = np.zeros((1, engine.pages_per_req), np.int32)
+    pages = -(-n // engine.serving.page_size)
+    table[0, :pages] = np.arange(1, pages + 1)
+    tokens = np.zeros((1, chunk), np.int32)
+    tokens[0, :n] = prompt[:n]
+    out = engine._fns["prefill"](engine.params, engine.pool_k,
+                                 engine.pool_v, tokens, table, np.int32(0),
+                                 np.int32(n), None)
+    return out[3].float().cpu().numpy()[0]
+
+
+def _replica_tokens(engine, prompts: list, max_new: int) -> list:
+    reqs = [engine.submit(p, max_new, request_id=f"f{i}")
+            for i, p in enumerate(prompts)]
+    engine.run_until_drained()
+    check(all(r.state == "finished" and r.error is None for r in reqs),
+          "a replica request did not finish")
+    return [list(r.tokens) for r in reqs]
+
+
+def phase_quant_serving(dev: torch.device, card: str, ckpt_dir: str,
+                        ft: dict, tok_dir: str, main_path: dict) -> dict:
+    """Phase 13b: the fine-tune recipe's replica (phase 8's checkpoint
+    with 13a's adapters merged, int8 fake-quant decode) over TCP beside
+    phase 2; in f32 the quantization drift and the merged replica against
+    generation from the fine-tuned state folded in memory."""
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.core.module import GPTGenerationModule
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+    from fleetx_tpu_torch.finetune import lora
+    from fleetx_tpu_torch.tasks.gpt import generation as task
+    from fleetx_tpu_torch.tools.serve import build_engine
+    from fleetx_tpu_torch.tools.serve import load_config as serve_config
+
+    base = [f"Serving.ckpt_dir={ckpt_dir}",
+            f"Serving.adapter_dir={ft['adapter_dir']}"]
+    t0 = time.perf_counter()
+    engine = build_engine(serve_config(FT_YAML, base), device=dev)
+    build_s = time.perf_counter() - t0
+    mc, sc = engine.cfg, engine.serving
+    check(mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.num_attention_heads == 16 and mc.dtype == torch.bfloat16
+          and engine.serving.quantize_decode and engine.paged_kernel_active
+          and sc.max_batch == 16 and sc.num_pages == 513,
+          "not the recipe's full-width quantized replica")
+    # the same merged weights unquantized, served in turns with the
+    # quantized replica (q, fp, fp, q): the decode step is host-bound, and
+    # the host's speed drifts over a call (phase 2 runs minutes earlier)
+    engines = {True: engine, False: build_engine(serve_config(
+        FT_YAML, base + ["Serving.quantize_decode=False"]), device=dev)}
+    prompts = _prompts(2, SERVE_PROMPT_LENS)
+    raw = {True: [], False: []}
+    for quant in (True, False, False, True):
+        raw[quant].append(_serve_tcp(engines[quant], prompts, SERVE_MAX_NEW))
+    records = {quant: [_serving_record(run, prompts, SERVE_MAX_NEW,
+                                       mc.num_layers) for run in runs]
+               for quant, runs in raw.items()}
+    first, served = raw[True][0], records[True][0]
+    del engine, engines
+    torch.cuda.empty_cache()
+    # the recipe's replica through the real CLI (``tools.serve --bench``
+    # on the same yaml), its own process while this one runs the f32
+    # checks: it must run end to end; its numbers are not read as timings
+    serve_cli = _cli_start("tools.serve", [
+        "-c", FT_YAML, "--bench", "--requests", str(SERVE_CLI_REQUESTS),
+        "--rate", "16"] + _overrides(base))
+
+    # f32: quantize on against off on the same merged weights, and the
+    # merged replica against the fine-tuned state's in-memory fold
+    tok = GPTTokenizer.from_pretrained(tok_dir)
+    ids = tok.encode(open(os.path.join(REPO, "README.md"),
+                          encoding="utf-8").read())
+    cross = [ids[o:o + n] for o, n in zip(np.cumsum(
+        (0,) + CROSS_PROMPT_LENS), CROSS_PROMPT_LENS)]
+    f32 = {}
+    for quant in (True, False):
+        replica = build_engine(serve_config(FT_YAML, base + [
+            "Model.dtype=float32", f"Serving.quantize_decode={quant}"]),
+            device=dev)
+        check(replica.serving.quantize_decode == quant
+              and replica.paged_kernel_active, "f32 replica")
+        f32[quant] = dict(tokens=_replica_tokens(replica, cross, CROSS_NEW),
+                          logits=_first_chunk_logits(replica, cross[0]))
+        eos = replica.eos_token_id
+        del replica
+        torch.cuda.empty_cache()
+    on, off = f32[True], f32[False]
+    drift = float(np.abs(on["logits"] - off["logits"]).max()
+                  / np.abs(off["logits"]).max())
+    pairs = [(a, b) for ta, tb in zip(on["tokens"], off["tokens"])
+             for a, b in zip(ta, tb)]
+    agree = sum(a == b for a, b in pairs)
+    check(drift < QUANT_DRIFT, f"int8 decode drift {drift} >= "
+                               f"{QUANT_DRIFT}")
+    check(agree >= len(pairs) // 2, f"{agree} of {len(pairs)} quantized "
+                                    f"greedy tokens agree")
+
+    module = GPTGenerationModule(task.load_config(GEN_YAML, [
+        "Generation.decode_strategy=greedy_search", "Model.dtype=float32",
+        f"Generation.max_dec_len={CROSS_NEW}"]))
+    check(module.gen_cfg.eos_token_id == eos, "eos ids differ")
+    folded = lora.merge_adapters(C.load_params(ft["state_dir"],
+                                               device=dev),
+                                 ft["lora_alpha"])
+    rows = module.generate_ids(folded, cross)
+    mismatches = []
+    for i, (got, row) in enumerate(zip(off["tokens"], rows)):
+        want = [int(t) for t in row]
+        if eos in want:
+            want = want[:want.index(eos) + 1]
+        if got != want:
+            pos = next((j for j, (a, b) in enumerate(zip(got, want))
+                        if a != b), min(len(got), len(want)))
+            gap = _top2_gap(module.model_cfg, folded, cross[i] + want[:pos])
+            mismatches.append(dict(prompt=i, position=pos, top2_gap=gap))
+            check(gap < 1e-3, f"prompt {i}: the merged replica and the "
+                              f"in-memory fold differ at {pos} with a "
+                              f"top-two logit gap of {gap}")
+    del folded, module
+    torch.cuda.empty_cache()
+    lines, _, stderr = _cli_wait(serve_cli)
+    cli = lines[-1]
+    check(cli["device_kind"] == torch.cuda.get_device_name(dev)
+          and cli["serving"]["completed"] == SERVE_CLI_REQUESTS
+          and cli["serving"]["decode_path"] == "paged_kernel"
+          and "quantize_decode=True" in stderr
+          and "base verified" in stderr,
+          f"tools.serve --bench on the LoRA yaml: {cli}")
+    in_turns = {name: {k: [r[k] for r in records[quant]] for k in (
+        "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
+        "itl_p99_s")} for name, quant in (("quantized", True),
+                                          ("unquantized", False))}
+    mean = {name: {k: float(np.mean(v)) for k, v in runs.items()}
+            for name, runs in in_turns.items()}
+    out = dict(served, build_s=build_s,
+               fused_norm_fwd_launches=first["counts"]["fused_norm_fwd"],
+               in_turns=in_turns,
+               tokens_per_s_ratio_in_turns=mean["quantized"]["tokens_per_s"]
+               / mean["unquantized"]["tokens_per_s"],
+               itl_p50_ratio_in_turns=mean["quantized"]["itl_p50_s"]
+               / mean["unquantized"]["itl_p50_s"],
+               phase2=dict((k, main_path[k]) for k in (
+                   "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
+                   "itl_p99_s", "decode_steps")),
+               tokens_per_s_ratio_to_phase2=served["tokens_per_s"]
+               / main_path["tokens_per_s"],
+               itl_p50_ratio_to_phase2=served["itl_p50_s"]
+               / main_path["itl_p50_s"],
+               serve_cli=dict(requests=SERVE_CLI_REQUESTS,
+                              **{k: cli["serving"][k] for k in (
+                                  "tokens_total", "completed",
+                                  "decode_path")}),
+               f32_drift=drift, drift_bound=QUANT_DRIFT,
+               f32_tokens_agree=agree, f32_tokens_compared=len(pairs),
+               merged_vs_unmerged=dict(prompt_lens=list(CROSS_PROMPT_LENS),
+                                       new_tokens=CROSS_NEW,
+                                       identical=not mismatches,
+                                       mismatches=mismatches),
+               nvidia_smi=card)
+    emit("quant_serving", **out)
+    return out
+
+
+def phase_finetune_serving(dev: torch.device, card: str, root: str,
+                           ckpt_dir: str, tok_dir: str, prefix: str,
+                           trainer: dict, main_path: dict) -> tuple:
+    """Phase 13: the LoRA fine-tune from phase 8's checkpoint on phase
+    10's corpus, then its quantized replica; ``(finetune, quant)``."""
+    finetune = timed("13 finetune", phase_finetune, dev, card, root,
+                     ckpt_dir, tok_dir, prefix, trainer)
+    quant = timed("13 quant_serving", phase_quant_serving, dev, card,
+                  ckpt_dir, finetune, tok_dir, main_path)
+    return finetune, quant
+
+
+def _readme_tokenizer(root: str) -> str:
+    """Phase 9's tokenizer (``train_bpe`` on README.md, vocab 2000) saved
+    under ``root``; returns its directory."""
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import train_bpe
+
+    tok_dir = os.path.join(root, "tokenizer")
+    with open(os.path.join(REPO, "README.md"), encoding="utf-8") as f:
+        train_bpe([f.read()], 2000).save_pretrained(tok_dir)
+    return tok_dir
+
+
+def finetune_serving_alone(dev: torch.device, card: str) -> None:
+    """``--finetune-serving``: phase 2 (the unquantized replica phase 13
+    is set beside), phase 4 (the step time phase 13 is set beside, and the
+    losses phase 8 replays), phase 8, phase 9's tokenizer and phase 10's
+    corpus, then phase 13."""
+    main_path = timed("2", phase_main_path, dev, card)
+    trainer = timed("4", phase_trainer, dev, card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        timed("8", phase_checkpoint, dev, card, trainer["losses"], root)
+        tok_dir = _readme_tokenizer(root)
+        txt, _, _ = _eval_texts(root)
+        phase_finetune_serving(dev, card, root, os.path.join(root, "ckpt"),
+                               tok_dir, _docs_corpus(root, txt, tok_dir),
+                               trainer, main_path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("finetune_serving_alone", phase_walls=PHASE_WALLS,
+         nvidia_smi=card)
+
+
 def eval_and_export(dev: torch.device, card: str, root: str,
                     ckpt_dir: str, tok_dir: str) -> tuple:
     """Phases 10 and 11 on the checkpoint under ``ckpt_dir``, its params
@@ -3462,8 +3909,10 @@ def eval_and_export(dev: torch.device, card: str, root: str,
     from fleetx_tpu_torch.core.checkpoint import load_params
 
     params = load_params(ckpt_dir, device=dev)
-    evaluation = phase_eval(dev, card, root, ckpt_dir, tok_dir, params)
-    export = phase_export(dev, card, root, ckpt_dir, tok_dir, params)
+    evaluation = timed("10", phase_eval, dev, card, root, ckpt_dir, tok_dir,
+                       params)
+    export = timed("11", phase_export, dev, card, root, ckpt_dir, tok_dir,
+                   params)
     del params
     torch.cuda.empty_cache()
     return evaluation, export
@@ -3475,7 +3924,6 @@ def eval_export_alone(dev: torch.device, card: str) -> None:
     tokenizer phase 9 trains."""
     from fleetx_tpu_torch.core import checkpoint as C
     from fleetx_tpu_torch.core.module import GPTModule
-    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import train_bpe
     from fleetx_tpu_torch.tools.train import load_config
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3486,11 +3934,8 @@ def eval_export_alone(dev: torch.device, card: str) -> None:
             step=1, **C.flatten(params, "params/")), meta={
                 "consumed_samples": 0, "epoch": 0, "seed": 1234})
         del params
-        with open(os.path.join(REPO, "README.md"), encoding="utf-8") as f:
-            train_bpe([f.read()], 2000).save_pretrained(
-                os.path.join(root, "tokenizer"))
         eval_and_export(dev, card, root, os.path.join(root, "ckpt"),
-                        os.path.join(root, "tokenizer"))
+                        _readme_tokenizer(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_row1_eval_shape(dev, card, float("nan"))
@@ -3506,7 +3951,7 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = phase_env(build)
     modes = {"--paged-shapes", "--serving", "--eval-export",
-             "--fp16-resilience", "--train-paths"}
+             "--fp16-resilience", "--train-paths", "--finetune-serving"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
@@ -3514,10 +3959,16 @@ def main(argv) -> int:
         # and its trace; --eval-export: phases 10-11 and row 1 at the eval
         # shape on a checkpoint of seeded weights; --fp16-resilience: phase
         # 1b's fp16 rows, phase 4 (the uninterrupted losses) and phase 12;
-        # --train-paths: phases 4 and 6
+        # --train-paths: phases 4 and 6; --finetune-serving: phases 2, 4,
+        # 8, the tokenizer and corpus of 9-10, and 13
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
+        if "--finetune-serving" in argv:
+            build.build(["paged_attention", "flash_attention", "fused_norm"])
+            finetune_serving_alone(dev, card)
+            print(smi_line(), flush=True)
+            return 0
         if "--eval-export" in argv:
             build.build(["flash_attention", "fused_norm"])
             eval_export_alone(dev, card)
@@ -3549,29 +4000,35 @@ def main(argv) -> int:
             phase_trace(dev, card)
         print(smi_line(), flush=True)
         return 0
-    kernels = phase_kernels(build, dev)
-    train_kernels = phase_train_kernels(dev)
-    seq8k_kernels = phase_split_kernels(dev)
-    main_path = phase_main_path(dev, card)
-    phase_trace(dev, card)
-    phase_kernel_vs_gather(dev, card)
-    trainer = phase_trainer(dev, card)
-    phase_train_kernel_vs_plain(dev, card)
-    seq8k = phase_seq8k_trainer(dev, card)
-    phase_split_and_recompute_on_path(dev, card)
+    kernels = timed("1", phase_kernels, build, dev)
+    train_kernels = timed("1b", phase_train_kernels, dev)
+    seq8k_kernels = timed("1c", phase_split_kernels, dev)
+    main_path = timed("2", phase_main_path, dev, card)
+    timed("2 trace", phase_trace, dev, card)
+    timed("3", phase_kernel_vs_gather, dev, card)
+    trainer = timed("4", phase_trainer, dev, card)
+    timed("5", phase_train_kernel_vs_plain, dev, card)
+    seq8k = timed("6", phase_seq8k_trainer, dev, card)
+    timed("7", phase_split_and_recompute_on_path, dev, card)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        resume = phase_checkpoint(dev, card, trainer["losses"], root)
+        resume = timed("8", phase_checkpoint, dev, card, trainer["losses"],
+                       root)
         ckpt_dir = os.path.join(root, "ckpt")
-        generation = phase_generation(dev, card, ckpt_dir, root)
-        evaluation, export = eval_and_export(
-            dev, card, root, ckpt_dir, os.path.join(root, "tokenizer"))
+        tok_dir = os.path.join(root, "tokenizer")
+        generation = timed("9", phase_generation, dev, card, ckpt_dir, root)
+        evaluation, export = eval_and_export(dev, card, root, ckpt_dir,
+                                             tok_dir)
+        finetune, quant = phase_finetune_serving(
+            dev, card, root, ckpt_dir, tok_dir, evaluation["corpus_prefix"],
+            trainer, main_path)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    fp16 = phase_fp16_resilience(dev, card, trainer["losses"])
-    decode_norm = phase_decode_norm(dev, card)
-    row1_eval = phase_row1_eval_shape(
-        dev, card, train_kernels["bfloat16"]["flash_attention_fwd"]["ms"])
+    fp16 = timed("12", phase_fp16_resilience, dev, card, trainer["losses"])
+    decode_norm = timed("row 5 decode shape", phase_decode_norm, dev, card)
+    row1_eval = timed(
+        "row 1 eval shape", phase_row1_eval_shape, dev, card,
+        train_kernels["bfloat16"]["flash_attention_fwd"]["ms"])
     gen_norm = sum(v["fused_norm_fwd_launches"]
                    for v in generation["strategies"].values())
     by_path = {
@@ -3602,6 +4059,15 @@ def main(argv) -> int:
                         ("fused_norm_bwd", "fused_norm_bwd_fp16")):
         by_path[name]["fp16_train"] = fp16_counts[name]
         by_path[name]["fp16_train_route"] = fp16_counts[route]
+    # phase 13: the LoRA fine-tune (20 steps, its own process) and the
+    # quantized replica; the replica's LayerNorms are plain PyTorch, as in
+    # the JAX serving decode, so row 5 counts 0 there
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_fused",
+                 "fused_norm_fwd", "fused_norm_bwd"):
+        by_path[name]["lora_finetune"] = finetune["launches"][name]
+    by_path["fused_norm_fwd"]["quant_serving"] = \
+        quant["fused_norm_fwd_launches"]
     bf16 = kernels["bfloat16"]
     rows = [{
         "name": "paged_attention_decode", "route": "cuda",
@@ -3619,7 +4085,8 @@ def main(argv) -> int:
         "launches_by_path": {
             "serving": main_path["kernel_launches"],
             "serving_from_ckpt": generation["cross_check"][
-                "replica_paged_launches"]},
+                "replica_paged_launches"],
+            "quant_serving": quant["kernel_launches"]},
     }]
     # timings at the shapes of the path whose run gives the launches: the
     # seq-8192 trainer (phase 6) for the forward, the split pair and the
@@ -3667,7 +4134,8 @@ def main(argv) -> int:
                    if name == "flash_attention_bwd_fused" else {}))}
                if name in train_kernels["float16"] else {})})
     emit("smoke", seconds=time.perf_counter() - t_start,
-         fp16_resilience_seconds=fp16["seconds"], nvidia_smi=card)
+         fp16_resilience_seconds=fp16["seconds"], phase_walls=PHASE_WALLS,
+         nvidia_smi=card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

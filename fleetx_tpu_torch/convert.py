@@ -6,8 +6,12 @@ numpy arrays) and returns the same nesting of torch tensors on
 ``device``: the stacked ``[layers, ...]`` leaves, ``qkv_kernel`` /
 ``qkv_bias`` / ``out_kernel`` / ``out_bias``, ``mlp.wi_*`` / ``wo_*``,
 ``ln1`` / ``ln2`` / ``ln_f``, and the tied ``word_embeddings`` plus
-``position_embeddings``. A missing or extra leaf, or a shape that
-differs from ``models/gpt/model.py:param_shapes``, raises.
+``position_embeddings``, and the LoRA ``<kernel>_lora_a`` /
+``<kernel>_lora_b`` pairs of a fine-tune tree next to the four target
+kernels (``finetune/lora.py``; their rank read from the tree). A missing
+or extra leaf, or a shape that differs from
+``models/gpt/model.py:param_shapes`` (and ``lora.adapter_shapes``),
+raises.
 ``check_tree(tree, cfg)`` runs the same checks on anything with a
 ``.shape`` (``jax.eval_shape`` output) without converting a byte, so a
 full-size tree (GPT-1.3B) can be checked without its weights.
@@ -53,9 +57,36 @@ def _walk(node: Any, want: Any, path: str, leaf) -> Any:
     return leaf(node)
 
 
+def _expected(tree: Mapping, cfg: GPTConfig) -> dict:
+    """``param_shapes(cfg)`` plus the shapes of the adapter pairs
+    ``tree`` carries beside the LoRA target kernels."""
+    from fleetx_tpu_torch.finetune import lora
+
+    want = param_shapes(cfg)
+
+    def walk(w: dict, node: Any, path: str) -> None:
+        if not isinstance(node, Mapping):
+            return
+        for key, value in list(w.items()):
+            full = f"{path}/{key}".lstrip("/")
+            if isinstance(value, dict):
+                walk(value, node.get(key), full)
+                continue
+            target = lora.target_of(full)
+            a = node.get(key + "_lora_a")
+            if target is None or a is None:
+                continue
+            rank = (getattr(a, "shape", None) or np.shape(a))[-1]
+            w[key + "_lora_a"], w[key + "_lora_b"] = lora.adapter_shapes(
+                value, rank, target)
+
+    walk(want, tree, "")
+    return want
+
+
 def check_tree(tree: Mapping, cfg: GPTConfig) -> None:
     """Structure and shape checks of ``params_from_jax`` alone."""
-    _walk(tree, param_shapes(cfg), "", lambda node: None)
+    _walk(tree, _expected(tree, cfg), "", lambda node: None)
 
 
 def params_from_jax(tree: Mapping, cfg: GPTConfig,
@@ -63,5 +94,5 @@ def params_from_jax(tree: Mapping, cfg: GPTConfig,
     """Convert an unboxed numpy param tree; raises ``ValueError`` on any
     structural or shape mismatch."""
     device = torch.device(device)
-    return _walk(tree, param_shapes(cfg), "",
+    return _walk(tree, _expected(tree, cfg), "",
                  lambda node: _to_tensor(node, device))

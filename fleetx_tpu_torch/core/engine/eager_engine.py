@@ -95,7 +95,7 @@ import torch
 
 from fleetx_tpu_torch.core import checkpoint as ckpt_lib
 from fleetx_tpu_torch.observability import flight
-from fleetx_tpu_torch.optims.optimizer import AdamW, tree_leaves_with_path
+from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
 from fleetx_tpu_torch.resilience import Resilience, TrainingAborted
 from fleetx_tpu_torch.resilience import coordination
 from fleetx_tpu_torch.utils.config import check_single_device, loss_scaler
@@ -612,14 +612,15 @@ class EagerEngine:
     # ------------------------------------------------------ checkpoints
     def state_dict(self) -> dict:
         """The flat training state a checkpoint holds: ``step``,
-        ``params/<path>``, ``opt_state/<name>`` (``AdamW.flat_state``) and,
-        under the fp16 scaler, ``scaler/loss_scale`` (f32) and
-        ``scaler/growth_tracker`` (i32); the tensors themselves, not
-        copies."""
+        ``params/<path>``, ``opt_state/<name>`` (the optimizer's
+        ``flat_state``: ``AdamW``'s, or the adapters' alone under
+        ``lora_optimizer``) and, under the fp16 scaler,
+        ``scaler/loss_scale`` (f32) and ``scaler/growth_tracker`` (i32);
+        the tensors themselves, not copies."""
         state = {"step": self.step}
         state.update(ckpt_lib.flatten(self.params, "params/"))
         if self.opt_state is not None:
-            flat = AdamW.flat_state(self.opt_state, self.params)
+            flat = self.optimizer.flat_state(self.opt_state, self.params)
             state.update({f"opt_state/{k}": v for k, v in flat.items()})
         if self.scaler is not None:  # 0-d, as the JAX ScalerState leaves
             state.update({f"scaler/{k}": torch.tensor(v)
@@ -705,7 +706,7 @@ class EagerEngine:
                                  f"{tuple(p.shape)}")
             p.copy_(state[name])
         if self.opt_state is not None:
-            AdamW.load_flat_state(
+            self.optimizer.load_flat_state(
                 self.opt_state,
                 {k[len("opt_state/"):]: v for k, v in state.items()
                  if k.startswith("opt_state/")}, self.params)

@@ -8,11 +8,16 @@ __all__ = ["build_module"]
 
 def build_module(cfg):
     """Instantiate the task module named by ``cfg.Model.module``:
-    ``GPTModule``, ``GPTEvalModule`` or ``GPTGenerationModule`` (the other
-    families: ROADMAP.md, port queue item 7)."""
+    ``GPTModule``, ``GPTEvalModule``, ``GPTGenerationModule`` or
+    ``LoRAGPTModule`` (the other families: ROADMAP.md, port queue item
+    7)."""
     from fleetx_tpu_torch.core import module as modules
 
     name = (cfg.get("Model") or {}).get("module", "GPTModule")
+    if name == "LoRAGPTModule":
+        from fleetx_tpu_torch.finetune.module import LoRAGPTModule
+
+        return LoRAGPTModule(cfg)
     if name not in ("GPTModule", "GPTEvalModule", "GPTGenerationModule"):
         raise NotImplementedError(f"module {name} is not ported yet "
                                   f"(ROADMAP.md, port queue item 7)")

@@ -92,6 +92,10 @@ class GPTConfig:
     # the chunked LM head's vocab chunk (memory cap); None = full logits
     vocab_chunk: Optional[int] = None
     use_qat: bool = False
+    # fake-quant widths of the weights and the activations (the quantized
+    # serving decode, ``serving/decode.py``; QAT is not ported yet)
+    qat_bits: int = 8
+    qat_act_bits: int = 8
     moe_num_experts: int = 0   # 0 = dense FFN; MoE is not ported yet
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32

@@ -19,8 +19,23 @@ Decode attention takes one of two paths, chosen ONCE per engine: the
 hand-written CUDA page-walk kernel (``ops/paged_attention.py``), or the
 gathered view ``pool[block_tables] → [B, pages_per_req·page_size, heads,
 head_dim]`` when ``paged_kernel_enabled`` rejects the geometry. Prefill
-always takes the gather (its queries span a whole chunk). Quantized
-decode is not ported yet (ROADMAP.md, port queue item 2).
+always takes the gather (its queries span a whole chunk).
+
+Quantized decode (``quantize``, ``ServingConfig.quantize_decode``):
+int8-style fake-quant (``ops/quantization.py``) on the four matmuls of
+every layer, as the JAX steps do: per-output-channel weights (``qkv``,
+``out``, ``wi``, ``wo`` kernels, cast to the compute dtype first, with
+``Model.qat_bits``) and per-tensor activations (the ln1 output before
+``qkv``, the attention output before ``out``, the ln2 output before
+``wi``, the GELU output before ``wo``, with ``Model.qat_act_bits``). An
+activation's scale spans the whole step tensor: prefill's
+``[1, prefill_chunk, h]`` chunk with its padded positions and decode's
+``[max_batch, 1, h]`` batch with its inactive slots, the rows the JAX
+steps put there, so a request's tokens depend on its neighbours exactly
+as they do in JAX. A replica's weights are fixed, so ``prepare_params``
+fake-quantizes them once (each layer over its own input dims, which is
+the per-call quantization bit for bit) and the step functions quantize
+only the activations.
 """
 
 from __future__ import annotations
@@ -33,9 +48,19 @@ import torch
 
 from fleetx_tpu_torch.models.gpt import generation as G
 from fleetx_tpu_torch.ops import paged_attention as PA
+from fleetx_tpu_torch.ops.quantization import fake_quant
 
 #: parameter subtrees kept in their own dtype (the f32 layernorms)
 _NORM_KEYS = ("ln1", "ln2", "ln_f")
+
+#: the quantized kernels of a layer and the dims of their stacked
+#: ``[layers, ...]`` leaf each scale reduces over (the input dims: one
+#: scale per layer and output channel; the JAX steps' ``axis=0`` and
+#: ``axis=(0, 1)`` on one layer's kernel)
+QUANT_KERNELS = {("attn", "qkv_kernel"): (1,),
+                 ("attn", "out_kernel"): (1, 2),
+                 ("mlp", "wi_kernel"): (1,),
+                 ("mlp", "wo_kernel"): (1,)}
 
 
 def paged_kernel_enabled(cfg: Any, *, page_size: int,
@@ -57,11 +82,15 @@ class SamplingParams:
 
 
 def prepare_params(params: dict, cfg: Any,
-                   device: Union[str, torch.device]) -> dict:
+                   device: Union[str, torch.device],
+                   quantize: bool = False) -> dict:
     """Move the parameter dict to ``device`` and cast every matmul and
     embedding leaf to the compute dtype once (the JAX forward casts them
     on every call; the values are the same). LayerNorm leaves keep their
-    dtype: the norms compute in f32 against them."""
+    dtype: the norms compute in f32 against them. With ``quantize`` the
+    four layer kernels are fake-quantized per layer and output channel
+    after the cast (``QUANT_KERNELS``), as the JAX steps quantize them on
+    every call."""
 
     def walk(node: Any, norm: bool) -> Any:
         if isinstance(node, dict):
@@ -70,7 +99,13 @@ def prepare_params(params: dict, cfg: Any,
         node = node.to(device)
         return node if norm else node.to(cfg.dtype)
 
-    return walk(params, False)
+    out = walk(params, False)
+    if quantize:
+        layers = out["gpt"]["layers"]
+        for (group, name), dims in QUANT_KERNELS.items():
+            layers[group][name] = fake_quant(layers[group][name],
+                                             cfg.qat_bits, axis=dims)
+    return out
 
 
 def _layer_norm(p: dict, x: torch.Tensor, cfg: Any) -> torch.Tensor:
@@ -107,7 +142,7 @@ def _paged_attention(q: torch.Tensor, kd: torch.Tensor, vd: torch.Tensor,
 def _forward(params: dict, cfg: Any, tokens: torch.Tensor,
              positions: torch.Tensor, pool_k: torch.Tensor,
              pool_v: torch.Tensor, block_tables: torch.Tensor,
-             paged_kernel: bool = False
+             paged_kernel: bool = False, quantize: bool = False
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward a ``[B, S]`` token block through the paged decode stack.
 
@@ -117,7 +152,9 @@ def _forward(params: dict, cfg: Any, tokens: torch.Tensor,
     [B, S, h], pool_k, pool_v)``. The pools are updated IN PLACE (the JAX
     steps donate them and return new buffers); the returned pools are the
     same tensors. Negative ``positions`` mark invalid slots, which write
-    to the null page and are masked.
+    to the null page and are masked. ``quantize`` fake-quantizes the four
+    matmul inputs per tensor; the kernels come quantized from
+    ``prepare_params(..., quantize=True)``.
     """
     B, S = tokens.shape
     ps = pool_k.shape[2]
@@ -144,12 +181,16 @@ def _forward(params: dict, cfg: Any, tokens: torch.Tensor,
 
     nh, hd, h = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
     layers = gpt["layers"]
+
+    def act(t: torch.Tensor) -> torch.Tensor:
+        return fake_quant(t, cfg.qat_act_bits) if quantize else t
+
     x = x.to(cfg.dtype)
     for i in range(cfg.num_layers):
         attn_p, mlp_p = layers["attn"], layers["mlp"]
         residual = x
-        y = _layer_norm({"scale": layers["ln1"]["scale"][i],
-                         "bias": layers["ln1"]["bias"][i]}, x, cfg)
+        y = act(_layer_norm({"scale": layers["ln1"]["scale"][i],
+                             "bias": layers["ln1"]["bias"][i]}, x, cfg))
         qkv_k = attn_p["qkv_kernel"][i].to(cfg.dtype).reshape(h, 3 * nh * hd)
         qkv = (y.reshape(B * S, h) @ qkv_k).reshape(B, S, 3, nh, hd)
         qkv = qkv + attn_p["qkv_bias"][i].to(cfg.dtype)
@@ -170,17 +211,18 @@ def _forward(params: dict, cfg: Any, tokens: torch.Tensor,
             vd = pv_l[block_tables].reshape(B, -1, nh, hd)
             attn = _paged_attention(q, kd, vd, q_pos)
 
+        attn = act(attn)
         out_k = attn_p["out_kernel"][i].to(cfg.dtype).reshape(nh * hd, h)
         y = (attn.reshape(B * S, nh * hd) @ out_k).reshape(B, S, h)
         y = y + attn_p["out_bias"][i].to(cfg.dtype)
         x = residual + y
 
         residual = x
-        y = _layer_norm({"scale": layers["ln2"]["scale"][i],
-                         "bias": layers["ln2"]["bias"][i]}, x, cfg)
+        y = act(_layer_norm({"scale": layers["ln2"]["scale"][i],
+                             "bias": layers["ln2"]["bias"][i]}, x, cfg))
         y = y @ mlp_p["wi_kernel"][i].to(cfg.dtype) + \
             mlp_p["wi_bias"][i].to(cfg.dtype)
-        y = torch.nn.functional.gelu(y, approximate="tanh")
+        y = act(torch.nn.functional.gelu(y, approximate="tanh"))
         y = y @ mlp_p["wo_kernel"][i].to(cfg.dtype) + \
             mlp_p["wo_bias"][i].to(cfg.dtype)
         x = residual + y
@@ -209,7 +251,7 @@ def _sample(logits: torch.Tensor, rng: Optional[torch.Generator],
 
 
 def make_step_fns(cfg: Any, *, prefill_chunk: int, sampling: SamplingParams,
-                  paged_kernel: bool = False) -> dict:
+                  paged_kernel: bool = False, quantize: bool = False) -> dict:
     """Build the two serving step functions for one engine.
 
     Returns ``{"prefill": fn, "decode": fn}``; host arrays (numpy) are
@@ -218,6 +260,8 @@ def make_step_fns(cfg: Any, *, prefill_chunk: int, sampling: SamplingParams,
     Batch and table widths arrive with the arrays themselves.
     ``paged_kernel`` fixes the decode-attention path (callers gate on
     ``paged_kernel_enabled``; this function obeys, it doesn't decide).
+    ``quantize`` runs both steps on fake-quantized activations (the params
+    must come from ``prepare_params(..., quantize=True)``).
     """
 
     def dev(a: Any, device: torch.device) -> torch.Tensor:
@@ -235,7 +279,8 @@ def make_step_fns(cfg: Any, *, prefill_chunk: int, sampling: SamplingParams,
         positions = torch.where(idx < int(n_valid), int(start) + idx,
                                 torch.full_like(idx, -1))
         x, pool_k, pool_v = _forward(params, cfg, dev(tokens, d), positions,
-                                     pool_k, pool_v, dev(block_table, d))
+                                     pool_k, pool_v, dev(block_table, d),
+                                     quantize=quantize)
         last = min(max(int(n_valid) - 1, 0), prefill_chunk - 1)
         logits = _logits(params, cfg, x[0, last][None])
         return pool_k, pool_v, _sample(logits, rng, sampling), logits
@@ -251,7 +296,8 @@ def make_step_fns(cfg: Any, *, prefill_chunk: int, sampling: SamplingParams,
                                 torch.full_like(lens_t, -1))[:, None]
         x, pool_k, pool_v = _forward(
             params, cfg, dev(tokens, d)[:, None], positions, pool_k, pool_v,
-            dev(block_tables, d), paged_kernel=paged_kernel)
+            dev(block_tables, d), paged_kernel=paged_kernel,
+            quantize=quantize)
         logits = _logits(params, cfg, x[:, 0])
         return pool_k, pool_v, _sample(logits, rng, sampling), logits
 

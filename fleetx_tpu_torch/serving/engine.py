@@ -34,8 +34,10 @@ page-occupancy gauges), serving events land in the flight ring, and
 
 The engine runs on ``cuda`` unless ``device="cpu"`` is passed; its
 sampling generator is a ``torch.Generator`` on that device, seeded from
-``Global.seed``. Not ported yet, and refused loudly: quantized decode
-(ROADMAP.md, port queue item 2), the mesh-sharded pool (item 4) and MoE
+``Global.seed``. ``Serving.quantize_decode`` runs both steps with int8
+fake-quant (``serving/decode.py``: the kernels quantized once at
+construction, the matmul inputs per step). Not ported yet, and refused
+loudly: the mesh-sharded pool (ROADMAP.md, port queue item 4) and MoE
 stacks (item 7).
 """
 
@@ -76,8 +78,8 @@ class ServingConfig:
     num_pages: int = 64         # pool pages INCLUDING the reserved null page
     max_seq_len: int = 0        # 0 → model max_position_embeddings
     prefill_chunk: int = 32     # prompt tokens forwarded per step
-    # int8-act decode: not ported yet, True raises (ROADMAP.md, port
-    # queue item 2)
+    # int8 fake-quant decode: per-output-channel weights and per-tensor
+    # activations with the Model's qat_bits / qat_act_bits
     quantize_decode: bool = False
     # decode attention path: when True AND ``ops/paged_attention.py``'s
     # support predicate admits the geometry, decode runs the CUDA
@@ -92,9 +94,9 @@ class ServingConfig:
     # for A/B measurement
     lazy_alloc: bool = True
     alloc_watermark: int = 1    # headroom pages granted at lazy admission
-    # checkpoint and LoRA adapter directories: not ported yet,
-    # tools/serve.py refuses them (ROADMAP.md, port queue item 3); None =
-    # seeded init
+    # the checkpoint the replica serves (None = seeded init) and a LoRA
+    # adapter artifact merged into it (``tools/serve.build_engine``; an
+    # adapter needs its base checkpoint)
     ckpt_dir: Optional[str] = None
     adapter_dir: Optional[str] = None
     # per-request lifecycle tracing (docs/serving.md "Observability"):
@@ -310,10 +312,6 @@ class ServingEngine:
         self.sampling = sampling or SamplingParams()
         self.eos_token_id = int(eos_token_id)
         sc = self.serving
-        if sc.quantize_decode:
-            raise NotImplementedError(
-                "Serving.quantize_decode needs ops/quantization.py:fake_quant"
-                ", not ported yet (ROADMAP.md, port queue item 2)")
         if int(getattr(model_cfg, "moe_num_experts", 0) or 0) > 0:
             raise NotImplementedError(
                 "MoE decode stacks are not ported yet (ROADMAP.md, port "
@@ -324,7 +322,8 @@ class ServingEngine:
                 "Serving.max_seq_len exceeds the model's position table")
         self.pages_per_req = -(-self.max_seq_len // sc.page_size)
 
-        self.params = prepare_params(params, model_cfg, self.device)
+        self.params = prepare_params(params, model_cfg, self.device,
+                                     quantize=sc.quantize_decode)
         self.allocator = PageAllocator(sc.num_pages, sc.page_size)
         self.pool_k, self.pool_v = init_pool(model_cfg, sc.num_pages,
                                              sc.page_size, device=self.device)
@@ -335,7 +334,8 @@ class ServingEngine:
                                  pages_per_req=self.pages_per_req)
         self._fns = make_step_fns(
             model_cfg, prefill_chunk=sc.prefill_chunk,
-            sampling=self.sampling, paged_kernel=self.paged_kernel_active)
+            sampling=self.sampling, paged_kernel=self.paged_kernel_active,
+            quantize=sc.quantize_decode)
 
         # host-side scheduler state
         self._slots: list = [None] * sc.max_batch
@@ -373,10 +373,10 @@ class ServingEngine:
         logger.info(
             "serving engine on %s: max_batch=%d pages=%d x %d tokens "
             "(capacity %d token slots/layer), prefill_chunk=%d, "
-            "decode=%s, alloc=%s", self.device,
+            "quantize_decode=%s, decode=%s, alloc=%s", self.device,
             sc.max_batch, self.allocator.usable_pages,
             sc.page_size, self.allocator.usable_pages * sc.page_size,
-            sc.prefill_chunk,
+            sc.prefill_chunk, sc.quantize_decode,
             "paged_kernel" if self.paged_kernel_active else "gather",
             "lazy" if sc.lazy_alloc else "reserve")
 

@@ -8,18 +8,23 @@ Port of ``tools/serve.py``, with the same flags::
 
 - **replica** (default): build the model from ``-c cfg.yaml`` (the
   params of the newest checkpoint under ``Serving.ckpt_dir`` when given,
-  verified against its digests; else seeded init from ``Global.seed``),
-  run one ``ServingEngine`` behind the
+  verified against its digests; else seeded init from ``Global.seed``;
+  with ``Serving.adapter_dir`` the LoRA adapter artifact there, verified
+  against the base it stamps, merged into them), run one
+  ``ServingEngine`` behind the
   JSON-lines TCP front. SIGTERM/SIGINT latch the preemption handler → the
   replica stops admitting, finishes every in-flight decode, and exits
   with ``--preemption-code``.
 - **bench** (``--bench``): the in-process Poisson serving bench; prints
   one JSON line.
 
-The replica runs on ``cuda`` unless ``--device cpu`` is given. What the
-slice does not cover raises ``NotImplementedError`` naming its ROADMAP
-item: ``--router``, ``Serving.adapter_dir`` (the LoRA merge),
-``Serving.quantize_decode`` and any ``Distributed`` degree above 1.
+The replica runs on ``cuda`` unless ``--device cpu`` is given.
+``Serving.quantize_decode`` decodes with int8 fake-quant. The fine-tune
+recipe's config (``Model.module: LoRAGPTModule`` and its ``FineTune:``
+section) serves as it is: the replica reads ``Model`` for the
+architecture and ignores the rest. What the slice does not cover raises
+``NotImplementedError`` naming its ROADMAP item: ``--router`` and any
+``Distributed`` degree above 1.
 Under a supervisor gang (``FLEETX_PROCESS_ID`` set) the replica offsets
 its port by the member id.
 """
@@ -39,11 +44,6 @@ _DEGREE_KEYS = ("dp_degree", "mp_degree", "pp_degree", "fsdp_degree",
 
 def _check_ported(cfg: dict) -> None:
     """Refuse the config values the serving slice does not cover."""
-    serving = dict(cfg.get("Serving") or {})
-    if serving.get("adapter_dir"):
-        raise NotImplementedError(
-            "Serving.adapter_dir needs the LoRA adapter merge, not ported "
-            "yet (ROADMAP.md, port queue item 7.1)")
     dist = dict(cfg.get("Distributed") or {})
     degrees = {k: dist.get(k) for k in _DEGREE_KEYS}
     degrees["sharding_degree"] = (dist.get("sharding") or {}).get(
@@ -59,7 +59,9 @@ def _check_ported(cfg: dict) -> None:
 def build_engine(cfg: dict, device=None):
     """Config sections → a ready ``ServingEngine``: the params of
     ``Serving.ckpt_dir``'s newest checkpoint when it is set (a checkpoint
-    that is missing or fails its digests raises), else seeded weights."""
+    that is missing or fails its digests raises), else seeded weights;
+    then the adapter artifact of ``Serving.adapter_dir`` merged in (it
+    needs ``ckpt_dir``: an adapter is refused on any base but its own)."""
     from fleetx_tpu_torch.core.checkpoint import load_params
     from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
     from fleetx_tpu_torch.serving.decode import SamplingParams
@@ -87,6 +89,14 @@ def build_engine(cfg: dict, device=None):
         check_tree(params, model_cfg)
     else:
         params = init_params(model_cfg, seed=seed, device=device)
+    if serving.adapter_dir:
+        if not serving.ckpt_dir:
+            raise ValueError("Serving.adapter_dir requires Serving.ckpt_dir "
+                             "(the adapter's frozen base)")
+        from fleetx_tpu_torch.finetune.checkpoint import \
+            apply_adapter_checkpoint
+
+        params = apply_adapter_checkpoint(params, str(serving.adapter_dir))
     return ServingEngine(model_cfg, params, serving, sampling,
                          eos_token_id=eos, seed=seed, device=device)
 

@@ -44,8 +44,10 @@ def load_config(path: str, overrides: Optional[list] = None):
     return get_config(path, overrides)
 
 
-def build_trainer(cfg: dict, device=None):
-    """``(engine, train_loader, eval_loader or None)`` from a config."""
+def build_trainer(cfg: dict, device=None, wrap_optimizer=None):
+    """``(engine, train_loader, eval_loader or None)`` from a config;
+    ``wrap_optimizer`` (e.g. ``finetune.lora_optimizer``) wraps the
+    configured AdamW."""
     from fleetx_tpu_torch.core.engine import EagerEngine
     from fleetx_tpu_torch.data import build_dataloader
     from fleetx_tpu_torch.models import build_module
@@ -58,6 +60,8 @@ def build_trainer(cfg: dict, device=None):
     opt_cfg = dict(cfg.get("Optimizer") or {})
     lr = build_lr_scheduler(opt_cfg.get("lr"))
     optimizer = build_optimizer(opt_cfg, lr)
+    if wrap_optimizer is not None:
+        optimizer = wrap_optimizer(optimizer)
     engine = EagerEngine(cfg, module, optimizer=optimizer, lr_schedule=lr,
                          device=device)
     data_cfg = cfg.get("Data") or {}

@@ -240,13 +240,25 @@ def test_uncovered_config_values_raise(what):
                                                     "checkpoint"):
             serve.build_engine(cfg, device="cpu")
         return
-    item = {"quantize_decode": "item 2", "adapter_dir": "item 7.1",
-            "mp_degree": "item 4"}[what]
-    if what == "mp_degree":
-        cfg["Distributed"] = {"mp_degree": 2}
-    else:
-        cfg["Serving"][what] = True if what == "quantize_decode" else "/x"
-    with pytest.raises(NotImplementedError, match=item):
+    if what == "quantize_decode":
+        # ported: the replica decodes with int8 fake-quant, its kernels
+        # quantized once at construction
+        plain = serve.build_engine(cfg, device="cpu")
+        cfg["Serving"][what] = True
+        engine = serve.build_engine(cfg, device="cpu")
+        kernel = engine.params["gpt"]["layers"]["attn"]["qkv_kernel"]
+        assert engine.serving.quantize_decode and not torch.equal(
+            kernel, plain.params["gpt"]["layers"]["attn"]["qkv_kernel"])
+        return
+    if what == "adapter_dir":
+        # the LoRA merge is ported; an adapter without its base
+        # checkpoint is refused, never merged into seeded weights
+        cfg["Serving"][what] = "/x"
+        with pytest.raises(ValueError, match="requires Serving.ckpt_dir"):
+            serve.build_engine(cfg, device="cpu")
+        return
+    cfg["Distributed"] = {"mp_degree": 2}
+    with pytest.raises(NotImplementedError, match="item 4"):
         serve.build_engine(cfg, device="cpu")
 
 
