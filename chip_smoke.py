@@ -7,7 +7,8 @@ generate from its checkpoint with the port's generation task, evaluate
 it offline, export it and run the exported programs, fine-tune it with
 LoRA adapters and serve the merged weights with int8 fake-quant decode,
 train GPT-345M in fp16 under the loss scaler and run the resilience
-drills.
+drills, and train GPT-345M with QAT and under the dots recompute policy
+and GPT-1.3B through the auto-layout entry point.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
@@ -18,6 +19,7 @@ drills.
     python3 chip_smoke.py --train-paths    # phases 4 and 6 alone
     python3 chip_smoke.py --finetune-serving  # phases 2, 4, 8, 9's
                                            # tokenizer, 10's corpus, 13
+    python3 chip_smoke.py --gpt-knobs      # phases 4 and 14
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -122,8 +124,10 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    grads within 1e-5 of each leaf's largest magnitude; bf16, both on the
    tensor cores, printed); hidden and
    attention dropout 0.1, f32, ``use_recompute`` full / full_attn /
-   core_attn against off (loss within 1e-6, grads within 1e-6 of each
-   leaf's largest magnitude).
+   core_attn / dots against off (loss within 1e-6, grads within 1e-6 of
+   each leaf's largest magnitude), and dots with ``remat_save_dtype:
+   bfloat16`` against off (the forward rounds the named residuals to
+   bf16: loss within ``DOTS_BF16_LOSS_TOL``, grads within ``TC_DRIFT``).
 
 8. checkpoint: ``pretrain_gpt_345M_synthetic.yaml`` at full width, uncut
    (after checking the temp dir has 10 GB free): a fresh engine trains 5
@@ -243,6 +247,27 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    memory (4 prompts × 32 tokens): identical, or apart only where the
    top-two logit gap is under 1e-3.
 
+14. QAT, the dots granularity and the auto-layout entry point (run after
+   phase 7; each counted from 0 around its own run):
+   (a) ``pretrain_gpt_345M_mp8_qat.yaml`` with ``Distributed.mp_degree=1``
+   and phase 4's ``Data`` section at full width, bf16, 10 steps: 8-bit
+   fake-quant on, finite losses, phase 4's per-step counts, the step beside
+   phase 4's and a 3-step trace; then one f32 loss+grad at 4 layers with
+   the kernels on and off (``QAT_ONOFF_*_TOL``). (b) phase 4's recipe,
+   seed and batches with ``use_recompute`` and ``recompute_granularity:
+   dots`` for 10 steps: the losses equal phase 4's bit for bit
+   (``DOTS_LOSS_TOL``), phase 4's per-step counts (the backward reruns
+   neither the flash forward nor a norm forward), the peak memory below
+   phase 4's; two steps of ``full`` beside it (48 flash and 97 norm
+   forwards a step). (c) ``python -m fleetx_tpu_torch.tools.auto`` on
+   ``auto/pretrain_gpt_1.3B_single_card.yaml`` (``AUTO_OVERRIDES``:
+   synthetic data, 3 steps) as its own process, full width and depth:
+   every planned degree 1, the card's memory as the planner's budget and
+   no budget warning in its log, the first loss within 0.1 of ``ln(vocab)
+   + hidden·r²/2``, ``FULL_PER_STEP`` launches a step on the tensor cores;
+   step ms, tokens/s, MFU, peak memory. Then rows 1 and 4 at the 1.3B
+   attention shape ``[128, 1024, 128]`` bf16 (held and timed as in 1b).
+
 Each phase's wall is printed as it ends (``phase_wall``) and collected in
 the ``smoke`` line.
 
@@ -285,6 +310,7 @@ line is ``{"ok": true, "device": {...}}``. Without CUDA the script exits
 non-zero and prints no result.
 """
 
+import ast
 import ctypes
 import dataclasses
 import json
@@ -691,24 +717,27 @@ def _max_err(pairs) -> float:
     return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
 
 
-def _flash_case(dtype: torch.dtype, dev: torch.device):
+def _flash_case(dtype: torch.dtype, dev: torch.device,
+                shape=(TB, TNH, TS, THD)):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    shape = (TB * TNH, TS, THD)
-    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+    b, nh, s, hd = shape
+    return [torch.randn((b * nh, s, hd), generator=gen, device=dev).to(dtype)
             for _ in range(4)]
 
 
-def _flash_rows(dtype, dev, flush) -> dict:
+def _flash_rows(dtype, dev, flush, shape=(TB, TNH, TS, THD)) -> dict:
     """Flash forward and fused backward against their plain versions, with
-    dropout 0.1, and their timings."""
+    dropout 0.1, and their timings, at ``shape`` = ``(batch, heads, seq,
+    head_dim)`` (default: the GPT-345M training shape)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from fleetx_tpu_torch.ops import flash_attention as FA
 
-    q, k, v, do = _flash_case(dtype, dev)
-    seed, scale = 20240607, THD ** -0.5
-    tc = FA.tc_route(dtype, THD)
+    fb, fnh, fs, fhd = shape
+    q, k, v, do = _flash_case(dtype, dev, shape)
+    seed, scale = 20240607, fhd ** -0.5
+    tc = FA.tc_route(dtype, fhd)
     out, lse = FA.fwd_call(q, k, v, seed, scale, True, RATE)
     p_out, p_lse = FA.fwd_plain(q, k, v, seed, scale, True, RATE,
                                 round_operands=tc)
@@ -754,7 +783,7 @@ def _flash_rows(dtype, dev, flush) -> dict:
     # autograd backward on the same data in [b, heads, s, d] (never called
     # by the port)
     def four(t):
-        return t.reshape(TB, TNH, TS, THD)
+        return t.reshape(fb, fnh, fs, fhd)
 
     backend = ([SDPBackend.FLASH_ATTENTION] if dtype in TC_PEAK_DTYPES else
                [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH])
@@ -771,12 +800,12 @@ def _flash_rows(dtype, dev, flush) -> dict:
             lib_out, (sq, sk, sv), four(do), retain_graph=True), flush)
     del lib_out, sq, sk, sv
 
-    bh = TB * TNH
-    pairs = TS * (TS + 1) // 2          # causal (row, col) pairs per head
+    bh = fb * fnh
+    pairs = fs * (fs + 1) // 2          # causal (row, col) pairs per head
     item = q.element_size()
-    fwd_bytes = 4 * bh * TS * THD * item + bh * TS * 4   # q,k,v,out + lse
-    bwd_bytes = (6 * bh * TS * THD * item + 2 * bh * TS * 4  # q,k,v,do,dk,dv
-                 + bh * TS * THD * 4)                        # + lse,delta,dq
+    fwd_bytes = 4 * bh * fs * fhd * item + bh * fs * 4   # q,k,v,out + lse
+    bwd_bytes = (6 * bh * fs * fhd * item + 2 * bh * fs * 4  # q,k,v,do,dk,dv
+                 + bh * fs * fhd * 4)                        # + lse,delta,dq
     fwd = dict(
         max_abs_err=fwd_err, variant="wgmma" if tc else "simt", **tc_errs,
         ms=time_ms(lambda: FA.fwd_call(q, k, v, seed, scale, True, RATE),
@@ -785,7 +814,7 @@ def _flash_rows(dtype, dev, flush) -> dict:
                                               RATE), flush, iters=10),
         library_ms=fwd_lib_ms)
     fwd["bound_ms"], fwd["bound_by"] = _bound(
-        fwd_bytes, 2 * 2 * pairs * THD * bh, dtype)
+        fwd_bytes, 2 * 2 * pairs * fhd * bh, dtype)
     bwd = dict(
         max_abs_err=bwd_err, variant="wgmma" if tc else "simt", **bwd_tc,
         ms=time_ms(lambda: FA.bwd_call(q, k, v, do, lse, delta, seed, scale,
@@ -795,7 +824,7 @@ def _flash_rows(dtype, dev, flush) -> dict:
                          iters=10),
         library_ms=bwd_lib_ms)
     bwd["bound_ms"], bwd["bound_by"] = _bound(
-        bwd_bytes, 5 * 2 * pairs * THD * bh, dtype)
+        bwd_bytes, 5 * 2 * pairs * fhd * bh, dtype)
     return {"flash_attention_fwd": fwd, "flash_attention_bwd_fused": bwd}
 
 
@@ -1685,12 +1714,13 @@ def phase_trainer(dev: torch.device, card: str) -> dict:
 
 
 # --------------------------------------------------------------- phase 5
-def _loss_and_grads(cfg_overrides: list, params: dict, batch: dict):
+def _loss_and_grads(cfg_overrides: list, params: dict, batch: dict,
+                    yaml: str = TRAIN_YAML):
     from fleetx_tpu_torch.core.module import GPTModule
     from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
     from fleetx_tpu_torch.tools.train import load_config
 
-    module = GPTModule(load_config(TRAIN_YAML, cfg_overrides))
+    module = GPTModule(load_config(yaml, cfg_overrides))
     leaves = [p for _, p in tree_leaves_with_path(params)]
     for p in leaves:
         p.requires_grad_(True)
@@ -1885,6 +1915,13 @@ def phase_seq8k_trainer(dev: torch.device, card: str) -> dict:
 # --------------------------------------------------------------- phase 7
 #: the training path at reduced depth for the on/off comparisons
 SHORT = ["Model.num_layers=4"]
+#: dots with ``remat_save_dtype: bfloat16`` in f32 against recompute off:
+#: the four named residuals a layer (and their cotangents) are rounded to
+#: bf16, a relative error of at most 2**-9 each, so the loss may move by
+#: ~1e-3 of its ~11 and the grads are held within the tensor-core drift
+#: bound (2**-6 of each leaf's largest magnitude), which covers one
+#: bf16 rounding summed over a row with mixed signs
+DOTS_BF16_LOSS_TOL = 1e-2
 
 
 def phase_split_and_recompute_on_path(dev: torch.device, card: str) -> None:
@@ -1941,7 +1978,7 @@ def phase_split_and_recompute_on_path(dev: torch.device, card: str) -> None:
     base = SHORT + ["Model.dtype=float32", "Model.hidden_dropout_prob=0.1",
                     "Model.attention_probs_dropout_prob=0.1"]
     off = _loss_and_grads(base, params, batch)
-    for granularity in ("full", "full_attn", "core_attn"):
+    for granularity in ("full", "full_attn", "core_attn", "dots"):
         on = _loss_and_grads(base + ["Model.use_recompute=True",
                                      f"Model.recompute_granularity="
                                      f"{granularity}"], params, batch)
@@ -1954,7 +1991,19 @@ def phase_split_and_recompute_on_path(dev: torch.device, card: str) -> None:
         check(diff <= 1e-6, f"recompute {granularity}: grads {diff}")
         del on
         torch.cuda.empty_cache()
-    del params, off
+    # dots with the named residuals saved in bf16: the forward rounds them
+    # too, so this is a drift from off, not an equality
+    on = _loss_and_grads(base + DOTS_OVERRIDES
+                         + ["Model.remat_save_dtype=bfloat16"], params, batch)
+    diff = rel(on[1], off[1])
+    result["recompute_dots_bf16_vs_off_float32"] = dict(
+        loss_on=on[0], loss_off=off[0], loss_diff=abs(on[0] - off[0]),
+        max_grad_diff_over_leaf_max=diff, loss_tol=DOTS_BF16_LOSS_TOL,
+        grad_tol=TC_DRIFT)
+    check(abs(on[0] - off[0]) <= DOTS_BF16_LOSS_TOL,
+          f"dots bf16: loss {on[0]} vs {off[0]}")
+    check(diff <= TC_DRIFT, f"dots bf16: grads {diff}")
+    del params, off, on
     torch.cuda.empty_cache()
     emit("split_and_recompute_on_path", layers=int(cfg["Model"]["num_layers"]),
          **result, nvidia_smi=card)
@@ -3881,6 +3930,365 @@ def _readme_tokenizer(root: str) -> str:
     return tok_dir
 
 
+# -------------------------------------------------------------- phase 14
+QAT_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                        "pretrain_gpt_345M_mp8_qat.yaml")
+AUTO_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt", "auto",
+                         "pretrain_gpt_1.3B_single_card.yaml")
+#: the QAT recipe on one card (the recipe's tensor parallel 8 is not
+#: ported), no eval and no saves; its Data section is replaced by phase 4's
+QAT_OVERRIDES = ["Distributed.mp_degree=1", f"Engine.max_steps={TRAIN_STEPS}",
+                 "Engine.logging_freq=1", "Engine.eval_freq=0",
+                 "Engine.save_load.save_steps=0"]
+#: phase 4's recipe under the dots granularity
+DOTS_OVERRIDES = ["Model.use_recompute=True",
+                  "Model.recompute_granularity=dots"]
+#: the auto recipe's run: synthetic data (its ./data/demo is not in the
+#: repository), 3 steps, no eval and no saves
+AUTO_STEPS = 3
+AUTO_OVERRIDES = ["Data.Train.dataset.name=SyntheticGPTDataset",
+                  "Data.Train.dataset.num_samples=65536",
+                  "Data.Train.dataset.seq_length=1024",
+                  "Data.Train.dataset.vocab_size=50304",
+                  f"Engine.max_steps={AUTO_STEPS}", "Engine.logging_freq=1",
+                  "Engine.eval_freq=0", "Engine.save_load.save_steps=0"]
+#: per step under full recompute at 24 layers (345M, and the 1.3B auto
+#: recipe): each layer's flash forward and its two norm forwards run twice
+#: (forward, then recomputed), ln_f once
+FULL_PER_STEP = {"flash_attention_fwd": 48, "flash_attention_bwd_fused": 24,
+                 "fused_norm_fwd": 97, "fused_norm_bwd": 49}
+#: GPT-1.3B's attention shape (batch 8, 16 heads, seq 1024, head_dim 128)
+SHAPE_1_3B = (8, 16, 1024, 128)
+#: QAT, f32, kernels on against off at 4 layers. Fake-quant is a step
+#: function, and the kernels and the plain path differ by f32 ulps, so an
+#: activation within an ulp of a rounding boundary moves by a whole 8-bit
+#: step (1/127 of its tensor's largest value) on one side only; about one
+#: element per site does, and it spreads through the layers above. The
+#: loss, a mean over 8192 tokens, moves little (bound ten times phase 5's
+#: 1e-4); a weight grad sums the flipped activation times its cotangents,
+#: and a flip in a row with a large cotangent moves a few of its elements
+#: by several steps' worth of the leaf's largest magnitude, so the grads
+#: are held within 2**-4 of it. The same comparison without QAT is held
+#: to phase 5's bounds beside it, which shows the kernels are not the
+#: cause
+QAT_ONOFF_LOSS_TOL, QAT_ONOFF_GRAD_TOL = 1e-3, 2.0 ** -4
+#: dots against phase 4's uninterrupted losses: bitwise, since the forward
+#: is the same ops and the recomputed ops are deterministic (tolerance 0)
+DOTS_LOSS_TOL = 0.0
+
+
+def _knob_run(dev: torch.device, cfg: dict, steps: int) -> tuple:
+    """``(engine, losses, counts, peak GB, median step s of steps 2-)``:
+    ``cfg``'s trainer fitted with the launch counts zeroed just before
+    and read just after (``engine.history`` holds each step's time)."""
+    from fleetx_tpu_torch.tools.train import build_trainer
+
+    engine, train_dl, _ = build_trainer(cfg, device=dev)
+    engine.max_steps = steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                   # every count to 0 just before
+    losses = engine.fit(train_dl)
+    torch.cuda.synchronize()
+    counts = read_counts()          # read just after
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    hist = engine.history
+    check(len(losses) == steps and all(np.isfinite(losses))
+          and all(np.isfinite(h["grad_norm"]) for h in hist),
+          f"losses {losses}")
+    step_s = statistics.median(h["train_cost"] for h in hist[1:]) \
+        if steps > 1 else hist[0]["train_cost"]
+    return engine, losses, counts, peak_gb, step_s
+
+
+def _check_per_step(what: str, counts: dict, per_step: dict,
+                    steps: int) -> None:
+    for name, n in per_step.items():
+        check(counts[name] == n * steps,
+              f"{what} {name}: {counts[name]} launches, want {n} x {steps}")
+
+
+def _qat_train(dev: torch.device, card: str, trainer: dict) -> dict:
+    """14a: the QAT recipe at full width, 10 steps, on phase 4's data; its
+    step beside phase 4's, a short trace; then kernels on against off."""
+    from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
+    from fleetx_tpu_torch.tools.train import load_config
+
+    cfg = load_config(QAT_YAML, QAT_OVERRIDES)
+    cfg["Data"] = load_config(TRAIN_YAML)["Data"]   # phase 4's data
+    engine, losses, counts, peak_gb, step_s = _knob_run(dev, cfg,
+                                                        TRAIN_STEPS)
+    mc = engine.module.model_cfg
+    check(mc.use_qat and mc.qat_bits == 8 and mc.qat_act_bits == 8
+          and mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.dtype == torch.bfloat16 and not mc.use_recompute
+          and cfg["Global"]["global_batch_size"] == 8
+          and cfg["Global"]["seed"] == 1024,
+          "not the full-width 345M QAT recipe")
+    _check_per_step("qat", counts, PER_STEP, TRAIN_STEPS)
+    step_ms = [h["train_cost"] * 1e3 for h in engine.history]
+    batch = engine.to_device(next(iter(_train_loader(cfg))))
+    fields, share = _trace_window(lambda: engine.train_step(batch), 3,
+                                  n_top=12)
+    matmul_ms = share("nvjet", "gemm", "cutlass", "sm90_xmma")
+    kernels_ms = share("flash_fwd_kernel", "flash_bwd_kernel",
+                       "fused_norm_fwd_kernel", "fused_norm_bwd_kernel")
+    del engine, batch
+    torch.cuda.empty_cache()
+    out = dict(steps=TRAIN_STEPS, losses=losses, launches=counts,
+               launches_per_step={k: counts[k] / TRAIN_STEPS
+                                  for k in PER_STEP},
+               step_ms=step_ms, step_ms_median=step_s * 1e3,
+               phase4_step_ms_median=trainer["step_ms_median"],
+               step_ratio_to_phase4=step_s * 1e3 / trainer["step_ms_median"],
+               max_memory_allocated_gb=peak_gb,
+               phase4_max_memory_allocated_gb=trainer[
+                   "max_memory_allocated_gb"],
+               trace=dict(fields, matmul_ms_per_step=matmul_ms,
+                          kernels_ms_per_step=kernels_ms,
+                          other_ms_per_step=share() - matmul_ms - kernels_ms))
+    emit("qat_train", **out, nvidia_smi=card)
+
+    # kernels on against off, f32, 4 layers, dropout 0 (phase 5's check at
+    # phase 7's depth)
+    base = QAT_OVERRIDES + SHORT + ["Model.dtype=float32",
+                                    "Model.hidden_dropout_prob=0.0",
+                                    "Model.attention_probs_dropout_prob=0.0"]
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(iter(_train_loader(cfg))).items()}
+    params = init_params(config_from_dict(dict(
+        load_config(QAT_YAML, base)["Model"])), seed=0, device=dev)
+
+    def on_off(yaml: str) -> tuple:
+        runs = [_loss_and_grads(base + [f"Model.use_flash_attention={on}",
+                                        f"Model.fused_residual_norm={on}"],
+                                params, batch, yaml) for on in (True, False)]
+        (loss_on, g_on), (loss_off, g_off) = runs
+        rels = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(g_on, g_off)]
+        return loss_on, loss_off, rels
+
+    loss_on, loss_off, rels = on_off(QAT_YAML)
+    # the same without QAT (phase 5's check at this depth)
+    p_on, p_off, p_rels = on_off(TRAIN_YAML)
+    onoff = dict(layers=4, loss_on=loss_on, loss_off=loss_off,
+                 loss_diff=abs(loss_on - loss_off),
+                 max_grad_diff_over_leaf_max=max(rels),
+                 grad_diff_over_leaf_max_per_leaf=rels,
+                 loss_tol=QAT_ONOFF_LOSS_TOL, grad_tol=QAT_ONOFF_GRAD_TOL,
+                 without_qat=dict(loss_diff=abs(p_on - p_off),
+                                  max_grad_diff_over_leaf_max=max(p_rels)))
+    emit("qat_kernels_vs_plain", **onoff, nvidia_smi=card)
+    check(abs(loss_on - loss_off) <= QAT_ONOFF_LOSS_TOL,
+          f"QAT f32 loss kernels on {loss_on} vs off {loss_off}")
+    check(max(rels) <= QAT_ONOFF_GRAD_TOL,
+          f"QAT f32 grads on vs off: {max(rels)}")
+    check(abs(p_on - p_off) <= 1e-4 and max(p_rels) <= 1e-3,
+          f"f32 kernels on vs off at 4 layers: {abs(p_on - p_off)}, "
+          f"{max(p_rels)}")
+    del params, batch
+    torch.cuda.empty_cache()
+    out["kernels_vs_plain"] = onoff
+    return out
+
+
+def _train_loader(cfg: dict):
+    """``cfg``'s ``Data.Train`` loader at its batch and shapes."""
+    from fleetx_tpu_torch.data import build_dataloader
+
+    glb = cfg["Global"]
+    return build_dataloader(cfg["Data"], "Train",
+                            batch_size=glb["global_batch_size"],
+                            seq_length=glb["max_seq_len"],
+                            vocab_size=cfg["Model"]["vocab_size"])
+
+
+def _dots_train(dev: torch.device, card: str, trainer: dict) -> dict:
+    """14b: phase 4's recipe, seed and batches under ``dots`` for 10
+    steps, its losses held to phase 4's, and a short trace; two steps of
+    ``full`` for the launch counts beside it."""
+    from fleetx_tpu_torch.tools.train import load_config
+
+    cfg = load_config(TRAIN_YAML, [f"Engine.max_steps={TRAIN_STEPS}",
+                                   "Engine.logging_freq=1"]
+                      + DOTS_OVERRIDES)
+    engine, losses, counts, peak_gb, step_s = _knob_run(dev, cfg,
+                                                        TRAIN_STEPS)
+    mc = engine.module.model_cfg
+    check(mc.use_recompute and mc.recompute_granularity == "dots"
+          and mc.remat_save_dtype is None and mc.remat_consumed_layout
+          and mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.dtype == torch.bfloat16, "not phase 4's recipe under dots")
+    step_ms = [h["train_cost"] * 1e3 for h in engine.history]
+    batch = engine.to_device(next(iter(_train_loader(cfg))))
+    fields, share = _trace_window(lambda: engine.train_step(batch), 3,
+                                  n_top=12)
+    matmul_ms = share("nvjet", "gemm", "cutlass", "sm90_xmma")
+    kernels_ms = share("flash_fwd_kernel", "flash_bwd_kernel",
+                       "fused_norm_fwd_kernel", "fused_norm_bwd_kernel")
+    del engine, batch
+    _check_per_step("dots", counts, PER_STEP, TRAIN_STEPS)
+    diffs = [abs(a - b) for a, b in zip(losses, trainer["losses"])]
+    full_cfg = load_config(TRAIN_YAML, ["Engine.logging_freq=1",
+                                        "Model.use_recompute=True",
+                                        "Model.recompute_granularity=full"])
+    engine, _, full_counts, full_peak, full_s = _knob_run(dev, full_cfg, 2)
+    del engine
+    torch.cuda.empty_cache()
+    _check_per_step("full", full_counts, FULL_PER_STEP, 2)
+    out = dict(steps=TRAIN_STEPS, losses=losses,
+               phase4_losses=trainer["losses"], loss_diffs=diffs,
+               bitwise=all(d == 0.0 for d in diffs), loss_tol=DOTS_LOSS_TOL,
+               launches=counts,
+               launches_per_step={k: counts[k] / TRAIN_STEPS
+                                  for k in PER_STEP},
+               full_launches_per_step={k: full_counts[k] / 2
+                                       for k in FULL_PER_STEP},
+               step_ms=step_ms, step_ms_median=step_s * 1e3,
+               phase4_step_ms_median=trainer["step_ms_median"],
+               full_step_ms=full_s * 1e3,
+               max_memory_allocated_gb=peak_gb,
+               phase4_max_memory_allocated_gb=trainer[
+                   "max_memory_allocated_gb"],
+               full_max_memory_allocated_gb=full_peak,
+               trace=dict(fields, matmul_ms_per_step=matmul_ms,
+                          kernels_ms_per_step=kernels_ms,
+                          other_ms_per_step=share() - matmul_ms - kernels_ms))
+    emit("dots_train", **out, nvidia_smi=card)
+    check(max(diffs) <= DOTS_LOSS_TOL,
+          f"dots losses {losses} against phase 4's {trainer['losses']}")
+    check(peak_gb < trainer["max_memory_allocated_gb"],
+          f"dots peak {peak_gb} GB is not below phase 4's "
+          f"{trainer['max_memory_allocated_gb']} GB")
+    return out
+
+
+def auto_child(argv: list) -> int:
+    """The process of phase 14c: ``tools.auto``'s ``main(argv)`` with the
+    launch counts zeroed just before and read just after, then one JSON
+    line of them and the peak memory."""
+    from fleetx_tpu_torch.tools import auto
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    rc = auto.main(argv)
+    torch.cuda.synchronize()
+    print(json.dumps({"rc": rc, "launches": read_counts(),
+                      "max_memory_allocated_gb":
+                          torch.cuda.max_memory_allocated() / 2 ** 30}),
+          flush=True)
+    return rc
+
+
+_TRAIN_LINE = re.compile(
+    r"global step (\d+),.* loss: ([0-9.]+), avg_batch_cost: ([0-9.]+) sec"
+    r".* ips_total: ([0-9.]+) tokens/s(?:.*mfu: ([0-9.]+)%)?")
+
+
+def _auto_train(dev: torch.device, card: str) -> dict:
+    """14c: ``python -m fleetx_tpu_torch.tools.auto`` on the 1.3B auto
+    recipe, full width and depth, as its own process (through
+    ``auto_child``, which reads its launch counts)."""
+    from fleetx_tpu_torch.tools.train import load_config
+    from fleetx_tpu_torch.utils.hardware import peak_flops
+
+    cfg = load_config(AUTO_YAML, AUTO_OVERRIDES, auto_layout=True,
+                      device=dev)
+    mc = cfg["Model"]
+    check(mc["num_layers"] == 24 and mc["hidden_size"] == 2048
+          and mc["num_attention_heads"] == 16 and mc["use_recompute"]
+          and mc["recompute_granularity"] == "full"
+          and cfg["Global"]["max_seq_len"] == 1024
+          and cfg["Global"]["global_batch_size"] == 8,
+          "not the full-width GPT-1.3B auto recipe")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.auto_child(sys.argv[1:]))", "-c", AUTO_YAML]
+        + _overrides(AUTO_OVERRIDES), cwd=REPO, capture_output=True,
+        text=True, timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    process_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"tools.auto exited {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    log = proc.stderr
+    planned = re.search(r"auto layout for ([0-9.]+)B params on (\d+) "
+                        r"devices: (\{.*\})", log)
+    budget = re.search(r"auto_layout: 1 device, budget ([0-9.]+) GB "
+                       r"\((.*)\)", log)
+    check(planned is not None and budget is not None,
+          f"tools.auto logged no plan: {log[-2000:]}")
+    layout = ast.literal_eval(planned.group(3))
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    check(all(v == 1 for v in layout.values()) and planned.group(2) == "1",
+          f"planned {layout}")
+    check(abs(float(budget.group(1)) - card_gb) < 0.01
+          and "exceeds the" not in log,
+          f"budget {budget.group(0)}; card {card_gb} GB")
+    steps = [_TRAIN_LINE.search(line) for line in log.splitlines()
+             if "[train] global step" in line]
+    check(len(steps) == AUTO_STEPS and all(steps), "a step was not logged")
+    losses = [float(m.group(2)) for m in steps]
+    costs = [float(m.group(3)) for m in steps]
+    hidden, vocab = mc["hidden_size"], mc["vocab_size"]
+    expect = float(np.log(vocab) + hidden * mc["initializer_range"] ** 2 / 2)
+    check(all(np.isfinite(losses)) and abs(losses[0] - expect) < 0.1,
+          f"first loss {losses[0]} is not within 0.1 of {expect}")
+    _check_per_step("auto_1.3B", rec["launches"], FULL_PER_STEP, AUTO_STEPS)
+    for name, kernel in TC_COUNTS.items():
+        check(rec["launches"][name] == rec["launches"][kernel],
+              f"auto_1.3B {kernel} off the tensor cores")
+    step_s = statistics.median(costs[1:])
+    tokens = cfg["Global"]["global_batch_size"] * cfg["Global"]["max_seq_len"]
+    from fleetx_tpu_torch.utils.hardware import gpt_flops_per_token
+
+    fpt = gpt_flops_per_token(mc["num_layers"], hidden,
+                              cfg["Global"]["max_seq_len"], vocab_size=vocab)
+    peak = peak_flops(torch.cuda.get_device_name(dev)) or PEAK_BF16_FLOPS
+    out = dict(steps=AUTO_STEPS, losses=losses, expected_first_loss=expect,
+               planned_layout=layout, planned_params_b=float(
+                   planned.group(1)), budget_gb=float(budget.group(1)),
+               budget_source=budget.group(2), card_memory_gb=card_gb,
+               step_ms=[c * 1e3 for c in costs],
+               step_ms_median_of_steps_2_3=step_s * 1e3,
+               tokens_per_s=tokens / step_s,
+               mfu=fpt * tokens / step_s / peak,
+               logged_mfu_pct=[m.group(5) and float(m.group(5))
+                               for m in steps],
+               max_memory_allocated_gb=rec["max_memory_allocated_gb"],
+               launches=rec["launches"],
+               launches_per_step={k: rec["launches"][k] / AUTO_STEPS
+                                  for k in FULL_PER_STEP},
+               process_s=process_s)
+    emit("auto_1.3B_train", **out, nvidia_smi=card)
+    return out
+
+
+def phase_gpt_knobs(dev: torch.device, card: str, trainer: dict) -> dict:
+    """Phase 14: QAT, the dots granularity and the auto-layout entry point
+    at full width (each counted from 0 around its own run), and rows 1 and
+    4 at the 1.3B attention shape, which 14c is the first path to run."""
+    out = {"qat": _qat_train(dev, card, trainer),
+           "dots": _dots_train(dev, card, trainer),
+           "auto": _auto_train(dev, card)}
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = _flash_rows(torch.bfloat16, dev, flush, SHAPE_1_3B)
+    del flush
+    torch.cuda.empty_cache()
+    for kernel, row in rows.items():
+        emit("kernel", name=kernel, dtype="bfloat16", shape="1.3B", **row)
+    out["shape_1.3B"] = rows
+    return out
+
+
+def gpt_knobs_alone(dev: torch.device, card: str) -> None:
+    """``--gpt-knobs``: phase 4 (the losses, step and peak memory phase 14
+    is held to), then phase 14."""
+    trainer = timed("4", phase_trainer, dev, card)
+    timed("14", phase_gpt_knobs, dev, card, trainer)
+    emit("gpt_knobs_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
+
+
 def finetune_serving_alone(dev: torch.device, card: str) -> None:
     """``--finetune-serving``: phase 2 (the unquantized replica phase 13
     is set beside), phase 4 (the step time phase 13 is set beside, and the
@@ -3951,7 +4359,8 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = phase_env(build)
     modes = {"--paged-shapes", "--serving", "--eval-export",
-             "--fp16-resilience", "--train-paths", "--finetune-serving"}
+             "--fp16-resilience", "--train-paths", "--finetune-serving",
+             "--gpt-knobs"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
@@ -3960,10 +4369,16 @@ def main(argv) -> int:
         # shape on a checkpoint of seeded weights; --fp16-resilience: phase
         # 1b's fp16 rows, phase 4 (the uninterrupted losses) and phase 12;
         # --train-paths: phases 4 and 6; --finetune-serving: phases 2, 4,
-        # 8, the tokenizer and corpus of 9-10, and 13
+        # 8, the tokenizer and corpus of 9-10, and 13; --gpt-knobs: phases
+        # 4 and 14
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
+        if "--gpt-knobs" in argv:
+            build.build(["flash_attention", "fused_norm"])
+            gpt_knobs_alone(dev, card)
+            print(smi_line(), flush=True)
+            return 0
         if "--finetune-serving" in argv:
             build.build(["paged_attention", "flash_attention", "fused_norm"])
             finetune_serving_alone(dev, card)
@@ -4010,6 +4425,7 @@ def main(argv) -> int:
     timed("5", phase_train_kernel_vs_plain, dev, card)
     seq8k = timed("6", phase_seq8k_trainer, dev, card)
     timed("7", phase_split_and_recompute_on_path, dev, card)
+    knobs = timed("14", phase_gpt_knobs, dev, card, trainer)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         resume = timed("8", phase_checkpoint, dev, card, trainer["losses"],
@@ -4068,6 +4484,13 @@ def main(argv) -> int:
         by_path[name]["lora_finetune"] = finetune["launches"][name]
     by_path["fused_norm_fwd"]["quant_serving"] = \
         quant["fused_norm_fwd_launches"]
+    # phase 14: QAT and dots (10 steps each) and GPT-1.3B through
+    # tools.auto (3 steps, full recompute, its own process)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_fused",
+                 "fused_norm_fwd", "fused_norm_bwd"):
+        by_path[name]["qat_train"] = knobs["qat"]["launches"][name]
+        by_path[name]["dots_train"] = knobs["dots"]["launches"][name]
+        by_path[name]["auto_1.3B"] = knobs["auto"]["launches"][name]
     bf16 = kernels["bfloat16"]
     rows = [{
         "name": "paged_attention_decode", "route": "cuda",
@@ -4125,6 +4548,10 @@ def main(argv) -> int:
             # the forward at the eval path's shape, no dropout
             **({"eval_shape": row1_eval}
                if name == "flash_attention_fwd" else {}),
+            # the forward and the fused backward at GPT-1.3B's attention
+            # shape (phase 14c's path), dropout 0.1
+            **({"shape_1.3B": knobs["shape_1.3B"][name]}
+               if name in knobs["shape_1.3B"] else {}),
             # fp16 at the 345M training shape (phase 1b); rows 1 and 4
             # also on layer 24's inputs at the loss-scaled dO (phase 12)
             **({"fp16": dict(

@@ -77,10 +77,12 @@ With a re-iterable loader, ``fit`` runs until ``max_steps`` optimizer
 steps are done, skipped batches not counted.
 
 Input batches move to the card through pinned memory with non-blocking
-copies. What this slice does not cover raises ``NotImplementedError``
-naming its ROADMAP item: per-rank checkpoint directories (item 12) and
-asynchronous saves (item 8), the SDC sentinel (item 8) and the gang
-watchdog (item 12), ``Profiler.enable``, the epoch run mode, and any
+copies (``to_device``; what that means for ``Engine.prefetch_to_device``
+is said there). What this slice does not cover raises
+``NotImplementedError`` naming its ROADMAP item: per-rank checkpoint
+directories (item 12) and asynchronous saves (item 8), the SDC sentinel
+(item 8) and the gang watchdog (item 12), ``Profiler.enable`` and
+``Observability.enable`` (item 8), the epoch run mode, and any
 ``Distributed`` degree above 1.
 """
 
@@ -94,6 +96,7 @@ import numpy as np
 import torch
 
 from fleetx_tpu_torch.core import checkpoint as ckpt_lib
+from fleetx_tpu_torch.core.engine.basic_engine import BasicEngine
 from fleetx_tpu_torch.observability import flight
 from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
 from fleetx_tpu_torch.resilience import Resilience, TrainingAborted
@@ -126,6 +129,10 @@ def check_engine_config(cfg: dict) -> None:
         raise NotImplementedError(
             "Engine.save_load.async_save is not ported yet (ROADMAP.md, "
             "port queue item 8)")
+    if (cfg.get("Observability") or {}).get("enable"):
+        raise NotImplementedError(
+            "the Observability block (sinks, trace, flight, perf) is not "
+            "ported yet (ROADMAP.md, port queue item 8)")
     if (cfg.get("Profiler") or {}).get("enable"):
         raise NotImplementedError(
             "the Profiler window is not ported yet (ROADMAP.md, port queue "
@@ -141,7 +148,7 @@ def check_engine_config(cfg: dict) -> None:
 MODES = ("train", "eval", "inference")
 
 
-class EagerEngine:
+class EagerEngine(BasicEngine):
     """Single-device trainer with the reference's loop semantics."""
 
     def __init__(self, cfg: dict, module, optimizer=None, lr_schedule=None,
@@ -243,7 +250,14 @@ class EagerEngine:
 
     def to_device(self, batch: dict) -> dict:
         """Host numpy batch → tensors on the engine's device (pinned,
-        non-blocking copies to a card)."""
+        non-blocking copies to a card).
+
+        This is what the port does with ``Engine.prefetch_to_device``: the
+        copy is pinned and non-blocking on the compute stream, in the step
+        that uses it. The batches and the losses are those of the JAX
+        engine's double-buffered prefetch; the overlap of the copy with
+        the previous step and the ``data_stall`` span are not.
+        ``DevicePrefetcher`` comes with ROADMAP.md, port queue item 8."""
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))

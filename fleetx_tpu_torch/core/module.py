@@ -30,7 +30,9 @@ take;
 ``attention_probs_dropout_prob`` must be 0.0 there, as JAX asserts;
 ``use_recompute`` with ``recompute_granularity`` full / full_attn /
 core_attn checkpoints the layer / the attention call / the attention
-core. ``fused_linear``, ``scan_layers`` and ``scan_unroll`` are XLA
+core, and ``dots`` the layer under the saved-dots policy
+(``remat_save_dtype``, ``remat_consumed_layout``). ``Quantization.enable``
+turns on QAT, with ``weight_bits`` / ``activation_bits`` as its widths. ``fused_linear``, ``scan_layers`` and ``scan_unroll`` are XLA
 compile knobs with no effect on this eager port and are read by nothing.
 """
 
@@ -46,16 +48,13 @@ from fleetx_tpu_torch.utils.log import logger
 
 #: (predicate on GPTConfig, what, ROADMAP port queue item)
 _UNCOVERED = (
-    (lambda c: c.use_recompute and c.recompute_granularity == "dots",
-     "Model.recompute_granularity: dots (the saved-dots remat policy with "
-     "remat_save_dtype / remat_consumed_layout)", 9),
     (lambda c: c.sequence_parallel, "Model.sequence_parallel", 12),
     (lambda c: c.moe_num_experts > 0, "Model.moe_num_experts > 0 (MoE)", 7),
-    (lambda c: c.use_qat, "QAT (Model.use_qat / Quantization.enable)", 7),
 )
 
 
-#: recompute granularities the port implements (``dots`` raises above)
+#: recompute granularities the port implements (``dots``: recompute that
+#: keeps the matmul and kernel outputs, ``models/gpt/model.dots_policy``)
 RECOMPUTE_GRANULARITIES = ("full", "full_attn", "core_attn", "dots")
 
 
@@ -145,9 +144,16 @@ class GPTModule(LanguageModule):
     def __init__(self, cfg: Any):
         model_cfg = dict(cfg.get("Model", cfg)) if isinstance(cfg, dict) \
             else dict(cfg)
-        if isinstance(cfg, dict) and (cfg.get("Quantization") or {}).get(
-                "enable"):
+        quant = dict((cfg.get("Quantization") or {})
+                     if isinstance(cfg, dict) else {})
+        if quant.get("enable"):
+            # QAT (``fleetx_tpu/core/module.py:172-181``): each width only
+            # where the block sets it
             model_cfg["use_qat"] = True
+            if quant.get("weight_bits"):
+                model_cfg["qat_bits"] = int(quant["weight_bits"])
+            if quant.get("activation_bits"):
+                model_cfg["qat_act_bits"] = int(quant["activation_bits"])
         self.model_cfg = M.config_from_dict(model_cfg)
         check_model_config(self.model_cfg)
         self.tokens_per_sample = self.model_cfg.max_position_embeddings

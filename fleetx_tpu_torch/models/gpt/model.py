@@ -5,8 +5,11 @@ the training knobs, ``PRESETS`` / ``config_from_dict`` (:871-895), and the
 forward of ``GPTEmbeddings``, ``MultiHeadAttention._core_attn``,
 ``GPTMlp``, ``LayerNorm``, ``TransformerDecoderLayer``, ``GPTModel`` and
 ``GPTForPretraining`` (:299-767) with the remat granularities ``full``,
-``full_attn`` and ``core_attn`` (:423, :547-555, :639-651; ``recompute``
-here), ``chunked_cross_entropy_per_token`` (:770-843),
+``full_attn``, ``core_attn`` and ``dots`` (:423, :547-555, :639-651;
+``recompute`` here; the ``dots`` policy and its save points, :138-268,
+are ``dots_policy`` and ``save_residual``), QAT's fake-quant
+sites (:331-337, :370-374, :475-489), ``chunked_cross_entropy_per_token``
+(:770-843),
 ``cross_entropy_per_token``, ``masked_mean`` and ``cross_entropy_loss``
 (:846-866), and the dense decode cache generation runs on:
 ``DecodeCache`` / ``init_cache`` (:275-297), the cache path of
@@ -57,6 +60,8 @@ from torch.utils.checkpoint import checkpoint
 from fleetx_tpu_torch.ops import flash_attention as FA
 from fleetx_tpu_torch.ops import fused_norm as FN
 from fleetx_tpu_torch.ops import ring_attention as RA
+from fleetx_tpu_torch.ops import save_points as SP
+from fleetx_tpu_torch.ops.quantization import fake_quant
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -77,8 +82,15 @@ class GPTConfig:
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
     use_recompute: bool = False
-    # full | full_attn | core_attn (``dots`` is not ported: ROADMAP item 9)
+    # full | full_attn | core_attn | dots (save the matmul outputs and the
+    # kernels' outputs, recompute the rest: ``dots_policy``)
     recompute_granularity: str = "full"
+    # dots only: the dtype the four named residuals are saved in (None
+    # keeps the compute dtype); the forward is rounded through it too
+    remat_save_dtype: Optional[torch.dtype] = None
+    # dots only: in JAX the saved residuals' buffer layout (exact math);
+    # here it picks the names policy (True) or the bare dots policy
+    remat_consumed_layout: bool = True
     # dtype of the gradient-accumulation carry; None ("native") keeps the
     # grads' own dtype
     grad_accum_dtype: Optional[torch.dtype] = torch.float32
@@ -91,9 +103,11 @@ class GPTConfig:
     ring_kv_chunk: Optional[int] = None
     # the chunked LM head's vocab chunk (memory cap); None = full logits
     vocab_chunk: Optional[int] = None
+    # QAT: fake-quant every matmul's operands in the forward (the cached
+    # forward too, as in JAX), weights per output channel at qat_bits,
+    # activations per tensor at qat_act_bits; the quantized serving decode
+    # (``serving/decode.py``) reads the same widths
     use_qat: bool = False
-    # fake-quant widths of the weights and the activations (the quantized
-    # serving decode, ``serving/decode.py``; QAT is not ported yet)
     qat_bits: int = 8
     qat_act_bits: int = 8
     moe_num_experts: int = 0   # 0 = dense FFN; MoE is not ported yet
@@ -126,7 +140,8 @@ def config_from_dict(d: dict) -> GPTConfig:
     kwargs = {k: v for k, v in d.items() if k in known and v is not None}
     if str(kwargs.get("grad_accum_dtype")).lower() == "native":
         kwargs["grad_accum_dtype"] = None
-    for key in ("dtype", "param_dtype", "grad_accum_dtype"):
+    for key in ("dtype", "param_dtype", "grad_accum_dtype",
+                "remat_save_dtype"):
         if isinstance(kwargs.get(key), str):
             kwargs[key] = DTYPES[kwargs[key]]
     return GPTConfig(**kwargs)
@@ -222,10 +237,14 @@ def _dropout(x: torch.Tensor, rate: float, rng: DropoutRng) -> torch.Tensor:
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def recompute(fn, rng: Optional[DropoutRng], *args):
+def recompute(fn, rng: Optional[DropoutRng], *args,
+              keep: Optional[frozenset] = None):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
     activations are dropped after the forward and recomputed in the
-    backward, as ``jax.checkpoint`` / ``nn.remat`` do.
+    backward, as ``jax.checkpoint`` / ``nn.remat`` do. With ``keep`` (a
+    set of ``ops/save_points.py`` kinds, ``dots_policy``) the span keeps
+    the outputs of its save points of those kinds from the forward, and
+    the recomputation takes them back instead of making them again.
 
     Every hidden-dropout mask draws from ``rng.gen``, an explicit
     generator that checkpointing does not restore, so the recomputation
@@ -237,25 +256,166 @@ def recompute(fn, rng: Optional[DropoutRng], *args):
     ``(layer seed, head, row, col)`` and needs nothing. No draw uses the
     default generators, so checkpoint's own RNG stash is off.
     """
-    if rng is None:
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-    start = rng.gen.get_state()
+    points = SP.SavePoints(keep or ())
+    start = rng.gen.get_state() if rng is not None else None
     ran = []
 
     def replay(*a):
         if not ran:  # the first forward
             ran.append(True)
-            return fn(*a)
-        resume = rng.gen.get_state()
-        rng.gen.set_state(start)
+            with SP.recording(points):
+                return fn(*a)
+        resume = rng.gen.get_state() if rng is not None else None
+        if rng is not None:
+            rng.gen.set_state(start)
         try:
-            return fn(*a)
+            with SP.replaying(points):
+                return fn(*a)
         finally:
-            rng.gen.set_state(resume)
+            if rng is not None:
+                rng.gen.set_state(resume)
 
     return checkpoint(replay, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+# ------------------------------------------------------- the dots policy
+#: the four saved post-bias matmul outputs of a layer under the names
+#: policy (``RESIDUAL_NAMES``, ``fleetx_tpu/models/gpt/model.py:158``)
+RESIDUAL_NAMES = ("res_qkv", "res_attn_out", "res_mlp_wi", "res_mlp_wo")
+
+
+def _transform_gate_active(cfg: GPTConfig) -> bool:
+    """The save-point transforms act only under ``use_recompute`` with
+    ``dots``, and never for MoE (``model.py:187-196``)."""
+    return (cfg.use_recompute and cfg.recompute_granularity == "dots"
+            and cfg.moe_num_experts == 0)
+
+
+def _residual_casts_active(cfg: GPTConfig) -> bool:
+    """The named residuals round-trip through ``remat_save_dtype``."""
+    return cfg.remat_save_dtype is not None and _transform_gate_active(cfg)
+
+
+def _residual_layouts_active(cfg: GPTConfig) -> bool:
+    """``remat_consumed_layout`` under the gate (JAX: the saved buffers'
+    layout; here: the names policy, see ``dots_policy``)."""
+    return bool(cfg.remat_consumed_layout) and _transform_gate_active(cfg)
+
+
+def _residual_transforms_active(cfg: GPTConfig) -> bool:
+    """Either transform on → the names policy applies."""
+    return _residual_casts_active(cfg) or _residual_layouts_active(cfg)
+
+
+def _dense_plain(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """``x [..., k] @ w [k, n]`` plus ``b``, whose shape splits ``n``."""
+    return (x @ w).reshape(*x.shape[:-1], *b.shape) + b
+
+
+def _mm_grads(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """``(dx, dw)`` of ``x @ w`` the way autograd takes them through the
+    folded matmul: ``mm``'s two products for a row-major ``w``."""
+    g2 = g.reshape(-1, w.shape[1])
+    dx = g2.mm(w.t()).reshape(x.shape)
+    dw = x.reshape(-1, w.shape[0]).t().mm(g2)
+    return dx, dw
+
+
+class _KeptMatmul(torch.autograd.Function):
+    """``x @ w`` as a save point of kind ``"dot"``: the dots policy keeps
+    the matmul output, and the bias add after it reruns."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        """``x @ w``, kept by a span that keeps ``"dot"``."""
+        ctx.save_for_backward(x, w)
+        return SP.kept("dot", lambda: x @ w)
+
+    @staticmethod
+    def backward(ctx, g):
+        """``(dx, dw)`` as autograd takes them (``_mm_grads``)."""
+        return _mm_grads(*ctx.saved_tensors, g)
+
+
+class _KeptResidual(torch.autograd.Function):
+    """``(x @ w + b).to(save)`` as a save point of kind ``"residual"``:
+    the names policy keeps the post-bias value in its save dtype (JAX's
+    ``checkpoint_name`` on it). The backward is the one autograd takes
+    through ``_dense_plain`` and the cast: the cotangent cast back to the
+    compute dtype, ``b``'s sum over the leading dims, the matmul's two
+    products."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, save):
+        """The post-bias value in ``save``, kept by a span that keeps
+        ``"residual"``."""
+        ctx.save_for_backward(x, w)
+        ctx.bias_dims = b.dim()
+        return SP.kept("residual", lambda: _dense_plain(x, w, b).to(save))
+
+    @staticmethod
+    def backward(ctx, g):
+        """``(dx, dw, db)`` through the cast, the bias add and the
+        matmul."""
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        db = g.sum(dim=tuple(range(g.dim() - ctx.bias_dims)))
+        dx, dw = _mm_grads(x, w, g)
+        return dx, dw, db, None
+
+
+def save_residual(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  name: str, cfg: GPTConfig,
+                  cached: bool = False) -> torch.Tensor:
+    """JAX's ``_save_residual`` (``model.py:215-250``) on the post-bias
+    matmul output ``x @ w + b`` named ``name`` (one of
+    ``RESIDUAL_NAMES``), taking the operands instead of the value, since
+    the save point is the call that makes it.
+
+    Under ``dots`` (with ``use_recompute``, not for a cached forward,
+    which has no backward): with a save-point transform active, the value
+    is a ``"residual"`` save point; with the casts active it is made in
+    ``remat_save_dtype`` and cast back, so the forward is quantized too.
+    Without a transform the matmul output is a ``"dot"`` save point and
+    the bias add reruns. Otherwise, the plain ``x @ w + b``. The values
+    are the plain ones bit for bit, the cast's rounding apart."""
+    if name not in RESIDUAL_NAMES:
+        raise ValueError(f"{name!r} is not one of {RESIDUAL_NAMES}")
+    if cached or not _transform_gate_active(cfg):
+        return _dense_plain(x, w, b)
+    if _residual_transforms_active(cfg):
+        save = cfg.remat_save_dtype if _residual_casts_active(cfg) \
+            else x.dtype
+        return _KeptResidual.apply(x, w, b, save).to(x.dtype)
+    y = _KeptMatmul.apply(x, w)
+    return y.reshape(*x.shape[:-1], *b.shape) + b
+
+
+def dots_policy(cfg: GPTConfig) -> frozenset:
+    """The save-point kinds (``ops/save_points.py``) a ``dots`` span
+    keeps, what JAX's ``_dots_policy`` (``model.py:253-268``) saves:
+
+    - with either save-point transform active, the four named residuals
+      (``"residual"``); otherwise the four projections' matmul outputs
+      (``"dot"``: JAX's ``dots_with_no_batch_dims_saveable``; the
+      attention's batched products are not among them, in JAX either);
+    - with ``use_flash_attention`` on, the outputs of the flash forward
+      and of the fused-norm forward (``"kernel"``; JAX's
+      ``_flash_residuals_saveable`` keeps every Pallas output), so the
+      backward reruns neither kernel. With it off, JAX returns the bare
+      dots policy, and the norm kernel reruns here too.
+
+    ``remat_consumed_layout`` changes only the layout JAX writes the saved
+    buffers in, and its math is exact; PyTorch keeps a tensor as it is,
+    so here the field only picks the names policy over the dots policy
+    (the losses and grads are the same either way).
+    """
+    kinds = {"residual" if _residual_transforms_active(cfg) else "dot"}
+    if cfg.use_flash_attention:
+        kinds.add("kernel")
+    return frozenset(kinds)
 
 
 def layer_norm(p: dict, x: torch.Tensor, cfg: GPTConfig,
@@ -384,12 +544,24 @@ def attention(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
               ) -> torch.Tensor:
     """``MultiHeadAttention``: fused qkv, core, out. With a cache, this
     call's k/v go into layer ``layer``'s slots from ``cache.index`` on and
-    attention runs over the whole cache (``_decode_attention``)."""
+    attention runs over the whole cache (``_decode_attention``).
+
+    Under QAT the matmul operands are fake-quantized in the compute dtype
+    (``model.py:331-337, 370-374``): the input per tensor at
+    ``qat_act_bits``, the kernels per output channel at ``qat_bits``. The
+    port reduces the kernels after their reshape to 2-D, over axis 0: the
+    same scales as JAX's ``axis=0`` of ``qkv_kernel [h, 3, nh, hd]`` and
+    ``axis=(0, 1)`` of ``out_kernel [nh, hd, h]``."""
     b, s, h = x.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
+    cached = cache is not None
     x = x.to(cfg.dtype)
     w = p["qkv_kernel"].to(cfg.dtype).reshape(h, 3 * nh * hd)
-    qkv = (x @ w).reshape(b, s, 3, nh, hd) + p["qkv_bias"].to(cfg.dtype)
+    if cfg.use_qat:
+        x = fake_quant(x, cfg.qat_act_bits)
+        w = fake_quant(w, cfg.qat_bits, axis=0)
+    qkv = save_residual(x, w, p["qkv_bias"].to(cfg.dtype), "res_qkv", cfg,
+                        cached)
     q, k, v = qkv.unbind(2)
     if cache is not None:
         slots = cache.positions(s)
@@ -400,16 +572,33 @@ def attention(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
     else:
         out = core_attn(q, k, v, cfg, deterministic=deterministic, rng=rng,
                         layer=layer)
+    out = out.reshape(b, s, nh * hd)
     w_out = p["out_kernel"].to(cfg.dtype).reshape(nh * hd, h)
-    return out.reshape(b, s, nh * hd) @ w_out + p["out_bias"].to(cfg.dtype)
+    if cfg.use_qat:
+        out = fake_quant(out, cfg.qat_act_bits)
+        w_out = fake_quant(w_out, cfg.qat_bits, axis=0)
+    return save_residual(out, w_out, p["out_bias"].to(cfg.dtype),
+                         "res_attn_out", cfg, cached)
 
 
-def mlp(p: dict, x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """``GPTMlp``: dense 4h FFN with tanh-approximate GELU."""
+def mlp(p: dict, x: torch.Tensor, cfg: GPTConfig,
+        cached: bool = False) -> torch.Tensor:
+    """``GPTMlp``: dense 4h FFN with tanh-approximate GELU; under QAT the
+    input, both kernels (per output channel) and the GELU output are
+    fake-quantized (``model.py:475-489``)."""
     x = x.to(cfg.dtype)
-    y = x @ p["wi_kernel"].to(cfg.dtype) + p["wi_bias"].to(cfg.dtype)
+    wi, wo = p["wi_kernel"].to(cfg.dtype), p["wo_kernel"].to(cfg.dtype)
+    if cfg.use_qat:
+        x = fake_quant(x, cfg.qat_act_bits)
+        wi = fake_quant(wi, cfg.qat_bits, axis=0)
+        wo = fake_quant(wo, cfg.qat_bits, axis=0)
+    y = save_residual(x, wi, p["wi_bias"].to(cfg.dtype), "res_mlp_wi", cfg,
+                      cached)
     y = F.gelu(y, approximate="tanh")
-    return y @ p["wo_kernel"].to(cfg.dtype) + p["wo_bias"].to(cfg.dtype)
+    if cfg.use_qat:
+        y = fake_quant(y, cfg.qat_act_bits)
+    return save_residual(y, wo, p["wo_bias"].to(cfg.dtype), "res_mlp_wo",
+                         cfg, cached)
 
 
 def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
@@ -437,7 +626,7 @@ def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
         y = _dropout(y, cfg.hidden_dropout_prob, rng)
     y, x = layer_norm(p["ln2"], y, cfg, residual=residual)
     residual = x
-    y = mlp(p["mlp"], y, cfg)
+    y = mlp(p["mlp"], y, cfg, cached=cache is not None)
     if drop:
         y = _dropout(y, cfg.hidden_dropout_prob, rng)
     return residual + y
@@ -460,7 +649,8 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
               ) -> torch.Tensor:
     """``GPTModel``: embeddings, decoder stack, ``ln_f``; each decoder
     layer recomputed in the backward under the ``full`` granularity (only
-    the layer inputs stay live).
+    the layer inputs stay live) and under ``dots`` (``dots_policy``: the
+    matmul and kernel outputs stay live too).
 
     With a cache, the call writes its tokens at ``cache.index`` on, marks
     those key slots real where ``attention_mask`` says so (all of them
@@ -491,13 +681,15 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
              cfg.dtype)))
     if cfg.hidden_dropout_prob > 0.0 and not deterministic:
         x = _dropout(x, cfg.hidden_dropout_prob, rng)
-    full = cfg.use_recompute and cfg.recompute_granularity == "full" \
-        and cache is None
+    remat = cfg.use_recompute and cache is None and \
+        cfg.recompute_granularity in ("full", "dots")
+    keep = dots_policy(cfg) if cfg.recompute_granularity == "dots" \
+        else None
     for i, lp in enumerate(_unstack(p["layers"], cfg.num_layers)):
         layer = functools.partial(decoder_layer, lp, cfg=cfg,
                                   deterministic=deterministic, rng=rng,
                                   layer=i, cache=cache)
-        x = recompute(layer, rng, x) if full else layer(x)
+        x = recompute(layer, rng, x, keep=keep) if remat else layer(x)
     if cache is not None:
         cache.index = cache.index + s
     return layer_norm(p["ln_f"], x, cfg)

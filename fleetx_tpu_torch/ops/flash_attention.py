@@ -35,8 +35,12 @@ The forward is also the custom op ``torch.ops.fleetx_tpu_torch.flash_fwd``
 (``flash_fwd``, with a fake implementation for tracing), so that
 ``torch.export`` can record it: ``flash_attention`` calls the op where
 autograd does not record the call (eval, generation, an export trace)
-and the autograd wrapper around ``fwd_call`` where it does (training).
-Both launch the same kernel, counted in ``fwd_call``.
+and the autograd wrapper, whose forward calls the same op, where it does
+(training): a launch through ctypes inside ``autograd.Function.forward``
+is invisible to the dispatcher, the op is not. That forward is a save
+point (``ops/save_points.py``): under the ``dots`` granularity the span
+keeps its outputs and its recomputation does not launch it again. The
+kernel is counted in ``fwd_call``, once per real launch.
 
 Routes (``tc_route``, one predicate for all four kernels). bf16 / fp16
 operands at head_dim 64 and 128 take the tensor-core forward, fused
@@ -86,6 +90,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from fleetx_tpu_torch.ops.save_points import kept
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -526,9 +532,12 @@ class _Flash3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q3, k3, v3, seed, scale, causal, rate, fused=True):
-        """Forward kernel; saves the operands, ``out`` and ``lse``;
-        ``fused`` picks the backward kernel(s)."""
-        out, lse = fwd_call(q3, k3, v3, seed, scale, causal, rate)
+        """Forward kernel through the custom op ``flash_fwd`` (a save
+        point of kind ``"kernel"``, ``ops/save_points.py``); saves the
+        operands, ``out`` and ``lse``; ``fused`` picks the backward
+        kernel(s)."""
+        out, lse = kept("kernel", lambda: flash_fwd(q3, k3, v3, seed, scale,
+                                                    causal, rate))
         ctx.save_for_backward(q3, k3, v3, out, lse)
         ctx.args = (seed, scale, causal, rate, fused)
         return out

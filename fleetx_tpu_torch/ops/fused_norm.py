@@ -27,7 +27,11 @@ the kernels against on the card. ``fwd_call.launches`` and
 rows, ``Vec8<__half>`` in ``csrc/fused_norm.cu``). The forward is also the
 custom op ``torch.ops.fleetx_tpu_torch.fused_norm_fwd`` (with a fake
 implementation, so ``torch.export`` can record it), which
-``fused_residual_norm`` calls where autograd does not record the call.
+``fused_residual_norm`` calls where autograd does not record the call,
+and which the autograd wrappers' forwards call too. Those forwards are
+save points (``ops/save_points.py``): under the ``dots`` granularity the
+span keeps their outputs and its recomputation does not launch them
+again.
 
 ``fused_norm_supported`` mirrors the JAX gate where it is not about VMEM:
 rank >= 2, hidden a multiple of 128 (up to 32768, what one block of at
@@ -43,6 +47,7 @@ from typing import Optional
 import torch
 
 from fleetx_tpu_torch.ops.flash_attention import needs_grad
+from fleetx_tpu_torch.ops.save_points import kept
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -286,9 +291,11 @@ class _FusedAddNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, residual, scale, bias, eps, out_dtype):
-        """Forward kernel; saves ``(s, scale, mean, var)``."""
-        out, s, mean, var = fwd_call(x.contiguous(), residual.contiguous(),
-                                     scale, bias, eps, out_dtype)
+        """Forward kernel through the custom op ``fused_norm_fwd`` (a save
+        point of kind ``"kernel"``); saves ``(s, scale, mean, var)``."""
+        x, residual = x.contiguous(), residual.contiguous()
+        out, s, mean, var = kept("kernel", lambda: fused_norm_fwd(
+            x, residual, scale, bias, eps, out_dtype))
         ctx.save_for_backward(s, scale, mean, var)
         ctx.eps = eps
         ctx.set_materialize_grads(False)
@@ -312,10 +319,12 @@ class _FusedNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps, out_dtype):
-        """Forward kernel without a residual; saves ``(x, scale, mean,
+        """Forward kernel without a residual, through the custom op (a
+        save point of kind ``"kernel"``); saves ``(x, scale, mean,
         var)``."""
         x = x.contiguous()
-        out, _, mean, var = fwd_call(x, None, scale, bias, eps, out_dtype)
+        out, _, mean, var = kept("kernel", lambda: fused_norm_fwd(
+            x, None, scale, bias, eps, out_dtype))
         ctx.save_for_backward(x, scale, mean, var)
         ctx.eps = eps
         return out

@@ -35,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from fleetx_tpu_torch.ops import flash_attention as FA
+from fleetx_tpu_torch.ops.save_points import kept
 
 __all__ = ["ring_attention", "ring_attention_local", "ring_flash_local",
            "flash_ring_supported", "merge_blocks"]
@@ -124,9 +125,11 @@ class _RingFlash3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q3, k3, v3):
         """The causal diagonal block (ring step 0) through the forward
-        kernel; ``(out, lse)`` is the merge's running state."""
+        kernel's custom op (a save point of kind ``"kernel"``); ``(out,
+        lse)`` is the merge's running state."""
         scale = q3.shape[-1] ** -0.5
-        out, lse = FA.fwd_call(q3, k3, v3, 0, scale, True, 0.0)
+        out, lse = kept("kernel", lambda: FA.flash_fwd(q3, k3, v3, 0, scale,
+                                                       True, 0.0))
         out = out.float()
         # TODO(item 12): for t in 1..ring-1, rotate K/V (ppermute) and,
         # where block (me - t) % ring is visible (t <= me), run fwd_call

@@ -46,7 +46,7 @@ treats the reclaim as a clean stop instead of crash-restarting a machine
 that is going away.
 
 The chaos knobs of the JAX replica (``resilience/faults.py`` fault plans)
-are not ported yet (ROADMAP.md, port queue item 8).
+are not ported yet (ROADMAP.md, port queue item 5).
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@
 Loads the YAML through the port's config loader (one device), builds the
 ``GPTModule``, the cosine-warmup LR, AdamW and the ``EagerEngine``, the
 ``Data.Train`` loader (and ``Data.Eval`` when ``eval_freq`` is set and an
-eval dataset is named), and fits until ``Engine.max_steps``. It runs on
+eval dataset is named), and fits until ``Engine.max_steps``. A YAML with ``Distributed.auto_layout`` runs
+the layout planner first (``utils/config.py``; ``tools/auto.py`` runs it
+on every YAML). It runs on
 ``cuda`` unless ``--device cpu`` is given; without a GPU and without
 ``--device cpu`` it raises. Config values the slice does not cover raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -37,11 +39,15 @@ import sys
 from typing import Optional
 
 
-def load_config(path: str, overrides: Optional[list] = None):
-    """The YAML at ``path`` with dotted overrides, post-processed."""
+def load_config(path: str, overrides: Optional[list] = None,
+                auto_layout: bool = False, device=None):
+    """The YAML at ``path`` with dotted overrides, post-processed; the
+    layout planner runs under ``auto_layout`` or the YAML's
+    ``Distributed.auto_layout``, its budget sized by ``device``."""
     from fleetx_tpu_torch.utils.config import get_config
 
-    return get_config(path, overrides)
+    return get_config(path, overrides, auto_layout=auto_layout,
+                      device=device)
 
 
 def build_trainer(cfg: dict, device=None, wrap_optimizer=None):
@@ -88,11 +94,22 @@ def run(cfg: dict, device=None):
     return engine, losses
 
 
-def main(argv: Optional[list] = None) -> int:
-    from fleetx_tpu_torch.utils.config import parse_args
+def main(argv: Optional[list] = None, auto_layout: bool = False) -> int:
+    """The CLI; ``auto_layout`` runs the layout planner on every config
+    (``tools/auto.py``), and logs the ``Distributed`` degrees it
+    resolved."""
+    from fleetx_tpu_torch.utils.config import DEGREE_KEYS, parse_args
+    from fleetx_tpu_torch.utils.log import logger
 
-    args = parse_args("fleetx_tpu_torch train", argv)
-    run(load_config(args.config, args.override), device=args.device)
+    args = parse_args("fleetx_tpu_torch "
+                      + ("auto" if auto_layout else "train"), argv)
+    cfg = load_config(args.config, args.override, auto_layout=auto_layout,
+                      device=args.device)
+    if auto_layout:
+        dist = cfg["Distributed"]
+        logger.info("auto_layout: resolved Distributed %s",
+                    {k: dist[k] for k in DEGREE_KEYS})
+    run(cfg, device=args.device)
     return 0
 
 

@@ -13,8 +13,20 @@ generation recipe inherits the 345M one, ``save_steps: 1000`` with it);
 sections the loader does not derive (``Generation``, ``Serving`` past
 its validation) pass through to their modules. The port trains on one
 device: a ``Distributed`` degree above 1 raises ``NotImplementedError``
-(ROADMAP.md, port queue item 12), and the auto-layout planner is not
-copied.
+(ROADMAP.md, port queue item 12).
+
+``Distributed.auto_layout`` (a bool, or ``{hbm_gb: N}``) or
+``get_config(..., auto_layout=True)`` (``tools/auto.py``) runs the layout
+planner (``parallel/auto_layout.suggest_layout``) before the batch
+derivations, keeps explicit degrees, and pops the key, as
+``fleetx_tpu/utils/config.py:379-432`` does. The device count is 1, so
+every planned degree is 1 and an explicit degree above 1 still raises.
+The planner's budget is ``hbm_gb`` where the YAML gives it; else, on a
+CUDA device, the card's own memory
+(``torch.cuda.get_device_properties(dev).total_memory``), not the JAX
+loader's 16 GB default, which is a TPU figure; on the CPU that default.
+At one device the budget changes only whether the planner warns that the
+model exceeds it.
 """
 
 from __future__ import annotations
@@ -30,8 +42,8 @@ import yaml
 __all__ = ["AttrDict", "parse_config", "override_config",
            "process_dist_config", "process_global_configs",
            "process_engine_config", "process_resilience_config",
-           "process_serving_config", "loss_scaler", "get_config",
-           "parse_args"]
+           "process_serving_config", "loss_scaler", "layout_budget_gb",
+           "plan_layout", "get_config", "parse_args"]
 
 
 class AttrDict(dict):
@@ -301,13 +313,76 @@ def loss_scaler(config: dict) -> Optional[float]:
     return float(mp.get("scale_loss") or DEFAULT_LOSS_SCALE)
 
 
-def get_config(fname: str, overrides: Optional[list] = None) -> AttrDict:
-    """Load + override + post-process a training config
-    (``get_config``, one device)."""
+#: the JAX loader's planner budget where the YAML names none (a TPU
+#: figure; the port uses it only on the CPU)
+DEFAULT_HBM_GB = 16.0
+
+
+def layout_budget_gb(auto_layout: Any, device=None) -> tuple:
+    """``(hbm_gb, source)``: the planner's budget from
+    ``Distributed.auto_layout``'s ``hbm_gb``; else the memory of the card
+    ``device`` names (None is cuda, which raises without a GPU); else, on
+    the CPU, ``DEFAULT_HBM_GB``."""
+    if isinstance(auto_layout, dict) and \
+            auto_layout.get("hbm_gb") is not None:
+        return float(auto_layout["hbm_gb"]), "Distributed.auto_layout.hbm_gb"
+    import torch
+
+    from fleetx_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        props = torch.cuda.get_device_properties(dev)
+        return props.total_memory / 2 ** 30, f"the memory of {props.name}"
+    return DEFAULT_HBM_GB, "the JAX loader's default, on the CPU"
+
+
+def plan_layout(config: AttrDict, device=None) -> AttrDict:
+    """The planner step of ``get_config`` for one device: explicit degrees
+    are kept (and raise later in ``process_dist_config`` when above 1);
+    otherwise ``suggest_layout``'s degrees are merged into
+    ``Distributed``. Pops ``Distributed.auto_layout``."""
+    from fleetx_tpu_torch.parallel.auto_layout import (
+        advice_inputs, suggest_layout)
+    from fleetx_tpu_torch.utils.log import logger
+
+    num_devices = 1
+    dist = config.get("Distributed") or {}
+    hbm_gb, source = layout_budget_gb(dist.get("auto_layout"), device)
+    explicit = {k for k in DEGREE_KEYS if int(dist.get(k) or 0) > 1}
+    if int((dist.get("sharding") or {}).get("sharding_degree") or 0) > 1:
+        explicit.add("sharding.sharding_degree")
+    logger.info("auto_layout: %d device, budget %.2f GB (%s)", num_devices,
+                hbm_gb, source)
+    if explicit:
+        logger.info("auto_layout: explicit degrees %s kept", explicit)
+    else:
+        mdl, mb, gran = advice_inputs(config, data_world=num_devices)
+        layout = suggest_layout(mdl, num_devices, hbm_gb=hbm_gb,
+                                micro_batch=mb, recompute=gran)
+        config.setdefault("Distributed", AttrDict())
+        for k, v in layout.items():
+            if k == "sharding" and isinstance(
+                    config["Distributed"].get("sharding"), dict):
+                config["Distributed"]["sharding"].update(v)
+            else:
+                config["Distributed"][k] = v
+    config["Distributed"].pop("auto_layout", None)
+    return config
+
+
+def get_config(fname: str, overrides: Optional[list] = None,
+               auto_layout: bool = False, device=None) -> AttrDict:
+    """Load + override + post-process a training config (``get_config``,
+    one device); with ``auto_layout`` or ``Distributed.auto_layout`` the
+    layout planner runs first (``plan_layout``; ``device`` sizes its
+    budget)."""
     if not os.path.exists(fname):
         raise FileNotFoundError(f"config file {fname} not found")
     config = parse_config(fname)
     override_config(config, overrides)
+    if auto_layout or (config.get("Distributed") or {}).get("auto_layout"):
+        plan_layout(config, device)
     process_dist_config(config)
     process_global_configs(config)
     process_engine_config(config)

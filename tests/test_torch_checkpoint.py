@@ -48,6 +48,18 @@ from fleetx_tpu_torch.utils.log import logger as port_logger
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread, and its default pool (one thread a core, on cores the other
+    test workers share) costs ~50x on a ``[256, 64] @ [64, 192]`` matmul.
+    The count is restored for the files after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GPT_DIR = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt")
 SYNTH_YAML = os.path.join(GPT_DIR, "pretrain_gpt_345M_synthetic.yaml")

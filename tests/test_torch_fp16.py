@@ -49,6 +49,18 @@ from test_engine import build_engine, make_batches, tiny_cfg
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread, and its default pool (one thread a core, on cores the other
+    test workers share) costs ~50x on a ``[256, 64] @ [64, 192]`` matmul.
+    The count is restored for the files after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = {"name": "cosine", "max_lr": 1e-3, "min_lr": 1e-4, "warmup_steps": 2,
       "decay_steps": 100}

@@ -7,8 +7,9 @@ The same numpy inputs and converted weights go through the JAX package
 (``GPTModule``, ``chunked_cross_entropy_per_token``) and the port on CPU
 tensors (the kernels' plain versions).
 
-Tolerances (f32): recompute on against off, with hidden and attention
-dropout 0.1, loss and every grad leaf within 1e-6 (the same ops on the
+Tolerances (f32): recompute on against off (``full``, ``full_attn``,
+``core_attn`` and ``dots``), with hidden and attention dropout 0.1, loss
+and every grad leaf within 1e-6 (the same ops on the
 same masks; only the recomputation differs). Against JAX: loss atol 1e-5,
 grads atol 1e-5 / rtol 1e-4 (``tests/test_torch_train.py``'s bounds);
 the chunked head's per-token losses and grads atol 1e-5.
@@ -31,6 +32,18 @@ from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread, and its default pool (one thread a core, on cores the other
+    test workers share) costs ~50x on a ``[256, 64] @ [64, 192]`` matmul.
+    The count is restored for the files after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 VOCAB, SEQ = 256, 128
 MODEL = dict(vocab_size=VOCAB, hidden_size=128, num_layers=2,
              num_attention_heads=2, max_position_embeddings=SEQ,
@@ -39,7 +52,7 @@ MODEL = dict(vocab_size=VOCAB, hidden_size=128, num_layers=2,
              fused_residual_norm=True, dtype="float32",
              param_dtype="float32")
 PLAIN = dict(MODEL, use_flash_attention=False, fused_residual_norm=False)
-GRANULARITIES = ("full", "full_attn", "core_attn")
+GRANULARITIES = ("full", "full_attn", "core_attn", "dots")
 
 
 def _batch(seed: int, batch: int = 2, seq: int = SEQ,
@@ -88,41 +101,59 @@ def _port_loss_and_grads(model: dict, tparams: dict, batch: dict,
 
 
 # -------------------------------------------------------------- recompute
+def _dropout_model(flash: bool) -> dict:
+    return dict(MODEL, hidden_dropout_prob=0.1,
+                attention_probs_dropout_prob=0.1, use_flash_attention=flash)
+
+
+@pytest.fixture(scope="module")
+def dropout_off(weights):
+    """Per ``use_flash_attention``: the loss and grads without recompute
+    at step 0, and the loss at step 1, shared by every granularity."""
+    _, tparams = weights
+    out = {}
+    for flash in (True, False):
+        model = _dropout_model(flash)
+        loss, grads = _port_loss_and_grads(model, tparams, _batch(1))
+        other, _ = _port_loss_and_grads(model, tparams, _batch(1), step=1)
+        out[flash] = (loss, grads, other)
+    return out
+
+
 @pytest.mark.parametrize("flash", [True, False])
 @pytest.mark.parametrize("granularity", GRANULARITIES)
-def test_recompute_on_equals_off_with_dropout(weights, granularity, flash):
+def test_recompute_on_equals_off_with_dropout(weights, dropout_off,
+                                              granularity, flash):
     """Hidden and attention dropout 0.1: the recomputed spans must draw
     the forward's masks again. Hidden dropout (and, with flash off,
     attention dropout) draws from the step's explicit generator, which
     checkpointing does not restore by itself."""
     _, tparams = weights
-    model = dict(MODEL, hidden_dropout_prob=0.1,
-                 attention_probs_dropout_prob=0.1, use_flash_attention=flash)
-    batch = _batch(1)
-    off_loss, off_grads = _port_loss_and_grads(model, tparams, batch)
+    off_loss, off_grads, other = dropout_off[flash]
     on_loss, on_grads = _port_loss_and_grads(
-        dict(model, use_recompute=True, recompute_granularity=granularity),
-        tparams, batch)
+        dict(_dropout_model(flash), use_recompute=True,
+             recompute_granularity=granularity), tparams, _batch(1))
     assert abs(float(on_loss.detach()) - float(off_loss.detach())) <= 1e-6
     for (path, _), a, b in zip(tree_leaves_with_path(tparams), on_grads,
                                off_grads):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6,
                                    err_msg="/".join(path))
     # dropout is on: another step draws other masks
-    other, _ = _port_loss_and_grads(model, tparams, batch, step=1)
     assert abs(float(other.detach()) - float(off_loss.detach())) > 1e-4
 
 
 def test_recompute_leaves_the_generator_where_the_forward_left_it():
     """After the backward, the step's generator is where the plain forward
     leaves it: the recomputation replays draws without consuming new
-    ones."""
+    ones, under ``full`` and under ``dots``."""
     cfg = M.config_from_dict(dict(MODEL, hidden_dropout_prob=0.1))
     params = M.init_params(cfg, seed=1)
     tokens = torch.from_numpy(_batch(2)["tokens"])
     states = []
-    for recompute in (False, True):
+    for recompute, granularity in ((False, "full"), (True, "full"),
+                                   (True, "dots")):
         cfg.use_recompute = recompute
+        cfg.recompute_granularity = granularity
         rng = M.dropout_rng(5, 0, cfg.num_layers, "cpu")
         leaves = [p.requires_grad_(True) for _, p in
                   tree_leaves_with_path(params)]
@@ -130,6 +161,7 @@ def test_recompute_leaves_the_generator_where_the_forward_left_it():
         torch.autograd.grad(out.sum(), leaves)
         states.append(rng.gen.get_state())
     assert torch.equal(states[0], states[1])
+    assert torch.equal(states[0], states[2])
 
 
 @pytest.mark.parametrize("granularity", GRANULARITIES)

@@ -72,7 +72,12 @@ def test_the_scan_reaches_every_module_of_the_port():
                 "fleetx_tpu_torch/resilience/faults.py",
                 "fleetx_tpu_torch/resilience/guard.py",
                 "fleetx_tpu_torch/resilience/watchdog.py",
-                "fleetx_tpu_torch/resilience/coordination.py"):
+                "fleetx_tpu_torch/resilience/coordination.py",
+                "fleetx_tpu_torch/parallel/auto_layout.py",
+                "fleetx_tpu_torch/ops/save_points.py",
+                "fleetx_tpu_torch/tools/auto.py",
+                "fleetx_tpu_torch/core/engine/auto_engine.py",
+                "fleetx_tpu_torch/core/engine/basic_engine.py"):
         assert rel in scanned, rel
 
 
@@ -118,6 +123,10 @@ def test_entry_points_load_no_jax_modules():
             "import fleetx_tpu_torch.tools.preprocess_data\n"
             "import fleetx_tpu_torch.tasks.gpt.inference\n"
             "import fleetx_tpu_torch.resilience\n"
+            "import fleetx_tpu_torch.tools.auto\n"
+            "import fleetx_tpu_torch.parallel.auto_layout\n"
+            "import fleetx_tpu_torch.core.engine.auto_engine\n"
+            "import fleetx_tpu_torch.core.engine.basic_engine\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -129,6 +138,7 @@ def test_entry_points_load_no_jax_modules():
     assert "fleetx_tpu_torch.tasks.gpt.generation" in loaded
     assert "fleetx_tpu_torch.core.engine.inference_engine" in loaded
     assert "fleetx_tpu_torch.tasks.gpt.inference" in loaded
+    assert "fleetx_tpu_torch.parallel.auto_layout" in loaded
     for name in ("policy", "faults", "guard", "watchdog", "coordination"):
         assert f"fleetx_tpu_torch.resilience.{name}" in loaded, name
     assert "regex" not in loaded  # the card's machine has no regex
@@ -179,6 +189,10 @@ _SLICE8_CLIS = {
     "tools.preprocess_data": ["--input", "README.md", "--tokenizer",
                               "no_such_dir", "--output-prefix",
                               "no_such_prefix"],
+    # the auto-layout entry point: the planner's budget is the card's
+    # memory, so it stops at the device too
+    "tools.auto": ["-c", "fleetx_tpu/configs/nlp/gpt/auto/"
+                   "pretrain_gpt_1.3B_single_card.yaml"],
 }
 
 

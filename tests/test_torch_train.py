@@ -333,13 +333,17 @@ def test_train_cli_on_cpu_runs_and_logs():
 
 
 UNCOVERED = {
+    # dots and QAT are ported: they build and take a step
     "recompute_dots": (["Model.use_recompute=True",
-                        "Model.recompute_granularity=dots"], "item 9"),
+                        "Model.recompute_granularity=dots",
+                        "Model.remat_save_dtype=bfloat16"], None),
+    "observability": (["Observability.enable=True"], "item 8"),
     "seq_degree": (["Distributed.seq_degree=2",
                     "Model.use_ring_attention=True",
                     "Model.attention_probs_dropout_prob=0.0"], "item 12"),
     "moe": (["Model.moe_num_experts=4"], "item 7"),
-    "qat": (["Quantization.enable=True"], "item 7"),
+    "qat": (["Quantization.enable=True", "Quantization.weight_bits=4"],
+            None),
     # fp16 and Resilience.enable are ported; the SDC sentinel and the
     # gang watchdog are not
     "resilience": (["Resilience.enable=True",
@@ -363,6 +367,19 @@ UNCOVERED = {
 @pytest.mark.parametrize("what", sorted(UNCOVERED))
 def test_uncovered_config_values_raise(what):
     overrides, item = UNCOVERED[what]
+    if item is None:  # ported: the trainer builds and takes a step
+        engine, train_dl, _ = T.build_trainer(
+            T.load_config(SYNTH_YAML, TINY + overrides), device="cpu")
+        mc = engine.module.model_cfg
+        if what == "qat":
+            assert mc.use_qat and mc.qat_bits == 4 and mc.qat_act_bits == 8
+        else:
+            assert mc.recompute_granularity == "dots" and \
+                mc.remat_save_dtype == torch.bfloat16
+        engine.max_steps = 1
+        losses = engine.fit(train_dl)
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        return
     with pytest.raises(NotImplementedError, match=item):
         T.build_trainer(T.load_config(SYNTH_YAML, TINY + overrides),
                         device="cpu")
