@@ -7,8 +7,9 @@ generate from its checkpoint with the port's generation task, evaluate
 it offline, export it and run the exported programs, fine-tune it with
 LoRA adapters and serve the merged weights with int8 fake-quant decode,
 train GPT-345M in fp16 under the loss scaler and run the resilience
-drills, and train GPT-345M with QAT and under the dots recompute policy
-and GPT-1.3B through the auto-layout entry point.
+drills, train GPT-345M with QAT and under the dots recompute policy and
+GPT-1.3B through the auto-layout entry point, and pretrain ERNIE-345M and
+train and evaluate ViT-B/16 through the same trainer.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
@@ -20,6 +21,7 @@ and GPT-1.3B through the auto-layout entry point.
     python3 chip_smoke.py --finetune-serving  # phases 2, 4, 8, 9's
                                            # tokenizer, 10's corpus, 13
     python3 chip_smoke.py --gpt-knobs      # phases 4 and 14
+    python3 chip_smoke.py --encoders       # phase 15
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -267,6 +269,33 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    + hidden·r²/2``, ``FULL_PER_STEP`` launches a step on the tensor cores;
    step ms, tokens/s, MFU, peak memory. Then rows 1 and 4 at the 1.3B
    attention shape ``[128, 1024, 128]`` bf16 (held and timed as in 1b).
+
+15. the encoder families (run after phase 14, each counted from 0 around
+   its own run; no kernel of the port is on their path, as no Pallas
+   kernel is on JAX's, so every count must stay 0): (a)
+   ``pretrain_ernie_345M.yaml`` through ``build_trainer`` → ``fit`` at full
+   width (24 layers, hidden 1024, 16 heads, vocab 40000, seq 512, batch
+   16, bf16, dropout 0.1) on ``SyntheticErnieDataset`` (``ERNIE_OVERRIDES``;
+   the corpus is not in the repository; the LR warmup off, so ten steps
+   move the weights) for 10 steps: finite losses, the first within 0.1 of
+   ``ln(vocab) + ln 2 + hidden·r²/2``, and the loss of the first step's
+   batch (dropout off) at least 0.05 lower after the 10 steps than before
+   (an unseen batch's printed beside it); step (median of steps 2-10),
+   tokens/s, peak memory, each step's
+   ``mlm_loss`` / ``nsp_loss``, a 3-step trace. (b)
+   ``ViT_base_patch16_224_pretrain.yaml`` (``VIT_OVERRIDES``: global batch
+   4096 → 256, i.e. dp 16 → 1, and ``SyntheticVisionDataset``) at full
+   width (12 blocks, 768, patch 16 at 224, 1000 classes, batch 256, bf16,
+   DropPath 0.1) for 5 steps: every loss within 1e-2 of ln 1000 (the zero
+   head; the labels are random, so no loss can fall below it in
+   expectation); step, images/s, peak memory; ``EagerEngine.evaluate`` over
+   2 eval batches (samples no step trains on), with top-1 / top-5 from
+   ``validation_loss``; a 3-step
+   trace of the step alone (device ms beside the host-bound wall). (c)
+   ``Engine.run_mode: epoch``: ViT at 2 blocks, ``num_train_epochs`` 2
+   over 4 batches of 64 through ``tools.train.run``: 8 steps, epochs 0 and 1 in
+   the log, epoch 2 in the checkpoint meta, and the run resumed from it
+   takes no step.
 
 Each phase's wall is printed as it ends (``phase_wall``) and collected in
 the ``smoke`` line.
@@ -4349,6 +4378,291 @@ def eval_export_alone(dev: torch.device, card: str) -> None:
     phase_row1_eval_shape(dev, card, float("nan"))
 
 
+# -------------------------------------------------------------- phase 15
+ERNIE_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "ernie",
+                          "pretrain_ernie_345M.yaml")
+VIT_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "vis", "vit",
+                        "ViT_base_patch16_224_pretrain.yaml")
+ERNIE_STEPS = 10
+#: the ERNIE 345M recipe on the card. Cuts: its corpus is not in the
+#: repository (SyntheticErnieDataset, the recipe's own zero-data
+#: stand-in); its LR warms up over 9900 steps, at whose step-10 rate of
+#: 9e-8 ten steps barely move the weights, so the warmup is off (max_lr
+#: 1e-4 from the first step) and the loss can be seen to fall
+ERNIE_OVERRIDES = ["Data.Train.dataset.name=SyntheticErnieDataset",
+                   "Optimizer.lr.warmup_rate=0.0",
+                   f"Engine.max_steps={ERNIE_STEPS}", "Engine.logging_freq=1",
+                   "Engine.eval_freq=0", "Engine.save_load.save_steps=0"]
+VIT_STEPS = 5
+VIT_EVAL_BATCHES = 2
+#: sample seeds no training run here draws from: the synthetic sets seed
+#: sample i with ``seed + i``, and train and eval would otherwise share
+#: their first samples
+UNSEEN_SEED = 1_000_000
+#: the ViT-B/16 recipe on one card (cuts: global batch 4096 = 16 x 256 →
+#: 256, dp 16 → 1; ImageNet is not in the repository, so
+#: SyntheticVisionDataset for both loaders); eval_freq past the run, so
+#: the trainer builds the eval loader and fit never evaluates
+VIT_OVERRIDES = ["Global.global_batch_size=256",
+                 "Data.Train.dataset.name=SyntheticVisionDataset",
+                 f"Data.Train.dataset.num_samples={256 * VIT_STEPS}",
+                 "Data.Eval.dataset.name=SyntheticVisionDataset",
+                 f"Data.Eval.dataset.num_samples={256 * VIT_EVAL_BATCHES}",
+                 f"Data.Eval.dataset.seed={UNSEEN_SEED}",
+                 f"Engine.max_steps={VIT_STEPS}", "Engine.logging_freq=1",
+                 "Engine.eval_freq=1000",
+                 f"Engine.eval_iters={VIT_EVAL_BATCHES}",
+                 "Engine.save_load.save_steps=0"]
+#: 15c: the epoch run mode, ViT at 2 blocks, 2 epochs over 4 batches of
+#: 64
+EPOCH_BATCHES, EPOCHS, EPOCH_BATCH = 4, 2, 64
+#: the kernel rows the encoder paths must not launch (their attention and
+#: LayerNorms are plain in JAX too)
+ENCODER_ROWS = ("flash_attention_fwd", "flash_attention_bwd_fused",
+                "fused_norm_fwd", "fused_norm_bwd")
+
+
+def _no_launches(what: str, counts: dict) -> None:
+    check(all(n == 0 for n in counts.values()),
+          f"{what}: a kernel launched on a plain path: {counts}")
+
+
+def _ernie_train(dev: torch.device, card: str) -> dict:
+    """15a: the ERNIE 345M recipe through ``build_trainer`` → ``fit`` for
+    10 steps at full width, bf16, with every launch count zeroed just
+    before and read just after; the losses, dropout off, of the first
+    step's batch and of a batch no step trains on, before and after; then
+    a 3-step trace."""
+    from fleetx_tpu_torch.data.dataloader import default_collate
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+
+    cfg = load_config(ERNIE_YAML, ERNIE_OVERRIDES)
+    engine, train_dl, _ = build_trainer(cfg, device=dev)
+    mc, glb = engine.module.model_cfg, cfg["Global"]
+    check(type(engine.module).__name__ == "ErnieModule"
+          and mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.num_attention_heads == 16 and mc.vocab_size == 40000
+          and mc.dtype == torch.bfloat16 and glb["max_seq_len"] == 512
+          and glb["global_batch_size"] == 16 and engine.module.binary_head
+          and mc.hidden_dropout_prob == 0.1
+          and mc.attention_probs_dropout_prob == 0.1,
+          "not the full-width ERNIE 345M recipe")
+    parts: list = []
+    step = engine.train_step
+
+    def recorded(batch):
+        metrics = step(batch)
+        parts.append((metrics["mlm_loss"], metrics["nsp_loss"]))
+        return metrics
+
+    engine.train_step = recorded
+    ds = train_dl.dataset
+    probes = {"first": engine.to_device(next(iter(train_dl))),
+              "unseen": engine.to_device(default_collate([
+                  type(ds)(num_samples=16, seq_length=ds.seq_length,
+                           vocab_size=ds.vocab_size, seed=UNSEEN_SEED)[i]
+                  for i in range(glb["global_batch_size"])]))}
+    engine.prepare()
+
+    def probe_losses() -> dict:
+        with torch.no_grad():
+            return {k: float(engine.module.validation_loss(engine.params,
+                                                           b)[0])
+                    for k, b in probes.items()}
+
+    before = probe_losses()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                   # every count to 0 just before
+    losses = engine.fit(train_dl)
+    torch.cuda.synchronize()
+    counts = read_counts()          # read just after
+    engine.train_step = step
+    _no_launches("ernie_train", counts)
+    after = probe_losses()
+    hist = engine.history
+    check(len(losses) == ERNIE_STEPS and all(np.isfinite(losses))
+          and all(np.isfinite(h["grad_norm"]) for h in hist),
+          f"ernie losses {losses}")
+    # the training losses carry batch and dropout noise (~0.02) and jump
+    # in the first steps at the full LR; the first step's batch, dropout
+    # off, is the same batch before and after: the trainer fits what it
+    # trains on (it fell 0.22-0.29 over two seeds). Random tokens leave an
+    # unseen batch little to learn, so its loss is printed, not held
+    check(after["first"] < before["first"] - 0.05,
+          f"ernie loss did not fall: {before['first']} -> "
+          f"{after['first']} on the first step's batch")
+    # MLM over random logits of variance hidden * r**2, plus NSP's ln 2
+    expect = float(np.log(mc.vocab_size) + np.log(2.0) + mc.hidden_size
+                   * mc.initializer_range ** 2 / 2)
+    check(abs(losses[0] - expect) < 0.1,
+          f"ernie first loss {losses[0]} is not within 0.1 of {expect}")
+    step_s = statistics.median(h["train_cost"] for h in hist[1:])
+    tokens = glb["global_batch_size"] * glb["max_seq_len"]
+    out = dict(steps=ERNIE_STEPS, losses=losses,
+               grad_norms=[h["grad_norm"] for h in hist],
+               first_loss=losses[0], expected_first_loss=expect,
+               last_loss=losses[-1],
+               first_batch_loss_before=before["first"],
+               first_batch_loss_after=after["first"],
+               unseen_batch_loss_before=before["unseen"],
+               unseen_batch_loss_after=after["unseen"],
+               mlm_loss=[float(m) for m, _ in parts],
+               nsp_loss=[float(n) for _, n in parts],
+               step_ms_median=step_s * 1e3,
+               step_ms=[h["train_cost"] * 1e3 for h in hist],
+               tokens_per_s=tokens / step_s,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev)
+               / 2 ** 30, launches=counts, nvidia_smi=card)
+    emit("ernie_train", **out)
+    batch = engine.to_device(next(iter(train_dl)))
+    fields, share = _trace_window(lambda: engine.train_step(batch), 3,
+                                  n_top=10)
+    out["trace"] = dict(fields, matmul_ms_per_step=share(
+        "nvjet", "gemm", "cutlass", "sm90_xmma"))
+    emit("ernie_trace", **out["trace"], nvidia_smi=card)
+    del engine, batch, probes
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vit_train(dev: torch.device, card: str) -> dict:
+    """15b: the ViT-B/16 recipe through ``build_trainer`` → ``fit`` for 5
+    steps at full width, bf16, batch 256 (counts zeroed just before and
+    read just after), then ``evaluate`` over 2 eval batches and their
+    top-1 / top-5 from ``validation_loss``, then a 3-step trace of the
+    step alone (device time beside the host-bound wall)."""
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+
+    cfg = load_config(VIT_YAML, VIT_OVERRIDES)
+    engine, train_dl, valid_dl = build_trainer(cfg, device=dev)
+    mc, glb = engine.module.vit_cfg, cfg["Global"]
+    check(type(engine.module).__name__ == "GeneralClsModule"
+          and mc.num_layers == 12 and mc.hidden_size == 768
+          and mc.num_attention_heads == 12 and mc.patch_size == 16
+          and mc.image_size == 224 and mc.num_classes == 1000
+          and mc.dtype == torch.bfloat16 and mc.drop_path_rate == 0.1
+          and glb["global_batch_size"] == 256 and engine.accumulate_steps == 1
+          and valid_dl is not None, "not the ViT-B/16 recipe at batch 256")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                   # every count to 0 just before
+    losses = engine.fit(train_dl)
+    torch.cuda.synchronize()
+    counts = read_counts()          # read just after
+    _no_launches("vit_train", counts)
+    hist = engine.history
+    check(len(losses) == VIT_STEPS and all(np.isfinite(losses))
+          and all(np.isfinite(h["grad_norm"]) for h in hist),
+          f"vit losses {losses}")
+    # the zero head: every logit equal, so the smoothed loss is ln(1000);
+    # the synthetic labels are random, so no step can bring the expected
+    # loss below it, and at the recipe's warmup LR (3e-7 a step) the steps
+    # after stay there
+    expect = float(np.log(mc.num_classes))
+    check(all(abs(loss - expect) < 1e-2 for loss in losses),
+          f"vit losses {losses} are not within 1e-2 of {expect}")
+    step_s = statistics.median(h["train_cost"] for h in hist[1:])
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    t0 = time.perf_counter()
+    eval_loss = engine.evaluate(valid_dl)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    metrics = []
+    with torch.no_grad():
+        for i, batch in enumerate(valid_dl):
+            if i >= VIT_EVAL_BATCHES:
+                break
+            _, m = engine.module.validation_loss(engine.params,
+                                                 engine.to_device(batch))
+            metrics.append({k: float(v) for k, v in m.items()})
+    check(len(metrics) == VIT_EVAL_BATCHES and abs(
+        np.mean([m["loss"] for m in metrics]) - eval_loss) < 1e-6
+          and all(0.0 <= m["top1"] <= m["top5"] <= 1.0 for m in metrics),
+          f"vit eval: {eval_loss} against {metrics}")
+    out = dict(steps=VIT_STEPS, losses=losses,
+               grad_norms=[h["grad_norm"] for h in hist],
+               first_loss=losses[0], expected_first_loss=expect,
+               step_ms_median=step_s * 1e3,
+               step_ms=[h["train_cost"] * 1e3 for h in hist],
+               images_per_s=glb["global_batch_size"] / step_s,
+               max_memory_allocated_gb=peak_gb, eval_loss=eval_loss,
+               eval_top1=float(np.mean([m["top1"] for m in metrics])),
+               eval_top5=float(np.mean([m["top5"] for m in metrics])),
+               eval_batches=VIT_EVAL_BATCHES, eval_s=eval_s,
+               launches=counts, nvidia_smi=card)
+    emit("vit_train", **out)
+    batch = engine.to_device(next(iter(train_dl)))
+    fields, share = _trace_window(lambda: engine.train_step(batch), 3,
+                                  n_top=10)
+    out["trace"] = dict(fields, matmul_ms_per_step=share(
+        "nvjet", "gemm", "cutlass", "sm90_xmma"))
+    emit("vit_trace", **out["trace"], nvidia_smi=card)
+    del engine, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _epoch_mode(dev: torch.device, card: str) -> dict:
+    """15c: ``run_mode: epoch`` through ``tools.train.run``: ViT at 2
+    blocks, ``num_train_epochs`` 2 over a synthetic set of 4 batches of
+    64: 8 steps,
+    epoch 2 in the final checkpoint's meta; the run resumed from it takes
+    no step."""
+    from fleetx_tpu_torch.core.checkpoint import peek_meta
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config, run
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_epoch_")
+    try:
+        overrides = VIT_OVERRIDES + [
+            "Model.num_layers=2", "Engine.run_mode=epoch",
+            f"Engine.num_train_epochs={EPOCHS}", "Engine.max_steps=100",
+            f"Global.global_batch_size={EPOCH_BATCH}",
+            f"Global.local_batch_size={EPOCH_BATCH}",
+            f"Global.micro_batch_size={EPOCH_BATCH}",
+            f"Data.Train.dataset.num_samples={EPOCH_BATCH * EPOCH_BATCHES}",
+            "Engine.save_load.save_steps=1000",
+            f"Engine.save_load.output_dir={root}"]
+        t0 = time.perf_counter()
+        engine, losses = run(load_config(VIT_YAML, overrides), device=dev)
+        wall = time.perf_counter() - t0
+        meta = peek_meta(root)
+        epochs = [h["epoch"] for h in engine.history]
+        check(engine.step == EPOCHS * EPOCH_BATCHES
+              and len(losses) == EPOCHS * EPOCH_BATCHES
+              and epochs == [e for e in range(EPOCHS)
+                             for _ in range(EPOCH_BATCHES)]
+              and meta["epoch"] == EPOCHS
+              and meta["step"] == EPOCHS * EPOCH_BATCHES,
+              f"epoch mode: step {engine.step}, epochs {epochs}, meta {meta}")
+        del engine
+        resumed, train_dl, _ = build_trainer(load_config(
+            VIT_YAML, overrides + [f"Engine.save_load.ckpt_dir={root}"]),
+            device=dev)
+        again = resumed.fit(train_dl, epoch_num=EPOCHS)
+        check(again == [] and resumed.step == EPOCHS * EPOCH_BATCHES
+              and resumed.epoch == EPOCHS,
+              f"epoch resume took {len(again)} steps at epoch "
+              f"{resumed.epoch}")
+        del resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out = dict(steps=EPOCHS * EPOCH_BATCHES, epochs=epochs,
+               meta_epoch=meta["epoch"], losses=losses, wall_s=wall,
+               nvidia_smi=card)
+    emit("epoch_mode", **out)
+    return out
+
+
+def phase_encoders(dev: torch.device, card: str) -> dict:
+    """Phase 15: ERNIE 345M pretraining, ViT-B/16 classification with
+    eval, and the epoch run mode through ``tools.train``; no kernel of
+    the port is on these paths (zero launches)."""
+    return {"ernie": _ernie_train(dev, card), "vit": _vit_train(dev, card),
+            "epoch": _epoch_mode(dev, card)}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4360,7 +4674,7 @@ def main(argv) -> int:
     card = phase_env(build)
     modes = {"--paged-shapes", "--serving", "--eval-export",
              "--fp16-resilience", "--train-paths", "--finetune-serving",
-             "--gpt-knobs"}
+             "--gpt-knobs", "--encoders"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
@@ -4370,10 +4684,17 @@ def main(argv) -> int:
         # 1b's fp16 rows, phase 4 (the uninterrupted losses) and phase 12;
         # --train-paths: phases 4 and 6; --finetune-serving: phases 2, 4,
         # 8, the tokenizer and corpus of 9-10, and 13; --gpt-knobs: phases
-        # 4 and 14
+        # 4 and 14; --encoders: phase 15
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
+        if "--encoders" in argv:
+            # built, so a launch on these plain paths would be counted
+            build.build(["flash_attention", "fused_norm"])
+            timed("15", phase_encoders, dev, card)
+            emit("encoders_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
+            print(smi_line(), flush=True)
+            return 0
         if "--gpt-knobs" in argv:
             build.build(["flash_attention", "fused_norm"])
             gpt_knobs_alone(dev, card)
@@ -4426,6 +4747,7 @@ def main(argv) -> int:
     seq8k = timed("6", phase_seq8k_trainer, dev, card)
     timed("7", phase_split_and_recompute_on_path, dev, card)
     knobs = timed("14", phase_gpt_knobs, dev, card, trainer)
+    encoders = timed("15", phase_encoders, dev, card)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         resume = timed("8", phase_checkpoint, dev, card, trainer["losses"],
@@ -4491,6 +4813,11 @@ def main(argv) -> int:
         by_path[name]["qat_train"] = knobs["qat"]["launches"][name]
         by_path[name]["dots_train"] = knobs["dots"]["launches"][name]
         by_path[name]["auto_1.3B"] = knobs["auto"]["launches"][name]
+    # phase 15: ERNIE 345M (10 steps) and ViT-B/16 (5 steps) take none of
+    # the kernels, as JAX's plain attention and LayerNorms take no Pallas
+    for name in ENCODER_ROWS:
+        by_path[name]["ernie_train"] = encoders["ernie"]["launches"][name]
+        by_path[name]["vit_train"] = encoders["vit"]["launches"][name]
     bf16 = kernels["bfloat16"]
     rows = [{
         "name": "paged_attention_decode", "route": "cuda",

@@ -15,6 +15,13 @@ raises.
 ``check_tree(tree, cfg)`` runs the same checks on anything with a
 ``.shape`` (``jax.eval_shape`` output) without converting a byte, so a
 full-size tree (GPT-1.3B) can be checked without its weights.
+
+The encoder families the same way, in JAX's scanned layout:
+``ernie_params_from_jax`` / ``check_ernie_tree`` against
+``models/ernie/model.py:param_shapes`` (layer leaves stacked under
+``ernie/layers``) and ``vit_params_from_jax`` / ``check_vit_tree``
+against ``models/vision/vit.py:param_shapes`` (block leaves under
+``blocks``).
 """
 
 from __future__ import annotations
@@ -96,3 +103,35 @@ def params_from_jax(tree: Mapping, cfg: GPTConfig,
     device = torch.device(device)
     return _walk(tree, _expected(tree, cfg), "",
                  lambda node: _to_tensor(node, device))
+
+
+def check_ernie_tree(tree: Mapping, cfg) -> None:
+    """``check_tree`` for an ERNIE tree (``ErnieConfig``)."""
+    from fleetx_tpu_torch.models.ernie.model import param_shapes as shapes
+
+    _walk(tree, shapes(cfg), "", lambda node: None)
+
+
+def ernie_params_from_jax(tree: Mapping, cfg,
+                          device: Union[str, torch.device] = "cpu") -> dict:
+    """``params_from_jax`` for the JAX ``ErnieForPretraining`` tree."""
+    from fleetx_tpu_torch.models.ernie.model import param_shapes as shapes
+
+    device = torch.device(device)
+    return _walk(tree, shapes(cfg), "", lambda node: _to_tensor(node, device))
+
+
+def check_vit_tree(tree: Mapping, cfg) -> None:
+    """``check_tree`` for a ViT tree (``ViTConfig``)."""
+    from fleetx_tpu_torch.models.vision.vit import param_shapes as shapes
+
+    _walk(tree, shapes(cfg), "", lambda node: None)
+
+
+def vit_params_from_jax(tree: Mapping, cfg,
+                        device: Union[str, torch.device] = "cpu") -> dict:
+    """``params_from_jax`` for the JAX ``ViT`` tree."""
+    from fleetx_tpu_torch.models.vision.vit import param_shapes as shapes
+
+    device = torch.device(device)
+    return _walk(tree, shapes(cfg), "", lambda node: _to_tensor(node, device))

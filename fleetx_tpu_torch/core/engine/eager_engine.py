@@ -8,7 +8,7 @@
 - ``prepare`` makes the seeded parameters (``Global.seed``) unless the
   caller set ``engine.params`` (converted JAX weights in the tests), and
   the optimizer state;
-- ``train_step`` takes the grads of ``GPTModule.training_loss``, sums
+- ``train_step`` takes the grads of the module's ``training_loss``, sums
   microbatch grads in an f32 carry when ``accumulate_steps > 1``, records
   the ``lr`` and ``grad_norm`` metrics and applies the AdamW update in
   place. Every microbatch of a step shares the step's dropout randomness,
@@ -82,8 +82,16 @@ is said there). What this slice does not cover raises
 ``NotImplementedError`` naming its ROADMAP item: per-rank checkpoint
 directories (item 12) and asynchronous saves (item 8), the SDC sentinel
 (item 8) and the gang watchdog (item 12), ``Profiler.enable`` and
-``Observability.enable`` (item 8), the epoch run mode, and any
-``Distributed`` degree above 1.
+``Observability.enable`` (item 8), and any ``Distributed`` degree above 1.
+
+The engine is family-neutral: the batch size is the leading dim of the
+batch's first leaf in key order (``leading_dim``), a loaded tree is
+checked by the module's own ``check_params``, and the log line is the
+module's. ``Engine.run_mode: epoch`` (the vision recipes) bounds ``fit``
+by its ``epoch_num`` (``tools/train.py`` passes
+``Engine.num_train_epochs``) besides ``max_steps``: each pass over the
+loader is an epoch, the checkpoint meta's ``epoch`` resumes the count,
+and a run already at ``epoch_num`` returns at once.
 """
 
 from __future__ import annotations
@@ -137,10 +145,6 @@ def check_engine_config(cfg: dict) -> None:
         raise NotImplementedError(
             "the Profiler window is not ported yet (ROADMAP.md, port queue "
             "item 8)")
-    if str(eng.get("run_mode") or "step") != "step":
-        raise NotImplementedError(
-            "Engine.run_mode other than 'step' belongs to the vision family "
-            "(ROADMAP.md, port queue item 7)")
     check_single_device(dict(cfg.get("Distributed") or {}))
 
 
@@ -166,6 +170,9 @@ class EagerEngine(BasicEngine):
         self.eval_freq = _int(eng, "eval_freq", 0)
         self.eval_iters = _int(eng, "eval_iters", 10)
         self.accumulate_steps = max(_int(eng, "accumulate_steps", 1), 1)
+        # "step": loop the loader until max_steps; "epoch": stop after
+        # fit's epoch_num passes too
+        self.run_mode = str(eng.get("run_mode") or "step")
         self.seed = int((self.cfg.get("Global") or {}).get("seed", 1234))
         save_load = dict(eng.get("save_load") or {})
         self.save_steps = _int(save_load, "save_steps", 0)
@@ -234,11 +241,9 @@ class EagerEngine(BasicEngine):
         step = ckpt_lib.latest_step(self.ckpt_dir) if self.ckpt_dir \
             else None
         if step is not None:
-            from fleetx_tpu_torch.convert import check_tree
-
             self.params = ckpt_lib.load_params(self.ckpt_dir, step,
                                                device=self.device)
-            check_tree(self.params, self.module.model_cfg)
+            self.module.check_params(self.params)
         else:
             logger.warning(
                 "NO CHECKPOINT FOUND (ckpt_dir=%r) — %s RANDOMLY "
@@ -284,7 +289,7 @@ class EagerEngine(BasicEngine):
             float(self.scaler["loss_scale"])
         accum = self.accumulate_steps
         if accum > 1:
-            lead = batch["tokens"].shape[0]
+            lead = leading_dim(batch)
             if lead % accum:
                 raise ValueError(
                     f"local batch {lead} is not divisible by "
@@ -352,17 +357,22 @@ class EagerEngine(BasicEngine):
                        "growth_tracker": np.int32(0 if grow else tracker)}
 
     # -------------------------------------------------------------- fit
-    def fit(self, train_data_loader: Iterable,
-            valid_data_loader=None) -> list:
-        """Train until ``max_steps``, re-iterating the loader; returns the
-        logged losses. The resilience runtime's hooks are inert unless
-        ``Resilience.enable``."""
+    def fit(self, train_data_loader: Iterable, valid_data_loader=None,
+            epoch_num: int = 1) -> list:
+        """Train until ``max_steps``, re-iterating the loader (in the
+        ``epoch`` run mode, also until ``epoch_num`` passes are done);
+        returns the logged losses. The resilience runtime's hooks are
+        inert unless ``Resilience.enable``."""
         res = self.resilience
         if res.auto_resume and self._restored is None:
             self._auto_resume()
         self.prepare()
         losses: list = []
         if self.step >= self.max_steps:
+            return losses
+        if self.run_mode == "epoch" and self.epoch >= epoch_num:
+            logger.info("checkpoint already at epoch %d >= epoch_num %d",
+                        self.epoch, epoch_num)
             return losses
         if self._restored and \
                 not _rewind_sampler(train_data_loader, self.consumed_samples):
@@ -374,24 +384,31 @@ class EagerEngine(BasicEngine):
         # consumed_samples sampler skips forward from here
         base_consumed = self.consumed_samples
         stream: dict = {"batches": None, "loader_iter": None}
+        # the epoch a cleanly exhausted stream ended at (the "epoch" meta
+        # of the run's last save)
+        final_epoch = [self.epoch]
 
         def host_batches(index: int):
-            """Host batches from the loader, re-iterated over epochs, each
-            through the fault plan at its global step index ``index``."""
-            it = iter(train_data_loader)
-            stream["loader_iter"] = it
+            """``(epoch, batch)`` pairs from the loader, re-iterated over
+            epochs from ``self.epoch`` on, each batch through the fault
+            plan at its global step index ``index``. Only the consumer
+            sets ``self.epoch`` (from the pairs), so a save never records
+            an epoch the training loop has not reached."""
+            epoch = final_epoch[0] = self.epoch
             while True:
-                batch = next(it, None)
-                if batch is None:  # re-iterate epochs over the same loader
-                    self.epoch += 1
-                    it = iter(train_data_loader)
-                    stream["loader_iter"] = it
-                    batch = next(it, None)
-                    if batch is None:
-                        return
-                yield res.faults.on_batch(
-                    index, self.module.pretreating_batch(batch))
-                index += 1
+                it = iter(train_data_loader)
+                stream["loader_iter"] = it
+                got = False
+                for batch in it:
+                    got = True
+                    yield epoch, res.faults.on_batch(
+                        index, self.module.pretreating_batch(batch))
+                    index += 1
+                epoch += 1
+                final_epoch[0] = epoch
+                if not got or (self.run_mode == "epoch"
+                               and epoch >= epoch_num):
+                    return
 
         def close_stream() -> None:
             """Close the batch generator, then the loader iterator (which
@@ -428,12 +445,14 @@ class EagerEngine(BasicEngine):
                 res.faults.maybe_sigterm(self.step, start_step=start_step)
                 if res.preempted:
                     self._preemption_exit(quiet)
-                batch = next(stream["batches"], None)
-                if batch is None:
+                item = next(stream["batches"], None)
+                if item is None:
+                    self.epoch = final_epoch[0]
                     break  # fleetx: noqa[FX008] -- one process (world-1 coordinator); the gang's voted exit comes with item 12
+                self.epoch, batch = item
                 batch = self.to_device(batch)
                 metrics = self.train_step(batch)
-                global_batch = int(batch["tokens"].shape[0])
+                global_batch = leading_dim(batch)
                 self.consumed_samples += global_batch
                 window += 1
                 if watchdog is not None:
@@ -730,6 +749,12 @@ class EagerEngine(BasicEngine):
                 "growth_tracker": np.int32(
                     state["scaler/growth_tracker"].item())}
         self.step = int(state["step"])
+
+
+def leading_dim(batch: dict) -> int:
+    """The batch size: the leading dim of the batch's first leaf in key
+    order (as ``jax.tree.leaves`` orders a dict)."""
+    return int(batch[min(batch)].shape[0])
 
 
 def _rewind_sampler(loader, consumed: int) -> bool:

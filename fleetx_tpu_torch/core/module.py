@@ -1,5 +1,7 @@
-"""Task modules: the GPT pretraining recipe, offline eval and text
-generation (port of ``fleetx_tpu/core/module.py:86-410``).
+"""Task modules: the protocol (``BasicModule``), the GPT pretraining
+recipe, offline eval and text generation (port of
+``fleetx_tpu/core/module.py:21-410``; the ERNIE and vision modules are
+in ``models/ernie/module.py`` and ``models/vision/module.py``).
 
 A module builds the model config from the YAML ``Model`` section, makes
 seeded parameters, and exposes the losses the engine differentiates:
@@ -72,14 +74,39 @@ def check_model_config(cfg: M.GPTConfig) -> None:
                 f"{item})")
 
 
-class LanguageModule:
+class BasicModule:
+    """The task protocol the engine drives (port of
+    ``fleetx_tpu/core/module.py:21-80``): a module makes seeded parameters
+    (``init_params(seed, device)``), checks a loaded tree
+    (``check_params``) and exposes ``training_loss(params, batch, seed,
+    step)`` and ``validation_loss(params, batch)``, each ``(loss,
+    metrics)``; ``batch`` is a dict of tensors whose leading dim is the
+    batch. The host-side hooks log the JAX module's lines."""
+
+    def __init__(self, cfg: Any):
+        self.cfg = cfg
+
+    def pretreating_batch(self, batch: dict) -> dict:
+        return batch
+
+    def training_step_end(self, log_dict: dict) -> None:
+        logger.info(
+            "[train] epoch: %d, batch: %d, loss: %.9f, avg_batch_cost: %.5f "
+            "sec", log_dict.get("epoch", 0), log_dict["batch"],
+            log_dict["loss"], log_dict.get("train_cost", 0.0))
+
+    def validation_step_end(self, log_dict: dict) -> None:
+        logger.info(
+            "[eval] epoch: %d, batch: %d, loss: %.9f, avg_eval_cost: %.5f "
+            "sec", log_dict.get("epoch", 0), log_dict["batch"],
+            log_dict["loss"], log_dict.get("eval_cost", 0.0))
+
+
+class LanguageModule(BasicModule):
     """Shared GPT-family glue: the token/ips/MFU log line and the
     model-size banner."""
 
     tokens_per_sample: int = 1024
-
-    def __init__(self, cfg: Any):
-        self.cfg = cfg
 
     def flops_per_token(self):
         """fwd+bwd model FLOPs per trained token (for the MFU line)."""
@@ -91,9 +118,6 @@ class LanguageModule:
         return gpt_flops_per_token(c.num_layers, c.hidden_size,
                                    self.tokens_per_sample,
                                    vocab_size=c.vocab_size)
-
-    def pretreating_batch(self, batch: dict) -> dict:
-        return batch
 
     def training_step_end(self, log_dict: dict) -> None:
         """``log_dict['device']`` names the device the step ran on; MFU is
@@ -168,6 +192,13 @@ class GPTModule(LanguageModule):
     def init_params(self, seed: int, device) -> dict:
         """Seeded parameters in the JAX layout on ``device``."""
         return M.init_params(self.model_cfg, seed=seed, device=device)
+
+    def check_params(self, params: dict) -> None:
+        """Raise unless ``params`` has the tree of this config (LoRA
+        adapter pairs included)."""
+        from fleetx_tpu_torch.convert import check_tree
+
+        check_tree(params, self.model_cfg)
 
     def training_loss(self, params: dict, batch: dict, seed: int,
                       step: int):

@@ -1,9 +1,13 @@
 """Config-driven data builders (port of ``fleetx_tpu/data/__init__.py:41-106``).
 
-The GPT entries are ported: ``GPTDataset``, ``SyntheticGPTDataset``,
-``BlendedDataset`` (its children built recursively with the same shape
-overrides), ``GPTBatchSampler`` and ``DistributedBatchSampler``. The
-other families' datasets (ERNIE, vision, Imagen) raise
+Ported: the GPT datasets (``GPTDataset``, ``SyntheticGPTDataset``,
+``BlendedDataset``, its children built recursively with the same shape
+overrides), ERNIE's (``ErnieDataset``, ``SyntheticErnieDataset``), the
+vision datasets (``GeneralClsDataset``, ``ImageFolder``, ``CIFAR10``,
+``SyntheticVisionDataset``), ``GPTBatchSampler`` and
+``DistributedBatchSampler``. The shape overrides reach only the datasets
+that read them: ``seq_length`` the token datasets, ``vocab_size`` the
+synthetic GPT set and the ERNIE sets. Imagen's datasets raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -12,24 +16,38 @@ from __future__ import annotations
 from typing import Optional
 
 from fleetx_tpu_torch.data.dataloader import DataLoader, default_collate
+from fleetx_tpu_torch.data.dataset.ernie_dataset import (
+    ErnieDataset, SyntheticErnieDataset)
 from fleetx_tpu_torch.data.dataset.gpt_dataset import (
     BlendedDataset, GPTDataset, SyntheticGPTDataset, write_corpus)
+from fleetx_tpu_torch.data.dataset.vision_dataset import (
+    CIFAR10, GeneralClsDataset, ImageFolder, SyntheticVisionDataset)
 from fleetx_tpu_torch.data.sampler.batch_sampler import (
     DistributedBatchSampler, GPTBatchSampler)
 
 DATASETS = {"GPTDataset": GPTDataset,
             "SyntheticGPTDataset": SyntheticGPTDataset,
-            "BlendedDataset": BlendedDataset}
+            "BlendedDataset": BlendedDataset,
+            "ErnieDataset": ErnieDataset,
+            "SyntheticErnieDataset": SyntheticErnieDataset,
+            "GeneralClsDataset": GeneralClsDataset,
+            "ImageFolder": ImageFolder,
+            "CIFAR10": CIFAR10,
+            "SyntheticVisionDataset": SyntheticVisionDataset}
 SAMPLERS = {"GPTBatchSampler": GPTBatchSampler,
             "DistributedBatchSampler": DistributedBatchSampler}
 #: dataset name -> ROADMAP port queue item that ports it
-NOT_PORTED = {"ErnieDataset": 7,
-              "SyntheticErnieDataset": 7, "GeneralClsDataset": 7,
-              "ImageFolder": 7, "CIFAR10": 7, "SyntheticVisionDataset": 7,
-              "ImagenDataset": 7, "SyntheticImagenDataset": 7}
+NOT_PORTED = {"ImagenDataset": 7.5, "SyntheticImagenDataset": 7.5}
+#: the datasets that take a sequence length / the model's vocabulary
+SEQ_NAMED = ("GPTDataset", "SyntheticGPTDataset", "ErnieDataset",
+             "SyntheticErnieDataset")
+VOCAB_NAMED = ("SyntheticGPTDataset", "ErnieDataset",
+               "SyntheticErnieDataset")
 
 __all__ = ["DataLoader", "default_collate", "GPTDataset",
            "SyntheticGPTDataset", "BlendedDataset", "write_corpus",
+           "ErnieDataset", "SyntheticErnieDataset", "GeneralClsDataset",
+           "ImageFolder", "CIFAR10", "SyntheticVisionDataset",
            "DistributedBatchSampler",
            "GPTBatchSampler", "build_dataset", "build_dataloader"]
 
@@ -57,10 +75,13 @@ def build_dataset(cfg: dict, mode: str = "Train", **overrides):
     input_dir = section.pop("input_dir", None)
     if input_dir is not None and "data_prefix" not in section:
         section["data_prefix"] = input_dir
-    section.setdefault("seq_length", section.pop("max_seq_len", 1024))
-    if name != "SyntheticGPTDataset":
-        # the token range of a corpus is its own; the synthetic set takes
-        # the model's vocabulary
+    if name in SEQ_NAMED:
+        section.setdefault("seq_length", section.pop("max_seq_len", 1024))
+    else:  # images have no sequence axis
+        section.pop("seq_length", None)
+        section.pop("max_seq_len", None)
+    if name not in VOCAB_NAMED:
+        # a GPT corpus's token range is its own; the others have none
         section.pop("vocab_size", None)
     return cls(**section)
 

@@ -1,24 +1,39 @@
-"""Model families of the port (GPT so far) and the module registry
-(port of ``fleetx_tpu/models/__init__.py:46-54``)."""
+"""Model families of the port (GPT, ERNIE, ViT) and the module registry
+(port of ``fleetx_tpu/models/__init__.py:12-54``)."""
 
 from __future__ import annotations
 
-__all__ = ["build_module"]
+__all__ = ["build_module", "get_registry"]
+
+
+def get_registry() -> dict:
+    """Name → task-module class (imported on the first call, not with the
+    package)."""
+    from fleetx_tpu_torch.core.module import (GPTEvalModule,
+                                              GPTGenerationModule, GPTModule)
+    from fleetx_tpu_torch.finetune.module import LoRAGPTModule
+    from fleetx_tpu_torch.models.ernie.module import ErnieModule
+    from fleetx_tpu_torch.models.vision.module import GeneralClsModule
+
+    return {"GPTModule": GPTModule, "GPTEvalModule": GPTEvalModule,
+            "GPTGenerationModule": GPTGenerationModule,
+            "LoRAGPTModule": LoRAGPTModule, "ErnieModule": ErnieModule,
+            "GeneralClsModule": GeneralClsModule}
+
+
+#: modules of the JAX registry still to port → their ROADMAP port queue
+#: item
+NOT_PORTED = {"ImagenModule": 7.5}
 
 
 def build_module(cfg):
-    """Instantiate the task module named by ``cfg.Model.module``:
-    ``GPTModule``, ``GPTEvalModule``, ``GPTGenerationModule`` or
-    ``LoRAGPTModule`` (the other families: ROADMAP.md, port queue item
-    7)."""
-    from fleetx_tpu_torch.core import module as modules
-
+    """Instantiate the task module named by ``cfg.Model.module``."""
     name = (cfg.get("Model") or {}).get("module", "GPTModule")
-    if name == "LoRAGPTModule":
-        from fleetx_tpu_torch.finetune.module import LoRAGPTModule
-
-        return LoRAGPTModule(cfg)
-    if name not in ("GPTModule", "GPTEvalModule", "GPTGenerationModule"):
+    if name in NOT_PORTED:
         raise NotImplementedError(f"module {name} is not ported yet "
-                                  f"(ROADMAP.md, port queue item 7)")
-    return getattr(modules, name)(cfg)
+                                  f"(ROADMAP.md, port queue item "
+                                  f"{NOT_PORTED[name]})")
+    modules = get_registry()
+    if name not in modules:
+        raise ValueError(f"unknown module {name!r}; have {sorted(modules)}")
+    return modules[name](cfg)

@@ -428,12 +428,21 @@ def layer_norm(p: dict, x: torch.Tensor, cfg: GPTConfig,
             eps=cfg.layer_norm_epsilon, out_dtype=cfg.dtype)
         return out if residual is None else (out, s)
     s = x if residual is None else residual + x
-    x32 = s.float()
+    out = f32_layer_norm(s, p["scale"], p["bias"], cfg.layer_norm_epsilon,
+                         cfg.dtype)
+    return out if residual is None else (out, s)
+
+
+def f32_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """The plain LayerNorm of the JAX modules (GPT's unfused one, ERNIE's
+    and ViT's): statistics and affine in f32, the result cast to
+    ``dtype``."""
+    x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
     var = ((x32 - mean) ** 2).mean(-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + cfg.layer_norm_epsilon)
-    out = (y * p["scale"] + p["bias"]).to(cfg.dtype)
-    return out if residual is None else (out, s)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(dtype)
 
 
 @dataclasses.dataclass

@@ -1,12 +1,11 @@
 """Learning-rate schedules as pure step → lr functions (port of
-``fleetx_tpu/optims/lr_scheduler.py:20-35, 60-107``).
+``fleetx_tpu/optims/lr_scheduler.py:20-107``).
 
 - ``cosine_annealing_with_warmup``: linear warmup to ``max_lr``, cosine
   decay to ``min_lr`` over ``decay_steps``, constant ``min_lr`` after;
+- ``vit_lr``: linear warmup to ``learning_rate``, then cosine or linear
+  decay to ``min_lr`` at ``total_steps``;
 - ``constant_lr``.
-
-The ViT schedule belongs to the vision family and raises
-``NotImplementedError`` (ROADMAP.md, port queue item 7).
 """
 
 from __future__ import annotations
@@ -33,6 +32,29 @@ def cosine_annealing_with_warmup(max_lr: float, min_lr: float = 0.0,
     return schedule
 
 
+def vit_lr(learning_rate: float, total_steps: int, warmup_steps: int = 0,
+           decay_type: str = "cosine", min_lr: float = 0.0):
+    """ViT warmup + cosine / linear decay (the reference
+    ``ViTLRScheduler``)."""
+    total_steps = max(int(total_steps), 1)
+    warmup_steps = int(warmup_steps)
+    if decay_type not in ("cosine", "linear"):
+        raise ValueError(f"unknown decay_type {decay_type!r}")
+
+    def schedule(step) -> float:
+        step = float(step)
+        if step < warmup_steps:
+            return learning_rate * step / max(warmup_steps, 1)
+        progress = (step - warmup_steps) / max(total_steps - warmup_steps, 1)
+        progress = min(max(progress, 0.0), 1.0)
+        if decay_type == "cosine":
+            return min_lr + 0.5 * (learning_rate - min_lr) * (
+                1.0 + math.cos(math.pi * progress))
+        return learning_rate + (min_lr - learning_rate) * progress
+
+    return schedule
+
+
 def constant_lr(learning_rate: float):
     """Fixed learning rate schedule."""
 
@@ -55,14 +77,21 @@ SCHEDULERS = {
 def build_lr_scheduler(cfg: dict):
     """Config-driven scheduler factory (the reference YAML keys: ``name``,
     ``max_lr``/``learning_rate``, ``min_lr``, ``warmup_rate`` or
-    ``warmup_steps``, ``decay_steps``)."""
+    ``warmup_steps``, ``decay_steps``; the ViT schedule's
+    ``learning_rate``, ``total_steps``, ``warmup_steps``, ``decay_type``
+    and ``min_lr``)."""
     cfg = dict(cfg or {})
     name = SCHEDULERS.get(cfg.get("name", "cosine"))
     if name is None:
         raise ValueError(f"unknown lr scheduler {cfg.get('name')!r}")
     if name == "vit":
-        raise NotImplementedError("the ViT lr schedule belongs to the vision "
-                                  "family (ROADMAP.md, port queue item 7)")
+        return vit_lr(
+            learning_rate=float(cfg.get("learning_rate", 1e-3)),
+            total_steps=int(cfg.get("total_steps",
+                                    cfg.get("decay_steps", 10000))),
+            warmup_steps=int(cfg.get("warmup_steps", 0)),
+            decay_type=cfg.get("decay_type", "cosine"),
+            min_lr=float(cfg.get("min_lr", 0.0)))
     if name == "constant":
         return constant_lr(float(cfg.get("learning_rate",
                                          cfg.get("max_lr", 1e-4))))

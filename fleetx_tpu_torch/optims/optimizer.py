@@ -19,8 +19,9 @@ a loop over the parameter tensors, updating them in place:
 dict a checkpoint holds (``count``, ``decay``, ``mu/<leaf path>``,
 ``nu/<leaf path>``) and back, bit for bit.
 
-SGD/Momentum belongs to the vision family and raises
-``NotImplementedError`` (ROADMAP.md, port queue item 7).
+``Momentum`` (``sgd``, :138-150) is ``optax.sgd`` after the same clip:
+``trace = g + momentum · trace`` (zeros at init, the parameter's dtype),
+``p += -lr(t) · trace``; no weight decay, as in the JAX chain.
 """
 
 from __future__ import annotations
@@ -171,16 +172,80 @@ class AdamW:
         state["decay"] = decay
 
 
-def build_optimizer(cfg: dict, lr_schedule) -> AdamW:
+class Momentum:
+    """SGD with heavy-ball momentum after the global-norm clip; the
+    interface of ``AdamW`` (``init``, ``grad_norm``, ``update``,
+    ``flat_state``, ``load_flat_state``)."""
+
+    def __init__(self, learning_rate: Callable[[int], float], *,
+                 momentum: float = 0.9, grad_clip: Optional[float] = None):
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+        self.grad_clip = grad_clip if grad_clip and grad_clip > 0 else None
+
+    def init(self, params: dict) -> dict:
+        """Step count and one momentum trace per leaf (flat, in
+        ``tree_leaves_with_path`` order)."""
+        return {"count": 0,
+                "trace": [torch.zeros_like(p)
+                          for _, p in tree_leaves_with_path(params)]}
+
+    @torch.no_grad()
+    def grad_norm(self, grads: list, grad_scale: float = 1.0) -> torch.Tensor:
+        """As ``AdamW.grad_norm``."""
+        g_norm = global_norm(grads)
+        return g_norm if grad_scale == 1.0 else g_norm * grad_scale
+
+    @torch.no_grad()
+    def update(self, params: list, grads: list, state: dict,
+               g_norm: Optional[torch.Tensor] = None,
+               grad_scale: float = 1.0) -> torch.Tensor:
+        """One step on the flat parameter list, in place; returns the
+        global grad norm before clipping. ``grad_scale`` unscales
+        loss-scaled grads (a power of two, so exactly) inside the trace
+        update."""
+        if g_norm is None:
+            g_norm = self.grad_norm(grads, grad_scale)
+        lr = float(self.learning_rate(state["count"]))
+        if self.grad_clip is not None:
+            trigger = g_norm < self.grad_clip
+        for p, g, tr in zip(params, grads, state["trace"]):
+            if self.grad_clip is not None:
+                g = torch.where(trigger, g, (g / g_norm) * self.grad_clip)
+            tr.mul_(self.momentum).add_(g.to(tr.dtype), alpha=grad_scale)
+            p.add_((tr * -lr).to(p.dtype))
+        state["count"] += 1
+        return g_norm
+
+    @staticmethod
+    def flat_state(state: dict, params: dict) -> dict:
+        """``count`` and ``trace/<leaf path>`` (the tensors themselves)."""
+        paths = ["/".join(p) for p, _ in tree_leaves_with_path(params)]
+        flat = {"count": int(state["count"])}
+        flat.update({f"trace/{p}": t for p, t in zip(paths, state["trace"])})
+        return flat
+
+    @staticmethod
+    def load_flat_state(state: dict, flat: dict, params: dict) -> None:
+        """Restore ``flat_state`` output in place, bit for bit; raises on
+        a shape that differs."""
+        paths = ["/".join(p) for p, _ in tree_leaves_with_path(params)]
+        for p, t in zip(paths, state["trace"]):
+            saved = flat[f"trace/{p}"]
+            if tuple(saved.shape) != tuple(t.shape):
+                raise ValueError(f"trace/{p}: checkpoint shape "
+                                 f"{tuple(saved.shape)} != {tuple(t.shape)}")
+            t.copy_(saved)
+        state["count"] = int(flat["count"])
+
+
+def build_optimizer(cfg: dict, lr_schedule):
     """Config-driven optimizer factory (the reference YAML keys: ``name``,
     ``beta1/beta2/epsilon``, ``weight_decay``, ``grad_clip.clip_norm``,
-    ``multi_precision``)."""
+    ``multi_precision``; ``momentum`` for ``Momentum`` / ``sgd``)."""
     cfg = dict(cfg or {})
     name = cfg.get("name", "AdamW")
-    if name in ("Momentum", "sgd"):
-        raise NotImplementedError(f"optimizer {name} belongs to the vision "
-                                  f"family (ROADMAP.md, port queue item 7)")
-    if name not in ("FusedAdamW", "AdamW", "adamw"):
+    if name not in ("FusedAdamW", "AdamW", "adamw", "Momentum", "sgd"):
         raise ValueError(f"unknown optimizer {name!r}")
     clip = cfg.get("grad_clip")
     clip_norm = None
@@ -188,6 +253,9 @@ def build_optimizer(cfg: dict, lr_schedule) -> AdamW:
         clip_norm = float(clip.get("clip_norm", 1.0))
     elif clip is not None:
         clip_norm = float(clip)
+    if name in ("Momentum", "sgd"):
+        return Momentum(lr_schedule, momentum=float(cfg.get("momentum", 0.9)),
+                        grad_clip=clip_norm)
     return AdamW(lr_schedule,
                  beta1=float(cfg.get("beta1", 0.9)),
                  beta2=float(cfg.get("beta2", 0.999)),

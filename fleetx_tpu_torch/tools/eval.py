@@ -13,7 +13,10 @@ Two paths, as in the reference tool:
   last word is the cloze target (``eval_type: acc``), tokenized with the
   tokenizer in ``tokenizer_dir`` (``vocab.json`` + ``merges.txt``);
 - without one: ``EagerEngine(mode="eval").evaluate`` over the ``Data.Eval``
-  loader (at most ``Engine.eval_iters`` batches), printing ``eval loss``.
+  loader (at most ``Engine.eval_iters`` batches), printing ``eval loss``;
+  this path takes any family's recipe (``GPTModule``, ``ErnieModule``,
+  ``GeneralClsModule``), its checkpoint checked by the module's
+  ``check_params``.
 
 The parameters come from the newest checkpoint under
 ``Engine.save_load.ckpt_dir``, verified (a checkpoint that fails its audit

@@ -5,14 +5,35 @@
         [-o Key.Sub=v ...] [--device cuda|cpu]
 
 Loads the YAML through the port's config loader (one device), builds the
-``GPTModule``, the cosine-warmup LR, AdamW and the ``EagerEngine``, the
-``Data.Train`` loader (and ``Data.Eval`` when ``eval_freq`` is set and an
-eval dataset is named), and fits until ``Engine.max_steps``. A YAML with ``Distributed.auto_layout`` runs
-the layout planner first (``utils/config.py``; ``tools/auto.py`` runs it
-on every YAML). It runs on
+module ``Model.module`` names (``GPTModule``, ``ErnieModule``,
+``GeneralClsModule``, ...), the LR schedule and optimizer of the
+``Optimizer`` section and the ``EagerEngine``, the ``Data.Train`` loader
+(and ``Data.Eval`` when ``eval_freq`` is set and an eval dataset is
+named), and fits until ``Engine.max_steps`` (in ``Engine.run_mode:
+epoch``, also until ``Engine.num_train_epochs`` passes). A YAML with
+``Distributed.auto_layout`` runs the layout planner first
+(``utils/config.py``; ``tools/auto.py`` runs it on every YAML). It runs on
 ``cuda`` unless ``--device cpu`` is given; without a GPU and without
 ``--device cpu`` it raises. Config values the slice does not cover raise
 ``NotImplementedError`` naming their ROADMAP item.
+
+The encoder recipes run as they are where their data is present; the
+ERNIE corpus and ImageNet are not in the repository, so their synthetic
+datasets stand in::
+
+    python -m fleetx_tpu_torch.tools.train \
+        -c fleetx_tpu/configs/nlp/ernie/pretrain_ernie_345M.yaml \
+        -o Data.Train.dataset.name=SyntheticErnieDataset
+    python -m fleetx_tpu_torch.tools.train \
+        -c fleetx_tpu/configs/vis/vit/ViT_base_patch16_224_pretrain.yaml \
+        -o Global.global_batch_size=256 \
+        -o Data.Train.dataset.name=SyntheticVisionDataset \
+        -o Data.Train.dataset.num_samples=25600 \
+        -o Data.Eval.dataset.name=SyntheticVisionDataset \
+        -o Data.Eval.dataset.num_samples=512
+
+(the ViT recipe's global batch is 16 cards' worth: one card takes
+``local_batch_size`` 256).
 
 With ``Engine.save_load.save_steps`` set, the trainer saves every
 ``save_steps`` steps and once more at the end (``output_dir``); with
@@ -53,7 +74,7 @@ def load_config(path: str, overrides: Optional[list] = None,
 def build_trainer(cfg: dict, device=None, wrap_optimizer=None):
     """``(engine, train_loader, eval_loader or None)`` from a config;
     ``wrap_optimizer`` (e.g. ``finetune.lora_optimizer``) wraps the
-    configured AdamW."""
+    configured optimizer."""
     from fleetx_tpu_torch.core.engine import EagerEngine
     from fleetx_tpu_torch.data import build_dataloader
     from fleetx_tpu_torch.models import build_module
@@ -88,7 +109,8 @@ def run(cfg: dict, device=None):
     """Build the trainer, fit, and save the final step when ``save_steps``
     is set; returns ``(engine, logged losses)``."""
     engine, train_dl, valid_dl = build_trainer(cfg, device)
-    losses = engine.fit(train_dl, valid_dl)
+    epochs = int((cfg.get("Engine") or {}).get("num_train_epochs") or 1)
+    losses = engine.fit(train_dl, valid_dl, epoch_num=epochs)
     if engine.save_steps and engine.last_saved_step != engine.step:
         engine.save()
     return engine, losses

@@ -8,6 +8,7 @@ is exact.
 
 import numpy as np
 import pytest
+import torch
 
 from fleetx_tpu.data import build_dataloader as j_build_dataloader
 from fleetx_tpu.data.dataset import gpt_dataset as JDS
@@ -17,6 +18,17 @@ from fleetx_tpu_torch.data.dataset import gpt_dataset as TDS
 from fleetx_tpu_torch.data.sampler.batch_sampler import GPTBatchSampler
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 VOCAB, SEQ = 256, 128
 

@@ -18,8 +18,20 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVAL_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
@@ -83,7 +95,7 @@ def _loader(ds, bs: int = 4):
 
 
 def _cli(args: list) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("CUDA_VISIBLE_DEVICES", None)
     return subprocess.run(
         [sys.executable, "-m", "fleetx_tpu_torch.tools.eval"] + args,
@@ -160,7 +172,8 @@ def test_eval_cli_data_eval_path_and_no_checkpoint_warning(files, tmp_path):
         [sys.executable, "-m", "fleetx_tpu_torch.tools.eval", "-c",
          PRETRAIN_YAML, "--device", "cpu"] + sum(
             (["-o", o] for o in overrides), []),
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        capture_output=True,
         text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO CHECKPOINT FOUND" in out.stderr

@@ -16,8 +16,20 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INF_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
@@ -63,8 +75,9 @@ def _argv(module: str, args: list) -> list:
 def _run_all(runs: dict) -> dict:
     """name → (module, overrides): run them as processes at once; name →
     (stdout, stderr), each asserted to exit 0."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     procs = {name: subprocess.Popen(
-        _argv(module, args), cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        _argv(module, args), cwd=REPO, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for name, (module, args) in runs.items()}
     out = {}

@@ -28,6 +28,17 @@ from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LORA_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
                          "finetune_gpt_345M_lora.yaml")
@@ -61,7 +72,7 @@ def base_ckpt(tmp_path_factory) -> str:
 def _run(module: str, args: list, timeout: int = 300):
     return subprocess.run(
         [sys.executable, "-m", f"fleetx_tpu_torch.tools.{module}"] + args,
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
         capture_output=True, text=True, timeout=timeout)
 
 

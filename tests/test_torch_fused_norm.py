@@ -36,6 +36,17 @@ from fleetx_tpu_torch.ops import fused_norm as FN
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 SHAPE = (2, 16, 128)
 EPS = 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),

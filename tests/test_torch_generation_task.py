@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from fleetx_tpu.core.module import GPTGenerationModule as JGenModule
 from fleetx_tpu_torch.convert import params_from_jax
@@ -28,6 +29,17 @@ from fleetx_tpu_torch.models.gpt import model as M
 from fleetx_tpu_torch.tasks.gpt import generation as task
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEN_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
@@ -104,7 +116,7 @@ TINY_OVERRIDES = [
 
 
 def _cli(*overrides):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "fleetx_tpu_torch.tasks.gpt.generation",
            "-c", GEN_YAML, "--device", "cpu"]
     for o in TINY_OVERRIDES + list(overrides):

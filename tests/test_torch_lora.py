@@ -40,6 +40,17 @@ from fleetx_tpu_torch.optims import optimizer as TOPT
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 MODEL = dict(vocab_size=97, hidden_size=64, num_layers=2,
              num_attention_heads=4, max_position_embeddings=64,
              hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,

@@ -37,6 +37,17 @@ from fleetx_tpu_torch.serving.paged_cache import NULL_PAGE
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 B, NH, HD, PS, P, PAGES = 5, 4, 16, 4, 6, 20
 #: ragged lens: crosses page boundaries (13), a lone first position (0),
 #: an inactive row (-1), the last slot of a page (7), the full table (23)

@@ -26,6 +26,17 @@ import yaml
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "fleetx_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fleetx_tpu")
@@ -77,7 +88,16 @@ def test_the_scan_reaches_every_module_of_the_port():
                 "fleetx_tpu_torch/ops/save_points.py",
                 "fleetx_tpu_torch/tools/auto.py",
                 "fleetx_tpu_torch/core/engine/auto_engine.py",
-                "fleetx_tpu_torch/core/engine/basic_engine.py"):
+                "fleetx_tpu_torch/core/engine/basic_engine.py",
+                "fleetx_tpu_torch/models/ernie/model.py",
+                "fleetx_tpu_torch/models/ernie/module.py",
+                "fleetx_tpu_torch/models/vision/vit.py",
+                "fleetx_tpu_torch/models/vision/loss.py",
+                "fleetx_tpu_torch/models/vision/module.py",
+                "fleetx_tpu_torch/data/dataset/ernie_dataset.py",
+                "fleetx_tpu_torch/data/dataset/vision_dataset.py",
+                "fleetx_tpu_torch/data/transforms/preprocess.py",
+                "fleetx_tpu_torch/data/sampler/collate.py"):
         assert rel in scanned, rel
 
 
@@ -127,6 +147,9 @@ def test_entry_points_load_no_jax_modules():
             "import fleetx_tpu_torch.parallel.auto_layout\n"
             "import fleetx_tpu_torch.core.engine.auto_engine\n"
             "import fleetx_tpu_torch.core.engine.basic_engine\n"
+            "import fleetx_tpu_torch.models.ernie.module\n"
+            "import fleetx_tpu_torch.models.vision.module\n"
+            "import fleetx_tpu_torch.data.sampler.collate\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -141,6 +164,10 @@ def test_entry_points_load_no_jax_modules():
     assert "fleetx_tpu_torch.parallel.auto_layout" in loaded
     for name in ("policy", "faults", "guard", "watchdog", "coordination"):
         assert f"fleetx_tpu_torch.resilience.{name}" in loaded, name
+    for name in ("models.ernie.model", "models.vision.vit",
+                 "data.dataset.vision_dataset", "data.transforms.preprocess"):
+        assert f"fleetx_tpu_torch.{name}" in loaded, name
+    assert "PIL" not in loaded  # the card's machine has no Pillow
     assert "regex" not in loaded  # the card's machine has no regex
     assert [m for m in loaded if _forbidden(m)] == []
 

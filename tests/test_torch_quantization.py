@@ -21,6 +21,17 @@ from fleetx_tpu_torch.ops import quantization as TQ
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 #: (shape, reduced axis) pairs: per tensor, and the serving decode's
 #: per-output-channel reductions of the four kernels (qkv ``[h, 3, nh,
 #: hd]`` axis 0, out ``[nh, hd, h]`` axes (0, 1), wi / wo axis 0) and of

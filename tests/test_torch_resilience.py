@@ -58,6 +58,17 @@ from test_engine import build_engine, make_batches, tiny_cfg
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
                           "pretrain_gpt_345M_synthetic.yaml")
@@ -552,7 +563,8 @@ def test_preemption_through_the_real_cli_then_resume(tmp_path):
                      "Resilience.preemption.exit_code=75",
                      f"Engine.save_load.output_dir={out}"]:
         cmd += ["-o", o]
-    env = dict(os.environ, PYTHONPATH=REPO, FLEETX_FAULTS="sigterm_at=2")
+    env = dict(os.environ, PYTHONPATH=REPO, FLEETX_FAULTS="sigterm_at=2",
+               OMP_NUM_THREADS="1")
     first = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                            text=True, timeout=300)
     assert first.returncode == 75, first.stderr[-3000:]

@@ -20,6 +20,7 @@ import weakref
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,17 @@ from fleetx_tpu_torch.ops import flash_attention as FA
 from fleetx_tpu_torch.tools import train as T
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ8K_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
@@ -219,7 +231,7 @@ def test_converter_checks_the_seq8k_parameter_tree():
 
 
 def test_seq8k_train_cli_scaled_down_on_cpu():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     shrink = ["Model.num_layers=2", "Model.hidden_size=128",
               "Model.num_attention_heads=2", f"Model.vocab_size={VOCAB}",
               "Model.max_position_embeddings=256", "Global.max_seq_len=256",

@@ -16,12 +16,24 @@ import random
 import unicodedata
 
 import pytest
+import torch
 import regex
 
 from fleetx_tpu.data.tokenizers import gpt_tokenizer as J
 from fleetx_tpu_torch.data.tokenizers import gpt_tokenizer as T
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

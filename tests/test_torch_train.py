@@ -49,6 +49,17 @@ from fleetx_tpu_torch.tools import train as T
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """This file's tensors are tiny: torch runs them on one intra-op
+    thread (its default pool, on cores the other test workers share,
+    costs far more than the work). The count is restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
                           "pretrain_gpt_345M_synthetic.yaml")
@@ -318,7 +329,7 @@ def test_accumulated_microbatches_equal_one_full_batch():
 
 # ---------------------------------------------------------------- the CLI
 def test_train_cli_on_cpu_runs_and_logs():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "fleetx_tpu_torch.tools.train", "-c",
            SYNTH_YAML, "--device", "cpu"]
     for o in TINY:
