@@ -8,8 +8,10 @@ it offline, export it and run the exported programs, fine-tune it with
 LoRA adapters and serve the merged weights with int8 fake-quant decode,
 train GPT-345M in fp16 under the loss scaler and run the resilience
 drills, train GPT-345M with QAT and under the dots recompute policy and
-GPT-1.3B through the auto-layout entry point, and pretrain ERNIE-345M and
-train and evaluate ViT-B/16 through the same trainer.
+GPT-1.3B through the auto-layout entry point, pretrain ERNIE-345M and
+train and evaluate ViT-B/16 through the same trainer, and train,
+evaluate and generate with the 8-expert MoE GPT-345M and train and
+sample the Imagen cascade (64² base, SR-256).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
@@ -22,6 +24,7 @@ train and evaluate ViT-B/16 through the same trainer.
                                            # tokenizer, 10's corpus, 13
     python3 chip_smoke.py --gpt-knobs      # phases 4 and 14
     python3 chip_smoke.py --encoders       # phase 15
+    python3 chip_smoke.py --families       # phase 16
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -296,6 +299,34 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    over 4 batches of 64 through ``tools.train.run``: 8 steps, epochs 0 and 1 in
    the log, epoch 2 in the checkpoint meta, and the run resumed from it
    takes no step.
+
+16. the last model families (run after phase 15, each counted from 0
+   around its own run): (a) ``pretrain_gpt_moe_8expert_mp4.yaml``
+   (``MOE_OVERRIDES``: dp 2 and mp 4 → 1, phase 4's synthetic data)
+   through ``build_trainer`` → ``fit`` at full width and depth (24 × 1024,
+   16 heads, 8 experts, top-2, capacity factor 1.25, aux weight 0.01,
+   bf16, global batch 16 in 2 micro-batches of 8) for 10 steps: phase 4's
+   per-step counts twice a step (rows 1, 4, 5, 6: 480 / 480 / 980 / 980),
+   finite losses, the first LM loss within 0.1 of ``ln(vocab) +
+   hidden·r²/2``, the summed aux at step 1 near 24 × 0.01; step (median of
+   steps 2-10), tokens/s, peak memory, ``moe_aux`` at every step; an eval
+   pass of 4 batches no step trains on (the share of token-choices dropped
+   a layer from its routing); greedy generation of 8 prompts × 32 tokens
+   on the trained weights (row 5 only, 49 a model call; the decode steps'
+   capacity and dropped share); kernels on against off at 4 layers, f32
+   (``MOE_ONOFF_TOL``, the flipped token-choices counted). (b)
+   ``imagen_397M_text2im_64x64.yaml`` (``IMAGEN_OVERRIDES``:
+   ``SyntheticImagenDataset`` at T5 width 1024) at full width, batch 16,
+   bf16, for 10 steps, saving step 10: no kernel launches, finite losses,
+   the first within a factor 1.5 of 1 plus the untrained output's
+   variance; step, images/s, peak memory, the parameter count, a 3-step
+   trace (device ms beside the host-bound wall); then one step of
+   ``imagen_super_resolution_256.yaml`` at the YAML's batch 8 on 64²
+   low-res images. (c) ``tasks/imagen/generate.py``'s cascade: the base
+   stage from (b)'s checkpoint, a seeded SR-256 stage, batch 2, guidance
+   5.0, dynamic thresholding, ``CASCADE_TIMESTEPS`` steps a stage (cut
+   from 1000): ms per denoise step of each stage, the output ``[2, 256,
+   256, 3]``, finite, within [-1, 1]; no kernel launches.
 
 Each phase's wall is printed as it ends (``phase_wall``) and collected in
 the ``smoke`` line.
@@ -4663,6 +4694,455 @@ def phase_encoders(dev: torch.device, card: str) -> dict:
             "epoch": _epoch_mode(dev, card)}
 
 
+# -------------------------------------------------------------- phase 16
+MOE_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                        "pretrain_gpt_moe_8expert_mp4.yaml")
+IMAGEN_BASE_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "multimodal",
+                                "imagen", "imagen_397M_text2im_64x64.yaml")
+IMAGEN_SR_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "multimodal",
+                              "imagen", "imagen_super_resolution_256.yaml")
+MOE_STEPS = 10
+#: the MoE recipe on one card. Cuts: dp 2 and mp 4 → 1 (item 12), phase
+#: 4's synthetic data (its ./data/demo is not in the repository), no eval
+#: and no saves inside the fit
+MOE_OVERRIDES = ["Distributed.dp_degree=1", "Distributed.mp_degree=1",
+                 f"Engine.max_steps={MOE_STEPS}", "Engine.logging_freq=1",
+                 "Engine.eval_freq=0", "Engine.save_load.save_steps=0"]
+#: per micro-batch at 24 layers: phase 4's step (the MoE stack's
+#: attention and LayerNorms are the dense GPT's); 2 micro-batches a step
+MOE_MICRO_BATCHES = 2
+MOE_EVAL_BATCHES = 4
+#: greedy generation from the trained weights: phase 9's prompt lengths,
+#: 32 new tokens
+MOE_GEN_NEW = 32
+#: MoE, f32, kernels on against off at 4 layers. The routing is a step
+#: function of the router's input (the top-2 of 8 probabilities, and a
+#: token's queue slot at its expert): where the kernels' f32 ulps flip no
+#: token-choice, the two runs are the same function and phase 5's bounds
+#: hold (loss 1e-4, grads 1e-3 of each leaf's largest magnitude); a
+#: flipped choice moves one token's FFN output by a whole expert's worth,
+#: so then the bounds are QAT's (14a: loss 1e-3, grads 2**-4), and the
+#: flipped choices are counted and printed
+MOE_ONOFF_TOL = {False: (1e-4, 1e-3), True: (1e-3, 2.0 ** -4)}
+IMAGEN_STEPS = 10
+#: the base recipe on one card: SyntheticImagenDataset at the YAML's T5
+#: width 1024 (the TSV and T5 features are not in the repository; the
+#: dataset's default width is 64); the final step saved for 16c
+IMAGEN_OVERRIDES = ["Data.Train.dataset.name=SyntheticImagenDataset",
+                    "Data.Train.dataset.text_embed_dim=1024",
+                    f"Data.Train.dataset.num_samples={16 * IMAGEN_STEPS}",
+                    f"Engine.max_steps={IMAGEN_STEPS}",
+                    "Engine.logging_freq=1",
+                    f"Engine.save_load.save_steps={IMAGEN_STEPS}"]
+#: the SR-256 recipe: one step at the YAML's batch 8 on 64² low-res images
+IMAGEN_SR_OVERRIDES = ["Data.Train.dataset.name=SyntheticImagenDataset",
+                       "Data.Train.dataset.text_embed_dim=1024",
+                       "Data.Train.dataset.num_samples=8",
+                       "Engine.max_steps=1", "Engine.logging_freq=1",
+                       "Engine.save_load.save_steps=0"]
+#: 16c: the cascade's timesteps (cut from the YAMLs' 1000) and batch
+CASCADE_TIMESTEPS = 50
+CASCADE_BATCH = 2
+
+
+class _Routes:
+    """Record every MoE routing (``models/gpt/moe.route``) while open."""
+
+    def __init__(self):
+        from fleetx_tpu_torch.models.gpt import moe as MOE
+
+        self.MOE, self.real, self.routes = MOE, MOE.route, []
+
+    def __enter__(self):
+        def recording(*a, **k):
+            r = self.real(*a, **k)
+            self.routes.append(r)
+            return r
+
+        self.MOE.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE.route = self.real
+
+
+def _moe_kernels_vs_plain(dev: torch.device, cfg: dict) -> dict:
+    """16a: f32 loss and grads at 4 layers, dropout 0, kernels on against
+    off on the same seeded weights and batch; the token-choices whose
+    expert or kept/dropped state differ between the runs counted."""
+    from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
+    from fleetx_tpu_torch.tools.train import load_config
+
+    base = MOE_OVERRIDES + SHORT + ["Model.dtype=float32",
+                                    "Model.hidden_dropout_prob=0.0",
+                                    "Model.attention_probs_dropout_prob=0.0"]
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(iter(_train_loader(cfg))).items()}
+    params = init_params(config_from_dict(dict(
+        load_config(MOE_YAML, base)["Model"])), seed=0, device=dev)
+    runs = []
+    for on in (True, False):
+        with _Routes() as routes:
+            loss, grads = _loss_and_grads(
+                base + [f"Model.use_flash_attention={on}",
+                        f"Model.fused_residual_norm={on}"],
+                params, batch, MOE_YAML)
+        runs.append((loss, grads, routes.routes))
+        torch.cuda.empty_cache()
+    (loss_on, g_on, r_on), (loss_off, g_off, r_off) = runs
+    flips = sum(int(((a.experts != b.experts) | (a.keep != b.keep)).sum())
+                for a, b in zip(r_on, r_off))
+    rels = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(g_on, g_off)]
+    loss_tol, grad_tol = MOE_ONOFF_TOL[flips > 0]
+    out = dict(layers=4, loss_on=loss_on, loss_off=loss_off,
+               loss_diff=abs(loss_on - loss_off),
+               max_grad_diff_over_leaf_max=max(rels),
+               flipped_token_choices=flips,
+               token_choices=sum(int(r.keep.numel()) for r in r_on),
+               loss_tol=loss_tol, grad_tol=grad_tol)
+    check(len(r_on) == len(r_off) == 4, "one routing per layer")
+    check(abs(loss_on - loss_off) <= loss_tol,
+          f"MoE f32 loss kernels on {loss_on} vs off {loss_off}")
+    check(max(rels) <= grad_tol, f"MoE f32 grads on vs off: {max(rels)}")
+    del params, batch, runs, g_on, g_off
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_train(dev: torch.device, card: str) -> dict:
+    """16a: the 8-expert MoE GPT-345M recipe through ``build_trainer`` →
+    ``fit`` for 10 steps at full width and depth (counts zeroed just
+    before and read just after), an eval pass and greedy generation on
+    the trained weights, then kernels on against off at 4 layers."""
+    from fleetx_tpu_torch.core.module import GPTGenerationModule
+    from fleetx_tpu_torch.data import build_dataloader
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+
+    cfg = load_config(MOE_YAML, MOE_OVERRIDES)
+    cfg["Data"] = load_config(TRAIN_YAML)["Data"]   # phase 4's data
+    engine, train_dl, _ = build_trainer(cfg, device=dev)
+    mc, glb = engine.module.model_cfg, cfg["Global"]
+    check(mc.moe_num_experts == 8 and mc.moe_top_k == 2
+          and mc.moe_capacity_factor == 1.25 and mc.moe_aux_weight == 0.01
+          and mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+          and mc.dtype == torch.bfloat16 and not mc.use_recompute
+          and mc.use_flash_attention and mc.fused_residual_norm
+          and mc.hidden_dropout_prob == 0.1
+          and glb["global_batch_size"] == 16 and glb["max_seq_len"] == 1024
+          and engine.accumulate_steps == MOE_MICRO_BATCHES
+          and engine.module.spec_family == "gpt_moe",
+          "not the full-width 8-expert MoE GPT-345M recipe")
+    aux: list = []
+    step = engine.train_step
+
+    def recorded(batch):
+        metrics = step(batch)
+        aux.append(metrics["moe_aux"])
+        return metrics
+
+    engine.train_step = recorded
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                   # every count to 0 just before
+    losses = engine.fit(train_dl)
+    torch.cuda.synchronize()
+    counts = read_counts()          # read just after
+    engine.train_step = step
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    _check_per_step("moe_train", counts, PER_STEP,
+                    MOE_STEPS * MOE_MICRO_BATCHES)
+    hist = engine.history
+    aux = [float(a) for a in aux]
+    check(len(losses) == MOE_STEPS and all(np.isfinite(losses))
+          and all(np.isfinite(h["grad_norm"]) for h in hist)
+          and all(np.isfinite(aux)), f"moe losses {losses}, aux {aux}")
+    expect = float(np.log(mc.vocab_size)
+                   + mc.hidden_size * mc.initializer_range ** 2 / 2)
+    check(abs(losses[0] - expect) < 0.1,
+          f"moe first loss {losses[0]} is not within 0.1 of {expect}")
+    # at a perfect balance each layer's aux is aux_weight (E · Σ f·P =
+    # 1), so 24 layers sum to 0.24; imbalance only raises it
+    check(0.9 * 0.24 < aux[0] < 0.5, f"moe aux at step 1: {aux[0]}")
+    step_s = statistics.median(h["train_cost"] for h in hist[1:])
+    tokens = glb["global_batch_size"] * glb["max_seq_len"]
+    out = dict(steps=MOE_STEPS, losses=losses,
+               grad_norms=[h["grad_norm"] for h in hist],
+               first_loss=losses[0], expected_first_loss=expect,
+               moe_aux=aux, moe_aux_step1=aux[0], moe_aux_step10=aux[-1],
+               first_loss_plus_aux=losses[0] + aux[0],
+               step_ms_median=step_s * 1e3,
+               step_ms=[h["train_cost"] * 1e3 for h in hist],
+               tokens_per_s=tokens / step_s,
+               params=sum(p.numel() for p in engine._leaves),
+               max_memory_allocated_gb=peak_gb, launches=counts,
+               launches_per_step={k: counts[k] / MOE_STEPS
+                                  for k in PER_STEP}, nvidia_smi=card)
+    emit("moe_train", **out)
+    # where a step's time goes: 2 unprofiled steps, 2 profiled
+    batch = engine.to_device(next(iter(train_dl)))
+    fields, share = _trace_window(lambda: engine.train_step(batch), 2,
+                                  n_top=16)
+    matmul_ms = share("nvjet", "gemm", "cutlass", "sm90_xmma")
+    kernels_ms = share("flash_fwd_kernel", "flash_bwd_kernel",
+                       "fused_norm_fwd_kernel", "fused_norm_bwd_kernel")
+    out["trace"] = dict(fields, matmul_ms_per_step=matmul_ms,
+                        kernels_ms_per_step=kernels_ms,
+                        index_ms_per_step=share("index", "scatter",
+                                                "gather", "sort", "scan"),
+                        other_ms_per_step=share() - matmul_ms - kernels_ms)
+    emit("moe_trace", **out["trace"], nvidia_smi=card)
+    del batch
+
+    # an eval pass on samples no step trains on; the routing of its
+    # batches gives the dropped share a layer
+    eval_data = {"Eval": {"dataset": {"name": "SyntheticGPTDataset",
+                                      "num_samples": 16 * MOE_EVAL_BATCHES,
+                                      "seed": UNSEEN_SEED}}}
+    loader = build_dataloader(eval_data, "Eval",
+                              batch_size=glb["global_batch_size"],
+                              seq_length=glb["max_seq_len"],
+                              vocab_size=mc.vocab_size)
+    engine.eval_iters = MOE_EVAL_BATCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Routes() as routes:
+        eval_loss = engine.evaluate(loader)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    layers = mc.num_layers
+    check(len(routes.routes) == layers * MOE_EVAL_BATCHES
+          and np.isfinite(eval_loss), f"moe eval {eval_loss}")
+    dropped = [float(r.dropped_share) for r in routes.routes]
+    per_layer = [float(np.mean(dropped[i::layers])) for i in range(layers)]
+    out["eval"] = dict(loss=eval_loss, batches=MOE_EVAL_BATCHES,
+                       ms_per_batch=eval_s * 1e3 / MOE_EVAL_BATCHES,
+                       capacity=routes.routes[0].capacity,
+                       dropped_share_layer0=per_layer[0],
+                       dropped_share_per_layer=per_layer)
+    emit("moe_eval", **out["eval"], nvidia_smi=card)
+
+    # greedy generation of 8 prompts x 32 tokens from the trained weights
+    gen_cfg = load_config(MOE_YAML, MOE_OVERRIDES + [
+        "Generation.decode_strategy=greedy_search",
+        f"Generation.max_dec_len={MOE_GEN_NEW}"])
+    module = GPTGenerationModule(gen_cfg)
+    prompts = _prompts(7, GEN_PROMPT_LENS, vocab=mc.vocab_size)
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    zero_counts()                   # every count to 0 just before
+    with _CountCalls() as calls, _Routes() as routes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = module.generate_ids(params, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts_gen = read_counts()      # read just after
+    per_call = 2 * layers + 1
+    check(counts_gen["fused_norm_fwd"] == per_call * calls.calls,
+          f"moe generation: {counts_gen['fused_norm_fwd']} norm launches "
+          f"for {calls.calls} model calls")
+    check(all(counts_gen[k] == 0 for k in counts_gen
+              if k not in ("fused_norm_fwd",)),
+          f"moe generation: other kernels launched {counts_gen}")
+    check(ids.shape == (len(prompts), MOE_GEN_NEW)
+          and int(ids.min()) >= 0 and int(ids.max()) < mc.vocab_size,
+          f"moe generation output {ids.shape}")
+    decode = routes.routes[layers:]
+    out["generation"] = dict(
+        prompts=len(prompts), new_tokens=MOE_GEN_NEW,
+        model_calls=calls.calls, prefill_ms=calls.prefill_s * 1e3,
+        ms_per_decode_step=(wall - calls.prefill_s) * 1e3
+        / max(calls.calls - 1, 1),
+        decode_capacity=decode[0].capacity if decode else None,
+        decode_dropped_share=float(np.mean([float(r.dropped_share)
+                                            for r in decode]))
+        if decode else None,
+        distinct_tokens=int(len(np.unique(ids))),
+        fused_norm_fwd_launches=counts_gen["fused_norm_fwd"],
+        launches=counts_gen)
+    emit("moe_generation", **out["generation"], nvidia_smi=card)
+    del params
+    torch.cuda.empty_cache()
+    out["kernels_vs_plain"] = _moe_kernels_vs_plain(dev, cfg)
+    emit("moe_kernels_vs_plain", **out["kernels_vs_plain"], nvidia_smi=card)
+    return out
+
+
+def _imagen_train(dev: torch.device, card: str, root: str) -> dict:
+    """16b: Imagen ``base64`` through ``build_trainer`` → ``fit`` for 10
+    steps at full width, batch 16, bf16 (counts zeroed just before and
+    read just after; the final step saved under ``root``), a 3-step
+    trace; then one ``sr256`` step at the YAML's batch 8."""
+    from fleetx_tpu_torch.core.checkpoint import latest_step
+    from fleetx_tpu_torch.models.imagen import unet as U
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+
+    ckpt = os.path.join(root, "imagen_base")
+    cfg = load_config(IMAGEN_BASE_YAML, IMAGEN_OVERRIDES + [
+        f"Engine.save_load.output_dir={ckpt}"])
+    engine, train_dl, _ = build_trainer(cfg, device=dev)
+    uc, dc, glb = engine.module.model_cfg, engine.module.stage.diff_cfg, \
+        cfg["Global"]
+    check(type(engine.module).__name__ == "ImagenModule"
+          and uc.dim == 128 and uc.dim_mults == (1, 2, 3, 4)
+          and uc.cond_dim == 512 and uc.text_embed_dim == 1024
+          and uc.dtype == torch.bfloat16 and not uc.lowres_cond
+          and dc.timesteps == 1000 and dc.pred_type == "eps"
+          and glb["global_batch_size"] == 16
+          and engine.accumulate_steps == 1,
+          "not the full-width Imagen base64 recipe")
+    engine.prepare()
+    n_params = sum(p.numel() for p in engine._leaves)
+    batch = engine.to_device(next(iter(train_dl)))
+    with torch.no_grad():   # the untrained net's output variance
+        t = torch.full((glb["global_batch_size"],), 500, device=dev)
+        pred = U.efficient_unet(engine.params["unet"], uc, batch["images"],
+                                t, batch["text_embeds"], batch["text_mask"])
+        out_var = float(pred.float().var())
+        del pred
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                   # every count to 0 just before
+    losses = engine.fit(train_dl)
+    torch.cuda.synchronize()
+    counts = read_counts()          # read just after
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    _no_launches("imagen_train", counts)
+    hist = engine.history
+    check(len(losses) == IMAGEN_STEPS and all(np.isfinite(losses))
+          and all(np.isfinite(h["grad_norm"]) for h in hist),
+          f"imagen losses {losses}")
+    # the eps-MSE of an untrained net: about 1 plus its output's variance
+    check(0.5 * (1 + out_var) < losses[0] < 1.5 * (1 + out_var),
+          f"imagen first loss {losses[0]}, output variance {out_var}")
+    check(latest_step(ckpt) == IMAGEN_STEPS, f"no step-10 save in {ckpt}")
+    step_s = statistics.median(h["train_cost"] for h in hist[1:])
+    out = dict(steps=IMAGEN_STEPS, losses=losses,
+               grad_norms=[h["grad_norm"] for h in hist],
+               first_loss=losses[0], untrained_output_variance=out_var,
+               step_ms_median=step_s * 1e3,
+               step_ms=[h["train_cost"] * 1e3 for h in hist],
+               images_per_s=glb["global_batch_size"] / step_s,
+               params=n_params, max_memory_allocated_gb=peak_gb,
+               launches=counts, checkpoint=ckpt, nvidia_smi=card)
+    emit("imagen_train", **out)
+    fields, share = _trace_window(lambda: engine.train_step(batch), 3,
+                                  n_top=10)
+    out["trace"] = dict(fields, conv_ms_per_step=share(
+        "conv", "implicit", "cudnn", "xmma", "sm90", "nchw", "nhwc"),
+        matmul_ms_per_step=share("nvjet", "gemm", "cutlass"))
+    emit("imagen_trace", **out["trace"], nvidia_smi=card)
+    del engine, batch
+    torch.cuda.empty_cache()
+
+    sr_cfg = load_config(IMAGEN_SR_YAML, IMAGEN_SR_OVERRIDES)
+    engine, train_dl, _ = build_trainer(sr_cfg, device=dev)
+    uc, dc = engine.module.model_cfg, engine.module.stage.diff_cfg
+    check(uc.lowres_cond and uc.dim_mults == (1, 2, 4, 8)
+          and uc.text_embed_dim == 1024 and dc.lowres_noise_aug == 0.1
+          and engine.module.stage.lowres_time
+          and sr_cfg["Global"]["global_batch_size"] == 8
+          and sr_cfg["Data"]["Train"]["dataset"]["lowres_size"] == 64
+          and int(sr_cfg["Model"]["image_size"]) == 256,
+          "not the full-width Imagen sr256 recipe")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                   # every count to 0 just before
+    sr_losses = engine.fit(train_dl)
+    torch.cuda.synchronize()
+    sr_counts = read_counts()       # read just after
+    _no_launches("imagen_sr_train", sr_counts)
+    check(len(sr_losses) == 1 and np.isfinite(sr_losses[0])
+          and np.isfinite(engine.history[0]["grad_norm"]),
+          f"sr256 loss {sr_losses}")
+    out["sr256"] = dict(loss=sr_losses[0],
+                        step_ms=engine.history[0]["train_cost"] * 1e3,
+                        params=sum(p.numel() for p in engine._leaves),
+                        max_memory_allocated_gb=torch.cuda
+                        .max_memory_allocated(dev) / 2 ** 30,
+                        launches=sr_counts)
+    emit("imagen_sr256_step", **out["sr256"], nvidia_smi=card)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _imagen_cascade(dev: torch.device, card: str, ckpt: str) -> dict:
+    """16c: ``tasks/imagen/generate.py``'s cascade, base 64² from 16b's
+    checkpoint → a seeded SR-256 stage, batch 2, guidance 5.0, dynamic
+    thresholding, ``CASCADE_TIMESTEPS`` steps a stage."""
+    from fleetx_tpu_torch.tasks.imagen import generate as GEN
+
+    cut = [f"Model.timesteps={CASCADE_TIMESTEPS}"]
+    cfg = GEN.load_config(IMAGEN_BASE_YAML, cut + [
+        f"Engine.save_load.ckpt_dir={ckpt}",
+        f"Generation.batch_size={CASCADE_BATCH}"])
+    with _Records() as records:
+        stages = [GEN.load_stage(cfg, dev),
+                  GEN.load_stage(GEN.load_config(IMAGEN_SR_YAML, cut), dev)]
+    check(any("restored params from" in line for line in records.lines),
+          "the base stage's params did not come from 16b's checkpoint")
+    for module, _ in stages:
+        dc = module.stage.diff_cfg
+        check(dc.guidance_scale == 5.0 and dc.dynamic_threshold_pct == 0.95
+              and dc.timesteps == CASCADE_TIMESTEPS, "not the recipes' CFG")
+    rng = np.random.RandomState(int(cfg["Global"]["seed"]))
+    width = stages[0][0].model_cfg.text_embed_dim
+    size = int(stages[-1][0].model_dict["image_size"])
+    check(width == 1024 and size == 256, "not the recipes' cascade")
+    text = torch.from_numpy(rng.randn(CASCADE_BATCH, 8, width).astype(
+        np.float32)).to(dev)
+    mask = torch.ones((CASCADE_BATCH, 8), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    marks = [time.perf_counter()]
+
+    def on_stage(i, images):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    zero_counts()                   # every count to 0 just before
+    torch.cuda.synchronize()
+    marks[0] = time.perf_counter()
+    images = GEN.sample_cascade(stages, CASCADE_BATCH, text, mask, gen,
+                                on_stage=on_stage)
+    counts = read_counts()          # read just after
+    _no_launches("imagen_cascade", counts)
+    check(tuple(images.shape) == (CASCADE_BATCH, size, size, 3)
+          and bool(torch.isfinite(images).all())
+          and float(images.abs().max()) <= 1.0,
+          f"cascade output {tuple(images.shape)}")
+    out = dict(timesteps=CASCADE_TIMESTEPS, batch=CASCADE_BATCH,
+               guidance_scale=5.0, shape=list(images.shape),
+               min=float(images.min()), max=float(images.max()),
+               std=float(images.float().std()),
+               base_ms_per_denoise_step=(marks[1] - marks[0]) * 1e3
+               / CASCADE_TIMESTEPS,
+               sr256_ms_per_denoise_step=(marks[2] - marks[1]) * 1e3
+               / CASCADE_TIMESTEPS, launches=counts, nvidia_smi=card)
+    emit("imagen_cascade", **out)
+    del stages, images
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(dev: torch.device, card: str) -> dict:
+    """Phase 16: the 8-expert MoE GPT-345M (training, eval, generation),
+    Imagen base 64² training, one SR-256 step, and the base → SR-256
+    cascade."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    try:
+        moe = _moe_train(dev, card)
+        imagen = _imagen_train(dev, card, root)
+        cascade = _imagen_cascade(dev, card, imagen["checkpoint"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"moe": moe, "imagen": imagen, "cascade": cascade}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4674,7 +5154,7 @@ def main(argv) -> int:
     card = phase_env(build)
     modes = {"--paged-shapes", "--serving", "--eval-export",
              "--fp16-resilience", "--train-paths", "--finetune-serving",
-             "--gpt-knobs", "--encoders"}
+             "--gpt-knobs", "--encoders", "--families"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
@@ -4684,7 +5164,7 @@ def main(argv) -> int:
         # 1b's fp16 rows, phase 4 (the uninterrupted losses) and phase 12;
         # --train-paths: phases 4 and 6; --finetune-serving: phases 2, 4,
         # 8, the tokenizer and corpus of 9-10, and 13; --gpt-knobs: phases
-        # 4 and 14; --encoders: phase 15
+        # 4 and 14; --encoders: phase 15; --families: phase 16
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
@@ -4693,6 +5173,12 @@ def main(argv) -> int:
             build.build(["flash_attention", "fused_norm"])
             timed("15", phase_encoders, dev, card)
             emit("encoders_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
+            print(smi_line(), flush=True)
+            return 0
+        if "--families" in argv:
+            build.build(["flash_attention", "fused_norm"])
+            timed("16", phase_families, dev, card)
+            emit("families_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
             print(smi_line(), flush=True)
             return 0
         if "--gpt-knobs" in argv:
@@ -4748,6 +5234,7 @@ def main(argv) -> int:
     timed("7", phase_split_and_recompute_on_path, dev, card)
     knobs = timed("14", phase_gpt_knobs, dev, card, trainer)
     encoders = timed("15", phase_encoders, dev, card)
+    families = timed("16", phase_families, dev, card)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         resume = timed("8", phase_checkpoint, dev, card, trainer["losses"],
@@ -4818,6 +5305,20 @@ def main(argv) -> int:
     for name in ENCODER_ROWS:
         by_path[name]["ernie_train"] = encoders["ernie"]["launches"][name]
         by_path[name]["vit_train"] = encoders["vit"]["launches"][name]
+    # phase 16: the MoE GPT (10 steps of 2 micro-batches: 480 / 480 / 980
+    # / 980) and its greedy generation (row 5 only); Imagen's base fit,
+    # SR-256 step and cascade take none of the kernels, as JAX's plain
+    # flax U-Net takes no Pallas
+    imagen = families["imagen"]
+    for name in ENCODER_ROWS:
+        by_path[name]["moe_train"] = families["moe"]["launches"][name]
+        by_path[name]["imagen_train"] = imagen["launches"][name]
+        by_path[name]["imagen_sr256_train"] = \
+            imagen["sr256"]["launches"][name]
+        by_path[name]["imagen_cascade"] = \
+            families["cascade"]["launches"][name]
+    by_path["fused_norm_fwd"]["moe_generation"] = \
+        families["moe"]["generation"]["fused_norm_fwd_launches"]
     bf16 = kernels["bfloat16"]
     rows = [{
         "name": "paged_attention_decode", "route": "cuda",

@@ -21,7 +21,12 @@ The encoder families the same way, in JAX's scanned layout:
 ``models/ernie/model.py:param_shapes`` (layer leaves stacked under
 ``ernie/layers``) and ``vit_params_from_jax`` / ``check_vit_tree``
 against ``models/vision/vit.py:param_shapes`` (block leaves under
-``blocks``).
+``blocks``). The MoE GPT's tree is ``params_from_jax``'s too: its
+``mlp`` holds ``router_kernel`` ``[L, h, E]`` (f32) and the experts'
+``wi_kernel`` / ``wi_bias`` / ``wo_kernel`` / ``wo_bias`` stacked on axis 1.
+An Imagen stage's U-Net: ``imagen_params_from_jax`` / ``check_imagen_tree``
+against ``models/imagen/unet.py`` (JAX's names; the convolution and
+attention kernels converted to the port's layouts once).
 """
 
 from __future__ import annotations
@@ -135,3 +140,32 @@ def vit_params_from_jax(tree: Mapping, cfg,
 
     device = torch.device(device)
     return _walk(tree, shapes(cfg), "", lambda node: _to_tensor(node, device))
+
+
+def check_imagen_tree(tree: Mapping, cfg, lowres_time: bool = False,
+                      jax_layout: bool = True) -> None:
+    """``check_tree`` for an Imagen stage's tree, its U-Net under ``unet``
+    (``UNetConfig``; with ``lowres_time`` it holds ``lowres_time_mlp``):
+    against JAX's layouts, or the port's with ``jax_layout=False``."""
+    from fleetx_tpu_torch.models.imagen import unet as U
+
+    shapes = U.jax_param_shapes if jax_layout else U.param_shapes
+    _walk(tree, {"unet": shapes(cfg, lowres_time)}, "", lambda node: None)
+
+
+def imagen_params_from_jax(tree: Mapping, cfg, lowres_time: bool = False,
+                           device: Union[str, torch.device] = "cpu") -> dict:
+    """``params_from_jax`` for the JAX ``ImagenStage`` tree (its U-Net
+    under ``unet``): flax's names kept, each HWIO convolution kernel
+    made OHWI and each ``DenseGeneral`` attention projection made 2-D,
+    once (``models/imagen/unet.py``)."""
+    from fleetx_tpu_torch.models.imagen import unet as U
+
+    device = torch.device(device)
+    checked = _walk(tree, {"unet": U.jax_param_shapes(cfg, lowres_time)},
+                    "", lambda node: node)
+
+    def convert(path: tuple, leaf) -> torch.Tensor:
+        return _to_tensor(U.to_port_leaf(path, np.asarray(leaf)), device)
+
+    return U.map_leaves(checked, convert)

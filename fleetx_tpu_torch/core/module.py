@@ -36,6 +36,14 @@ core, and ``dots`` the layer under the saved-dots policy
 (``remat_save_dtype``, ``remat_consumed_layout``). ``Quantization.enable``
 turns on QAT, with ``weight_bits`` / ``activation_bits`` as its widths. ``fused_linear``, ``scan_layers`` and ``scan_unroll`` are XLA
 compile knobs with no effect on this eager port and are read by nothing.
+
+``Model.moe_num_experts`` above 0 makes every FFN a mixture of experts
+(``models/gpt/moe.py``; ``moe_top_k``, ``moe_capacity_factor``,
+``moe_aux_weight``): the training loss is the LM loss plus the layers'
+weighted load-balance losses, with metrics ``loss`` (the LM loss) and
+``moe_aux``; ``validation_loss``, eval and generation ignore the aux, as
+JAX's non-mutable apply does. A pipeline (``Distributed.pp_degree`` above
+1) raises in the config loader, MoE or not (item 12).
 """
 
 from __future__ import annotations
@@ -51,7 +59,6 @@ from fleetx_tpu_torch.utils.log import logger
 #: (predicate on GPTConfig, what, ROADMAP port queue item)
 _UNCOVERED = (
     (lambda c: c.sequence_parallel, "Model.sequence_parallel", 12),
-    (lambda c: c.moe_num_experts > 0, "Model.moe_num_experts > 0 (MoE)", 7),
 )
 
 
@@ -165,6 +172,12 @@ class LanguageModule(BasicModule):
 class GPTModule(LanguageModule):
     """GPT pretraining task."""
 
+    @property
+    def spec_family(self) -> str:
+        """``gpt_moe`` when the FFN stack is mixture-of-experts, ``gpt``
+        otherwise (the JAX module's partition-rule family)."""
+        return "gpt_moe" if self.model_cfg.moe_num_experts > 0 else "gpt"
+
     def __init__(self, cfg: Any):
         model_cfg = dict(cfg.get("Model", cfg)) if isinstance(cfg, dict) \
             else dict(cfg)
@@ -202,9 +215,15 @@ class GPTModule(LanguageModule):
 
     def training_loss(self, params: dict, batch: dict, seed: int,
                       step: int):
-        """``(loss, metrics)`` with dropout on."""
+        """``(loss, metrics)`` with dropout on; for MoE the loss is the LM
+        loss plus the summed aux, with metrics ``loss`` and ``moe_aux``
+        (``fleetx_tpu/core/module.py:209-235``)."""
         c = self.model_cfg
         rng = M.dropout_rng(seed, step, c.num_layers, batch["tokens"].device)
+        if c.moe_num_experts > 0:
+            loss, aux = self._loss(params, batch, deterministic=False,
+                                   rng=rng, return_aux=True)
+            return loss + aux, {"loss": loss, "moe_aux": aux}
         loss = self._loss(params, batch, deterministic=False, rng=rng)
         return loss, {"loss": loss}
 
@@ -214,20 +233,23 @@ class GPTModule(LanguageModule):
         return loss, {"loss": loss}
 
     def _loss(self, params: dict, batch: dict, *, deterministic: bool,
-              rng):
+              rng, return_aux: bool = False):
         """The masked LM loss: through the chunked head when
-        ``vocab_chunk`` is set, else from the full logits."""
+        ``vocab_chunk`` is set, else from the full logits; with
+        ``return_aux``, ``(loss, aux)``."""
         c = self.model_cfg
         if c.vocab_chunk:
             return M.gpt_for_pretraining(
                 params, c, batch["tokens"], batch["position_ids"],
                 deterministic=deterministic, rng=rng,
-                labels=batch["labels"], loss_mask=batch["loss_mask"])
-        logits = M.gpt_for_pretraining(
+                labels=batch["labels"], loss_mask=batch["loss_mask"],
+                return_aux=return_aux)
+        logits, aux = M.gpt_for_pretraining(
             params, c, batch["tokens"], batch["position_ids"],
-            deterministic=deterministic, rng=rng)
-        return M.cross_entropy_loss(logits, batch["labels"],
+            deterministic=deterministic, rng=rng, return_aux=True)
+        loss = M.cross_entropy_loss(logits, batch["labels"],
                                     batch["loss_mask"])
+        return (loss, aux) if return_aux else loss
 
     @torch.no_grad()
     def predict_step(self, params: dict, batch: dict) -> torch.Tensor:

@@ -7,8 +7,8 @@ vision datasets (``GeneralClsDataset``, ``ImageFolder``, ``CIFAR10``,
 ``SyntheticVisionDataset``), ``GPTBatchSampler`` and
 ``DistributedBatchSampler``. The shape overrides reach only the datasets
 that read them: ``seq_length`` the token datasets, ``vocab_size`` the
-synthetic GPT set and the ERNIE sets. Imagen's datasets raise
-``NotImplementedError`` naming their ROADMAP item.
+synthetic GPT set and the ERNIE sets. Imagen's (``ImagenDataset``,
+``SyntheticImagenDataset``) read neither.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ from fleetx_tpu_torch.data.dataset.ernie_dataset import (
     ErnieDataset, SyntheticErnieDataset)
 from fleetx_tpu_torch.data.dataset.gpt_dataset import (
     BlendedDataset, GPTDataset, SyntheticGPTDataset, write_corpus)
+from fleetx_tpu_torch.data.dataset.multimodal_dataset import (
+    ImagenDataset, SyntheticImagenDataset)
 from fleetx_tpu_torch.data.dataset.vision_dataset import (
     CIFAR10, GeneralClsDataset, ImageFolder, SyntheticVisionDataset)
 from fleetx_tpu_torch.data.sampler.batch_sampler import (
@@ -33,11 +35,14 @@ DATASETS = {"GPTDataset": GPTDataset,
             "GeneralClsDataset": GeneralClsDataset,
             "ImageFolder": ImageFolder,
             "CIFAR10": CIFAR10,
-            "SyntheticVisionDataset": SyntheticVisionDataset}
+            "SyntheticVisionDataset": SyntheticVisionDataset,
+            "ImagenDataset": ImagenDataset,
+            "SyntheticImagenDataset": SyntheticImagenDataset}
 SAMPLERS = {"GPTBatchSampler": GPTBatchSampler,
             "DistributedBatchSampler": DistributedBatchSampler}
-#: dataset name -> ROADMAP port queue item that ports it
-NOT_PORTED = {"ImagenDataset": 7.5, "SyntheticImagenDataset": 7.5}
+#: dataset name -> ROADMAP port queue item that ports it (every dataset
+#: of the JAX registry is ported)
+NOT_PORTED: dict = {}
 #: the datasets that take a sequence length / the model's vocabulary
 SEQ_NAMED = ("GPTDataset", "SyntheticGPTDataset", "ErnieDataset",
              "SyntheticErnieDataset")
@@ -48,6 +53,7 @@ __all__ = ["DataLoader", "default_collate", "GPTDataset",
            "SyntheticGPTDataset", "BlendedDataset", "write_corpus",
            "ErnieDataset", "SyntheticErnieDataset", "GeneralClsDataset",
            "ImageFolder", "CIFAR10", "SyntheticVisionDataset",
+           "ImagenDataset", "SyntheticImagenDataset",
            "DistributedBatchSampler",
            "GPTBatchSampler", "build_dataset", "build_dataloader"]
 

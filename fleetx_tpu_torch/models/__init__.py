@@ -1,4 +1,5 @@
-"""Model families of the port (GPT, ERNIE, ViT) and the module registry
+"""Model families of the port (GPT and its MoE stack, ERNIE, ViT,
+Imagen) and the module registry
 (port of ``fleetx_tpu/models/__init__.py:12-54``)."""
 
 from __future__ import annotations
@@ -13,17 +14,19 @@ def get_registry() -> dict:
                                               GPTGenerationModule, GPTModule)
     from fleetx_tpu_torch.finetune.module import LoRAGPTModule
     from fleetx_tpu_torch.models.ernie.module import ErnieModule
+    from fleetx_tpu_torch.models.imagen.module import ImagenModule
     from fleetx_tpu_torch.models.vision.module import GeneralClsModule
 
     return {"GPTModule": GPTModule, "GPTEvalModule": GPTEvalModule,
             "GPTGenerationModule": GPTGenerationModule,
             "LoRAGPTModule": LoRAGPTModule, "ErnieModule": ErnieModule,
-            "GeneralClsModule": GeneralClsModule}
+            "GeneralClsModule": GeneralClsModule,
+            "ImagenModule": ImagenModule}
 
 
 #: modules of the JAX registry still to port → their ROADMAP port queue
-#: item
-NOT_PORTED = {"ImagenModule": 7.5}
+#: item (every module of the JAX registry is ported)
+NOT_PORTED: dict = {}
 
 
 def build_module(cfg):

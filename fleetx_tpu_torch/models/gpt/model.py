@@ -11,7 +11,8 @@ are ``dots_policy`` and ``save_residual``), QAT's fake-quant
 sites (:331-337, :370-374, :475-489), ``chunked_cross_entropy_per_token``
 (:770-843),
 ``cross_entropy_per_token``, ``masked_mean`` and ``cross_entropy_loss``
-(:846-866), and the dense decode cache generation runs on:
+(:846-866), the MoE stack (:120-123, :568-581; the FFN in ``moe.py``),
+and the dense decode cache generation runs on:
 ``DecodeCache`` / ``init_cache`` (:275-297), the cache path of
 ``MultiHeadAttention`` (:346-363) with ``_decode_attention`` (:443-460),
 and position ids from the cache index or the left-pad mask (:621-640).
@@ -57,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from fleetx_tpu_torch.models.gpt.moe import moe_mlp
 from fleetx_tpu_torch.ops import flash_attention as FA
 from fleetx_tpu_torch.ops import fused_norm as FN
 from fleetx_tpu_torch.ops import ring_attention as RA
@@ -110,7 +112,10 @@ class GPTConfig:
     use_qat: bool = False
     qat_bits: int = 8
     qat_act_bits: int = 8
-    moe_num_experts: int = 0   # 0 = dense FFN; MoE is not ported yet
+    moe_num_experts: int = 0   # 0 = dense FFN; >0 = MoE (``moe.py``)
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
@@ -167,11 +172,23 @@ def param_shapes(cfg: GPTConfig) -> dict:
                      "out_kernel": (L, nh, hd, h),
                      "out_bias": (L, h)},
             "ln2": ln(L),
-            "mlp": {"wi_kernel": (L, h, f), "wi_bias": (L, f),
-                    "wo_kernel": (L, f, h), "wo_bias": (L, h)},
+            "mlp": _mlp_shapes(cfg),
         },
         "ln_f": ln(),
     }}
+
+
+def _mlp_shapes(cfg: GPTConfig) -> dict:
+    """The dense FFN's leaves, or the MoE stack's (``MoEMlp``'s params,
+    experts on axis 1 after the layers)."""
+    L, h, f, E = cfg.num_layers, cfg.hidden_size, cfg.ffn_dim, \
+        cfg.moe_num_experts
+    if E > 0:
+        return {"router_kernel": (L, h, E), "wi_kernel": (L, E, h, f),
+                "wi_bias": (L, E, f), "wo_kernel": (L, E, f, h),
+                "wo_bias": (L, E, h)}
+    return {"wi_kernel": (L, h, f), "wi_bias": (L, f),
+            "wo_kernel": (L, f, h), "wo_bias": (L, h)}
 
 
 def _is_normal(path: tuple) -> bool:
@@ -196,7 +213,10 @@ def init_params(cfg: GPTConfig, seed: int = 0,
         if isinstance(node, dict):
             return {k: build(v, path + (k,)) for k, v in node.items()}
         if _is_normal(path):
-            out = torch.empty(node, dtype=cfg.param_dtype, device=device)
+            # the MoE router is f32 whatever the param dtype (``moe.py:46``)
+            dtype = torch.float32 if path[-1] == "router_kernel" \
+                else cfg.param_dtype
+            out = torch.empty(node, dtype=dtype, device=device)
             return out.normal_(0.0, cfg.initializer_range, generator=gen)
         fill = 1.0 if path[-1] == "scale" else 0.0
         return torch.full(node, fill, dtype=cfg.param_dtype, device=device)
@@ -375,7 +395,9 @@ def save_residual(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the save point is the call that makes it.
 
     Under ``dots`` (with ``use_recompute``, not for a cached forward,
-    which has no backward): with a save-point transform active, the value
+    which has no backward; MoE's too, whose transforms are off, so its
+    projections are ``"dot"`` save points, as JAX's dots policy saves
+    them): with a save-point transform active, the value
     is a ``"residual"`` save point; with the casts active it is made in
     ``remat_save_dtype`` and cast back, so the forward is quantized too.
     Without a transform the matmul output is a ``"dot"`` save point and
@@ -383,7 +405,8 @@ def save_residual(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     are the plain ones bit for bit, the cast's rounding apart."""
     if name not in RESIDUAL_NAMES:
         raise ValueError(f"{name!r} is not one of {RESIDUAL_NAMES}")
-    if cached or not _transform_gate_active(cfg):
+    if cached or not (cfg.use_recompute
+                      and cfg.recompute_granularity == "dots"):
         return _dense_plain(x, w, b)
     if _residual_transforms_active(cfg):
         save = cfg.remat_save_dtype if _residual_casts_active(cfg) \
@@ -612,12 +635,13 @@ def mlp(p: dict, x: torch.Tensor, cfg: GPTConfig,
 
 def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
                   deterministic: bool, rng: Optional[DropoutRng],
-                  layer: int, cache: Optional[DecodeCache] = None
-                  ) -> torch.Tensor:
+                  layer: int, cache: Optional[DecodeCache] = None):
     """``TransformerDecoderLayer``: pre-norm attention and MLP blocks, the
     post-attention residual add folded into ``ln2``; the attention call
     recomputed in the backward under the ``full_attn`` granularity (never
-    with a cache: decode has no backward)."""
+    with a cache: decode has no backward). Returns ``(x, aux)``: ``aux``
+    is the MoE FFN's weighted load-balance loss (``moe.py``; the MoE FFN
+    takes no QAT fake-quant, as in JAX), None for the dense FFN."""
     drop = cfg.hidden_dropout_prob > 0.0 and not deterministic
     residual = x
     y = layer_norm(p["ln1"], x, cfg)
@@ -635,10 +659,13 @@ def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
         y = _dropout(y, cfg.hidden_dropout_prob, rng)
     y, x = layer_norm(p["ln2"], y, cfg, residual=residual)
     residual = x
-    y = mlp(p["mlp"], y, cfg, cached=cache is not None)
+    if cfg.moe_num_experts > 0:
+        y, aux = moe_mlp(p["mlp"], y, cfg)
+    else:
+        y, aux = mlp(p["mlp"], y, cfg, cached=cache is not None), None
     if drop:
         y = _dropout(y, cfg.hidden_dropout_prob, rng)
-    return residual + y
+    return residual + y, aux
 
 
 def _unstack(node: Any, n: int) -> list:
@@ -654,12 +681,16 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
               deterministic: bool = True,
               rng: Optional[DropoutRng] = None,
               cache: Optional[DecodeCache] = None,
-              attention_mask: Optional[torch.Tensor] = None
-              ) -> torch.Tensor:
+              attention_mask: Optional[torch.Tensor] = None,
+              return_aux: bool = False):
     """``GPTModel``: embeddings, decoder stack, ``ln_f``; each decoder
     layer recomputed in the backward under the ``full`` granularity (only
     the layer inputs stay live) and under ``dots`` (``dots_policy``: the
     matmul and kernel outputs stay live too).
+
+    With ``return_aux``, ``(x, aux)``: ``aux`` is the MoE layers'
+    load-balance losses summed over the layers (JAX's sum of the scanned
+    ``losses`` collection), None for a dense stack.
 
     With a cache, the call writes its tokens at ``cache.index`` on, marks
     those key slots real where ``attention_mask`` says so (all of them
@@ -694,14 +725,20 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
         cfg.recompute_granularity in ("full", "dots")
     keep = dots_policy(cfg) if cfg.recompute_granularity == "dots" \
         else None
+    auxes = []
     for i, lp in enumerate(_unstack(p["layers"], cfg.num_layers)):
         layer = functools.partial(decoder_layer, lp, cfg=cfg,
                                   deterministic=deterministic, rng=rng,
                                   layer=i, cache=cache)
-        x = recompute(layer, rng, x, keep=keep) if remat else layer(x)
+        x, aux = recompute(layer, rng, x, keep=keep) if remat else layer(x)
+        if aux is not None:
+            auxes.append(aux)
     if cache is not None:
         cache.index = cache.index + s
-    return layer_norm(p["ln_f"], x, cfg)
+    out = layer_norm(p["ln_f"], x, cfg)
+    if not return_aux:
+        return out
+    return out, (torch.stack(auxes).sum() if auxes else None)
 
 
 def gpt_for_pretraining(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
@@ -711,15 +748,17 @@ def gpt_for_pretraining(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
                         labels: Optional[torch.Tensor] = None,
                         loss_mask: Optional[torch.Tensor] = None,
                         cache: Optional[DecodeCache] = None,
-                        attention_mask: Optional[torch.Tensor] = None):
+                        attention_mask: Optional[torch.Tensor] = None,
+                        return_aux: bool = False):
     """``GPTForPretraining``: logits ``[b, s, vocab]`` in the compute dtype
     from the tied embedding head; with ``cfg.vocab_chunk`` set and
     ``labels`` given (and no cache), the masked LM loss through the
     chunked head instead (the ``[b, s, vocab]`` logits are never built).
-    With a cache (generation), ``(logits, cache)``."""
-    x = gpt_model(params, cfg, tokens, position_ids,
-                  deterministic=deterministic, rng=rng, cache=cache,
-                  attention_mask=attention_mask)
+    With a cache (generation), ``(logits, cache)``. Without a cache and
+    with ``return_aux``, ``(out, aux)``, ``aux`` as ``gpt_model``'s."""
+    x, aux = gpt_model(params, cfg, tokens, position_ids,
+                       deterministic=deterministic, rng=rng, cache=cache,
+                       attention_mask=attention_mask, return_aux=True)
     wte = params["gpt"]["embeddings"]["word_embeddings"].to(cfg.dtype)
     if cache is not None:
         return torch.einsum("bsh,vh->bsv", x, wte), cache
@@ -727,8 +766,10 @@ def gpt_for_pretraining(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
         losses = chunked_cross_entropy_per_token(x, wte, labels,
                                                  int(cfg.vocab_chunk))
         mask = torch.ones_like(losses) if loss_mask is None else loss_mask
-        return masked_mean(losses, mask)
-    return torch.einsum("bsh,vh->bsv", x, wte)
+        out = masked_mean(losses, mask)
+    else:
+        out = torch.einsum("bsh,vh->bsv", x, wte)
+    return (out, aux) if return_aux else out
 
 
 def chunk_geometry(vocab: int, vocab_chunk: int):

@@ -37,8 +37,8 @@ sampling generator is a ``torch.Generator`` on that device, seeded from
 ``Global.seed``. ``Serving.quantize_decode`` runs both steps with int8
 fake-quant (``serving/decode.py``: the kernels quantized once at
 construction, the matmul inputs per step). Not ported yet, and refused
-loudly: the mesh-sharded pool (ROADMAP.md, port queue item 4) and MoE
-stacks (item 7).
+loudly: the mesh-sharded pool (ROADMAP.md, port queue item 4). MoE
+stacks are refused too: the JAX paged decode has none.
 """
 
 from __future__ import annotations
@@ -313,9 +313,13 @@ class ServingEngine:
         self.eos_token_id = int(eos_token_id)
         sc = self.serving
         if int(getattr(model_cfg, "moe_num_experts", 0) or 0) > 0:
+            # JAX's paged decode reads a dense [h, 4h] wi_kernel
+            # (fleetx_tpu/serving/decode.py:209-218): it has no MoE stack
             raise NotImplementedError(
-                "MoE decode stacks are not ported yet (ROADMAP.md, port "
-                "queue item 7)")
+                "paged serving has no MoE decode stack: the reference's "
+                "paged decode (fleetx_tpu/serving/decode.py) runs only the "
+                "dense FFN; generate from an MoE checkpoint with "
+                "tasks.gpt.generation")
         self.max_seq_len = int(sc.max_seq_len) or model_cfg.max_position_embeddings
         if self.max_seq_len > model_cfg.max_position_embeddings:
             raise ValueError(

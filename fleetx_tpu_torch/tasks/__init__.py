@@ -1,2 +1,3 @@
 """Task entry points of the port (``python -m
-fleetx_tpu_torch.tasks.gpt.generation`` and ``.inference``)."""
+fleetx_tpu_torch.tasks.gpt.generation``, ``.gpt.inference`` and
+``.imagen.generate``)."""

@@ -6,7 +6,7 @@
 
 Loads the YAML through the port's config loader (one device), builds the
 module ``Model.module`` names (``GPTModule``, ``ErnieModule``,
-``GeneralClsModule``, ...), the LR schedule and optimizer of the
+``GeneralClsModule``, ``ImagenModule``, ...), the LR schedule and optimizer of the
 ``Optimizer`` section and the ``EagerEngine``, the ``Data.Train`` loader
 (and ``Data.Eval`` when ``eval_freq`` is set and an eval dataset is
 named), and fits until ``Engine.max_steps`` (in ``Engine.run_mode:
@@ -33,7 +33,23 @@ datasets stand in::
         -o Data.Eval.dataset.num_samples=512
 
 (the ViT recipe's global batch is 16 cards' worth: one card takes
-``local_batch_size`` 256).
+``local_batch_size`` 256). The 8-expert MoE GPT and the Imagen stages
+the same way (the MoE recipe's dp 2 × mp 4 cut to one card; Imagen's
+TSV and T5 features are not in the repository, and its synthetic set
+must take the YAML's T5 width)::
+
+    python -m fleetx_tpu_torch.tools.train \
+        -c fleetx_tpu/configs/nlp/gpt/pretrain_gpt_moe_8expert_mp4.yaml \
+        -o Distributed.dp_degree=1 -o Distributed.mp_degree=1 \
+        -o Data.Train.dataset.name=SyntheticGPTDataset \
+        -o Data.Train.dataset.num_samples=65536
+    python -m fleetx_tpu_torch.tools.train \
+        -c fleetx_tpu/configs/multimodal/imagen/imagen_397M_text2im_64x64.yaml \
+        -o Data.Train.dataset.name=SyntheticImagenDataset \
+        -o Data.Train.dataset.text_embed_dim=1024
+
+(``imagen_super_resolution_256.yaml`` likewise; sample the cascade with
+``python -m fleetx_tpu_torch.tasks.imagen.generate``).
 
 With ``Engine.save_load.save_steps`` set, the trainer saves every
 ``save_steps`` steps and once more at the end (``output_dir``); with

@@ -97,7 +97,13 @@ def test_the_scan_reaches_every_module_of_the_port():
                 "fleetx_tpu_torch/data/dataset/ernie_dataset.py",
                 "fleetx_tpu_torch/data/dataset/vision_dataset.py",
                 "fleetx_tpu_torch/data/transforms/preprocess.py",
-                "fleetx_tpu_torch/data/sampler/collate.py"):
+                "fleetx_tpu_torch/data/sampler/collate.py",
+                "fleetx_tpu_torch/models/gpt/moe.py",
+                "fleetx_tpu_torch/models/imagen/unet.py",
+                "fleetx_tpu_torch/models/imagen/modeling.py",
+                "fleetx_tpu_torch/models/imagen/module.py",
+                "fleetx_tpu_torch/data/dataset/multimodal_dataset.py",
+                "fleetx_tpu_torch/tasks/imagen/generate.py"):
         assert rel in scanned, rel
 
 
@@ -150,6 +156,10 @@ def test_entry_points_load_no_jax_modules():
             "import fleetx_tpu_torch.models.ernie.module\n"
             "import fleetx_tpu_torch.models.vision.module\n"
             "import fleetx_tpu_torch.data.sampler.collate\n"
+            "import fleetx_tpu_torch.models.gpt.moe\n"
+            "import fleetx_tpu_torch.models.imagen.module\n"
+            "import fleetx_tpu_torch.data.dataset.multimodal_dataset\n"
+            "import fleetx_tpu_torch.tasks.imagen.generate\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

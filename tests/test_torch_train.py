@@ -344,7 +344,7 @@ def test_train_cli_on_cpu_runs_and_logs():
 
 
 UNCOVERED = {
-    # dots and QAT are ported: they build and take a step
+    # dots, QAT and MoE are ported: they build and take a step
     "recompute_dots": (["Model.use_recompute=True",
                         "Model.recompute_granularity=dots",
                         "Model.remat_save_dtype=bfloat16"], None),
@@ -352,7 +352,8 @@ UNCOVERED = {
     "seq_degree": (["Distributed.seq_degree=2",
                     "Model.use_ring_attention=True",
                     "Model.attention_probs_dropout_prob=0.0"], "item 12"),
-    "moe": (["Model.moe_num_experts=4"], "item 7"),
+    # MoE is ported: it builds and takes a step
+    "moe": (["Model.moe_num_experts=4"], None),
     "qat": (["Quantization.enable=True", "Quantization.weight_bits=4"],
             None),
     # fp16 and Resilience.enable are ported; the SDC sentinel and the
@@ -384,6 +385,9 @@ def test_uncovered_config_values_raise(what):
         mc = engine.module.model_cfg
         if what == "qat":
             assert mc.use_qat and mc.qat_bits == 4 and mc.qat_act_bits == 8
+        elif what == "moe":
+            assert mc.moe_num_experts == 4 and \
+                engine.module.spec_family == "gpt_moe"
         else:
             assert mc.recompute_granularity == "dots" and \
                 mc.remat_save_dtype == torch.bfloat16

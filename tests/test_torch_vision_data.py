@@ -213,9 +213,18 @@ def test_synthetic_vision_dataset_and_the_registry_match_jax():
                                          "num_samples": 4}}, "_child_",
                             **shape)
     assert ernie.seq_length == 512 and ernie.vocab_size == 40000
-    with pytest.raises(NotImplementedError, match="item 7.5"):
-        t_build_dataset({"dataset": {"name": "SyntheticImagenDataset"}},
-                        "_child_")
+    # the Imagen sets are ported: the registry builds them, shape
+    # overrides ignored, and a sample is JAX's
+    imagen = {"dataset": {"name": "SyntheticImagenDataset",
+                          "num_samples": 2, "image_size": 8,
+                          "text_embed_dim": 12, "seed": 3}}
+    t_img, j_img = t_build_dataset(imagen, "_child_", **shape), \
+        j_build_dataset(imagen, "_child_", **shape)
+    assert len(t_img) == len(j_img) == 2
+    assert sorted(t_img[1]) == ["images", "text_embeds", "text_mask"]
+    for k in ("images", "text_embeds", "text_mask"):
+        _same(t_img[1][k], j_img[1][k], f"imagen {k}")
+    assert t_img[1]["text_embeds"].shape == (16, 12)
 
 
 COLLATE_CASES = {
