@@ -25,6 +25,8 @@ sample the Imagen cascade (64² base, SR-256).
     python3 chip_smoke.py --gpt-knobs      # phases 4 and 14
     python3 chip_smoke.py --encoders       # phase 15
     python3 chip_smoke.py --families       # phase 16
+    python3 chip_smoke.py --norm-shapes    # phase 1d alone (row 5's
+                                           # routes, timings, host µs)
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -87,6 +89,27 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    version (attention at bh 4) and the yardstick (SDPA flash forward /
    one SDPA flash backward giving dq, dk and dv together;
    ``F.layer_norm``).
+1d. row 5's two routes (``ops/fused_norm.py:plan_fwd``): ``"rows"`` (the
+   persistent warp-per-row kernel fed by bulk copies) held to
+   ``fwd_plain`` at hidden 128, 1024, 2048 and 4096 and ``"row_block"``
+   (a block per row) at 8192 and 32768, rows 1, 7 and 8195, every dtype
+   pair (f32, bf16, fp16 in; the input dtype or f32 out), with and
+   without the residual: ``s`` bitwise, the stats at the f32 tolerance,
+   ``out`` at its dtype's; each "rows" call repeated bitwise; the
+   planner's shared memory equal to the kernel's
+   (``fleetx_fused_norm_fwd_smem_bytes``). Then the 345M, seq-8192 and
+   decode shapes in bf16 and the 345M shape in fp16, each held to the
+   plain version and timed in turns (rows, row_block, add +
+   ``F.layer_norm``, and back): CUDA-event ``ms`` (L2 flushed),
+   ``graph_ms`` (CUDA-graph replay), ``device_ms`` (profiler), the bound
+   and each one's share of it; bf16 and fp16 at 345M in turns, three
+   repeats, on both routes (``norm_fp16_turns``); and at the decode shape
+   ``host_us``, the wall of 1000 back-to-back calls with no synchronise
+   over 1000: the eager non-grad path the generation model calls, each
+   route's ``fwd_call``, the custom op's dispatch and add +
+   ``F.layer_norm``, in turns, and the launch path's pieces. Every later
+   path's norm forward launches must all take ``"rows"``
+   (``read_counts``).
 3. kernel against gather on the main path: the same full-width engine
    built twice on the same weights, ``Serving.paged_kernel`` on and off;
    f32 greedy tokens must be identical, and in bf16 the one-step logit
@@ -331,12 +354,10 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
 Each phase's wall is printed as it ends (``phase_wall``) and collected in
 the ``smoke`` line.
 
-Last, row 5 at the decode shape ``[8, 1, 1024]`` bf16 against its plain
-version, timed beside its bound and ``F.layer_norm``; and row 1 at the
-eval shape ``[128, 1024, 64]`` bf16 causal with no dropout against its
-plain versions, timed (CUDA events with the L2 flushed, and profiler
-device time) beside SDPA's flash forward and its bound, and again at
-rate 0.1 in the same call.
+Last, row 1 at the eval shape ``[128, 1024, 64]`` bf16 causal with no
+dropout against its plain versions, timed (CUDA events with the L2
+flushed, and profiler device time) beside SDPA's flash forward and its
+bound, and again at rate 0.1 in the same call.
 
 Tolerances, kernel against its plain version (both compute in f32 after
 casting q and k; only the summation order differs): ``acc`` and ``l``
@@ -514,12 +535,13 @@ PAGED_GEOMETRIES = (
 
 
 def device_ms(fn, flush: Optional[torch.Tensor], pattern: str = "",
-              iters: int = 20) -> float:
+              iters: int = 20, exclude: tuple = ()) -> float:
     """Device time per call of ``fn`` spent in the kernels whose name holds
-    ``pattern`` (every kernel: ""), each call after an L2 flush (L2 warm
-    when ``flush`` is None): ``torch.profiler``'s record of the kernel
-    alone, without the launch and event overhead that ``time_ms`` also
-    holds (about 5 µs for an empty op)."""
+    ``pattern`` (every kernel: "") and none of ``exclude`` (the flush's
+    fill), each call after an L2 flush (L2 warm when ``flush`` is None):
+    ``torch.profiler``'s record of the kernel alone, without the launch
+    and event overhead that ``time_ms`` also holds (about 5 µs for an
+    empty op)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -533,8 +555,8 @@ def device_ms(fn, flush: Optional[torch.Tensor], pattern: str = "",
             fn()
         torch.cuda.synchronize()
     return sum(_device_us(e) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and pattern in e.key) / 1e3 / iters
+               if e.device_type == DeviceType.CUDA and pattern in e.key
+               and not any(s in e.key for s in exclude)) / 1e3 / iters
 
 
 def decode_case(dtype: torch.dtype, dev: torch.device, lens=LENS, b=B,
@@ -1283,6 +1305,291 @@ def phase_split_kernels(dev: torch.device) -> dict:
     return rows
 
 
+# -------------------------------------------------------------- phase 1d
+#: the "rows" route held to the plain version at these hidden sizes and
+#: rows (every dtype pair, with and without the residual), "row_block" at
+#: NORM_BLOCK_HIDDEN
+NORM_ROWS_HIDDEN = (128, 1024, 2048, 4096)
+NORM_BLOCK_HIDDEN = (8192, 32768)
+NORM_ROWS = (1, 7, 8195)
+#: the forward's (input, output) dtype pairs
+NORM_PAIRS = ((torch.float32, torch.float32),
+              (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32),
+              (torch.float16, torch.float16),
+              (torch.float16, torch.float32))
+#: row 5 timed at the main paths' shapes (with the residual): the 345M
+#: training rows, the seq-8192 path's, the generation path's one-token
+#: rows, and the 345M rows in fp16
+NORM_TIMED = (("345M", (TB, TS, TH), torch.bfloat16),
+              ("seq8192", (2, 8192, 2048), torch.bfloat16),
+              ("decode", (8, 1, 1024), torch.bfloat16),
+              ("345M_fp16", (TB, TS, TH), torch.float16))
+#: back-to-back calls behind ``host_us`` (no synchronise among them)
+HOST_CALLS = 1000
+#: repeats of the bf16 / fp16 turns at the 345M shape (``fp16_turns``)
+FP16_TURN_REPEATS = 3
+
+
+def _norm_inputs(shape, dtype, dev, seed: int = 2):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    hidden = shape[-1]
+    x, r = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    w = 1.0 + 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    b = 0.1 * torch.randn(hidden, generator=gen, device=dev)
+    return x, r, w, b
+
+
+def _hold_norm_fwd(FN, x, r, w, b, out_dtype, route=None) -> float:
+    """One forward launch held to ``fwd_plain`` (``s`` bitwise, the stats
+    at the f32 tolerance, ``out`` at its dtype's) and, on "rows", a second
+    launch bitwise equal to the first; the largest error."""
+    kw = {"route": route} if route else {}  # an earlier tree: no routes
+    got = FN.fwd_call(x, r, w, b, 1e-5, out_dtype, **kw)
+    want = FN.fwd_plain(x, r, w, b, 1e-5, out_dtype)
+    torch.cuda.synchronize()
+    what = (f"norm fwd {route or 'planned'} {tuple(x.shape)} {x.dtype} -> "
+            f"{out_dtype} residual={r is not None}")
+    torch.testing.assert_close(got[0], want[0], **TOL[out_dtype], msg=what)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0, msg=what)
+    for i in (2, 3):
+        torch.testing.assert_close(got[i], want[i], **TOL[torch.float32],
+                                   msg=what)
+    if route != "row_block":
+        again = FN.fwd_call(x, r, w, b, 1e-5, out_dtype, **kw)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"{what}: a repeated call is not bitwise identical")
+    return _max_err(zip(got, want))
+
+
+def _norm_coverage(FN, build, dev) -> dict:
+    """Phase 1d's checks: the planner's shared memory against the
+    kernel's, and both routes against the plain version over the
+    coverage grid."""
+    smem = build.load("fused_norm").fleetx_fused_norm_fwd_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 5
+    smem.restype = ctypes.c_longlong
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs = {"rows": 0.0, "row_block": 0.0}
+    cases = {"rows": 0, "row_block": 0}
+    plans = {}
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+    for hidden in NORM_ROWS_HIDDEN + NORM_BLOCK_HIDDEN:
+        route = "rows" if hidden in NORM_ROWS_HIDDEN else "row_block"
+        for dtype, out_dtype in NORM_PAIRS:
+            for rows in NORM_ROWS:
+                x, r, w, b = _norm_inputs((rows, hidden), dtype, dev,
+                                          seed=rows + hidden)
+                for res in (r, None):
+                    plan = FN.plan_fwd(rows, hidden, dtype, out_dtype,
+                                       res is not None, sms)
+                    check(plan.route == route,
+                          f"hidden {hidden}: planned {plan.route}")
+                    if route == "rows":
+                        check(smem(hidden, codes[dtype], int(res is not None),
+                                   plan.rows_per_tile, plan.stages)
+                              == plan.smem_bytes,
+                              f"plan_fwd's shared memory {plan} differs "
+                              f"from the kernel's")
+                        plans[f"{rows}x{hidden}"] = plan._asdict()
+                    errs[route] = max(errs[route], _hold_norm_fwd(
+                        FN, x, res, w, b, out_dtype, route))
+                    cases[route] += 1
+                del x, r
+        torch.cuda.empty_cache()
+    out = dict(cases=cases, max_abs_err=errs, sm_count=sms,
+               plans={k: v for k, v in plans.items()
+                      if k.startswith("8195x")})
+    emit("norm_check", **out)
+    return out
+
+
+def _host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host wall of ``calls`` back-to-back calls of ``fn`` with no
+    synchronise among them, over ``calls``, in µs (after 50 warm calls;
+    the device work is drained before and after)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
+
+
+def _norm_timings(FN, dev, flush, name, shape, dtype, routes) -> dict:
+    """Row 5 at ``shape`` (with the residual) in turns: each route and
+    add + ``F.layer_norm`` forward then backward through the list (e.g.
+    rows, row_block, library, library, row_block, rows): CUDA-event ``ms``
+    (L2 flushed before every launch) and ``graph_ms`` each turn;
+    ``device_ms`` once each; the bound."""
+    x, r, w, b = _norm_inputs(shape, dtype, dev)
+    hidden = shape[-1]
+    lw, lb = w.to(dtype), b.to(dtype)
+    fns = {route or "kernel": (lambda route=route: FN.fwd_call(
+        x, r, w, b, 1e-5, dtype, **({"route": route} if route else {})))
+        for route in routes}
+    fns["library"] = lambda: torch.nn.functional.layer_norm(
+        r + x, (hidden,), lw, lb, 1e-5)
+    for route in routes:
+        _hold_norm_fwd(FN, x, r, w, b, dtype, route)
+    order = list(fns) + list(fns)[::-1]
+    rec = {k: {"ms": [], "graph_ms": []} for k in fns}
+    for k in order:
+        rec[k]["ms"].append(time_ms(fns[k], flush))
+        rec[k]["graph_ms"].append(graph_ms(fns[k]))
+    patterns = {"kernel": "fused_norm_fwd", "rows": "fused_norm_fwd_rows",
+                "row_block": "fused_norm_fwd_kernel", "library": ""}
+    # the decode step's norm reads what the op before it just wrote: its
+    # device time is taken L2 warm
+    dev_flush = None if name == "decode" else flush
+    n, item = x.numel(), x.element_size()
+    bound_ms, bound_by = _bound(4 * n * item + 2 * hidden * 4
+                                + 2 * (n // hidden) * 4, 8 * n,
+                                torch.float32)
+    for k, fn in fns.items():
+        rec[k]["device_ms"] = device_ms(fn, dev_flush, patterns[k],
+                                        exclude=("fill", "Fill", "Memset"))
+        rec[k]["bound_share"] = {
+            m: bound_ms / min(rec[k][m]) for m in ("ms", "graph_ms")}
+        rec[k]["bound_share"]["device_ms"] = (
+            bound_ms / rec[k]["device_ms"] if rec[k]["device_ms"] else None)
+    # a device copy of the bytes the kernel reads and writes (x and the
+    # residual in, out and s out): what this card's memory gives a
+    # streaming kernel at this size
+    src = torch.empty(2 * n, dtype=dtype, device=dev)
+    dst = torch.empty_like(src)
+    copy = dict(graph_ms=graph_ms(lambda: dst.copy_(src)),
+                device_ms=device_ms(lambda: dst.copy_(src), dev_flush,
+                                    exclude=("fill", "Fill", "Memset")))
+    del src, dst
+    out = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+               bound_ms=bound_ms, bound_by=bound_by,
+               device_l2="warm" if dev_flush is None else "flushed",
+               copy_same_bytes=copy, **rec)
+    emit("norm_shape", name=name, **out)
+    return out
+
+
+def _fp16_turns(FN, dev, flush, routes) -> dict:
+    """bf16 and fp16 at the 345M shape in turns, ``FP16_TURN_REPEATS``
+    times, for each route: is a spread of fp16's times the kernel or the
+    measurement?"""
+    cases = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        x, r, w, b = _norm_inputs((TB, TS, TH), dtype, dev)
+        for route in routes:
+            cases[(str(dtype).split(".")[-1], route or "kernel")] = (
+                lambda x=x, r=r, w=w, b=b, dtype=dtype, route=route:
+                FN.fwd_call(x, r, w, b, 1e-5, dtype,
+                            **({"route": route} if route else {})))
+    rec = {f"{d}_{route}": {"ms": [], "graph_ms": []}
+           for d, route in cases}
+    for _ in range(FP16_TURN_REPEATS):
+        for (d, route), fn in cases.items():
+            rec[f"{d}_{route}"]["ms"].append(time_ms(fn, flush))
+            rec[f"{d}_{route}"]["graph_ms"].append(graph_ms(fn))
+    emit("norm_fp16_turns", shape=[TB, TS, TH], repeats=FP16_TURN_REPEATS,
+         **rec)
+    return rec
+
+
+def _norm_host(FN, build, dev) -> dict:
+    """Host µs a call at the decode shape ``[8, 1, 1024]`` bf16: the eager
+    non-grad path the generation model calls (``fused_residual_norm``),
+    ``fwd_call`` on each route, the custom op's dispatch, and add +
+    ``F.layer_norm``, in turns; then the launch path's pieces."""
+    x, r, w, b = _norm_inputs((8, 1, 1024), torch.bfloat16, dev)
+    lw, lb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    new = hasattr(FN, "plan_fwd")
+    fns = {
+        "eager_path": lambda: FN.fused_residual_norm(
+            x, w, b, residual=r, eps=1e-5, out_dtype=torch.bfloat16),
+        "fwd_call": lambda: FN.fwd_call(x, r, w, b, 1e-5, torch.bfloat16),
+        "custom_op": lambda: FN.fused_norm_fwd(x, r, w, b, 1e-5,
+                                               torch.bfloat16),
+        "library": lambda: torch.nn.functional.layer_norm(
+            r + x, (1024,), lw, lb, 1e-5)}
+    if new:
+        fns["fwd_call_row_block"] = lambda: FN.fwd_call(
+            x, r, w, b, 1e-5, torch.bfloat16, route="row_block")
+    rec = {k: [] for k in fns}
+    with torch.no_grad():
+        for k in list(fns) + list(fns)[::-1]:
+            rec[k].append(_host_us(fns[k]))
+    stat = (8, 1, 1)
+    pieces = {
+        "build_load": lambda: build.load("fused_norm"),
+        "stream_object": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "vec_to_contiguous": lambda: w.reshape(-1).to(
+            device=x.device, dtype=torch.float32).contiguous(),
+        "stats_two_empty": lambda: (
+            torch.empty(stat, dtype=torch.float32, device=x.device),
+            torch.empty(stat, dtype=torch.float32, device=x.device)),
+        "stats_one_empty_unbind": lambda: torch.empty(
+            (2,) + stat, dtype=torch.float32, device=x.device).unbind(0),
+        "empty_like": lambda: torch.empty_like(x)}
+    if new:
+        entry, idx = FN._fns()[0], x.get_device()
+        pieces.update({
+            # the ctypes call alone: a dtype code the entry refuses at once
+            "ctypes_call_refused": lambda: entry(
+                x.data_ptr(), r.data_ptr(), w.data_ptr(), b.data_ptr(),
+                x.data_ptr(), r.data_ptr(), None, None, 8, 1024, 15, 1, 8,
+                1e-5, FN._stream(idx)),
+            "checks": lambda: FN._check("fused_norm fwd", x, r),
+            "launch_no_stats": lambda: FN._fwd_launch(
+                x, r, w, b, 1e-5, torch.bfloat16, stats=False),
+            "entry_cached": FN._fns,
+            "stream_raw": lambda: FN._stream(idx),
+            "vec_pass_through": lambda: FN._vec(w, 1024, x),
+            "plan_cached": lambda: FN._plan(8, 1024, torch.bfloat16,
+                                            torch.bfloat16, True, idx,
+                                            None),
+            "traced_check": lambda: FN._traced(x)})
+    piece_us = {k: _host_us(fn, 10000) for k, fn in pieces.items()}
+    out = dict(shape=[8, 1, 1024], calls=HOST_CALLS,
+               host_us={k: statistics.mean(v) for k, v in rec.items()},
+               host_us_turns=rec, pieces_us=piece_us)
+    emit("norm_host", **out)
+    return out
+
+
+def phase_norm_fwd(build, dev: torch.device, card: str) -> dict:
+    """Phase 1d: row 5's two routes. The coverage checks (``"rows"`` at
+    ``NORM_ROWS_HIDDEN``, ``"row_block"`` at ``NORM_BLOCK_HIDDEN``, every
+    dtype pair, with and without the residual, rows 1, 7 and 8195), then
+    the ``NORM_TIMED`` shapes in turns against ``"row_block"`` and add +
+    ``F.layer_norm``, bf16 against fp16 in turns, and the host µs of a
+    decode-shape call. On an earlier tree, whose wrapper has one route and
+    no planner, only its timings and host µs."""
+    from fleetx_tpu_torch.ops import fused_norm as FN
+
+    build.build(["fused_norm"])
+    emit("ptxas_norm", kernels=_ptxas_summary(
+        build.build_logs.get("fused_norm", ""), "fused_norm_fwd"))
+    new = hasattr(FN, "plan_fwd")
+    routes = ("rows", "row_block") if new else (None,)
+    out = {"routes": [r or "kernel" for r in routes]}
+    if new:
+        out["check"] = _norm_coverage(FN, build, dev)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out["shapes"] = {name: _norm_timings(FN, dev, flush, name, shape, dtype,
+                                         routes)
+                     for name, shape, dtype in NORM_TIMED}
+    out["fp16_turns"] = _fp16_turns(FN, dev, flush, routes)
+    del flush
+    out["host"] = _norm_host(FN, build, dev)
+    torch.cuda.empty_cache()
+    emit("norm_fwd", nvidia_smi=card, routes=out["routes"])
+    return out
+
+
 #: repeats of the norm timings at the 345M shape (``norm_spread``)
 NORM_REPEATS = 5
 
@@ -1320,7 +1627,7 @@ def _norm_spread(dev: torch.device, flush: torch.Tensor) -> dict:
     # the kernels' own device time, without launch and event overhead
     for name in ("fwd", "bwd"):
         out[name]["device_ms"] = device_ms(fns[name], flush,
-                                           f"fused_norm_{name}_kernel")
+                                           f"fused_norm_{name}")
     emit("norm_spread", shape=[TB, TS, TH], dtype="bfloat16",
          repeats=NORM_REPEATS, **out)
     return out
@@ -1668,6 +1975,9 @@ TC_COUNTS = {"flash_attention_fwd_tc": "flash_attention_fwd",
 #: (``fp16_launches``)
 FP16_COUNTS = {"fused_norm_fwd_fp16": "fused_norm_fwd",
                "fused_norm_bwd_fp16": "fused_norm_bwd"}
+#: ... and the norm forward's launches on route "rows" (``rows_launches``;
+#: the rest took "row_block")
+ROWS_COUNT = "fused_norm_fwd_rows"
 
 
 def zero_counts() -> None:
@@ -1678,15 +1988,22 @@ def zero_counts() -> None:
         counters[kernel].tc_launches = 0
     for kernel in FP16_COUNTS.values():
         counters[kernel].fp16_launches = 0
+    counters["fused_norm_fwd"].rows_launches = 0
 
 
 def read_counts() -> dict:
+    """The counts since ``zero_counts``; every main path's norm forward
+    launches must all have taken route "rows"."""
     counters = _counters()
     counts = {name: fn.launches for name, fn in counters.items()}
     counts.update({name: counters[kernel].tc_launches
                    for name, kernel in TC_COUNTS.items()})
     counts.update({name: counters[kernel].fp16_launches
                    for name, kernel in FP16_COUNTS.items()})
+    counts[ROWS_COUNT] = counters["fused_norm_fwd"].rows_launches
+    check(counts[ROWS_COUNT] == counts["fused_norm_fwd"],
+          f"{counts['fused_norm_fwd'] - counts[ROWS_COUNT]} norm forward "
+          f"launches off route \"rows\"")
     return counts
 
 
@@ -1758,14 +2075,14 @@ def phase_trainer(dev: torch.device, card: str) -> dict:
                                   n_top=12)
     matmul_ms = share("nvjet", "gemm", "cutlass", "sm90_xmma")
     kernels_ms = share("flash_fwd_kernel", "flash_bwd_kernel",
-                       "fused_norm_fwd_kernel", "fused_norm_bwd_kernel")
+                       "fused_norm_fwd", "fused_norm_bwd_kernel")
     emit("train_trace", **fields, matmul_ms_per_step=matmul_ms,
          other_ms_per_step=share() - matmul_ms - kernels_ms,
          flash_fwd_ms_per_step=share("flash_fwd_kernel"),
          flash_fwd_tc_ms_per_step=share("flash_fwd_kernel_tc"),
          flash_bwd_ms_per_step=share("flash_bwd_kernel"),
          flash_bwd_tc_ms_per_step=share("flash_bwd_kernel_tc"),
-         norm_fwd_ms_per_step=share("fused_norm_fwd_kernel"),
+         norm_fwd_ms_per_step=share("fused_norm_fwd"),
          norm_bwd_ms_per_step=share("fused_norm_bwd_kernel"),
          nvidia_smi=card)
     del engine, batch
@@ -1952,7 +2269,7 @@ def phase_seq8k_trainer(dev: torch.device, card: str) -> dict:
     kernels = {"flash_fwd_ms": share("flash_fwd_kernel"),
                "flash_bwd_dq_ms": share("flash_bwd_dq_kernel"),
                "flash_bwd_dkv_ms": share("flash_bwd_dkv_kernel"),
-               "norm_fwd_ms": share("fused_norm_fwd_kernel"),
+               "norm_fwd_ms": share("fused_norm_fwd"),
                "norm_bwd_ms": share("fused_norm_bwd_kernel")}
     top = sorted(rows, key=lambda r: -r[1])[:12]
     emit("seq8k_train_trace", steps=1, profiled_wall_ms=wall_ms,
@@ -2429,7 +2746,8 @@ def phase_generation(dev: torch.device, card: str, ckpt_dir: str,
         check(counts["fused_norm_fwd"] == per_model_call * calls.calls,
               f"{name}: {counts['fused_norm_fwd']} norm launches for "
               f"{calls.calls} model calls")
-        check(all(counts[k] == 0 for k in counts if k != "fused_norm_fwd"),
+        check(all(counts[k] == 0 for k in counts
+                  if k not in ("fused_norm_fwd", ROWS_COUNT)),
               f"{name}: other kernels launched {counts}")
         rows = out.shape[0]
         check(rows == len(prompts) * module.gen_cfg.num_return_sequences
@@ -2517,41 +2835,6 @@ def phase_generation(dev: torch.device, card: str, ckpt_dir: str,
                          if kk != "continuations"}
                      for k, v in strategies.items()})
     return result
-
-
-def phase_decode_norm(dev: torch.device, card: str) -> dict:
-    """Row 5 at the generation path's one-token shape ``[8, 1, 1024]``
-    bf16: held to its plain version and timed beside its bound and
-    add + ``F.layer_norm`` (a launch-bound size): CUDA-event ``ms`` as
-    for every row, and ``device_ms`` of the kernels alone, L2 warm (a
-    decode step's norm reads what the op before it just wrote)."""
-    from fleetx_tpu_torch.ops import fused_norm as FN
-
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    rows = _norm_rows(torch.bfloat16, dev, flush, shape=DECODE_NORM_SHAPE)
-    del flush
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    x, r = (torch.randn(DECODE_NORM_SHAPE, generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(2))
-    w = torch.ones(DECODE_NORM_SHAPE[-1], device=dev)
-    b = torch.zeros(DECODE_NORM_SHAPE[-1], device=dev)
-    lw, lb = w.to(torch.bfloat16), b.to(torch.bfloat16)
-    out = dict(rows["fused_norm_fwd"], shape=list(DECODE_NORM_SHAPE),
-               device_ms=device_ms(
-                   lambda: FN.fwd_call(x, r, w, b, 1e-5, torch.bfloat16),
-                   None, iters=50),
-               library_device_ms=device_ms(
-                   lambda: torch.nn.functional.layer_norm(
-                       r + x, (DECODE_NORM_SHAPE[-1],), lw, lb, 1e-5),
-                   None, iters=50))
-    emit("decode_norm", **out, backward=rows["fused_norm_bwd"],
-         nvidia_smi=card)
-    return out
-
-
-#: a decode step's LayerNorm rows on the generation path (8 prompts)
-DECODE_NORM_SHAPE = (8, 1, 1024)
 
 
 # -------------------------------------------------------------- phase 10
@@ -2697,7 +2980,8 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
               f"eval {kind}: {rec}")
         per_batch = {k: v / rec["batches"]
                      for k, v in rec["launches"].items()}
-        check(per_batch == {"flash_attention_fwd": 24, "fused_norm_fwd": 49},
+        check(per_batch == {"flash_attention_fwd": 24, "fused_norm_fwd": 49,
+                            ROWS_COUNT: 49},
               f"eval {kind}: launches per batch {per_batch}")
         runs[kind] = dict(rec, launches_per_batch=per_batch)
     tok = GPTTokenizer.from_pretrained(tok_dir)
@@ -2865,7 +3149,7 @@ def _generate_timed(eng, inputs: list, layers: int = 24) -> tuple:
                new_tokens=int(ids.size), new_tokens_per_s=ids.size / wall,
                fused_norm_fwd=counts["fused_norm_fwd"],
                other_launches=sum(v for k, v in counts.items()
-                                  if k != "fused_norm_fwd"))
+                                  if k not in ("fused_norm_fwd", ROWS_COUNT)))
     check(rec["fused_norm_fwd"] == (2 * layers + 1) * rec["calls"]
           and rec["other_launches"] == 0,
           f"generation: {counts} launches for {rec['calls']} model calls")
@@ -3737,6 +4021,9 @@ def phase_finetune(dev: torch.device, card: str, root: str, ckpt_dir: str,
         check(rec["launches"][name] == per_step * FT_STEPS,
               f"finetune: {name} {rec['launches'][name]} launches, want "
               f"{per_step} x {FT_STEPS}")
+    check(rec["launches"][ROWS_COUNT] == rec["launches"]["fused_norm_fwd"],
+          f"finetune: norm forward launches off route \"rows\": "
+          f"{rec['launches']}")
     losses, norms = rec["losses"], rec["grad_norms"]
     check(len(losses) == FT_STEPS and all(np.isfinite(losses))
           and all(np.isfinite(norms)), f"losses {losses}, norms {norms}")
@@ -4092,7 +4379,7 @@ def _qat_train(dev: torch.device, card: str, trainer: dict) -> dict:
                                   n_top=12)
     matmul_ms = share("nvjet", "gemm", "cutlass", "sm90_xmma")
     kernels_ms = share("flash_fwd_kernel", "flash_bwd_kernel",
-                       "fused_norm_fwd_kernel", "fused_norm_bwd_kernel")
+                       "fused_norm_fwd", "fused_norm_bwd_kernel")
     del engine, batch
     torch.cuda.empty_cache()
     out = dict(steps=TRAIN_STEPS, losses=losses, launches=counts,
@@ -4185,7 +4472,7 @@ def _dots_train(dev: torch.device, card: str, trainer: dict) -> dict:
                                   n_top=12)
     matmul_ms = share("nvjet", "gemm", "cutlass", "sm90_xmma")
     kernels_ms = share("flash_fwd_kernel", "flash_bwd_kernel",
-                       "fused_norm_fwd_kernel", "fused_norm_bwd_kernel")
+                       "fused_norm_fwd", "fused_norm_bwd_kernel")
     del engine, batch
     _check_per_step("dots", counts, PER_STEP, TRAIN_STEPS)
     diffs = [abs(a - b) for a, b in zip(losses, trainer["losses"])]
@@ -4886,7 +5173,7 @@ def _moe_train(dev: torch.device, card: str) -> dict:
                                   n_top=16)
     matmul_ms = share("nvjet", "gemm", "cutlass", "sm90_xmma")
     kernels_ms = share("flash_fwd_kernel", "flash_bwd_kernel",
-                       "fused_norm_fwd_kernel", "fused_norm_bwd_kernel")
+                       "fused_norm_fwd", "fused_norm_bwd_kernel")
     out["trace"] = dict(fields, matmul_ms_per_step=matmul_ms,
                         kernels_ms_per_step=kernels_ms,
                         index_ms_per_step=share("index", "scatter",
@@ -4945,7 +5232,7 @@ def _moe_train(dev: torch.device, card: str) -> dict:
           f"moe generation: {counts_gen['fused_norm_fwd']} norm launches "
           f"for {calls.calls} model calls")
     check(all(counts_gen[k] == 0 for k in counts_gen
-              if k not in ("fused_norm_fwd",)),
+              if k not in ("fused_norm_fwd", ROWS_COUNT)),
           f"moe generation: other kernels launched {counts_gen}")
     check(ids.shape == (len(prompts), MOE_GEN_NEW)
           and int(ids.min()) >= 0 and int(ids.max()) < mc.vocab_size,
@@ -5154,7 +5441,7 @@ def main(argv) -> int:
     card = phase_env(build)
     modes = {"--paged-shapes", "--serving", "--eval-export",
              "--fp16-resilience", "--train-paths", "--finetune-serving",
-             "--gpt-knobs", "--encoders", "--families"}
+             "--gpt-knobs", "--encoders", "--families", "--norm-shapes"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
@@ -5164,10 +5451,16 @@ def main(argv) -> int:
         # 1b's fp16 rows, phase 4 (the uninterrupted losses) and phase 12;
         # --train-paths: phases 4 and 6; --finetune-serving: phases 2, 4,
         # 8, the tokenizer and corpus of 9-10, and 13; --gpt-knobs: phases
-        # 4 and 14; --encoders: phase 15; --families: phase 16
+        # 4 and 14; --encoders: phase 15; --families: phase 16;
+        # --norm-shapes: phase 1d (row 5's routes: checks, timings in
+        # turns, host µs; on an earlier tree its one route's timings)
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
+        if "--norm-shapes" in argv:
+            timed("1d", phase_norm_fwd, build, dev, card)
+            print(smi_line(), flush=True)
+            return 0
         if "--encoders" in argv:
             # built, so a launch on these plain paths would be counted
             build.build(["flash_attention", "fused_norm"])
@@ -5225,6 +5518,7 @@ def main(argv) -> int:
     kernels = timed("1", phase_kernels, build, dev)
     train_kernels = timed("1b", phase_train_kernels, dev)
     seq8k_kernels = timed("1c", phase_split_kernels, dev)
+    norm_fwd = timed("1d", phase_norm_fwd, build, dev, card)
     main_path = timed("2", phase_main_path, dev, card)
     timed("2 trace", phase_trace, dev, card)
     timed("3", phase_kernel_vs_gather, dev, card)
@@ -5250,7 +5544,6 @@ def main(argv) -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fp16 = timed("12", phase_fp16_resilience, dev, card, trainer["losses"])
-    decode_norm = timed("row 5 decode shape", phase_decode_norm, dev, card)
     row1_eval = timed(
         "row 1 eval shape", phase_row1_eval_shape, dev, card,
         train_kernels["bfloat16"]["flash_attention_fwd"]["ms"])
@@ -5319,6 +5612,12 @@ def main(argv) -> int:
             families["cascade"]["launches"][name]
     by_path["fused_norm_fwd"]["moe_generation"] = \
         families["moe"]["generation"]["fused_norm_fwd_launches"]
+    # every path's norm forward launches by route: read_counts (and the
+    # eval and fine-tune processes' own counts, checked where read) hold
+    # each path's launches all on "rows", none on "row_block"
+    norm_routes = {path: {"rows": n, "row_block": 0}
+                   for path, n in by_path["fused_norm_fwd"].items()
+                   if not path.endswith("_route")}
     bf16 = kernels["bfloat16"]
     rows = [{
         "name": "paged_attention_decode", "route": "cuda",
@@ -5370,8 +5669,17 @@ def main(argv) -> int:
             # launches on every path that runs the kernel, each counted
             # from 0 around its own run
             "launches_by_path": by_path[name],
-            # the norm at one-token decode rows (the generation path)
-            **({"decode_shape": decode_norm}
+            # row 5's route on every path, its per-route launches, its
+            # two routes and add + F.layer_norm in turns at the main paths'
+            # shapes, the one-token decode rows (the generation path) with
+            # the host µs a call, bf16 against fp16 in turns (phase 1d)
+            **({"variant": "rows", "launches_by_route": norm_routes,
+                "decode_shape": dict(norm_fwd["shapes"]["decode"],
+                                     host=norm_fwd["host"]),
+                "shapes": {k: v for k, v in norm_fwd["shapes"].items()
+                           if k != "decode"},
+                "fp16_turns": norm_fwd["fp16_turns"],
+                "check": norm_fwd["check"]}
                if name == "fused_norm_fwd" else {}),
             # the forward at the eval path's shape, no dropout
             **({"eval_shape": row1_eval}

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// and the paged decode kernel: mbarriers, TMA tile loads (2-D swizzled
-// tiles, 3-D boxes of head rows) and their host-side tensor maps, the
-// wgmma shared-memory descriptor for 128-byte-swizzled tiles, wgmma fences
-// and the m64nNk16 products (bf16 / fp16 operands, f32 accumulators).
+// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels,
+// the paged decode kernel and the fused norm forward: mbarriers, the plain
+// 1-D bulk copy, TMA tile loads (2-D swizzled tiles, 3-D boxes of head
+// rows) and their host-side tensor maps, the wgmma shared-memory
+// descriptor for 128-byte-swizzled tiles, wgmma fences and the m64nNk16
+// products (bf16 / fp16 operands, f32 accumulators).
 //
 // Tile layout. Every operand tile is [R rows, 64 columns] of a 16-bit type
 // (128 bytes a row), loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B into a
@@ -102,6 +103,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ------------------------------------------------------------------ TMA
+// `bytes` contiguous bytes of global memory into shared memory by the plain
+// (1-D) bulk copy, which needs no tensor map: both addresses 16-byte
+// aligned, `bytes` a multiple of 16; completion adds them to `bar`'s
+// transaction count.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // One [box rows, 64 columns] tile of a 2-D tensor map into shared memory;
 // completion adds its bytes to `bar`'s transaction count.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,

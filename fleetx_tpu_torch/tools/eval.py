@@ -26,7 +26,8 @@ JSON line: the results (``loss``, ``ppl``, ``acc`` under ``acc``, the
 sums), the window and batch counts, the host wall (first batch and the
 median of the rest, device work synchronised around each batch), window
 tokens per second, peak device memory and the launches of the flash
-forward and fused-norm forward kernels. Runs on ``cuda`` unless
+forward and fused-norm forward kernels (and of the latter's ``"rows"``
+route). Runs on ``cuda`` unless
 ``--device cpu`` is given.
 """
 
@@ -116,6 +117,7 @@ def offline_eval(cfg: dict, device=None) -> dict:
     if engine.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(engine.device)
     FA.fwd_call.launches = FN.fwd_call.launches = 0
+    FN.fwd_call.rows_launches = 0
     t0 = time.perf_counter()
     results = module.run_offline_eval(params, loader)
     wall = time.perf_counter() - t0
@@ -127,7 +129,8 @@ def offline_eval(cfg: dict, device=None) -> dict:
                if times else None,
                tokens_per_s=len(ds) * seq / wall,
                launches={"flash_attention_fwd": FA.fwd_call.launches,
-                         "fused_norm_fwd": FN.fwd_call.launches},
+                         "fused_norm_fwd": FN.fwd_call.launches,
+                         "fused_norm_fwd_rows": FN.fwd_call.rows_launches},
                device=str(engine.device))
     if hasattr(ds, "tokens"):
         out["stream_tokens"] = int(len(ds.tokens))

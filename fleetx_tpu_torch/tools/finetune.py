@@ -21,7 +21,8 @@ It runs on ``cuda`` unless ``--device cpu`` is given, and prints one
 JSON line: the logged losses and grad norms, step times, tokens/s, peak
 memory, ``trainable_params_frac``, the artifact's path and bytes, each
 adapter leaf's largest change over the run, and the launches of the
-training kernels during it.
+training kernels during it (the norm forward's also on its ``"rows"``
+route).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ def _launch_counters() -> dict:
         out[name] = (fn, "launches")
         out[name + "_tc"] = (fn, "tc_launches")
     out["fused_norm_fwd"] = (FN.fwd_call, "launches")
+    out["fused_norm_fwd_rows"] = (FN.fwd_call, "rows_launches")
     out["fused_norm_bwd"] = (FN.bwd_call, "launches")
     return out
 

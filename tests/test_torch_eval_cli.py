@@ -149,7 +149,8 @@ def test_eval_cli_offline_paths(files, checkpoint, kind):
     assert got["eval_type"] == kind and got["windows"] == len(ours)
     assert got["batches"] == -(-len(ours) // 4) and got["device"] == "cpu"
     assert got["launches"] == {"flash_attention_fwd": 0,
-                               "fused_norm_fwd": 0}  # plain on the CPU
+                               "fused_norm_fwd": 0,
+                               "fused_norm_fwd_rows": 0}  # plain on the CPU
 
 
 def test_eval_cli_data_eval_path_and_no_checkpoint_warning(files, tmp_path):
