@@ -11,7 +11,8 @@ drills, train GPT-345M with QAT and under the dots recompute policy and
 GPT-1.3B through the auto-layout entry point, pretrain ERNIE-345M and
 train and evaluate ViT-B/16 through the same trainer, and train,
 evaluate and generate with the 8-expert MoE GPT-345M and train and
-sample the Imagen cascade (64² base, SR-256).
+sample the Imagen cascade (64² base, SR-256), and train GPT-345M with
+the telemetry, the profiler window and the device prefetcher on.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
@@ -27,6 +28,7 @@ sample the Imagen cascade (64² base, SR-256).
     python3 chip_smoke.py --families       # phase 16
     python3 chip_smoke.py --norm-shapes    # phase 1d alone (row 5's
                                            # routes, timings, host µs)
+    python3 chip_smoke.py --telemetry      # phases 4 and 17
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -351,6 +353,33 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    from 1000): ms per denoise step of each stage, the output ``[2, 256,
    256, 3]``, finite, within [-1, 1]; no kernel launches.
 
+17. telemetry (run after phase 16): ``pretrain_gpt_345M_synthetic.yaml``
+   through ``build_trainer`` → ``fit`` at full width and depth for 10
+   steps with ``pretrain_gpt_debug_obs.yaml``'s telemetry (sinks jsonl,
+   csv, prometheus; trace, flight, perf), ``Profiler.scheduler: [3, 6]``,
+   the recipe's ``prefetch_to_device: 2`` and no save
+   (``_telemetry_overrides``). Counts zeroed just before and read just
+   after: phase 4's per step. Every step's loss equals phase 4's bit for
+   bit, and every batch the step read (copied on the compute stream where
+   the step reads it) equals the host batch. ``metrics.jsonl`` holds 5
+   schema-valid windows with ``tokens_per_sec``, ``mfu`` and ``hbm_stats:
+   "ok"``, the last ``hbm_peak_bytes`` within 1 % of
+   ``max_memory_allocated``; ``trace.json`` holds the loop's spans
+   (``data_fetch``, ``shard_batch_async``, ``train_step``,
+   ``optimizer_update``; no ``shard_batch``); ``perf.jsonl`` one report
+   over the window's 3 steps: ``layers`` 24 in both regions, the
+   categories and the host gap adding up to the step within 1 %, the
+   flash and fused-norm ms a step within 1 % of ``_trace_rows`` on the
+   same profile, and rows 1 / 4 / 5 / 6 at 24 / 24 / 49 / 49 launches a
+   step in the window, classified ``flash`` / ``fused_norm``; the batch's
+   host-to-device copies on a stream other than the compute stream. Then
+   ``metrics_report``, ``trace_report``, ``postmortem`` (on a flight dump
+   the phase takes) and ``slo_report`` (on phase 2's replica snapshot)
+   each as its own process; phase 4's step and the telemetry step in
+   turns (4 turns of 6 steps a side, both logging every step, the
+   profiler window closed); a bf16 8192³ matmul and a 1 GiB device copy
+   timed for the roofline (``calibration``).
+
 Each phase's wall is printed as it ends (``phase_wall``) and collected in
 the ``smoke`` line.
 
@@ -394,6 +423,7 @@ non-zero and prints no result.
 import ast
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -450,6 +480,43 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+#: bytes of the card that each peak reset's collect freed, in run order
+COLLECT_FREED: list = []
+#: what held the card bytes a collect freed: the reset's index and the
+#: Python frames and classes among the collected objects
+COLLECT_HOLDERS: list = []
+
+
+def reset_peak(dev: Optional[torch.device] = None) -> None:
+    """Free the earlier phases' unreachable objects first, recording the
+    card bytes that freed (a finished engine caught in a reference cycle
+    would hold its parameters and optimizer state until the cyclic
+    collector ran) and, when it freed any, the frames and classes of what
+    it collected; then start the card's peak memory count afresh: each
+    peak is its own run's."""
+    before = torch.cuda.memory_allocated(dev)
+    gc.set_debug(gc.DEBUG_SAVEALL)     # keep what the collect finds
+    try:
+        gc.collect()
+    finally:
+        gc.set_debug(0)
+    garbage, gc.garbage[:] = list(gc.garbage), []
+    frames = sorted({f"{os.path.basename(o.f_code.co_filename)}:"
+                     f"{o.f_code.co_name}" for o in garbage
+                     if type(o).__name__ == "frame"})
+    classes = sorted({type(o).__name__ for o in garbage
+                      if type(o).__module__.startswith("fleetx_tpu_torch")})
+    del garbage
+    gc.collect()
+    freed = before - torch.cuda.memory_allocated(dev)
+    COLLECT_FREED.append(freed)
+    if freed:
+        COLLECT_HOLDERS.append(dict(reset=len(COLLECT_FREED) - 1,
+                                    freed=freed, classes=classes,
+                                    frames=frames[:40]))
+    torch.cuda.reset_peak_memory_stats(dev)
 
 
 #: phase → seconds of wall, in the order the phases ran
@@ -1798,7 +1865,9 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     emit("main_path", **out)
     del engine
     torch.cuda.empty_cache()
-    return out
+    # the replica's snapshot (the stats verb's serving record) for phase
+    # 17's slo_report
+    return dict(out, serving_snapshot=run["stats"])
 
 
 def _device_us(evt) -> float:
@@ -2027,7 +2096,7 @@ def phase_trainer(dev: torch.device, card: str) -> dict:
           and mc.hidden_dropout_prob == 0.1
           and mc.attention_probs_dropout_prob == 0.1,
           "not the full-width 345M training recipe")
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     zero_counts()                   # every count to 0 just before
     losses = engine.fit(train_dl)
     torch.cuda.synchronize()
@@ -2202,7 +2271,7 @@ def phase_seq8k_trainer(dev: torch.device, card: str) -> dict:
           and mc.attention_probs_dropout_prob == 0.0,
           "not the full-width GPT-1.3B seq-8192 recipe")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     zero_counts()                   # every count to 0 just before
     losses = engine.fit(train_dl)
     torch.cuda.synchronize()
@@ -2434,6 +2503,16 @@ def _timed(obj, name: str, times: list) -> None:
     setattr(obj, name, wrapper)
 
 
+def _unpatch(obj, *names: str) -> None:
+    """Drop the instance attributes ``names`` that shadow ``obj``'s
+    methods (``_timed``, ``_first_batch``, a phase's spy), so its class's
+    own run again. A patch holding a bound method of ``obj`` ties ``obj``
+    into a reference cycle: an engine's parameters and optimizer state
+    would stay on the card until the cyclic collector ran."""
+    for name in names:
+        obj.__dict__.pop(name, None)
+
+
 def _first_batch(engine, out: list) -> None:
     """Keep in ``out`` the tokens of the first batch ``engine`` trains on
     (on the host)."""
@@ -2494,7 +2573,7 @@ def phase_checkpoint(dev: torch.device, card: str, uninterrupted: list,
           "not the full-width 345M training recipe")
     save_s: list = []
     _timed(first, "save", save_s)
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     head = first.fit(dl)
     check(C.completed_steps(out) == [CKPT_STEPS] and len(save_s) == 1,
           f"steps saved: {C.completed_steps(out)}")
@@ -2520,6 +2599,7 @@ def phase_checkpoint(dev: torch.device, card: str, uninterrupted: list,
         check(same, f"restored {k} differs from the saved one")
     check(second.consumed_samples == first.consumed_samples
           == CKPT_STEPS * 8, f"consumed_samples {second.consumed_samples}")
+    _unpatch(first, "save")
     del first, saved, restored
     torch.cuda.empty_cache()
     zero_counts()                   # every count to 0 just before
@@ -2576,6 +2656,7 @@ def phase_checkpoint(dev: torch.device, card: str, uninterrupted: list,
     flip()
     statuses = [r["status"] for r in verify_ckpt.audit_directory(out)["steps"]]
     check(statuses == ["ok", "ok"], f"audit after the flip back {statuses}")
+    _unpatch(second, "load", "save", "train_step")
     del second
     torch.cuda.empty_cache()
     result = dict(
@@ -2734,7 +2815,7 @@ def phase_generation(dev: torch.device, card: str, ckpt_dir: str,
             G._prefill(mc, params, tokens, mask,
                        module.gen_cfg.max_new_tokens)
         del tokens, mask
-        torch.cuda.reset_peak_memory_stats(dev)
+        reset_peak(dev)
         zero_counts()               # every count to 0 just before
         with _CountCalls() as calls:
             torch.cuda.synchronize()
@@ -2862,8 +2943,9 @@ EVAL_BATCH = 8
 #: exported forward: calls timed after the first
 FORWARD_CALLS = 20
 #: depth of phase 11's f32 generation export (the checkpoint's first
-#: layers; the bf16 exports run all 24)
-F32_EXPORT_LAYERS = 4
+#: layers; the bf16 exports run all 24), cut to keep the smoke inside
+#: its limit on a slow host
+F32_EXPORT_LAYERS = 2
 
 
 def _cli_start(module: str, args: list) -> tuple:
@@ -3178,10 +3260,15 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
     fwd_dir = os.path.join(root, "exported_forward")
     gen_dir = os.path.join(root, "exported_generation")
     exports = {}
-    for target, d in (("forward", fwd_dir), ("generation", gen_dir)):
-        lines, _, _ = _cli("tools.export", ["-c", INF_YAML] + _overrides(
-            base + [f"Inference.model_dir={d}",
-                    f"Inference.target={target}"]))
+    # both exports at once, each its own process (the smoke's time limit)
+    started = {target: _cli_start("tools.export", ["-c", INF_YAML]
+                                  + _overrides(base + [
+                                      f"Inference.model_dir={d}",
+                                      f"Inference.target={target}"]))
+               for target, d in (("forward", fwd_dir),
+                                 ("generation", gen_dir))}
+    for target, proc in started.items():
+        lines, _, _ = _cli_wait(proc)
         exports[target] = lines[-1]
         check(lines[-1]["target"] == target, f"export {lines[-1]}")
 
@@ -3628,7 +3715,7 @@ def _fp16_train(dev: torch.device, card: str, root: str) -> dict:
           and mc.fused_residual_norm and mc.hidden_dropout_prob == 0.1,
           "not the fp16 recipe under the loss scaler")
     stalls = _counter("watchdog_stalls")
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     zero_counts()                   # every count to 0 just before
     losses = engine.fit(dl)
     torch.cuda.synchronize()
@@ -3772,7 +3859,7 @@ def _guard_skip_and_cost(dev: torch.device, card: str, root: str) -> dict:
     engine.train_step = spy
     skips = _counter("nonfinite_skips")
     losses = engine.fit(dl)
-    engine.train_step = train_step
+    _unpatch(engine, "train_step")
     skipped = _counter("nonfinite_skips") - skips
     check(len(around) == 1 and around[0][0] and around[0][1] is False,
           f"guard skip: {around}")
@@ -3846,6 +3933,8 @@ def _rollback_drill(dev: torch.device, card: str, root: str) -> dict:
         [[5, None]] * 3 + [[5, "abort"]]
     check(decisions == want, f"guard decisions {decisions}")
     step = engine.step
+    _unpatch(engine, "save", "load")
+    _unpatch(engine.resilience.guard, "observe")
     del engine
     torch.cuda.empty_cache()
     out = dict(restored_step=4, rollbacks_total=rolled, decisions=decisions,
@@ -4333,7 +4422,7 @@ def _knob_run(dev: torch.device, cfg: dict, steps: int) -> tuple:
     engine, train_dl, _ = build_trainer(cfg, device=dev)
     engine.max_steps = steps
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     zero_counts()                   # every count to 0 just before
     losses = engine.fit(train_dl)
     torch.cuda.synchronize()
@@ -4516,7 +4605,7 @@ def auto_child(argv: list) -> int:
     line of them and the peak memory."""
     from fleetx_tpu_torch.tools import auto
 
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     zero_counts()
     rc = auto.main(argv)
     torch.cuda.synchronize()
@@ -4633,7 +4722,10 @@ def gpt_knobs_alone(dev: torch.device, card: str) -> None:
     is held to), then phase 14."""
     trainer = timed("4", phase_trainer, dev, card)
     timed("14", phase_gpt_knobs, dev, card, trainer)
-    emit("gpt_knobs_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
+    reset_peak(dev)                     # the last phase's garbage too
+    emit("gpt_knobs_alone", phase_walls=PHASE_WALLS,
+         collect_freed_bytes=COLLECT_FREED,
+         collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
 
 
 def finetune_serving_alone(dev: torch.device, card: str) -> None:
@@ -4790,12 +4882,12 @@ def _ernie_train(dev: torch.device, card: str) -> dict:
 
     before = probe_losses()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     zero_counts()                   # every count to 0 just before
     losses = engine.fit(train_dl)
     torch.cuda.synchronize()
     counts = read_counts()          # read just after
-    engine.train_step = step
+    _unpatch(engine, "train_step")
     _no_launches("ernie_train", counts)
     after = probe_losses()
     hist = engine.history
@@ -4863,7 +4955,7 @@ def _vit_train(dev: torch.device, card: str) -> dict:
           and glb["global_batch_size"] == 256 and engine.accumulate_steps == 1
           and valid_dl is not None, "not the ViT-B/16 recipe at batch 256")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     zero_counts()                   # every count to 0 just before
     losses = engine.fit(train_dl)
     torch.cuda.synchronize()
@@ -5131,12 +5223,12 @@ def _moe_train(dev: torch.device, card: str) -> dict:
 
     engine.train_step = recorded
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     zero_counts()                   # every count to 0 just before
     losses = engine.fit(train_dl)
     torch.cuda.synchronize()
     counts = read_counts()          # read just after
-    engine.train_step = step
+    _unpatch(engine, "train_step")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     _check_per_step("moe_train", counts, PER_STEP,
                     MOE_STEPS * MOE_MICRO_BATCHES)
@@ -5291,7 +5383,7 @@ def _imagen_train(dev: torch.device, card: str, root: str) -> dict:
         out_var = float(pred.float().var())
         del pred
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     zero_counts()                   # every count to 0 just before
     losses = engine.fit(train_dl)
     torch.cuda.synchronize()
@@ -5335,7 +5427,7 @@ def _imagen_train(dev: torch.device, card: str, root: str) -> dict:
           and sr_cfg["Data"]["Train"]["dataset"]["lowres_size"] == 64
           and int(sr_cfg["Model"]["image_size"]) == 256,
           "not the full-width Imagen sr256 recipe")
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     zero_counts()                   # every count to 0 just before
     sr_losses = engine.fit(train_dl)
     torch.cuda.synchronize()
@@ -5430,6 +5522,356 @@ def phase_families(dev: torch.device, card: str) -> dict:
     return {"moe": moe, "imagen": imagen, "cascade": cascade}
 
 
+# --------------------------------------------------------------- phase 17
+TELEMETRY_STEPS = 10
+#: the profiler window: opened before step index 3, closed after step 6
+TELEMETRY_WINDOW = (3, 6)
+TELEMETRY_LOGGING = 2
+#: the step in turns with phase 4's (with and without the prefetcher):
+#: blocks of this many steps a side, each side first in one turn
+TELEMETRY_TURNS = 3
+TELEMETRY_TURN_STEPS = 6
+#: the training loop's spans the phase's trace.json must hold (the
+#: prefetcher's producer copies under shard_batch_async, so shard_batch
+#: must be absent); the checkpoint spans are the CPU tests'
+TELEMETRY_SPANS = ("data_fetch", "shard_batch_async", "train_step",
+                   "optimizer_update")
+#: kernel name → (row, launches a step at GPT-345M)
+TELEMETRY_KERNELS = {
+    "flash_fwd_kernel_tc": ("flash_attention_fwd", 24),
+    "flash_bwd_kernel_tc": ("flash_attention_bwd_fused", 24),
+    "fused_norm_fwd_rows_kernel": ("fused_norm_fwd", 49),
+    "fused_norm_bwd_kernel": ("fused_norm_bwd", 49)}
+#: sizes of the roofline calibration: a bf16 matmul and a device copy
+CALIB_N = 8192
+CALIB_COPY_BYTES = 2 ** 30
+
+
+def _telemetry_overrides(root: str) -> list:
+    """The slice's command: ``pretrain_gpt_345M_synthetic.yaml`` with the
+    telemetry of ``pretrain_gpt_debug_obs.yaml``, the profiler window, the
+    recipe's own prefetch depth, and no save."""
+    w0, w1 = TELEMETRY_WINDOW
+    return [f"Engine.max_steps={TELEMETRY_STEPS}",
+            f"Engine.logging_freq={TELEMETRY_LOGGING}",
+            "Engine.prefetch_to_device=2", "Engine.save_load.save_steps=0",
+            "Observability.enable=True",
+            "Observability.sinks=['jsonl', 'csv', 'prometheus']",
+            "Observability.trace.enable=True",
+            "Observability.flight.enable=True",
+            "Observability.perf.enable=True",
+            f"Observability.output_dir={os.path.join(root, 'telemetry')}",
+            "Profiler.enable=True", f"Profiler.scheduler=[{w0}, {w1}]",
+            f"Profiler.profiler_log={os.path.join(root, 'profiler_log')}"]
+
+
+def _calibrate(dev: torch.device) -> dict:
+    """What this card sustains: a bf16 ``CALIB_N``³ matmul (FLOP/s) and a
+    ``CALIB_COPY_BYTES`` device copy (bytes read + written a second),
+    each the median of CUDA-event timings."""
+    a = torch.randn(CALIB_N, CALIB_N, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(CALIB_N, CALIB_N, device=dev, dtype=torch.bfloat16)
+    src = torch.empty(CALIB_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    out = {}
+    for name, fn, work in (
+            ("matmul_flops", lambda: a @ b, 2.0 * CALIB_N ** 3),
+            ("hbm_bytes_per_s", lambda: dst.copy_(src),
+             2.0 * CALIB_COPY_BYTES)):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = work / (statistics.median(times) / 1e3)
+    del a, b, src, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_turns(dev: torch.device, tel_engine, tel_dl) -> dict:
+    """Phase 4's step (its recipe, telemetry off, the batch through the
+    device prefetcher), the same with ``prefetch_to_device: 0`` (the
+    batch's pinned copy inside the step, on the compute stream, as before
+    the prefetcher) and the telemetry step (the phase's engine, the
+    profiler window done), in turns of ``TELEMETRY_TURN_STEPS`` steps, the
+    order rotated each turn, all logging every step: the host wall of each
+    step after the first of a turn (its fit's start)."""
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+
+    plain, plain_dl, _ = build_trainer(load_config(TRAIN_YAML, [
+        "Engine.max_steps=0", "Engine.logging_freq=1"]), device=dev)
+    inline, inline_dl, _ = build_trainer(load_config(TRAIN_YAML, [
+        "Engine.max_steps=0", "Engine.logging_freq=1",
+        "Engine.prefetch_to_device=0"]), device=dev)
+    check(plain.prefetch_to_device == 2 and inline.prefetch_to_device == 0,
+          "the prefetch sides")
+    tel_engine.profiler.enabled = False
+    tel_engine.logging_freq = 1
+    sides = [("phase4", plain, plain_dl),
+             ("phase4_inline_copy", inline, inline_dl),
+             ("telemetry", tel_engine, tel_dl)]
+    walls = {name: [] for name, _, _ in sides}
+    for turn in range(TELEMETRY_TURNS):
+        k = turn % len(sides)
+        for name, eng, dl in sides[k:] + sides[:k]:
+            eng.max_steps = eng.step + TELEMETRY_TURN_STEPS
+            n = len(eng.history)
+            eng.fit(dl)
+            walls[name].append([h["train_cost"] * 1e3
+                                for h in eng.history[n + 1:]])
+    del plain, plain_dl, inline, inline_dl, sides
+    torch.cuda.empty_cache()
+    return {name: dict(ms_per_turn=[statistics.median(t) for t in turns],
+                       ms_median=statistics.median(
+                           [x for t in turns for x in t]))
+            for name, turns in walls.items()}
+
+
+def _report_tools(root: str, metrics: str, trace_path: str, flight: str,
+                  serving: Optional[dict]) -> dict:
+    """The four report tools, each as its own process, on the phase's
+    outputs: exit codes and the lines each printed."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = {}
+    runs = {"metrics_report": [metrics],
+            "trace_report": [trace_path, "--top-kernels", "10"],
+            "postmortem": [flight]}
+    if serving is not None:
+        # phase 2's replica snapshot against serving_gpt_345M.yaml's SLO
+        stream = os.path.join(root, "serving.jsonl")
+        with open(stream, "w") as f:
+            f.write(json.dumps(serving) + "\n")
+        runs["slo_report"] = [stream, "-c", YAML]
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"fleetx_tpu_torch.tools.{name}"] + args,
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, args in runs.items()}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        out[name] = dict(rc=proc.returncode, lines=len(stdout.splitlines()))
+        # slo_report: 1 is a verdict (a target breached), not a failure
+        ok = proc.returncode == 0 or (name == "slo_report"
+                                      and proc.returncode == 1)
+        check(ok, f"{name} exited {proc.returncode}: {stderr[-2000:]}")
+        if name == "slo_report":
+            out[name]["verdict"] = "met" if proc.returncode == 0 \
+                else "breach"
+    return out
+
+
+def phase_telemetry(dev: torch.device, card: str, losses4: list,
+                    serving: Optional[dict] = None) -> dict:
+    """Phase 17: GPT-345M through the trainer with the telemetry on, the
+    profiler window over steps 3-6 and the device prefetcher; the files it
+    writes, the window's decomposition against the smoke's own trace
+    reader, the losses against phase 4's, the step in turns with phase
+    4's, the report tools."""
+    from fleetx_tpu_torch.observability import perf, schema
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+    from fleetx_tpu_torch.utils.hardware import roofline
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    t_phase = time.perf_counter()
+    stages = {}
+
+    def stage(name: str) -> None:
+        """The phase's wall so far at the end of ``name`` (printed, so a
+        run cut by its time limit still shows how far it got)."""
+        stages[name] = time.perf_counter() - t_phase
+        emit("telemetry_stage", stage=name, seconds=stages[name])
+
+    try:
+        calib = _calibrate(dev)
+        stage("calibration")
+        cfg = load_config(TRAIN_YAML, _telemetry_overrides(root))
+        engine, train_dl, valid_dl = build_trainer(cfg, device=dev)
+        check(engine.obs.enabled and engine.profiler.enabled
+              and engine.prefetch_to_device == 2, "telemetry not on")
+        # every step's loss and a copy of its batch, taken on the compute
+        # stream where the step reads it (a batch the allocator handed
+        # back to the copy stream too early would differ from the host's)
+        step_losses, seen = [], []
+        train_step = engine.train_step
+
+        def observed(batch):
+            seen.append({k: v.clone() for k, v in batch.items()})
+            metrics = train_step(batch)
+            step_losses.append(metrics["loss"])
+            return metrics
+        engine.train_step = observed
+        reset_peak(dev)
+        zero_counts()                   # every count to 0 just before
+        t0 = time.perf_counter()
+        engine.fit(train_dl, valid_dl)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = read_counts()          # read just after
+        stage("fit")
+        _unpatch(engine, "train_step")
+        peak = torch.cuda.max_memory_allocated(dev)
+        for name, per_step in PER_STEP.items():
+            check(counts[name] == per_step * TELEMETRY_STEPS,
+                  f"telemetry: {name}: {counts[name]} launches, want "
+                  f"{per_step} x {TELEMETRY_STEPS}")
+        losses = [float(v) for v in step_losses]
+        check(losses == list(losses4),
+              f"telemetry losses {losses} are not phase 4's {losses4}")
+        host = [engine.module.pretreating_batch(h)
+                for h in _host_batches(cfg, TELEMETRY_STEPS)]
+        check(len(seen) == TELEMETRY_STEPS and all(
+            np.array_equal(s[k].cpu().numpy(), h[k])
+            for s, h in zip(seen, host) for k in h),
+              "a batch the step read differs from the host batch")
+        del seen
+
+        tel = os.path.join(root, "telemetry")
+        files = sorted(os.listdir(tel))
+        check({"metrics.jsonl", "metrics.csv", "metrics.prom",
+               "trace.json", "perf.jsonl"} <= set(files),
+              f"telemetry files: {files}")
+        n_rec, errors = schema.validate_jsonl(os.path.join(
+            tel, "metrics.jsonl"))
+        check(errors == [] and n_rec == TELEMETRY_STEPS // TELEMETRY_LOGGING,
+              f"metrics.jsonl: {n_rec} records, {errors}")
+        with open(os.path.join(tel, "metrics.jsonl")) as f:
+            records = [json.loads(l) for l in f]
+        for r in records:
+            check(r["tokens_per_sec"] and r["mfu"]
+                  and r["hbm_stats"] == "ok", f"record {r}")
+        hbm_peak = records[-1]["hbm_peak_bytes"]
+        check(abs(hbm_peak - peak) <= 0.01 * peak,
+              f"hbm_peak_bytes {hbm_peak} vs max_memory_allocated {peak}")
+        with open(os.path.join(tel, "trace.json")) as f:
+            spans = json.load(f)
+        check(schema.chrome_trace_errors(spans) == [], "trace.json invalid")
+        names = {e["name"] for e in spans["traceEvents"]}
+        check(set(TELEMETRY_SPANS) <= names and "shard_batch" not in names,
+              f"trace.json spans {sorted(names)}")
+        with open(os.path.join(tel, "perf.jsonl")) as f:
+            reports = [json.loads(l) for l in f]
+        check(len(reports) == 1, f"{len(reports)} perf.jsonl reports")
+        report = reports[0]
+        w0, w1 = TELEMETRY_WINDOW
+        n_steps = report["n_steps"]
+        check(n_steps == w1 - w0, f"the window holds {n_steps} steps")
+        phases = report["phases"]
+        check(phases["fwd_scan"]["layers"] == 24
+              and phases["bwd_scan"]["layers"] == 24,
+              f"layers {phases['fwd_scan'].get('layers')} / "
+              f"{phases['bwd_scan'].get('layers')}")
+        # the card's flash kernels name their direction, and the 345M
+        # recipe recomputes nothing: no forward flash in the backward
+        check(phases["bwd_scan"].get("flash_recompute_ms_per_step") == 0.0,
+              f"bwd_scan {phases['bwd_scan']}")
+        cats = report["categories_ms_per_step"]
+        total = sum(cats.values()) + report["host_gap_ms_per_step"]
+        check(abs(total - report["step_ms"]) <= 0.01 * report["step_ms"],
+              f"categories + host gap {total} vs step {report['step_ms']}")
+        stage("files")
+
+        # every kernel of the window by name, from the same trace
+        trace_path = engine.profiler.trace_path
+        full = perf.decompose(trace_path, top_kernels=10 ** 6)
+        stage("decompose")
+        with open(trace_path) as f:
+            kineto = json.load(f)["traceEvents"]
+        window_launches = {}
+        for kernel, (row, per_step) in TELEMETRY_KERNELS.items():
+            hits = [k for k in full["top_kernels"] if kernel in k["name"]]
+            n = sum(k["launches_per_step"] for k in hits)
+            window_launches[row] = n
+            if n != per_step:
+                # where the others are: the trace's own count of the name,
+                # and the steps' device spans
+                in_trace = sum(1 for e in kineto if e.get("cat") == "kernel"
+                               and kernel in e.get("name", ""))
+                spans = perf._device_timeline(
+                    {"traceEvents": kineto})["steps"]
+                raise RuntimeError(
+                    f"chip_smoke check failed: {kernel}: {n} launches a "
+                    f"step in the window, want {per_step}; {in_trace} in "
+                    f"the trace; steps {spans}")
+            check(all(k["category"] == ("flash" if "flash" in kernel
+                                        else "fused_norm") for k in hits),
+                  f"{kernel} classified {[k['category'] for k in hits]}")
+        # the report's kernel ms against the smoke's own reader
+        rows = _trace_rows(engine.profiler.profile)
+        stage("trace_rows")
+        reader = {cat: sum(us for k, us in rows if marker in k) / 1e3
+                  / n_steps for cat, marker in (("flash", "flash"),
+                                                ("fused_norm", "fused_norm"))}
+        for cat, ms in reader.items():
+            check(abs(cats[cat] - ms) <= 0.01 * ms,
+                  f"{cat}: report {cats[cat]} ms a step, _trace_rows {ms}")
+        # the batch's host-to-device copies on the prefetcher's stream
+        busy = {}
+        for e in kineto:
+            if e.get("cat") == "kernel":
+                busy[e.get("tid")] = busy.get(e.get("tid"), 0.0) + \
+                    e.get("dur", 0.0)
+        compute = max(busy, key=lambda t: busy[t])
+        h2d = [e for e in kineto if e.get("cat") == "gpu_memcpy"
+               and "HtoD" in e.get("name", "")]
+        side = [e for e in h2d if e.get("tid") != compute]
+        check(len(side) >= 4, f"{len(side)} host-to-device copies off the "
+                              f"compute stream (stream {compute})")
+        del kineto
+
+        engine.obs.flight_dump("telemetry_phase")
+        engine.obs.flush()
+        tools = _report_tools(root, os.path.join(tel, "metrics.jsonl"),
+                              trace_path, os.path.join(tel, "flight"),
+                              serving)
+        stage("report_tools")
+        turns = _step_turns(dev, engine, train_dl)
+        stage("turns")
+        gap = report["mfu_gap"]
+        out = dict(
+            steps=TELEMETRY_STEPS, window=list(TELEMETRY_WINDOW),
+            fit_s=fit_s, losses=losses, losses_equal_phase4=True,
+            launches=counts, window_launches_per_step=window_launches,
+            records=len(records), files=files,
+            tokens_per_sec=[r["tokens_per_sec"] for r in records],
+            mfu=[r["mfu"] for r in records],
+            step_time_ms=[r["step_time"] * 1e3 for r in records],
+            data_stall_frac=[r["data_stall_frac"] for r in records],
+            hbm_peak_bytes=hbm_peak, max_memory_allocated=peak,
+            hbm_model_error=records[-1]["hbm_model_error"],
+            step_ms=report["step_ms"],
+            host_gap_ms_per_step=report["host_gap_ms_per_step"],
+            categories_ms_per_step=cats,
+            categories_launches_per_step=report[
+                "categories_launches_per_step"],
+            phases={k: {kk: v[kk] for kk in ("ms_per_step", "layers",
+                                             "ms_per_layer",
+                                             "flash_passes_per_layer",
+                                             "flash_recompute_ms_per_step")
+                        if kk in v} for k, v in phases.items()},
+            reader_ms_per_step=reader, top_kernels=full["top_kernels"][:10],
+            mfu_gap={k: gap[k] for k in ("ideal_step_ms", "gap_ms", "mfu",
+                                         "accounted_ms")},
+            contributors=[[c["name"], c["ms_per_step"]]
+                          for c in gap["contributors"]],
+            h2d_side_stream_copies=len(side), h2d_copies=len(h2d),
+            roofline=roofline(torch.cuda.get_device_name(dev)),
+            calibration=calib, turns=turns, tools=tools,
+            trace_bytes=os.path.getsize(trace_path), stage_seconds=stages,
+            nvidia_smi=card)
+        emit("telemetry", **out)
+        del engine, train_dl, valid_dl
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5441,7 +5883,8 @@ def main(argv) -> int:
     card = phase_env(build)
     modes = {"--paged-shapes", "--serving", "--eval-export",
              "--fp16-resilience", "--train-paths", "--finetune-serving",
-             "--gpt-knobs", "--encoders", "--families", "--norm-shapes"}
+             "--gpt-knobs", "--encoders", "--families", "--norm-shapes",
+             "--telemetry"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
@@ -5453,10 +5896,21 @@ def main(argv) -> int:
         # 8, the tokenizer and corpus of 9-10, and 13; --gpt-knobs: phases
         # 4 and 14; --encoders: phase 15; --families: phase 16;
         # --norm-shapes: phase 1d (row 5's routes: checks, timings in
-        # turns, host µs; on an earlier tree its one route's timings)
+        # turns, host µs; on an earlier tree its one route's timings);
+        # --telemetry: phases 4 and 17 (no slo_report: phase 2 did not run)
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
+        if "--telemetry" in argv:
+            build.build(["flash_attention", "fused_norm"])
+            trainer = phase_trainer(dev, card)
+            timed("17", phase_telemetry, dev, card, trainer["losses"])
+            reset_peak(dev)             # the last phase's garbage too
+            emit("telemetry_alone", phase_walls=PHASE_WALLS,
+                 collect_freed_bytes=COLLECT_FREED,
+                 collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
+            print(smi_line(), flush=True)
+            return 0
         if "--norm-shapes" in argv:
             timed("1d", phase_norm_fwd, build, dev, card)
             print(smi_line(), flush=True)
@@ -5465,13 +5919,19 @@ def main(argv) -> int:
             # built, so a launch on these plain paths would be counted
             build.build(["flash_attention", "fused_norm"])
             timed("15", phase_encoders, dev, card)
-            emit("encoders_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
+            reset_peak(dev)
+            emit("encoders_alone", phase_walls=PHASE_WALLS,
+                 collect_freed_bytes=COLLECT_FREED,
+                 collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
             print(smi_line(), flush=True)
             return 0
         if "--families" in argv:
             build.build(["flash_attention", "fused_norm"])
             timed("16", phase_families, dev, card)
-            emit("families_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
+            reset_peak(dev)
+            emit("families_alone", phase_walls=PHASE_WALLS,
+                 collect_freed_bytes=COLLECT_FREED,
+                 collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
             print(smi_line(), flush=True)
             return 0
         if "--gpt-knobs" in argv:
@@ -5529,6 +5989,8 @@ def main(argv) -> int:
     knobs = timed("14", phase_gpt_knobs, dev, card, trainer)
     encoders = timed("15", phase_encoders, dev, card)
     families = timed("16", phase_families, dev, card)
+    telemetry = timed("17", phase_telemetry, dev, card, trainer["losses"],
+                      main_path["serving_snapshot"])
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         resume = timed("8", phase_checkpoint, dev, card, trainer["losses"],
@@ -5612,6 +6074,10 @@ def main(argv) -> int:
             families["cascade"]["launches"][name]
     by_path["fused_norm_fwd"]["moe_generation"] = \
         families["moe"]["generation"]["fused_norm_fwd_launches"]
+    # phase 17: the telemetry run (10 steps, prefetch on, the profiler
+    # window over steps 3-6)
+    for name in ENCODER_ROWS:
+        by_path[name]["telemetry_train"] = telemetry["launches"][name]
     # every path's norm forward launches by route: read_counts (and the
     # eval and fine-tune processes' own counts, checked where read) hold
     # each path's launches all on "rows", none on "row_block"
@@ -5696,9 +6162,11 @@ def main(argv) -> int:
                     "scaled_cotangents"]}
                    if name == "flash_attention_bwd_fused" else {}))}
                if name in train_kernels["float16"] else {})})
+    reset_peak(dev)                     # the last phase's garbage too
     emit("smoke", seconds=time.perf_counter() - t_start,
          fp16_resilience_seconds=fp16["seconds"], phase_walls=PHASE_WALLS,
-         nvidia_smi=card)
+         collect_freed_bytes=COLLECT_FREED,
+         collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

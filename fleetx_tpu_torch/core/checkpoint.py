@@ -35,6 +35,14 @@ points are those of the JAX module: ``ckpt_write`` before each write
 attempt, ``ckpt_written`` between the write and its read-back,
 ``ckpt_restore`` before a restore (``resilience/faults.py``).
 
+Telemetry (as the JAX module's): the payload write runs under the span
+``checkpoint_write``, the manifest and meta marker under
+``ckpt_finalize``, a restore under ``checkpoint_restore``
+(``observability/trace.span``: Chrome-trace events and
+``torch.profiler`` ranges when telemetry is on, bare ranges otherwise);
+the shared registry gets ``ckpt_save`` / ``ckpt_restore`` seconds,
+``ckpt_saves_total`` / ``ckpt_restores_total`` and ``ckpt_bytes``.
+
 Not ported, because they need more than one rank: Orbax's sharded
 codec, the gang two-phase commit, per-rank directories (ROADMAP item 12)
 and asynchronous saves (item 8); the config values that ask for them
@@ -49,12 +57,14 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import time
 from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
 from fleetx_tpu_torch.observability.metrics import get_registry
+from fleetx_tpu_torch.observability.trace import span
 from fleetx_tpu_torch.resilience import faults as faults_mod
 from fleetx_tpu_torch.resilience import integrity
 from fleetx_tpu_torch.resilience.integrity import (CheckpointIntegrityError,
@@ -164,7 +174,9 @@ def save_checkpoint(directory: str, step: int, state: dict,
         logger.info("removing half-written checkpoint: %s", path)
         shutil.rmtree(path)
     os.makedirs(path, exist_ok=True)
-    retries = get_registry().counter("ckpt_retries_total")
+    reg = get_registry()
+    retries = reg.counter("ckpt_retries_total")
+    t0 = time.perf_counter()
     arrays, dtypes, digests = {}, [], []
     for i, name in enumerate(state):
         arr, dtype = _to_host(state[name])
@@ -188,13 +200,21 @@ def save_checkpoint(directory: str, step: int, state: dict,
                 f"read-back verification of {path} failed: leaves {bad} "
                 f"differ from the digests computed at save")
 
-    call_with_retry(write_state, desc="checkpoint state write",
-                    counter=retries)
-    integrity.write_manifest(path, leaves=digests)
+    with span("checkpoint_write", step=int(step)):
+        call_with_retry(write_state, desc="checkpoint state write",
+                        counter=retries)
     full_meta = dict(meta or {}, step=int(step))
-    call_with_retry(lambda: integrity.atomic_write(
-        os.path.join(path, META_NAME), lambda f: json.dump(full_meta, f)),
-        desc="checkpoint meta write", counter=retries)
+    with span("ckpt_finalize"):
+        integrity.write_manifest(path, leaves=digests)
+        call_with_retry(lambda: integrity.atomic_write(
+            os.path.join(path, META_NAME),
+            lambda f: json.dump(full_meta, f)),
+            desc="checkpoint meta write", counter=retries)
+    nbytes = sum(int(a.nbytes) for a in arrays.values())
+    reg.histogram("ckpt_save").record(time.perf_counter() - t0)
+    reg.counter("ckpt_saves_total").inc()
+    reg.gauge("ckpt_bytes").set(nbytes)
+    reg.counter("ckpt_bytes_total").inc(nbytes)
     logger.info("saved checkpoint: %s", path)
     return path
 
@@ -325,8 +345,15 @@ def load_checkpoint(directory: str, step: int) -> tuple:
     verified before decoding and every leaf after, or
     ``CheckpointIntegrityError``."""
     path = os.path.abspath(step_dir(directory, step))
-    manifest = _verify_payload_or_raise(path, step)
-    state = _read_state(path, manifest)
+    reg = get_registry()
+    t0 = time.perf_counter()
+    with span("checkpoint_restore", step=int(step)):
+        manifest = _verify_payload_or_raise(path, step)
+        state = _read_state(path, manifest)
+    reg.histogram("ckpt_restore").record(time.perf_counter() - t0)
+    reg.counter("ckpt_restores_total").inc()
+    reg.gauge("ckpt_bytes").set(sum(int(t.numel() * t.element_size())
+                                    for t in state.values()))
     meta = _read_meta(path)
     if meta is None:
         raise RuntimeError(f"checkpoint meta unreadable for {path} — "

@@ -77,12 +77,33 @@ With a re-iterable loader, ``fit`` runs until ``max_steps`` optimizer
 steps are done, skipped batches not counted.
 
 Input batches move to the card through pinned memory with non-blocking
-copies (``to_device``; what that means for ``Engine.prefetch_to_device``
-is said there). What this slice does not cover raises
-``NotImplementedError`` naming its ROADMAP item: per-rank checkpoint
-directories (item 12) and asynchronous saves (item 8), the SDC sentinel
-(item 8) and the gang watchdog (item 12), ``Profiler.enable`` and
-``Observability.enable`` (item 8), and any ``Distributed`` degree above 1.
+copies (``to_device``). With ``Engine.prefetch_to_device`` > 0 (every GPT
+recipe sets 2) ``data/prefetch.DevicePrefetcher`` makes those copies that
+many batches ahead on its own stream, so the copy of batch N+1 overlaps
+step N; the batches and the losses are the same bit for bit.
+
+Telemetry (JAX ``eager_engine.py:297-311``, ``_emit_train_record``
+:1560, ``_on_profiler_stop`` :1520; no-op unless ``Observability.enable``
+/ ``Profiler.enable``): the spans ``data_fetch``, ``shard_batch`` (no
+prefetcher) or ``shard_batch_async`` (its producer), ``train_step``,
+``optimizer_update``, ``eval`` and ``checkpoint_save``; one record a
+logging window to the sinks (``metrics.jsonl`` ...) with tokens/s, MFU,
+the stall fraction and the device-memory sample (``MemoryMonitor``: after
+the first step, every window, the profiler window's close, eval and
+save); the flight ring dumped on a crash, a stall and a preemption. The
+profiler window (``observability/trace.ProfilerWindow``) opens at
+``Profiler.scheduler[0]`` and closes at ``[1]``; inside it every step is
+marked ``ProfilerStep#<step>`` and its forward and backward ``fwd_scan``
+and ``bwd_scan`` (``record_function``), and the closed window's trace is
+decomposed (``observability/perf.py``) into ``perf.jsonl``. A span
+measures the host's launches, not the card's time: the record's
+``step_time`` is the logging window's wall, which ends in the loss sync.
+
+What this slice does not cover raises ``NotImplementedError`` naming its
+ROADMAP item: per-rank checkpoint directories (item 12) and asynchronous
+saves (item 8), the SDC sentinel (item 8) and the gang watchdog (item
+12), ``Observability.gang`` (item 12), and any ``Distributed`` degree
+above 1.
 
 The engine is family-neutral: the batch size is the leading dim of the
 batch's first leaf in key order (``leading_dim``), a loaded tree is
@@ -97,7 +118,11 @@ and a run already at ``epoch_num`` returns at once.
 from __future__ import annotations
 
 import contextlib
+import importlib
+import sys
+import threading
 import time
+import weakref
 from typing import Iterable, Optional
 
 import numpy as np
@@ -105,7 +130,10 @@ import torch
 
 from fleetx_tpu_torch.core import checkpoint as ckpt_lib
 from fleetx_tpu_torch.core.engine.basic_engine import BasicEngine
-from fleetx_tpu_torch.observability import flight
+from fleetx_tpu_torch.data.prefetch import DevicePrefetcher
+from fleetx_tpu_torch.observability import MemoryMonitor, Observability, flight
+from fleetx_tpu_torch.observability import memory as memory_mod
+from fleetx_tpu_torch.observability.trace import ProfilerWindow
 from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
 from fleetx_tpu_torch.resilience import Resilience, TrainingAborted
 from fleetx_tpu_torch.resilience import coordination
@@ -124,9 +152,9 @@ def _int(section: dict, key: str, default: int) -> int:
 
 
 def check_engine_config(cfg: dict) -> None:
-    """Raise on an Engine/Distributed/Profiler value the training slice
-    does not cover (the ``Resilience`` block's raise in
-    ``resilience.Resilience``)."""
+    """Raise on an Engine/Distributed value the training slice does not
+    cover (the ``Resilience`` block's raise in ``resilience.Resilience``,
+    ``Observability.gang``'s in ``observability.Observability``)."""
     eng = dict(cfg.get("Engine") or {})
     save_load = dict(eng.get("save_load") or {})
     if save_load.get("per_rank_dirs"):
@@ -137,15 +165,28 @@ def check_engine_config(cfg: dict) -> None:
         raise NotImplementedError(
             "Engine.save_load.async_save is not ported yet (ROADMAP.md, "
             "port queue item 8)")
-    if (cfg.get("Observability") or {}).get("enable"):
-        raise NotImplementedError(
-            "the Observability block (sinks, trace, flight, perf) is not "
-            "ported yet (ROADMAP.md, port queue item 8)")
-    if (cfg.get("Profiler") or {}).get("enable"):
-        raise NotImplementedError(
-            "the Profiler window is not ported yet (ROADMAP.md, port queue "
-            "item 8)")
     check_single_device(dict(cfg.get("Distributed") or {}))
+
+
+def import_torch_dynamo() -> None:
+    """Import ``torch._dynamo``, on a thread of its own, if nothing has.
+
+    Torch imports it lazily on the first call of a function it keeps from
+    dynamo (``torch._compile._disable_dynamo``: a custom op's dispatch,
+    ``torch.utils.checkpoint``). That import leaves a reference cycle
+    (``torch.fx.wrap`` keeps its own frame in a local) whose ``f_back``
+    chain reaches the caller's frames: run inside a training step, it kept
+    the engine, its parameters and its optimizer state alive after its
+    last name went, until the cyclic collector ran. A thread's frames end
+    at its own bootstrap, so there the cycle keeps nothing of the
+    caller's.
+    """
+    if "torch._dynamo" in sys.modules:
+        return
+    t = threading.Thread(target=importlib.import_module,
+                         args=("torch._dynamo",), name="import-torch-dynamo")
+    t.start()
+    t.join()
 
 
 #: ``EagerEngine`` modes
@@ -161,6 +202,7 @@ class EagerEngine(BasicEngine):
         if mode not in MODES:
             raise ValueError(f"engine mode {mode!r} is not one of {MODES}")
         self.mode = mode
+        import_torch_dynamo()
         self.cfg = cfg or {}
         self.module = module
         self.device = resolve_device(device)
@@ -182,6 +224,24 @@ class EagerEngine(BasicEngine):
         # keep_every-th); 0 keeps everything
         self.keep_last = _int(save_load, "keep_last", 0)
         self.keep_every = _int(save_load, "keep_every", 0)
+        # depth of the device prefetch queue; 0: fetch, copy and step in
+        # series
+        self.prefetch_to_device = _int(eng, "prefetch_to_device", 0)
+        # the profiler window, re-armed by every fit; its closed window is
+        # decomposed into the perf stream
+        self.profiler = ProfilerWindow(self.cfg.get("Profiler"))
+        # telemetry: registry, spans, sinks; no-op unless enabled
+        self.obs = Observability(self.cfg.get("Observability"),
+                                 default_output_dir=self.output_dir)
+        self._engine_kind = type(self).__name__
+        # through a weak reference: the window is the engine's own, and a
+        # bound method there would tie the engine (its parameters and
+        # optimizer state on the card) into a reference cycle
+        engine = weakref.ref(self)
+        self.profiler.on_stop = lambda d: engine()._on_profiler_stop(d)
+        self.mem: Optional[MemoryMonitor] = None  # built in prepare
+        self._perf_flops_per_step: Optional[float] = None
+        self._perf_report: Optional[dict] = None
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.params: Optional[dict] = None
@@ -228,6 +288,18 @@ class EagerEngine(BasicEngine):
             p.requires_grad_(True)
         if self.optimizer is not None and self.opt_state is None:
             self.opt_state = self.optimizer.init(self.params)
+        if self.obs.enabled and self.obs.derived is None:
+            fpt = self.module.flops_per_token() \
+                if hasattr(self.module, "flops_per_token") else None
+            self.obs.init_derived(fpt, 1, device=self.device)
+        if self.obs.enabled and self.mem is None:
+            # device-memory attribution: the measured peak scored against
+            # the planner's prediction for this config
+            device = self.device
+            self.mem = MemoryMonitor(
+                registry=self.obs.registry,
+                predicted_bytes=self._predicted_hbm_bytes(),
+                stats_fn=lambda: memory_mod.sample_memory_stats(device))
         if self.ckpt_dir and self._restored is None:
             self._restored = False
             self.load(self.ckpt_dir)
@@ -255,14 +327,9 @@ class EagerEngine(BasicEngine):
 
     def to_device(self, batch: dict) -> dict:
         """Host numpy batch → tensors on the engine's device (pinned,
-        non-blocking copies to a card).
-
-        This is what the port does with ``Engine.prefetch_to_device``: the
-        copy is pinned and non-blocking on the compute stream, in the step
-        that uses it. The batches and the losses are those of the JAX
-        engine's double-buffered prefetch; the overlap of the copy with
-        the previous step and the ``data_stall`` span are not.
-        ``DevicePrefetcher`` comes with ROADMAP.md, port queue item 8."""
+        non-blocking copies to a card, on the current stream: the compute
+        stream in the step, the prefetcher's copy stream on its
+        producer thread)."""
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
@@ -273,11 +340,15 @@ class EagerEngine(BasicEngine):
 
     # ------------------------------------------------------------- step
     def _grads(self, batch: dict, loss_scale: Optional[float] = None):
-        loss, metrics = self.module.training_loss(self.params, batch,
-                                                  self.seed, self.step)
-        if loss_scale is not None:
-            loss = loss * loss_scale
-        grads = torch.autograd.grad(loss, self._leaves)
+        # the forward and the backward marked for the profiler window's
+        # trace decomposition (the JAX scan regions' labels)
+        with self.profiler.annotate("fwd_scan"):
+            loss, metrics = self.module.training_loss(self.params, batch,
+                                                      self.seed, self.step)
+            if loss_scale is not None:
+                loss = loss * loss_scale
+        with self.profiler.annotate("bwd_scan"):
+            grads = torch.autograd.grad(loss, self._leaves)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(self, batch: dict) -> dict:
@@ -321,8 +392,10 @@ class EagerEngine(BasicEngine):
         inv = 1.0 if scale is None else \
             float(np.float32(1.0) / self.scaler["loss_scale"])
         if not self.check_finite:
-            metrics["grad_norm"] = self.optimizer.update(
-                self._leaves, list(grads), self.opt_state, grad_scale=inv)
+            with self.obs.timed_span("optimizer_update"):
+                metrics["grad_norm"] = self.optimizer.update(
+                    self._leaves, list(grads), self.opt_state,
+                    grad_scale=inv)
             self.step += 1
             return metrics
         g_norm = self.optimizer.grad_norm(grads, inv)
@@ -331,8 +404,10 @@ class EagerEngine(BasicEngine):
         finite = bool(torch.isfinite(g_norm) & torch.isfinite(
             metrics["loss"]))
         if finite:
-            self.optimizer.update(self._leaves, list(grads), self.opt_state,
-                                  g_norm=g_norm, grad_scale=inv)
+            with self.obs.timed_span("optimizer_update"):
+                self.optimizer.update(self._leaves, list(grads),
+                                      self.opt_state, g_norm=g_norm,
+                                      grad_scale=inv)
             self.step += 1
         metrics["grad_norm"] = g_norm
         metrics["finite"] = finite
@@ -383,7 +458,8 @@ class EagerEngine(BasicEngine):
         # the sample position at entry: a rollback without a
         # consumed_samples sampler skips forward from here
         base_consumed = self.consumed_samples
-        stream: dict = {"batches": None, "loader_iter": None}
+        stream: dict = {"batches": None, "loader_iter": None,
+                        "prefetcher": None}
         # the epoch a cleanly exhausted stream ended at (the "epoch" meta
         # of the run's last save)
         final_epoch = [self.epoch]
@@ -410,17 +486,55 @@ class EagerEngine(BasicEngine):
                                and epoch >= epoch_num):
                     return
 
-        def close_stream() -> None:
-            """Close the batch generator, then the loader iterator (which
+        def wrap_stream(batches) -> None:
+            """Make ``batches`` the active source, behind the device
+            prefetcher when ``prefetch_to_device`` > 0 (a producer thread
+            copies batch N+1 while step N runs; the consumer's wait is then
+            pure input starvation)."""
+            stream["batches"] = batches
+            if self.prefetch_to_device > 0:
+                stream["prefetcher"] = DevicePrefetcher(
+                    batches, lambda eb: (eb[0], self.to_device(eb[1])),
+                    depth=self.prefetch_to_device, obs=self.obs,
+                    device=self.device)
+
+        def close_stream() -> bool:
+            """Tear the input pipeline down in dependency order: the
+            prefetcher (joins its producer, leaving the batch generator
+            suspended), the batch generator, then the loader iterator (which
             joins a prefetching loader's producer thread, so nothing moves
-            the sampler afterwards)."""
+            the sampler afterwards). False when the prefetcher's producer
+            did not exit in time: the generators are then left to GC, and
+            the no-live-producer guarantee does not hold."""
+            ok = True
+            pf, stream["prefetcher"] = stream["prefetcher"], None
+            if pf is not None:
+                ok = pf.close()
+                if not ok:
+                    logger.error("prefetch producer did not exit within "
+                                 "its join timeout — leaving the input "
+                                 "pipeline to GC")
             for key in ("batches", "loader_iter"):
                 gen, stream[key] = stream[key], None
-                if gen is not None and hasattr(gen, "close"):
+                if ok and gen is not None and hasattr(gen, "close"):
                     gen.close()
+            return ok
 
-        watchdog = res.make_watchdog(
-            on_stall=lambda: flight.dump("watchdog_stall"))
+        def fetch_item():
+            """One ``(epoch, batch)`` from the prefetcher when armed, else
+            the batch generator, under the ``data_fetch`` span; None when
+            the stream ran dry."""
+            src = stream["prefetcher"] if stream["prefetcher"] is not None \
+                else stream["batches"]
+            with self.obs.timed_span("data_fetch"):
+                return next(src, None)
+
+        def on_stall() -> None:
+            """Watchdog stall: durable-ize telemetry and the flight ring."""
+            self.obs.flush()
+            flight.dump("watchdog_stall")
+
+        watchdog = res.make_watchdog(on_stall=on_stall)
 
         def quiet():
             """Suspend the stall detector around a known-long host phase
@@ -434,25 +548,54 @@ class EagerEngine(BasicEngine):
         global_batch = 0
         with contextlib.ExitStack() as cleanup:
             cleanup.callback(close_stream)
+            # a fit that raises leaves no profiler window open
+            cleanup.callback(self.profiler.cancel)
+
+            def flight_on_crash(exc_type, exc, tb):
+                """Dump the flight ring on any abnormal exit (the graceful
+                preemption exit dumps for itself)."""
+                if exc_type is not None and \
+                        not issubclass(exc_type, SystemExit):
+                    flight.note("crash", exc_type.__name__,
+                                error=str(exc)[:300])
+                    flight.dump(f"crash:{exc_type.__name__}")
+                return False  # never suppress the exception
+
+            cleanup.push(flight_on_crash)
             if res.preemption is not None:
                 # previous SIGTERM/SIGINT handlers come back on every exit
                 cleanup.enter_context(res.preemption.installed())
             if watchdog is not None:
                 watchdog.start()
                 cleanup.callback(watchdog.stop)
-            stream["batches"] = host_batches(start_step)
+            self.profiler.arm()  # each fit gets its own trace window
+            wrap_stream(host_batches(start_step))
+            first_step = True
             while self.step < self.max_steps:
                 res.faults.maybe_sigterm(self.step, start_step=start_step)
                 if res.preempted:
                     self._preemption_exit(quiet)
-                item = next(stream["batches"], None)
+                item = fetch_item()
                 if item is None:
                     self.epoch = final_epoch[0]
                     break  # fleetx: noqa[FX008] -- one process (world-1 coordinator); the gang's voted exit comes with item 12
                 self.epoch, batch = item
-                batch = self.to_device(batch)
-                metrics = self.train_step(batch)
+                self.profiler.maybe_start(self.step)
+                with self.profiler.step_span(self.step):
+                    if stream["prefetcher"] is None:
+                        with self.obs.timed_span("shard_batch"):
+                            batch = self.to_device(batch)
+                    # the span covers the host's launches, not the card's
+                    # time (the step runs asynchronously)
+                    with self.obs.span("train_step", step=self.step):
+                        metrics = self.train_step(batch)
                 global_batch = leading_dim(batch)
+                if first_step:
+                    first_step = False
+                    self._perf_flops_per_step = self._flops_per_step(
+                        global_batch)
+                    if self.mem is not None:
+                        self.mem.sample("first_step")
                 self.consumed_samples += global_batch
                 window += 1
                 if watchdog is not None:
@@ -475,6 +618,7 @@ class EagerEngine(BasicEngine):
                         record["loss_scale"] = metrics["loss_scale"]
                     self.module.training_step_end(record)
                     self.history.append(record)
+                    self._emit_train_record(record)
                     if res.guard is not None:
                         decision = coordination.most_severe(
                             self.coord.all_gather(
@@ -485,11 +629,15 @@ class EagerEngine(BasicEngine):
                             flight.note("guard", str(decision),
                                         step=self.step, loss=loss)
                         if decision == "rollback":
-                            close_stream()
+                            if not close_stream():
+                                raise TrainingAborted(
+                                    "rollback aborted: the input pipeline "
+                                    "did not shut down cleanly, the data "
+                                    "position cannot be safely rewound")
                             with quiet():
-                                stream["batches"] = self._rollback(
+                                wrap_stream(self._rollback(
                                     train_data_loader, host_batches,
-                                    base_consumed, global_batch)
+                                    base_consumed, global_batch))
                             if self.logging_freq == 1:
                                 # the curve follows the rewound counter
                                 del losses[max(self.step - start_step, 0):]
@@ -503,6 +651,9 @@ class EagerEngine(BasicEngine):
                             raise TrainingAborted(
                                 f"training guard abort at step {self.step} "
                                 f"(loss={loss})")
+                # the window closes after draining the card, so its trace
+                # holds every kernel of its steps
+                self.profiler.maybe_stop(self.step)
                 if self.eval_freq and valid_data_loader is not None and \
                         self.step % self.eval_freq == 0 and \
                         self.step != last_eval:
@@ -515,6 +666,8 @@ class EagerEngine(BasicEngine):
                     last_save = self.step
                     with quiet():
                         self.save()
+            self.profiler.stop()
+            self.obs.flush()
         return losses
 
     def _preemption_exit(self, quiet) -> None:
@@ -533,6 +686,7 @@ class EagerEngine(BasicEngine):
         res.registry.counter("preemption_exits").inc()
         flight.note("preemption", "exit", step=self.step)
         flight.dump("preemption")
+        self.obs.flush()
         raise SystemExit(res.preemption_exit_code)
 
     def _rollback(self, loader, host_batches, base_consumed: int,
@@ -591,6 +745,108 @@ class EagerEngine(BasicEngine):
         logger.info("auto-resume: restoring step %s from %s",
                     meta.get("step"), target)
 
+    # -------------------------------------------------------- telemetry
+    def _flops_per_step(self, batch_rows: int) -> Optional[float]:
+        """Model FLOPs of one step for the trace decomposition's roofline;
+        None for a module without a FLOPs count (the report then ranks the
+        raw category costs)."""
+        fpt = self.module.flops_per_token() \
+            if hasattr(self.module, "flops_per_token") else None
+        tps = getattr(self.module, "tokens_per_sample", None)
+        if not fpt or not tps:
+            return None
+        return float(fpt) * int(tps) * int(batch_rows)
+
+    def _predicted_hbm_bytes(self) -> Optional[float]:
+        """The planner's per-device memory prediction for this config
+        (``parallel/auto_layout.predicted_step_bytes``), or None for a
+        module its GPT-family model cannot describe."""
+        if not self.cfg.get("Model") or \
+                not hasattr(self.module, "flops_per_token"):
+            return None
+        try:
+            from fleetx_tpu_torch.parallel.auto_layout import (
+                advice_inputs, predicted_step_bytes)
+
+            mdl, mb, gran = advice_inputs(self.cfg, data_world=1)
+            return predicted_step_bytes(
+                mdl, dict(self.cfg.get("Distributed") or {}), mb, gran)
+        except Exception as e:  # noqa: BLE001 — advisory, never fatal
+            logger.warning("hbm prediction unavailable: %s: %s",
+                           type(e).__name__, e)
+            return None
+
+    def _on_profiler_stop(self, trace_dir: str) -> None:
+        """Decompose the just-closed profiler window into the MFU-gap
+        report and land it in ``perf.jsonl``, the gauges and the flight
+        ring. Best-effort: a failed analysis logs and training goes on."""
+        obs = self.obs
+        if not obs.perf_enabled:
+            return
+        try:
+            from fleetx_tpu_torch.observability import perf
+            from fleetx_tpu_torch.utils.hardware import roofline
+
+            name = torch.cuda.get_device_name(self.device) \
+                if self.device.type == "cuda" else ""
+            report = perf.analyze(
+                trace_dir, flops_per_step=self._perf_flops_per_step,
+                roofline=roofline(name), top_k=obs.perf_top_k)
+            if self.mem is not None:
+                self.mem.sample("profile_stop")
+                report["hbm"] = self.mem.snapshot()
+            self._perf_report = report
+            obs.emit_perf(report)
+            gap = report.get("mfu_gap") or {}
+            top = ", ".join(
+                f"{c['name']} {c['ms_per_step']:.1f}ms"
+                for c in (gap.get("contributors") or [])[:3])
+            logger.info("trace decomposition: step %.1f ms, mfu %s — top "
+                        "gap: %s", report["step_ms"], gap.get("mfu"), top)
+        except Exception as e:  # noqa: BLE001 — telemetry never kills a run
+            logger.warning("trace decomposition failed for %s: %s: %s",
+                           trace_dir, type(e).__name__, e)
+
+    def _emit_train_record(self, log_dict: dict) -> None:
+        """One machine-readable record per logging window → the sinks,
+        with the schema's required keys (``tokens_per_sec`` / ``mfu`` null,
+        not absent, when underivable)."""
+        obs = self.obs
+        if not obs.enabled:
+            return
+        derived = {}
+        if obs.derived is not None:
+            derived = obs.derived.update(
+                log_dict["train_cost"], log_dict["global_batch_size"],
+                tokens_per_sample=getattr(self.module, "tokens_per_sample",
+                                          None),
+                steps_in_window=self.logging_freq,
+                stall_seconds_total=obs.stall_seconds_total())
+        record = {
+            "ts": time.time(),
+            "step": int(log_dict["global_step"]),
+            "epoch": int(log_dict.get("epoch", 0)),
+            "loss": float(log_dict["loss"]),
+            "step_time": float(log_dict["train_cost"]),
+            "tokens_per_sec": None,
+            "mfu": None,
+            "lr": float(log_dict.get("lr", 0.0)),
+            "global_batch_size": int(log_dict["global_batch_size"]),
+            "engine": self._engine_kind,
+        }
+        record.update(derived)
+        if self.mem is not None:
+            # one sample a window: peak / live gauges and the model error
+            self.mem.sample("steady_state")
+            record.update(self.mem.record_keys())
+        if log_dict.get("grad_norm") is not None:
+            record["grad_norm"] = float(log_dict["grad_norm"])
+        if "loss_scale" in log_dict:
+            record["loss_scale"] = float(log_dict["loss_scale"])
+        obs.registry.gauge("loss").set(record["loss"])
+        obs.registry.histogram("step_time").record(record["step_time"])
+        obs.emit(record)
+
     @torch.no_grad()
     def evaluate(self, valid_data_loader: Iterable,
                  global_step: int = 0) -> float:
@@ -598,13 +854,16 @@ class EagerEngine(BasicEngine):
         self.prepare()
         total, count = 0.0, 0
         t0 = time.time()
-        for i, batch in enumerate(valid_data_loader):
-            if i >= self.eval_iters:
-                break
-            batch = self.to_device(self.module.pretreating_batch(batch))
-            loss, _ = self.module.validation_loss(self.params, batch)
-            total += float(loss)
-            count += 1
+        with self.obs.timed_span("eval", global_step=int(global_step)):
+            for i, batch in enumerate(valid_data_loader):
+                if i >= self.eval_iters:
+                    break
+                batch = self.to_device(self.module.pretreating_batch(batch))
+                loss, _ = self.module.validation_loss(self.params, batch)
+                total += float(loss)
+                count += 1
+        if self.mem is not None:
+            self.mem.sample("eval")
         if count:
             self.module.validation_step_end({
                 "global_step": global_step, "batch": count,
@@ -665,10 +924,14 @@ class EagerEngine(BasicEngine):
         meta ``consumed_samples`` / ``epoch`` / ``seed``, then apply the
         retention (the step just saved, the newest, always survives)."""
         self.prepare()
-        path = ckpt_lib.save_checkpoint(
-            self.output_dir, self.step, self.state_dict(),
-            meta={"consumed_samples": self.consumed_samples,
-                  "epoch": self.epoch, "seed": self.seed})
+        # span only: the seconds and bytes are core/checkpoint.py's
+        with self.obs.span("checkpoint_save", step=self.step):
+            path = ckpt_lib.save_checkpoint(
+                self.output_dir, self.step, self.state_dict(),
+                meta={"consumed_samples": self.consumed_samples,
+                      "epoch": self.epoch, "seed": self.seed})
+        if self.mem is not None:
+            self.mem.sample("checkpoint_save")
         self.last_saved_step = self.step
         if self.keep_last:
             ckpt_lib.gc_checkpoints(self.output_dir, self.keep_last,

@@ -21,10 +21,11 @@ Each call records its latency in the process registry
 (``observability/metrics.py``): the first call in
 ``request_compile_latency``, later ones in ``request_latency``
 (``latency_summary``); ``requests_total`` counts every call and
-``requests_failed_total`` the ones that raised. The JAX engine's
-``span("inference_predict")`` waits for the trace module (ROADMAP.md,
-port queue item 8). Serving over several devices (a dp or mp degree above
-1) raises: ``serving_mesh`` names items 4 and 12.
+``requests_failed_total`` the ones that raised; each call runs under the
+span ``inference_predict`` (``observability/trace.py``), as in JAX,
+while a tracer, the flight recorder or a profiler window reads it.
+Serving over several devices (a dp or mp degree above 1) raises:
+``serving_mesh`` names items 4 and 12.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from fleetx_tpu_torch.observability.metrics import get_registry
+from fleetx_tpu_torch.observability.trace import span_if_traced
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.export import load_exported, read_meta
 from fleetx_tpu_torch.utils.log import logger
@@ -107,7 +109,8 @@ class InferenceEngine:
         """numpy in → numpy out (see the module docstring)."""
         t0 = time.perf_counter()
         try:
-            out = self._predict(inputs)
+            with span_if_traced("inference_predict"):
+                out = self._predict(inputs)
         except BaseException:
             # a failed call counts toward the total, not toward latency
             self.metrics.counter("requests_total").inc()

@@ -1,6 +1,7 @@
 """Host-side data loader: sampler → collated numpy batches, assembled on
 a prefetch thread (a copy of ``fleetx_tpu/data/dataloader.py``). The
-engine moves each batch to the card itself, through pinned memory."""
+engine moves each batch to the card itself, through pinned memory, or
+``data/prefetch.DevicePrefetcher`` does it ahead on a side stream."""
 
 from __future__ import annotations
 
@@ -41,6 +42,14 @@ class StopAwareQueue:
     def stop(self) -> None:
         """Consumer signals abandonment; pending puts unblock promptly."""
         self._stop.set()
+
+    def drain(self) -> None:
+        """Discard queued items (lets a producer blocked in put() exit)."""
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue_mod.Empty:
+            pass
 
 
 def default_collate(samples: list) -> dict:

@@ -19,8 +19,8 @@ from typing import Any, Optional
 
 from fleetx_tpu_torch.utils.log import logger
 
-__all__ = ["EventRing", "FlightRecorder", "install", "note", "dump",
-           "ENV_DIR", "DEFAULT_CAPACITY"]
+__all__ = ["EventRing", "FlightRecorder", "install", "get_recorder",
+           "note", "dump", "ENV_DIR", "DEFAULT_CAPACITY"]
 
 #: per-rank dump directory override (a supervisor sets it per generation)
 ENV_DIR = "FLEETX_FLIGHT_DIR"
@@ -132,6 +132,11 @@ def install(recorder: Optional[FlightRecorder]) -> Optional[FlightRecorder]:
     prev = _recorder
     _recorder = recorder
     return prev
+
+
+def get_recorder() -> Optional[FlightRecorder]:
+    """The active recorder, if any."""
+    return _recorder
 
 
 def note(kind: str, name: str, **data: Any) -> None:

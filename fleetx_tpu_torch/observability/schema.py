@@ -1,0 +1,269 @@
+"""Schema validation for metrics JSONL records and Chrome traces (copy of
+``fleetx_tpu/observability/schema.py``; stdlib only).
+
+One shared definition of "a valid step record", used by the tests and by
+``tools/metrics_report.py`` (which exits non-zero on any violation):
+required keys with type sets, optional keys type-checked when present,
+unknown keys allowed. The serving and fleet record schemas and the metric
+name lists are the JAX package's, so records stay JSON-compatible with
+its tools.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Iterable, Optional
+
+_NUM = (int, float)
+_NULLABLE_NUM = (int, float, type(None))
+
+#: version carried by records with cross-rank context (gang mode): plain
+#: single-process records carry no version key and count as version 1 —
+#: ``tools/metrics_report.py`` refuses to mix versions in one report
+SCHEMA_VERSION = 2
+
+# key → (allowed types, required?)
+STEP_RECORD_SCHEMA: dict[str, tuple[tuple, bool]] = {
+    "step": ((int,), True),
+    "ts": (_NUM, True),
+    "loss": (_NUM, True),
+    "step_time": (_NUM, True),
+    "tokens_per_sec": (_NULLABLE_NUM, True),
+    "mfu": (_NULLABLE_NUM, True),  # null on chips without a peak table entry
+    "step_time_ewma": (_NUM, False),
+    "samples_per_sec": (_NULLABLE_NUM, False),
+    "data_stall_frac": (_NUM, False),
+    "epoch": ((int,), False),
+    "lr": (_NUM, False),
+    "global_batch_size": ((int,), False),
+    # gang-mode context (docs/observability.md "Multi-host"): per-rank
+    # records carry rank/world/schema_version; rank-0's merged records add
+    # the scope marker, the step-time spread with rank attribution and the
+    # rolling straggler skew
+    "schema_version": ((int,), False),
+    "rank": ((int,), False),
+    "world": ((int,), False),
+    "scope": ((str,), False),
+    "ranks_reported": ((int,), False),
+    "step_time_min": (_NUM, False),
+    "step_time_median": (_NUM, False),
+    "step_time_max": (_NUM, False),
+    "step_time_min_rank": ((int,), False),
+    "step_time_max_rank": ((int,), False),
+    "rank_skew": (_NUM, False),
+    "rank_skew_max": (_NUM, False),
+    "rank_skew_max_rank": ((int,), False),
+    "barrier_wait_ms_mean": (_NUM, False),
+    "barrier_wait_ms_max": (_NUM, False),
+    "barrier_wait_ms_max_rank": ((int,), False),
+    # HBM attribution (docs/performance.md): measured peak next to the
+    # auto_layout prediction's relative error; ``hbm_stats`` is the
+    # explicit availability marker — backends without ``memory_stats()``
+    # say "unavailable" instead of faking a zero peak
+    "hbm_stats": ((str,), False),
+    "hbm_peak_bytes": (_NULLABLE_NUM, False),
+    "hbm_model_error": (_NULLABLE_NUM, False),
+}
+
+
+_NULLABLE_INT = (int, type(None))
+
+# serving-runtime records (docs/serving.md "SLO metrics"): one snapshot
+# per replica flush — ``ServingEngine.serving_snapshot()`` emits exactly
+# this shape, ``tools/serve.py --metrics-out`` appends it as JSONL, and
+# the router's ``stats`` verb returns it verbatim. TTFT / inter-token
+# quantiles are null until the first request completes, and the scheduler
+# gauges are null (with ``scheduler_gauges: "unavailable"``) until the
+# first step runs — same null-not-zero stance as ``mfu``/``hbm_stats``.
+SERVING_RECORD_SCHEMA: dict[str, tuple[tuple, bool]] = {
+    "ts": (_NUM, True),
+    "scope": ((str,), True),
+    "schema_version": ((int,), False),
+    "requests_admitted": ((int,), True),
+    "requests_completed": ((int,), True),
+    "requests_refused": ((int,), True),
+    # lazy-lifecycle counters: pool-pressure swap-outs and which
+    # decode attention program this engine compiled ("paged_kernel" when
+    # the Pallas kernel's support predicates admitted the config/mesh,
+    # "gather" for the dense fallback)
+    "requests_preempted": ((int,), False),
+    # deadline plane (docs/serving.md "Fault tolerance"): in-flight
+    # requests shed at a decode tick because their deadline expired
+    "deadline_sheds": ((int,), False),
+    "decode_path": ((str,), False),
+    "queue_depth": (_NULLABLE_INT, True),
+    "active_requests": (_NULLABLE_INT, True),
+    "page_occupancy": (_NULLABLE_NUM, True),
+    "kv_fragmentation": (_NULLABLE_NUM, False),
+    # explicit availability marker for the four scheduler gauges above:
+    # "ok" once the engine has stepped, "unavailable" before (a genuine
+    # 0.0 occupancy and "never measured" must not collapse to one value)
+    "scheduler_gauges": ((str,), False),
+    "tokens_total": ((int,), True),
+    "tokens_per_sec": (_NULLABLE_NUM, True),
+    "ttft_p50_s": (_NULLABLE_NUM, True),
+    "ttft_p99_s": (_NULLABLE_NUM, True),
+    "itl_p50_s": (_NULLABLE_NUM, True),
+    "itl_p99_s": (_NULLABLE_NUM, True),
+    # full windowed histogram summaries (count/mean/min/max/p50/p95/p99)
+    # — the router pools these count-weighted into the fleet record
+    "ttft": ((dict,), False),
+    "itl": ((dict,), False),
+    # fleet-economics context: chips this replica occupies and
+    # completions per chip; slo_attainment is null until a window fills
+    "chips": ((int,), False),
+    "requests_per_chip": (_NULLABLE_NUM, False),
+    "slo_attainment": (_NULLABLE_NUM, False),
+    "replica": ((str,), False),
+}
+
+# fleet records (docs/serving.md "Observability"): the router's periodic
+# merge of every reporting replica's serving snapshot — counters summed,
+# TTFT/ITL pooled count-weighted with the worst replica attributed,
+# requests-per-chip over the fleet's total chips. ``replicas_reported``
+# records actual coverage (a draining/crashed replica just doesn't
+# report), mirroring ``ranks_reported`` in the gang records.
+FLEET_RECORD_SCHEMA: dict[str, tuple[tuple, bool]] = {
+    "ts": (_NUM, True),
+    "scope": ((str,), True),            # always "fleet"
+    "schema_version": ((int,), False),
+    "replicas_total": ((int,), True),
+    "replicas_reported": ((int,), True),
+    "requests_admitted": ((int,), True),
+    "requests_completed": ((int,), True),
+    "requests_refused": ((int,), True),
+    "tokens_total": ((int,), True),
+    "tokens_per_sec": (_NULLABLE_NUM, True),
+    "chips_total": ((int,), True),
+    "requests_per_chip": (_NULLABLE_NUM, True),
+    "queue_depth": (_NULLABLE_INT, False),
+    "active_requests": (_NULLABLE_INT, False),
+    "page_occupancy_mean": (_NULLABLE_NUM, False),
+    "page_occupancy_max": (_NULLABLE_NUM, False),
+    "page_occupancy_max_replica": ((str,), False),
+    "ttft_mean_s": (_NULLABLE_NUM, False),
+    "ttft_p99_s": (_NULLABLE_NUM, False),
+    "ttft_p99_replica": ((str,), False),
+    "itl_mean_s": (_NULLABLE_NUM, False),
+    "itl_p99_s": (_NULLABLE_NUM, False),
+    "itl_p99_replica": ((str,), False),
+    "slo_attainment": (_NULLABLE_NUM, False),
+    # fleet-summed deadline sheds (docs/serving.md "Fault tolerance")
+    "deadline_sheds": ((int,), False),
+    # router-side dispatch counters (serving/router.py)
+    "dispatched_total": ((int,), False),
+    "redispatched_total": ((int,), False),
+    "penalties_total": ((int,), False),
+    "drain_refusals_total": ((int,), False),
+    "no_backend_total": ((int,), False),
+    "completed_total": ((int,), False),
+    # breaker/hedging counters + the per-backend breaker-state map
+    # ("host:port" → closed|open|half_open) — the chaos drill reads the
+    # open→half_open→closed walk off the fleet record stream
+    "breaker_opens_total": ((int,), False),
+    "breaker_closes_total": ((int,), False),
+    "hedges_total": ((int,), False),
+    "hedge_cancels_total": ((int,), False),
+    "breakers": ((dict,), False),
+}
+
+def record_schema_version(record: dict) -> int:
+    """A record's schema version (absent → 1, the pre-gang layout)."""
+    v = record.get("schema_version")
+    return 1 if v is None else int(v)
+
+
+def validate_serving_record(record: Any) -> list[str]:
+    """Errors for one serving snapshot record; empty list means valid."""
+    return _validate_against(record, SERVING_RECORD_SCHEMA)
+
+
+def validate_fleet_record(record: Any) -> list[str]:
+    """Errors for one router-merged fleet record; empty list means valid."""
+    return _validate_against(record, FLEET_RECORD_SCHEMA)
+
+
+def validate_record(record: Any) -> list[str]:
+    """Errors for one parsed step record; empty list means valid."""
+    return _validate_against(record, STEP_RECORD_SCHEMA)
+
+
+def _validate_against(record: Any, schema: dict) -> list[str]:
+    """The shared required/typed/NaN key check behind both validators."""
+    if not isinstance(record, dict):
+        return [f"record is {type(record).__name__}, expected object"]
+    errors = []
+    for key, (types, required) in schema.items():
+        if key not in record:
+            if required:
+                errors.append(f"missing required key {key!r}")
+            continue
+        v = record[key]
+        # bool is an int subclass; a boolean loss is a bug, not a number
+        if isinstance(v, bool) or not isinstance(v, types):
+            names = "|".join(t.__name__ for t in types)
+            errors.append(f"key {key!r}: {type(v).__name__} "
+                          f"(value {v!r}), expected {names}")
+            continue
+        if isinstance(v, float) and v != v:  # NaN never validates
+            errors.append(f"key {key!r} is NaN")
+    return errors
+
+
+def validate_lines(lines: Iterable[str], max_errors: int = 20,
+                   validator=validate_record) -> tuple[int, list[str]]:
+    """Validate JSONL text lines → (record_count, errors).
+
+    Errors carry 1-based line numbers; collection stops at ``max_errors``
+    so a totally corrupt file doesn't produce megabytes of complaints.
+    ``validator`` picks the schema (step records by default; pass
+    ``validate_serving_record`` / ``validate_fleet_record`` for the
+    serving streams).
+    """
+    count = 0
+    errors: list[str] = []
+    for lineno, line in enumerate(lines, start=1):
+        if not line.strip():
+            continue
+        count += 1
+        try:
+            record = json.loads(line)
+        except json.JSONDecodeError as e:
+            errors.append(f"line {lineno}: invalid JSON ({e})")
+        else:
+            errors.extend(f"line {lineno}: {msg}"
+                          for msg in validator(record))
+        if len(errors) >= max_errors:
+            errors.append("... (further errors suppressed)")
+            break
+    return count, errors
+
+
+def validate_jsonl(path: str, max_errors: int = 20,
+                   validator=validate_record) -> tuple[int, list[str]]:
+    with open(path) as f:
+        return validate_lines(f, max_errors=max_errors, validator=validator)
+
+
+def chrome_trace_errors(trace: Any) -> list[str]:
+    """Structural check for a Chrome-trace JSON dict (Perfetto-loadable)."""
+    if not isinstance(trace, dict):
+        return [f"trace is {type(trace).__name__}, expected object"]
+    events = trace.get("traceEvents")
+    if not isinstance(events, list):
+        return ["missing/invalid 'traceEvents' list"]
+    errors = []
+    for i, evt in enumerate(events):
+        if not isinstance(evt, dict):
+            errors.append(f"event {i}: not an object")
+            continue
+        for key, types in (("name", (str,)), ("ph", (str,)),
+                           ("ts", _NUM), ("pid", (int,)), ("tid", (int,))):
+            if not isinstance(evt.get(key), types):
+                errors.append(f"event {i}: bad {key!r}: {evt.get(key)!r}")
+        if evt.get("ph") == "X" and not isinstance(evt.get("dur"), _NUM):
+            errors.append(f"event {i}: complete event without numeric 'dur'")
+        if len(errors) >= 20:
+            errors.append("... (further errors suppressed)")
+            break
+    return errors

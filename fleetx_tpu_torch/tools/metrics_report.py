@@ -1,0 +1,412 @@
+"""Summarize a telemetry JSONL run into a human-readable table.
+
+Port of ``tools/metrics_report.py``::
+
+    python -m fleetx_tpu_torch.tools.metrics_report output/telemetry/metrics.jsonl
+    python -m fleetx_tpu_torch.tools.metrics_report output/telemetry/  # dir
+    python -m fleetx_tpu_torch.tools.metrics_report run.jsonl --json s.json
+
+Every record is validated against the shared step-record schema
+(``fleetx_tpu_torch/observability/schema.py``); ANY malformed record exits
+non-zero, so this tool gates runs — a pipeline that silently logged NaN
+losses or dropped its MFU field fails loudly here.
+
+Multi-host runs (``Observability.gang``, docs/observability.md
+"Multi-host") write per-rank files: pass the telemetry DIRECTORY or a
+glob and the report shows a per-rank view next to the merged gang view
+(rank 0's ``metrics.gang.jsonl`` when present, else an offline merge via
+``fleetx_tpu_torch/observability/gang.py``). Files whose records carry different schema
+versions are REFUSED — silently mixing a pre-gang run's records with
+per-rank records would produce a summary describing neither run.
+
+``--json`` writes the summary as machine-readable JSON (tokens/s, step
+time, MFU). The JAX tool's ``--compare`` against its ``BENCH_*.json``
+entries is left out: those hold TPU figures, no baseline of the port.
+
+Serving streams (docs/serving.md "Observability") report here too: the
+tool sniffs each file's ``scope`` field and dispatches — replica snapshot
+files (``scope: "serving"``, from ``tools.serve --metrics-out``)
+validate against ``SERVING_RECORD_SCHEMA``, router fleet files
+(``scope: "fleet"``, from ``--fleet-out``) against
+``FLEET_RECORD_SCHEMA`` — each with its own summary table. Mixing scopes
+in one invocation is REFUSED for the same reason schema versions are.
+"""
+
+import argparse
+import glob as glob_mod
+import json
+import os
+import sys
+
+from fleetx_tpu_torch.observability.gang import merge_rank_records
+from fleetx_tpu_torch.observability.schema import (
+    record_schema_version, validate_fleet_record, validate_jsonl,
+    validate_record, validate_serving_record)
+
+
+def _stats(values):
+    xs = [v for v in values if v is not None]
+    if not xs:
+        return None
+    xs_sorted = sorted(xs)
+    return {
+        "mean": sum(xs) / len(xs),
+        "min": xs_sorted[0],
+        "max": xs_sorted[-1],
+        "last": xs[-1],
+    }
+
+
+def summarize(records: list[dict]) -> dict:
+    """Aggregate step records into mean/min/max/last stats per metric."""
+    steps = [r["step"] for r in records]
+    wall = (records[-1]["ts"] - records[0]["ts"]) if len(records) > 1 else 0.0
+    summary = {
+        "records": len(records),
+        "first_step": steps[0],
+        "last_step": steps[-1],
+        "wall_s": round(wall, 3),
+        "loss": _stats([r["loss"] for r in records]),
+        "step_time_s": _stats([r["step_time"] for r in records]),
+        "tokens_per_sec": _stats([r["tokens_per_sec"] for r in records]),
+        "mfu": _stats([r.get("mfu") for r in records]),
+        "data_stall_frac": _stats([r.get("data_stall_frac")
+                                   for r in records]),
+        # HBM attribution keys; .get() tolerates their absence in older
+        # runs (stats stay None and the table shows em-dashes)
+        "hbm_peak_bytes": _stats([r.get("hbm_peak_bytes")
+                                  for r in records]),
+        "hbm_model_error": _stats([r.get("hbm_model_error")
+                                   for r in records]),
+    }
+    return summary
+
+
+_ROWS = (
+    ("loss", "loss", 1.0, "{:.4f}"),
+    ("step_time_s", "step time (s)", 1.0, "{:.4f}"),
+    ("tokens_per_sec", "tokens/s", 1.0, "{:,.0f}"),
+    ("mfu", "MFU", 100.0, "{:.2f}%"),
+    ("data_stall_frac", "data stall", 100.0, "{:.2f}%"),
+    ("hbm_peak_bytes", "HBM peak (GB)", 1.0 / (1 << 30), "{:.3f}"),
+    ("hbm_model_error", "HBM model err", 100.0, "{:+.1f}%"),
+)
+
+
+def print_table(summary: dict) -> None:
+    """Render the summary dict as an aligned text table."""
+    print(f"records: {summary['records']}   "
+          f"steps: {summary['first_step']} → {summary['last_step']}   "
+          f"wall: {summary['wall_s']:.1f}s")
+    header = f"{'metric':<14} {'mean':>12} {'min':>12} {'max':>12} {'last':>12}"
+    print(header)
+    print("-" * len(header))
+    for key, label, scale, fmt in _ROWS:
+        st = summary.get(key)
+        if st is None:
+            print(f"{label:<14} {'—':>12} {'—':>12} {'—':>12} {'—':>12}")
+            continue
+        cells = [fmt.format(st[k] * scale)
+                 for k in ("mean", "min", "max", "last")]
+        print(f"{label:<14} " + " ".join(f"{c:>12}" for c in cells))
+
+
+#: scope marker → (validator, sort key). Step records carry no serving
+#: scope (gang ones say "gang"/"rank", both step-shaped) and sort by step;
+#: the serving streams are time series and sort by ts.
+_SCOPE_STREAMS = {
+    "serving": (validate_serving_record, "ts"),
+    "fleet": (validate_fleet_record, "ts"),
+}
+
+
+def sniff_scope(path: str) -> str:
+    """First parsable record's stream kind: "step", "serving" or "fleet".
+
+    Unparsable/empty files sniff as "step" — the step-record validator
+    then reports the real problem with line numbers.
+    """
+    try:
+        with open(path) as f:
+            for line in f:
+                if not line.strip():
+                    continue
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    return "step"
+                scope = rec.get("scope") if isinstance(rec, dict) else None
+                return scope if scope in _SCOPE_STREAMS else "step"
+    except OSError:
+        pass
+    return "step"
+
+
+def summarize_serving(records: list[dict]) -> dict:
+    """Aggregate replica serving snapshots (counters are cumulative —
+    last wins; gauges/quantiles get the usual mean/min/max/last)."""
+    last = records[-1]
+    wall = (records[-1]["ts"] - records[0]["ts"]) if len(records) > 1 else 0.0
+    return {
+        "scope": "serving",
+        "records": len(records),
+        "wall_s": round(wall, 3),
+        "requests_admitted": last["requests_admitted"],
+        "requests_completed": last["requests_completed"],
+        "requests_refused": last["requests_refused"],
+        "tokens_total": last["tokens_total"],
+        "tokens_per_sec": _stats([r.get("tokens_per_sec")
+                                  for r in records]),
+        "ttft_p99_s": _stats([r.get("ttft_p99_s") for r in records]),
+        "itl_p99_s": _stats([r.get("itl_p99_s") for r in records]),
+        "page_occupancy": _stats([r.get("page_occupancy")
+                                  for r in records]),
+        "requests_per_chip": _stats([r.get("requests_per_chip")
+                                     for r in records]),
+        "slo_attainment": _stats([r.get("slo_attainment")
+                                  for r in records]),
+    }
+
+
+def summarize_fleet(records: list[dict]) -> dict:
+    """Aggregate router fleet records; coverage tracks the worst window."""
+    last = records[-1]
+    wall = (records[-1]["ts"] - records[0]["ts"]) if len(records) > 1 else 0.0
+    return {
+        "scope": "fleet",
+        "records": len(records),
+        "wall_s": round(wall, 3),
+        "replicas_total": last["replicas_total"],
+        "replicas_reported_min": min(r["replicas_reported"]
+                                     for r in records),
+        "requests_admitted": last["requests_admitted"],
+        "requests_completed": last["requests_completed"],
+        "requests_refused": last["requests_refused"],
+        "tokens_total": last["tokens_total"],
+        "tokens_per_sec": _stats([r.get("tokens_per_sec")
+                                  for r in records]),
+        "ttft_p99_s": _stats([r.get("ttft_p99_s") for r in records]),
+        "itl_p99_s": _stats([r.get("itl_p99_s") for r in records]),
+        "requests_per_chip": _stats([r.get("requests_per_chip")
+                                     for r in records]),
+        "slo_attainment": _stats([r.get("slo_attainment")
+                                  for r in records]),
+        "redispatched_total": last.get("redispatched_total"),
+        "drain_refusals_total": last.get("drain_refusals_total"),
+    }
+
+
+_SERVING_ROWS = (
+    ("tokens_per_sec", "tokens/s", 1.0, "{:,.1f}"),
+    ("ttft_p99_s", "TTFT p99 (s)", 1.0, "{:.4f}"),
+    ("itl_p99_s", "ITL p99 (s)", 1.0, "{:.4f}"),
+    ("page_occupancy", "page occupancy", 100.0, "{:.1f}%"),
+    ("requests_per_chip", "req/chip", 1.0, "{:.2f}"),
+    ("slo_attainment", "SLO attainment", 100.0, "{:.2f}%"),
+)
+
+
+def print_serving_table(summary: dict) -> None:
+    """Render a serving or fleet summary as an aligned text table."""
+    head = [f"records: {summary['records']}",
+            f"wall: {summary['wall_s']:.1f}s",
+            f"admitted: {summary['requests_admitted']}",
+            f"completed: {summary['requests_completed']}",
+            f"refused: {summary['requests_refused']}"]
+    if summary["scope"] == "fleet":
+        head.insert(1, f"replicas: {summary['replicas_reported_min']}"
+                       f"(min)/{summary['replicas_total']}")
+    print("   ".join(head))
+    header = f"{'metric':<16} {'mean':>12} {'min':>12} {'max':>12} " \
+             f"{'last':>12}"
+    print(header)
+    print("-" * len(header))
+    for key, label, scale, fmt in _SERVING_ROWS:
+        st = summary.get(key)
+        if st is None:
+            print(f"{label:<16} {'—':>12} {'—':>12} {'—':>12} {'—':>12}")
+            continue
+        cells = [fmt.format(st[k] * scale)
+                 for k in ("mean", "min", "max", "last")]
+        print(f"{label:<16} " + " ".join(f"{c:>12}" for c in cells))
+    if summary["scope"] == "fleet" and \
+            summary.get("redispatched_total") is not None:
+        print(f"router: redispatched={summary['redispatched_total']}   "
+              f"drain_refusals={summary['drain_refusals_total']}")
+
+
+def resolve_inputs(spec: str) -> tuple[list[str], str | None]:
+    """``spec`` (file | directory | glob) → (rank/run files, gang file).
+
+    A directory prefers the per-rank layout (``metrics.rank*.jsonl``) and
+    the rank-0 merged stream (``metrics.gang.jsonl``); a single-file run
+    falls back to the classic ``metrics.jsonl``.
+    """
+    if os.path.isdir(spec):
+        ranks = sorted(glob_mod.glob(os.path.join(spec,
+                                                  "metrics.rank*.jsonl")))
+        gang = os.path.join(spec, "metrics.gang.jsonl")
+        gang = gang if os.path.exists(gang) else None
+        if ranks:
+            return ranks, gang
+        single = os.path.join(spec, "metrics.jsonl")
+        if os.path.exists(single):
+            return [single], gang
+        # only the merged gang stream present (rank 0's copied evidence):
+        # summarize it as the run, don't refuse a perfectly valid input
+        return ([gang] if gang else []), None
+    if os.path.exists(spec):
+        return [spec], None
+    hits = sorted(glob_mod.glob(spec))
+    matches = [p for p in hits if not p.endswith("metrics.gang.jsonl")]
+    gang = next((p for p in hits if p.endswith("metrics.gang.jsonl")),
+                None)
+    if not matches and gang:
+        return [gang], None
+    return matches, gang
+
+
+def _load_validated(path: str,
+                    scope: str = "step") -> tuple[list[dict] | None, int]:
+    """Validate + parse one JSONL file; (records, rc) with rc != 0 on any
+    schema violation or an empty file (the bench-gate contract). The
+    ``scope`` picks the schema (step records by default)."""
+    validator, sort_key = _SCOPE_STREAMS.get(scope,
+                                             (validate_record, "step"))
+    count, errors = validate_jsonl(path, validator=validator)
+    if errors:
+        print(f"error: {path} failed schema validation "
+              f"({len(errors)} problem(s) in {count} record(s)):",
+              file=sys.stderr)
+        for e in errors:
+            print(f"  {e}", file=sys.stderr)
+        return None, 1
+    if not count:
+        print(f"error: {path} contains no records", file=sys.stderr)
+        return None, 1
+    with open(path) as f:
+        records = [json.loads(l) for l in f if l.strip()]
+    records.sort(key=lambda r: r[sort_key])
+    return records, 0
+
+
+def _check_schema_versions(by_file: dict) -> int | None:
+    """One schema version across every input, or None (the refusal).
+
+    Mixing a pre-gang run's version-1 records with per-rank version-2
+    files would silently produce a summary describing neither run — the
+    classic stale-telemetry-dir failure — so a mismatch is an error, not
+    a warning.
+    """
+    versions = {}
+    for path, records in by_file.items():
+        file_versions = {record_schema_version(r) for r in records}
+        if len(file_versions) > 1:
+            print(f"error: {path} mixes schema versions "
+                  f"{sorted(file_versions)} — refusing to summarize a "
+                  f"file that interleaves different runs", file=sys.stderr)
+            return None
+        versions[path] = file_versions.pop()
+    if len(set(versions.values())) > 1:
+        print("error: schema-version mismatch across inputs — refusing to "
+              "mix runs:", file=sys.stderr)
+        for path, v in sorted(versions.items()):
+            print(f"  v{v}: {path}", file=sys.stderr)
+        return None
+    return next(iter(versions.values()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="validate + summarize telemetry metrics JSONL "
+                    "(file, per-rank directory, or glob)")
+    ap.add_argument("jsonl", help="metrics.jsonl path, telemetry "
+                                  "directory, or glob of rank files")
+    ap.add_argument("--json", metavar="OUT",
+                    help="also write the summary as JSON (- for stdout)")
+    args = ap.parse_args(argv)
+
+    files, gang_file = resolve_inputs(args.jsonl)
+    if not files:
+        print(f"error: {args.jsonl} matched no metrics JSONL",
+              file=sys.stderr)
+        return 2
+
+    scopes = {path: sniff_scope(path)
+              for path in files + ([gang_file] if gang_file else [])}
+    if len(set(scopes.values())) > 1:
+        print("error: mixed record scopes across inputs — refusing to "
+              "summarize unrelated streams:", file=sys.stderr)
+        for path, s in sorted(scopes.items()):
+            print(f"  {s}: {path}", file=sys.stderr)
+        return 2
+    scope = next(iter(scopes.values()))
+    if scope in _SCOPE_STREAMS:
+        # serving/fleet streams: validate each file against its schema,
+        # concatenate (multiple replica files are one time series) and
+        # render the serving table — no gang merge
+        records: list = []
+        for path in files + ([gang_file] if gang_file else []):
+            recs, rc = _load_validated(path, scope=scope)
+            if rc:
+                return rc
+            records.extend(recs)
+        records.sort(key=lambda r: r["ts"])
+        summary = summarize_fleet(records) if scope == "fleet" \
+            else summarize_serving(records)
+        print(f"== {scope} stream")
+        print_serving_table(summary)
+        if args.json:
+            payload = json.dumps(summary, indent=1)
+            if args.json == "-":
+                print(payload)
+            else:
+                with open(args.json, "w") as f:
+                    f.write(payload + "\n")
+        return 0
+
+    by_file: dict = {}
+    for path in files + ([gang_file] if gang_file else []):
+        records, rc = _load_validated(path)
+        if rc:
+            return rc
+        by_file[path] = records
+    if _check_schema_versions(by_file) is None:
+        return 2
+
+    if len(files) == 1 and not gang_file:
+        summary = summarize(by_file[files[0]])
+        print_table(summary)
+    else:
+        # per-rank views first, merged gang view last (the headline)
+        per_rank = {}
+        for path in files:
+            name = os.path.basename(path)
+            per_rank[name] = summarize(by_file[path])
+            print(f"== {name}")
+            print_table(per_rank[name])
+            print()
+        if gang_file:
+            merged_records = by_file[gang_file]
+            merged_label = os.path.basename(gang_file)
+        else:
+            merged_records = merge_rank_records(
+                {path: by_file[path] for path in files})
+            merged_label = f"offline merge of {len(files)} rank files"
+        summary = summarize(merged_records)
+        summary["per_rank"] = per_rank
+        print(f"== merged ({merged_label})")
+        print_table(summary)
+
+    if args.json:
+        payload = json.dumps(summary, indent=1)
+        if args.json == "-":
+            print(payload)
+        else:
+            with open(args.json, "w") as f:
+                f.write(payload + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

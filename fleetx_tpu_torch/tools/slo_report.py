@@ -1,0 +1,154 @@
+"""SLO attainment report over a serving/fleet JSONL stream.
+
+Port of ``tools/slo_report.py``::
+
+    python -m fleetx_tpu_torch.tools.slo_report metrics.jsonl \
+        -c fleetx_tpu/configs/nlp/gpt/serving_gpt_345M.yaml
+    python -m fleetx_tpu_torch.tools.slo_report m.jsonl --slo '{"ttft_p99_s": 0.5}'
+
+Replays every record (replica snapshots, ``scope: "serving"``, or router
+fleet records, ``scope: "fleet"``) through the exact
+``fleetx_tpu_torch/observability/slo.py`` arithmetic the live engine runs — same windows,
+same multi-window burn rates — against the targets from the config's
+``Serving.slo`` block (or an inline ``--slo`` JSON block). Renders one
+row per class/target with the longest-window attainment, each window's
+burn rate and a met/BREACH verdict.
+
+Exit codes follow ``tools/lint.py``: **0** every target's attainment
+meets its objective, **1** any target breached (so CI can gate a serving
+run on its SLOs exactly like ``perf_gate.py`` gates throughput),
+**2** usage error (no records, no SLO block, invalid stream).
+"""
+
+import argparse
+import json
+import sys
+
+from fleetx_tpu_torch.observability.metrics import MetricsRegistry
+from fleetx_tpu_torch.observability.schema import (
+    validate_fleet_record, validate_jsonl, validate_serving_record)
+from fleetx_tpu_torch.observability.slo import SLORegistry
+
+
+def load_records(path: str) -> list[dict]:
+    """Parse + schema-validate the stream; raises ``ValueError`` on a
+    malformed file or a stream that is neither serving nor fleet."""
+    with open(path) as f:
+        records = [json.loads(l) for l in f if l.strip()]
+    if not records:
+        raise ValueError(f"{path} contains no records")
+    scope = records[0].get("scope")
+    validator = {"serving": validate_serving_record,
+                 "fleet": validate_fleet_record}.get(scope)
+    if validator is None:
+        raise ValueError(f"{path}: scope {scope!r} is not a serving/fleet "
+                         f"stream (expected tools.serve --metrics-out "
+                         f"output)")
+    _, errors = validate_jsonl(path, validator=validator)
+    if errors:
+        raise ValueError(f"{path} failed schema validation:\n  "
+                         + "\n  ".join(errors))
+    records.sort(key=lambda r: r["ts"])
+    return records
+
+
+def replay(records: list[dict], slo_block) -> dict:
+    """Run every record through a fresh ``SLORegistry``; returns the final
+    report dict (raises ``ValueError`` on a bad/empty SLO block)."""
+    reg = SLORegistry.from_config(slo_block, registry=MetricsRegistry())
+    if reg is None:
+        raise ValueError("empty Serving.slo block — nothing to evaluate")
+    report: dict = {}
+    for rec in records:
+        report = reg.observe(rec)
+    report["evaluations"] = reg.evaluations
+    return report
+
+
+def print_report(report: dict) -> None:
+    """Render the per-class/target attainment table."""
+    print(f"evaluations: {report['evaluations']}   overall attainment: "
+          + (f"{report['attainment']:.4f}"
+             if report["attainment"] is not None else "—"))
+    header = f"{'class/target':<28} {'threshold':>10} {'measured':>10} " \
+             f"{'attain':>8} {'burn':>16} {'verdict':>8}"
+    print(header)
+    print("-" * len(header))
+    for cname, targets in report["classes"].items():
+        for target, t in targets.items():
+            atts = [a for a in t["attainment"].values() if a is not None]
+            att = f"{atts[-1]:.4f}" if atts else "—"
+            burn = "/".join(f"{b:.2f}" if b is not None else "—"
+                            for b in t["burn_rate"].values())
+            measured = f"{t['measured']:.4f}" \
+                if t["measured"] is not None else "—"
+            verdict = "BREACH" if t["breached"] else \
+                ("met" if atts else "no data")
+            print(f"{cname + '/' + target:<28} {t['threshold']:>10.4f} "
+                  f"{measured:>10} {att:>8} {burn:>16} {verdict:>8}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="evaluate SLO attainment over a serving/fleet JSONL "
+                    "stream (exit 1 on breach)")
+    ap.add_argument("jsonl", help="serving snapshots (--metrics-out) or "
+                                  "fleet records (--fleet-out)")
+    ap.add_argument("-c", "--config", default=None,
+                    help="YAML config carrying the Serving.slo block")
+    ap.add_argument("--slo", default=None, metavar="JSON",
+                    help="inline SLO block as JSON (overrides -c)")
+    ap.add_argument("--json", metavar="OUT", nargs="?", const="-",
+                    default=None,
+                    help="write the report as JSON to OUT (bare --json "
+                         "streams to stdout)")
+    args = ap.parse_args(argv)
+
+    if args.slo:
+        try:
+            slo_block = json.loads(args.slo)
+        except json.JSONDecodeError as e:
+            print(f"error: --slo is not valid JSON: {e}", file=sys.stderr)
+            return 2
+    elif args.config:
+        from fleetx_tpu_torch.utils.config import parse_config
+
+        try:
+            cfg = parse_config(args.config)
+        except Exception as e:  # noqa: BLE001 — usage error, report it
+            print(f"error: cannot parse {args.config}: {e}",
+                  file=sys.stderr)
+            return 2
+        slo_block = (cfg.get("Serving") or {}).get("slo")
+        if not slo_block:
+            print(f"error: {args.config} has no Serving.slo block",
+                  file=sys.stderr)
+            return 2
+    else:
+        ap.error("pass -c config.yaml or --slo JSON")
+
+    try:
+        records = load_records(args.jsonl)
+        report = replay(records, slo_block)
+    except (OSError, ValueError, json.JSONDecodeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    print_report(report)
+    if args.json:
+        payload = json.dumps(report, indent=1)
+        if args.json == "-":
+            print(payload)
+        else:
+            with open(args.json, "w") as f:
+                f.write(payload + "\n")
+    if report["breached"]:
+        print("\nSLO BREACH: at least one target's attainment is below "
+              "its objective", file=sys.stderr)
+        return 1
+    print("\nslo_report: all objectives met")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -51,6 +51,16 @@ must take the YAML's T5 width)::
 (``imagen_super_resolution_256.yaml`` likewise; sample the cascade with
 ``python -m fleetx_tpu_torch.tasks.imagen.generate``).
 
+Telemetry (``Observability.enable``; the CPU recipe
+``pretrain_gpt_debug_obs.yaml``) writes ``metrics.jsonl`` / ``.csv`` /
+``.prom``, the span trace ``trace.json`` and the flight dumps under
+``Observability.output_dir`` (default ``<save_load.output_dir>/telemetry``);
+``Profiler.enable`` with ``scheduler: [start, stop]`` profiles those steps
+with ``torch.profiler`` into ``Profiler.profiler_log`` and decomposes the
+trace into ``perf.jsonl`` beside the metrics. Read them with ``python -m
+fleetx_tpu_torch.tools.metrics_report`` / ``trace_report`` /
+``postmortem``.
+
 With ``Engine.save_load.save_steps`` set, the trainer saves every
 ``save_steps`` steps and once more at the end (``output_dir``); with
 ``Engine.save_load.ckpt_dir`` set it resumes from the newest step there
@@ -129,6 +139,7 @@ def run(cfg: dict, device=None):
     losses = engine.fit(train_dl, valid_dl, epoch_num=epochs)
     if engine.save_steps and engine.last_saved_step != engine.step:
         engine.save()
+        engine.obs.flush()  # the final save's spans into trace.json
     return engine, losses
 
 

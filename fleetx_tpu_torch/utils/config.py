@@ -4,8 +4,9 @@ the training derivations.
 The port's copy of ``fleetx_tpu/utils/config.py``: ``AttrDict``,
 ``_merge``, ``parse_config``, ``_literal``, ``override_config``
 (:38-135), ``process_dist_config`` / ``process_global_configs`` /
-``process_engine_config`` (:139-241), ``process_resilience_config``
-(:276-330), ``process_serving_config`` (:334-376), ``get_config`` (:379)
+``process_engine_config`` (:139-241), ``process_observability_config``
+(:244-273), ``process_resilience_config`` (:276-330),
+``process_serving_config`` (:334-376), ``get_config`` (:379)
 and ``parse_args`` (:454), and the engine's fp16 loss-scaler switch
 (``fleetx_tpu/core/engine/eager_engine.py:211-214``, ``loss_scaler``).
 It reads the same YAML files by path, ``_base_`` chains included (the
@@ -41,7 +42,8 @@ import yaml
 
 __all__ = ["AttrDict", "parse_config", "override_config",
            "process_dist_config", "process_global_configs",
-           "process_engine_config", "process_resilience_config",
+           "process_engine_config", "process_observability_config",
+           "process_resilience_config",
            "process_serving_config", "loss_scaler", "layout_budget_gb",
            "plan_layout", "get_config", "parse_args"]
 
@@ -252,6 +254,26 @@ def process_engine_config(config: AttrDict) -> AttrDict:
     return config
 
 
+def process_observability_config(config: AttrDict) -> AttrDict:
+    """Ensure the ``Observability`` block exists with ``enable`` and
+    ``gang`` (both default False: telemetry never surprises a recipe);
+    per-knob defaults live in ``observability.Observability``. A flight
+    ring or a gap report sized zero would record nothing, found out only
+    when it is read, so both are validated here."""
+    obs = config.setdefault("Observability", AttrDict())
+    obs.setdefault("enable", False)
+    obs.setdefault("gang", False)
+    capacity = (obs.get("flight") or {}).get("capacity")
+    if capacity is not None and int(capacity) <= 0:
+        raise ValueError(
+            f"Observability.flight.capacity must be > 0, got {capacity!r}")
+    top_k = (obs.get("perf") or {}).get("top_k")
+    if top_k is not None and int(top_k) <= 0:
+        raise ValueError(
+            f"Observability.perf.top_k must be > 0, got {top_k!r}")
+    return config
+
+
 def process_resilience_config(config: AttrDict) -> AttrDict:
     """Ensure the ``Resilience`` block exists with ``enable`` (default
     False: fault handling never changes a recipe's behaviour silently);
@@ -386,6 +408,7 @@ def get_config(fname: str, overrides: Optional[list] = None,
     process_dist_config(config)
     process_global_configs(config)
     process_engine_config(config)
+    process_observability_config(config)
     process_resilience_config(config)
     process_serving_config(config)
     return config

@@ -348,7 +348,9 @@ UNCOVERED = {
     "recompute_dots": (["Model.use_recompute=True",
                         "Model.recompute_granularity=dots",
                         "Model.remat_save_dtype=bfloat16"], None),
-    "observability": (["Observability.enable=True"], "item 8"),
+    # telemetry and the profiler window are ported; gang mode is not
+    "observability": (["Observability.enable=True"], None),
+    "observability_gang": (["Observability.gang=True"], "item 12"),
     "seq_degree": (["Distributed.seq_degree=2",
                     "Model.use_ring_attention=True",
                     "Model.attention_probs_dropout_prob=0.0"], "item 12"),
@@ -372,18 +374,27 @@ UNCOVERED = {
                    "Global.global_batch_size=4"], "item 12"),
     "sequence_parallel": (["Distributed.sequence_parallel=True"],
                           "item 12"),
-    "profiler": (["Profiler.enable=True"], "item 8"),
+    "profiler": (["Profiler.enable=True"], None),
 }
 
 
 @pytest.mark.parametrize("what", sorted(UNCOVERED))
-def test_uncovered_config_values_raise(what):
+def test_uncovered_config_values_raise(what, tmp_path):
     overrides, item = UNCOVERED[what]
     if item is None:  # ported: the trainer builds and takes a step
+        # telemetry and profiler files land in the test's directory
+        overrides = overrides + [
+            f"Observability.output_dir={tmp_path / 'telemetry'}",
+            f"Profiler.profiler_log={tmp_path / 'profiler_log'}"]
         engine, train_dl, _ = T.build_trainer(
             T.load_config(SYNTH_YAML, TINY + overrides), device="cpu")
         mc = engine.module.model_cfg
-        if what == "qat":
+        if what == "observability":
+            assert engine.obs.enabled and engine.obs.sinks
+        elif what == "profiler":
+            assert engine.profiler.enabled and \
+                engine.profiler.start_step == 3
+        elif what == "qat":
             assert mc.use_qat and mc.qat_bits == 4 and mc.qat_act_bits == 8
         elif what == "moe":
             assert mc.moe_num_experts == 4 and \
