@@ -11,8 +11,10 @@ drills, train GPT-345M with QAT and under the dots recompute policy and
 GPT-1.3B through the auto-layout entry point, pretrain ERNIE-345M and
 train and evaluate ViT-B/16 through the same trainer, and train,
 evaluate and generate with the 8-expert MoE GPT-345M and train and
-sample the Imagen cascade (64² base, SR-256), and train GPT-345M with
-the telemetry, the profiler window and the device prefetcher on.
+sample the Imagen cascade (64² base, SR-256), train GPT-345M with
+the telemetry, the profiler window and the device prefetcher on, and
+train it under the SDC sentinel with an asynchronous save and run the
+supervisor's preflight.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
@@ -29,6 +31,7 @@ the telemetry, the profiler window and the device prefetcher on.
     python3 chip_smoke.py --norm-shapes    # phase 1d alone (row 5's
                                            # routes, timings, host µs)
     python3 chip_smoke.py --telemetry      # phases 4 and 17
+    python3 chip_smoke.py --resilience-runtime  # phases 4 and 18
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -171,18 +174,21 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    function of seed and step; every kernel and op of the step is
    deterministic). Then
    ``tools/verify_ckpt`` reports both steps ``ok``; one flipped byte of
-   step 10's payload makes it exit 1 with ``corrupt`` and ``load()``
-   fall back to step 5 with its warning; the byte flipped back, both are
-   ``ok`` again. Save and load seconds and GB/s, peak memory.
+   step 10's payload makes it exit 1 with ``corrupt`` (one audit: its
+   exit code and its JSON report) and ``load()`` fall back to step 5 with
+   its warning; the byte flipped back, step 10 is ``ok`` again. Save and
+   load seconds and GB/s, peak memory. Phases 9-11 and 13 then take step
+   10's params cut to their first ``CUT_LAYERS`` (4) layers, saved as a
+   params-only checkpoint (a depth cut, for the time limit).
 9. generation: ``generation_gpt_345M_single_card.yaml`` through the
    port's config loader and ``tasks/gpt/generation.py``'s ``build`` at
-   full width (bf16) with phase 8's checkpoint, a tokenizer trained with
+   full width (bf16) with phase 8's cut checkpoint, a tokenizer trained with
    ``train_bpe`` on README.md (vocab 2000) and read back through
    ``Generation.tokenizer_dir``; the YAML's ``input_text`` and a batch of
    8 prompts of 5-300 tokens, 64 new tokens, for ``sampling`` (the
    YAML's top-k 50, top-p 0.75), ``greedy_search`` and ``beam_search``
    (4 beams, 2 returned). Launch counts zeroed just before each batch
-   and read just after: 49 norm forwards a model call, nothing else.
+   and read just after: 9 norm forwards a model call, nothing else.
    Each batch's ``generate_ids`` is timed whole, its prefill (the first
    model call) within it: prefill ms, ms per decode step (the rest of
    the wall over the decode steps), new tokens/s (the returned rows'
@@ -195,13 +201,13 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    is under 1e-3.
 10. offline eval: ``python -m fleetx_tpu_torch.tools.eval`` on
    ``eval_gpt_345M_single_card.yaml`` as its own process, from phase 8's
-   checkpoint with phase 9's tokenizer, on ``docs/*.md`` sorted and
+   cut checkpoint with phase 9's tokenizer, on ``docs/*.md`` sorted and
    concatenated (the repository's own English text; wikitext-103 and
    LAMBADA are not in the repository): ``eval_type: ppl`` (windows of
    1024 at stride 32) and ``acc`` (a cloze jsonl of the same text's
    paragraphs of five words or more, the last word of each the target).
    Each prints its results, window and batch counts, ms per batch, window
-   tokens/s, peak memory and the launches of kernels 1 and 5 (24 and 49
+   tokens/s, peak memory and the launches of kernels 1 and 5 (4 and 9
    per batch). In this process the same eval on its first
    ``EVAL_PREFIX`` windows with both kernels off must agree with it on
    the loss within ``EVAL_F32_RTOL`` (f32) and ``EVAL_BF16_RTOL`` (bf16;
@@ -209,16 +215,17 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    path (a ``GPTDataset`` of the same text written by the port's
    ``tools.preprocess_data``) runs 3 batches as its own process.
 11. export and inference: ``python -m fleetx_tpu_torch.tools.export`` of
-   ``inference_gpt_345M_single_card.yaml`` from the checkpoint, target
-   ``forward`` and then ``generation`` (batch 1, prompt 128, 64 new
-   tokens), each its own process. The exported forward at ``[1, 1024]``
-   must equal the eager forward bit for bit and launch kernels 1 and 5 24
-   and 49 times a call; its first call and warm p50 / p99 over 20 calls
+   ``inference_gpt_345M_single_card.yaml`` from phase 8's cut checkpoint,
+   target ``forward`` and then ``generation`` (batch 1, prompt 128, 64
+   new tokens), each its own process. The exported forward at
+   ``[1, 1024]`` must equal the eager forward bit for bit and launch
+   kernels 1 and 5 4 and 9 times a call; its first call and warm p50 /
+   p99 over 20 calls
    are printed beside the program alone and the eager forward. Through
    the generation programs, greedy (bf16, and an f32 export made in this
    process of the checkpoint's first ``F32_EXPORT_LAYERS`` layers, a depth
    cut) and seeded sampling must equal eager generation token for
-   token, with 49 launches of kernel 5 a model call; ms per decode step
+   token, with 9 launches of kernel 5 a model call; ms per decode step
    and new tokens/s. ``tools.inference`` and ``tasks.gpt.inference`` run
    the bf16 export as their own processes. The temp dirs are removed
    whether the run passed or failed.
@@ -245,27 +252,30 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    ``TrainingAborted``); a preemption through ``python -m
    fleetx_tpu_torch.tools.train`` (``sigterm_at: 5``: exit code 75, a
    verified step-5 checkpoint, the save timed; the same command resumed
-   to step 10: steps 1-10 equal phase 4's losses bit for bit).
+   to step 10: steps 1-10 equal the same recipe's uninterrupted losses
+   in this process bit for bit). The rollback and preemption drills run
+   the recipe cut to ``DRILL_LAYERS`` (4) layers (a depth cut, for the
+   time limit: their saves and restores).
 13. LoRA fine-tuning and quantized serving (run before phase 12, while
    phase 8's checkpoint and phase 10's corpus exist): ``python -m
    fleetx_tpu_torch.tools.finetune`` on ``finetune_gpt_345M_lora.yaml``
-   as its own process, full width and depth (bf16, rank 8, alpha 16),
-   ``FineTune.base_ckpt`` on phase 8's checkpoint, phase 10's
+   as its own process, full width (bf16, rank 8, alpha 16),
+   ``FineTune.base_ckpt`` on phase 8's cut checkpoint, phase 10's
    ``GPTDataset`` of ``docs/*.md``, 20 steps at a constant LR of 1e-3
    (``FT_LR``), the fine-tune state saved at step 20. The CLI's counts,
-   zeroed just before its fit and read just after: phase 4's per step
-   (rows 1 and 4 on the tensor cores). Finite losses and grad norms, the
-   mean of the last 5 losses below the first; 3,145,728 adapter
-   parameters (``trainable_params_frac`` ~0.0088); every adapter leaf
+   zeroed just before its fit and read just after: 4 / 4 / 9 / 9 per
+   step (rows 1 and 4 on the tensor cores). Finite losses and grad norms,
+   the mean of the last 5 losses below the first; 524,288 adapter
+   parameters; every adapter leaf
    moved; the artifact and the saved state ``ok`` under
    ``tools.verify_ckpt``; the artifact's stamped base digests and the
-   saved state's base leaves equal phase 8's checkpoint's, and its
+   saved state's base leaves equal the cut checkpoint's, and its
    adapters the state's, bit for bit. Step time beside phase 4's, tokens/s,
    peak memory. Then ``tools/serve.build_engine`` on the same yaml
-   (phase 8's checkpoint, the adapters merged, ``quantize_decode``, bf16,
+   (the cut checkpoint, the adapters merged, ``quantize_decode``, bf16,
    16 slots, 513 pages) answers phase 2's requests over TCP, in turns
    with the unquantized replica of the same merged weights (quantized,
-   unquantized, unquantized, quantized): row 7 in all 24 layers of every
+   unquantized, unquantized, quantized): row 7 in all 4 layers of every
    decode step, tokens/s, TTFT and ITL of each run, beside phase 2's.
    ``python -m fleetx_tpu_torch.tools.serve --bench`` on the same yaml,
    as its own process, must serve its 8 requests on the paged kernel with
@@ -379,6 +389,26 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    turns (4 turns of 6 steps a side, both logging every step, the
    profiler window closed); a bf16 8192³ matmul and a 1 GiB device copy
    timed for the roofline (``calibration``).
+18. the resilience runtime (run after phase 12): phase 4's recipe with
+   ``Resilience.enable``, the SDC sentinel every 2nd step with
+   ``sentinel_action: abort`` (a false positive fails the phase) and
+   ``async_save`` at step 5, 8 steps through ``build_trainer`` → ``fit``.
+   Counts zeroed just before and read just after: 12 × phase 4's per step
+   (8 steps, 4 replays); 4 checks, 0 mismatches; the losses equal phase
+   4's first 8 bit for bit. Each check's wall, each step's host wall, the
+   save's stall (step 5's wall less the median of steps 3 and 7, the
+   steps with neither a check nor a save; the phase's own clone of the
+   live state excluded) beside phase 8's synchronous ``save_s``, the
+   steps over the write (6-8) against 2-4, the finalize wait at fit's
+   end. The payload: completed steps ``[5]``, ``verify_ckpt`` ok, and the
+   manifest's leaf digests (the writer's) equal to the crc32 of every leaf
+   of a clone of the live state taken as the save returned. ``params_fingerprint`` of
+   the final params on the card equals the CPU's; ``_apply_bitflip``
+   changes it and a second flip restores it. ``python -m
+   fleetx_tpu_torch.resilience.integrity --selftest`` reports ok on
+   ``cuda``; ``python -m fleetx_tpu_torch.tools.supervise --preflight``
+   with ``FLEETX_SELFTEST_FORCE_FAIL=*`` exits 41 and its command never
+   runs.
 
 Each phase's wall is printed as it ends (``phase_wall``) and collected in
 the ``smoke`` line.
@@ -421,6 +451,7 @@ non-zero and prints no result.
 """
 
 import ast
+import concurrent.futures
 import ctypes
 import dataclasses
 import gc
@@ -2020,6 +2051,12 @@ PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd_fused": 24,
             "flash_attention_bwd_dq_tc": 0, "flash_attention_bwd_dkv_tc": 0}
 
 
+def _per_step(layers: int) -> dict:
+    """``PER_STEP`` for the recipe cut to ``layers`` layers."""
+    return {k: {24: layers, 49: 2 * layers + 1, 0: 0}[v]
+            for k, v in PER_STEP.items()}
+
+
 def _counters() -> dict:
     """Name → the wrapper whose ``launches`` counts that kernel."""
     from fleetx_tpu_torch.ops import flash_attention as FA
@@ -2458,6 +2495,15 @@ def phase_split_and_recompute_on_path(dev: torch.device, card: str) -> None:
 # --------------------------------------------------------------- phase 8
 GEN_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
                         "generation_gpt_345M_single_card.yaml")
+#: phases 9-11 and 13 take phase 8's newest params cut to their first
+#: CUT_LAYERS layers, as a params-only checkpoint (a depth cut, for the
+#: smoke's time limit: every process and engine of those phases restores
+#: the checkpoint, ~5 s of verified reads of the 4.26 GB state at 24
+#: layers, and their generation, eval, fine-tune and serving runs grow
+#: with the layers; every checked property is per layer, per call or a
+#: comparison on the same params)
+CUT_LAYERS = 4
+CUT_DEPTH = [f"Model.num_layers={CUT_LAYERS}"]
 #: the resume run: steps 1-5 saved by one engine, 6-10 by a new one
 CKPT_STEPS = 5
 #: a 345M state is ~4.3 GB (f32 params and two AdamW moments, ~355 M x
@@ -2641,8 +2687,13 @@ def phase_checkpoint(dev: torch.device, card: str, uninterrupted: list,
             f.write(bytes([byte[0] ^ 0xFF]))
 
     flip()
-    code = verify_ckpt.main([out, "--step", str(2 * CKPT_STEPS)])
-    bad = verify_ckpt.audit_directory(out, step=2 * CKPT_STEPS)["steps"][0]
+    # the CLI's one audit of step 10 gives both its exit code and its
+    # report (each audit re-digests the 4.26 GB payload)
+    report = os.path.join(root, "verify_ckpt.json")
+    code = verify_ckpt.main([out, "--step", str(2 * CKPT_STEPS),
+                             "--json", report])
+    with open(report) as f:
+        bad = json.load(f)["steps"][0]
     check(code == 1 and bad["status"] == "corrupt",
           f"flipped payload: exit {code}, {bad['status']}")
     with _Records() as records:
@@ -2654,7 +2705,9 @@ def phase_checkpoint(dev: torch.device, card: str, uninterrupted: list,
               f"checkpoint step {2 * CKPT_STEPS}" in l]
     check(len(warned) == 1, f"fallback warning: {records.lines}")
     flip()
-    statuses = [r["status"] for r in verify_ckpt.audit_directory(out)["steps"]]
+    # step 5 is as the first audit found it; step 10 is audited again
+    restored = verify_ckpt.audit_directory(out, step=2 * CKPT_STEPS)
+    statuses = [statuses[0]] + [r["status"] for r in restored["steps"]]
     check(statuses == ["ok", "ok"], f"audit after the flip back {statuses}")
     _unpatch(second, "load", "save", "train_step")
     del second
@@ -2722,6 +2775,21 @@ class _CountCalls:
         self.M.gpt_for_pretraining = self.real
 
 
+def _cut_checkpoint(dev: torch.device, root: str, ckpt_dir: str) -> str:
+    """The newest params under ``ckpt_dir`` cut to their first
+    ``CUT_LAYERS`` layers, saved as a params-only checkpoint (step 1)
+    under ``root``; its directory."""
+    from fleetx_tpu_torch.core import checkpoint as C
+
+    params = _first_layers(C.load_params(ckpt_dir, device=dev), CUT_LAYERS)
+    cut_dir = os.path.join(root, "ckpt_cut")
+    C.save_checkpoint(cut_dir, 1, dict(step=1, **C.flatten(params,
+                                                           "params/")))
+    del params
+    torch.cuda.empty_cache()
+    return cut_dir
+
+
 def _top2_gap(cfg, params, ids: list) -> float:
     """The gap between the two largest next-token logits after ``ids``."""
     from fleetx_tpu_torch.models.gpt import model as M
@@ -2771,9 +2839,10 @@ def _generation_trace(dev: torch.device, card: str, base: list,
 
 def phase_generation(dev: torch.device, card: str, ckpt_dir: str,
                      root: str) -> dict:
-    """Phase 9: the generation task from phase 8's checkpoint, three
-    strategies at full width; f32 greedy against the replica serving the
-    same checkpoint through the paged kernel."""
+    """Phase 9: the generation task from phase 8's checkpoint cut to
+    ``CUT_LAYERS`` layers (``ckpt_dir``), three strategies at full width;
+    f32 greedy against the replica serving the same checkpoint through
+    the paged kernel."""
     from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import train_bpe
     from fleetx_tpu_torch.models.gpt import generation as G
     from fleetx_tpu_torch.tasks.gpt import generation as task
@@ -2791,7 +2860,7 @@ def phase_generation(dev: torch.device, card: str, ckpt_dir: str,
     offsets = np.cumsum((0,) + GEN_PROMPT_LENS)
     prompts = [ids[o:o + n] for o, n in zip(offsets, GEN_PROMPT_LENS)]
     base = [f"Generation.tokenizer_dir={tok_dir}",
-            f"Engine.save_load.ckpt_dir={ckpt_dir}"]
+            f"Engine.save_load.ckpt_dir={ckpt_dir}"] + CUT_DEPTH
     per_model_call = None
     strategies = {}
     for name, extra in GEN_STRATEGIES:
@@ -2801,7 +2870,7 @@ def phase_generation(dev: torch.device, card: str, ckpt_dir: str,
         check(any("restored params from" in l for l in records.lines),
               "params did not come from the checkpoint")
         mc = module.model_cfg
-        check(mc.num_layers == 24 and mc.hidden_size == 1024
+        check(mc.num_layers == CUT_LAYERS and mc.hidden_size == 1024
               and mc.num_attention_heads == 16 and mc.vocab_size == 50304
               and mc.dtype == torch.bfloat16, "not the full-width 345M model")
         per_model_call = 2 * mc.num_layers + 1
@@ -2875,7 +2944,8 @@ def phase_generation(dev: torch.device, card: str, ckpt_dir: str,
     gen_rows = module.generate_ids(params, cross)
     eos = module.gen_cfg.eos_token_id
     replica = build_engine(serve_config(YAML, [
-        f"Serving.ckpt_dir={ckpt_dir}", "Model.dtype=float32"]), device=dev)
+        f"Serving.ckpt_dir={ckpt_dir}", "Model.dtype=float32"] + CUT_DEPTH),
+        device=dev)
     check(replica.paged_kernel_active, "replica not on the paged kernel")
     check(replica.eos_token_id == eos, "eos ids differ")
     zero_counts()                   # every count to 0 just before
@@ -2943,8 +3013,8 @@ EVAL_BATCH = 8
 #: exported forward: calls timed after the first
 FORWARD_CALLS = 20
 #: depth of phase 11's f32 generation export (the checkpoint's first
-#: layers; the bf16 exports run all 24), cut to keep the smoke inside
-#: its limit on a slow host
+#: layers; the bf16 exports run all CUT_LAYERS), cut to keep the smoke
+#: inside its limit on a slow host
 F32_EXPORT_LAYERS = 2
 
 
@@ -3033,13 +3103,14 @@ def _eval_module(dtype: str, kernels: bool):
 
     return GPTEvalModule(load_config(EVAL_YAML, [
         f"Model.dtype={dtype}", f"Model.use_flash_attention={kernels}",
-        f"Model.fused_residual_norm={kernels}"]))
+        f"Model.fused_residual_norm={kernels}"] + CUT_DEPTH))
 
 
 def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
                tok_dir: str, params: dict) -> dict:
     """Phase 10: ``tools.eval`` on ``eval_gpt_345M_single_card.yaml`` from
-    phase 8's checkpoint, ppl and acc, each its own process; the
+    phase 8's checkpoint cut to ``CUT_LAYERS`` layers (``ckpt_dir``), ppl
+    and acc, each its own process; the
     ``Data.Eval`` path on a corpus written by the port's
     ``preprocess_data``; in this process kernels on against off (f32 and
     bf16) and one traced batch."""
@@ -3048,7 +3119,7 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
 
     txt, jsonl, n_cloze = _eval_texts(root)
     base = [f"Engine.save_load.ckpt_dir={ckpt_dir}",
-            f"Offline_Eval.tokenizer_dir={tok_dir}"]
+            f"Offline_Eval.tokenizer_dir={tok_dir}"] + CUT_DEPTH
     runs = {}
     for kind, path in (("ppl", txt), ("acc", jsonl)):
         lines, _, _ = _cli("tools.eval", ["-c", EVAL_YAML] + _overrides(
@@ -3062,8 +3133,9 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
               f"eval {kind}: {rec}")
         per_batch = {k: v / rec["batches"]
                      for k, v in rec["launches"].items()}
-        check(per_batch == {"flash_attention_fwd": 24, "fused_norm_fwd": 49,
-                            ROWS_COUNT: 49},
+        check(per_batch == {"flash_attention_fwd": CUT_LAYERS,
+                            "fused_norm_fwd": 2 * CUT_LAYERS + 1,
+                            ROWS_COUNT: 2 * CUT_LAYERS + 1},
               f"eval {kind}: launches per batch {per_batch}")
         runs[kind] = dict(rec, launches_per_batch=per_batch)
     tok = GPTTokenizer.from_pretrained(tok_dir)
@@ -3079,7 +3151,7 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
     data_eval_run = _cli_start("tools.eval", ["-c", PRETRAIN_YAML]
                                + _overrides([
         f"Engine.save_load.ckpt_dir={ckpt_dir}",
-        f"Data.Eval.dataset.input_dir={prefix_path}",
+        f"Data.Eval.dataset.input_dir={prefix_path}", *CUT_DEPTH,
         "Data.Eval.dataset.num_samples=32",
         f"Data.Eval.dataset.eos_id={tok.eos_token_id}",
         "Engine.eval_iters=3"]))
@@ -3241,8 +3313,9 @@ def _generate_timed(eng, inputs: list, layers: int = 24) -> tuple:
 def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
                  tok_dir: str, params: dict) -> dict:
     """Phase 11: ``tools.export`` of both targets of
-    ``inference_gpt_345M_single_card.yaml`` from phase 8's checkpoint,
-    the exported forward against the eager one with its latencies, the
+    ``inference_gpt_345M_single_card.yaml`` from phase 8's checkpoint cut
+    to its first ``CUT_LAYERS`` layers (``ckpt_dir``, ``params``), the
+    exported forward against the eager one with its latencies, the
     generation programs against eager generation (greedy in bf16 and f32,
     sampling under one seed), ``tools.inference`` and
     ``tasks.gpt.inference`` as their own processes."""
@@ -3256,7 +3329,7 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
     from fleetx_tpu_torch.tools import export as X
     from fleetx_tpu_torch.utils.export import export_model
 
-    base = [f"Engine.save_load.ckpt_dir={ckpt_dir}"]
+    base = [f"Engine.save_load.ckpt_dir={ckpt_dir}"] + CUT_DEPTH
     fwd_dir = os.path.join(root, "exported_forward")
     gen_dir = os.path.join(root, "exported_generation")
     exports = {}
@@ -3307,7 +3380,8 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
                                                         *dev_in))
     per_call = {k: counts[k] / len(times) for k in ("flash_attention_fwd",
                                                     "fused_norm_fwd")}
-    check(per_call == {"flash_attention_fwd": 24, "fused_norm_fwd": 49},
+    check(per_call == {"flash_attention_fwd": CUT_LAYERS,
+                       "fused_norm_fwd": 2 * CUT_LAYERS + 1},
           f"exported forward: launches per call {per_call}")
     with torch.no_grad():
         want = M.gpt_for_pretraining(params, cfg, tokens.to(dev),
@@ -3345,14 +3419,15 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
     eng = InferenceEngine(gen_dir, device=dev)
     sampling_cfg = eng.gen_cfg
     generation["load_s"] = eng.load_s
-    _generate_timed(eng, [tokens, mask, seed])  # the first call
+    _generate_timed(eng, [tokens, mask, seed], CUT_LAYERS)  # first call
     for name, extra in (("greedy", ["Generation.decode_strategy="
                                     "greedy_search"]), ("sampling", [])):
         # the programs do not depend on the strategy: greedy is the
         # sampling export's engine with do_sample off
         eng.gen_cfg = dataclasses.replace(sampling_cfg,
                                           do_sample=name == "sampling")
-        ids, rec = _generate_timed(eng, [tokens, mask, seed])
+        ids, rec = _generate_timed(eng, [tokens, mask, seed],
+                                   CUT_LAYERS)
         launches += rec["fused_norm_fwd"]
         module = GPTGenerationModule(X.load_config(INF_YAML, base + extra))
         check(module.gen_cfg == eng.gen_cfg, f"{name}: generation configs "
@@ -3539,17 +3614,26 @@ PREEMPT_AT = CKPT_STEPS
 PREEMPT_EXIT = 75
 #: the guard's per-step cost: rounds of check-off / check-on step blocks
 GUARD_COST_ROUNDS, GUARD_COST_STEPS = 3, 6
+#: the rollback and preemption drills run the 345M recipe at full width
+#: cut to its first DRILL_LAYERS layers (a depth cut, for the smoke's time
+#: limit: their 4.26 GB saves and restores at 24 layers took ~20 and ~12 s
+#: each; every checked property, the guard's decisions, the exit code, the
+#: audit and the bitwise resume, does not depend on the depth)
+DRILL_LAYERS = 4
+DRILL_DEPTH = [f"Model.num_layers={DRILL_LAYERS}"]
 
 
-def _trainer_345m(dev: torch.device, overrides: list) -> tuple:
+def _trainer_345m(dev: torch.device, overrides: list,
+                  layers: int = 24) -> tuple:
     """``(cfg, engine, train loader)`` of the 345M recipe at full width
-    and depth through ``build_trainer``, with ``overrides``."""
+    and depth (or ``layers``, which ``overrides`` then set) through
+    ``build_trainer``, with ``overrides``."""
     from fleetx_tpu_torch.tools.train import build_trainer, load_config
 
     cfg = load_config(TRAIN_YAML, ["Engine.logging_freq=1"] + overrides)
     engine, dl, _ = build_trainer(cfg, device=dev)
     mc = engine.module.model_cfg
-    check(mc.num_layers == 24 and mc.hidden_size == 1024
+    check(mc.num_layers == layers and mc.hidden_size == 1024
           and mc.num_attention_heads == 16 and mc.vocab_size == 50304
           and cfg["Global"]["max_seq_len"] == 1024
           and cfg["Global"]["global_batch_size"] == 8,
@@ -3898,14 +3982,14 @@ def _guard_skip_and_cost(dev: torch.device, card: str, root: str) -> dict:
 
 
 def _rollback_drill(dev: torch.device, card: str, root: str) -> dict:
-    """bf16, ``ROLLBACK_OVERRIDES``: the first streak restores step 4
-    (``rollbacks_total`` 1, the restore timed), the second raises
-    ``TrainingAborted``."""
+    """bf16 at ``DRILL_LAYERS`` layers, ``ROLLBACK_OVERRIDES``: the first
+    streak restores step 4 (``rollbacks_total`` 1, the restore timed), the
+    second raises ``TrainingAborted``."""
     from fleetx_tpu_torch.resilience import TrainingAborted
 
     out_dir = os.path.join(root, "rollback")
-    _, engine, dl = _trainer_345m(dev, ROLLBACK_OVERRIDES + [
-        f"Engine.save_load.output_dir={out_dir}"])
+    _, engine, dl = _trainer_345m(dev, ROLLBACK_OVERRIDES + DRILL_DEPTH + [
+        f"Engine.save_load.output_dir={out_dir}"], layers=DRILL_LAYERS)
     save_s, load_s, decisions = [], [], []
     _timed(engine, "save", save_s)
     _timed(engine, "load", load_s)
@@ -3939,7 +4023,7 @@ def _rollback_drill(dev: torch.device, card: str, root: str) -> dict:
     torch.cuda.empty_cache()
     out = dict(restored_step=4, rollbacks_total=rolled, decisions=decisions,
                aborted=aborted, final_step=step, save_s=save_s[0],
-               restore_s=load_s[0])
+               restore_s=load_s[0], layers=DRILL_LAYERS)
     emit("rollback_drill", **out, nvidia_smi=card)
     return out
 
@@ -3955,21 +4039,28 @@ def _logged_losses(stderr: str) -> dict:
     return out
 
 
-def _preemption_drill(dev: torch.device, card: str, root: str,
-                      uninterrupted: list) -> dict:
-    """``python -m fleetx_tpu_torch.tools.train`` with
-    ``sigterm_at: PREEMPT_AT``: it exits with ``PREEMPT_EXIT`` leaving a
-    verified step-5 checkpoint; the same command without the fault
-    auto-resumes and trains to step 10, with the losses of phase 4's
-    uninterrupted run bit for bit (as f32: the log prints 9 decimals)."""
+def _preemption_drill(dev: torch.device, card: str, root: str) -> dict:
+    """``python -m fleetx_tpu_torch.tools.train`` at ``DRILL_LAYERS``
+    layers with ``sigterm_at: PREEMPT_AT``: it exits with ``PREEMPT_EXIT``
+    leaving a verified step-5 checkpoint; the same command without the
+    fault auto-resumes and trains to step 10, with the losses of the same
+    recipe's uninterrupted run in this process bit for bit (as f32: the
+    log prints 9 decimals)."""
     from fleetx_tpu_torch.core import checkpoint as C
     from fleetx_tpu_torch.tools import verify_ckpt
 
     out_dir = os.path.join(root, "preempt")
-    args = ["-c", TRAIN_YAML] + _overrides([
-        f"Engine.max_steps={TRAIN_STEPS}", "Engine.logging_freq=1",
-        f"Engine.save_load.output_dir={out_dir}", "Resilience.enable=True",
-        f"Resilience.preemption.exit_code={PREEMPT_EXIT}"])
+    recipe = DRILL_DEPTH + [
+        f"Engine.max_steps={TRAIN_STEPS}", "Resilience.enable=True",
+        f"Resilience.preemption.exit_code={PREEMPT_EXIT}"]
+    _, engine, dl = _trainer_345m(dev, recipe + [
+        "Engine.save_load.output_dir="
+        f"{os.path.join(root, 'preempt_reference')}"], layers=DRILL_LAYERS)
+    uninterrupted = engine.fit(dl)
+    del engine, dl
+    torch.cuda.empty_cache()
+    args = ["-c", TRAIN_YAML] + _overrides(recipe + [
+        "Engine.logging_freq=1", f"Engine.save_load.output_dir={out_dir}"])
     runs = []
     for fault in (True, False):
         cmd = list(args) + (_overrides([
@@ -4000,8 +4091,8 @@ def _preemption_drill(dev: torch.device, card: str, root: str,
           f"logged steps {sorted(first)} then {sorted(second)}")
     same = all(np.float32(x) == np.float32(want[s])
                for s, x in {**first, **second}.items())
-    check(same, f"preempted + resumed losses {first} {second} vs phase 4's "
-                f"{want}")
+    check(same, f"preempted + resumed losses {first} {second} vs the "
+                f"uninterrupted run's {want}")
     saved = re.search(r"preemption: saved step \d+ in ([0-9.]+) s",
                       runs[0][0].stderr)
     check(saved is not None and "auto-resume: restoring step "
@@ -4010,17 +4101,17 @@ def _preemption_drill(dev: torch.device, card: str, root: str,
                checkpoint_steps=[PREEMPT_AT], audit="ok",
                losses_before=[first[s] for s in sorted(first)],
                losses_resumed=[second[s] for s in sorted(second)],
-               bitwise_phase4=same, save_on_exit_s=float(saved.group(1)),
-               process_s=[t for _, t in runs])
+               bitwise_uninterrupted=same,
+               save_on_exit_s=float(saved.group(1)),
+               process_s=[t for _, t in runs], layers=DRILL_LAYERS)
     emit("preemption_drill", **out, nvidia_smi=card)
     return out
 
 
-def phase_fp16_resilience(dev: torch.device, card: str,
-                          uninterrupted: list) -> dict:
+def phase_fp16_resilience(dev: torch.device, card: str) -> dict:
     """Phase 12: fp16 training under the loss scaler and the resilience
-    drills, at 345M full width and depth; ``uninterrupted`` is phase 4's
-    10 losses. Each part prints one JSON line."""
+    drills, at 345M full width and depth (the rollback and preemption
+    drills at ``DRILL_LAYERS`` layers). Each part prints one JSON line."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_fp16_")
     try:
@@ -4034,7 +4125,7 @@ def phase_fp16_resilience(dev: torch.device, card: str,
             overflow=_overflow_drill(dev, card, root),
             guard=_guard_skip_and_cost(dev, card, root),
             rollback=_rollback_drill(dev, card, root),
-            preemption=_preemption_drill(dev, card, root, uninterrupted))
+            preemption=_preemption_drill(dev, card, root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     result["seconds"] = time.perf_counter() - t0
@@ -4052,9 +4143,10 @@ FT_LR = ["Optimizer.lr.max_lr=1e-3", "Optimizer.lr.min_lr=1e-3",
          "Optimizer.lr.warmup_rate=0.0"]
 #: the adapter parameters of GPT-345M at rank 8, a layer: qkv (1024·8 +
 #: 8·3072), out (1024·8 + 8·1024), wi (1024·8 + 8·4096), wo (4096·8 +
-#: 8·1024); 24 layers
-FT_ADAPTER_PARAMS = 24 * ((1024 * 8 + 8 * 3072) + (1024 * 8 + 8 * 1024)
-                          + (1024 * 8 + 8 * 4096) + (4096 * 8 + 8 * 1024))
+#: 8·1024); CUT_LAYERS layers (phase 8's checkpoint cut)
+FT_ADAPTER_PARAMS = CUT_LAYERS * (
+    (1024 * 8 + 8 * 3072) + (1024 * 8 + 8 * 1024)
+    + (1024 * 8 + 8 * 4096) + (4096 * 8 + 8 * 1024))
 #: requests of phase 13's ``tools.serve --bench`` process
 SERVE_CLI_REQUESTS = 8
 #: the JAX test's bound on the quantized decode's first-chunk logits,
@@ -4070,9 +4162,10 @@ def _digest_pairs(digests: dict) -> dict:
 def phase_finetune(dev: torch.device, card: str, root: str, ckpt_dir: str,
                    tok_dir: str, prefix: str, trainer: dict) -> dict:
     """Phase 13a: ``python -m fleetx_tpu_torch.tools.finetune`` on
-    ``finetune_gpt_345M_lora.yaml`` from phase 8's checkpoint on phase
-    10's corpus, as its own process; its launch counts, loss, frozen base,
-    moved adapters, trainable fraction and artifact."""
+    ``finetune_gpt_345M_lora.yaml`` from phase 8's checkpoint cut to
+    ``CUT_LAYERS`` layers (``ckpt_dir``) on phase 10's corpus, as its own
+    process; its launch counts, loss, frozen base, moved adapters,
+    trainable fraction and artifact."""
     from fleetx_tpu_torch.core import checkpoint as C
     from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
     from fleetx_tpu_torch.finetune import checkpoint as FT
@@ -4090,10 +4183,11 @@ def phase_finetune(dev: torch.device, card: str, root: str, ckpt_dir: str,
                  f"Engine.save_load.output_dir={state_dir}",
                  f"Data.Train.dataset.input_dir={prefix}",
                  f"Data.Train.dataset.num_samples={FT_STEPS * 8}",
-                 f"Data.Train.dataset.eos_id={tok.eos_token_id}"] + FT_LR
+                 f"Data.Train.dataset.eos_id={tok.eos_token_id}"] + FT_LR \
+        + CUT_DEPTH
     cfg = load_config(FT_YAML, overrides)
     mc, ft = cfg["Model"], cfg["FineTune"]
-    check(mc["module"] == "LoRAGPTModule" and mc["num_layers"] == 24
+    check(mc["module"] == "LoRAGPTModule" and mc["num_layers"] == CUT_LAYERS
           and mc["hidden_size"] == 1024 and mc["num_attention_heads"] == 16
           and mc["dtype"] == "bfloat16" and ft["lora"]["rank"] == 8
           and float(ft["lora"]["alpha"]) == 16.0
@@ -4106,7 +4200,7 @@ def phase_finetune(dev: torch.device, card: str, root: str, ckpt_dir: str,
     rec = lines[-1]
     check(rec["device"].startswith("cuda") and rec["steps"] == FT_STEPS,
           f"finetune ran {rec['steps']} steps on {rec['device']}")
-    for name, per_step in PER_STEP.items():
+    for name, per_step in _per_step(CUT_LAYERS).items():
         check(rec["launches"][name] == per_step * FT_STEPS,
               f"finetune: {name} {rec['launches'][name]} launches, want "
               f"{per_step} x {FT_STEPS}")
@@ -4166,7 +4260,7 @@ def phase_finetune(dev: torch.device, card: str, root: str, ckpt_dir: str,
                peak_memory_gb=rec.get("peak_memory_gb"),
                launches=rec["launches"],
                launches_per_step={k: rec["launches"][k] / FT_STEPS
-                                  for k in PER_STEP},
+                                  for k in PER_STEP}, layers=CUT_LAYERS,
                process_s=process_s, lora_alpha=float(meta["lora"]["alpha"]),
                adapter_dir=ad_dir, state_dir=state_dir, nvidia_smi=card)
     emit("finetune", **{k: v for k, v in out.items()
@@ -4202,10 +4296,11 @@ def _replica_tokens(engine, prompts: list, max_new: int) -> list:
 
 def phase_quant_serving(dev: torch.device, card: str, ckpt_dir: str,
                         ft: dict, tok_dir: str, main_path: dict) -> dict:
-    """Phase 13b: the fine-tune recipe's replica (phase 8's checkpoint
-    with 13a's adapters merged, int8 fake-quant decode) over TCP beside
-    phase 2; in f32 the quantization drift and the merged replica against
-    generation from the fine-tuned state folded in memory."""
+    """Phase 13b: the fine-tune recipe's replica (phase 8's checkpoint cut
+    to ``CUT_LAYERS`` layers, with 13a's adapters merged, int8 fake-quant
+    decode) over TCP beside phase 2; in f32 the quantization drift and the
+    merged replica against generation from the fine-tuned state folded in
+    memory."""
     from fleetx_tpu_torch.core import checkpoint as C
     from fleetx_tpu_torch.core.module import GPTGenerationModule
     from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
@@ -4215,12 +4310,12 @@ def phase_quant_serving(dev: torch.device, card: str, ckpt_dir: str,
     from fleetx_tpu_torch.tools.serve import load_config as serve_config
 
     base = [f"Serving.ckpt_dir={ckpt_dir}",
-            f"Serving.adapter_dir={ft['adapter_dir']}"]
+            f"Serving.adapter_dir={ft['adapter_dir']}"] + CUT_DEPTH
     t0 = time.perf_counter()
     engine = build_engine(serve_config(FT_YAML, base), device=dev)
     build_s = time.perf_counter() - t0
     mc, sc = engine.cfg, engine.serving
-    check(mc.num_layers == 24 and mc.hidden_size == 1024
+    check(mc.num_layers == CUT_LAYERS and mc.hidden_size == 1024
           and mc.num_attention_heads == 16 and mc.dtype == torch.bfloat16
           and engine.serving.quantize_decode and engine.paged_kernel_active
           and sc.max_batch == 16 and sc.num_pages == 513,
@@ -4279,7 +4374,7 @@ def phase_quant_serving(dev: torch.device, card: str, ckpt_dir: str,
 
     module = GPTGenerationModule(task.load_config(GEN_YAML, [
         "Generation.decode_strategy=greedy_search", "Model.dtype=float32",
-        f"Generation.max_dec_len={CROSS_NEW}"]))
+        f"Generation.max_dec_len={CROSS_NEW}"] + CUT_DEPTH))
     check(module.gen_cfg.eos_token_id == eos, "eos ids differ")
     folded = lora.merge_adapters(C.load_params(ft["state_dir"],
                                                device=dev),
@@ -4346,8 +4441,9 @@ def phase_quant_serving(dev: torch.device, card: str, ckpt_dir: str,
 def phase_finetune_serving(dev: torch.device, card: str, root: str,
                            ckpt_dir: str, tok_dir: str, prefix: str,
                            trainer: dict, main_path: dict) -> tuple:
-    """Phase 13: the LoRA fine-tune from phase 8's checkpoint on phase
-    10's corpus, then its quantized replica; ``(finetune, quant)``."""
+    """Phase 13: the LoRA fine-tune from phase 8's checkpoint cut to
+    ``CUT_LAYERS`` layers (``ckpt_dir``) on phase 10's corpus, then its
+    quantized replica; ``(finetune, quant)``."""
     finetune = timed("13 finetune", phase_finetune, dev, card, root,
                      ckpt_dir, tok_dir, prefix, trainer)
     quant = timed("13 quant_serving", phase_quant_serving, dev, card,
@@ -4738,9 +4834,10 @@ def finetune_serving_alone(dev: torch.device, card: str) -> None:
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         timed("8", phase_checkpoint, dev, card, trainer["losses"], root)
+        cut_dir = _cut_checkpoint(dev, root, os.path.join(root, "ckpt"))
         tok_dir = _readme_tokenizer(root)
         txt, _, _ = _eval_texts(root)
-        phase_finetune_serving(dev, card, root, os.path.join(root, "ckpt"),
+        phase_finetune_serving(dev, card, root, cut_dir,
                                tok_dir, _docs_corpus(root, txt, tok_dir),
                                trainer, main_path)
     finally:
@@ -4781,7 +4878,9 @@ def eval_export_alone(dev: torch.device, card: str) -> None:
             step=1, **C.flatten(params, "params/")), meta={
                 "consumed_samples": 0, "epoch": 0, "seed": 1234})
         del params
-        eval_and_export(dev, card, root, os.path.join(root, "ckpt"),
+        eval_and_export(dev, card, root,
+                        _cut_checkpoint(dev, root, os.path.join(root,
+                                                                "ckpt")),
                         _readme_tokenizer(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5872,6 +5971,260 @@ def phase_telemetry(dev: torch.device, card: str, losses4: list,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -------------------------------------------------------------- phase 18
+#: phase 4's recipe under the resilience runtime: the SDC sentinel every
+#: 2nd step with action abort (a false positive on healthy hardware fails
+#: the phase), one asynchronous save at step 5 whose write overlaps steps
+#: 6-8, 8 steps
+SDC_STEPS = 8
+SDC_EVERY = 2
+SDC_SAVE_AT = 5
+SDC_OVERRIDES = ["Resilience.enable=True",
+                 f"Resilience.integrity.sentinel_every={SDC_EVERY}",
+                 "Resilience.integrity.sentinel_action=abort",
+                 "Engine.save_load.async_save=True",
+                 f"Engine.save_load.save_steps={SDC_SAVE_AT}",
+                 f"Engine.max_steps={SDC_STEPS}", "Engine.logging_freq=1"]
+
+
+def _preflight_children(root: str) -> dict:
+    """The selftest on the card and the supervisor's preflight forced to
+    fail, each its own process (``_cli_wait`` collects them)."""
+    marker = os.path.join(root, "preflight_child_ran")
+    env = dict(os.environ, PYTHONPATH=REPO, FLEETX_SELFTEST_FORCE_FAIL="*")
+    return {"selftest": _cli_start("resilience.integrity", ["--selftest"]),
+            "marker": marker,
+            "preflight": subprocess.Popen(
+                [sys.executable, "-m", "fleetx_tpu_torch.tools.supervise",
+                 "--preflight", "--max-restart", "0", "--",
+                 sys.executable, "-c", f"open({marker!r}, 'w').write('x')"],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env)}
+
+
+def phase_resilience_runtime(dev: torch.device, card: str, losses4: list,
+                             sync_save_s: Optional[list]) -> dict:
+    """Phase 18: phase 4's recipe with the SDC sentinel (every 2nd step,
+    abort) and one asynchronous save (step 5); the losses against phase
+    4's, the launches of 8 steps and 4 replays, the save's stall, overlap
+    and finalize wait beside phase 8's synchronous save, the payload
+    against the state at step 5, the fingerprint on the card against the
+    CPU's and the bit-flip drill, the selftest on the card and the
+    preflight's refusal."""
+    from fleetx_tpu_torch.convert import jax_leaves
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.observability.metrics import get_registry
+    from fleetx_tpu_torch.resilience import integrity
+    from fleetx_tpu_torch.resilience.integrity import params_fingerprint
+    from fleetx_tpu_torch.tools import verify_ckpt
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_sdc_")
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= CKPT_MIN_FREE_BYTES,
+              f"{root} has {free / 1e9:.1f} GB free; the 345M checkpoint "
+              f"needs {CKPT_MIN_FREE_BYTES / 1e9:.0f} GB")
+        out = os.path.join(root, "ckpt")
+        cfg = load_config(TRAIN_YAML, SDC_OVERRIDES
+                          + [f"Engine.save_load.output_dir={out}"])
+        engine, dl, _ = build_trainer(cfg, device=dev)
+        mc = engine.module.model_cfg
+        res = engine.resilience
+        check(mc.num_layers == 24 and mc.hidden_size == 1024
+              and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+              and mc.dtype == torch.bfloat16
+              and cfg["Global"]["max_seq_len"] == 1024
+              and cfg["Global"]["global_batch_size"] == 8
+              and engine.async_save and res.sentinel_every == SDC_EVERY
+              and res.sentinel_action == "abort",
+              "not phase 4's recipe with the sentinel and async saves")
+        # the host instrumentation: each step's start, each check's wall
+        # (the card drained around it), the snapshot's wall and a clone on
+        # the card of the live state as the save returns (step 6 has not
+        # started: it is still step 5's; digested after the fit, apart
+        # from the writer's copy), and each finalize's start and wait
+        starts, check_s, snap, finals = [], [], {}, []
+        step_fn, check_fn, save_fn = (engine.train_step, engine._sdc_check,
+                                      engine.save)
+        finalize = C.finalize_async_saves
+        # the compute stream alone: a device-wide synchronize would also
+        # wait for the writer's copy on its own stream
+        drain = torch.cuda.current_stream(dev).synchronize
+
+        def train_step(batch):
+            starts.append(time.perf_counter())
+            return step_fn(batch)
+
+        def sdc_check(*a):
+            drain()
+            t0 = time.perf_counter()
+            out_ = check_fn(*a)
+            drain()
+            check_s.append(time.perf_counter() - t0)
+            return out_
+
+        def save():
+            drain()
+            t0 = time.perf_counter()
+            path = save_fn()
+            drain()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                snap["state"] = {k: v.detach().clone() if torch.is_tensor(v)
+                                 else v for k, v in engine.state_dict().items()}
+            drain()
+            snap["bytes"] = _state_bytes(snap["state"])
+            snap["snapshot_s"] = t1 - t0
+            snap["clone_s"] = time.perf_counter() - t1
+            return path
+
+        def timed_finalize():
+            t0 = time.perf_counter()
+            pending = len(C._pending)
+            finalize()
+            finals.append((t0, time.perf_counter() - t0, pending))
+
+        engine.train_step, engine._sdc_check, engine.save = (
+            train_step, sdc_check, save)
+        C.finalize_async_saves = timed_finalize
+        reg = get_registry()
+        before = {k: reg.counter(k).value for k in (
+            "sdc_checks_total", "sdc_replay_mismatches", "ckpt_failed_total")}
+        reset_peak(dev)
+        zero_counts()                   # every count to 0 just before
+        try:
+            losses = engine.fit(dl)
+        finally:
+            C.finalize_async_saves = finalize
+            _unpatch(engine, "train_step", "_sdc_check", "save")
+        torch.cuda.synchronize()
+        counts = read_counts()          # read just after
+        moved = {k: reg.counter(k).value - v for k, v in before.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        children = _preflight_children(root)
+        runs = SDC_STEPS + SDC_STEPS // SDC_EVERY
+        for name, per_step in PER_STEP.items():
+            check(counts[name] == per_step * runs,
+                  f"sentinel: {name} {counts[name]} launches, want "
+                  f"{per_step} x ({SDC_STEPS} steps + "
+                  f"{SDC_STEPS // SDC_EVERY} replays)")
+        check(moved["sdc_checks_total"] == SDC_STEPS // SDC_EVERY
+              and moved["sdc_replay_mismatches"] == 0
+              and moved["ckpt_failed_total"] == 0,
+              f"sentinel counters {moved}")
+        check(losses == losses4[:SDC_STEPS],
+              f"losses {losses} vs phase 4's {losses4[:SDC_STEPS]}")
+        # the steps' host walls: step k from its start to the next's
+        # (the last to fit's finalize), each ending in its loss sync;
+        # steps 2, 4, 6, 8 carry a check, step 5 the save
+        fit_end = [t for t, _, pending in finals if pending][-1]
+        walls = [b - a for a, b in zip(starts, starts[1:] + [fit_end])]
+        check(len(walls) == SDC_STEPS, f"{len(walls)} steps timed")
+        plain = statistics.median([walls[2], walls[6]])  # steps 3 and 7
+        stall = walls[SDC_SAVE_AT - 1] - snap["clone_s"] - plain
+        finalize_wait = [w for t, w, pending in finals
+                         if pending and t == fit_end][0]
+        check(C.completed_steps(out) == [SDC_SAVE_AT],
+              f"steps saved: {C.completed_steps(out)}")
+        # the crc32 of the state at the save on a thread of its own (zlib
+        # releases the lock) while the audit digests the payload
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            crc = pool.submit(lambda: [
+                integrity.digest_array(C._to_host(v)[0])["crc32"]
+                for v in snap["state"].values()])
+            audit = verify_ckpt.audit_directory(out)
+            snap["crc"] = crc.result()
+        snap["names"] = list(snap.pop("state"))
+        statuses = [r["status"] for r in audit["steps"]]
+        check(statuses == ["ok"], f"audit {statuses}")
+        # the payload is the state at step 5: the audit held every leaf's
+        # bytes to the manifest's digests (the writer's, from its copy),
+        # and those equal the crc32s of the phase's own copy
+        path = C.step_dir(out, SDC_SAVE_AT)
+        manifest = integrity.read_manifest(path)
+        with open(os.path.join(path, C.META_NAME)) as f:
+            meta = json.load(f)
+        with np.load(os.path.join(path, C.STATE_NAME)) as data:
+            names = [str(n) for n in data["__names__"]]
+        check(names == snap["names"], "payload leaf names")
+        bad = [n for n, d, c in zip(names, manifest["leaves"], snap["crc"])
+               if int(d["crc32"]) != c]
+        check(not bad and len(manifest["leaves"]) == len(names),
+              f"payload leaves differ from the state at step "
+              f"{SDC_SAVE_AT}: {bad}")
+        check(meta["step"] == SDC_SAVE_AT
+              and meta["consumed_samples"] == SDC_SAVE_AT * 8,
+              f"meta {meta}")
+        # the fingerprint of the final params on the card and on the CPU,
+        # and the bit-flip drill (flip, then flip back)
+        leaves = jax_leaves(engine.params)
+        fp_card = params_fingerprint(leaves)
+        t0 = time.perf_counter()
+        fp_cpu = params_fingerprint([p.detach().cpu() for p in leaves])
+        cpu_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params_fingerprint(leaves)
+        card_s = time.perf_counter() - t0
+        engine._apply_bitflip()
+        fp_flipped = params_fingerprint(leaves)
+        engine._apply_bitflip()
+        fp_back = params_fingerprint(leaves)
+        check(fp_card == fp_cpu, f"fingerprint card {fp_card} != CPU "
+                                 f"{fp_cpu}")
+        check(fp_flipped != fp_card and fp_back == fp_card,
+              f"bit-flip: {fp_card} -> {fp_flipped} -> {fp_back}")
+        # the preflight: the selftest ok on the card, and the forced
+        # failure refused with 41 before the command ran
+        selftest = _cli_wait(children["selftest"])[0][-1]
+        check(selftest["ok"] and selftest["compute_ok"]
+              and selftest["device"].startswith("cuda"),
+              f"selftest {selftest}")
+        proc = children["preflight"]
+        try:
+            _, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        check(proc.returncode == 41
+              and "preflight FAILED for gang member 0" in err
+              and not os.path.exists(children["marker"]),
+              f"preflight exit {proc.returncode}: {err[-2000:]}")
+        del engine, leaves
+        result = dict(
+            steps=SDC_STEPS, losses=losses, bitwise_phase4=True,
+            sdc_checks=moved["sdc_checks_total"],
+            sdc_replay_mismatches=moved["sdc_replay_mismatches"],
+            sentinel_check_ms=[t * 1e3 for t in check_s],
+            sentinel_check_ms_median=statistics.median(check_s) * 1e3,
+            step_ms=[w * 1e3 for w in walls],
+            step_ms_plain_median=plain * 1e3,
+            launches=counts, launches_runs=runs,
+            async_save=dict(
+                step=SDC_SAVE_AT, state_gb=snap["bytes"] / 1e9,
+                snapshot_device_gb=snap["bytes"] / 1e9,
+                snapshot_ms=snap["snapshot_s"] * 1e3,
+                stall_s=stall, stall_step_ms=walls[SDC_SAVE_AT - 1] * 1e3,
+                clone_s_excluded=snap["clone_s"],
+                overlap_step_ms_median=statistics.median(walls[5:8]) * 1e3,
+                before_step_ms_median=statistics.median(walls[1:4]) * 1e3,
+                finalize_wait_s=finalize_wait,
+                sync_save_s_phase8=sync_save_s,
+                completed_steps=[SDC_SAVE_AT], audit=statuses,
+                payload_equals_step_state=True, leaves=len(names)),
+            fingerprint=dict(card=fp_card, cpu=fp_cpu, flipped=fp_flipped,
+                             restored=fp_back, card_s=card_s, cpu_s=cpu_s),
+            selftest=selftest, preflight_exit=proc.returncode,
+            peak_memory_gb=peak_gb, nvidia_smi=card)
+        emit("resilience_runtime", **result)
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5884,20 +6237,22 @@ def main(argv) -> int:
     modes = {"--paged-shapes", "--serving", "--eval-export",
              "--fp16-resilience", "--train-paths", "--finetune-serving",
              "--gpt-knobs", "--encoders", "--families", "--norm-shapes",
-             "--telemetry"}
+             "--telemetry", "--resilience-runtime"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
         # line. --paged-shapes: row 7's three timings; --serving: phase 2
         # and its trace; --eval-export: phases 10-11 and row 1 at the eval
-        # shape on a checkpoint of seeded weights; --fp16-resilience: phase
-        # 1b's fp16 rows, phase 4 (the uninterrupted losses) and phase 12;
+        # shape on a checkpoint of seeded weights (cut to CUT_LAYERS);
+        # --fp16-resilience: phase 1b's fp16 rows, phase 4 and phase 12;
         # --train-paths: phases 4 and 6; --finetune-serving: phases 2, 4,
         # 8, the tokenizer and corpus of 9-10, and 13; --gpt-knobs: phases
         # 4 and 14; --encoders: phase 15; --families: phase 16;
         # --norm-shapes: phase 1d (row 5's routes: checks, timings in
         # turns, host µs; on an earlier tree its one route's timings);
-        # --telemetry: phases 4 and 17 (no slo_report: phase 2 did not run)
+        # --telemetry: phases 4 and 17 (no slo_report: phase 2 did not run);
+        # --resilience-runtime: phases 4 and 18 (no synchronous save to
+        # set beside the asynchronous one: phase 8 did not run)
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
@@ -5907,6 +6262,17 @@ def main(argv) -> int:
             timed("17", phase_telemetry, dev, card, trainer["losses"])
             reset_peak(dev)             # the last phase's garbage too
             emit("telemetry_alone", phase_walls=PHASE_WALLS,
+                 collect_freed_bytes=COLLECT_FREED,
+                 collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
+            print(smi_line(), flush=True)
+            return 0
+        if "--resilience-runtime" in argv:
+            build.build(["flash_attention", "fused_norm"])
+            trainer = phase_trainer(dev, card)
+            timed("18", phase_resilience_runtime, dev, card,
+                  trainer["losses"], None)
+            reset_peak(dev)
+            emit("resilience_runtime_alone", phase_walls=PHASE_WALLS,
                  collect_freed_bytes=COLLECT_FREED,
                  collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
             print(smi_line(), flush=True)
@@ -5960,7 +6326,7 @@ def main(argv) -> int:
             if "--train-paths" in argv:
                 phase_seq8k_trainer(dev, card)
             if "--fp16-resilience" in argv:
-                phase_fp16_resilience(dev, card, trainer["losses"])
+                phase_fp16_resilience(dev, card)
             print(smi_line(), flush=True)
             return 0
         build.build(["paged_attention"])
@@ -5995,7 +6361,8 @@ def main(argv) -> int:
     try:
         resume = timed("8", phase_checkpoint, dev, card, trainer["losses"],
                        root)
-        ckpt_dir = os.path.join(root, "ckpt")
+        ckpt_dir = timed("8 cut", _cut_checkpoint, dev, root,
+                         os.path.join(root, "ckpt"))
         tok_dir = os.path.join(root, "tokenizer")
         generation = timed("9", phase_generation, dev, card, ckpt_dir, root)
         evaluation, export = eval_and_export(dev, card, root, ckpt_dir,
@@ -6005,7 +6372,9 @@ def main(argv) -> int:
             trainer, main_path)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    fp16 = timed("12", phase_fp16_resilience, dev, card, trainer["losses"])
+    fp16 = timed("12", phase_fp16_resilience, dev, card)
+    sdc = timed("18", phase_resilience_runtime, dev, card, trainer["losses"],
+                resume["save_s"])
     row1_eval = timed(
         "row 1 eval shape", phase_row1_eval_shape, dev, card,
         train_kernels["bfloat16"]["flash_attention_fwd"]["ms"])
@@ -6078,6 +6447,9 @@ def main(argv) -> int:
     # window over steps 3-6)
     for name in ENCODER_ROWS:
         by_path[name]["telemetry_train"] = telemetry["launches"][name]
+    # phase 18: 8 steps and 4 sentinel replays (12 x 24 / 24 / 49 / 49)
+    for name in ENCODER_ROWS:
+        by_path[name]["sentinel_train"] = sdc["launches"][name]
     # every path's norm forward launches by route: read_counts (and the
     # eval and fine-tune processes' own counts, checked where read) hold
     # each path's launches all on "rows", none on "row_block"

@@ -1,5 +1,8 @@
 """JAX parameter pytree → the port's parameter dict.
 
+``jax_leaves(tree)`` lists a converted tree's leaves in the JAX tree's
+``jax.tree.leaves`` order.
+
 ``params_from_jax(tree, cfg, device)`` takes the tree as
 ``jax.device_get(flax.core.meta.unbox(params))`` gives it (nested dicts of
 numpy arrays) and returns the same nesting of torch tensors on
@@ -108,6 +111,18 @@ def params_from_jax(tree: Mapping, cfg: GPTConfig,
     device = torch.device(device)
     return _walk(tree, _expected(tree, cfg), "",
                  lambda node: _to_tensor(node, device))
+
+
+def jax_leaves(tree: Mapping) -> list:
+    """The leaves of a converted tree in ``jax.tree.leaves`` order of the
+    JAX tree it converts: every converter here keeps JAX's names and
+    nesting (the shape tables), and a JAX dict flattens with its keys
+    sorted at every level. The SDC sentinel's fingerprint mixes its leaf
+    sums in this order, and its bit-flip drill takes the first float leaf
+    of it, as the JAX engine's do."""
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in jax_leaves(tree[k])]
+    return [tree]
 
 
 def check_ernie_tree(tree: Mapping, cfg) -> None:

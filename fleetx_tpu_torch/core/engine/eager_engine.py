@@ -1,6 +1,6 @@
 """The training engine (port of ``fleetx_tpu/core/engine/eager_engine.py``:
 ``ScalerState`` :49, ``__init__`` :117-357, ``train_step`` :505-648,
-``fit`` :836-1496, ``evaluate`` :1614, ``predict`` :1639, ``inference``
+the SDC sentinel :716-835, ``fit`` :836-1496, ``evaluate`` :1614, ``predict`` :1639, ``inference``
 :1662, ``_auto_resume_rewind`` :1706).
 
 ``EagerEngine`` reads the ``Engine`` section and drives one device:
@@ -76,6 +76,45 @@ save and eval markers) and its ``abort`` raises ``TrainingAborted``.
 With a re-iterable loader, ``fit`` runs until ``max_steps`` optimizer
 steps are done, skipped batches not counted.
 
+The state-integrity runtime (``Resilience.integrity``):
+``verify_checkpoints`` sets the checkpoint layer's verify mode
+(``core/checkpoint.set_verify_mode``). The SDC sentinel
+(``sentinel_every`` N > 0, with ``enable``) replays every N-th step and
+compares its ``loss`` and ``grad_norm`` with the step's bit for bit
+(the kernels and ops of a step are deterministic, so a difference is a
+hardware fault): the JAX engine replays its step on the state it kept
+through a non-donating twin; the port updates its state in place, so on
+a sentinel step it keeps a clone of the parameters, the step counter and
+the loss scale from before the step, and the replay runs the forward and
+backward on them and the same ``grad_norm`` function, and stops before
+the optimizer (nothing it compares comes after). The replay moves no
+counter, scaler, guard window, LR, record or data position; the
+dropout generators are made anew from ``(seed, step)`` by each call, so
+there is no generator state to keep. A mismatch counts
+``sdc_replay_mismatches``, is noted in the flight ring, and then logs
+(``log``), writes ``<output_dir>/sdc_quarantine.json`` and goes on
+(``quarantine``, ``sdc_quarantines``) or raises ``TrainingAborted``
+(``abort``). The fault plan's ``bitflip_param_at`` flips bit 0 of the
+first element of the first float parameter in JAX's leaf order after
+that step's check (``_apply_bitflip``); the fingerprint census that
+would catch it needs replicas on other ranks (item 12), as JAX's runs
+only on gangs.
+
+``Engine.save_load.async_save``: ``save`` returns once the state is
+snapshotted and the writer thread writes it (``core/checkpoint.py``);
+``fit`` completes the outstanding save at its end (before retention) and
+on the preemption exit, ``load`` and a rollback before they read, each
+under the watchdog's ``quiet``. ``FLEETX_FAULT_STEP=K`` ends a fresh run
+with ``os._exit(17)`` after step K's save (the supervisor's restart
+drill; a resumed run sails past it).
+
+``Distributed.sharding.sharding_offload`` (JAX ``:252-279``): the JAX
+engine warns when the step fits the device without the offload, and
+turns the offload off, with a warning, on any backend but a TPU. This
+port runs on another backend, so it does both and never offloads (JAX's
+third warning, the fp16 scaler's, follows only where the offload
+survives the backend's).
+
 Input batches move to the card through pinned memory with non-blocking
 copies (``to_device``). With ``Engine.prefetch_to_device`` > 0 (every GPT
 recipe sets 2) ``data/prefetch.DevicePrefetcher`` makes those copies that
@@ -100,10 +139,9 @@ measures the host's launches, not the card's time: the record's
 ``step_time`` is the logging window's wall, which ends in the loss sync.
 
 What this slice does not cover raises ``NotImplementedError`` naming its
-ROADMAP item: per-rank checkpoint directories (item 12) and asynchronous
-saves (item 8), the SDC sentinel (item 8) and the gang watchdog (item
-12), ``Observability.gang`` (item 12), and any ``Distributed`` degree
-above 1.
+ROADMAP item: per-rank checkpoint directories (item 12), the gang
+watchdog (item 12), ``Observability.gang`` (item 12), and any
+``Distributed`` degree above 1.
 
 The engine is family-neutral: the batch size is the leading dim of the
 batch's first leaf in key order (``leading_dim``), a loaded tree is
@@ -119,6 +157,8 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import json
+import os
 import sys
 import threading
 import time
@@ -128,6 +168,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from fleetx_tpu_torch.convert import jax_leaves
 from fleetx_tpu_torch.core import checkpoint as ckpt_lib
 from fleetx_tpu_torch.core.engine.basic_engine import BasicEngine
 from fleetx_tpu_torch.data.prefetch import DevicePrefetcher
@@ -137,6 +178,7 @@ from fleetx_tpu_torch.observability.trace import ProfilerWindow
 from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
 from fleetx_tpu_torch.resilience import Resilience, TrainingAborted
 from fleetx_tpu_torch.resilience import coordination
+from fleetx_tpu_torch.resilience.integrity import atomic_write
 from fleetx_tpu_torch.utils.config import check_single_device, loss_scaler
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
@@ -161,10 +203,6 @@ def check_engine_config(cfg: dict) -> None:
         raise NotImplementedError(
             "Engine.save_load.per_rank_dirs needs a multi-rank gang, not "
             "ported yet (ROADMAP.md, port queue item 12)")
-    if save_load.get("async_save"):
-        raise NotImplementedError(
-            "Engine.save_load.async_save is not ported yet (ROADMAP.md, "
-            "port queue item 8)")
     check_single_device(dict(cfg.get("Distributed") or {}))
 
 
@@ -224,6 +262,8 @@ class EagerEngine(BasicEngine):
         # keep_every-th); 0 keeps everything
         self.keep_last = _int(save_load, "keep_last", 0)
         self.keep_every = _int(save_load, "keep_every", 0)
+        # the save returns once the state is snapshotted
+        self.async_save = bool(save_load.get("async_save"))
         # depth of the device prefetch queue; 0: fetch, copy and step in
         # series
         self.prefetch_to_device = _int(eng, "prefetch_to_device", 0)
@@ -257,6 +297,16 @@ class EagerEngine(BasicEngine):
         self.resilience = Resilience(self.cfg.get("Resilience"))
         # every recovery decision goes through the coordinator (world 1)
         self.coord = coordination.get_coordinator()
+        # manifests, read-backs and verified restores (default on,
+        # whatever Resilience.enable says)
+        ckpt_lib.set_verify_mode(self.resilience.integrity_verify)
+        dist = dict(self.cfg.get("Distributed") or {})
+        self.sharding_offload = bool(
+            (dist.get("sharding") or {}).get("sharding_offload"))
+        if self.sharding_offload:
+            self._refuse_offload(dist)
+        # the restart drill's crash point (tools/supervise.py)
+        self._fault_step = int(os.environ.get("FLEETX_FAULT_STEP") or 0)
         init_scale = loss_scaler(self.cfg)
         self.scaler: Optional[dict] = None
         if init_scale is not None:
@@ -266,6 +316,29 @@ class EagerEngine(BasicEngine):
         # extended to every dtype
         self.check_finite = self.scaler is not None or \
             self.resilience.guard_skip
+
+    def _refuse_offload(self, dist: dict) -> None:
+        """JAX's ``sharding_offload`` warnings, in its order and words:
+        the step fits without the offload (the planner's estimate against
+        the device's memory), then the backend is not a TPU, which turns
+        the offload off."""
+        from fleetx_tpu_torch.parallel.auto_layout import (advice_inputs,
+                                                           offload_is_needed)
+        from fleetx_tpu_torch.utils.config import layout_budget_gb
+
+        data_world = (int(dist.get("dp_degree") or 1)
+                      * int(dist.get("fsdp_degree") or 1))
+        mdl, mb, gran = advice_inputs(self.cfg, data_world=data_world)
+        hbm_gb, _ = layout_budget_gb(dist.get("auto_layout"), self.device)
+        if not offload_is_needed(mdl, dist, micro_batch=mb, recompute=gran,
+                                 hbm_gb=hbm_gb):
+            logger.warning(
+                "sharding_offload is on but the step estimate fits HBM "
+                "without it — offload costs ~2.8x step time and should "
+                "only be used when the model otherwise does not fit")
+        logger.warning("sharding_offload requires a TPU backend; "
+                       "continuing without offload")
+        self.sharding_offload = False
 
     # ------------------------------------------------------------ state
     def prepare(self) -> dict:
@@ -288,6 +361,9 @@ class EagerEngine(BasicEngine):
             p.requires_grad_(True)
         if self.optimizer is not None and self.opt_state is None:
             self.opt_state = self.optimizer.init(self.params)
+        if self.async_save and self.device.type == "cuda":
+            # pinned once here, not by a save while training
+            ckpt_lib.reserve_host_buffers(self.state_dict())
         if self.obs.enabled and self.obs.derived is None:
             fpt = self.module.flops_per_token() \
                 if hasattr(self.module, "flops_per_token") else None
@@ -339,25 +415,30 @@ class EagerEngine(BasicEngine):
         return out
 
     # ------------------------------------------------------------- step
-    def _grads(self, batch: dict, loss_scale: Optional[float] = None):
+    def _grads(self, batch: dict, loss_scale: Optional[float], params: dict,
+               leaves: list, step: int):
         # the forward and the backward marked for the profiler window's
         # trace decomposition (the JAX scan regions' labels)
         with self.profiler.annotate("fwd_scan"):
-            loss, metrics = self.module.training_loss(self.params, batch,
-                                                      self.seed, self.step)
+            loss, metrics = self.module.training_loss(params, batch,
+                                                      self.seed, step)
             if loss_scale is not None:
                 loss = loss * loss_scale
         with self.profiler.annotate("bwd_scan"):
-            grads = torch.autograd.grad(loss, self._leaves)
+            grads = torch.autograd.grad(loss, leaves)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(self, batch: dict) -> dict:
-        """One optimizer step on a device batch; returns the metrics
-        (device tensors, and host values for ``lr``, ``finite`` and
-        ``loss_scale``). Under ``check_finite`` a non-finite step changes
-        no parameter, moment or counter (only the loss scale)."""
-        scale = None if self.scaler is None else \
-            float(self.scaler["loss_scale"])
+    def _step_grads(self, batch: dict, scale: Optional[float],
+                    params: Optional[dict] = None,
+                    leaves: Optional[list] = None,
+                    step: Optional[int] = None) -> tuple:
+        """``(grads, metrics)`` of a step: the forward and backward of
+        every microbatch at ``step``'s dropout, summed in the carry dtype
+        and averaged when ``accumulate_steps > 1``. The live parameters
+        unless the sentinel's replay passes its copies."""
+        params = self.params if params is None else params
+        leaves = self._leaves if leaves is None else leaves
+        step = self.step if step is None else step
         accum = self.accumulate_steps
         if accum > 1:
             lead = leading_dim(batch)
@@ -371,7 +452,7 @@ class EagerEngine(BasicEngine):
             grads, metrics = None, None
             for i in range(accum):
                 micro = {k: v.chunk(accum)[i] for k, v in batch.items()}
-                g, m = self._grads(micro, scale)
+                g, m = self._grads(micro, scale, params, leaves, step)
                 if grads is None:
                     grads = [x.to(carry_dtype or x.dtype) for x in g]
                     metrics = m
@@ -379,18 +460,32 @@ class EagerEngine(BasicEngine):
                     grads = [a + x.to(a.dtype) for a, x in zip(grads, g)]
                     metrics = {k: metrics[k] + m[k] for k in metrics}
             grads = [(g / accum).to(p.dtype)
-                     for g, p in zip(grads, self._leaves)]
+                     for g, p in zip(grads, leaves)]
             metrics = {k: v / accum for k, v in metrics.items()}
         else:
-            grads, metrics = self._grads(batch, scale)
+            grads, metrics = self._grads(batch, scale, params, leaves, step)
+        return grads, metrics
+
+    def _inv_scale(self) -> float:
+        """1 / loss_scale in f32 (1.0 without the scaler); AdamW folds it
+        into its moment updates."""
+        return 1.0 if self.scaler is None else \
+            float(np.float32(1.0) / self.scaler["loss_scale"])
+
+    def train_step(self, batch: dict) -> dict:
+        """One optimizer step on a device batch; returns the metrics
+        (device tensors, and host values for ``lr``, ``finite`` and
+        ``loss_scale``). Under ``check_finite`` a non-finite step changes
+        no parameter, moment or counter (only the loss scale)."""
+        scale = None if self.scaler is None else \
+            float(self.scaler["loss_scale"])
+        grads, metrics = self._step_grads(batch, scale)
         if self.lr_schedule is not None:
             metrics["lr"] = float(self.lr_schedule(self.step))
         if self.optimizer is None:
             self.step += 1
             return metrics
-        # 1 / loss_scale in f32; AdamW folds it into its moment updates
-        inv = 1.0 if scale is None else \
-            float(np.float32(1.0) / self.scaler["loss_scale"])
+        inv = self._inv_scale()
         if not self.check_finite:
             with self.obs.timed_span("optimizer_update"):
                 metrics["grad_norm"] = self.optimizer.update(
@@ -546,6 +641,9 @@ class EagerEngine(BasicEngine):
         window = 0
         last_eval = last_save = -1  # a skipped step can re-visit a step
         global_batch = 0
+        # the SDC sentinel's cadence: 0 keeps the loop as it is without it
+        sent_every = res.sentinel_every if self.optimizer is not None \
+            else 0
         with contextlib.ExitStack() as cleanup:
             cleanup.callback(close_stream)
             # a fit that raises leaves no profiler window open
@@ -581,6 +679,11 @@ class EagerEngine(BasicEngine):
                     break  # fleetx: noqa[FX008] -- one process (world-1 coordinator); the gang's voted exit comes with item 12
                 self.epoch, batch = item
                 self.profiler.maybe_start(self.step)
+                # a sentinel step keeps what its replay needs from before
+                # the step (the JAX engine runs it through its non-donating
+                # twin for that)
+                prev = self._sentinel_snapshot() if sent_every and \
+                    (self.step + 1) % sent_every == 0 else None
                 with self.profiler.step_span(self.step):
                     if stream["prefetcher"] is None:
                         with self.obs.timed_span("shard_batch"):
@@ -589,6 +692,17 @@ class EagerEngine(BasicEngine):
                     # time (the step runs asynchronously)
                     with self.obs.span("train_step", step=self.step):
                         metrics = self.train_step(batch)
+                if prev is not None:
+                    # the replay is a full forward and backward: the stall
+                    # detector is suspended as for every long host phase;
+                    # ``batch`` stays referenced until it is done (the
+                    # prefetcher's record_stream keeps its memory valid)
+                    with self.obs.timed_span("sdc_sentinel"), quiet():
+                        self._sdc_check(prev, batch, metrics, self.step)
+                    prev = None
+                if res.faults.take_bitflip(self.step):
+                    # after this iteration's check, as the JAX engine
+                    self._apply_bitflip()
                 global_batch = leading_dim(batch)
                 if first_step:
                     first_step = False
@@ -666,7 +780,19 @@ class EagerEngine(BasicEngine):
                     last_save = self.step
                     with quiet():
                         self.save()
+                if self._fault_step and start_step == 0 and \
+                        self.step >= self._fault_step:
+                    # the restart drill: a fresh run dies hard after this
+                    # step's save; a resumed run sails past
+                    logger.error("fault injection: dying at step %d",
+                                 self.step)
+                    os._exit(17)
             self.profiler.stop()
+            with quiet():  # an outstanding write can take ~20 s
+                ckpt_lib.finalize_async_saves()
+            if self.keep_last:
+                ckpt_lib.gc_checkpoints(self.output_dir, self.keep_last,
+                                        self.keep_every)
             self.obs.flush()
         return losses
 
@@ -681,6 +807,7 @@ class EagerEngine(BasicEngine):
             t0 = time.perf_counter()
             with quiet():
                 self.save()
+                ckpt_lib.finalize_async_saves()
             logger.warning("preemption: saved step %d in %.3f s", self.step,
                            time.perf_counter() - t0)
         res.registry.counter("preemption_exits").inc()
@@ -698,6 +825,7 @@ class EagerEngine(BasicEngine):
         sampler during the rewind."""
         res = self.resilience
         self.coord.barrier("rollback_enter")
+        ckpt_lib.finalize_async_saves()
         good = self.coord.broadcast("rollback_step",
                                     ckpt_lib.latest_step(self.output_dir))
         if good is None:
@@ -744,6 +872,92 @@ class EagerEngine(BasicEngine):
         self.ckpt_dir = target
         logger.info("auto-resume: restoring step %s from %s",
                     meta.get("step"), target)
+
+    # ----------------------------------------------------- SDC sentinel
+    def _sentinel_snapshot(self) -> dict:
+        """What the replay needs from before a step: a clone of the
+        parameters (same nesting and leaf order), the step counter, the
+        loss scale and its inverse."""
+        def clone(node):
+            if isinstance(node, dict):
+                return {k: clone(v) for k, v in node.items()}
+            return node.detach().clone().requires_grad_(True)
+
+        params = clone(self.params)
+        return {"params": params,
+                "leaves": [p for _, p in tree_leaves_with_path(params)],
+                "step": self.step,
+                "scale": None if self.scaler is None
+                else float(self.scaler["loss_scale"]),
+                "inv": self._inv_scale()}
+
+    def _replay(self, prev: dict, batch: dict) -> dict:
+        """The step's forward and backward again on the state from before
+        it, and its ``grad_norm`` by the function the step used (the
+        optimizer's ``grad_norm``, inside ``update`` or before it); no
+        update, no counter moves."""
+        grads, metrics = self._step_grads(batch, prev["scale"],
+                                          prev["params"], prev["leaves"],
+                                          prev["step"])
+        metrics["grad_norm"] = self.optimizer.grad_norm(list(grads),
+                                                        prev["inv"])
+        return metrics
+
+    def _sdc_check(self, prev: dict, batch: dict, metrics: dict,
+                   step: int) -> None:
+        """One SDC sentinel check: replay the step and compare ``loss``
+        and ``grad_norm`` with the step's bit for bit; on a mismatch act
+        on ``sentinel_action`` (``log | quarantine | abort``). One rank:
+        no fingerprint census (item 12), as JAX's off-gang check."""
+        res = self.resilience
+        reg = res.registry
+        reg.counter("sdc_checks_total").inc()
+        replay = self._replay(prev, batch)
+        evidence = []
+        for key in ("loss", "grad_norm"):
+            if key not in metrics or key not in replay:
+                continue
+            a = np.asarray(torch.as_tensor(metrics[key]).detach().cpu())
+            b = np.asarray(replay[key].detach().cpu())
+            if a.tobytes() != b.tobytes():
+                evidence.append(f"replay {key}: {a!r} != {b!r}")
+        if not evidence:
+            return
+        reg.counter("sdc_replay_mismatches").inc()
+        flight.note("sdc", "mismatch", step=int(step), evidence=evidence)
+        msg = f"SDC sentinel tripped at step {step}: " + "; ".join(evidence)
+        if res.sentinel_action == "abort":
+            logger.error("%s — aborting (sentinel_action: abort)", msg)
+            raise TrainingAborted(msg)
+        if res.sentinel_action == "quarantine":
+            reg.counter("sdc_quarantines").inc()
+            marker = os.path.join(self.output_dir, "sdc_quarantine.json")
+            os.makedirs(self.output_dir, exist_ok=True)
+            atomic_write(marker, lambda f: json.dump(
+                {"step": int(step), "rank": int(self.coord.rank),
+                 "evidence": evidence,
+                 "quarantines": int(reg.counter("sdc_quarantines").value)},
+                f))
+            logger.error("%s — host quarantined (marker: %s); training "
+                         "continues, schedule this host for replacement",
+                         msg, marker)
+            return
+        logger.error("%s — continuing (sentinel_action: log)", msg)
+
+    @torch.no_grad()
+    def _apply_bitflip(self) -> None:
+        """The ``bitflip_param_at`` drill: flip bit 0 of byte 0 of the
+        first element of the first float parameter in JAX's leaf order,
+        in place on its device (the element the JAX engine's drill flips
+        on the same converted tree)."""
+        for i, leaf in enumerate(jax_leaves(self.params)):
+            if not leaf.is_floating_point() or leaf.numel() < 1:
+                continue
+            leaf.detach().view(-1)[:1].view(torch.uint8)[:1].bitwise_xor_(1)
+            logger.warning("fault injection: flipped one bit in param "
+                           "leaf %d", i)
+            return
+        logger.warning("fault injection: no float param leaf to bit-flip")
 
     # -------------------------------------------------------- telemetry
     def _flops_per_step(self, batch_rows: int) -> Optional[float]:
@@ -921,15 +1135,18 @@ class EagerEngine(BasicEngine):
 
     def save(self) -> str:
         """Save the state at the current step under ``output_dir`` with
-        meta ``consumed_samples`` / ``epoch`` / ``seed``, then apply the
-        retention (the step just saved, the newest, always survives)."""
+        meta ``consumed_samples`` / ``epoch`` / ``seed`` (asynchronously
+        under ``async_save``), then apply the retention (the newest
+        completed step always survives; an outstanding save is not yet
+        completed)."""
         self.prepare()
         # span only: the seconds and bytes are core/checkpoint.py's
         with self.obs.span("checkpoint_save", step=self.step):
             path = ckpt_lib.save_checkpoint(
                 self.output_dir, self.step, self.state_dict(),
                 meta={"consumed_samples": self.consumed_samples,
-                      "epoch": self.epoch, "seed": self.seed})
+                      "epoch": self.epoch, "seed": self.seed},
+                async_save=self.async_save)
         if self.mem is not None:
             self.mem.sample("checkpoint_save")
         self.last_saved_step = self.step
@@ -949,6 +1166,7 @@ class EagerEngine(BasicEngine):
         step at all it warns and leaves the fresh state (the first run of
         a command that resumes on restart).
         """
+        ckpt_lib.finalize_async_saves()
         directory = directory or self.output_dir
         if self.params is None:
             self.prepare()

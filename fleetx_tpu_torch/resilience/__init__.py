@@ -12,7 +12,8 @@ One module per failure mode, as in the JAX package:
 - ``watchdog``     — hung-step heartbeat with stack dumps;
 - ``faults``       — deterministic fault injection driving the drills;
 - ``coordination`` — the agreement primitives, world-1 here;
-- ``integrity``    — checkpoint digest manifests and verified restore.
+- ``integrity``    — checkpoint digest manifests and verified restore,
+  the parameter fingerprint and the preflight selftest.
 
 ``Resilience`` is the engine-facing facade built from the
 ``Resilience:`` YAML block: with the block absent or disabled every hook
@@ -23,10 +24,14 @@ as counters of the shared registry (``nonfinite_skips``,
 ``nonfinite_windows``, ``rollbacks_total``, ``ckpt_retries_total``,
 ``preemption_exits``, ``watchdog_stalls``).
 
-Not ported here: the SDC sentinel (``integrity.sentinel_every`` above 0
-raises, ROADMAP.md, port queue item 8) and the gang watchdog
-(``watchdog.gang_sync_steps`` above 0, item 12). Checkpoint manifests are
-written and verified whatever ``enable`` says.
+The state-integrity knobs (``Resilience.integrity``):
+``verify_checkpoints`` (default on, whatever ``enable`` says) and, with
+the runtime enabled, the SDC sentinel's cadence ``sentinel_every`` (0:
+off) and its ``sentinel_action`` (``log | quarantine | abort``), which
+the engine's ``fit`` runs (``core/engine/eager_engine.py``).
+
+Not ported here: the gang watchdog (``watchdog.gang_sync_steps`` above 0
+raises, ROADMAP.md, port queue item 12).
 """
 
 from __future__ import annotations
@@ -84,6 +89,22 @@ class Resilience:
         self.watchdog_enabled = False
         self._watchdog_cfg: dict = {}
         self.faults = FaultPlan()
+        # manifests and verified restores default on even with the
+        # runtime off; the sentinel is opt-in (cadence 0: the loop is what
+        # it is without it)
+        integ_cfg = dict(cfg.get("integrity") or {})
+        self.integrity_verify = _on(integ_cfg.get("verify_checkpoints"))
+        self.sentinel_every = 0
+        self.sentinel_action = "log"
+        if self.enabled:
+            self.sentinel_every = max(
+                int(integ_cfg.get("sentinel_every") or 0), 0)
+            self.sentinel_action = str(
+                integ_cfg.get("sentinel_action") or "log")
+            if self.sentinel_action not in SENTINEL_ACTIONS:
+                raise ValueError(
+                    f"Resilience.integrity.sentinel_action must be one of "
+                    f"{SENTINEL_ACTIONS}, got {self.sentinel_action!r}")
         if not self.enabled:
             # inert AND isolating: a disabled engine must not inherit a
             # previous engine's armed fault plan, tuned retry policy or
@@ -92,16 +113,6 @@ class Resilience:
             set_default_policy(None)
             coordination.configure(None, None)
             return
-        integ_cfg = dict(cfg.get("integrity") or {})
-        if int(integ_cfg.get("sentinel_every") or 0) > 0:
-            raise NotImplementedError(
-                "Resilience.integrity.sentinel_every > 0 (the SDC sentinel) "
-                "is not ported yet (ROADMAP.md, port queue item 8)")
-        action = str(integ_cfg.get("sentinel_action") or "log")
-        if action not in SENTINEL_ACTIONS:
-            raise ValueError(
-                f"Resilience.integrity.sentinel_action must be one of "
-                f"{SENTINEL_ACTIONS}, got {action!r}")
         coord_cfg = dict(cfg.get("coordination") or {})
         coordination.configure(coord_cfg.get("timeout_s"),
                                coord_cfg.get("poll_s"))

@@ -1,6 +1,6 @@
 """Deterministic fault injection for the training and checkpoint drills
-(port of ``fleetx_tpu/resilience/faults.py``: ``FaultPlan`` :112-220 with
-its training and checkpoint knobs, ``fire`` / ``fire_path`` :292-313, the
+(port of ``fleetx_tpu/resilience/faults.py``: ``FaultPlan`` :112-245 with
+its training and checkpoint knobs and ``take_bitflip``, ``fire`` / ``fire_path`` :292-313, the
 module-level plan :280-327 and ``_corrupt_payload`` :330).
 
 ``FaultPlan`` injects failures at exact, reproducible points so the
@@ -14,6 +14,9 @@ tests and ``chip_smoke.py`` drive the real recovery machinery:
   a fresh run (a preemption);
 - ``ckpt_write_fail_times: N`` — the first N checkpoint writes raise a
   transient ``InjectedFault`` (an ``OSError``) the retry policy absorbs;
+- ``bitflip_param_at: K``    — flip one bit of a parameter after step K
+  (the silent memory corruption the SDC sentinel's fingerprint sees;
+  ``EagerEngine._apply_bitflip``);
 - ``corrupt_ckpt_at: K``     — flip a byte of step K's just-written
   payload, sticky across write retries (the save-side read-back must
   refuse the step);
@@ -29,9 +32,8 @@ lets ``core/checkpoint.py`` reach its injection points without config
 plumbing.
 
 The other knobs of the JAX plan raise ``NotImplementedError``:
-``bitflip_param_at`` needs the SDC sentinel (ROADMAP.md, port queue item
-8); ``slow_decode_ms_at``, ``blackhole_after`` and ``crash_mid_write``
-are the serving replica's chaos knobs (item 5).
+``slow_decode_ms_at``, ``blackhole_after`` and ``crash_mid_write`` are
+the serving replica's chaos knobs (ROADMAP.md, port queue item 5).
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ __all__ = ["FaultPlan", "InjectedFault", "install_plan", "active_plan",
 ENV_VAR = "FLEETX_FAULTS"
 
 #: knob → the ROADMAP port-queue item that brings it
-NOT_PORTED = {"bitflip_param_at": 8, "slow_decode_ms_at": 5,
-              "blackhole_after": 5, "crash_mid_write": 5}
+NOT_PORTED = {"slow_decode_ms_at": 5, "blackhole_after": 5,
+              "crash_mid_write": 5}
 
 
 class InjectedFault(OSError):
@@ -93,12 +95,14 @@ class FaultPlan:
                  nan_loss_at: Optional[list] = None,
                  sigterm_at: Optional[int] = None,
                  ckpt_write_fail_times: int = 0,
+                 bitflip_param_at: Optional[int] = None,
                  corrupt_ckpt_at: Optional[int] = None,
                  corrupt_restore_at: Optional[int] = None):
         self.data_raise_at = data_raise_at
         self.nan_loss_at = set(int(s) for s in (nan_loss_at or ()))
         self.sigterm_at = sigterm_at
         self.ckpt_write_fail_times = int(ckpt_write_fail_times or 0)
+        self.bitflip_param_at = bitflip_param_at
         self.corrupt_ckpt_at = corrupt_ckpt_at
         self.corrupt_restore_at = corrupt_restore_at
 
@@ -137,6 +141,7 @@ class FaultPlan:
             sigterm_at=opt_int("sigterm_at"),
             ckpt_write_fail_times=int(merged.get("ckpt_write_fail_times")
                                       or 0),
+            bitflip_param_at=opt_int("bitflip_param_at"),
             corrupt_ckpt_at=opt_int("corrupt_ckpt_at"),
             corrupt_restore_at=opt_int("corrupt_restore_at"))
 
@@ -146,6 +151,7 @@ class FaultPlan:
         return bool(self.data_raise_at is not None or self.nan_loss_at
                     or self.sigterm_at is not None
                     or self.ckpt_write_fail_times
+                    or self.bitflip_param_at is not None
                     or self.corrupt_ckpt_at is not None
                     or self.corrupt_restore_at is not None)
 
@@ -176,6 +182,15 @@ class FaultPlan:
             self.sigterm_at = None
             logger.warning("fault injection: SIGTERM self at step %d", step)
             os.kill(os.getpid(), signal.SIGTERM)
+
+    def take_bitflip(self, step: int) -> bool:
+        """True (once) when the parameter bit-flip is due at ``step``: the
+        engine then flips one bit of its live parameters."""
+        if self.bitflip_param_at is not None and \
+                step >= self.bitflip_param_at:
+            self.bitflip_param_at = None
+            return True
+        return False
 
     def fire(self, point: str) -> None:
         """Named-point hook for deep layers (``"ckpt_write"``)."""

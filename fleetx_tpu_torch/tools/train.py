@@ -78,6 +78,12 @@ the JAX tool's: a preemption exits with ``Resilience.preemption.exit_code``
 after saving the step; a ``TrainingAborted`` from the guard is an error
 exit (1, with its traceback); a watchdog ``action: abort`` ends the
 process with 43.
+
+Under the supervisor (``python -m fleetx_tpu_torch.tools.supervise``):
+``--num-procs 1`` restarts a crashed run, which resumes from its newest
+checkpoint; a gang member (``FLEETX_NUM_PROCESSES`` above 1) raises,
+since a multi-rank gang is not ported (ROADMAP.md, port queue item 12)
+and N copies of a one-device job would share one card.
 """
 
 from __future__ import annotations
@@ -139,8 +145,23 @@ def run(cfg: dict, device=None):
     losses = engine.fit(train_dl, valid_dl, epoch_num=epochs)
     if engine.save_steps and engine.last_saved_step != engine.step:
         engine.save()
+        # an asynchronous final save completes before the process ends
+        from fleetx_tpu_torch.core.checkpoint import finalize_async_saves
+
+        finalize_async_saves()
         engine.obs.flush()  # the final save's spans into trace.json
     return engine, losses
+
+
+def check_single_process() -> None:
+    """Refuse to run as a member of a multi-process gang."""
+    import os
+
+    procs = int(os.environ.get("FLEETX_NUM_PROCESSES") or 1)
+    if procs > 1:
+        raise NotImplementedError(
+            f"FLEETX_NUM_PROCESSES={procs}: a multi-process gang is not "
+            f"ported yet (ROADMAP.md, port queue item 12)")
 
 
 def main(argv: Optional[list] = None, auto_layout: bool = False) -> int:
@@ -150,6 +171,7 @@ def main(argv: Optional[list] = None, auto_layout: bool = False) -> int:
     from fleetx_tpu_torch.utils.config import DEGREE_KEYS, parse_args
     from fleetx_tpu_torch.utils.log import logger
 
+    check_single_process()
     args = parse_args("fleetx_tpu_torch "
                       + ("auto" if auto_layout else "train"), argv)
     cfg = load_config(args.config, args.override, auto_layout=auto_layout,

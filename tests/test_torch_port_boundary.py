@@ -103,7 +103,8 @@ def test_the_scan_reaches_every_module_of_the_port():
                 "fleetx_tpu_torch/models/imagen/modeling.py",
                 "fleetx_tpu_torch/models/imagen/module.py",
                 "fleetx_tpu_torch/data/dataset/multimodal_dataset.py",
-                "fleetx_tpu_torch/tasks/imagen/generate.py"):
+                "fleetx_tpu_torch/tasks/imagen/generate.py",
+                "fleetx_tpu_torch/tools/supervise.py"):
         assert rel in scanned, rel
 
 
@@ -160,6 +161,7 @@ def test_entry_points_load_no_jax_modules():
             "import fleetx_tpu_torch.models.imagen.module\n"
             "import fleetx_tpu_torch.data.dataset.multimodal_dataset\n"
             "import fleetx_tpu_torch.tasks.imagen.generate\n"
+            "import fleetx_tpu_torch.tools.supervise\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -180,6 +182,26 @@ def test_entry_points_load_no_jax_modules():
     assert "PIL" not in loaded  # the card's machine has no Pillow
     assert "regex" not in loaded  # the card's machine has no regex
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_the_supervisor_is_stdlib_only():
+    """``python -m fleetx_tpu_torch.tools.supervise`` loads neither torch
+    nor JAX (its preflight runs the selftest in a child process) and its
+    ``--help`` runs."""
+    code = ("import sys, json\n"
+            "import fleetx_tpu_torch.tools.supervise\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch" not in loaded and "numpy" not in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+    helped = subprocess.run(
+        [sys.executable, "-m", "fleetx_tpu_torch.tools.supervise", "--help"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
+    assert helped.returncode == 0 and "--preflight-device" in helped.stdout
 
 
 def test_a_cuda_device_without_an_index_gets_the_current_one(monkeypatch):

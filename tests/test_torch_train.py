@@ -358,18 +358,19 @@ UNCOVERED = {
     "moe": (["Model.moe_num_experts=4"], None),
     "qat": (["Quantization.enable=True", "Quantization.weight_bits=4"],
             None),
-    # fp16 and Resilience.enable are ported; the SDC sentinel and the
-    # gang watchdog are not
+    # fp16, Resilience.enable and the SDC sentinel are ported; the gang
+    # watchdog is not
     "resilience": (["Resilience.enable=True",
-                    "Resilience.integrity.sentinel_every=5"], "item 8"),
+                    "Resilience.integrity.sentinel_every=5"], None),
     "gang_watchdog": (["Resilience.enable=True",
                        "Resilience.watchdog.enable=True",
                        "Resilience.watchdog.gang_sync_steps=2"], "item 12"),
-    # checkpoints are ported; their multi-rank options are not
+    # checkpoints and asynchronous saves are ported; their multi-rank
+    # options are not
     "save_steps": (["Engine.save_load.save_steps=10",
                     "Engine.save_load.per_rank_dirs=True"], "item 12"),
     "ckpt_dir": (["Engine.save_load.ckpt_dir=/nonexistent",
-                  "Engine.save_load.async_save=True"], "item 8"),
+                  "Engine.save_load.async_save=True"], None),
     "dp_degree": (["Distributed.dp_degree=2",
                    "Global.global_batch_size=4"], "item 12"),
     "sequence_parallel": (["Distributed.sequence_parallel=True"],
@@ -399,6 +400,11 @@ def test_uncovered_config_values_raise(what, tmp_path):
         elif what == "moe":
             assert mc.moe_num_experts == 4 and \
                 engine.module.spec_family == "gpt_moe"
+        elif what == "resilience":
+            assert engine.resilience.sentinel_every == 5
+        elif what == "ckpt_dir":
+            # no checkpoint there: a warning, then training from step 0
+            assert engine.async_save
         else:
             assert mc.recompute_granularity == "dots" and \
                 mc.remat_save_dtype == torch.bfloat16
