@@ -12,9 +12,11 @@ GPT-1.3B through the auto-layout entry point, pretrain ERNIE-345M and
 train and evaluate ViT-B/16 through the same trainer, and train,
 evaluate and generate with the 8-expert MoE GPT-345M and train and
 sample the Imagen cascade (64² base, SR-256), train GPT-345M with
-the telemetry, the profiler window and the device prefetcher on, and
+the telemetry, the profiler window and the device prefetcher on,
 train it under the SDC sentinel with an asynchronous save and run the
-supervisor's preflight.
+supervisor's preflight, serve it through the request router in front of
+replicas in process and of a supervised fleet under chaos, and train it
+on a blended corpus indexed by the native builder.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
@@ -32,6 +34,7 @@ supervisor's preflight.
                                            # routes, timings, host µs)
     python3 chip_smoke.py --telemetry      # phases 4 and 17
     python3 chip_smoke.py --resilience-runtime  # phases 4 and 18
+    python3 chip_smoke.py --router-corpus  # phase 19 on seeded weights
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -410,6 +413,39 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    with ``FLEETX_SELFTEST_FORCE_FAIL=*`` exits 41 and its command never
    runs.
 
+19. the router, the fleet and a real corpus (run after phase 13, while
+   phase 8's cut checkpoint, phase 9's tokenizer and ``docs/*.md`` are
+   there; the fleet boots and the shards preprocess while 19a runs):
+   (a) the port's ``Router`` (``serving/router.py``, ``ROUTER_BLOCK``:
+   hedge after ``ROUTER_HEDGE_MS``) in front of two in-process
+   ``ReplicaServer``s, each its own engine from ``serving_gpt_345M.yaml``
+   through ``tools.serve``'s config and ``build_engine`` on the cut
+   checkpoint (full width, bf16, ``CUT_LAYERS`` layers), the second a
+   straggler (``slow_decode_ms_at``, ``STRAGGLER_MS`` a step): phase 2's 8
+   requests of 32 new tokens through the router, each token-identical to
+   the first replica's direct answer; the counts zeroed just before and
+   read just after: row 7's launches equal ``CUT_LAYERS`` × the decode
+   steps of both engines; at least one hedge and one cancel. (b) ``python
+   -m fleetx_tpu_torch.tools.supervise --elastic`` over ``FLEET_SIZE``
+   replica processes (``python -m fleetx_tpu_torch.tools.serve`` on the
+   same config) on this card, started together, each armed by its member
+   id (``FLEET_FAULTS``: a straggler, a replica silent after 4
+   responses, one that tears its 3rd response and exits), warmed directly
+   (identical answers); ``tools.serve --router --fleet-out`` in front:
+   a burst of ``FLEET_BURST`` requests, each token-identical to 19a's
+   direct answer or a classified refusal, none lost; the supervisor
+   restarts the crashed member alone, the router's probe half-opens it and
+   a trial request closes it; the fleet records validate and show breaker
+   opens and closes, hedges and a re-dispatch; a re-dispatched request's
+   merged ``trace`` through the router. (c) ``run_commands`` preprocesses
+   ``docs/*.md`` in ``CORPUS_SHARDS`` shards, one ``tools.preprocess_data``
+   process each; a ``BlendedDataset`` of their ``GPTDataset``s, through
+   ``build_trainer``, takes its indices from the native builder
+   (``data/native``, built with ``g++`` into ``fleetx_tpu_torch/_build/``;
+   held to the numpy builders byte for byte); phase 4's recipe at full
+   width and depth at ``FT_LR`` trains ``CORPUS_STEPS`` steps on it: the
+   last loss below the first, phase 4's per-step counts.
+
 Each phase's wall is printed as it ends (``phase_wall``) and collected in
 the ``smoke`` line.
 
@@ -460,6 +496,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -3121,10 +3158,19 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
     base = [f"Engine.save_load.ckpt_dir={ckpt_dir}",
             f"Offline_Eval.tokenizer_dir={tok_dir}"] + CUT_DEPTH
     runs = {}
-    for kind, path in (("ppl", txt), ("acc", jsonl)):
-        lines, _, _ = _cli("tools.eval", ["-c", EVAL_YAML] + _overrides(
-            base + [f"Offline_Eval.eval_path={path}",
-                    f"Offline_Eval.eval_type={kind}"]))
+    # the two evals run at once, each its own process on the card
+    started = {kind: _cli_start("tools.eval", ["-c", EVAL_YAML] + _overrides(
+        base + [f"Offline_Eval.eval_path={path}",
+                f"Offline_Eval.eval_type={kind}"]))
+        for kind, path in (("ppl", txt), ("acc", jsonl))}
+    try:
+        outputs = {kind: _cli_wait(proc) for kind, proc in started.items()}
+    finally:
+        for _, proc in started.values():
+            if proc.poll() is None:   # the other one failed first
+                proc.kill()
+                proc.communicate()
+    for kind, (lines, _, _) in outputs.items():
         rec = lines[-1]
         check(rec["eval_type"] == kind and rec["device"].startswith("cuda"),
               f"eval {kind}: {rec}")
@@ -6225,6 +6271,673 @@ def phase_resilience_runtime(dev: torch.device, card: str, losses4: list,
         torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- phase 19
+#: 19a: the router's hedge delay (``Serving.router.hedge_ms``) and the
+#: extra ms a work step of the straggler (the fault plan's
+#: ``slow_decode_ms_at``): phase 2's requests take the straggler over 6 s
+#: (1 + 32 steps or more at 200 ms), so the router hedges them, and a
+#: healthy 4-layer replica answers well inside the delay, so a request
+#: torn by 19b's crash is re-dispatched, not won by a hedge
+ROUTER_HEDGE_MS = 1500.0
+STRAGGLER_MS = 200
+#: the ``Serving.router`` block of 19a's router and the fleet's: the
+#: recipe's knobs with its timeouts cut to the smoke's scale
+ROUTER_BLOCK = dict(penalty_s=0.5, dispatch_deadline_s=120.0,
+                    verb_timeout_s=1.0, request_timeout_s=60.0,
+                    hedge_ms=ROUTER_HEDGE_MS, retry_budget=8,
+                    probe_interval_s=0.2, breaker_threshold=1)
+#: 19b: replicas under the elastic supervisor, the burst (phase 2's
+#: prompts three times), the requests that run the restarted replica's
+#: half-open trial, and every wait's bound
+FLEET_SIZE = 3
+FLEET_BURST = 3 * len(SERVE_PROMPT_LENS)
+FLEET_NUDGE = 4
+FLEET_TIMEOUT_S = 240
+#: new tokens of a member's direct warm-up (9 work steps: 1.8 s on the
+#: straggler)
+WARM_NEW = 8
+#: 19b's chaos by supervisor member, the shapes of the JAX acceptance
+#: drill (``tests/test_zz_chaos_serving.py:409``): a straggler, a replica
+#: that goes silent after 4 responses (the warm-up's and 3 routed), and
+#: one that tears its 3rd response and exits (armed in its first run
+#: only, so the supervisor's restart serves)
+FLEET_FAULTS = {0: f"slow_decode_ms_at=0:{STRAGGLER_MS}",
+                1: "blackhole_after=4", 2: "crash_mid_write=3"}
+#: 19c: the docs corpus in shards, each preprocessed by its own process,
+#: and the steps phase 4's recipe trains on their blend (at FT_LR: the
+#: recipe's warmup would hold the LR under 3e-7 for 20 steps)
+CORPUS_SHARDS = 2
+CORPUS_STEPS = 20
+
+#: the member launcher the supervisor runs: reads its member id, arms that
+#: member's fault (the crash in its first run only) and execs the replica
+#: on the fleet's stable base port (the replica adds its member id)
+FLEET_MEMBER = '''import os, sys
+rank = int(os.environ.get("FLEETX_PROCESS_ID", "0"))
+spec = {faults!r}.get(rank, "")
+marker = os.path.join({root!r}, "armed%d" % rank)
+if "crash_mid_write" in spec:
+    if os.path.exists(marker):
+        spec = ""
+    else:
+        open(marker, "w").close()
+os.environ["FLEETX_FAULTS"] = spec
+os.execv(sys.executable, [sys.executable, "-m",
+                          "fleetx_tpu_torch.tools.serve"] + {argv!r} + [
+    "--ready-file", os.path.join({root!r}, "ready%d.json" % rank)])
+'''
+
+
+def _replica_overrides(ckpt_dir: str) -> list:
+    """The serving recipe on phase 8's cut checkpoint, with 19's router
+    block."""
+    return [f"Serving.ckpt_dir={ckpt_dir}", *CUT_DEPTH] + [
+        f"Serving.router.{k}={v}" for k, v in ROUTER_BLOCK.items()]
+
+
+def _ask_all(port: int, prompts: list, prefix: str,
+             timeout: float = FLEET_TIMEOUT_S) -> tuple:
+    """Every prompt at once over TCP (``SERVE_MAX_NEW`` new tokens each):
+    (responses, the exceptions of requests that got none, the wall)."""
+    from fleetx_tpu_torch.serving.server import request
+
+    responses = [None] * len(prompts)
+    lost = []
+
+    def ask(i):
+        try:
+            responses[i] = request(
+                ("127.0.0.1", port), {"id": f"{prefix}{i}",
+                                      "prompt": prompts[i],
+                                      "max_new_tokens": SERVE_MAX_NEW},
+                timeout=timeout)
+        except (OSError, ValueError) as e:
+            lost.append((i, repr(e)))
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout + 30)
+    check(not any(t.is_alive() for t in threads), f"{prefix}: a request "
+                                                     f"thread hung")
+    return responses, lost, time.monotonic() - t0
+
+
+def _count_decode_steps(engine, counts: list, i: int) -> None:
+    """Count ``engine``'s decode steps that ran into ``counts[i]`` (each
+    engine's loop thread writes only its own entry; ``_unpatch`` after)."""
+    inner = engine._decode_step
+
+    def counted() -> bool:
+        ran = inner()
+        if ran:
+            counts[i] += 1
+        return ran
+
+    engine._decode_step = counted
+
+
+def _router_in_process(dev: torch.device, card: str, ckpt_dir: str) -> dict:
+    """19a: the port's ``Router`` in front of two in-process replicas on
+    the card (phase 8's cut checkpoint through ``tools.serve``'s config and
+    ``build_engine``), the second a straggler; phase 2's requests through
+    the router against the first replica asked directly, row 7's launches
+    against both engines' decode steps."""
+    from fleetx_tpu_torch.resilience.faults import FaultPlan
+    from fleetx_tpu_torch.serving.router import Router, RouterConfig
+    from fleetx_tpu_torch.serving.server import ReplicaServer
+    from fleetx_tpu_torch.tools.serve import build_engine, load_config
+
+    cfg = load_config(YAML, _replica_overrides(ckpt_dir))
+    engines = [build_engine(cfg, device=dev) for _ in range(2)]
+    mc = engines[0].cfg
+    check(mc.num_layers == CUT_LAYERS and mc.hidden_size == 1024
+          and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+          and mc.dtype == torch.bfloat16
+          and all(e.paged_kernel_active for e in engines),
+          "19a: not the full-width 345M replica on the paged kernel")
+    prompts = _prompts(2, SERVE_PROMPT_LENS)
+    steps = [0, 0]
+    for i, eng in enumerate(engines):
+        eng.submit(_prompts(1, [8])[0], 2, request_id="warmup")
+        eng.run_until_drained()
+        _count_decode_steps(eng, steps, i)
+    servers = [ReplicaServer(engines[0]), ReplicaServer(
+        engines[1], fault_plan=FaultPlan(slow_decode_ms_at=[0, STRAGGLER_MS]))]
+    stops = [_Stop() for _ in servers]
+    ports = [s.start() for s in servers]
+    loops = [threading.Thread(target=s.run, kwargs=dict(preemption=st),
+                              daemon=True, name="chip-smoke-replica")
+             for s, st in zip(servers, stops)]
+    for t in loops:
+        t.start()
+    router = Router([("127.0.0.1", p) for p in ports],
+                    config=RouterConfig(**ROUTER_BLOCK))
+    try:
+        direct, lost, _ = _ask_all(ports[0], prompts, "d")
+        check(not lost and all(r and r.get("tokens") for r in direct),
+              f"19a: direct answers {direct} {lost}")
+        rport = router.start()
+        zero_counts()                 # every count to 0 just before
+        steps[:] = [0, 0]
+        routed, lost, wall = _ask_all(rport, prompts, "r")
+        counters = router.router_counters()
+        # the hedge losers' slots drain (their cancel lands at a step
+        # boundary), then both loops stop
+        deadline = time.monotonic() + 60
+        while any(e.has_work() for e in engines):
+            check(time.monotonic() < deadline, "19a: engines never idled")
+            time.sleep(0.01)
+    finally:
+        router.close()
+        for st in stops:
+            st.set()
+        for t in loops:
+            t.join(timeout=60)
+        for s in servers:
+            s.close()
+        for e in engines:
+            _unpatch(e, "_decode_step")
+    counts = read_counts()            # read just after
+    check(not any(t.is_alive() for t in loops), "19a: a replica loop hung")
+    check(not lost, f"19a: requests lost through the router: {lost}")
+    for i, (got, want) in enumerate(zip(routed, direct)):
+        check(got.get("tokens") == want["tokens"],
+              f"19a: request {i} through the router {got} != the direct "
+              f"answer {want['tokens']}")
+    launches = counts["paged_attention_decode"]
+    check(launches == CUT_LAYERS * sum(steps),
+          f"19a: {launches} row 7 launches != {CUT_LAYERS} x {steps} "
+          f"decode steps")
+    check(counters["hedges_total"] >= 1
+          and counters["hedge_cancels_total"] >= 1
+          and counters["completed_total"] == len(prompts),
+          f"19a: router counters {counters}")
+    tokens = sum(len(r["tokens"]) for r in routed)
+    out = dict(requests=len(prompts), max_new_tokens=SERVE_MAX_NEW,
+               layers=CUT_LAYERS, tokens=tokens, wall_s=wall,
+               tokens_per_s=tokens / wall, decode_steps=steps,
+               kernel_launches=launches, router_counters=counters,
+               straggler_ms_per_step=STRAGGLER_MS, hedge_ms=ROUTER_HEDGE_MS,
+               identical_to_direct=True, nvidia_smi=card)
+    emit("router_in_process", **out)
+    del engines, servers
+    torch.cuda.empty_cache()
+    return dict(out, direct={tuple(p): r["tokens"]
+                             for p, r in zip(prompts, direct)})
+
+
+def _free_port_base(n: int) -> int:
+    """A base port with ``n`` consecutive free ports (the supervisor's
+    member offset needs a stable range; ``tests/test_zz_chaos_serving.py``
+    ``_free_port_base``)."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        if base + n >= 65535:
+            continue
+        probes = []
+        try:
+            for i in range(n):
+                p = socket.socket()
+                p.bind(("127.0.0.1", base + i))
+                probes.append(p)
+            return base
+        except OSError:
+            continue
+        finally:
+            for p in probes:
+                p.close()
+    raise RuntimeError("no contiguous free port range")
+
+
+def _fleet_start(root: str, ckpt_dir: str) -> dict:
+    """19b's fleet: ``tools.supervise --elastic`` over ``FLEET_SIZE``
+    replica processes on this card, started together; returns its
+    handle (the supervisor's process, paths, base port)."""
+    fleet_root = os.path.join(root, "fleet")
+    os.makedirs(fleet_root, exist_ok=True)
+    base = _free_port_base(FLEET_SIZE)
+    argv = ["-c", YAML] + _overrides(_replica_overrides(ckpt_dir)) + [
+        "--port", str(base), "--preemption-code", "75"]
+    member = os.path.join(fleet_root, "member.py")
+    with open(member, "w") as f:
+        f.write(FLEET_MEMBER.format(faults=FLEET_FAULTS, root=fleet_root,
+                                    argv=argv))
+    events = os.path.join(fleet_root, "events.jsonl")
+    sup = subprocess.Popen(
+        [sys.executable, "-m", "fleetx_tpu_torch.tools.supervise",
+         "--elastic", "--num-procs", str(FLEET_SIZE), "--min-healthy", "2",
+         "--max-restart", "4", "--backoff", "0.2", "--grace", "15",
+         "--gate-timeout", "300", "--preemption-code", "75",
+         "--events-out", events,
+         "--flight-dir", os.path.join(fleet_root, "flight"), "--",
+         sys.executable, member],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    return dict(sup=sup, root=fleet_root, base=base, events=events,
+                fleet_out=os.path.join(fleet_root, "fleet.jsonl"),
+                router=None, t0=time.monotonic())
+
+
+def _fleet_ready(fleet: dict, rank: int, not_pid: Optional[int] = None,
+                 deadline: Optional[float] = None) -> dict:
+    """Member ``rank``'s ready file (``{pid, port}``), waiting for one
+    whose pid is not ``not_pid`` (a restart's)."""
+    path = os.path.join(fleet["root"], f"ready{rank}.json")
+    deadline = deadline or time.monotonic() + FLEET_TIMEOUT_S
+    while True:
+        check(fleet["sup"].poll() is None,
+              f"19b: the supervisor exited {fleet['sup'].returncode}")
+        check(time.monotonic() < deadline, f"19b: {path} never appeared")
+        try:
+            with open(path) as f:
+                info = json.load(f)
+            if info.get("pid") != not_pid:
+                return info
+        except (OSError, ValueError):
+            pass                      # not there yet, or a torn write
+        time.sleep(0.1)
+
+
+def _fleet_events(fleet: dict) -> list:
+    try:
+        with open(fleet["events"]) as f:
+            return [json.loads(x) for x in f.read().splitlines()
+                    if x.strip()]
+    except OSError:
+        return []
+
+
+def _fleet_records(fleet: dict) -> list:
+    try:
+        with open(fleet["fleet_out"]) as f:
+            return [json.loads(x) for x in f.read().splitlines()
+                    if x.strip()]
+    except OSError:
+        return []
+
+
+def _fleet_stop(fleet: dict) -> None:
+    """Stop the router and the supervisor (which drains its members);
+    a supervisor that outlives its grace is killed, and then the members
+    named in the ready files too."""
+    procs = [p for p in (fleet.get("router"), fleet["sup"]) if p is not None]
+    for proc in procs:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+    killed = False
+    for proc in procs:
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            killed = proc is fleet["sup"]
+    for rank in range(FLEET_SIZE if killed else 0):
+        try:
+            with open(os.path.join(fleet["root"], f"ready{rank}.json")) as f:
+                os.kill(int(json.load(f)["pid"]), signal.SIGKILL)
+        except (OSError, ValueError, KeyError):
+            pass                      # gone already: the usual case
+    if fleet.get("router") is not None and fleet["router"].stdout:
+        fleet["router"].stdout.close()
+
+
+def _fleet_drive(card: str, fleet: dict, direct: dict) -> dict:
+    """19b: warm each member directly, start ``tools.serve --router`` over
+    them, send the burst, see the crashed member restarted, run its
+    half-open trial, and read the fleet records, the supervisor's events
+    and a re-dispatched request's merged trace."""
+    from fleetx_tpu_torch.observability.schema import validate_fleet_record
+    from fleetx_tpu_torch.serving.server import request
+
+    prompts = _prompts(2, SERVE_PROMPT_LENS)
+    warm_prompt = _prompts(1, [8])[0]
+    deadline = time.monotonic() + FLEET_TIMEOUT_S
+    infos = [_fleet_ready(fleet, r, deadline=deadline)
+             for r in range(FLEET_SIZE)]
+    boot_s = time.monotonic() - fleet["t0"]
+    base = fleet["base"]
+    check([i["port"] for i in infos] == [base + r for r in range(FLEET_SIZE)],
+          f"19b: member ports {infos}")
+    # each member warmed directly (its first request pays first-call
+    # allocations), all at once: three identical greedy answers are the
+    # members' own parity check
+    warm = [None] * FLEET_SIZE
+
+    def warm_one(r: int) -> None:
+        warm[r] = request(("127.0.0.1", base + r),
+                          {"id": f"warm{r}", "prompt": warm_prompt,
+                           "max_new_tokens": WARM_NEW},
+                          timeout=FLEET_TIMEOUT_S)
+
+    threads = [threading.Thread(target=warm_one, args=(r,))
+               for r in range(FLEET_SIZE)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=FLEET_TIMEOUT_S + 30)
+    check(all(w is not None and w.get("tokens") == warm[0]["tokens"]
+              for w in warm), f"19b: the members' warm answers: {warm}")
+    router = subprocess.Popen(
+        [sys.executable, "-m", "fleetx_tpu_torch.tools.serve", "--router",
+         "-c", YAML] + _overrides([f"Serving.router.{k}={v}"
+                                   for k, v in ROUTER_BLOCK.items()])
+        + ["--port", "0", "--backends",
+           ",".join(f"127.0.0.1:{base + r}" for r in range(FLEET_SIZE)),
+           "--fleet-out", fleet["fleet_out"], "--poll-interval", "0.25"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fleet["router"] = router
+    t_router = time.monotonic()
+    line = router.stdout.readline()
+    router_start_s = time.monotonic() - t_router
+    check("listening on" in line, f"19b: the router said {line!r}")
+    rport = int(line.split(":")[-1].split()[0])
+
+    burst = [prompts[k % len(prompts)] for k in range(FLEET_BURST)]
+    answers, lost, wall = _ask_all(rport, burst, "b")
+    check(not lost, f"19b: requests lost (no answer at all): {lost}")
+    completed, refused = 0, []
+    for k, resp in enumerate(answers):
+        if resp.get("tokens"):
+            check(resp["tokens"] == direct[tuple(burst[k])],
+                  f"19b: b{k}'s tokens differ from 19a's direct answer")
+            completed += 1
+        else:
+            check(bool(resp.get("error")), f"19b: b{k} got {resp}")
+            refused.append(resp["error"])
+    check(completed >= FLEET_BURST // 2,
+          f"19b: {completed} of {FLEET_BURST} completed: {refused}")
+    tokens = sum(len(r["tokens"]) for r in answers if r.get("tokens"))
+
+    # the crashed member: restarted by the supervisor alone, warmed, then
+    # its breaker's half-open trial closes it
+    restart_deadline = time.monotonic() + FLEET_TIMEOUT_S
+    while not any(e["event"] == "restart" and e["member"] == 2
+                  for e in _fleet_events(fleet)):
+        check(time.monotonic() < restart_deadline,
+              f"19b: member 2 never restarted: {_fleet_events(fleet)}")
+        time.sleep(0.1)
+    again = _fleet_ready(fleet, 2, not_pid=infos[2]["pid"],
+                         deadline=restart_deadline)
+    rewarm = request(("127.0.0.1", again["port"]),
+                     {"id": "rewarm2", "prompt": warm_prompt,
+                      "max_new_tokens": WARM_NEW},
+                     timeout=FLEET_TIMEOUT_S)
+    check(rewarm.get("tokens") == warm[0]["tokens"],
+          f"19b: the restarted member answers {rewarm}")
+    addr2 = f"127.0.0.1:{base + 2}"
+    while True:                       # the probes see it answer again
+        records = _fleet_records(fleet)
+        if records and records[-1].get("breakers", {}).get(addr2) \
+                not in (None, "open"):
+            break
+        check(time.monotonic() < restart_deadline,
+              "19b: the router never saw member 2 answer again")
+        time.sleep(0.1)
+    nudged = []
+    for k in range(FLEET_NUDGE):
+        resp = request(("127.0.0.1", rport),
+                       {"id": f"n{k}", "prompt": prompts[k],
+                        "max_new_tokens": SERVE_MAX_NEW},
+                       timeout=FLEET_TIMEOUT_S)
+        check(resp.get("tokens") == direct[tuple(prompts[k])],
+              f"19b: nudge n{k} got {resp}")
+        nudged.append(k)
+    rec_deadline = time.monotonic() + 60
+    while True:
+        records = _fleet_records(fleet)
+        last = records[-1] if records else {}
+        if last.get("breaker_closes_total", 0) >= 1 \
+                and last.get("breakers", {}).get(addr2) == "closed":
+            break
+        check(time.monotonic() < rec_deadline,
+              f"19b: no fleet record with member 2 closed again: {last}")
+        time.sleep(0.1)
+    problems = [p for r in records for p in validate_fleet_record(r)]
+    check(not problems, f"19b: invalid fleet records: {problems[:5]}")
+    check(last["breaker_opens_total"] >= 2 and last["hedges_total"] >= 1
+          and last["redispatched_total"] >= 1
+          and last["replicas_total"] == FLEET_SIZE,
+          f"19b: the last fleet record {last}")
+
+    # a re-dispatched request's story through the router's trace verb
+    # (asked for every burst id at once: each trace waits out the silent
+    # member's verb timeout)
+    traces = [None] * FLEET_BURST
+
+    def trace(k: int) -> None:
+        traces[k] = request(("127.0.0.1", rport),
+                            {"verb": "trace", "id": f"b{k}"}, timeout=60)
+
+    threads = [threading.Thread(target=trace, args=(k,))
+               for k in range(FLEET_BURST)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=90)
+    story = None
+    for k, tr in enumerate(traces):
+        names = [e["name"] for e in (tr or {}).get("events", [])
+                 if e.get("source") == "router"]
+        if names.count("dispatch") >= 2:
+            story = dict(id=f"b{k}", router_events=names,
+                         sources=tr["sources"],
+                         replica_events=len(tr["events"]) - len(names))
+            break
+    check(story is not None, "19b: no re-dispatched request in the burst")
+
+    events = _fleet_events(fleet)
+    crashes = [e for e in events if e["event"] == "crash"]
+    restarts = [e for e in events if e["event"] == "restart"]
+    check(crashes and all(e["member"] == 2 for e in crashes)
+          and any(e["member"] == 2 for e in restarts),
+          f"19b: supervisor events {events}")
+    out = dict(members=FLEET_SIZE, faults=FLEET_FAULTS, layers=CUT_LAYERS,
+               boot_s=boot_s, router_start_s=router_start_s,
+               burst=FLEET_BURST, completed=completed, refused=refused,
+               lost=len(lost), burst_tokens=tokens, burst_wall_s=wall,
+               burst_tokens_per_s=tokens / wall, nudges=len(nudged),
+               fleet_records=len(records),
+               last_fleet_record={k: last[k] for k in (
+                   "dispatched_total", "redispatched_total",
+                   "penalties_total", "drain_refusals_total",
+                   "no_backend_total", "completed_total",
+                   "breaker_opens_total", "breaker_closes_total",
+                   "hedges_total", "hedge_cancels_total", "breakers",
+                   "replicas_reported", "requests_completed")},
+               crashes=len(crashes), restarts=len(restarts),
+               redispatched_trace=story, nvidia_smi=card)
+    emit("router_fleet", **out)
+    return out
+
+
+def _shard_command(txt: str, tok_dir: str, prefix: str) -> str:
+    """One shard's ``tools.preprocess_data`` as a shell command."""
+    import shlex
+
+    return (f"cd {shlex.quote(REPO)} && PYTHONPATH={shlex.quote(REPO)} "
+            f"{shlex.quote(sys.executable)} -m "
+            f"fleetx_tpu_torch.tools.preprocess_data --input "
+            f"{shlex.quote(txt)} --tokenizer {shlex.quote(tok_dir)} "
+            f"--output-prefix {shlex.quote(prefix)} --workers 2 --append-eos")
+
+
+def _corpus_shards_start(root: str, tok_dir: str) -> dict:
+    """19c's shards of ``docs/*.md`` (the sorted files split in
+    ``CORPUS_SHARDS`` runs) preprocessed by ``run_commands``, one process
+    each, on a thread; ``_corpus_train`` collects them."""
+    import glob
+
+    from fleetx_tpu_torch.tools.multiprocess_tool import run_commands
+
+    corpus = os.path.join(root, "corpus")
+    os.makedirs(corpus, exist_ok=True)
+    docs = sorted(glob.glob(os.path.join(REPO, "docs", "*.md")))
+    per = -(-len(docs) // CORPUS_SHARDS)
+    prefixes, commands = [], []
+    for s in range(CORPUS_SHARDS):
+        # a directory each: a GPTDataset caches its index files beside its
+        # data under a key of its sizes, which two shards may share
+        shard = os.path.join(corpus, f"shard{s}")
+        os.makedirs(shard, exist_ok=True)
+        txt = os.path.join(shard, "docs.txt")
+        with open(txt, "w", encoding="utf-8") as f:
+            for path in docs[s * per:(s + 1) * per]:
+                with open(path, encoding="utf-8") as src:
+                    f.write(src.read())
+        prefixes.append(os.path.join(shard, "docs"))
+        commands.append(_shard_command(txt, tok_dir, prefixes[-1]))
+    box: dict = {}
+
+    def run() -> None:
+        t0 = time.monotonic()
+        try:
+            box["rcs"] = run_commands(commands, num_workers=CORPUS_SHARDS,
+                                      timeout=300)
+        except Exception as e:  # noqa: BLE001 — raised in _corpus_train
+            box["error"] = repr(e)
+        box["wall_s"] = time.monotonic() - t0
+
+    thread = threading.Thread(target=run, daemon=True,
+                              name="chip-smoke-shards")
+    thread.start()
+    return dict(thread=thread, box=box, prefixes=prefixes,
+                commands=commands)
+
+
+def _corpus_train(dev: torch.device, card: str, tok_dir: str,
+                  shards: dict) -> dict:
+    """19c: the shards' ``GPTDataset``s blended, their indices from the
+    native builder (held to the numpy builders byte for byte), and phase
+    4's recipe trained ``CORPUS_STEPS`` steps on the blend."""
+    from fleetx_tpu_torch.data.dataset import gpt_dataset as G
+    from fleetx_tpu_torch.data.native import index_builder, library_path
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+    from fleetx_tpu_torch.kernels.build import BUILD_DIR
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+
+    shards["thread"].join(timeout=330)
+    box = shards["box"]
+    check(not shards["thread"].is_alive() and box.get("rcs") == [0] * len(
+        shards["prefixes"]), f"19c: the shard processes: {box}")
+    eos = GPTTokenizer.from_pretrained(tok_dir).eos_token_id
+    batch = 8
+    cfg = load_config(TRAIN_YAML, [f"Engine.max_steps={CORPUS_STEPS}",
+                                   "Engine.logging_freq=1"] + FT_LR)
+    cfg["Data"]["Train"]["dataset"] = dict(
+        name="BlendedDataset", weights=[1.0] * len(shards["prefixes"]),
+        num_samples=CORPUS_STEPS * batch,
+        datasets=[dict(name="GPTDataset", input_dir=p, eos_id=eos,
+                       num_samples=CORPUS_STEPS * batch, seed=1234)
+                  for p in shards["prefixes"]])
+    engine, train_dl, _ = build_trainer(cfg, device=dev)
+    mc = engine.module.model_cfg
+    check(mc.num_layers == 24 and mc.hidden_size == 1024
+          and mc.num_attention_heads == 16 and mc.vocab_size == 50304
+          and mc.dtype == torch.bfloat16
+          and cfg["Global"]["global_batch_size"] == batch,
+          "19c: not phase 4's full-width 345M recipe")
+    blend = train_dl.dataset
+    check(isinstance(blend, G.BlendedDataset), f"19c: {type(blend)}")
+    so = index_builder.path
+    check(so is not None and so == library_path()
+          and os.path.dirname(so) == BUILD_DIR,
+          f"19c: the native index builder was not loaded from "
+          f"{BUILD_DIR}: {so}")
+    # the native indices against the numpy builders, byte for byte
+    w = np.ones(len(blend.datasets)) / len(blend.datasets)
+    ds_idx, ds_sample = G.build_blending_indices(w, len(blend))
+    same = (ds_idx.tobytes() == blend.dataset_index.tobytes()
+            and ds_sample.tobytes() == blend.dataset_sample_index.tobytes())
+    for ds in blend.datasets:
+        ref = G.build_sample_idx(ds.doc_lens, np.asarray(ds.doc_idx),
+                                 ds.seq_length, len(ds.sample_idx) - 1)
+        same = same and ref.tobytes() == np.asarray(ds.sample_idx).tobytes()
+    check(same, "19c: the native indices differ from the numpy builders'")
+    emit("native_index", library=os.path.relpath(so, REPO), loaded=True,
+         equals_numpy=True, shards=len(blend.datasets),
+         shard_tokens=[int(ds.doc_lens.sum()) for ds in blend.datasets],
+         shard_docs=[len(ds.doc_lens) for ds in blend.datasets],
+         blend_samples=len(blend), preprocess_wall_s=box["wall_s"])
+    reset_peak(dev)
+    zero_counts()                     # every count to 0 just before
+    losses = engine.fit(train_dl)
+    torch.cuda.synchronize()
+    counts = read_counts()            # read just after
+    for name, per_step in PER_STEP.items():
+        check(counts[name] == per_step * CORPUS_STEPS,
+              f"19c: {name}: {counts[name]} launches, want {per_step} x "
+              f"{CORPUS_STEPS} steps")
+    hist = engine.history
+    check(len(losses) == CORPUS_STEPS and all(np.isfinite(losses)),
+          f"19c: losses {losses}")
+    check(losses[-1] < losses[0],
+          f"19c: the last loss {losses[-1]} is not below the first "
+          f"{losses[0]}")
+    step_s = statistics.median(h["train_cost"] for h in hist[1:])
+    out = dict(steps=CORPUS_STEPS, losses=losses,
+               grad_norms=[h["grad_norm"] for h in hist],
+               step_ms_median=step_s * 1e3,
+               tokens_per_s=batch * 1024 / step_s, launches=counts,
+               launches_per_step={k: counts[k] / CORPUS_STEPS
+                                  for k in PER_STEP},
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev)
+               / 2 ** 30, lr=FT_LR, nvidia_smi=card)
+    emit("corpus_train", **out)
+    del engine, train_dl, blend
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_router_corpus(dev: torch.device, card: str, root: str,
+                        ckpt_dir: str, tok_dir: str) -> dict:
+    """Phase 19: the router in process (19a), the supervised fleet behind
+    the router process (19b) and training on a blended real corpus (19c).
+    The fleet boots and the shards preprocess while 19a runs."""
+    fleet = _fleet_start(root, ckpt_dir)
+    try:
+        shards = _corpus_shards_start(root, tok_dir)
+        router = timed("19a", _router_in_process, dev, card, ckpt_dir)
+        fleet_out = timed("19b", _fleet_drive, card, fleet, router["direct"])
+    finally:
+        _fleet_stop(fleet)
+    corpus = timed("19c", _corpus_train, dev, card, tok_dir, shards)
+    return dict(router=router, fleet=fleet_out, corpus=corpus)
+
+
+def router_corpus_alone(dev: torch.device, card: str) -> None:
+    """``--router-corpus``: phase 19 on a checkpoint of the 345M recipe's
+    seeded params cut to ``CUT_LAYERS`` layers, with the tokenizer phase 9
+    trains."""
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.core.module import GPTModule
+    from fleetx_tpu_torch.tools.train import load_config
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        module = GPTModule(load_config(TRAIN_YAML))
+        params = module.init_params(1234, dev)
+        C.save_checkpoint(os.path.join(root, "ckpt"), 1, dict(
+            step=1, **C.flatten(params, "params/")), meta={
+                "consumed_samples": 0, "epoch": 0, "seed": 1234})
+        del params
+        ckpt = _cut_checkpoint(dev, root, os.path.join(root, "ckpt"))
+        timed("19", phase_router_corpus, dev, card, root, ckpt,
+              _readme_tokenizer(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("router_corpus_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6237,7 +6950,7 @@ def main(argv) -> int:
     modes = {"--paged-shapes", "--serving", "--eval-export",
              "--fp16-resilience", "--train-paths", "--finetune-serving",
              "--gpt-knobs", "--encoders", "--families", "--norm-shapes",
-             "--telemetry", "--resilience-runtime"}
+             "--telemetry", "--resilience-runtime", "--router-corpus"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
@@ -6252,7 +6965,8 @@ def main(argv) -> int:
         # turns, host µs; on an earlier tree its one route's timings);
         # --telemetry: phases 4 and 17 (no slo_report: phase 2 did not run);
         # --resilience-runtime: phases 4 and 18 (no synchronous save to
-        # set beside the asynchronous one: phase 8 did not run)
+        # set beside the asynchronous one: phase 8 did not run);
+        # --router-corpus: phase 19 on a checkpoint of seeded weights
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
@@ -6275,6 +6989,11 @@ def main(argv) -> int:
             emit("resilience_runtime_alone", phase_walls=PHASE_WALLS,
                  collect_freed_bytes=COLLECT_FREED,
                  collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
+            print(smi_line(), flush=True)
+            return 0
+        if "--router-corpus" in argv:
+            build.build(["paged_attention", "flash_attention", "fused_norm"])
+            router_corpus_alone(dev, card)
             print(smi_line(), flush=True)
             return 0
         if "--norm-shapes" in argv:
@@ -6370,6 +7089,8 @@ def main(argv) -> int:
         finetune, quant = phase_finetune_serving(
             dev, card, root, ckpt_dir, tok_dir, evaluation["corpus_prefix"],
             trainer, main_path)
+        router_corpus = timed("19", phase_router_corpus, dev, card, root,
+                              ckpt_dir, tok_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fp16 = timed("12", phase_fp16_resilience, dev, card)
@@ -6450,6 +7171,11 @@ def main(argv) -> int:
     # phase 18: 8 steps and 4 sentinel replays (12 x 24 / 24 / 49 / 49)
     for name in ENCODER_ROWS:
         by_path[name]["sentinel_train"] = sdc["launches"][name]
+    # phase 19c: 20 steps on the blended docs corpus (20 x 24 / 24 / 49 /
+    # 49)
+    for name in ENCODER_ROWS:
+        by_path[name]["corpus_train"] = \
+            router_corpus["corpus"]["launches"][name]
     # every path's norm forward launches by route: read_counts (and the
     # eval and fine-tune processes' own counts, checked where read) hold
     # each path's launches all on "rows", none on "row_block"
@@ -6474,7 +7200,9 @@ def main(argv) -> int:
             "serving": main_path["kernel_launches"],
             "serving_from_ckpt": generation["cross_check"][
                 "replica_paged_launches"],
-            "quant_serving": quant["kernel_launches"]},
+            "quant_serving": quant["kernel_launches"],
+            # phase 19a: the two in-process replicas behind the router
+            "router_fleet": router_corpus["router"]["kernel_launches"]},
     }]
     # timings at the shapes of the path whose run gives the launches: the
     # seq-8192 trainer (phase 6) for the forward, the split pair and the

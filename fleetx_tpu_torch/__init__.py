@@ -6,11 +6,24 @@ module paths (``fleetx_tpu_torch/serving/engine.py`` ↔
 It imports ``torch`` and never ``jax`` or anything of ``fleetx_tpu``:
 what it needs from a JAX-free module there, it keeps a copy of.
 
-The slices so far: paged serving (``python -m
-fleetx_tpu_torch.tools.serve``), GPT pretraining at seq 1024 and 8192
-(``python -m fleetx_tpu_torch.tools.train``), checkpoints
-(``core/checkpoint.py``, ``python -m fleetx_tpu_torch.tools.verify_ckpt``)
-and text generation (``python -m fleetx_tpu_torch.tasks.gpt.generation``);
-the hand-written Hopper kernels are in ``csrc/``. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+What it runs, on one card:
+
+- serving: the paged replica (``python -m fleetx_tpu_torch.tools.serve``,
+  int8 fake-quant and LoRA-merged weights included), the request router
+  over replicas (``--router``) and the elastic supervisor
+  (``python -m fleetx_tpu_torch.tools.supervise --elastic``);
+- training (``python -m fleetx_tpu_torch.tools.train``): GPT at seq 1024
+  and 8192, the MoE GPT, ERNIE, ViT and Imagen, with fp16, QAT, the
+  recompute policies, checkpoints, the resilience runtime, the SDC
+  sentinel and the telemetry; LoRA fine-tuning (``tools.finetune``) and
+  the auto-layout entry point (``tools.auto``);
+- data: synthetic sets, ``GPTDataset`` and ``BlendedDataset`` on corpora
+  written by ``tools.preprocess_data`` (indexed by the native builder in
+  ``data/native``), ``tools.multiprocess_tool`` for sharded jobs;
+- generation, eval, export and inference (``tasks/gpt/generation.py``,
+  ``tools.eval``, ``tools.export``, ``tools.inference``), the Imagen
+  cascade (``tasks/imagen/generate.py``).
+
+The hand-written Hopper kernels are in ``csrc/``. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"`` / ``--device cpu``.
 """

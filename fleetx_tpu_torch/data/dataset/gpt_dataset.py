@@ -4,12 +4,14 @@
 - ``GPTDataset`` over ``{prefix}_ids.npy`` (one flat token stream) and
   ``{prefix}_idx.npz`` (per-document lengths), with the doc/sample/shuffle
   index triple built deterministically from (num_samples, seq_length,
-  seed) by the vectorised numpy builders and cached next to the data. The
-  native C++ index builder is not ported (ROADMAP.md, port queue item
-  13); its output is byte-identical to the numpy path.
+  seed) and cached next to the data; the sample index comes from the
+  native C++ builder (``data/native``), as in
+  ``fleetx_tpu/data/dataset/gpt_dataset.py:154-160``, and from the
+  byte-identical numpy builder, with a logged warning, where it cannot
+  build.
 - ``BlendedDataset``: a weighted mixture of datasets, its sample order
-  from ``build_blending_indices`` (the numpy builder; the native one is
-  item 13's).
+  from the native ``build_blending_indices`` (the numpy builder where it
+  cannot build, as JAX's :272-279).
 - ``SyntheticGPTDataset``: deterministic random tokens, no data files.
 - ``write_corpus``: documents of token ids → the ``_ids.npy`` /
   ``_idx.npz`` pair ``GPTDataset`` reads.
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import subprocess
 
 import numpy as np
 
@@ -127,7 +130,17 @@ def build_index_mappings(name: str, cache_dir: str, sizes: np.ndarray,
 
     doc_idx = build_doc_idx(documents, num_epochs, rng, separate_last_epoch)
 
-    sample_idx = build_sample_idx(sizes, doc_idx, seq_length, num_samples)
+    try:
+        from fleetx_tpu_torch.data.native import index_builder
+
+        sample_idx = index_builder.build_sample_idx(
+            sizes.astype(np.int32), doc_idx, seq_length, num_samples)
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        # no compiler or a failed build: the numpy path is byte-identical
+        logger.warning("native index builder unavailable (%s: %s); "
+                       "using numpy fallback", type(e).__name__, e)
+        sample_idx = build_sample_idx(sizes, doc_idx, seq_length,
+                                      num_samples)
 
     if separate_last_epoch:
         num_samples_ = samples_wo_last
@@ -238,9 +251,18 @@ class BlendedDataset:
             raise ValueError(f"BlendedDataset: {len(datasets)} datasets and "
                              f"{len(weights)} weights")
         w = np.asarray(weights, np.float64)
+        w = w / w.sum()
         self.datasets = datasets
-        self.dataset_index, self.dataset_sample_index = \
-            build_blending_indices(w / w.sum(), int(num_samples))
+        try:
+            from fleetx_tpu_torch.data.native import index_builder
+
+            self.dataset_index, self.dataset_sample_index = \
+                index_builder.build_blending_indices(w, int(num_samples))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            logger.warning("native blending builder unavailable (%s); "
+                           "using numpy fallback", e)
+            self.dataset_index, self.dataset_sample_index = \
+                build_blending_indices(w, int(num_samples))
 
     def __len__(self) -> int:
         return len(self.dataset_index)

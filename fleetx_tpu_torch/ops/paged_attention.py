@@ -32,7 +32,9 @@ merges the chunks' partials in chunk order, in the same launch.
   The TPU's VMEM budget does not apply.
 
 ``paged_call.launches`` counts kernel launches (never plain-version
-calls), so a run can show that decode went through the kernel.
+calls), so a run can show that decode went through the kernel; the count
+is taken under a lock, since replicas in one process decode on threads
+of their own.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -368,11 +371,13 @@ def paged_call(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
     _check_cuda_args(q, pool_k, pool_v, tables, lens)
     out = _launch(q, pool_k, pool_v, tables, lens,
                   _plan_for(q, pool_k, tables))
-    paged_call.launches += 1
+    with _launches_lock:
+        paged_call.launches += 1
     return out
 
 
 paged_call.launches = 0
+_launches_lock = threading.Lock()
 
 
 def _localize_tables(tables: torch.Tensor, num_pages: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Deterministic fault injection for the training and checkpoint drills
-(port of ``fleetx_tpu/resilience/faults.py``: ``FaultPlan`` :112-245 with
-its training and checkpoint knobs and ``take_bitflip``, ``fire`` / ``fire_path`` :292-313, the
+"""Deterministic fault injection for the training, checkpoint and serving
+drills (port of ``fleetx_tpu/resilience/faults.py``: ``FaultPlan``
+:112-290 with every knob, ``fire`` / ``fire_path`` :292-313, the
 module-level plan :280-327 and ``_corrupt_payload`` :330).
 
 ``FaultPlan`` injects failures at exact, reproducible points so the
@@ -25,21 +25,31 @@ tests and ``chip_smoke.py`` drive the real recovery machinery:
   that verifies);
 - ``only_rank: R``           — arm the plan on rank R alone.
 
+The serving replica's chaos knobs (``serving/server.py`` consumes them):
+
+- ``slow_decode_ms_at: [K, MS]`` — from work-step K onward every decode
+  step takes MS extra milliseconds (a straggler; the router's hedged
+  dispatch absorbs the tail);
+- ``blackhole_after: K``     — after K responses the replica still
+  accepts connections but never answers anything again, verbs included
+  (a hung process; only the router's health probe tells it from a busy
+  one);
+- ``crash_mid_write: K``     — the K-th data response is torn mid-JSON
+  and the process hard-exits (the router classifies it as a transport
+  failure and re-dispatches).
+
 Plans come from the ``Resilience.faults`` config block or the
 ``FLEETX_FAULTS`` env var (``"sigterm_at=5,ckpt_write_fail_times=1,
 nan_loss_at=4:5"``), env winning per key. The module-level active plan
 lets ``core/checkpoint.py`` reach its injection points without config
 plumbing.
-
-The other knobs of the JAX plan raise ``NotImplementedError``:
-``slow_decode_ms_at``, ``blackhole_after`` and ``crash_mid_write`` are
-the serving replica's chaos knobs (ROADMAP.md, port queue item 5).
 """
 
 from __future__ import annotations
 
 import os
 import signal
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -51,9 +61,9 @@ __all__ = ["FaultPlan", "InjectedFault", "install_plan", "active_plan",
 
 ENV_VAR = "FLEETX_FAULTS"
 
-#: knob → the ROADMAP port-queue item that brings it
-NOT_PORTED = {"slow_decode_ms_at": 5, "blackhole_after": 5,
-              "crash_mid_write": 5}
+#: knob → the ROADMAP port-queue item that brings it (every knob of the
+#: JAX plan is ported)
+NOT_PORTED: dict = {}
 
 
 class InjectedFault(OSError):
@@ -97,7 +107,10 @@ class FaultPlan:
                  ckpt_write_fail_times: int = 0,
                  bitflip_param_at: Optional[int] = None,
                  corrupt_ckpt_at: Optional[int] = None,
-                 corrupt_restore_at: Optional[int] = None):
+                 corrupt_restore_at: Optional[int] = None,
+                 slow_decode_ms_at: Optional[list] = None,
+                 blackhole_after: Optional[int] = None,
+                 crash_mid_write: Optional[int] = None):
         self.data_raise_at = data_raise_at
         self.nan_loss_at = set(int(s) for s in (nan_loss_at or ()))
         self.sigterm_at = sigterm_at
@@ -105,6 +118,20 @@ class FaultPlan:
         self.bitflip_param_at = bitflip_param_at
         self.corrupt_ckpt_at = corrupt_ckpt_at
         self.corrupt_restore_at = corrupt_restore_at
+        if slow_decode_ms_at is not None:
+            pair = [int(v) for v in slow_decode_ms_at]
+            if len(pair) != 2:
+                raise ValueError(
+                    "slow_decode_ms_at wants [work_step, extra_ms]")
+            slow_decode_ms_at = pair
+        self.slow_decode_ms_at = slow_decode_ms_at
+        self.blackhole_after = blackhole_after
+        self.crash_mid_write = crash_mid_write
+        # the serving triggers are read by concurrent connection handler
+        # threads (the training triggers by the engine thread alone), so
+        # they share one lock
+        self._io_lock = threading.Lock()
+        self._responses = 0
 
     @classmethod
     def from_cfg(cls, cfg: Optional[dict], env: Optional[str] = None,
@@ -118,11 +145,6 @@ class FaultPlan:
         env = os.environ.get(ENV_VAR) if env is None else env
         if env:
             merged.update(_parse_env(env))
-        for key, item in NOT_PORTED.items():
-            if merged.get(key) is not None:
-                raise NotImplementedError(
-                    f"Resilience.faults.{key} is not ported yet (ROADMAP.md, "
-                    f"port queue item {item})")
         only = merged.get("only_rank")
         if only is not None and int(only) != _this_rank(rank):
             logger.info("fault plan targets rank %d only — disarmed on "
@@ -135,6 +157,9 @@ class FaultPlan:
         def opt_int(key: str) -> Optional[int]:
             return None if merged.get(key) is None else int(merged[key])
 
+        slow = merged.get("slow_decode_ms_at")
+        if isinstance(slow, int):
+            slow = [slow]
         return cls(
             data_raise_at=opt_int("data_raise_at"),
             nan_loss_at=nan_at,
@@ -143,7 +168,10 @@ class FaultPlan:
                                       or 0),
             bitflip_param_at=opt_int("bitflip_param_at"),
             corrupt_ckpt_at=opt_int("corrupt_ckpt_at"),
-            corrupt_restore_at=opt_int("corrupt_restore_at"))
+            corrupt_restore_at=opt_int("corrupt_restore_at"),
+            slow_decode_ms_at=slow,
+            blackhole_after=opt_int("blackhole_after"),
+            crash_mid_write=opt_int("crash_mid_write"))
 
     @property
     def armed(self) -> bool:
@@ -153,7 +181,10 @@ class FaultPlan:
                     or self.ckpt_write_fail_times
                     or self.bitflip_param_at is not None
                     or self.corrupt_ckpt_at is not None
-                    or self.corrupt_restore_at is not None)
+                    or self.corrupt_restore_at is not None
+                    or self.slow_decode_ms_at is not None
+                    or self.blackhole_after is not None
+                    or self.crash_mid_write is not None)
 
     # ------------------------------------------------------------- triggers
     def on_batch(self, index: int, batch: Any) -> Any:
@@ -191,6 +222,38 @@ class FaultPlan:
             self.bitflip_param_at = None
             return True
         return False
+
+    # ----------------------------------------------------- serving triggers
+    def decode_delay_s(self, work_step: int) -> float:
+        """Extra seconds the replica loop sleeps after ``work_step`` (0.0
+        while the straggler fault is unarmed or not yet due)."""
+        if self.slow_decode_ms_at is None:
+            return 0.0
+        at, ms = self.slow_decode_ms_at
+        return ms / 1000.0 if work_step >= at else 0.0
+
+    def blackholed(self) -> bool:
+        """True once the replica has answered its ``blackhole_after``-th
+        response: from then on every connection, data or verb, is accepted
+        and never answered."""
+        if self.blackhole_after is None:
+            return False
+        with self._io_lock:
+            return self._responses >= self.blackhole_after
+
+    def note_response(self) -> None:
+        """Count one answered data response (drives ``blackhole_after``
+        and ``crash_mid_write``)."""
+        with self._io_lock:
+            self._responses += 1
+
+    def take_crash_mid_write(self) -> bool:
+        """True when the next data response is the ``crash_mid_write``-th:
+        the caller writes a torn line and hard-exits."""
+        if self.crash_mid_write is None:
+            return False
+        with self._io_lock:
+            return self._responses + 1 >= self.crash_mid_write
 
     def fire(self, point: str) -> None:
         """Named-point hook for deep layers (``"ckpt_write"``)."""

@@ -1,15 +1,69 @@
-"""The ``Serving.router`` block's schema (copy of
-``fleetx_tpu/serving/router.py:84-128``).
+"""Request router over N serving replicas (port of
+``fleetx_tpu/serving/router.py``: ``Backend`` :143, ``RequestJournal``
+:178, ``merge_fleet_snapshots`` :215, ``Router`` :296 and ``main`` :762;
+``RouterConfig`` the ``Serving.router`` block's schema). Stdlib only: it
+imports no torch, so ``python -m fleetx_tpu_torch.serving.router`` starts
+in well under a second, before and apart from the replicas it fronts.
 
-The router process itself is not ported yet (ROADMAP.md, port queue
-item 5); the serving slice only validates the block, because the shipped
-recipe carries one.
+It owns the loss-free re-dispatch contract: a request the router has
+accepted is retried against the surviving replicas until one completes
+it. A replica crash (connection reset, the supervisor restarting the
+process), a torn response and a graceful drain (the explicit
+``"draining"`` answer) each count against that backend and move the
+request on. Greedy decode is a pure function of (params, prompt), so a
+re-dispatch is idempotent.
+
+- **Placement**: least outstanding requests, round-robin among ties.
+- **Health**: a circuit breaker per backend. ``closed`` serves; a
+  transport failure, torn response, hung probe or drain refusal opens it
+  (``breaker_opens_total``); an ``open`` backend takes no traffic until
+  the background probe (the ``ping`` verb, and the ``stats`` sweep when a
+  fleet sink runs) observes it answering again, which half-opens it;
+  ``half_open`` admits exactly one trial request, whose success closes
+  the breaker (``breaker_closes_total``) and whose failure re-opens it.
+- **Dispatch**: a retry budget per request, jittered exponential backoff
+  while every breaker is open (``resilience/policy.py``), and hedging:
+  after ``hedge_ms`` of silence from the chosen replica the same request
+  races a second one, the first complete answer wins, and the loser gets
+  the ``cancel`` verb.
+- **Fleet observer**: dispatch counters, a bounded per-request journal
+  and, with ``--fleet-out``, a periodic ``stats`` sweep of every backend
+  merged into ``FLEET_RECORD_SCHEMA`` records on a JSONL sink (the
+  elastic supervisor's scale rung reads them). Its own front answers
+  ``{"verb": "stats"}`` with a fresh fleet record and ``{"verb":
+  "trace", "id": ...}`` with the router's journal merged with every live
+  replica's timeline for that id.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import json
+import queue
+import socket
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Dict, Optional
+
+from fleetx_tpu_torch.observability import tsan
+from fleetx_tpu_torch.resilience.policy import RetryPolicy
+
+#: seconds between fleet stats sweeps when a fleet sink is configured
+DEFAULT_POLL_INTERVAL_S = 1.0
+
+#: fleet records carry the same version as serving snapshots
+FLEET_SCHEMA_VERSION = 2
+
+#: breaker states (docs/serving.md "Fault tolerance")
+CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+
+#: router-owned dispatch counters, merged into every fleet record
+ROUTER_COUNTERS = ("dispatched_total", "redispatched_total",
+                   "penalties_total", "drain_refusals_total",
+                   "no_backend_total", "completed_total",
+                   "breaker_opens_total", "breaker_closes_total",
+                   "hedges_total", "hedge_cancels_total")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +101,684 @@ class RouterConfig:
             raise ValueError(
                 f"unknown Serving.router keys: {sorted(unknown)}")
         return cls(**{k: v for k, v in d.items() if v is not None})
+
+
+def _read_line(conn: socket.socket) -> bytes:
+    """Read one newline-terminated frame (the shared half of the wire
+    protocol — ``serving/server.py`` documents it; this copy keeps the
+    router importable without the engine's server module)."""
+    buf = b""
+    while not buf.endswith(b"\n"):
+        chunk = conn.recv(4096)
+        if not chunk:
+            break  # EOF mid-frame — caller decides if that is an error
+        buf += chunk
+    return buf
+
+
+class Backend:
+    """One replica address + its breaker/placement bookkeeping.
+
+    All mutable fields are guarded by the router's placement lock
+    (``tsan.lock("router.placement")``) — handler threads, the hedge
+    racers and the probe loop all touch them."""
+
+    def __init__(self, host: str, port: int):
+        self.addr = (host, int(port))
+        self.outstanding = 0
+        self.dispatched = 0
+        self.failures = 0
+        self.state = CLOSED
+        self.consecutive_failures = 0
+        self.opened_at = 0.0
+        # half-open admits exactly ONE in-flight trial request; the flag
+        # is set by pick() under the placement lock, so two handler
+        # threads racing the same recovering backend cannot both get it
+        self.trial_in_flight = False
+
+    def can_accept(self) -> bool:
+        """Whether placement may pick this backend right now."""
+        if self.state == CLOSED:
+            return True
+        if self.state == HALF_OPEN:
+            return not self.trial_in_flight
+        return False
+
+
+def _addr_str(addr: tuple) -> str:
+    """``(host, port)`` → the ``host:port`` replica label fleet records
+    and traces attribute to."""
+    return f"{addr[0]}:{addr[1]}"
+
+
+class RequestJournal:
+    """Bounded request-id → router-side dispatch events.
+
+    The router's half of a request's merged trace: which backend each
+    attempt went to, drain refusals, transport retries, completion.
+    Insertion-ordered eviction over ``max_requests`` ids (the flight-ring
+    stance), each id's event list itself a bounded deque.
+    """
+
+    def __init__(self, max_requests: int = 1024,
+                 events_per_request: int = 64):
+        self.max_requests = max(int(max_requests), 1)
+        self.events_per_request = max(int(events_per_request), 8)
+        self._lock = tsan.lock("router.journal")
+        self._events: "OrderedDict[str, deque]" = OrderedDict()
+
+    def note(self, rid, name: str, **data) -> None:
+        """Append one router event for ``rid`` (None ids are unjournaled:
+        the reply still reaches the client, there is just no trace key)."""
+        if rid is None:
+            return
+        evt = {**data, "t": time.time(), "name": name, "source": "router"}
+        with self._lock:
+            evts = self._events.get(str(rid))
+            if evts is None:
+                evts = deque(maxlen=self.events_per_request)
+                self._events[str(rid)] = evts
+                while len(self._events) > self.max_requests:
+                    self._events.popitem(last=False)
+            evts.append(evt)
+
+    def events(self, rid) -> list:
+        """Copy of one id's journal (empty list when unknown/evicted)."""
+        with self._lock:
+            return list(self._events.get(str(rid)) or ())
+
+
+def merge_fleet_snapshots(snaps: Dict[str, dict], replicas_total: int,
+                          router_counters: Optional[dict] = None,
+                          breakers: Optional[dict] = None) -> dict:
+    """N per-replica ``serving_snapshot()`` dicts → one fleet record.
+
+    The serving-side twin of ``observability/gang.py:_merge_window``:
+    monotonic counters are summed, the TTFT/ITL histogram summaries are
+    pooled count-weighted (fleet mean) with the tail taken from — and
+    attributed to — the worst replica, occupancy is averaged AND max'd
+    with attribution, and requests-per-chip divides fleet completions by
+    fleet chips. ``snaps`` maps replica label → snapshot; replicas that
+    failed to report simply aren't in it (``replicas_reported`` records
+    the actual coverage). Gauges that are null on a replica (scheduler
+    gauges "unavailable") contribute nothing rather than a fake zero.
+    The shape is ``observability/schema.py:FLEET_RECORD_SCHEMA``.
+    """
+    replicas = sorted(snaps)
+
+    def _sum_int(key: str) -> int:
+        return int(sum(int(snaps[r].get(key) or 0) for r in replicas))
+
+    def _present(key: str) -> Dict[str, float]:
+        return {r: snaps[r][key] for r in replicas
+                if isinstance(snaps[r].get(key), (int, float))
+                and not isinstance(snaps[r].get(key), bool)}
+
+    record: dict = {
+        "ts": max([float(snaps[r].get("ts") or 0.0) for r in replicas],
+                  default=time.time()),
+        "scope": "fleet",
+        "schema_version": FLEET_SCHEMA_VERSION,
+        "replicas_total": int(replicas_total),
+        "replicas_reported": len(replicas),
+        "requests_admitted": _sum_int("requests_admitted"),
+        "requests_completed": _sum_int("requests_completed"),
+        "requests_refused": _sum_int("requests_refused"),
+        "deadline_sheds": _sum_int("deadline_sheds"),
+        "tokens_total": _sum_int("tokens_total"),
+        "tokens_per_sec": sum(_present("tokens_per_sec").values())
+        if replicas else None,
+    }
+    chips = sum(int(snaps[r].get("chips") or 1) for r in replicas)
+    record["chips_total"] = chips
+    record["requests_per_chip"] = \
+        (record["requests_completed"] / chips) if chips else None
+    qd = _present("queue_depth")
+    record["queue_depth"] = int(sum(qd.values())) if qd else None
+    ar = _present("active_requests")
+    record["active_requests"] = int(sum(ar.values())) if ar else None
+    occ = _present("page_occupancy")
+    if occ:
+        record["page_occupancy_mean"] = sum(occ.values()) / len(occ)
+        worst = max(occ, key=lambda r: occ[r])
+        record["page_occupancy_max"] = float(occ[worst])
+        record["page_occupancy_max_replica"] = worst
+    for name in ("ttft", "itl"):
+        hists = {r: snaps[r].get(name) or {} for r in replicas}
+        counts = {r: int(h.get("count") or 0) for r, h in hists.items()}
+        total = sum(counts.values())
+        if not total:
+            continue
+        record[f"{name}_mean_s"] = sum(
+            float(hists[r].get("mean") or 0.0) * counts[r]
+            for r in replicas) / total
+        worst = max((r for r in replicas if counts[r]),
+                    key=lambda r: float(hists[r].get("p99") or 0.0))
+        record[f"{name}_p99_s"] = float(hists[worst].get("p99") or 0.0)
+        record[f"{name}_p99_replica"] = worst
+    att = _present("slo_attainment")
+    if att:
+        record["slo_attainment"] = min(att.values())
+    for name in ROUTER_COUNTERS:
+        if router_counters and name in router_counters:
+            record[name] = int(router_counters[name])
+    if breakers:
+        # per-backend breaker states: the drill reads the
+        # open→half_open→closed walk straight off the record stream
+        record["breakers"] = {str(a): str(s) for a, s in breakers.items()}
+    return record
+
+
+class Router:
+    """Breaker-gated least-outstanding front over the replica fleet."""
+
+    def __init__(self, backends: list, host: str = "127.0.0.1",
+                 port: int = 0, request_timeout: Optional[float] = None,
+                 fleet_out: Optional[str] = None,
+                 poll_interval: float = DEFAULT_POLL_INTERVAL_S,
+                 config: Optional[RouterConfig] = None):
+        self.cfg = config or RouterConfig()
+        if request_timeout is not None:  # legacy kwarg wins over the block
+            self.cfg = dataclasses.replace(
+                self.cfg, request_timeout_s=float(request_timeout))
+        self.request_timeout = float(self.cfg.request_timeout_s)
+        self.backends = [Backend(h, p) for h, p in backends]
+        assert self.backends, "router needs at least one backend"
+        self.host = host
+        self.port = int(port)
+        self.fleet_out = fleet_out
+        self.poll_interval = float(poll_interval)
+        self._rr = 0
+        self._lock = tsan.lock("router.placement")
+        self._listener: Optional[socket.socket] = None
+        self._stop = threading.Event()
+        self.retries = 0
+        self.counters = {name: 0 for name in ROUTER_COUNTERS}
+        self.journal = RequestJournal()
+        self.last_fleet: Optional[dict] = None
+        self._fleet_sink = None
+        # the all-breakers-open wait: jittered exponential backoff
+        # (resilience/policy.py) in place of the old fixed 50 ms spin —
+        # a thundering herd of handler threads de-synchronises instead of
+        # hammering pick() in lockstep
+        self._spin = RetryPolicy(max_attempts=1_000_000, backoff_s=0.02,
+                                 max_backoff_s=max(self.cfg.penalty_s, 0.1),
+                                 jitter=0.5)
+
+    def _count(self, name: str) -> None:
+        with self._lock:
+            self.counters[name] += 1  # fleetx: noqa[FX014] -- written under self._lock, the port's tsan.lock, which the linter's lock factories name only under fleetx_tpu
+
+    def router_counters(self) -> dict:
+        """Copy of the dispatch counters (merged into fleet records)."""
+        with self._lock:
+            return dict(self.counters)
+
+    def breaker_states(self) -> dict:
+        """``addr → closed|open|half_open`` snapshot (fleet records)."""
+        with self._lock:
+            return {_addr_str(b.addr): b.state for b in self.backends}
+
+    # ------------------------------------------------------------ placement
+    def pick(self, exclude: tuple = ()) -> Optional[Backend]:
+        """Least outstanding among accepting backends, round-robin ties;
+        None when every breaker is open (or holds an in-flight trial).
+        A half-open choice takes its single trial slot atomically here,
+        under the placement lock."""
+        with self._lock:
+            avail = [b for b in self.backends
+                     if b not in exclude and b.can_accept()]
+            if not avail:
+                return None
+            best = min(b.outstanding for b in avail)
+            tied = [b for b in avail if b.outstanding == best]
+            choice = tied[self._rr % len(tied)]
+            self._rr += 1  # fleetx: noqa[FX014] -- written under self._lock, the port's tsan.lock, which the linter's lock factories name only under fleetx_tpu
+            choice.outstanding += 1
+            choice.dispatched += 1
+            if choice.state == HALF_OPEN:
+                choice.trial_in_flight = True
+            return choice
+
+    def _release(self, backend: Backend) -> None:
+        with self._lock:
+            backend.outstanding = max(backend.outstanding - 1, 0)
+
+    def _breaker_failure(self, backend: Backend) -> None:
+        """One observed failure (transport, torn line, drain refusal,
+        hung/failed probe): open the breaker once the threshold is hit; a
+        failed half-open trial goes straight back to open."""
+        with self._lock:
+            backend.failures += 1
+            backend.consecutive_failures += 1
+            if backend.state == HALF_OPEN:
+                backend.state = OPEN
+                backend.opened_at = time.monotonic()
+                backend.trial_in_flight = False
+                self.counters["breaker_opens_total"] += 1
+            elif backend.state == CLOSED and backend.consecutive_failures \
+                    >= int(self.cfg.breaker_threshold):
+                backend.state = OPEN
+                backend.opened_at = time.monotonic()
+                self.counters["breaker_opens_total"] += 1
+
+    def _note_failure(self, backend: Backend) -> None:
+        """A dispatch-path failure: breaker bookkeeping + retry count."""
+        self._breaker_failure(backend)
+        with self._lock:
+            self.retries += 1  # fleetx: noqa[FX014] -- written under self._lock, the port's tsan.lock, which the linter's lock factories name only under fleetx_tpu
+
+    def _note_success(self, backend: Backend) -> None:
+        """A completed round trip: reset the failure streak; a half-open
+        trial success (or a completion that outlived the breaker opening)
+        closes the breaker."""
+        with self._lock:
+            backend.consecutive_failures = 0
+            if backend.state in (HALF_OPEN, OPEN):
+                backend.state = CLOSED
+                backend.trial_in_flight = False
+                self.counters["breaker_closes_total"] += 1
+
+    def _note_probe_success(self, backend: Backend) -> None:
+        """A ping/stats answer from an open backend: recovery OBSERVED —
+        half-open it so the next request runs the trial."""
+        with self._lock:
+            backend.consecutive_failures = 0
+            if backend.state == OPEN:
+                backend.state = HALF_OPEN
+                backend.trial_in_flight = False
+
+    # ------------------------------------------------------------- dispatch
+    def dispatch(self, payload: dict) -> dict:
+        """Forward one request, re-dispatching across backends until a
+        replica completes it, the dispatch deadline passes, or the retry
+        budget is spent."""
+        rid = payload.get("id")
+        deadline = time.monotonic() + float(self.cfg.dispatch_deadline_s)
+        attempts = 0
+        idle_waits = 0
+        while time.monotonic() < deadline:
+            if attempts >= int(self.cfg.retry_budget):
+                # budget spent: a classified refusal beats grinding the
+                # fleet with a request that keeps losing backends
+                self._count("no_backend_total")
+                self.journal.note(rid, "budget_exhausted",
+                                  attempts=attempts)
+                return {"id": rid,
+                        "error": f"retry budget exhausted "
+                                 f"({attempts} attempts)"}
+            backend = self.pick()
+            if backend is None:
+                # every breaker open (or trial-busy): wait out the
+                # restart window on jittered exponential backoff
+                idle_waits += 1
+                time.sleep(self._spin.sleep_for(idle_waits))
+                continue
+            idle_waits = 0
+            addr = _addr_str(backend.addr)
+            attempts += 1
+            self._count("dispatched_total")
+            if attempts > 1:
+                self._count("redispatched_total")
+            self.journal.note(rid, "dispatch", backend=addr,
+                              attempt=attempts)
+            resp = self._race(backend, payload, rid)
+            if resp is None:
+                continue  # every racer failed/refused — re-dispatch
+            self._count("completed_total")
+            self.journal.note(rid, "completed", backend=resp[1],
+                              error=resp[0].get("error"))
+            return resp[0]
+        self._count("no_backend_total")
+        self.journal.note(rid, "no_backend")
+        return {"id": rid, "error": "no backend available"}
+
+    def _attempt(self, backend: Backend, payload: dict, rid,
+                 results: "queue.Queue") -> None:
+        """One forward on one backend, outcome classified inline — runs
+        on its own thread so a hung racer can't hold the dispatch loop.
+        Breaker bookkeeping happens HERE, not in the collector: a loser
+        whose transport failure lands after the race concluded (the
+        blackholed-replica shape) still opens its breaker."""
+        addr = _addr_str(backend.addr)
+        try:
+            resp = self._forward(backend, payload)
+        except (OSError, ValueError):
+            # transport failure OR a torn/garbled response line (a
+            # replica killed mid-write) — both mean "this backend did
+            # not complete the request": open-count and let the
+            # collector re-dispatch
+            self._note_failure(backend)
+            self._count("penalties_total")
+            self.journal.note(rid, "transport_retry", backend=addr)
+            results.put((backend, None))
+        else:
+            if isinstance(resp, dict) and resp.get("error") == "draining":
+                # graceful reclaim: stop placing onto this backend and
+                # retry the request elsewhere, losing nothing
+                self._note_failure(backend)
+                self._count("penalties_total")
+                self._count("drain_refusals_total")
+                self.journal.note(rid, "drain_refusal", backend=addr)
+                results.put((backend, None))
+            else:
+                self._note_success(backend)
+                results.put((backend, resp))
+        finally:
+            self._release(backend)
+
+    def _race(self, backend: Backend, payload: dict, rid):
+        """One dispatch attempt with hedging: after ``hedge_ms`` of
+        silence from ``backend`` the same request races one extra
+        replica; first complete answer wins and the loser is torn down
+        via the ``cancel`` verb (decode is idempotent — loss-free).
+        Returns ``(response, winner_addr)`` or None when every racer
+        failed/refused (the caller re-dispatches)."""
+        results: "queue.Queue" = queue.Queue()
+        racers: list = []
+
+        def launch(b) -> None:
+            racers.append(b)
+            threading.Thread(target=self._attempt,
+                             args=(b, payload, rid, results),
+                             daemon=True, name="router-dispatch").start()
+
+        launch(backend)
+        hedge_s = float(self.cfg.hedge_ms) / 1000.0
+        started = time.monotonic()
+        deadline = started + self.request_timeout
+        done: list = []
+        while len(done) < len(racers):
+            now = time.monotonic()
+            if now >= deadline:
+                return None  # racers still out will teach breakers late
+            wait = deadline - now
+            if hedge_s > 0 and len(racers) == 1:
+                wait = min(wait, max(started + hedge_s - now, 0.0))
+            try:
+                b, resp = results.get(timeout=max(wait, 0.001))
+            except queue.Empty:
+                if hedge_s > 0 and len(racers) == 1 \
+                        and time.monotonic() - started >= hedge_s:
+                    second = self.pick(exclude=tuple(racers))
+                    if second is not None:
+                        self._count("hedges_total")
+                        self.journal.note(rid, "hedge",
+                                          backend=_addr_str(second.addr))
+                        launch(second)
+                continue
+            done.append(b)
+            if resp is not None:
+                for loser in racers:
+                    if loser is not b and loser not in done:
+                        self._cancel_on(loser, rid)
+                return resp, _addr_str(b.addr)
+        return None
+
+    def _cancel_on(self, backend: Backend, rid) -> None:
+        """Fire-and-forget ``cancel`` to a hedge loser: the replica frees
+        the request's slot at its next step boundary. A cancel that loses
+        its own race to completion is harmless — decode is idempotent and
+        the router already returned the winner."""
+        self._count("hedge_cancels_total")
+        self.journal.note(rid, "hedge_cancel",
+                          backend=_addr_str(backend.addr))
+        if rid is None:
+            return  # unjournaled request: the replica can't look it up
+
+        def run() -> None:
+            try:
+                self._ask(backend.addr, {"verb": "cancel", "id": str(rid)})
+            except (OSError, ValueError):
+                pass  # loser is crashing/hung — its breaker handles it
+
+        threading.Thread(target=run, daemon=True,
+                         name="router-hedge-cancel").start()
+
+    def _forward(self, backend: Backend, payload: dict) -> dict:
+        return self._ask(backend.addr, payload,
+                         timeout=self.request_timeout)
+
+    def _ask(self, addr: tuple, payload: dict,
+             timeout: Optional[float] = None) -> dict:
+        """One JSON-line round trip (``OSError``/``ValueError`` on
+        transport failure or a torn line — callers decide the retry).
+        Default timeout is the configured verb timeout."""
+        if timeout is None:
+            timeout = float(self.cfg.verb_timeout_s)
+        with socket.create_connection(addr, timeout=timeout) as conn:
+            conn.sendall((json.dumps(payload) + "\n").encode("utf-8"))
+            conn.settimeout(timeout)
+            buf = _read_line(conn)
+        if not buf.strip():
+            raise ConnectionError(f"empty response from {addr}")
+        # a torn line (replica died mid-write) raises ValueError → retry
+        return json.loads(buf.decode("utf-8"))
+
+    # --------------------------------------------------------------- probes
+    def probe_once(self) -> None:
+        """One health sweep: ``ping`` every backend. The replica answers
+        ping on its handler thread — never queued behind decode — so a
+        busy replica stays closed while a hung/blackholed one fails the
+        probe and opens WITHOUT having to burn a live request. An open
+        backend past its ``penalty_s`` holdoff that answers again is
+        half-opened: recovery observed, never assumed from a timer."""
+        now = time.monotonic()
+        for backend in self.backends:
+            with self._lock:
+                state = backend.state
+                opened_at = backend.opened_at
+            if state == OPEN and \
+                    now - opened_at < float(self.cfg.penalty_s):
+                continue  # holdoff: a supervisor restart needs a moment
+            try:
+                resp = self._ask(backend.addr, {"verb": "ping"})
+            except (OSError, ValueError):
+                self._breaker_failure(backend)
+                continue
+            if isinstance(resp, dict) and resp.get("ok") is True \
+                    and not resp.get("draining"):
+                self._note_probe_success(backend)
+            else:
+                self._breaker_failure(backend)
+
+    def _probe_loop(self) -> None:
+        while not self._stop.wait(float(self.cfg.probe_interval_s)):
+            self.probe_once()
+
+    # --------------------------------------------------------------- verbs
+    def poll_fleet(self) -> dict:
+        """One ``stats`` sweep over the backends → a merged fleet record.
+
+        Partial coverage is tolerated by construction: a draining or
+        crashed replica just doesn't report this window, and
+        ``replicas_reported`` says so.
+        """
+        snaps: Dict[str, dict] = {}
+        for backend in self.backends:
+            addr = _addr_str(backend.addr)
+            try:
+                resp = self._ask(backend.addr, {"verb": "stats"})
+            except (OSError, ValueError):
+                continue
+            if not isinstance(resp, dict) or resp.get("error"):
+                continue
+            snaps[addr] = resp
+            # a stats answer is as good as a ping: recovery observed
+            self._note_probe_success(backend)
+        record = merge_fleet_snapshots(
+            snaps, replicas_total=len(self.backends),
+            router_counters=self.router_counters(),
+            breakers=self.breaker_states())
+        self.last_fleet = record
+        return record
+
+    def trace(self, rid: str) -> dict:
+        """Merge the router journal with every live replica's timeline
+        for one id, time-sorted — the fleet view of where the request's
+        latency went, drain refusals and re-dispatches included."""
+        events = self.journal.events(rid)
+        sources = ["router"] if events else []
+        attribution = None
+        for backend in self.backends:
+            try:
+                resp = self._ask(backend.addr,
+                                 {"verb": "trace", "id": rid})
+            except (OSError, ValueError):
+                continue  # draining/crashed replica: its half is gone
+            if resp.get("error") or not isinstance(resp.get("events"),
+                                                   list):
+                continue
+            addr = _addr_str(backend.addr)
+            events.extend({**e, "source": addr} for e in resp["events"])
+            sources.append(addr)
+            if isinstance(resp.get("attribution"), dict):
+                attribution = resp["attribution"]
+        if not events:
+            return {"id": rid, "error": "unknown request id"}
+        events.sort(key=lambda e: e.get("t") or 0.0)
+        out = {"id": rid, "events": events, "sources": sources}
+        if attribution is not None:
+            out["attribution"] = attribution
+        return out
+
+    def _poll_loop(self) -> None:
+        from fleetx_tpu_torch.observability.schema import validate_fleet_record
+
+        while not self._stop.wait(self.poll_interval):
+            record = self.poll_fleet()
+            problems = validate_fleet_record(record)
+            if problems:  # a merge bug must not poison the JSONL stream
+                print(f"[router] dropping invalid fleet record: "
+                      f"{problems}", flush=True)
+                continue
+            with self._lock:  # close() swaps the sink out under the lock
+                sink = self._fleet_sink
+            if sink is not None:
+                try:
+                    sink.emit(record)
+                except (OSError, ValueError):
+                    pass  # sink closed mid-shutdown — record is dropped
+
+    # -------------------------------------------------------------- serving
+    def start(self) -> int:
+        """Bind the front socket + accept thread; returns the bound port."""
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listener.bind((self.host, self.port))
+        self._listener.listen(128)
+        self.port = self._listener.getsockname()[1]
+        threading.Thread(target=self._accept_loop, daemon=True,
+                         name="router-accept").start()
+        # breakers need probes to observe recovery (and to catch a
+        # blackholed replica before it eats a live request) — the sweep
+        # runs for every started router, fleet sink or not
+        threading.Thread(target=self._probe_loop, daemon=True,
+                         name="router-health-probe").start()
+        if self.fleet_out:
+            # the stdlib-only sink: the fleet stream is line-buffered
+            # JSONL like every other
+            from fleetx_tpu_torch.observability.sinks import JsonlSink
+
+            self._fleet_sink = JsonlSink(self.fleet_out)
+            threading.Thread(target=self._poll_loop, daemon=True,
+                             name="router-fleet-poll").start()
+        return self.port
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._handle, args=(conn,),
+                             daemon=True).start()
+
+    def _handle(self, conn: socket.socket) -> None:
+        try:
+            conn.settimeout(self.request_timeout)
+            buf = _read_line(conn)
+            if not buf.strip():
+                return
+            payload = json.loads(buf.decode("utf-8"))
+            verb = payload.get("verb") if isinstance(payload, dict) \
+                else None
+            if verb == "stats":
+                resp = self.poll_fleet()
+            elif verb == "trace":
+                resp = self.trace(str(payload.get("id")))
+            else:
+                resp = self.dispatch(payload)
+            conn.sendall((json.dumps(resp) + "\n").encode("utf-8"))
+        except (OSError, ValueError):
+            pass  # client went away / bad JSON — nothing to answer
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def close(self) -> None:
+        """Tear down the front listener and the fleet sink."""
+        self._stop.set()
+        if self._listener is not None:
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+        with self._lock:  # the poll loop reads the sink under the lock
+            sink, self._fleet_sink = self._fleet_sink, None  # fleetx: noqa[FX014] -- written under self._lock, the port's tsan.lock, which the linter's lock factories name only under fleetx_tpu
+        if sink is not None:
+            try:
+                sink.close()
+            except OSError:
+                pass
+
+
+def main(argv=None) -> int:
+    """``python -m fleetx_tpu_torch.serving.router --port P --backends h:p,h:p``."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="fleetx serving router")
+    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--backends", required=True,
+                    help="comma-separated host:port replica list")
+    ap.add_argument("--fleet-out", default=None,
+                    help="append merged fleet records (JSONL, "
+                         "FLEET_RECORD_SCHEMA) to this path")
+    ap.add_argument("--poll-interval", type=float,
+                    default=DEFAULT_POLL_INTERVAL_S,
+                    help="seconds between backend stats sweeps")
+    ap.add_argument("--router-config", default=None,
+                    help="JSON dict of Serving.router knobs "
+                         "(RouterConfig fields — tools/serve.py "
+                         "forwards the YAML block this way)")
+    args = ap.parse_args(argv)
+    backends = []
+    for spec in args.backends.split(","):
+        h, _, p = spec.strip().rpartition(":")
+        backends.append((h or "127.0.0.1", int(p)))
+    config = RouterConfig.from_dict(json.loads(args.router_config)) \
+        if args.router_config else None
+    router = Router(backends, host=args.host, port=args.port,
+                    fleet_out=args.fleet_out,
+                    poll_interval=args.poll_interval,
+                    config=config)
+    port = router.start()
+    print(f"[router] listening on {args.host}:{port} over "
+          f"{len(backends)} backend(s)"
+          + (f", fleet records → {args.fleet_out}" if args.fleet_out
+             else ""), flush=True)
+    try:
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        router.close()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -45,13 +45,18 @@ in-flight decodes run to completion, and ``run()`` returns so
 treats the reclaim as a clean stop instead of crash-restarting a machine
 that is going away.
 
-The chaos knobs of the JAX replica (``resilience/faults.py`` fault plans)
-are not ported yet (ROADMAP.md, port queue item 5).
+A ``fault_plan`` (``resilience/faults.py``) arms the chaos drills as in
+the JAX replica: ``sigterm_at`` SIGTERMs the process after that many
+work steps (so it drains), ``slow_decode_ms_at`` stretches every work
+step past its start, ``blackhole_after`` holds every later connection
+open unanswered until ``close()``, and ``crash_mid_write`` tears a data
+response mid-JSON and exits the process with code 70.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import queue
 import socket
 import threading
@@ -103,10 +108,12 @@ def request(addr: tuple, payload: dict, timeout: float = 60.0) -> dict:
 class ReplicaServer:
     """Socket front + scheduler loop around one ``ServingEngine``."""
 
-    def __init__(self, engine, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, engine, host: str = "127.0.0.1", port: int = 0,
+                 fault_plan=None):
         self.engine = engine
         self.host = host
         self.port = int(port)
+        self.fault_plan = fault_plan
         self._submissions: queue.Queue = queue.Queue()
         self._control: queue.Queue = queue.Queue()
         self._listener: Optional[socket.socket] = None
@@ -143,6 +150,13 @@ class ReplicaServer:
             if not isinstance(msg, dict):
                 send_json_line(conn, {"error": "bad request"})
                 return
+            if self.fault_plan is not None and self.fault_plan.blackholed():
+                # chaos knob ``blackhole_after``: accept, never answer (the
+                # hung-process shape). The connection stays open, so the
+                # client sees silence and not the close of a crash, until
+                # ``close()`` sets the stop event
+                self._stop.wait(REQUEST_TIMEOUT_S)
+                return
             verb = msg.get("verb")
             if verb == "ping":
                 # liveness answers on THIS thread, never queued behind
@@ -177,6 +191,15 @@ class ReplicaServer:
                                       "error": "timeout"})
                 return
             req = box["req"]
+            if self.fault_plan is not None and \
+                    self.fault_plan.take_crash_mid_write():
+                # chaos knob ``crash_mid_write``: tear the response line
+                # mid-JSON and die; the router must see a parse failure and
+                # never hand the torn payload to a client
+                try:
+                    conn.sendall(b'{"id": "' + req.id.encode() + b'", "tok')
+                finally:
+                    os._exit(70)
             if req.error:
                 resp = {"id": req.id, "error": req.error}
                 if getattr(req, "retry_after_s", None) is not None:
@@ -187,6 +210,8 @@ class ReplicaServer:
                     "id": req.id, "tokens": req.tokens,
                     "ttft_s": req.ttft_s,
                     "latency_s": req.finished_at - req.submitted_at})
+            if self.fault_plan is not None:
+                self.fault_plan.note_response()
         except OSError:
             pass  # client went away; the engine finishes the work regardless
         finally:
@@ -273,6 +298,16 @@ class ReplicaServer:
             worked = self.engine.step()
             if worked:
                 work_steps += 1
+                if self.fault_plan is not None:
+                    # the serving counterpart of the trainer's
+                    # sigterm-at-step drill: SIGTERM ourselves after N
+                    # work steps, and the loop drains
+                    self.fault_plan.maybe_sigterm(work_steps)
+                    # straggler knob ``slow_decode_ms_at``: stretch the
+                    # step cadence so the measured ITL really inflates
+                    delay = self.fault_plan.decode_delay_s(work_steps)
+                    if delay:
+                        time.sleep(delay)
             else:
                 if self.engine.draining and self._submissions.empty():
                     break
@@ -293,7 +328,8 @@ class ReplicaServer:
                        work_steps)
 
     def close(self) -> None:
-        """Tear down the listener socket."""
+        """Tear down the listener socket and release the connections a
+        blackholed replica holds."""
         self._stop.set()
         if self._listener is not None:
             try:

@@ -1,10 +1,12 @@
-"""Serving entry point of the port: replica or Poisson bench.
+"""Serving entry point of the port: replica, router or Poisson bench.
 
 Port of ``tools/serve.py``, with the same flags::
 
     python -m fleetx_tpu_torch.tools.serve \
         -c fleetx_tpu/configs/nlp/gpt/serving_gpt_345M.yaml [-o Key.Sub=v]
         [--device cuda|cpu] [--port N] [--ready-file f] [--bench]
+    python -m fleetx_tpu_torch.tools.serve --router [-c cfg.yaml] \
+        --backends 127.0.0.1:9000,127.0.0.1:9001 [--fleet-out f.jsonl]
 
 - **replica** (default): build the model from ``-c cfg.yaml`` (the
   params of the newest checkpoint under ``Serving.ckpt_dir`` when given,
@@ -14,7 +16,14 @@ Port of ``tools/serve.py``, with the same flags::
   ``ServingEngine`` behind the
   JSON-lines TCP front. SIGTERM/SIGINT latch the preemption handler → the
   replica stops admitting, finishes every in-flight decode, and exits
-  with ``--preemption-code``.
+  with ``--preemption-code``. The fault plan of ``Resilience.faults`` and
+  ``FLEETX_FAULTS`` is built, installed and handed to the replica (the
+  chaos drills: ``sigterm_at``, ``slow_decode_ms_at``,
+  ``blackhole_after``, ``crash_mid_write``).
+- **router** (``--router``): the stdlib-only front over the replicas of
+  ``--backends`` (``serving/router.py``), the config's ``Serving.router``
+  block validated first and passed on as JSON; it starts before anything
+  imports torch. ``--fleet-out`` appends the merged fleet records.
 - **bench** (``--bench``): the in-process Poisson serving bench; prints
   one JSON line.
 
@@ -22,9 +31,9 @@ The replica runs on ``cuda`` unless ``--device cpu`` is given.
 ``Serving.quantize_decode`` decodes with int8 fake-quant. The fine-tune
 recipe's config (``Model.module: LoRAGPTModule`` and its ``FineTune:``
 section) serves as it is: the replica reads ``Model`` for the
-architecture and ignores the rest. What the slice does not cover raises
-``NotImplementedError`` naming its ROADMAP item: ``--router`` and any
-``Distributed`` degree above 1.
+architecture and ignores the rest. What the port does not cover raises
+``NotImplementedError`` naming its ROADMAP item: any ``Distributed``
+degree above 1.
 Under a supervisor gang (``FLEETX_PROCESS_ID`` set) the replica offsets
 its port by the member id.
 """
@@ -104,6 +113,7 @@ def build_engine(cfg: dict, device=None):
 def _run_replica(args, cfg: dict) -> int:
     """Replica role: engine + socket front + preemption-drain loop."""
     from fleetx_tpu_torch.observability import flight
+    from fleetx_tpu_torch.resilience.faults import FaultPlan, install_plan
     from fleetx_tpu_torch.resilience.preemption import PreemptionHandler
     from fleetx_tpu_torch.serving.server import ReplicaServer
     from fleetx_tpu_torch.utils.log import logger
@@ -111,13 +121,18 @@ def _run_replica(args, cfg: dict) -> int:
     flight_dir = os.environ.get(flight.ENV_DIR) or "./flight_recorder"
     flight.install(flight.FlightRecorder(flight_dir))
 
+    plan = FaultPlan.from_cfg(
+        dict((cfg.get("Resilience") or {}).get("faults") or {}))
+    install_plan(plan)
+
     port = args.port
     member = os.environ.get("FLEETX_PROCESS_ID")
     if port and member:
         port += int(member)
 
     engine = build_engine(cfg, device=args.device)
-    server = ReplicaServer(engine, host=args.host, port=port)
+    server = ReplicaServer(engine, host=args.host, port=port,
+                           fault_plan=plan if plan.armed else None)
     bound = server.start()
     if args.ready_file:
         with open(args.ready_file, "w") as f:
@@ -155,6 +170,25 @@ def _run_bench(args, cfg: dict) -> int:
     return 0
 
 
+def _run_router(args) -> int:
+    """Router role: the stdlib-only front, its ``Serving.router`` block
+    (from ``-c``, validated here, before the front binds) passed on as
+    JSON."""
+    from fleetx_tpu_torch.serving.router import main as router_main
+
+    router_argv = ["--port", str(args.port), "--host", args.host,
+                   "--backends", args.backends,
+                   "--poll-interval", str(args.poll_interval)]
+    if args.fleet_out:
+        router_argv += ["--fleet-out", args.fleet_out]
+    if args.config:
+        cfg = load_config(args.config, args.override)
+        block = dict((cfg.get("Serving") or {}).get("router") or {})
+        if block:
+            router_argv += ["--router-config", json.dumps(block)]
+    return router_main(router_argv)
+
+
 def load_config(path: str, overrides=None):
     """Parse + override + validate the Serving block (the training
     post-processing has no meaning for a serving process)."""
@@ -186,7 +220,14 @@ def main(argv=None) -> int:
     ap.add_argument("--preemption-code", type=int, default=75,
                     help="exit code after a graceful drain")
     ap.add_argument("--router", action="store_true",
-                    help="the request router (not ported yet)")
+                    help="run the request router instead of a replica")
+    ap.add_argument("--backends", default=None,
+                    help="router mode: comma-separated host:port replicas")
+    ap.add_argument("--fleet-out", default=None,
+                    help="router mode: append merged fleet records "
+                         "(FLEET_RECORD_SCHEMA JSONL) here")
+    ap.add_argument("--poll-interval", type=float, default=1.0,
+                    help="router mode: seconds between backend stats polls")
     ap.add_argument("--bench", action="store_true",
                     help="run the Poisson serving bench and exit")
     ap.add_argument("--requests", type=int, default=0,
@@ -199,8 +240,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.router:
-        raise NotImplementedError(
-            "--router is not ported yet (ROADMAP.md, port queue item 5)")
+        if not args.backends:
+            ap.error("--router requires --backends host:port,host:port")
+        return _run_router(args)
     if not args.config:
         ap.error("replica/bench mode requires -c config.yaml")
     cfg = load_config(args.config, args.override)

@@ -104,7 +104,10 @@ def test_the_scan_reaches_every_module_of_the_port():
                 "fleetx_tpu_torch/models/imagen/module.py",
                 "fleetx_tpu_torch/data/dataset/multimodal_dataset.py",
                 "fleetx_tpu_torch/tasks/imagen/generate.py",
-                "fleetx_tpu_torch/tools/supervise.py"):
+                "fleetx_tpu_torch/tools/supervise.py",
+                "fleetx_tpu_torch/serving/router.py",
+                "fleetx_tpu_torch/data/native/__init__.py",
+                "fleetx_tpu_torch/tools/multiprocess_tool.py"):
         assert rel in scanned, rel
 
 
@@ -162,6 +165,9 @@ def test_entry_points_load_no_jax_modules():
             "import fleetx_tpu_torch.data.dataset.multimodal_dataset\n"
             "import fleetx_tpu_torch.tasks.imagen.generate\n"
             "import fleetx_tpu_torch.tools.supervise\n"
+            "import fleetx_tpu_torch.serving.router\n"
+            "import fleetx_tpu_torch.data.native\n"
+            "import fleetx_tpu_torch.tools.multiprocess_tool\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -297,13 +303,21 @@ def test_engine_without_device_raises_when_no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("what", ["quantize_decode", "ckpt_dir",
                                   "adapter_dir", "mp_degree", "router"])
-def test_uncovered_config_values_raise(what):
+def test_uncovered_config_values_raise(what, tmp_path):
     from fleetx_tpu_torch.tools import serve
 
     cfg = _tiny_cfg()
     if what == "router":
-        with pytest.raises(NotImplementedError, match="item 5"):
+        # ported: the router needs its backends, and a bad Serving.router
+        # block is refused before the front binds
+        with pytest.raises(SystemExit):
             serve.main(["--router", "-c", "unused.yaml"])
+        cfg["Serving"]["router"] = {"hedge_ms": -1}
+        path = tmp_path / "bad_router.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        with pytest.raises(ValueError, match="Serving.router invalid"):
+            serve.main(["--router", "-c", str(path), "--backends",
+                        "127.0.0.1:1"])
         return
     if what == "ckpt_dir":
         # the checkpoint loader is ported: a configured checkpoint that is
