@@ -35,6 +35,7 @@ on a blended corpus indexed by the native builder.
     python3 chip_smoke.py --telemetry      # phases 4 and 17
     python3 chip_smoke.py --resilience-runtime  # phases 4 and 18
     python3 chip_smoke.py --router-corpus  # phase 19 on seeded weights
+    python3 chip_smoke.py --mesh           # phase 20 on seeded weights
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -445,6 +446,34 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    held to the numpy builders byte for byte); phase 4's recipe at full
    width and depth at ``FT_LR`` trains ``CORPUS_STEPS`` steps on it: the
    last loss below the first, phase 4's per-step counts.
+20. serving over a mesh of ranks on this card (``MESH_RANKS`` processes
+   sharing it over gloo, the backend rule's choice for ranks without a
+   card each): (a) ``python -m fleetx_tpu_torch.tools.supervise
+   --num-procs 4 -- python -m fleetx_tpu_torch.tools.serve`` on
+   ``serving_gpt_345M.yaml`` at fsdp 2 × mp 2 on phase 8's checkpoint
+   (24 layers, f32; the pool cut from 513 to ``MESH_PAGES`` = 514 pages
+   to split over fsdp): a warm-up request alone, then phase 2's 8
+   requests (32 new) over TCP, every answer token-identical to the
+   one-rank f32 engine on the same checkpoint in this process; every
+   rank on gloo with a ``[24, 257, 16, 8, 64]`` pool and row 7 at 24 ×
+   its decode steps (its own count, reported at the drain); rank 0's
+   heads of the first decode step's layer-0 attention (``--attn-tap``)
+   within ``MESH_ATTN_ATOL`` of the one-rank engine's; SIGTERM drains
+   every rank with 75. (b) the recipe's bf16 on seeded weights: a gang of
+   ``mesh_child`` (rank 0 submits phase 2's prompts to
+   ``ServingEngine(mesh=...)``, the others ``follow()``): greedy
+   agreement and the first decode step's logits drift below
+   ``MESH_DRIFT`` of the largest magnitude against the one-rank bf16
+   engine. (c) ``tools.inference`` on ``inference_gpt_345M_dp8.yaml``
+   at dp ``DP_RANKS`` over phase 11's bf16 generation export
+   (``inference_child`` counts each rank's launches): its outputs equal
+   the one-rank ``InferenceEngine``'s on the same inputs, and each
+   rank's launches of rows 1 and 5 equal one call's; a batch of distinct
+   rows, one a rank, gathered on every rank, equals the one-rank
+   engine's ids on each row. Phase 1 holds row
+   7 at a shard's shape too (8 and 4 heads, 257 local pages, the other
+   shard's pages as ``-1`` entries through the tables, a row of only
+   foreign pages exactly ``(-1e30, 0, 0)``).
 
 Each phase's wall is printed as it ends (``phase_wall``) and collected in
 the ``smoke`` line.
@@ -849,6 +878,7 @@ def phase_kernels(build, dev: torch.device) -> dict:
               f"kernel's")
         emit("paged_check", geometry=what, dtype=str(dtype), B=b, nh=nh,
              hd=hd, ps=ps, pages_per_req=ppr, **errs)
+    result["shard_shapes"] = _hold_shard_shapes(PA, paged_smem, dev)
     shapes = time_paged(PA, dev, flush)
     result["bfloat16"].update(shapes["ragged"])
     result["bfloat16"]["shapes"] = shapes
@@ -3465,6 +3495,7 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
     eng = InferenceEngine(gen_dir, device=dev)
     sampling_cfg = eng.gen_cfg
     generation["load_s"] = eng.load_s
+    dp_reference = _dp_reference(eng)      # phase 20c's, on this engine
     _generate_timed(eng, [tokens, mask, seed], CUT_LAYERS)  # first call
     for name, extra in (("greedy", ["Generation.decode_strategy="
                                     "greedy_search"]), ("sampling", [])):
@@ -3554,7 +3585,7 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
                inference_demo=demo, task_output=task_lines[-2:],
                inference_generation_launches=launches, nvidia_smi=card)
     emit("export", **out)
-    return out
+    return dict(out, dp_reference=dp_reference)
 
 
 def phase_row1_eval_shape(dev: torch.device, card: str,
@@ -6938,6 +6969,619 @@ def router_corpus_alone(dev: torch.device, card: str) -> None:
     emit("router_corpus_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
 
 
+# ---------------------------------------------------------------- phase 20
+
+#: 20: the serving mesh (two fsdp shards by two tensor ranks, processes
+#: sharing this card over gloo); 513 pages do not split over fsdp 2, so
+#: the replica's pool is cut to 514
+MESH_DEGREES = ["Distributed.fsdp_degree=2", "Distributed.mp_degree=2"]
+MESH_PAGES = 514
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 300
+#: 20a holds rank 0's heads of the first decode step's layer-0 attention
+#: output to the one-rank engine's within this (f32; the reorders of the
+#: cross-shard combine and of the row-parallel sums are all)
+MESH_ATTN_ATOL = 1e-5
+#: 20b: the bf16 mesh's first decode step's logits drift bound, as a share
+#: of the largest magnitude (phase 13's int8 bound)
+MESH_DRIFT = 0.05
+#: 20c: the inference recipe's data-parallel degree cut to 2 ranks, and
+#: with it the global batch (1 a rank)
+DP_RANKS = 2
+#: 20c's distinct rows: prompts drawn from this seed over the GPT-2
+#: tokenizer's ids, at most this many draws to find one a rank whose
+#: generated ids differ
+DP_ROWS_SEED = 20
+DP_ROW_VOCAB = 50257
+DP_ROW_DRAWS = 8
+DP_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                       "inference_gpt_345M_dp8.yaml")
+
+
+def _shard_case(dtype: torch.dtype, dev: torch.device, nh: int):
+    """Row 7 at a shard's shape: the 345M geometry's pool of 514 pages
+    over two fsdp shards, this shard (0) holding pages 0-256 of ``nh``
+    heads; the tables draw from both shards, so the other shard's pages
+    are ``-1`` entries scattered through them, and row 6's pages all
+    belong to the other shard. Returns ``(case, foreign row)``."""
+    from fleetx_tpu_torch.ops import paged_attention as PA
+
+    local_pages = MESH_PAGES // 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    shape = (local_pages, PS, nh, HD)
+    pk = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    pv = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, nh, HD), generator=gen, device=dev).to(dtype)
+    rng = np.random.RandomState(1)
+    order = [int(p) for p in rng.permutation(np.arange(1, MESH_PAGES))]
+    tables = np.zeros((B, PPR), np.int32)
+    foreign = 6
+    for row, n in enumerate(LENS):
+        used = -(-(n + 1) // PS) if n >= 0 else 0
+        picks = [p for p in order
+                 if row != foreign or p >= local_pages][:used]
+        for p in picks:
+            order.remove(p)
+        tables[row, :used] = picks
+    as_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    glob = as_dev(tables)
+    local = PA._localize_tables(glob, 0, local_pages).contiguous()
+    check(bool((local[foreign] < 0).all()), "row 6 holds a local page")
+    check(bool((local[:, :4] < 0).any()) and bool((local >= 0).any()),
+          "the shard's tables have no scattered -1 entries")
+    return (q, pk, pv, local, local,
+            as_dev(np.asarray(LENS, np.int32))), foreign
+
+
+def _hold_shard_shapes(PA, paged_smem, dev: torch.device) -> list:
+    """Phase 1's shard-shape rows: 8 and 4 heads a shard, f32 and bf16,
+    against the plain versions; the all-foreign row the empty triple."""
+    out = []
+    for nh in (NH // 2, NH // 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            case, foreign = _shard_case(dtype, dev, nh)
+            what = f"shard nh{nh} {dtype}"
+            errs = _hold_paged(PA, case, LENS, what)
+            _, hb, rb, ppc, slots, smem = errs["plan"]
+            check(paged_smem(hb, rb, HD, case[1].element_size(), slots,
+                             ppc) == smem,
+                  f"paged {what}: plan_split's shared memory differs")
+            q, pk, pv, _, local, lens = case
+            acc, m, l = PA.paged_call(q, pk, pv, local, lens)
+            torch.cuda.synchronize()
+            check(bool((m[foreign] == -1e30).all())
+                  and bool((l[foreign] == 0).all())
+                  and bool((acc[foreign] == 0).all()),
+                  f"paged {what}: the all-foreign row is not (-1e30, 0, 0)")
+            row = dict(geometry="shard", dtype=str(dtype), B=B, nh=nh,
+                       hd=HD, ps=PS, pages_per_req=PPR,
+                       local_pages=MESH_PAGES // 2,
+                       skipped_entries=int((local < 0).sum()),
+                       foreign_row_empty=True, **errs)
+            emit("paged_check", **row)
+            out.append(row)
+    return out
+
+
+def _mesh_supervised(n: int, argv: list, log: str) -> dict:
+    """``tools.supervise --num-procs n -- <argv>`` on this card, its
+    output to ``log``; the handle (process, log, start time). The ranks
+    compute on the card: one intra-op thread each keeps ten processes'
+    thread pools off the cores their collectives wait on."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fleetx_tpu_torch.tools.supervise",
+         "--num-procs", str(n), "--max-restart", "0", "--grace", "30",
+         "--"] + argv,
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO,
+                           OMP_NUM_THREADS="1"),
+        stdout=open(log, "w"), stderr=subprocess.STDOUT,
+        start_new_session=True)
+    return dict(proc=proc, log=log, t0=time.monotonic())
+
+
+def _stop_gang(gang: dict) -> None:
+    """SIGTERM to the supervisor (which forwards it to the members, waits
+    its grace and kills them), SIGKILL past a minute."""
+    proc = gang["proc"]
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _wait_exit(gang: dict, what: str, want: int = 0) -> None:
+    proc = gang["proc"]
+    try:
+        proc.wait(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _stop_gang(gang)
+    if proc.returncode != want:
+        with open(gang["log"]) as f:
+            tail = f.read()[-4000:]
+        check(False, f"{what} exited {proc.returncode}, not {want}: {tail}")
+
+
+def _wait_file(path: str, gang: dict, what: str) -> None:
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    while not os.path.exists(path):
+        if gang["proc"].poll() is not None or time.monotonic() > deadline:
+            _wait_exit(gang, what)
+            check(False, f"{what}: {path} never appeared")
+        time.sleep(0.1)
+
+
+def _rank_reports(path: str) -> list:
+    with open(path) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    mesh = [r for r in records if r.get("scope") == "serving_mesh"]
+    check(len(mesh) == 1, f"{path}: {len(mesh)} mesh records")
+    return mesh[0]["ranks"]
+
+
+def _check_ranks(ranks: list, layers: int, what: str) -> dict:
+    """Every rank on gloo with the shard's pool, row 7 at ``layers`` per
+    decode step, all ranks the same steps; summed launches."""
+    check([r["rank"] for r in ranks] == list(range(MESH_RANKS)),
+          f"{what}: ranks {[r['rank'] for r in ranks]}")
+    for r in ranks:
+        check(r["backend"] == "gloo", f"{what}: rank {r['rank']} on "
+                                      f"{r['backend']}")
+        check(r["pool_shape"] == [layers, MESH_PAGES // 2, PS, NH // 2, HD],
+              f"{what}: rank {r['rank']} pool {r['pool_shape']}")
+        check(r["steps"] == ranks[0]["steps"] and r["steps"]["decode"] > 0,
+              f"{what}: rank steps {[x['steps'] for x in ranks]}")
+        check(r["paged_launches"] == layers * r["steps"]["decode"],
+              f"{what}: rank {r['rank']} launched row 7 "
+              f"{r['paged_launches']} times in {r['steps']['decode']} "
+              f"decode steps of {layers} layers")
+    return dict(launches=sum(r["paged_launches"] for r in ranks),
+                per_rank=[r["paged_launches"] for r in ranks],
+                decode_steps=ranks[0]["steps"]["decode"],
+                prefill_steps=ranks[0]["steps"]["prefill"])
+
+
+def _ask_concurrently(port: int, prompts: list, max_new: int) -> list:
+    from fleetx_tpu_torch.serving.server import request
+
+    out = [None] * len(prompts)
+
+    def ask(i):
+        out[i] = request(("127.0.0.1", port),
+                         {"id": f"mesh{i}", "prompt": prompts[i],
+                          "max_new_tokens": max_new},
+                         timeout=MESH_TIMEOUT_S)
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=MESH_TIMEOUT_S)
+    return out
+
+
+#: 20a's replica overrides beside ``MESH_DEGREES`` (the checkpoint's
+#: directory appended): the dtype phase 9's replica serves in, the pool
+#: that splits over fsdp
+MESH_F32 = ["Model.dtype=float32", f"Serving.num_pages={MESH_PAGES}"]
+#: 20b's: the recipe's bf16 on seeded weights
+MESH_BF16 = [f"Serving.num_pages={MESH_PAGES}"]
+#: the interpreter line of a gang member that runs a function of this
+#: script on its arguments
+CHILD = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+         "sys.exit(chip_smoke.%s(sys.argv[1:]))")
+
+
+def _start_mesh(root: str, full_ckpt: str, gen_dir: str,
+                dp_rows: np.ndarray) -> dict:
+    """20a-c's gangs, started together: the host's cores are what their
+    latency-bound collectives wait on, and the three overlapped finish
+    sooner than one after another. ``dp_rows`` are 20c's distinct rows."""
+    work = os.path.join(root, "mesh")
+    os.makedirs(work, exist_ok=True)
+    paths = {n: os.path.join(work, n) for n in (
+        "ready.json", "metrics.jsonl", "attn0.npy", "bf16", "dp")}
+    for d in (paths["bf16"], paths["dp"]):
+        os.makedirs(d)
+    np.save(os.path.join(paths["dp"], "rows.npy"), dp_rows)
+    replica = dict(_mesh_supervised(
+        MESH_RANKS,
+        [sys.executable, "-m", "fleetx_tpu_torch.tools.serve", "-c", YAML]
+        + _overrides(MESH_F32 + [f"Serving.ckpt_dir={full_ckpt}"]
+                     + MESH_DEGREES)
+        + ["--ready-file", paths["ready.json"], "--metrics-out",
+           paths["metrics.jsonl"], "--attn-tap", paths["attn0.npy"],
+           "--preemption-code", "75"],
+        os.path.join(work, "replica.log")), paths=paths)
+    return {"replica_f32": replica, "bf16": dict(_mesh_supervised(
+        MESH_RANKS, [sys.executable, "-c", CHILD % (REPO, "mesh_child"),
+                     paths["bf16"]] + MESH_BF16 + MESH_DEGREES,
+        os.path.join(work, "bf16.log")), out=paths["bf16"]),
+        "dp_inference": dict(_mesh_supervised(
+            DP_RANKS,
+            [sys.executable, "-c", CHILD % (REPO, "inference_child"),
+             paths["dp"], "-c", DP_YAML] + _overrides(
+                [f"Distributed.dp_degree={DP_RANKS}",
+                 f"Global.global_batch_size={DP_RANKS}",
+                 f"Inference.model_dir={gen_dir}"] + CUT_DEPTH),
+            os.path.join(work, "dp.log")), out=paths["dp"])}
+
+
+def _replica_reference(dev: torch.device, full_ckpt: str) -> dict:
+    """20a's one-rank f32 engine on the checkpoint, in this process: the
+    warm-up request alone (its first decode step is the tapped one), then
+    phase 2's prompts."""
+    from fleetx_tpu_torch.serving.decode import tap_next_decode
+    from fleetx_tpu_torch.tools.serve import build_engine, load_config
+
+    one = build_engine(load_config(YAML, MESH_F32 + [
+        f"Serving.ckpt_dir={full_ckpt}"]), device=dev)
+    check(one.cfg.num_layers == 24 and one.cfg.dtype == torch.float32,
+          "20a: not the 24-layer f32 replica")
+    taps = []
+    tap_next_decode(lambda a: taps.append(a.float().cpu().numpy()))
+    warm = _prompts(1, [8])[0]
+    req = one.submit(warm, 2, request_id="warm")
+    one.run_until_drained()
+    prompts = _prompts(2, SERVE_PROMPT_LENS)
+    reqs = [one.submit(p, SERVE_MAX_NEW, request_id=f"one{i}")
+            for i, p in enumerate(prompts)]
+    one.run_until_drained()
+    out = dict(warm=warm, want_warm=list(req.tokens), prompts=prompts,
+               want=[list(r.tokens) for r in reqs], tap=taps[0])
+    del one, reqs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_replica(dev: torch.device, gang: dict, ref: dict) -> dict:
+    """20a: the f32 replica over the 2 x 2 mesh (``tools.serve`` under
+    ``tools.supervise --num-procs 4``) on phase 8's checkpoint at 24
+    layers, against the one-rank engine (``ref``)."""
+    from fleetx_tpu_torch.serving.server import request
+
+    paths = gang["paths"]
+    try:
+        _wait_file(paths["ready.json"], gang, "20a replica")
+        with open(paths["ready.json"]) as f:
+            port = json.load(f)["port"]
+        up_s = time.monotonic() - gang["t0"]
+        got_warm = request(("127.0.0.1", port),
+                           {"id": "warm", "prompt": ref["warm"],
+                            "max_new_tokens": 2}, timeout=MESH_TIMEOUT_S)
+        t1 = time.monotonic()
+        answers = _ask_concurrently(port, ref["prompts"], SERVE_MAX_NEW)
+        wall = time.monotonic() - t1
+        stats = request(("127.0.0.1", port), {"verb": "stats"})
+    finally:
+        if gang["proc"].poll() is None:
+            gang["proc"].send_signal(signal.SIGTERM)   # the drain
+    _wait_exit(gang, "20a supervisor", want=75)
+    check(got_warm.get("tokens") == ref["want_warm"],
+          f"20a warm-up {got_warm} != {ref['want_warm']}")
+    mismatched = [i for i, (a, w) in enumerate(zip(answers, ref["want"]))
+                  if a is None or a.get("tokens") != w]
+    check(not mismatched, f"20a: answers {mismatched} differ from the "
+                          f"one-rank engine's")
+    check(stats.get("chips") == MESH_RANKS
+          and stats.get("decode_path") == "paged_kernel",
+          f"20a stats {stats.get('chips')} {stats.get('decode_path')}")
+    ranks = _check_ranks(_rank_reports(paths["metrics.jsonl"]), 24, "20a")
+    mesh_attn = np.load(paths["attn0.npy"])
+    heads = ref["tap"][:, :, :NH // 2]
+    check(mesh_attn.shape == heads.shape,
+          f"20a: tapped {mesh_attn.shape} vs {heads.shape}")
+    attn_err = float(np.abs(mesh_attn - heads).max())
+    check(attn_err <= MESH_ATTN_ATOL,
+          f"20a: rank 0's layer-0 attention off by {attn_err}")
+    tokens = sum(len(a["tokens"]) for a in answers)
+    return dict(requests=len(answers), new_tokens=tokens, identical=True,
+                attn_max_abs_err=attn_err, wall_s=wall,
+                tokens_per_s=tokens / wall, up_s=up_s,
+                ttft_p50_s=stats.get("ttft_p50_s"),
+                itl_p50_s=stats.get("itl_p50_s"),
+                itl_p99_s=stats.get("itl_p99_s"), **ranks)
+
+
+def mesh_child(argv: list) -> int:
+    """20b's gang member: ``build_engine`` on the serving config with
+    ``argv``'s overrides (the mesh from its ``Distributed`` degrees);
+    rank 0 submits phase 2's prompts to ``ServingEngine(mesh=...)``
+    directly and writes the tokens, the first decode step's logits and
+    every rank's report under ``argv[0]``; the others ``follow()``."""
+    from fleetx_tpu_torch.tools.serve import build_engine, load_config
+    from fleetx_tpu_torch.utils.env import close_dist_env
+
+    out_dir, overrides = argv[0], argv[1:]
+    engine = build_engine(load_config(YAML, overrides))
+    collective_ms = _collective_ms(engine.mesh, engine.device)
+    if not engine.mesh.is_leader:
+        code = engine.follow()
+        close_dist_env()
+        return code
+    tokens, logits = _direct_run(engine)
+    reports = engine.close(0)
+    close_dist_env()
+    np.save(os.path.join(out_dir, "logits.npy"), logits)
+    with open(os.path.join(out_dir, "mesh.json"), "w") as f:
+        json.dump({"tokens": tokens, "ranks": reports,
+                   "collective_ms": collective_ms}, f)
+    return 0
+
+
+def _collective_ms(mesh, dev: torch.device, calls: int = 50) -> dict:
+    """Host ms of one collective a decode step makes, on every rank at
+    once: the ``tensor`` psum of a ``[16, 1024]`` f32 activation and the
+    ``fsdp`` pmax of ``[16, 8]`` partial maxima, on the card (after 5
+    unmeasured calls each)."""
+    from fleetx_tpu_torch.parallel import mesh as M
+
+    out = {}
+    for name, fn, axis, shape in (("psum_tensor", M.psum, "tensor",
+                                   (B, 1024)),
+                                  ("pmax_fsdp", M.pmax, "fsdp", (B, 8))):
+        x = torch.ones(shape, device=dev)
+        for _ in range(5):
+            fn(x, axis, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(x, axis, mesh)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / calls
+    return out
+
+
+def _direct_run(engine) -> tuple:
+    """Phase 2's prompts submitted to ``engine`` directly, run to the
+    end: the tokens and the first decode step's f32 logits."""
+    first = []
+    decode = engine._fns["decode"]
+
+    def tapped(*args):
+        out = decode(*args)
+        if not first:
+            first.append(out[3].float().cpu().numpy())
+        return out
+
+    engine._fns["decode"] = tapped
+    reqs = [engine.submit(p, SERVE_MAX_NEW, request_id=f"d{i}")
+            for i, p in enumerate(_prompts(2, SERVE_PROMPT_LENS))]
+    engine.run_until_drained()
+    engine._fns["decode"] = decode
+    return [list(r.tokens) for r in reqs], first[0]
+
+
+def _bf16_reference(dev: torch.device) -> dict:
+    """20b's one-rank bf16 engine on the seeded weights, in this
+    process."""
+    from fleetx_tpu_torch.tools.serve import build_engine, load_config
+
+    one = build_engine(load_config(YAML, MESH_BF16), device=dev)
+    check(one.cfg.dtype == torch.bfloat16, "20b: not bf16")
+    want, logits = _direct_run(one)
+    del one
+    torch.cuda.empty_cache()
+    return dict(want=want, logits=logits)
+
+
+def _mesh_bf16(dev: torch.device, gang: dict, ref: dict) -> dict:
+    """20b: the recipe's dtype (bf16, seeded weights) on the same mesh (a
+    gang of ``mesh_child``), against the one-rank bf16 engine (``ref``)."""
+    _wait_exit(gang, "20b gang")
+    with open(os.path.join(gang["out"], "mesh.json")) as f:
+        got = json.load(f)
+    logits = np.load(os.path.join(gang["out"], "logits.npy"))
+    want, want_logits = ref["want"], ref["logits"]
+    check(logits.shape == want_logits.shape and np.isfinite(logits).all(),
+          f"20b logits {logits.shape}")
+    drift = float(np.abs(logits - want_logits).max()
+                  / max(float(np.abs(want_logits).max()), 1e-9))
+    check(drift < MESH_DRIFT, f"20b: bf16 logits drifted {drift}")
+    pairs = [(a, b) for g, w in zip(got["tokens"], want)
+             for a, b in zip(g, w)]
+    agree = sum(a == b for a, b in pairs) / max(len(pairs), 1)
+    ranks = _check_ranks(got["ranks"], 24, "20b")
+    return dict(greedy_agreement=agree, tokens_compared=len(pairs),
+                identical_requests=sum(g == w for g, w in
+                                       zip(got["tokens"], want)),
+                logits_drift=drift, drift_bound=MESH_DRIFT,
+                collective_ms=got["collective_ms"],
+                gang_s=time.monotonic() - gang["t0"], **ranks)
+
+
+def inference_child(argv: list) -> int:
+    """20c's gang member. First 20c's distinct rows (``argv[0]/rows.npy``,
+    one a rank) through a data-parallel ``InferenceEngine`` of the same
+    config, every rank keeping the whole gathered ids; then
+    ``tools.inference``'s ``main(argv[1:])`` (its ``init_dist_env`` finds
+    the group joined; it leaves the group at its end) with the launch
+    counts zeroed just before and read just after. Writes the rows, its
+    printed records and the counts to ``argv[0]/rank<r>.json``, ``r`` its
+    rank in the mesh (the ranks share one log, whose lines may
+    interleave)."""
+    import contextlib
+    import io
+
+    from fleetx_tpu_torch.core.engine.inference_engine import (
+        InferenceEngine, serving_mesh)
+    from fleetx_tpu_torch.tools import inference
+    from fleetx_tpu_torch.utils.config import get_config, parse_args
+    from fleetx_tpu_torch.utils.env import get_world_size, init_dist_env
+
+    args = parse_args("chip_smoke 20c", argv[1:])
+    init_dist_env(device=args.device)
+    cfg = get_config(args.config, args.override,
+                     num_devices=get_world_size())
+    eng = InferenceEngine(str(cfg["Inference"]["model_dir"]),
+                          mesh=serving_mesh(cfg.get("Distributed")),
+                          device=args.device)
+    rank = eng.mesh.rank
+    tokens = np.load(os.path.join(argv[0], "rows.npy"))
+    rows = eng.predict([tokens, np.ones_like(tokens),
+                        np.zeros((2,), np.uint32)])[0]
+    del eng
+    zero_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = inference.main(argv[1:])
+    torch.cuda.synchronize()
+    records = [json.loads(x) for x in printed.getvalue().splitlines()
+               if x.startswith("{")]
+    with open(os.path.join(argv[0], f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "rc": rc, "launches": read_counts(),
+                   "records": records, "rows": rows.tolist()}, f)
+    return rc
+
+
+def _dp_reference(eng) -> dict:
+    """20c's references on a one-rank ``InferenceEngine`` of the
+    generation export (its generation config as exported): one call on
+    ``tools.inference``'s demo inputs, its launch counts zeroed just
+    before and read just after; then 20c's distinct rows, one a rank,
+    each through the engine alone: seeded prompts, drawn until the ranks'
+    rows give different ids, so that a rank's row computed wrong or
+    gathered into the wrong place shows."""
+    from fleetx_tpu_torch.utils.config import parse_config
+
+    width = int(parse_config(DP_YAML)["Inference"]["prompt_len"])
+    tokens = np.zeros((1, width), np.int64)
+    seed = np.zeros((2,), np.uint32)
+    zero_counts()
+    want = eng.predict([tokens, np.ones_like(tokens), seed])[0]
+    counts = read_counts()
+    rng = np.random.RandomState(DP_ROWS_SEED)
+    rows, outs = [], []
+    for draws in range(1, DP_ROW_DRAWS + 1):
+        row = rng.randint(0, DP_ROW_VOCAB, (1, width)).astype(np.int64)
+        ids = eng.predict([row, np.ones_like(row), seed])[0]
+        if all(not np.array_equal(ids, o) for o in outs):
+            rows.append(row)
+            outs.append(ids)
+        if len(rows) == DP_RANKS:
+            break
+    check(len(rows) == DP_RANKS,
+          f"20c: {DP_ROW_DRAWS} drawn prompts gave {len(rows)} distinct "
+          f"outputs, not one a rank")
+    return dict(want=want, counts=counts, rows=np.concatenate(rows),
+                want_rows=np.concatenate(outs), row_draws=draws)
+
+
+def _dp_inference(dev: torch.device, gang: dict, ref: dict) -> dict:
+    """20c: ``tools.inference`` on ``inference_gpt_345M_dp8.yaml`` with
+    its ``dp_degree`` cut to 2 over phase 11's bf16 generation export,
+    against one call of the one-rank engine on the same inputs; and the
+    distinct rows' gathered ids, on every rank, against the one-rank
+    engine's on each row."""
+    _wait_exit(gang, "20c gang")
+    want, one_counts = ref["want"], ref["counts"]
+    want_rows = ref["want_rows"]
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(gang["out"], f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    rows = ("flash_attention_fwd", "fused_norm_fwd")
+    for rank in ranks:
+        outputs = [x for x in rank["records"] if "output" in x]
+        check(rank["rc"] == 0 and len(outputs) == 1
+              and outputs[0]["shape"] == [DP_RANKS * want.shape[0],
+                                          want.shape[1]]
+              and outputs[0]["first_row"] == [int(t) for t in want[0]],
+              f"20c: rank {rank['rank']} printed {outputs} against "
+              f"{want.tolist()}")
+        check(np.array_equal(np.asarray(rank["rows"]), want_rows),
+              f"20c: rank {rank['rank']} gathered {rank['rows']} for the "
+              f"distinct rows against one rank's {want_rows.tolist()}")
+        check({k: rank["launches"][k] for k in rows}
+              == {k: one_counts[k] for k in rows},
+              f"20c: rank {rank['rank']} launches {rank['launches']} vs "
+              f"one call's {one_counts}")
+    check(one_counts["fused_norm_fwd"] > 0, "20c: no norm launch")
+    return dict(ranks=DP_RANKS, shape=[DP_RANKS * want.shape[0],
+                                       want.shape[1]], identical=True,
+                distinct_rows=list(want_rows.shape),
+                row_draws=ref["row_draws"],
+                one_call_launches={k: one_counts[k] for k in rows},
+                launches={k: sum(r["launches"][k] for r in ranks)
+                          for k in rows},
+                gang_s=time.monotonic() - gang["t0"])
+
+
+def phase_mesh(dev: torch.device, card: str, root: str, full_ckpt: str,
+               gen_dir: str, dp_ref: dict) -> dict:
+    """Phase 20: serving over a mesh of ranks on this card (20a, 20b) and
+    data-parallel inference (20c), their gangs started together."""
+    from fleetx_tpu_torch.utils.env import backend_for
+
+    rule = backend_for("cuda", MESH_RANKS)
+    check(rule == "gloo", f"four ranks on {torch.cuda.device_count()} "
+                          f"card(s) take {rule}")
+    out = dict(backend=rule, nvidia_smi=card)
+    gangs = _start_mesh(root, full_ckpt, gen_dir, dp_ref["rows"])
+    try:
+        # the one-rank references while the gangs boot (20c's: phase 11's
+        # engine, ``dp_ref``)
+        t0 = time.monotonic()
+        refs = {"replica_f32": _replica_reference(dev, full_ckpt),
+                "bf16": _bf16_reference(dev), "dp_inference": dp_ref}
+        out["references_s"] = time.monotonic() - t0
+        for name, fn in (("replica_f32", _mesh_replica),
+                         ("bf16", _mesh_bf16),
+                         ("dp_inference", _dp_inference)):
+            t0 = time.monotonic()
+            out[name] = dict(fn(dev, gangs[name], refs[name]),
+                             seconds=time.monotonic() - t0)
+            emit(f"mesh_{name}", **out[name])
+    finally:
+        for gang in gangs.values():     # stops every gang a failure left
+            _stop_gang(gang)
+    emit("mesh", **out)
+    return out
+
+
+def mesh_alone(dev: torch.device, card: str) -> None:
+    """``--mesh``: phase 20 on a checkpoint of the 345M recipe's seeded
+    params (24 layers) and a bf16 generation export of them cut to
+    ``CUT_LAYERS`` layers."""
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.core.module import GPTModule
+    from fleetx_tpu_torch.tools.train import load_config
+
+    from fleetx_tpu_torch.kernels import build
+    from fleetx_tpu_torch.ops import paged_attention as PA
+
+    paged_smem = build.load("paged_attention").fleetx_paged_smem_bytes
+    paged_smem.argtypes = [ctypes.c_int] * 6
+    paged_smem.restype = ctypes.c_int
+    _hold_shard_shapes(PA, paged_smem, dev)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        module = GPTModule(load_config(TRAIN_YAML))
+        params = module.init_params(1234, dev)
+        ckpt = os.path.join(root, "ckpt")
+        C.save_checkpoint(ckpt, 1, dict(
+            step=1, **C.flatten(params, "params/")), meta={
+                "consumed_samples": 0, "epoch": 0, "seed": 1234})
+        del params
+        cut = _cut_checkpoint(dev, root, ckpt)
+        gen_dir = os.path.join(root, "exported_generation")
+        _cli("tools.export", ["-c", INF_YAML] + _overrides(
+            [f"Engine.save_load.ckpt_dir={cut}", f"Inference.model_dir="
+             f"{gen_dir}", "Inference.target=generation"] + CUT_DEPTH))
+        from fleetx_tpu_torch.core.engine.inference_engine import \
+            InferenceEngine
+
+        dp_ref = _dp_reference(InferenceEngine(gen_dir, device=dev))
+        timed("20", phase_mesh, dev, card, root, ckpt, gen_dir, dp_ref)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("mesh_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6950,7 +7594,8 @@ def main(argv) -> int:
     modes = {"--paged-shapes", "--serving", "--eval-export",
              "--fp16-resilience", "--train-paths", "--finetune-serving",
              "--gpt-knobs", "--encoders", "--families", "--norm-shapes",
-             "--telemetry", "--resilience-runtime", "--router-corpus"}
+             "--telemetry", "--resilience-runtime", "--router-corpus",
+             "--mesh"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
@@ -6966,7 +7611,8 @@ def main(argv) -> int:
         # --telemetry: phases 4 and 17 (no slo_report: phase 2 did not run);
         # --resilience-runtime: phases 4 and 18 (no synchronous save to
         # set beside the asynchronous one: phase 8 did not run);
-        # --router-corpus: phase 19 on a checkpoint of seeded weights
+        # --router-corpus: phase 19 on a checkpoint of seeded weights;
+        # --mesh: phase 20 on a checkpoint of seeded weights
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
@@ -6989,6 +7635,11 @@ def main(argv) -> int:
             emit("resilience_runtime_alone", phase_walls=PHASE_WALLS,
                  collect_freed_bytes=COLLECT_FREED,
                  collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
+            print(smi_line(), flush=True)
+            return 0
+        if "--mesh" in argv:
+            build.build(["paged_attention", "flash_attention", "fused_norm"])
+            mesh_alone(dev, card)
             print(smi_line(), flush=True)
             return 0
         if "--router-corpus" in argv:
@@ -7091,6 +7742,10 @@ def main(argv) -> int:
             trainer, main_path)
         router_corpus = timed("19", phase_router_corpus, dev, card, root,
                               ckpt_dir, tok_dir)
+        mesh = timed("20", phase_mesh, dev, card, root,
+                     os.path.join(root, "ckpt"),
+                     os.path.join(root, "exported_generation"),
+                     export["dp_reference"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fp16 = timed("12", phase_fp16_resilience, dev, card)
@@ -7119,6 +7774,11 @@ def main(argv) -> int:
             export["forward"]["launches"][name]
     by_path["fused_norm_fwd"]["inference_generation"] = \
         export["inference_generation_launches"]
+    # phase 20c: the two data-parallel ranks of tools.inference, one call
+    # of the generation export each
+    for name in ("flash_attention_fwd", "fused_norm_fwd"):
+        by_path[name]["dp_inference"] = \
+            mesh["dp_inference"]["launches"][name]
     # phase 12's fp16 path (20 steps): rows 1 and 4 on the tensor cores,
     # rows 5 and 6 on the __half instantiation
     fp16_counts = fp16["fp16_train"]["launches"]
@@ -7202,7 +7862,15 @@ def main(argv) -> int:
                 "replica_paged_launches"],
             "quant_serving": quant["kernel_launches"],
             # phase 19a: the two in-process replicas behind the router
-            "router_fleet": router_corpus["router"]["kernel_launches"]},
+            "router_fleet": router_corpus["router"]["kernel_launches"],
+            # phase 20: every rank of the 2 x 2 mesh replica, summed (20a
+            # f32 through tools.serve, 20b bf16)
+            "mesh_serving": mesh["replica_f32"]["launches"],
+            "mesh_serving_bf16": mesh["bf16"]["launches"]},
+        # phase 1: row 7 on a shard of the mesh's pool (8 and 4 heads,
+        # foreign pages as scattered -1 entries)
+        "shard_shapes": [{k: v for k, v in r.items() if k != "plan"}
+                         for r in kernels["shard_shapes"]],
     }]
     # timings at the shapes of the path whose run gives the launches: the
     # seq-8192 trainer (phase 6) for the forward, the split pair and the

@@ -615,12 +615,21 @@ def load_checkpoint(directory: str, step: int) -> tuple:
 
 
 def load_params(directory: str, step: Optional[int] = None,
-                device: Union[str, torch.device] = "cpu") -> dict:
+                device: Union[str, torch.device] = "cpu", mesh: Any = None,
+                layout: Any = None, family: str = "gpt") -> dict:
     """The ``params`` subtree of a saved state (generation and serving
     have no optimizer), on ``device``; the newest completed step unless
     ``step`` is given. Raises when there is no checkpoint or it does not
     verify: no caller gets fresh weights in place of a configured
-    checkpoint."""
+    checkpoint.
+
+    With a ``mesh`` each rank verifies the checkpoint, reads it on the
+    host and keeps only its slices on ``device``
+    (``parallel/rules.shard_tree`` under the ``family`` rules and
+    ``layout``): a leaf whose spec has ``tensor`` is split; an ``fsdp``
+    entry (ZeRO stage 3's ``embed``) keeps its dim whole, since serving
+    holds its replica's weights. ``ServingEngine`` takes the full params
+    and cuts them itself, so ``tools/serve.py`` loads without a mesh."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no completed checkpoint under "
@@ -631,8 +640,14 @@ def load_params(directory: str, step: Optional[int] = None,
                        select=lambda name: name.startswith("params/"))
     if not flat:
         raise ValueError(f"checkpoint {path} holds no params/ leaves")
-    device = torch.device(device)
-    params = unflatten({name[len("params/"):]: t.to(device)
+    params = unflatten({name[len("params/"):]: t
                         for name, t in flat.items()})
+    if mesh is not None:
+        from fleetx_tpu_torch.parallel.rules import shard_tree
+
+        params = shard_tree(params, mesh, layout, family)
+    device = torch.device(device)
+    params = unflatten({name: t.to(device)
+                        for name, t in flatten(params).items()})
     logger.info("restored params from %s (step %d)", path, step)
     return params

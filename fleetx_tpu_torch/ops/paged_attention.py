@@ -30,6 +30,14 @@ merges the chunks' partials in chunk order, in the same launch.
   It is re-derived for the card: ``head_dim`` a multiple of 8 up to 256
   (16-byte bulk copies and vector loads), f32 or bf16, ``page_size`` >= 1.
   The TPU's VMEM budget does not apply.
+- ``paged_attention_sharded`` runs the same kernel on one rank's shard of
+  a mesh-placed pool (pages over ``fsdp``, heads over ``tensor``): the
+  tables are localised to the shard's pages (``_localize_tables``;
+  another shard's pages become ``-1`` wherever they sit), and the
+  partial triples are merged with the reference's flash-decoding combine
+  (``pmax`` of ``m``, then one ``psum`` of the rescaled numerator and
+  denominator) in plain torch around the kernel, as JAX does outside the
+  Pallas call. ``paged_sharded_supported`` is its gate.
 
 ``paged_call.launches`` counts kernel launches (never plain-version
 calls), so a run can show that decode went through the kernel; the count
@@ -44,6 +52,7 @@ import functools
 import math
 import threading
 from dataclasses import dataclass
+from typing import Any, Optional
 
 import torch
 
@@ -65,6 +74,21 @@ def paged_attention_supported(*, num_heads: int, head_dim: int,
     if head_dim < 8 or head_dim % 8 or head_dim > 256:
         return False
     return dtype in _DTYPE_CODES
+
+
+def paged_sharded_supported(mesh: Any, *, num_heads: int,
+                            num_pages: int) -> bool:
+    """True when the per-shard kernel call applies: the pool's page dim
+    splits evenly over ``fsdp`` and its head dim over ``tensor`` (the
+    ``serving_kv`` placement), and decode runs under neither sequence
+    nor pipeline parallelism."""
+    if mesh is None:
+        return False
+    shape = dict(mesh.shape)
+    if shape.get("seq", 1) != 1 or shape.get("pipe", 1) != 1:
+        return False
+    return num_pages % shape.get("fsdp", 1) == 0 and \
+        num_heads % shape.get("tensor", 1) == 0
 
 
 def paged_call_plain(q: torch.Tensor, pool_k: torch.Tensor,
@@ -380,12 +404,18 @@ paged_call.launches = 0
 _launches_lock = threading.Lock()
 
 
-def _localize_tables(tables: torch.Tensor, num_pages: int) -> torch.Tensor:
-    """Null pages and ids outside ``[0, num_pages)`` become the kernel's
-    ``-1`` skip sentinel (the single-pool case of the reference's
-    per-shard localisation)."""
-    ok = (tables != NULL_PAGE) & (tables >= 0) & (tables < num_pages)
-    return torch.where(ok, tables, torch.full_like(tables, -1)).to(
+def _localize_tables(tables: torch.Tensor, page_lo: int,
+                     local_pages: Optional[int] = None) -> torch.Tensor:
+    """Rewrite global page ids to the ids of a shard holding the pages
+    ``[page_lo, page_lo + local_pages)``; null pages and pages another
+    shard owns become the kernel's ``-1`` skip sentinel, wherever they
+    sit in a table. With two arguments the second is the page count of
+    one whole pool (``page_lo`` 0)."""
+    if local_pages is None:
+        page_lo, local_pages = 0, page_lo
+    local = tables - int(page_lo)
+    ok = (tables != NULL_PAGE) & (local >= 0) & (local < int(local_pages))
+    return torch.where(ok, local, torch.full_like(local, -1)).to(
         torch.int32)
 
 
@@ -410,3 +440,39 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
     acc, _, l = paged_call(q.contiguous(), pool_k, pool_v, tables,
                            lens.to(torch.int32).contiguous())
     return _normalize(acc, l, q.dtype)
+
+
+def paged_attention_sharded(q: torch.Tensor, pool_k: torch.Tensor,
+                            pool_v: torch.Tensor, block_tables: torch.Tensor,
+                            lens: torch.Tensor, *,
+                            mesh: Optional[Any] = None) -> torch.Tensor:
+    """Paged decode attention on a rank's shard of a mesh-placed pool.
+
+    ``q`` ``[B, nh / tensor, hd]`` holds this rank's heads and the pools
+    ``[pages / fsdp, page_size, nh / tensor, hd]`` its pages of them;
+    ``block_tables`` hold global page ids. Each rank walks its own pages
+    (``paged_call``: kernel row 7 on a CUDA tensor) and the partial
+    ``(acc, m, l)`` triples are merged over ``fsdp`` with the
+    flash-decoding combine of the reference: ``m_g = pmax(m)``, ``w =
+    exp(m - m_g)``, ``psum(acc * w)`` and ``psum(l * w)``, then the
+    normalisation. Heads need no combine: each rank's are its own. With
+    no mesh (or a trivial one) this is ``paged_attention``. Callers gate
+    on ``paged_sharded_supported``.
+    """
+    from fleetx_tpu_torch.parallel.mesh import axis_index, pmax, psum
+
+    fsdp = 1 if mesh is None else mesh.shape.get("fsdp", 1)
+    if fsdp == 1:
+        return paged_attention(q, pool_k, pool_v, block_tables, lens)
+    local_pages = pool_k.shape[0]
+    lo = axis_index("fsdp", mesh) * local_pages
+    tables = _localize_tables(block_tables, lo, local_pages).contiguous()
+    acc, m, l = paged_call(q.contiguous(), pool_k, pool_v, tables,
+                           lens.to(torch.int32).contiguous())
+    m_g = pmax(m, "fsdp", mesh)
+    w = torch.exp(m - m_g)
+    # one psum of the packed numerator and denominator: the two psums of
+    # the reference in one collective
+    packed = psum(torch.cat([acc * w[..., None], (l * w)[..., None]], -1),
+                  "fsdp", mesh)
+    return _normalize(packed[..., :-1], packed[..., -1], q.dtype)

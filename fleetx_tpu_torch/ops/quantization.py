@@ -27,11 +27,15 @@ __all__ = ["fake_quant", "quantize_weight", "quantize_act"]
 Axis = Optional[Union[int, Sequence[int]]]
 
 
-def fake_quant(x: torch.Tensor, bits: int = 8, axis: Axis = None
-               ) -> torch.Tensor:
-    """Simulated symmetric quantisation with straight-through gradients."""
+def fake_quant(x: torch.Tensor, bits: int = 8, axis: Axis = None,
+               amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Simulated symmetric quantisation with straight-through gradients.
+    ``amax`` replaces the abs-max of ``x`` (a tensor's whole abs-max when
+    each rank of a mesh holds a slice of it)."""
     qmax = float(2 ** (bits - 1) - 1)
-    if axis is None:
+    if amax is not None:
+        pass
+    elif axis is None:
         amax = x.detach().abs().amax()
     else:
         dims = (axis,) if isinstance(axis, int) else tuple(axis)

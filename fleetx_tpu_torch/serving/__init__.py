@@ -1,8 +1,12 @@
 """Serving runtime of the port: continuous batching over a paged KV cache.
 
-- ``paged_cache`` — page pool + host-side page allocator;
-- ``decode``      — chunk-prefill and one-token decode steps;
-- ``engine``      — the continuous-batching scheduler;
+- ``paged_cache`` — page pool + host-side page allocator, and the pool's
+  placement on a mesh (``pool_shardings``: pages over fsdp, heads over
+  tensor);
+- ``decode``      — chunk-prefill and one-token decode steps, tensor-
+  parallel over a mesh (``shard_params``);
+- ``engine``      — the continuous-batching scheduler; on a mesh its
+  leader schedules and every rank computes (``follow``);
 - ``server``      — one engine replica behind a JSON-lines TCP front, with
   the fault plan's chaos knobs;
 - ``router``      — the breaker-gated, hedging request router over N

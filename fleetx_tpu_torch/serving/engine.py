@@ -36,9 +36,23 @@ The engine runs on ``cuda`` unless ``device="cpu"`` is passed; its
 sampling generator is a ``torch.Generator`` on that device, seeded from
 ``Global.seed``. ``Serving.quantize_decode`` runs both steps with int8
 fake-quant (``serving/decode.py``: the kernels quantized once at
-construction, the matmul inputs per step). Not ported yet, and refused
-loudly: the mesh-sharded pool (ROADMAP.md, port queue item 4). MoE
-stacks are refused too: the JAX paged decode has none.
+construction, the matmul inputs per step). MoE stacks are refused: the
+JAX paged decode has none.
+
+**On a mesh** (``mesh=``, ``parallel/mesh.py``) the pool is placed by
+``pool_shardings`` (pages over ``fsdp``, heads over ``tensor``; each rank
+allocates its shard), the weights are this rank's slices of the full
+params it is given
+(``serving/decode.shard_params``), and ``n_chips`` is the mesh size. One
+leader schedules and every rank computes: rank 0 runs the scheduler, the
+admission queue, the deadlines and sampling, which read wall clocks and
+measured means that no other rank may re-decide. Before each step the
+leader broadcasts the step's inputs (kind, tokens, block tables,
+positions) over the mesh's CPU group; the other ranks run the same step
+on their shards in ``follow()`` until the leader's stop message. A quiet
+leader sends an idle message every ``IDLE_BEAT_S`` seconds, so a waiting
+follower never sits on a collective unanswered. With ``data`` above 1 the
+engine is replicated over ``data``, as the JAX pool is.
 """
 
 from __future__ import annotations
@@ -58,11 +72,14 @@ from fleetx_tpu_torch.observability.metrics import get_registry
 from fleetx_tpu_torch.observability.slo import SLORegistry
 from fleetx_tpu_torch.serving.decode import (SamplingParams, make_step_fns,
                                              paged_kernel_enabled,
-                                             prepare_params)
+                                             prepare_params, shard_params)
 from fleetx_tpu_torch.serving.paged_cache import (NULL_PAGE, PageAllocator,
-                                                  init_pool)
+                                                  init_pool, pool_shardings)
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
+
+#: seconds a mesh leader with no work waits before an idle message
+IDLE_BEAT_S = 2.0
 
 #: request lifecycle states
 WAITING, PREFILL, RUNNING, FINISHED, REFUSED = (
@@ -298,6 +315,20 @@ class TimelineStore:
                     if tl.state == "open"]
 
 
+def _check_mesh(mesh: Any) -> None:
+    """Refuse the meshes serving does not run: pipeline and sequence
+    parallelism."""
+    if not hasattr(mesh, "shape") or not hasattr(mesh, "axis_index"):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                        f"{type(mesh).__name__}")
+    deep = {a: mesh.shape.get(a, 1) for a in ("pipe", "seq")
+            if mesh.shape.get(a, 1) > 1}
+    if deep:
+        raise NotImplementedError(
+            f"serving over {deep} needs pipeline / sequence parallelism, "
+            f"not ported yet (ROADMAP.md, port queue item 12)")
+
+
 class ServingEngine:
     """Request-level decode runtime (see module docstring for the loop)."""
 
@@ -305,8 +336,10 @@ class ServingEngine:
                  serving: Optional[ServingConfig] = None,
                  sampling: Optional[SamplingParams] = None,
                  eos_token_id: int = 50256, seed: int = 0,
-                 device: Optional[Any] = None):
+                 device: Optional[Any] = None, mesh: Optional[Any] = None,
+                 layout: Optional[Any] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = model_cfg
         self.serving = serving or ServingConfig()
         self.sampling = sampling or SamplingParams()
@@ -326,20 +359,38 @@ class ServingEngine:
                 "Serving.max_seq_len exceeds the model's position table")
         self.pages_per_req = -(-self.max_seq_len // sc.page_size)
 
-        self.params = prepare_params(params, model_cfg, self.device,
-                                     quantize=sc.quantize_decode)
+        sharding = None
+        if mesh is not None:
+            _check_mesh(mesh)
+            sharding = pool_shardings(mesh)
+        # full params in (checked on a mesh); the kernels are quantized
+        # on the full leaves, then sliced
+        self.params = shard_params(
+            prepare_params(params, model_cfg, self.device,
+                           quantize=sc.quantize_decode),
+            model_cfg, mesh, layout)
         self.allocator = PageAllocator(sc.num_pages, sc.page_size)
         self.pool_k, self.pool_v = init_pool(model_cfg, sc.num_pages,
-                                             sc.page_size, device=self.device)
+                                             sc.page_size, device=self.device,
+                                             sharding=sharding)
         # kernel-vs-gather is decided HERE, once: the support predicate is
-        # a static function of the config and pool geometry
+        # a static function of the config, pool geometry and mesh
         self.paged_kernel_active = bool(sc.paged_kernel) and \
             paged_kernel_enabled(model_cfg, page_size=sc.page_size,
-                                 pages_per_req=self.pages_per_req)
-        self._fns = make_step_fns(
+                                 pages_per_req=self.pages_per_req,
+                                 num_pages=sc.num_pages,
+                                 pool_sharding=sharding)
+        self._local_fns = make_step_fns(
             model_cfg, prefill_chunk=sc.prefill_chunk,
             sampling=self.sampling, paged_kernel=self.paged_kernel_active,
-            quantize=sc.quantize_decode)
+            quantize=sc.quantize_decode, mesh=mesh)
+        self._fns = self._local_fns
+        #: steps this rank ran, by kind (a follower counts its own)
+        self.rank_steps = {"prefill": 0, "decode": 0}
+        self._last_message = time.monotonic()
+        if self._multi_rank and mesh.is_leader:
+            self._fns = {kind: self._leading(kind)
+                         for kind in ("prefill", "decode")}
 
         # host-side scheduler state
         self._slots: list = [None] * sc.max_batch
@@ -367,9 +418,9 @@ class ServingEngine:
         self._gauges_current = False
         self.timelines = TimelineStore(sc.trace_requests, sc.trace_events)
         self.slo = SLORegistry.from_config(sc.slo, registry=self.metrics)
-        # chips this replica occupies (one: the sharded pool is not
-        # ported) — the denominator of requests-per-chip
-        self.n_chips = 1
+        # chips this replica occupies: its mesh size, or one device for
+        # an unsharded replica — the denominator of requests-per-chip
+        self.n_chips = int(mesh.size) if mesh is not None else 1
         # scheduler state is engine-thread-confined by design: handler
         # threads must go through the server's submission queue, never
         # call submit()/step() directly. FLEETX_TSAN=1 enforces that.
@@ -383,6 +434,81 @@ class ServingEngine:
             sc.prefill_chunk, sc.quantize_decode,
             "paged_kernel" if self.paged_kernel_active else "gather",
             "lazy" if sc.lazy_alloc else "reserve")
+
+    # ------------------------------------------------------------------ mesh
+    @property
+    def _multi_rank(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _leading(self, kind: str) -> Callable:
+        """The leader's step ``kind``: broadcast its host inputs, then run
+        it on this rank's shards (the followers run it on theirs)."""
+        from fleetx_tpu_torch.parallel.mesh import broadcast_object
+
+        local = self._local_fns[kind]
+
+        def step(params, pool_k, pool_v, *args):
+            *host, rng = args
+            broadcast_object((kind, [np.asarray(a) for a in host]),
+                             self.mesh)
+            self._last_message = time.monotonic()
+            self.rank_steps[kind] += 1
+            return local(params, pool_k, pool_v, *args)
+
+        return step
+
+    def _heartbeat(self) -> None:
+        """A leader with no work sends an idle message now and then."""
+        if self._multi_rank and self.mesh.is_leader and \
+                time.monotonic() - self._last_message >= IDLE_BEAT_S:
+            from fleetx_tpu_torch.parallel.mesh import broadcast_object
+
+            broadcast_object(("idle", []), self.mesh)
+            self._last_message = time.monotonic()
+
+    def rank_report(self) -> dict:
+        """What this rank ran: its backend, device, local pool shape, steps
+        by kind, and row 7's launches in this process."""
+        from fleetx_tpu_torch.ops.paged_attention import paged_call
+        from fleetx_tpu_torch.utils.env import get_backend
+
+        return {"rank": self.mesh.rank if self.mesh is not None else 0,
+                "backend": get_backend(), "device": str(self.device),
+                "pool_shape": list(self.pool_k.shape),
+                "steps": dict(self.rank_steps),
+                "paged_launches": int(paged_call.launches)}
+
+    def close(self, code: int = 0) -> list:
+        """Stop the followers (the leader's exit ``code`` goes with the
+        stop message) and gather every rank's ``rank_report``, in rank
+        order. A one-rank engine returns its own report."""
+        if not self._multi_rank:
+            return [self.rank_report()]
+        from fleetx_tpu_torch.parallel.mesh import (broadcast_object,
+                                                    gather_objects)
+
+        broadcast_object(("stop", [int(code)]), self.mesh)
+        return gather_objects(self.rank_report(), self.mesh)
+
+    def follow(self) -> int:
+        """A follower's loop: run every step the leader broadcasts on this
+        rank's shards until its stop message; returns the leader's exit
+        code. Sampling and scheduling stay the leader's."""
+        from fleetx_tpu_torch.parallel.mesh import (broadcast_object,
+                                                    gather_objects)
+
+        if not self._multi_rank or self.mesh.is_leader:
+            raise RuntimeError("follow() runs on a follower rank of a mesh")
+        while True:
+            kind, args = broadcast_object(None, self.mesh)
+            if kind == "stop":
+                gather_objects(self.rank_report(), self.mesh)
+                return int(args[0])
+            if kind == "idle":
+                continue
+            self.rank_steps[kind] += 1
+            self._local_fns[kind](self.params, self.pool_k, self.pool_v,
+                                  *args, self._rng)
 
     # ------------------------------------------------------------ submission
     def submit(self, prompt: list, max_new_tokens: int,
@@ -802,6 +928,8 @@ class ServingEngine:
         worked = self._decode_step() or worked
         if worked:
             self.steps += 1
+        else:
+            self._heartbeat()
         self._update_gauges()
         return worked
 

@@ -9,12 +9,20 @@ device::
 Page 0 is the reserved **null page**: block-table filler slots and masked
 (inactive) batch rows point at it, so the steps scatter/gather with fully
 static shapes; whatever is written to or read from page 0 is always
-masked out of the attention scores. The sharded pool
-(``pool_shardings``) is not ported yet (ROADMAP.md, port queue item 4).
+masked out of the attention scores.
+
+Sharding: ``pool_shardings(mesh)`` places the page dim over ``fsdp`` and
+the heads dim over ``tensor`` (``parallel/rules.py:kv_pool_spec``), and
+``init_pool(..., mesh=...)`` allocates this rank's shard only, as one
+contiguous tensor ``[layers, pages / fsdp, page_size, heads / tensor,
+head_dim]``. The ``PageAllocator`` keeps global page ids, as in JAX:
+fsdp shard ``s`` holds pages ``[s * pages / fsdp, (s + 1) * pages /
+fsdp)``, so the null page 0 lives on shard 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Union
 
 import torch
@@ -35,10 +43,53 @@ class PageAllocatorError(ValueError):
     """
 
 
+@dataclasses.dataclass(frozen=True)
+class PoolSharding:
+    """The pool's placement on a mesh (JAX's ``NamedSharding``): ``spec``
+    names the mesh axes of ``(layers, pages, page_size, heads,
+    head_dim)``."""
+
+    mesh: Any
+    spec: tuple
+
+    def degree(self, dim: int) -> int:
+        """The combined mesh degree of pool dim ``dim``."""
+        entry = self.spec[dim] if dim < len(self.spec) else None
+        n = 1
+        for a in (entry if isinstance(entry, (tuple, list)) else (entry,)):
+            if a is not None:
+                n *= self.mesh.shape[a]
+        return n
+
+    def local_shape(self, shape: tuple) -> tuple:
+        """This rank's shard of a pool of global ``shape``; a dim its
+        degree does not divide raises (JAX's ``device_put`` refuses an
+        uneven pool too)."""
+        out = []
+        for dim, size in enumerate(shape):
+            n = self.degree(dim)
+            if size % n:
+                raise ValueError(
+                    f"pool dim {dim} of {size} does not split over the "
+                    f"mesh's {self.spec[dim]!r} degree {n}")
+            out.append(size // n)
+        return tuple(out)
+
+
+def pool_shardings(mesh: Any) -> PoolSharding:
+    """The pool's mesh placement: pages over ``fsdp``, heads over
+    ``tensor`` (the registry's ``serving_kv`` rule)."""
+    from fleetx_tpu_torch.parallel.rules import kv_pool_spec
+
+    return PoolSharding(mesh, kv_pool_spec())
+
+
 def init_pool(cfg: Any, num_pages: int, page_size: int, dtype: Any = None,
-              device: Union[str, torch.device] = "cpu"
+              device: Union[str, torch.device] = "cpu",
+              sharding: Optional[PoolSharding] = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the (K, V) page pools for a GPT config.
+    """Allocate the (K, V) page pools for a GPT config: the whole pool,
+    or under ``sharding`` this rank's shard of it.
 
     ``num_pages`` INCLUDES the reserved null page, so usable capacity is
     ``(num_pages - 1) * page_size`` token slots per layer.
@@ -46,6 +97,8 @@ def init_pool(cfg: Any, num_pages: int, page_size: int, dtype: Any = None,
     dtype = dtype or cfg.dtype
     shape = (cfg.num_layers, int(num_pages), int(page_size),
              cfg.num_attention_heads, cfg.head_dim)
+    if sharding is not None:
+        shape = sharding.local_shape(shape)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 

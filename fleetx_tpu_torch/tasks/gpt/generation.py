@@ -15,6 +15,12 @@ decoded text, or with no tokenizer the ids, space-separated (the prompt
 is then ``input_text`` read as ids when it is all digits, else
 ``1 2 3``). Sampling draws from a generator seeded with ``Global.seed``.
 Runs on ``cuda`` unless ``--device cpu`` is given.
+
+Under ``tools.supervise --num-procs N`` the config's degrees are checked
+against the world of N ranks (``generation_gpt_345M_dp8.yaml`` loads
+against 8, as JAX loads it against 8 devices). The JAX task takes no
+mesh and generates once, so rank 0 generates and prints, and the other
+ranks exit 0 after the loader.
 """
 
 from __future__ import annotations
@@ -23,12 +29,14 @@ import sys
 from typing import Optional
 
 
-def load_config(path: str, overrides: Optional[list] = None):
+def load_config(path: str, overrides: Optional[list] = None,
+                num_devices: Optional[int] = None):
     """The YAML at ``path`` (``_base_`` chain included) with dotted
-    overrides, post-processed."""
+    overrides, post-processed; ``num_devices`` is the world the degrees
+    must cover (one device when not given)."""
     from fleetx_tpu_torch.utils.config import get_config
 
-    return get_config(path, overrides)
+    return get_config(path, overrides, num_devices=num_devices)
 
 
 def build(cfg: dict, device=None):
@@ -78,10 +86,20 @@ def run(cfg: dict, device=None) -> list:
 
 def main(argv: Optional[list] = None) -> int:
     from fleetx_tpu_torch.utils.config import parse_args
+    from fleetx_tpu_torch.utils.env import (close_dist_env, get_rank,
+                                            get_world_size, init_dist_env)
 
     args = parse_args("fleetx_tpu_torch generate", argv)
-    for line in run(load_config(args.config, args.override),
-                    device=args.device):
+    init_dist_env(device=args.device)
+    rank = get_rank()
+    try:
+        cfg = load_config(args.config, args.override,
+                          num_devices=get_world_size())
+    finally:
+        close_dist_env()
+    if rank != 0:
+        return 0
+    for line in run(cfg, device=args.device):
         print(line, flush=True)
     return 0
 

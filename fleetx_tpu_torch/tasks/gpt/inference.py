@@ -13,7 +13,9 @@ key ``PRNGKey(Global.seed)``: the seed eager generation samples with).
 Prints the prompt and the continuation cut at eos, or with no tokenizer
 the generated ids (the prompt is then ``input_text`` read as ids when it
 is all digits, else ``[0]``). Runs on ``cuda`` unless ``--device cpu``
-is given.
+is given. Over a data-parallel mesh (``tools.supervise --num-procs N``
+with ``dp_degree`` N) the prompt is repeated over the ``batch_size * dp``
+rows, each rank generates its shard, and rank 0 prints.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def run(cfg: dict, device=None) -> list:
     else:
         ids = [int(t) for t in text.split()] \
             if text.replace(" ", "").isdigit() else [0]
-    tokens, mask = left_pad([ids] * int(inf.get("batch_size", 1)),
+    tokens, mask = left_pad([ids] * (int(inf.get("batch_size", 1))
+                                     * engine.dp),
                             int(gen.get("pad_token_id", 50256)),
                             width=int(inf.get("prompt_len", 128)))
     seed = np.array([0, int((cfg.get("Global") or {}).get("seed", 0))],
@@ -62,11 +65,21 @@ def run(cfg: dict, device=None) -> list:
 
 def main(argv: Optional[list] = None) -> int:
     from fleetx_tpu_torch.utils.config import get_config, parse_args
+    from fleetx_tpu_torch.utils.env import (close_dist_env, get_rank,
+                                            get_world_size, init_dist_env)
 
     args = parse_args("fleetx_tpu_torch gpt inference", argv)
-    for line in run(get_config(args.config, args.override),
-                    device=args.device):
-        print(line, flush=True)
+    init_dist_env(device=args.device)
+    rank = get_rank()
+    try:
+        lines = run(get_config(args.config, args.override,
+                               num_devices=get_world_size()),
+                    device=args.device)
+    finally:
+        close_dist_env()
+    if rank == 0:
+        for line in lines:
+            print(line, flush=True)
     return 0
 
 

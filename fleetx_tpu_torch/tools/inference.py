@@ -11,6 +11,13 @@ Prints one JSON line per output (shape, dtype; a generation export's
 first row of ids too) and one with the call's seconds. Runs on ``cuda``
 unless ``--device cpu`` is given; the artifact must have been exported
 for the same device type.
+
+A ``Distributed`` section with ``dp_degree`` (or fsdp / sharding) above 1
+serves data-parallel over the world of ``tools.supervise --num-procs N``
+(``inference_gpt_345M_dp8.yaml``): the config's degrees are checked
+against the world, the demo batch carries ``batch_size * dp`` rows, each
+rank runs its shard, and every rank prints the gathered outputs with its
+rank.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ def run(cfg: dict, device=None) -> list:
                              device=device)
     target = engine.target
     seq = int(inf.get("prompt_len", glb.get("max_seq_len", 128)))
-    b = int(inf.get("batch_size", 1))
+    b = int(inf.get("batch_size", 1)) * engine.dp
     tokens = np.zeros((b, seq), np.int64)
     if target == "generation":
         inputs = [tokens, np.ones((b, seq), np.int64),
@@ -53,16 +60,26 @@ def run(cfg: dict, device=None) -> list:
             rec["first_row"] = [int(t) for t in o[0]]
         records.append(rec)
     records.append({"target": target, "seconds": seconds,
-                    "load_s": engine.load_s})
+                    "load_s": engine.load_s, "dp": engine.dp,
+                    "rank": engine.mesh.rank if engine.mesh is not None
+                    else 0})
     return records
 
 
 def main(argv: Optional[list] = None) -> int:
     from fleetx_tpu_torch.utils.config import get_config, parse_args
+    from fleetx_tpu_torch.utils.env import (close_dist_env, get_world_size,
+                                            init_dist_env)
 
     args = parse_args("fleetx_tpu_torch inference", argv)
-    for rec in run(get_config(args.config, args.override),
-                   device=args.device):
+    init_dist_env(device=args.device)
+    try:
+        records = run(get_config(args.config, args.override,
+                                 num_devices=get_world_size()),
+                      device=args.device)
+    finally:
+        close_dist_env()
+    for rec in records:
         print(json.dumps(rec), flush=True)
     return 0
 

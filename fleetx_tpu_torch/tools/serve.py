@@ -31,11 +31,23 @@ The replica runs on ``cuda`` unless ``--device cpu`` is given.
 ``Serving.quantize_decode`` decodes with int8 fake-quant. The fine-tune
 recipe's config (``Model.module: LoRAGPTModule`` and its ``FineTune:``
 section) serves as it is: the replica reads ``Model`` for the
-architecture and ignores the rest. What the port does not cover raises
-``NotImplementedError`` naming its ROADMAP item: any ``Distributed``
-degree above 1.
-Under a supervisor gang (``FLEETX_PROCESS_ID`` set) the replica offsets
-its port by the member id.
+architecture and ignores the rest.
+
+**A replica that is a gang of ranks.** ``Distributed`` degrees with a
+product above 1 (``dp_degree``, ``fsdp_degree`` / ``sharding_degree``,
+``mp_degree``) serve one replica over a mesh of ranks, started by
+``python -m fleetx_tpu_torch.tools.supervise --num-procs N -- python -m
+fleetx_tpu_torch.tools.serve ...`` with N the product: pages over
+``fsdp``, heads and the Megatron splits over ``tensor``, replicated over
+``data``. Rank 0 is the replica: its ``ReplicaServer``, port, fault plan
+and drain; the other ranks run ``ServingEngine.follow()``, ignore the
+signals the supervisor forwards, and exit with the leader's code when
+its drain broadcasts stop. Each rank's device is ``cuda:{local_rank %
+device_count}``; ranks that share a card talk over gloo
+(``utils/env.py``). ``pp_degree`` and ``seq_degree`` above 1 raise
+``NotImplementedError`` (ROADMAP.md, port queue item 12). Otherwise,
+under a supervisor gang (``FLEETX_PROCESS_ID`` set), each member is a
+replica of its own that offsets its port by the member id.
 """
 
 from __future__ import annotations
@@ -46,23 +58,19 @@ import os
 import signal
 import sys
 
-#: ``Distributed`` keys whose value above 1 would shard the replica
-_DEGREE_KEYS = ("dp_degree", "mp_degree", "pp_degree", "fsdp_degree",
-                "seq_degree")
+#: ``Distributed`` keys a replica does not serve above 1 yet
+_DEEP_KEYS = ("pp_degree", "seq_degree")
 
 
 def _check_ported(cfg: dict) -> None:
-    """Refuse the config values the serving slice does not cover."""
+    """Refuse the config values the serving slices do not cover."""
     dist = dict(cfg.get("Distributed") or {})
-    degrees = {k: dist.get(k) for k in _DEGREE_KEYS}
-    degrees["sharding_degree"] = (dist.get("sharding") or {}).get(
-        "sharding_degree")
-    sharded = {k: v for k, v in degrees.items()
-               if v is not None and int(v) > 1}
-    if sharded:
+    deep = {k: dist.get(k) for k in _DEEP_KEYS
+            if dist.get(k) is not None and int(dist.get(k)) > 1}
+    if deep:
         raise NotImplementedError(
-            f"Distributed degrees {sharded} need the sharded pool, not "
-            f"ported yet (ROADMAP.md, port queue item 4)")
+            f"Distributed degrees {deep} need pipeline / sequence "
+            f"parallelism, not ported yet (ROADMAP.md, port queue item 12)")
 
 
 def build_engine(cfg: dict, device=None):
@@ -72,13 +80,20 @@ def build_engine(cfg: dict, device=None):
     then the adapter artifact of ``Serving.adapter_dir`` merged in (it
     needs ``ckpt_dir``: an adapter is refused on any base but its own)."""
     from fleetx_tpu_torch.core.checkpoint import load_params
+    from fleetx_tpu_torch.core.engine.inference_engine import serving_mesh
     from fleetx_tpu_torch.models.gpt.model import config_from_dict, init_params
+    from fleetx_tpu_torch.parallel.rules import SpecLayout
     from fleetx_tpu_torch.serving.decode import SamplingParams
     from fleetx_tpu_torch.serving.engine import ServingConfig, ServingEngine
     from fleetx_tpu_torch.utils.device import resolve_device
+    from fleetx_tpu_torch.utils.env import rank_device
 
     _check_ported(cfg)
-    device = resolve_device(device)
+    dist = dict(cfg.get("Distributed") or {})
+    mesh = serving_mesh(dist, device=device)
+    layout = SpecLayout.from_dist_config(dist)
+    device = resolve_device(rank_device(device) if mesh is not None
+                            else device)
     model_cfg = config_from_dict(dict(cfg.get("Model") or {}))
     serving = ServingConfig.from_dict(dict(cfg.get("Serving") or {}))
 
@@ -94,6 +109,9 @@ def build_engine(cfg: dict, device=None):
     if serving.ckpt_dir:
         from fleetx_tpu_torch.convert import check_tree
 
+        # the full leaves, checked against the model on every rank; the
+        # engine cuts each rank's slices (after a LoRA merge and the
+        # kernels' quantization, which need them whole)
         params = load_params(str(serving.ckpt_dir), device=device)
         check_tree(params, model_cfg)
     else:
@@ -107,7 +125,8 @@ def build_engine(cfg: dict, device=None):
 
         params = apply_adapter_checkpoint(params, str(serving.adapter_dir))
     return ServingEngine(model_cfg, params, serving, sampling,
-                         eos_token_id=eos, seed=seed, device=device)
+                         eos_token_id=eos, seed=seed, device=device,
+                         mesh=mesh, layout=layout)
 
 
 def _run_replica(args, cfg: dict) -> int:
@@ -125,12 +144,31 @@ def _run_replica(args, cfg: dict) -> int:
         dict((cfg.get("Resilience") or {}).get("faults") or {}))
     install_plan(plan)
 
+    engine = build_engine(cfg, device=args.device)
+    if engine.mesh is not None and not engine.mesh.is_leader:
+        # the leader decides when the gang stops: a forwarded signal
+        # must not take a follower out of the leader's collectives
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_IGN)
+        code = engine.follow()
+        logger.info("follower rank %d stopped by its leader (code %d)",
+                    engine.mesh.rank, code)
+        return code
+
+    if args.attn_tap:
+        from fleetx_tpu_torch.serving.decode import tap_next_decode
+
+        def tap(attn) -> None:
+            import numpy as np
+
+            np.save(args.attn_tap, attn.float().cpu().numpy())
+
+        tap_next_decode(tap)
+
     port = args.port
     member = os.environ.get("FLEETX_PROCESS_ID")
-    if port and member:
+    if port and member and engine.mesh is None:
         port += int(member)
-
-    engine = build_engine(cfg, device=args.device)
     server = ReplicaServer(engine, host=args.host, port=port,
                            fault_plan=plan if plan.armed else None)
     bound = server.start()
@@ -143,9 +181,14 @@ def _run_replica(args, cfg: dict) -> int:
             server.run(preemption=handler)
         finally:
             server.close()
+    reports = engine.close(args.preemption_code)
     if args.metrics_out:
         with open(args.metrics_out, "a") as f:
             f.write(json.dumps(engine.serving_snapshot()) + "\n")
+            if engine.mesh is not None:
+                f.write(json.dumps({"scope": "serving_mesh",
+                                    "mesh": engine.mesh.shape,
+                                    "ranks": reports}) + "\n")
     flight.dump("serving preemption drain")
     logger.warning("replica drained — exiting with preemption code %d",
                    args.preemption_code)
@@ -157,6 +200,8 @@ def _run_bench(args, cfg: dict) -> int:
     from fleetx_tpu_torch.serving import bench as B
 
     engine = build_engine(cfg, device=args.device)
+    if engine.mesh is not None and not engine.mesh.is_leader:
+        return engine.follow()
     bcfg = dict(cfg.get("ServingBench") or {})
     result = B.run_serving_bench(
         engine,
@@ -167,6 +212,7 @@ def _run_bench(args, cfg: dict) -> int:
         seed=args.seed,
         metric=str(bcfg.get("metric", "serving_poisson_tokens_per_s")))
     B.emit(result, out=args.json_out)
+    engine.close(0)
     return 0
 
 
@@ -219,6 +265,10 @@ def main(argv=None) -> int:
                     help="append the final serving snapshot JSONL here")
     ap.add_argument("--preemption-code", type=int, default=75,
                     help="exit code after a graceful drain")
+    ap.add_argument("--attn-tap", default=None,
+                    help="write layer 0's attention output of the first "
+                         "decode step (rank 0's heads) to this .npy: "
+                         "holds a mesh replica against a one-rank engine")
     ap.add_argument("--router", action="store_true",
                     help="run the request router instead of a replica")
     ap.add_argument("--backends", default=None,
@@ -246,9 +296,14 @@ def main(argv=None) -> int:
     if not args.config:
         ap.error("replica/bench mode requires -c config.yaml")
     cfg = load_config(args.config, args.override)
-    if args.bench:
-        return _run_bench(args, cfg)
-    return _run_replica(args, cfg)
+    from fleetx_tpu_torch.utils.env import close_dist_env
+
+    try:
+        if args.bench:
+            return _run_bench(args, cfg)
+        return _run_replica(args, cfg)
+    finally:
+        close_dist_env()
 
 
 if __name__ == "__main__":

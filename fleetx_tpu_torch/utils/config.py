@@ -13,8 +13,11 @@ It reads the same YAML files by path, ``_base_`` chains included (the
 generation recipe inherits the 345M one, ``save_steps: 1000`` with it);
 sections the loader does not derive (``Generation``, ``Serving`` past
 its validation) pass through to their modules. The port trains on one
-device: a ``Distributed`` degree above 1 raises ``NotImplementedError``
-(ROADMAP.md, port queue item 12).
+device: without a device count (every training loader) a
+``Distributed`` degree above 1 raises ``NotImplementedError``
+(ROADMAP.md, port queue item 12). The serving, inference and generation
+entry points pass their world's size (``get_config(...,
+num_devices=N)``), and the degrees are JAX's math against it.
 
 ``Distributed.auto_layout`` (a bool, or ``{hbm_gb: N}``) or
 ``get_config(..., auto_layout=True)`` (``tools/auto.py``) runs the layout
@@ -179,18 +182,56 @@ def check_single_device(dist: dict) -> None:
             f"training, not ported yet (ROADMAP.md, port queue item 12)")
 
 
-def process_dist_config(config: AttrDict) -> AttrDict:
-    """Fill the mesh degrees for ONE device (``process_dist_config`` with
-    a device count of 1): every degree resolves to 1, and a degree above
-    1 raises."""
+def process_dist_config(config: AttrDict,
+                        num_devices: Optional[int] = None) -> AttrDict:
+    """Validate and derive the mesh degrees (``process_dist_config``).
+
+    Given ``num_devices`` (the serving, inference and generation entry
+    points pass the world size), it is JAX's math: an unset ``dp_degree``
+    (None or -1) is derived so that the product of the degrees equals the
+    count, and a product that does not match raises JAX's message.
+    Without a count (every training loader) the run is one device: every
+    degree resolves to 1, and a degree above 1 raises
+    ``check_single_device``'s ``NotImplementedError``.
+    """
     dist = config.setdefault("Distributed", AttrDict())
-    check_single_device(dist)
-    for k in DEGREE_KEYS:
-        dist[k] = 1
+    if num_devices is None:
+        check_single_device(dist)
+        for k in DEGREE_KEYS:
+            dist[k] = 1
+        sharding = dist.setdefault("sharding", AttrDict())
+        sharding.setdefault("sharding_degree", 1)
+        sharding.setdefault("sharding_stage", 0)
+        sharding.setdefault("sharding_offload", False)
+        return config
+    degrees = {
+        "pp_degree": int(dist.get("pp_degree") or 1),
+        "fsdp_degree": int(dist.get("fsdp_degree") or (
+            dist.get("sharding") or {}).get("sharding_degree") or 1),
+        "seq_degree": int(dist.get("seq_degree") or 1),
+        "mp_degree": int(dist.get("mp_degree") or 1),
+    }
+    fixed = (degrees["pp_degree"] * degrees["fsdp_degree"]
+             * degrees["seq_degree"] * degrees["mp_degree"])
+    dp = dist.get("dp_degree")
+    if dp in (None, -1):
+        if num_devices % fixed:
+            raise ValueError(f"device count {num_devices} not divisible by "
+                             f"pp*fsdp*seq*mp={fixed}")
+        dp = num_devices // fixed
+    dp = int(dp)
+    if dp * fixed != num_devices:
+        raise ValueError(f"dp({dp}) * pp*fsdp*seq*mp({fixed}) != device "
+                         f"count ({num_devices})")
+    dist.dp_degree = dp
+    for k, v in degrees.items():
+        dist[k] = v
     sharding = dist.setdefault("sharding", AttrDict())
-    sharding.setdefault("sharding_degree", 1)
-    sharding.setdefault("sharding_stage", 0)
+    sharding.setdefault("sharding_degree", degrees["fsdp_degree"])
+    sharding.setdefault("sharding_stage",
+                        1 if degrees["fsdp_degree"] > 1 else 0)
     sharding.setdefault("sharding_offload", False)
+    sharding.setdefault("overlap_update", False)
     return config
 
 
@@ -394,18 +435,21 @@ def plan_layout(config: AttrDict, device=None) -> AttrDict:
 
 
 def get_config(fname: str, overrides: Optional[list] = None,
-               auto_layout: bool = False, device=None) -> AttrDict:
-    """Load + override + post-process a training config (``get_config``,
-    one device); with ``auto_layout`` or ``Distributed.auto_layout`` the
-    layout planner runs first (``plan_layout``; ``device`` sizes its
-    budget)."""
+               auto_layout: bool = False, device=None,
+               num_devices: Optional[int] = None) -> AttrDict:
+    """Load + override + post-process a config (``get_config``); with
+    ``auto_layout`` or ``Distributed.auto_layout`` the layout planner runs
+    first (``plan_layout``; ``device`` sizes its budget). ``num_devices``
+    (the world of a serving, inference or generation entry point) checks
+    the degrees against it; without it the config is a training one, for
+    one device (``process_dist_config``)."""
     if not os.path.exists(fname):
         raise FileNotFoundError(f"config file {fname} not found")
     config = parse_config(fname)
     override_config(config, overrides)
     if auto_layout or (config.get("Distributed") or {}).get("auto_layout"):
         plan_layout(config, device)
-    process_dist_config(config)
+    process_dist_config(config, num_devices)
     process_global_configs(config)
     process_engine_config(config)
     process_observability_config(config)

@@ -1,6 +1,6 @@
 """Colored logger with custom TRAIN/EVAL levels (copy of
-``fleetx_tpu/utils/log.py``; the logger is named ``fleetx_tpu_torch``,
-and the gang rank prefix waits for the multi-process slices)."""
+``fleetx_tpu/utils/log.py``; the logger is named ``fleetx_tpu_torch``;
+``set_rank_context`` prefixes a gang member's records with its rank)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,16 @@ _COLORS = {
 }
 _RESET = "\033[0m"
 
+_rank_prefix = ""
+
+
+def set_rank_context(rank: int, world: int) -> None:
+    """Prefix every record with ``[r<rank>/<world>]`` when ``world > 1``
+    (``utils/env.py:init_dist_env`` calls it); ``world <= 1`` clears it."""
+    global _rank_prefix
+    _rank_prefix = f"[r{int(rank)}/{int(world)}] " if int(world) > 1 else ""
+
+
 class _ColorFormatter(logging.Formatter):
     """Colorize per the HANDLER's stream, not ``sys.stderr`` globally."""
 
@@ -43,7 +53,7 @@ class _ColorFormatter(logging.Formatter):
 
     def format(self, record: logging.LogRecord) -> str:
         """Inject the level color codes."""
-        msg = super().format(record)
+        msg = _rank_prefix + super().format(record)
         if self._colorize():
             color = _COLORS.get(record.levelname, "")
             return f"{color}{msg}{_RESET}"

@@ -273,11 +273,18 @@ def test_inference_engine_counters_and_refusals(artifacts, tmp_path):
     assert seed_from_key(np.array([0, 1234], np.uint32)) == 1234
     assert seed_from_key(np.array([1, 2], np.uint32)) == (1 << 32) | 2
     assert serving_mesh({"dp_degree": 1, "mp_degree": 1}) is None
+    # in a world of one rank a degree above 1 is JAX's world mismatch
     for dist in ({"dp_degree": 2}, {"mp_degree": 2},
                  {"sharding": {"sharding_degree": 2}}):
-        with pytest.raises(NotImplementedError, match="items 4 and 12"):
+        with pytest.raises(ValueError, match=r"mesh shape .* != 1 devices"):
             serving_mesh(dist)
-    with pytest.raises(NotImplementedError, match="items 4 and 12"):
+    # mp above 1 needs the tensor-parallel forward; a non-mesh is refused
+    from fleetx_tpu_torch.parallel.mesh import build_mesh
+
+    with pytest.raises(NotImplementedError, match="item 12"):
+        InferenceEngine(artifacts["forward"][0], mesh=build_mesh(
+            {"mp_degree": 2}, world_size=2), device="cpu")
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         InferenceEngine(artifacts["forward"][0], mesh=object(),
                         device="cpu")
     with pytest.raises(ValueError, match="exported for cpu"):

@@ -190,6 +190,40 @@ def test_entry_points_load_no_jax_modules():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
+def test_the_mesh_modules_and_a_rank_process_load_no_jax():
+    """``parallel/`` and ``utils/env.py`` are in the scan, and a rank of a
+    two-rank gloo world (``init_dist_env``, ``build_mesh``, the serving
+    and inference modules) has no JAX module in its ``sys.modules``."""
+    scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for name in ("parallel/mesh.py", "parallel/rules.py", "utils/env.py"):
+        assert name in scanned, name
+    code = ("import sys, json\n"
+            "from fleetx_tpu_torch.utils.env import init_dist_env\n"
+            "from fleetx_tpu_torch.parallel.mesh import build_mesh, psum\n"
+            "import fleetx_tpu_torch.tools.serve, torch\n"
+            "import fleetx_tpu_torch.core.engine.inference_engine\n"
+            "init_dist_env(device='cpu')\n"
+            "mesh = build_mesh({'dp_degree': 2})\n"
+            "assert psum(torch.ones(1), 'data', mesh).item() == 2.0\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], cwd=REPO, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+                 FLEETX_COORDINATOR=f"127.0.0.1:{port}",
+                 FLEETX_NUM_PROCESSES="2", FLEETX_PROCESS_ID=str(rank)))
+        for rank in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+        loaded = json.loads(out.strip().splitlines()[-1])
+        assert "torch.distributed" in loaded
+        assert [m for m in loaded if _forbidden(m)] == []
+
+
 def test_the_supervisor_is_stdlib_only():
     """``python -m fleetx_tpu_torch.tools.supervise`` loads neither torch
     nor JAX (its preflight runs the selftest in a child process) and its
@@ -344,9 +378,15 @@ def test_uncovered_config_values_raise(what, tmp_path):
         with pytest.raises(ValueError, match="requires Serving.ckpt_dir"):
             serve.build_engine(cfg, device="cpu")
         return
+    # in a world of one rank mp 2 is JAX's world mismatch; pipeline and
+    # sequence parallelism wait for distributed training
     cfg["Distributed"] = {"mp_degree": 2}
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match=r"mesh shape .* != 1 devices"):
         serve.build_engine(cfg, device="cpu")
+    for key in ("pp_degree", "seq_degree"):
+        cfg["Distributed"] = {key: 2}
+        with pytest.raises(NotImplementedError, match="item 12"):
+            serve.build_engine(cfg, device="cpu")
 
 
 def _loopback_available() -> bool:
