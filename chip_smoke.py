@@ -36,6 +36,7 @@ on a blended corpus indexed by the native builder.
     python3 chip_smoke.py --resilience-runtime  # phases 4 and 18
     python3 chip_smoke.py --router-corpus  # phase 19 on seeded weights
     python3 chip_smoke.py --mesh           # phase 20 on seeded weights
+    python3 chip_smoke.py --train-mesh     # phase 1b's offsets, 4 and 21
 
 Phases (each prints one JSON line; any failure raises, exit code != 0):
 
@@ -474,6 +475,33 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    7 at a shard's shape too (8 and 4 heads, 257 local pages, the other
    shard's pages as ``-1`` entries through the tables, a row of only
    foreign pages exactly ``(-1e30, 0, 0)``).
+21. sharded training over a gang of ``TRAIN_MESH_RANKS`` (4) ranks on
+   this card, each gang ``tools.supervise --num-procs 4 --
+   tools.train`` (its members ``train_mesh_child``: ``tools.train``'s
+   ``main`` with the launch counts zeroed just before ``fit`` and read
+   just after; one JSON report a rank), gloo over the shared card. 21a:
+   phase 4's recipe (GPT-345M at full width and depth, its seed and
+   synthetic batches) at dp 2 × mp 2 with sequence parallelism for 4
+   steps: each rank holds 8 of the 16 heads, half the vocabulary and a
+   half of the sequence between the regions; its 4 losses within
+   ``MESH_345M_LOSS_ATOL`` of phase 4's first 4, every rank the same
+   losses, rows 1, 4, 5 and 6 launched 24 / 24 / 49 / 49 times a step on
+   every rank (tensor cores, the norms on route "rows"); each rank's peak
+   memory, step walls and collectives (count and host ms a step). 21b:
+   GPT-6.7B's recipe (``pretrain_gpt_6.7B_sharding16.yaml``: width 4096,
+   32 heads of 128, full recompute) at fsdp 4, ZeRO stage 2, cut to
+   ``SIXB_LAYERS`` layer and 2 rows a rank, 3 steps and the gang's save;
+   this process loads that checkpoint on one rank (an eval engine) and
+   its ``params_fingerprint`` must equal the one every rank computed on
+   its gathered parameters; 2 / 1 / 5 / 3 launches a step a rank. The two
+   gangs run at once (host-bound steps; each rank's allocator on
+   expandable segments, and the engine releases each leaf's raw grad as
+   it syncs it). Phase
+   1b holds rows 1-4 at a rank's block of the 345M launch
+   (``OFFSET_HEADS``: rows 4-7, heads 8-15) against their plain versions
+   with the same head map, in f32 and bf16, and recovers the four
+   kernels' dropout masks there by the identity probes: the block of the
+   one-rank mask, bit for bit.
 
 Each phase's wall is printed as it ends (``phase_wall``) and collected in
 the ``smoke`` line.
@@ -1144,10 +1172,18 @@ def _norm_rows(dtype, dev, flush, shape=(TB, TS, TH)) -> dict:
     return {"fused_norm_fwd": fwd, "fused_norm_bwd": bwd}
 
 
-def _dropout_probes(dev: torch.device) -> float:
+#: a rank's block of the 345M flash launches on a dp 2 × mp 2 gang (phase
+#: 21a): 8 of the 16 heads (the second block) of 4 of the 8 rows (the
+#: second block), as ``flash_attention``'s head map
+OFFSET_HEADS = (8, TNH, 4, 8)
+
+
+def _dropout_probes(dev: torch.device, heads=None) -> float:
     """Recover the flash kernels' dropout masks bit for bit at the 345M
     shapes and hold them to the plain version's hash mask; returns the
-    kernel's keep rate over the causal triangle.
+    kernel's keep rate over the causal triangle. With ``heads`` (a head
+    map, ``OFFSET_HEADS``) the launches are a rank's block of the rows and
+    heads, and their masks must be that block of the one-rank mask.
 
     With q = 0 every score is 0, so P = 1/(row+1) below the diagonal.
     Forward: k = 0, v one-hot on columns [64p, 64p+64) makes
@@ -1160,6 +1196,9 @@ def _dropout_probes(dev: torch.device) -> float:
     from fleetx_tpu_torch.ops import flash_attention as FA
 
     bh, seed, scale = TB * TNH, 424242, THD ** -0.5
+    hm = {}
+    if heads is not None:
+        bh, hm = heads[0] * (TB // 2), {"heads": heads}
     zero = torch.zeros((bh, TS, THD), dtype=torch.bfloat16, device=dev)
     e0 = zero.clone()
     e0[:, :, 0] = 1
@@ -1168,24 +1207,30 @@ def _dropout_probes(dev: torch.device) -> float:
              for name in ("forward", "fused backward", "dk/dv backward",
                           "dq backward")}
     eye = torch.eye(THD, dtype=torch.bfloat16, device=dev)
-    _, lse = FA.fwd_call(zero, zero, zero, seed, scale, True, RATE)
+    _, lse = FA.fwd_call(zero, zero, zero, seed, scale, True, RATE, **hm)
     delta = torch.zeros((bh, TS), device=dev)
     for p in range(TS // THD):
         cols = slice(p * THD, (p + 1) * THD)
         probe = zero.clone()
         probe[:, cols, :] = eye
-        out, _ = FA.fwd_call(zero, zero, probe, seed, scale, True, RATE)
+        out, _ = FA.fwd_call(zero, zero, probe, seed, scale, True, RATE, **hm)
         keeps["forward"][:, :, cols] = out > 0
         _, _, dv = FA.bwd_call(zero, zero, zero, probe, lse, delta, seed,
-                               scale, True, RATE)
+                               scale, True, RATE, **hm)
         keeps["fused backward"][:, cols, :] = (dv > 0).transpose(1, 2)
         _, dv = FA.bwd_dkv_call(zero, zero, zero, probe, lse, delta, seed,
-                                scale, True, RATE)
+                                scale, True, RATE, **hm)
         keeps["dk/dv backward"][:, cols, :] = (dv > 0).transpose(1, 2)
         dq = FA.bwd_dq_call(zero, probe, e0, e0, lse, delta, seed, scale,
-                            True, RATE)
+                            True, RATE, **hm)
         keeps["dq backward"][:, :, cols] = dq > 0
-    want = FA.dropout_keep(seed, bh, TS, TS, RATE, dev) & tril
+    if heads is None:
+        want = FA.dropout_keep(seed, bh, TS, TS, RATE, dev) & tril
+    else:  # the block of the one-rank mask
+        n, _, b_off, h_off = heads
+        want = FA.dropout_keep(seed, TB * TNH, TS, TS, RATE, dev).reshape(
+            TB, TNH, TS, TS)[b_off:b_off + TB // 2, h_off:h_off + n] \
+            .reshape(bh, TS, TS) & tril
     for name, keep in keeps.items():
         check(torch.equal(keep & tril, want),
               f"flash {name} dropout mask differs from the plain version's")
@@ -1830,8 +1875,66 @@ def phase_train_kernels(dev: torch.device) -> dict:
          fwd_bit_identical=True, bwd_bit_identical=True,
          dq_bit_identical=True, dkv_bit_identical=True,
          keep_rate=keep_rate)
+    result["offsets"] = _offset_checks(dev)
     torch.cuda.empty_cache()
     return result
+
+
+def _offset_checks(dev: torch.device) -> dict:
+    """Rows 1-4 on a rank's block of the 345M launch (``OFFSET_HEADS``):
+    each kernel against its plain version with the same head map, dropout
+    0.1, in f32 (SIMT) and bf16 (tensor cores); the map changes the
+    masks; and the four kernels' masks, recovered by the identity probes,
+    are that block of the one-rank mask bit for bit."""
+    from fleetx_tpu_torch.ops import flash_attention as FA
+
+    hm, out = {"heads": OFFSET_HEADS}, {}
+    seed, scale = 20240607, THD ** -0.5
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        q, k, v, do = _flash_case(dtype, dev, (TB // 2, OFFSET_HEADS[0],
+                                               TS, THD))
+        tc = FA.tc_route(dtype, THD)
+        o, lse = FA.fwd_call(q, k, v, seed, scale, True, RATE, **hm)
+        p_o, p_lse = FA.fwd_plain(q, k, v, seed, scale, True, RATE,
+                                  round_operands=tc, **hm)
+        torch.testing.assert_close(lse, p_lse, **TOL[torch.float32])
+        delta = (o.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, seed, scale, True, RATE)
+        got = {"fwd": (o,), "fused": FA.bwd_call(*args, **hm),
+               "dq": (FA.bwd_dq_call(*args, **hm),),
+               "dkv": FA.bwd_dkv_call(*args, **hm)}
+        want = {"fwd": (p_o,),
+                "fused": FA.bwd_plain(*args, round_operands=tc, **hm),
+                "dq": (FA.bwd_dq_plain(*args, round_operands=tc, **hm),),
+                "dkv": FA.bwd_dkv_plain(*args, round_operands=tc, **hm)}
+        torch.cuda.synchronize()
+        errs = {}
+        for kernel in got:
+            for i, (g, w) in enumerate(zip(got[kernel], want[kernel])):
+                what = f"flash {kernel} [{i}] with a head map ({name})"
+                if tc:
+                    torch.testing.assert_close(
+                        g.float(), w.float(), rtol=TC_RTOL,
+                        atol=TC_ATOL_SHARE * float(w.float().abs().max()),
+                        msg=what)
+                else:
+                    torch.testing.assert_close(
+                        g, w, **TOL[torch.float32 if kernel == "fused"
+                                    and i == 0 else dtype], msg=what)
+            errs[kernel] = _max_err(zip(got[kernel], want[kernel]))
+        unmapped, _ = FA.fwd_call(q, k, v, seed, scale, True, RATE)
+        torch.cuda.synchronize()
+        check(not torch.equal(unmapped, o),
+              f"flash fwd ({name}): the head map changed no mask")
+        out[name] = errs
+        emit("kernel_offsets", dtype=name, heads=list(OFFSET_HEADS),
+             rate=RATE, shape=[(TB // 2) * OFFSET_HEADS[0], TS, THD],
+             max_abs_err=errs)
+    out["keep_rate"] = _dropout_probes(dev, OFFSET_HEADS)
+    emit("dropout_masks_offsets", heads=list(OFFSET_HEADS), rate=RATE,
+         bit_identical=True, keep_rate=out["keep_rate"])
+    return out
 
 
 # --------------------------------------------------------------- phase 2
@@ -7064,17 +7167,19 @@ def _hold_shard_shapes(PA, paged_smem, dev: torch.device) -> list:
     return out
 
 
-def _mesh_supervised(n: int, argv: list, log: str) -> dict:
+def _mesh_supervised(n: int, argv: list, log: str,
+                     env: Optional[dict] = None) -> dict:
     """``tools.supervise --num-procs n -- <argv>`` on this card, its
     output to ``log``; the handle (process, log, start time). The ranks
     compute on the card: one intra-op thread each keeps ten processes'
-    thread pools off the cores their collectives wait on."""
+    thread pools off the cores their collectives wait on. ``env`` adds
+    variables."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "fleetx_tpu_torch.tools.supervise",
          "--num-procs", str(n), "--max-restart", "0", "--grace", "30",
          "--"] + argv,
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO,
-                           OMP_NUM_THREADS="1"),
+                           OMP_NUM_THREADS="1", **(env or {})),
         stdout=open(log, "w"), stderr=subprocess.STDOUT,
         start_new_session=True)
     return dict(proc=proc, log=log, t0=time.monotonic())
@@ -7582,6 +7687,315 @@ def mesh_alone(dev: torch.device, card: str) -> None:
     emit("mesh_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
 
 
+# --------------------------------------------------------------- phase 21
+TRAIN_MESH_RANKS = 4
+#: 21a: phase 4's recipe (GPT-345M, full width and depth, its seed and
+#: synthetic batches) on a dp 2 × mp 2 gang with sequence parallelism;
+#: each data rank takes 4 rows of the global batch of 8
+MESH_345M_STEPS = 4
+MESH_345M = ["Distributed.dp_degree=2", "Distributed.mp_degree=2",
+             "Distributed.sequence_parallel=True",
+             "Global.local_batch_size=4", "Global.micro_batch_size=4",
+             f"Engine.max_steps={MESH_345M_STEPS}", "Engine.logging_freq=1",
+             "Engine.save_load.save_steps=0"]
+#: 21a's losses against phase 4's first 4: the row-parallel products'
+#: partial sums are psum'd in bf16 (one more bf16 rounding of each
+#: activation the out projection and wo make, against one rank's single
+#: rounding of the f32 accumulator), the dropout masks are one rank's
+MESH_345M_LOSS_ATOL = 0.02
+#: 21b: GPT-6.7B (``pretrain_gpt_6.7B_sharding16.yaml``: hidden 4096, 32
+#: heads of 128, full recompute) at fsdp 4, ZeRO stage 2, cut to
+#: ``SIXB_LAYERS`` layer (four ranks' f32 params, grads and moments: 12.2
+#: GB a rank at 2 layers, 9.2 at 1; the cut below what fits is for the
+#: smoke's time) and 2 rows a rank (the recipe's 8)
+SIXB_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                         "pretrain_gpt_6.7B_sharding16.yaml")
+SIXB_LAYERS = 1
+SIXB_STEPS = 3
+SIXB = ["Distributed.dp_degree=1", "Distributed.fsdp_degree=4",
+        "Distributed.sharding.sharding_degree=4",
+        "Global.local_batch_size=2", "Global.micro_batch_size=2",
+        f"Model.num_layers={SIXB_LAYERS}",
+        "Data.Train.dataset.name=SyntheticGPTDataset",
+        "Data.Train.dataset.num_samples=1024",
+        "Data.Train.dataset.seq_length=1024",
+        "Data.Train.dataset.vocab_size=50304",
+        f"Engine.max_steps={SIXB_STEPS}", "Engine.logging_freq=1",
+        "Engine.eval_freq=0", f"Engine.save_load.save_steps={SIXB_STEPS}"]
+MESH_TRAIN_TIMEOUT_S = 600
+
+
+def train_mesh_child(argv: list) -> int:
+    """A member of phase 21's training gangs: ``tools.train``'s ``main``
+    on ``argv[1:]``, its launch counts zeroed just before ``fit`` and read
+    just after; the rank's losses, step walls, peak memory, the
+    collectives' count and host wall, its mesh and blocks, and the
+    gathered parameters' fingerprint go to ``argv[0]/rank<r>.json``."""
+    from fleetx_tpu_torch.convert import jax_leaves
+    from fleetx_tpu_torch.core.engine.eager_engine import EagerEngine
+    from fleetx_tpu_torch.parallel import mesh as PM
+    from fleetx_tpu_torch.resilience.integrity import params_fingerprint
+    from fleetx_tpu_torch.tools import train
+    from fleetx_tpu_torch.utils.env import get_backend
+
+    import torch.distributed as dist
+
+    out_dir, train_argv = argv[0], argv[1:]
+    report: dict = {}
+    coll = {"calls": 0, "seconds": 0.0, "on": False}
+
+    def timed_collective(fn):
+        def wrapper(*a, **k):
+            if not coll["on"]:
+                return fn(*a, **k)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                coll["calls"] += 1
+                coll["seconds"] += time.perf_counter() - t0
+        return wrapper
+
+    # the collectives that reach the backend (an axis of size 1 makes none)
+    for name in ("all_reduce", "all_gather", "reduce_scatter_tensor"):
+        setattr(dist, name, timed_collective(getattr(dist, name)))
+    fit = EagerEngine.fit
+
+    def measured_fit(self, *a, **k):
+        torch.cuda.synchronize()
+        reset_peak(self.device)
+        zero_counts()                   # every count to 0 just before
+        coll.update(calls=0, seconds=0.0, on=True)
+        t0 = time.perf_counter()
+        losses = fit(self, *a, **k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        coll["on"] = False
+        counts = read_counts()          # read just after
+        layers = self.params["gpt"]["layers"]
+        report.update(
+            rank=self.mesh.rank, backend=get_backend(),
+            mesh=self.mesh.shape, device=str(self.device),
+            sp=bool(self.module.model_cfg.shard.sp), losses=losses,
+            grad_norms=[float(h["grad_norm"]) for h in self.history],
+            step_ms=[h["train_cost"] * 1e3 for h in self.history],
+            fit_s=wall, launches=counts,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated(
+                self.device) / 2 ** 30,
+            max_memory_reserved_gb=torch.cuda.max_memory_reserved(
+                self.device) / 2 ** 30,
+            collectives=coll["calls"],
+            collective_ms_per_step=coll["seconds"] * 1e3 / max(
+                len(losses), 1),
+            qkv_block=list(layers["attn"]["qkv_kernel"].shape),
+            wte_block=list(self.params["gpt"]["embeddings"][
+                "word_embeddings"].shape),
+            moment_blocks=sorted({tuple(v.shape) for v in
+                                  self.opt_state["mu"]}),
+            fingerprint=params_fingerprint(jax_leaves(self.full_params())))
+        return losses
+
+    EagerEngine.fit = measured_fit
+    code = train.main(train_argv)
+    with open(os.path.join(out_dir, f"rank{report['rank']}.json"),
+              "w") as f:
+        json.dump(report, f)
+    return code
+
+
+def _train_gang(root: str, name: str, yaml: str, overrides: list) -> dict:
+    """One of phase 21's gangs: ``tools.supervise --num-procs 4 --``
+    ``tools.train`` (through ``train_mesh_child``) on this card. Its
+    ranks' allocators grow expandable segments: eight ranks share the
+    card, and the blocks a rank keeps reserved but unused would hold the
+    others' memory."""
+    out = os.path.join(root, name)
+    os.makedirs(out, exist_ok=True)
+    gang = _mesh_supervised(
+        TRAIN_MESH_RANKS, [sys.executable, "-c", CHILD % (
+            REPO, "train_mesh_child"), out, "-c", yaml]
+        + _overrides(overrides), os.path.join(root, f"{name}.log"),
+        env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    return dict(gang, out=out)
+
+
+def _train_reports(gang: dict, what: str) -> list:
+    proc = gang["proc"]
+    try:
+        proc.wait(timeout=MESH_TRAIN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _stop_gang(gang)
+    with open(gang["log"]) as f:
+        tail = f.read()[-6000:]
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: {tail}")
+    reports = []
+    for r in range(TRAIN_MESH_RANKS):
+        with open(os.path.join(gang["out"], f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    check([r["rank"] for r in reports] == list(range(TRAIN_MESH_RANKS)),
+          f"{what}: ranks {[r['rank'] for r in reports]}")
+    for r in reports:
+        check(r["backend"] == "gloo" and r["device"] == "cuda:0",
+              f"{what}: rank {r['rank']} on {r['backend']}, {r['device']}")
+        check(r["losses"] == reports[0]["losses"],
+              f"{what}: the ranks' losses differ: "
+              f"{[x['losses'] for x in reports]}")
+        check(r["fingerprint"] == reports[0]["fingerprint"],
+              f"{what}: the ranks gathered different parameters")
+    return reports
+
+
+def _per_rank_launches(what: str, reports: list, per_step: dict,
+                       steps: int) -> dict:
+    """Rows 1, 4, 5 and 6 launched on every rank, ``per_step`` a step
+    (all tensor-core, the norms all on route "rows")."""
+    for r in reports:
+        c = r["launches"]
+        for name, n in per_step.items():
+            check(c[name] == n * steps,
+                  f"{what}: rank {r['rank']} launched {name} {c[name]} "
+                  f"times, want {n} x {steps}")
+        for tc, name in TC_COUNTS.items():
+            check(c[tc] == c[name], f"{what}: rank {r['rank']}: "
+                                    f"{c[name] - c[tc]} {name} off the "
+                                    f"tensor cores")
+        check(c["paged_attention_decode"] == 0, f"{what}: paged kernel")
+    return {name: [r["launches"][name] for r in reports]
+            for name in ENCODER_ROWS}
+
+
+def phase_train_mesh(dev: torch.device, card: str, losses4: list) -> dict:
+    """Phase 21: sharded training over a gang of 4 ranks on this card,
+    through ``tools.supervise --num-procs 4 -- tools.train`` (gloo: the
+    ranks share the card). 21a: phase 4's GPT-345M at dp 2 × mp 2 with
+    sequence parallelism, 4 steps against phase 4's first 4 losses. 21b:
+    GPT-6.7B's width at fsdp 4, ZeRO stage 2, 3 steps and a save that
+    this process loads on one rank: its fingerprint must equal the
+    gang's. The two gangs run at once, eight ranks on the card: their
+    steps are host-bound (every collective a gloo round trip)."""
+    from fleetx_tpu_torch.convert import jax_leaves
+    from fleetx_tpu_torch.core.engine import EagerEngine
+    from fleetx_tpu_torch.core.module import GPTModule
+    from fleetx_tpu_torch.resilience.integrity import params_fingerprint
+    from fleetx_tpu_torch.tools.train import load_config
+    from fleetx_tpu_torch.utils.env import backend_for
+
+    rule = backend_for("cuda", TRAIN_MESH_RANKS)
+    check(rule == "gloo", f"four ranks on {torch.cuda.device_count()} "
+                          f"card(s) take {rule}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    reset_peak(dev)                 # the card for the gangs: this
+    torch.cuda.empty_cache()        # process keeps only what is live
+    out = dict(backend=rule, nvidia_smi=card,
+               this_process_reserved_gb=torch.cuda.memory_reserved(dev)
+               / 2 ** 30)
+    gangs: list = []                # every gang a failure leaves
+    try:
+        t0 = time.monotonic()
+        ckpt = os.path.join(root, "ckpt_6.7B")
+        gangs.append(_train_gang(root, "345M", TRAIN_YAML, MESH_345M))
+        gangs.append(_train_gang(root, "6.7B", SIXB_YAML, SIXB + [
+            f"Engine.save_load.output_dir={ckpt}"]))
+        a = _train_reports(gangs[0], "21a")
+        out["a_s"] = time.monotonic() - t0
+        b = _train_reports(gangs[1], "21b")
+        out["b_s"] = time.monotonic() - t0
+        # 21a: full width and depth, the shard's blocks, SP, the losses
+        for r in a:
+            check(r["mesh"] == {"pipe": 1, "data": 2, "fsdp": 1, "seq": 1,
+                                "tensor": 2} and r["sp"]
+                  and r["qkv_block"] == [24, 1024, 3, 8, 64]
+                  and r["wte_block"] == [25152, 1024],
+                  f"21a: rank {r['rank']} is not the 345M dp2 x mp2 "
+                  f"shard: {r['mesh']} {r['qkv_block']} {r['wte_block']}")
+        drift = [abs(x - y) for x, y in zip(a[0]["losses"],
+                                            losses4[:MESH_345M_STEPS])]
+        check(len(a[0]["losses"]) == MESH_345M_STEPS
+              and max(drift) <= MESH_345M_LOSS_ATOL,
+              f"21a: losses {a[0]['losses']} against phase 4's "
+              f"{losses4[:MESH_345M_STEPS]}: drift {drift} above "
+              f"{MESH_345M_LOSS_ATOL}")
+        a_out = dict(
+            losses=a[0]["losses"], phase4_losses=losses4[:MESH_345M_STEPS],
+            loss_drift=drift, grad_norms=a[0]["grad_norms"],
+            step_ms=[r["step_ms"] for r in a],
+            step_ms_median=statistics.median(a[0]["step_ms"][1:]),
+            tokens_per_s=8 * 1024 / (statistics.median(
+                a[0]["step_ms"][1:]) / 1e3),
+            peak_gb=[r["max_memory_allocated_gb"] for r in a],
+            reserved_gb=[r["max_memory_reserved_gb"] for r in a],
+            collectives_per_step=a[0]["collectives"] / MESH_345M_STEPS,
+            collective_ms_per_step=[r["collective_ms_per_step"]
+                                    for r in a],
+            launches=_per_rank_launches("21a", a, {
+                "flash_attention_fwd": 24, "flash_attention_bwd_fused": 24,
+                "fused_norm_fwd": 49, "fused_norm_bwd": 49},
+                MESH_345M_STEPS))
+        emit("train_mesh_345M", **a_out, nvidia_smi=card)
+        # 21b: the 6.7B width at fsdp 4, moments a quarter, the save
+        for r in b:
+            check(r["mesh"] == {"pipe": 1, "data": 1, "fsdp": 4, "seq": 1,
+                                "tensor": 1}
+                  and r["qkv_block"] == [SIXB_LAYERS, 4096, 3, 32, 128],
+                  f"21b: rank {r['rank']}: {r['mesh']} {r['qkv_block']}")
+            check(all(np.isfinite(r["losses"])), f"21b: {r['losses']}")
+        # the tied head's init variance: ln V + hidden · 0.02² / 2
+        expect = float(np.log(50304) + 4096 * 0.02 ** 2 / 2)
+        check(abs(b[0]["losses"][0] - expect) < 0.1,
+              f"21b: first loss {b[0]['losses'][0]}, want {expect} ± 0.1")
+        cfg = load_config(SIXB_YAML, SIXB + [
+            "Distributed.fsdp_degree=1",
+            "Distributed.sharding.sharding_degree=1",
+            f"Engine.save_load.ckpt_dir={ckpt}"], world_size=1)
+        t0 = time.monotonic()
+        one = EagerEngine(cfg, GPTModule(cfg), device=dev, mode="eval")
+        params = one.prepare()
+        fp = params_fingerprint(jax_leaves(params))
+        load_s = time.monotonic() - t0
+        check(fp == b[0]["fingerprint"],
+              f"21b: one rank's load of the gang's save fingerprints {fp}, "
+              f"the gang {b[0]['fingerprint']}")
+        del one, params
+        b_out = dict(
+            layers=SIXB_LAYERS, losses=b[0]["losses"],
+            grad_norms=b[0]["grad_norms"],
+            step_ms=[r["step_ms"] for r in b],
+            step_ms_median=statistics.median(b[0]["step_ms"][1:]),
+            tokens_per_s=4 * 2 * 1024 / (statistics.median(
+                b[0]["step_ms"][1:]) / 1e3),
+            peak_gb=[r["max_memory_allocated_gb"] for r in b],
+            reserved_gb=[r["max_memory_reserved_gb"] for r in b],
+            moment_blocks=b[0]["moment_blocks"],
+            collectives_per_step=b[0]["collectives"] / SIXB_STEPS,
+            collective_ms_per_step=[r["collective_ms_per_step"]
+                                    for r in b],
+            fingerprint=fp, one_rank_load_s=load_s,
+            launches=_per_rank_launches("21b", b, {
+                "flash_attention_fwd": 2 * SIXB_LAYERS,
+                "flash_attention_bwd_fused": SIXB_LAYERS,
+                "fused_norm_fwd": 4 * SIXB_LAYERS + 1,
+                "fused_norm_bwd": 2 * SIXB_LAYERS + 1}, SIXB_STEPS))
+        emit("train_mesh_6.7B", **b_out, nvidia_smi=card)
+        out.update(a=a_out, b=b_out)
+    finally:
+        for gang in gangs:
+            _stop_gang(gang)
+        shutil.rmtree(root, ignore_errors=True)
+    emit("train_mesh", **{k: v for k, v in out.items()
+                          if k not in ("a", "b")})
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_alone(dev: torch.device, card: str) -> None:
+    """``--train-mesh``: phase 1b's head-offset checks, phase 4 (whose
+    first losses 21a is held to) and phase 21."""
+    timed("1 offsets", _offset_checks, dev)
+    trainer = timed("4", phase_trainer, dev, card)
+    timed("21", phase_train_mesh, dev, card, trainer["losses"])
+    emit("train_mesh_alone", phase_walls=PHASE_WALLS, nvidia_smi=card)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7595,7 +8009,7 @@ def main(argv) -> int:
              "--fp16-resilience", "--train-paths", "--finetune-serving",
              "--gpt-knobs", "--encoders", "--families", "--norm-shapes",
              "--telemetry", "--resilience-runtime", "--router-corpus",
-             "--mesh"}
+             "--mesh", "--train-mesh"}
     if argv:
         # a part of the run alone, on whatever tree this script sits in (an
         # earlier commit's included, to compare in one call); no result
@@ -7612,7 +8026,8 @@ def main(argv) -> int:
         # --resilience-runtime: phases 4 and 18 (no synchronous save to
         # set beside the asynchronous one: phase 8 did not run);
         # --router-corpus: phase 19 on a checkpoint of seeded weights;
-        # --mesh: phase 20 on a checkpoint of seeded weights
+        # --mesh: phase 20 on a checkpoint of seeded weights;
+        # --train-mesh: phase 1b's head-offset checks, phase 4 and phase 21
         if not set(argv) <= modes:
             print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
             return 2
@@ -7635,6 +8050,11 @@ def main(argv) -> int:
             emit("resilience_runtime_alone", phase_walls=PHASE_WALLS,
                  collect_freed_bytes=COLLECT_FREED,
                  collect_holders=COLLECT_HOLDERS, nvidia_smi=card)
+            print(smi_line(), flush=True)
+            return 0
+        if "--train-mesh" in argv:
+            build.build(["flash_attention", "fused_norm"])
+            train_mesh_alone(dev, card)
             print(smi_line(), flush=True)
             return 0
         if "--mesh" in argv:
@@ -7751,6 +8171,7 @@ def main(argv) -> int:
     fp16 = timed("12", phase_fp16_resilience, dev, card)
     sdc = timed("18", phase_resilience_runtime, dev, card, trainer["losses"],
                 resume["save_s"])
+    train_mesh = timed("21", phase_train_mesh, dev, card, trainer["losses"])
     row1_eval = timed(
         "row 1 eval shape", phase_row1_eval_shape, dev, card,
         train_kernels["bfloat16"]["flash_attention_fwd"]["ms"])
@@ -7836,6 +8257,14 @@ def main(argv) -> int:
     for name in ENCODER_ROWS:
         by_path[name]["corpus_train"] = \
             router_corpus["corpus"]["launches"][name]
+    # phase 21: the training gangs, the four ranks' launches summed (21a:
+    # 4 steps of 24 / 24 / 49 / 49 a rank; 21b: 3 steps of 2 / 1 / 5 / 3 a
+    # rank, 1 layer under full recompute); per rank in the phase's lines
+    for name in ENCODER_ROWS:
+        by_path[name]["train_mesh_345M"] = sum(
+            train_mesh["a"]["launches"][name])
+        by_path[name]["train_mesh_6.7B"] = sum(
+            train_mesh["b"]["launches"][name])
     # every path's norm forward launches by route: read_counts (and the
     # eval and fine-tune processes' own counts, checked where read) hold
     # each path's launches all on "rows", none on "row_block"
@@ -7915,6 +8344,17 @@ def main(argv) -> int:
                 "fp16_turns": norm_fwd["fp16_turns"],
                 "check": norm_fwd["check"]}
                if name == "fused_norm_fwd" else {}),
+            # a rank's block of the 345M launch (phase 1b, head map
+            # ``OFFSET_HEADS``): the largest error against the plain
+            # version with the same map, f32 and bf16
+            **({"head_offsets": {
+                dt: train_kernels["offsets"][dt][
+                    {"flash_attention_fwd": "fwd",
+                     "flash_attention_bwd_fused": "fused",
+                     "flash_attention_bwd_dq": "dq",
+                     "flash_attention_bwd_dkv": "dkv"}[name]]
+                for dt in ("float32", "bfloat16")}}
+               if name.startswith("flash_") else {}),
             # the forward at the eval path's shape, no dropout
             **({"eval_shape": row1_eval}
                if name == "flash_attention_fwd" else {}),

@@ -1,4 +1,4 @@
-"""Checkpoint save / verify / load for one process on one device (port of
+"""Checkpoint save / verify / load (port of
 ``fleetx_tpu/core/checkpoint.py``: the npz codec :190-277,
 ``save_checkpoint`` :281, the meta marker :431-473,
 ``finalize_async_saves`` :481,
@@ -7,6 +7,14 @@
 table of verified steps :83-130,
 ``_verify_payload_or_raise`` :680, ``load_params`` :727 and
 ``load_checkpoint`` :783).
+
+The layout is topology-free on shared storage, as JAX's is: a gang's save
+(``save_gang``) is handed the full leaves its engine gathered, rank 0
+writes the same files a one-rank run writes and applies the retention,
+and every rank meets the others at a barrier after it; a load on any
+layout reads the full leaves, which the engine cuts to its blocks. A
+gang's asynchronous save is refused by the engine (its two-phase commit
+is item 12's gang resilience part).
 
 A checkpoint is a directory ``<dir>/step_<N>`` holding, written in this
 order:
@@ -420,6 +428,24 @@ def save_checkpoint(directory: str, step: int, state: dict,
     reg.counter("ckpt_saves_total").inc()
     reg.gauge("ckpt_bytes").set(nbytes)
     reg.counter("ckpt_bytes_total").inc(nbytes)
+    return path
+
+
+def save_gang(directory: str, step: int, state: dict, meta: dict, mesh,
+              keep_last: int = 0, keep_every: int = 0) -> str:
+    """A gang's save of the full ``state`` every rank gathered: rank 0
+    writes it (``save_checkpoint``) and prunes to ``keep_last`` /
+    ``keep_every``, then every rank waits at a barrier, so no rank reads
+    or resumes past a save that is not complete. Returns the step's
+    directory."""
+    from fleetx_tpu_torch.parallel.mesh import barrier
+
+    path = step_dir(directory, step)
+    if mesh.rank == 0:
+        path = save_checkpoint(directory, step, state, meta=meta)
+        if keep_last:
+            gc_checkpoints(directory, keep_last, keep_every)
+    barrier(mesh)
     return path
 
 

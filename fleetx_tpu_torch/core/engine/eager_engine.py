@@ -138,10 +138,45 @@ decomposed (``observability/perf.py``) into ``perf.jsonl``. A span
 measures the host's launches, not the card's time: the record's
 ``step_time`` is the logging window's wall, which ends in the loss sync.
 
+A gang (``mesh``; built over the process group when it has more than one
+rank): every rank is a process of one ``torch.distributed`` group laid
+out on ``parallel/mesh.Mesh`` over ``(pipe, data, fsdp, seq, tensor)``,
+and every collective is written by hand (``parallel/sharding.py``):
+
+- ``prepare`` builds the full tree from the seed on every rank, as one
+  rank does (or takes the full tree the caller set, or the checkpoint's),
+  and keeps the rank's blocks (``sharding.plan_leaves``: the rules'
+  tensor-parallel specs, ZeRO stage 3's ``embed`` dims over ``fsdp``,
+  the gradient specs under ``overlap_update``); the module runs its
+  forward on the mesh (``module.attach_shard``);
+- each rank takes its rows of every global batch (``sharding.batch_rows``;
+  each microbatch of the global batch split over ``(data, fsdp)``, as
+  JAX's reshape places it), so the batches are one rank's bit for bit;
+- the grad sync after the backward (``_sync_grads``): a psum over
+  ``tensor`` of the replicated leaves under sequence parallelism (their
+  grads are partial sums over the sequence blocks), then an all-reduce
+  over ``(data, fsdp)``, or at stage 2 and above, for a leaf whose
+  optimizer state is split over ``fsdp``, a reduce-scatter over ``fsdp``
+  and an all-reduce over ``data``; a leaf the forward gathered over
+  ``fsdp`` arrives reduce-scattered already;
+- the update (``_sharded_update``) runs on each leaf's optimizer-state
+  block (``zero_sharding`` at stages 1 and 2), with the global grad norm
+  (each leaf's sum of squares psum'd over the axes it is split on), and
+  the parameter is all-gathered back over ``fsdp`` where it is kept
+  whole; stage 3 and ``overlap_update`` keep it sharded;
+- the fp16 scaler's and the guard's finite flag is a pmax over the mesh;
+- ``save`` gathers every leaf, rank 0 writes the files a one-rank run
+  writes, and a barrier follows; ``load`` reads the full leaves on every
+  rank and cuts them (``_apply_state``), so a checkpoint moves between
+  layouts; ``evaluate`` and ``predict`` run on the mesh (``predict``
+  returns the whole batch).
+
 What this slice does not cover raises ``NotImplementedError`` naming its
 ROADMAP item: per-rank checkpoint directories (item 12), the gang
-watchdog (item 12), ``Observability.gang`` (item 12), and any
-``Distributed`` degree above 1.
+watchdog (item 12), ``Observability.gang`` (item 12), and on a gang the
+resilience runtime and asynchronous saves (item 12's gang resilience);
+the config loader refuses the layouts ``utils/config.check_covered``
+names.
 
 The engine is family-neutral: the batch size is the leading dim of the
 batch's first leaf in key order (``leading_dim``), a loaded tree is
@@ -176,10 +211,13 @@ from fleetx_tpu_torch.observability import MemoryMonitor, Observability, flight
 from fleetx_tpu_torch.observability import memory as memory_mod
 from fleetx_tpu_torch.observability.trace import ProfilerWindow
 from fleetx_tpu_torch.optims.optimizer import tree_leaves_with_path
+from fleetx_tpu_torch.parallel import mesh as PM
+from fleetx_tpu_torch.parallel import sharding as SH
+from fleetx_tpu_torch.parallel.rules import MESH_AXES, SpecLayout, shard_leaf
 from fleetx_tpu_torch.resilience import Resilience, TrainingAborted
 from fleetx_tpu_torch.resilience import coordination
 from fleetx_tpu_torch.resilience.integrity import atomic_write
-from fleetx_tpu_torch.utils.config import check_single_device, loss_scaler
+from fleetx_tpu_torch.utils.config import check_covered, loss_scaler
 from fleetx_tpu_torch.utils.device import resolve_device
 from fleetx_tpu_torch.utils.log import logger
 
@@ -203,7 +241,31 @@ def check_engine_config(cfg: dict) -> None:
         raise NotImplementedError(
             "Engine.save_load.per_rank_dirs needs a multi-rank gang, not "
             "ported yet (ROADMAP.md, port queue item 12)")
-    check_single_device(dict(cfg.get("Distributed") or {}))
+    check_covered(cfg)
+
+
+def _gang_mesh(cfg: dict):
+    """The mesh of the process group's ranks, or None for one rank."""
+    from fleetx_tpu_torch.utils.env import get_world_size
+
+    if get_world_size() <= 1:
+        return None
+    return PM.build_mesh(dict(cfg.get("Distributed") or {}))
+
+
+def _refuse_on_gang(cfg: dict) -> None:
+    """What a gang does not run yet: item 12's gang resilience part."""
+    if (cfg.get("Resilience") or {}).get("enable"):
+        raise NotImplementedError(
+            "Resilience.enable on a gang needs the gang resilience runtime "
+            "(coordinator, gang watchdog, two-phase commit), not ported yet "
+            "(ROADMAP.md, port queue item 12)")
+    save_load = dict((cfg.get("Engine") or {}).get("save_load") or {})
+    if save_load.get("async_save"):
+        raise NotImplementedError(
+            "Engine.save_load.async_save on a gang needs the gang's "
+            "two-phase commit, not ported yet (ROADMAP.md, port queue item "
+            "12)")
 
 
 def import_torch_dynamo() -> None:
@@ -235,7 +297,7 @@ class EagerEngine(BasicEngine):
     """Single-device trainer with the reference's loop semantics."""
 
     def __init__(self, cfg: dict, module, optimizer=None, lr_schedule=None,
-                 device=None, mode: str = "train"):
+                 device=None, mode: str = "train", mesh=None):
         check_engine_config(cfg or {})
         if mode not in MODES:
             raise ValueError(f"engine mode {mode!r} is not one of {MODES}")
@@ -243,7 +305,18 @@ class EagerEngine(BasicEngine):
         import_torch_dynamo()
         self.cfg = cfg or {}
         self.module = module
+        # the gang's mesh; None for one rank (a mesh of one is one rank)
+        self.mesh = mesh if mesh is not None else _gang_mesh(self.cfg)
+        if self.mesh is not None and self.mesh.size == 1:
+            self.mesh = None
+        if self.mesh is not None:
+            from fleetx_tpu_torch.utils.env import rank_device
+
+            _refuse_on_gang(self.cfg)
+            device = rank_device(device)
         self.device = resolve_device(device)
+        # the rank's placement of every leaf (``prepare``), in leaf order
+        self._plan: Optional[dict] = None
         eng = dict(self.cfg.get("Engine") or {})
         self.max_steps = _int(eng, "max_steps", 500000)
         self.logging_freq = max(_int(eng, "logging_freq", 1), 1)
@@ -346,13 +419,18 @@ class EagerEngine(BasicEngine):
         eval mode the checkpoint's parameters, or seeded ones with a
         warning."""
         if self.mode != "train":
-            return self._prepare_eval()
+            self._prepare_eval()
+            if self.mesh is not None and self._plan is None:
+                self._shard_params()
+            return self.params
         if self.params is None:
             t0 = time.time()
             self.params = self.module.init_params(self.seed, self.device)
             n = sum(p.numel() for _, p in tree_leaves_with_path(self.params))
             logger.info("initialized parameters in %.1fs (%d params)",
                         time.time() - t0, n)
+        if self.mesh is not None and self._plan is None:
+            self._shard_params()
         self._leaves = [p for _, p in tree_leaves_with_path(self.params)]
         for p in self._leaves:
             if p.device != self.device:
@@ -360,14 +438,22 @@ class EagerEngine(BasicEngine):
                                  f"{self.device}")
             p.requires_grad_(True)
         if self.optimizer is not None and self.opt_state is None:
-            self.opt_state = self.optimizer.init(self.params)
+            self.opt_state = self.optimizer.init(self._moment_template())
         if self.async_save and self.device.type == "cuda":
             # pinned once here, not by a save while training
             ckpt_lib.reserve_host_buffers(self.state_dict())
         if self.obs.enabled and self.obs.derived is None:
             fpt = self.module.flops_per_token() \
                 if hasattr(self.module, "flops_per_token") else None
-            self.obs.init_derived(fpt, 1, device=self.device)
+            self.obs.init_derived(fpt, self.mesh.size if self.mesh else 1,
+                                  device=self.device)
+            if self.mesh is not None and self._stage >= 2:
+                # bytes of the grad leaves stage 2 spreads over fsdp
+                self.obs.registry.gauge("grad_bytes_sharded").set(float(sum(
+                    int(np.prod(pl.shape)) * leaf.element_size()
+                    for pl, spec, leaf in zip(self._plans, self._grad_specs,
+                                              self._leaves)
+                    if SH.dim_of(spec, "fsdp") is not None)))
         if self.obs.enabled and self.mem is None:
             # device-memory attribution: the measured peak scored against
             # the planner's prediction for this config
@@ -380,6 +466,241 @@ class EagerEngine(BasicEngine):
             self._restored = False
             self.load(self.ckpt_dir)
         return self.params
+
+    # ------------------------------------------------------------- gang
+    @property
+    def _stage(self) -> int:
+        dist = dict(self.cfg.get("Distributed") or {})
+        return int((dist.get("sharding") or {}).get("sharding_stage") or 0)
+
+    def _shard_params(self) -> None:
+        """Cut the full tree to this rank's blocks under the plan, and run
+        the module on the mesh."""
+        dist = dict(self.cfg.get("Distributed") or {})
+        model = dict(self.cfg.get("Model") or {})
+        sp = bool(dist.get("sequence_parallel")
+                  or model.get("sequence_parallel"))
+        layout = SpecLayout(stage=self._stage, sequence_parallel=sp)
+        family = getattr(self.module, "spec_family", "gpt")
+        overlap = bool((dist.get("sharding") or {}).get("overlap_update"))
+        flat = ckpt_lib.flatten(self.params)
+        self._plan = SH.plan_leaves({k: tuple(v.shape) for k, v in
+                                     flat.items()}, family, layout,
+                                    self.mesh, overlap)
+        out = {}
+        for k, v in flat.items():
+            pl = self._plan[k]
+            for spec in (pl.stored, pl.moment, pl.grad):
+                SH.local_shape(pl.shape, spec, self.mesh)
+            block = shard_leaf(v.detach(), pl.stored, self.mesh)
+            out[k] = block.clone() if tuple(block.shape) != pl.shape \
+                else v.detach()
+        self.params = ckpt_lib.unflatten(out)
+        self._plans = [self._plan[k] for k in out]
+        # the grad's spec after the sync (``_sync_grads``): the block the
+        # forward's gather reduce-scattered; at stage 2 and above the
+        # gradient spec where the optimizer state is split too; else whole
+        # over fsdp (a reduce-scatter whose blocks the update gathers
+        # again is an all-reduce)
+        self._grad_specs = [
+            pl.stored if SH.dim_of(pl.stored, "fsdp") is not None
+            else pl.grad if self._stage >= 2
+            and SH.dim_of(pl.moment, "fsdp") is not None else pl.stored
+            for pl in self._plans]
+        # leaves the engine gathers before the loss (overlap_update)
+        self._pre_gather = {k: pl.pre_gather for k, pl in self._plan.items()
+                            if pl.pre_gather is not None}
+        self._sp = sp and self.mesh.shape["tensor"] > 1
+        self.module.attach_shard(SH.ShardCtx(
+            self.mesh, sequence_parallel=sp,
+            gather={k: pl.fwd_gather for k, pl in self._plan.items()
+                    if pl.fwd_gather is not None}))
+        logger.info("gang rank %d of %d: mesh %s, ZeRO stage %d%s, %d of "
+                    "%d parameter leaves split", self.mesh.rank,
+                    self.mesh.size, self.mesh.shape, self._stage,
+                    " (overlap_update)" if overlap else "",
+                    sum(bool(SH.axes_of(pl.stored)) for pl in self._plans),
+                    len(self._plans))
+
+    def _moment_template(self) -> dict:
+        """The tree the optimizer state is made on: the parameters, or on
+        a gang empty tensors of each leaf's optimizer-state block."""
+        if self.mesh is None:
+            return self.params
+        flat = ckpt_lib.flatten(self.params)
+        return ckpt_lib.unflatten({
+            k: torch.empty(SH.local_shape(pl.shape, pl.moment, self.mesh),
+                           dtype=flat[k].dtype, device=self.device)
+            for k, pl in self._plan.items()})
+
+    def _forward_params(self, params: dict) -> dict:
+        """The tree the loss runs on: the kept leaves, with those
+        ``overlap_update`` keeps over ``fsdp`` all-gathered (the reduce-
+        scatter of their grads is that gather's backward)."""
+        if self.mesh is None or not self._pre_gather:
+            return params
+        flat = ckpt_lib.flatten(params)
+        for k, d in self._pre_gather.items():
+            flat[k] = SH.gather_fsdp(flat[k], d, self.mesh)
+        return ckpt_lib.unflatten(flat)
+
+    def _rows(self, batch: dict, accumulate: int = 1) -> dict:
+        """This rank's rows of a global host batch (all of it on one
+        rank)."""
+        if self.mesh is None:
+            return batch
+        return SH.batch_rows(batch, self.mesh, accumulate)
+
+    @property
+    def _data_world(self) -> int:
+        if self.mesh is None:
+            return 1
+        return self.mesh.shape["data"] * self.mesh.shape["fsdp"]
+
+    @torch.no_grad()
+    def _sync_grads(self, grads: list) -> list:
+        """Every rank's grads → the global grads in each leaf's
+        ``_grad_specs`` block. The entries of ``grads`` are released as
+        they are synced, so one leaf's raw and synced grads are alive
+        together, not the whole tree's twice."""
+        mesh, out = self.mesh, []
+        for i, (pl, spec) in enumerate(zip(self._plans, self._grad_specs)):
+            g, grads[i] = grads[i], None
+            if self._sp and "tensor" not in SH.axes_of(pl.stored):
+                # a replicated leaf used on sequence blocks
+                g = PM.psum(g, "tensor", mesh)
+            if SH.dim_of(pl.stored, "fsdp") is not None:
+                g = PM.psum(g, "data", mesh)  # reduce-scattered already
+            elif SH.dim_of(spec, "fsdp") is not None:
+                g = PM.reduce_scatter(g, "fsdp", mesh,
+                                      dim=SH.dim_of(spec, "fsdp"))
+                g = PM.psum(g, "data", mesh)
+            else:
+                g = PM.psum_axes(g, SH.DATA_AXES, mesh)
+            out.append(g)
+        return out
+
+    def _grad_norm(self, grads: list, inv: float) -> torch.Tensor:
+        """The global grad norm of a step's grads (synced on a gang)."""
+        if self.mesh is None:
+            return self.optimizer.grad_norm(list(grads), inv)
+        return self._synced_norm(self._sync_grads(list(grads)), inv)
+
+    def _synced_norm(self, grads: list, inv: float) -> torch.Tensor:
+        """The global norm of synced grads: each leaf's block counted over
+        the axes its spec splits it on."""
+        return self.optimizer.grad_norm(
+            grads, inv, [SH.axes_of(s) for s in self._grad_specs], self.mesh)
+
+    @torch.no_grad()
+    def _sharded_update(self, grads: list, g_norm: torch.Tensor,
+                        inv: float) -> None:
+        """The optimizer step on each leaf's optimizer-state block, then
+        each parameter back in the block the engine keeps."""
+        mesh = self.mesh
+        params_u, grads_u, after = [], [], []
+        for leaf, g, pl, spec in zip(self._leaves, grads, self._plans,
+                                     self._grad_specs):
+            dm = SH.dim_of(pl.moment, "fsdp")
+            dg = SH.dim_of(spec, "fsdp")
+            ds = SH.dim_of(pl.stored, "fsdp")
+            if dg != dm:
+                g = PM.all_gather(g, "fsdp", mesh, dim=dg) if dm is None \
+                    else SH.narrow_to(g, pl.moment, "fsdp", mesh)
+            p = leaf.detach()
+            if ds == dm:
+                pu = p
+            elif ds is None:  # kept whole, updated on its block
+                pu = SH.narrow_to(p, pl.moment, "fsdp", mesh)
+                after.append((p, pu, dm, None))
+            else:  # kept on a block, updated whole
+                pu = PM.all_gather(p, "fsdp", mesh, dim=ds)
+                after.append((p, pu, None, pl.stored))
+            params_u.append(pu)
+            grads_u.append(g)
+        self.optimizer.update(params_u, grads_u, self.opt_state,
+                              g_norm=g_norm, grad_scale=inv)
+        for p, pu, dm, stored in after:
+            if dm is not None:
+                p.copy_(PM.all_gather(pu, "fsdp", mesh, dim=dm))
+            else:
+                p.copy_(SH.narrow_to(pu, stored, "fsdp", mesh))
+
+    def _gang_step(self, batch: dict) -> dict:
+        """``train_step`` on a gang: the grads synced, the global norm,
+        the finite flag as a pmax over the mesh, the sharded update."""
+        scale = None if self.scaler is None else \
+            float(self.scaler["loss_scale"])
+        grads, metrics = self._step_grads(batch, scale)
+        if self.lr_schedule is not None:
+            metrics["lr"] = float(self.lr_schedule(self.step))
+        if self.optimizer is None:
+            self.step += 1
+            return metrics
+        inv = self._inv_scale()
+        raw, grads = list(grads), None
+        grads = self._sync_grads(raw)
+        g_norm = self._synced_norm(grads, inv)
+        finite = True
+        if self.check_finite:
+            bad = (~(torch.isfinite(g_norm) & torch.isfinite(
+                metrics["loss"]))).float()
+            for axis in MESH_AXES:
+                bad = PM.pmax(bad, axis, self.mesh)
+            finite = not bool(bad)
+        if finite:
+            with self.obs.timed_span("optimizer_update"):
+                self._sharded_update(grads, g_norm, inv)
+            self.step += 1
+        metrics["grad_norm"] = g_norm
+        if self.check_finite:
+            metrics["finite"] = finite
+            if self.scaler is not None:
+                self._update_scaler(finite)
+                metrics["loss_scale"] = float(self.scaler["loss_scale"])
+        return metrics
+
+    def full_params(self) -> dict:
+        """The whole parameter tree (gathered on a gang; the live tensors
+        on one rank)."""
+        if self.mesh is None:
+            return self.params
+        return ckpt_lib.unflatten({
+            k: SH.gather_leaf(v.detach(), self._plan[k].stored, self.mesh)
+            for k, v in ckpt_lib.flatten(self.params).items()})
+
+    def _full_state(self) -> dict:
+        """``state_dict`` with every leaf whole, what a one-rank run's
+        checkpoint holds, for rank 0 (each leaf moved to host memory as it
+        is gathered, so the card holds one at a time); the other ranks
+        take part in every gather and keep None."""
+        state = self.state_dict()
+        for k, v in list(state.items()):
+            spec = self._state_spec(k)
+            if spec is not None:
+                full = SH.gather_leaf(v.detach(), spec, self.mesh)
+                state[k] = full.cpu() if self.mesh.rank == 0 else None
+        return state
+
+    def _state_spec(self, key: str):
+        """The spec of a state leaf on the gang: a parameter's kept spec,
+        an optimizer-state leaf's ``moment`` spec; None for the rest."""
+        if key.startswith("params/"):
+            return self._plan[key[len("params/"):]].stored
+        name = key.split("/", 2)
+        if key.startswith("opt_state/") and len(name) == 3 and \
+                name[2] in self._plan:
+            return self._plan[name[2]].moment
+        return None
+
+    def _cut_state(self, state: dict) -> dict:
+        """A loaded full state cut to this rank's blocks."""
+        out = dict(state)
+        for k, v in state.items():
+            spec = self._state_spec(k)
+            if spec is not None:
+                out[k] = shard_leaf(v, spec, self.mesh)
+        return out
 
     def _prepare_eval(self) -> dict:
         """Parameters for eval and inference: from ``ckpt_dir`` (params
@@ -420,8 +741,8 @@ class EagerEngine(BasicEngine):
         # the forward and the backward marked for the profiler window's
         # trace decomposition (the JAX scan regions' labels)
         with self.profiler.annotate("fwd_scan"):
-            loss, metrics = self.module.training_loss(params, batch,
-                                                      self.seed, step)
+            loss, metrics = self.module.training_loss(
+                self._forward_params(params), batch, self.seed, step)
             if loss_scale is not None:
                 loss = loss * loss_scale
         with self.profiler.annotate("bwd_scan"):
@@ -477,6 +798,8 @@ class EagerEngine(BasicEngine):
         (device tensors, and host values for ``lr``, ``finite`` and
         ``loss_scale``). Under ``check_finite`` a non-finite step changes
         no parameter, moment or counter (only the loss scale)."""
+        if self.mesh is not None:
+            return self._gang_step(batch)
         scale = None if self.scaler is None else \
             float(self.scaler["loss_scale"])
         grads, metrics = self._step_grads(batch, scale)
@@ -589,7 +912,8 @@ class EagerEngine(BasicEngine):
             stream["batches"] = batches
             if self.prefetch_to_device > 0:
                 stream["prefetcher"] = DevicePrefetcher(
-                    batches, lambda eb: (eb[0], self.to_device(eb[1])),
+                    batches, lambda eb: (eb[0], self.to_device(self._rows(
+                        eb[1], self.accumulate_steps))),
                     depth=self.prefetch_to_device, obs=self.obs,
                     device=self.device)
 
@@ -687,7 +1011,8 @@ class EagerEngine(BasicEngine):
                 with self.profiler.step_span(self.step):
                     if stream["prefetcher"] is None:
                         with self.obs.timed_span("shard_batch"):
-                            batch = self.to_device(batch)
+                            batch = self.to_device(self._rows(
+                                batch, self.accumulate_steps))
                     # the span covers the host's launches, not the card's
                     # time (the step runs asynchronously)
                     with self.obs.span("train_step", step=self.step):
@@ -703,7 +1028,7 @@ class EagerEngine(BasicEngine):
                 if res.faults.take_bitflip(self.step):
                     # after this iteration's check, as the JAX engine
                     self._apply_bitflip()
-                global_batch = leading_dim(batch)
+                global_batch = leading_dim(batch) * self._data_world
                 if first_step:
                     first_step = False
                     self._perf_flops_per_step = self._flops_per_step(
@@ -899,8 +1224,7 @@ class EagerEngine(BasicEngine):
         grads, metrics = self._step_grads(batch, prev["scale"],
                                           prev["params"], prev["leaves"],
                                           prev["step"])
-        metrics["grad_norm"] = self.optimizer.grad_norm(list(grads),
-                                                        prev["inv"])
+        metrics["grad_norm"] = self._grad_norm(grads, prev["inv"])
         return metrics
 
     def _sdc_check(self, prev: dict, batch: dict, metrics: dict,
@@ -982,7 +1306,8 @@ class EagerEngine(BasicEngine):
             from fleetx_tpu_torch.parallel.auto_layout import (
                 advice_inputs, predicted_step_bytes)
 
-            mdl, mb, gran = advice_inputs(self.cfg, data_world=1)
+            mdl, mb, gran = advice_inputs(self.cfg,
+                                          data_world=self._data_world)
             return predicted_step_bytes(
                 mdl, dict(self.cfg.get("Distributed") or {}), mb, gran)
         except Exception as e:  # noqa: BLE001 — advisory, never fatal
@@ -1072,8 +1397,10 @@ class EagerEngine(BasicEngine):
             for i, batch in enumerate(valid_data_loader):
                 if i >= self.eval_iters:
                     break
-                batch = self.to_device(self.module.pretreating_batch(batch))
-                loss, _ = self.module.validation_loss(self.params, batch)
+                batch = self.to_device(self._rows(
+                    self.module.pretreating_batch(batch)))
+                loss, _ = self.module.validation_loss(
+                    self._forward_params(self.params), batch)
                 total += float(loss)
                 count += 1
         if self.mem is not None:
@@ -1089,14 +1416,19 @@ class EagerEngine(BasicEngine):
     def predict(self, data_loader: Iterable, max_batches: int = 0) -> list:
         """``module.predict_step`` over the loader (at most
         ``max_batches`` batches when set): one host numpy array per
-        batch."""
+        batch (on a gang every rank returns the whole batch)."""
         self.prepare()
         outputs = []
         for i, batch in enumerate(data_loader):
             if max_batches and i >= max_batches:
                 break
-            batch = self.to_device(self.module.pretreating_batch(batch))
-            out = self.module.predict_step(self.params, batch)
+            batch = self.to_device(self._rows(
+                self.module.pretreating_batch(batch)))
+            out = self.module.predict_step(self._forward_params(self.params),
+                                           batch)
+            if self.mesh is not None:  # the rows of every data rank
+                for axis in ("fsdp", "data"):
+                    out = PM.all_gather(out, axis, self.mesh)
             outputs.append(out.float().cpu().numpy()
                            if out.dtype == torch.bfloat16
                            else out.cpu().numpy())
@@ -1138,8 +1470,19 @@ class EagerEngine(BasicEngine):
         meta ``consumed_samples`` / ``epoch`` / ``seed`` (asynchronously
         under ``async_save``), then apply the retention (the newest
         completed step always survives; an outstanding save is not yet
-        completed)."""
+        completed). On a gang every leaf is gathered, rank 0 writes and
+        the ranks meet at a barrier (``core/checkpoint.save_gang``)."""
         self.prepare()
+        if self.mesh is not None:
+            with self.obs.span("checkpoint_save", step=self.step):
+                path = ckpt_lib.save_gang(
+                    self.output_dir, self.step, self._full_state(),
+                    meta={"consumed_samples": self.consumed_samples,
+                          "epoch": self.epoch, "seed": self.seed},
+                    mesh=self.mesh, keep_last=self.keep_last,
+                    keep_every=self.keep_every)
+            self.last_saved_step = self.step
+            return path
         # span only: the seconds and bytes are core/checkpoint.py's
         with self.obs.span("checkpoint_save", step=self.step):
             path = ckpt_lib.save_checkpoint(
@@ -1204,8 +1547,11 @@ class EagerEngine(BasicEngine):
 
     @torch.no_grad()
     def _apply_state(self, state: dict) -> None:
-        """Copy a loaded flat state into the live tensors, bit for bit;
-        raises on a missing or unexpected leaf or a shape that differs."""
+        """Copy a loaded flat state into the live tensors, bit for bit (on
+        a gang the full leaves cut to the rank's blocks); raises on a
+        missing or unexpected leaf or a shape that differs."""
+        if self.mesh is not None:
+            state = self._cut_state(state)
         want = set(self.state_dict())
         have = {k for k in state if self.opt_state is not None
                 or not k.startswith("opt_state/")}

@@ -43,7 +43,16 @@ compile knobs with no effect on this eager port and are read by nothing.
 weighted load-balance losses, with metrics ``loss`` (the LM loss) and
 ``moe_aux``; ``validation_loss``, eval and generation ignore the aux, as
 JAX's non-mutable apply does. A pipeline (``Distributed.pp_degree`` above
-1) raises in the config loader, MoE or not (item 12).
+1) raises in the config loader, MoE or not, and so does MoE over more
+than one rank (item 12).
+
+On a mesh (``attach_shard``: the engine hands the module its
+``parallel/sharding.ShardCtx``) the GPT losses are the global masked mean
+(``models/gpt/model.masked_mean``: the psum of the ranks' masked sums over
+the psum of their masks across ``(data, fsdp)``), ``predict_step``
+returns the whole vocab, and ``Model.sequence_parallel`` (or
+``Distributed.sequence_parallel``) puts the residual stream on sequence
+blocks under tensor parallelism; on one rank it changes nothing.
 """
 
 from __future__ import annotations
@@ -56,10 +65,9 @@ import torch
 from fleetx_tpu_torch.models.gpt import model as M
 from fleetx_tpu_torch.utils.log import logger
 
-#: (predicate on GPTConfig, what, ROADMAP port queue item)
-_UNCOVERED = (
-    (lambda c: c.sequence_parallel, "Model.sequence_parallel", 12),
-)
+#: (predicate on GPTConfig, what, ROADMAP port queue item) of the model
+#: knobs the port does not cover
+_UNCOVERED: tuple = ()
 
 
 #: recompute granularities the port implements (``dots``: recompute that
@@ -90,8 +98,15 @@ class BasicModule:
     metrics)``; ``batch`` is a dict of tensors whose leading dim is the
     batch. The host-side hooks log the JAX module's lines."""
 
+    #: the mesh context of a sharded run (None on one rank)
+    shard = None
+
     def __init__(self, cfg: Any):
         self.cfg = cfg
+
+    def attach_shard(self, shard) -> None:
+        """Run the losses on a mesh (``parallel/sharding.ShardCtx``)."""
+        self.shard = shard
 
     def pretreating_batch(self, batch: dict) -> dict:
         return batch
@@ -206,6 +221,11 @@ class GPTModule(LanguageModule):
         """Seeded parameters in the JAX layout on ``device``."""
         return M.init_params(self.model_cfg, seed=seed, device=device)
 
+    def attach_shard(self, shard) -> None:
+        """The model's forward runs on the mesh too (``GPTConfig.shard``)."""
+        super().attach_shard(shard)
+        self.model_cfg.shard = shard
+
     def check_params(self, params: dict) -> None:
         """Raise unless ``params`` has the tree of this config (LoRA
         adapter pairs included)."""
@@ -219,7 +239,8 @@ class GPTModule(LanguageModule):
         loss plus the summed aux, with metrics ``loss`` and ``moe_aux``
         (``fleetx_tpu/core/module.py:209-235``)."""
         c = self.model_cfg
-        rng = M.dropout_rng(seed, step, c.num_layers, batch["tokens"].device)
+        rng = M.dropout_rng(seed, step, c.num_layers, batch["tokens"].device,
+                            self.shard)
         if c.moe_num_experts > 0:
             loss, aux = self._loss(params, batch, deterministic=False,
                                    rng=rng, return_aux=True)
@@ -248,15 +269,16 @@ class GPTModule(LanguageModule):
             params, c, batch["tokens"], batch["position_ids"],
             deterministic=deterministic, rng=rng, return_aux=True)
         loss = M.cross_entropy_loss(logits, batch["labels"],
-                                    batch["loss_mask"])
+                                    batch["loss_mask"], c)
         return (loss, aux) if return_aux else loss
 
     @torch.no_grad()
     def predict_step(self, params: dict, batch: dict) -> torch.Tensor:
-        """The forward's logits ``[b, s, vocab]``, dropout off."""
-        return M.gpt_for_pretraining(params, self.model_cfg,
-                                     batch["tokens"],
-                                     batch.get("position_ids"))
+        """The forward's logits ``[b, s, vocab]``, dropout off (the whole
+        vocab on a mesh)."""
+        return M.gather_logits(M.gpt_for_pretraining(
+            params, self.model_cfg, batch["tokens"],
+            batch.get("position_ids")), self.model_cfg)
 
     def input_spec(self) -> dict:
         """The forward's inputs as the exporter traces them: name →

@@ -22,6 +22,9 @@
 // Dropout: the TPU draws its mask from the hardware PRNG per block; here
 // one counter-based hash per ELEMENT, keyed by (seed, b*head, row, col):
 //   bits = mix32(mix32(mix32(seed ^ mix32(bh ^ K0)) ^ row) ^ (col * K1))
+// where bh is the GLOBAL batch-head index (DropKey: a rank that holds a
+// block of the batch rows and of the heads passes its offsets, so a
+// sharded run draws one rank's masks)
 // kept when bits >= rate * 2^32 (the threshold _dropout_mask uses). The
 // same words come out whatever the tiling, so forward and backward agree,
 // and ops/flash_attention.py:dropout_bits computes them bit for bit.
@@ -97,8 +100,25 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t head_key(uint32_t seed, uint32_t bh) {
-  return mix32(seed ^ mix32(bh ^ 0x85ebca6bu));
+// The dropout hash's key: the seed, and the map from a launch's b*head
+// index to the global one (a rank's block of the batch and of the heads):
+//   global = (batch_offset + bh / local_heads) * total_heads
+//            + head_offset + bh % local_heads
+// (local_heads = total_heads = 1 and offsets 0 leave bh as it is).
+struct DropKey {
+  uint32_t seed;
+  int local_heads;
+  int total_heads;
+  int batch_offset;
+  int head_offset;
+};
+
+__device__ __forceinline__ uint32_t head_key(DropKey key, uint32_t bh) {
+  const int b = static_cast<int>(bh);
+  const uint32_t g = static_cast<uint32_t>(
+      (key.batch_offset + b / key.local_heads) * key.total_heads +
+      key.head_offset + b % key.local_heads);
+  return mix32(key.seed ^ mix32(g ^ 0x85ebca6bu));
 }
 
 __device__ __forceinline__ uint32_t drop_bits(uint32_t row_key, int col) {
@@ -231,7 +251,7 @@ template <typename T, int D, int BQ>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int causal,
-    float scale, uint32_t seed, uint32_t thresh, int dropout,
+    float scale, DropKey seed, uint32_t thresh, int dropout,
     float keep_prob) {
   constexpr int TM = BQ / 16;   // q rows per thread
   constexpr int DC = D / 64;    // 64-wide output column groups
@@ -383,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq,
     T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int causal,
-    float scale, uint32_t seed, uint32_t thresh, int dropout, float inv) {
+    float scale, DropKey seed, uint32_t thresh, int dropout, float inv) {
   constexpr int TM = BQ / 16;  // q rows per thread (S, dP, dQ)
   constexpr int DC = D / 64;   // 64-wide column groups (dK, dV, dQ)
   using S = BwdSmem<D, BQ>;
@@ -600,7 +620,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
-    int causal, float scale, uint32_t seed, uint32_t thresh, int dropout,
+    int causal, float scale, DropKey seed, uint32_t thresh, int dropout,
     float keep_prob) {
   constexpr int TM = BQ / 16;  // q rows per thread (S, dP, dQ)
   constexpr int TN = BK / 16;  // k columns per thread (S, dP)
@@ -747,7 +767,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int sk, int causal, float scale, uint32_t seed, uint32_t thresh,
+    int sq, int sk, int causal, float scale, DropKey seed, uint32_t thresh,
     int dropout, float inv) {
   constexpr int TM = BQ / 16;  // q rows per thread (S, dP)
   constexpr int TN = BK / 16;  // k columns per thread (S, dP); k rows (dK, dV)
@@ -938,7 +958,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_fwd_kernel_tc(
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out,
     float* __restrict__ lse, int sq, int sk, int causal, float scale,
-    uint32_t seed, uint32_t thresh, int dropout, float keep_prob) {
+    DropKey seed, uint32_t thresh, int dropout, float keep_prob) {
   using namespace hopper;
   constexpr int kTile = TcFwdSmem<D>::kTile;
   constexpr int kRegion = 128 * 128;  // one 64-column region of a tile
@@ -1159,7 +1179,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_dkv_kernel_tc(
     const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    int sq, int sk, int causal, float scale, uint32_t seed, uint32_t thresh,
+    int sq, int sk, int causal, float scale, DropKey seed, uint32_t thresh,
     int dropout, float inv) {
   using namespace hopper;
   constexpr int kKV = TcDkvSmem<D>::kKV;
@@ -1408,7 +1428,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_dq_kernel_tc(
     const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
-    int causal, float scale, uint32_t seed, uint32_t thresh, int dropout,
+    int causal, float scale, DropKey seed, uint32_t thresh, int dropout,
     float keep_prob) {
   using namespace hopper;
   using Smem = TcDqSmem<D>;
@@ -1635,7 +1655,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_kernel_tc(
     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq,
     T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int causal,
-    float scale, uint32_t seed, uint32_t thresh, int dropout, float inv) {
+    float scale, DropKey seed, uint32_t thresh, int dropout, float inv) {
   using namespace hopper;
   using Smem = TcBwdSmem<D>;
   constexpr int kKRegion = 128 * 128;  // 64-column region of a K/V tile
@@ -1887,7 +1907,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_bwd_kernel_tc(
 template <typename T, int D, int BQ>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        void* out, float* lse, int bh, int sq, int sk,
-                       int causal, float scale, uint32_t seed,
+                       int causal, float scale, DropKey seed,
                        uint32_t thresh, int dropout, float keep_prob,
                        cudaStream_t stream) {
   if (sq % BQ) return cudaErrorInvalidValue;
@@ -1909,7 +1929,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, float* dq, void* dk, void* dv,
                        int bh, int sq, int sk, int causal, float scale,
-                       uint32_t seed, uint32_t thresh, int dropout, float inv,
+                       DropKey seed, uint32_t thresh, int dropout, float inv,
                        cudaStream_t stream) {
   if (sq % BQ) return cudaErrorInvalidValue;
   const size_t bytes = BwdSmem<D, BQ>::kBytes;
@@ -1929,7 +1949,7 @@ template <typename T, int D, int BQ, int BK>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int bh, int sq, int sk, int causal,
-                      float scale, uint32_t seed, uint32_t thresh,
+                      float scale, DropKey seed, uint32_t thresh,
                       int dropout, float keep_prob, cudaStream_t stream) {
   if (sq % BQ || sk % BK) return cudaErrorInvalidValue;
   const size_t bytes = DqSmem<D, BQ, BK>::kBytes;
@@ -1950,7 +1970,7 @@ template <typename T, int D, int BQ, int BK>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int bh, int sq,
-                       int sk, int causal, float scale, uint32_t seed,
+                       int sk, int causal, float scale, DropKey seed,
                        uint32_t thresh, int dropout, float inv,
                        cudaStream_t stream) {
   if (sq % BQ || sk % BK) return cudaErrorInvalidValue;
@@ -1977,7 +1997,7 @@ template <typename T>
 cudaError_t dq_by_dim(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int bh, int sq, int sk, int d, int causal,
-                      float scale, uint32_t seed, uint32_t thresh,
+                      float scale, DropKey seed, uint32_t thresh,
                       int dropout, float keep_prob, cudaStream_t st) {
   if constexpr (std::is_same<T, float>::value) {
     if (d == 64)
@@ -2002,7 +2022,7 @@ template <typename T>
 cudaError_t dkv_by_dim(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int bh, int sq,
-                       int sk, int d, int causal, float scale, uint32_t seed,
+                       int sk, int d, int causal, float scale, DropKey seed,
                        uint32_t thresh, int dropout, float inv,
                        cudaStream_t st) {
   if constexpr (std::is_same<T, float>::value) {
@@ -2026,7 +2046,7 @@ cudaError_t dkv_by_dim(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t fwd_by_dim(const void* q, const void* k, const void* v,
                        void* out, float* lse, int bh, int sq, int sk, int d,
-                       int causal, float scale, uint32_t seed,
+                       int causal, float scale, DropKey seed,
                        uint32_t thresh, int dropout, float keep_prob,
                        cudaStream_t st) {
   if constexpr (std::is_same<T, float>::value) {
@@ -2051,7 +2071,7 @@ cudaError_t fwd_by_dim(const void* q, const void* k, const void* v,
 template <typename T, int D>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
                           void* out, float* lse, int dtype, int bh, int sq,
-                          int sk, int causal, float scale, uint32_t seed,
+                          int sk, int causal, float scale, DropKey seed,
                           uint32_t thresh, int dropout, float keep_prob,
                           cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
@@ -2079,7 +2099,7 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
                           const float* delta, void* dk, void* dv, int dtype,
                           int bh, int sq, int sk, int causal, float scale,
-                          uint32_t seed, uint32_t thresh, int dropout,
+                          DropKey seed, uint32_t thresh, int dropout,
                           float inv, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
   const uint64_t rq = static_cast<uint64_t>(bh) * sq;
@@ -2106,7 +2126,7 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
                          const float* delta, void* dq, int dtype, int bh,
                          int sq, int sk, int causal, float scale,
-                         uint32_t seed, uint32_t thresh, int dropout,
+                         DropKey seed, uint32_t thresh, int dropout,
                          float keep_prob, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
   const uint64_t rq = static_cast<uint64_t>(bh) * sq;
@@ -2133,7 +2153,7 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
                           const float* delta, float* dq, void* dk, void* dv,
                           int dtype, int bh, int sq, int sk, int causal,
-                          float scale, uint32_t seed, uint32_t thresh,
+                          float scale, DropKey seed, uint32_t thresh,
                           int dropout, float inv, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
   const uint64_t rq = static_cast<uint64_t>(bh) * sq;
@@ -2165,7 +2185,7 @@ bool tc_route(int dtype, int d) {
 
 cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* out,
                    float* lse, int dtype, int bh, int sq, int sk, int d,
-                   int causal, float scale, uint32_t seed, uint32_t thresh,
+                   int causal, float scale, DropKey seed, uint32_t thresh,
                    int dropout, float keep_prob, cudaStream_t st) {
   if (dtype == 1 && d == 64)
     return launch_fwd_tc<__nv_bfloat16, 64>(q, k, v, out, lse, dtype, bh, sq,
@@ -2189,7 +2209,7 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* out,
 cudaError_t dkv_tc(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, int dtype, int bh, int sq, int sk,
-                   int d, int causal, float scale, uint32_t seed,
+                   int d, int causal, float scale, DropKey seed,
                    uint32_t thresh, int dropout, float inv, cudaStream_t st) {
   if (dtype == 1 && d == 64)
     return launch_dkv_tc<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk,
@@ -2215,7 +2235,7 @@ cudaError_t dkv_tc(const void* q, const void* k, const void* v,
 cudaError_t dq_tc(const void* q, const void* k, const void* v,
                   const void* dout, const float* lse, const float* delta,
                   void* dq, int dtype, int bh, int sq, int sk, int d,
-                  int causal, float scale, uint32_t seed, uint32_t thresh,
+                  int causal, float scale, DropKey seed, uint32_t thresh,
                   int dropout, float keep_prob, cudaStream_t st) {
   if (dtype == 1 && d == 64)
     return launch_dq_tc<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq,
@@ -2241,7 +2261,7 @@ cudaError_t dq_tc(const void* q, const void* k, const void* v,
 cudaError_t bwd_tc(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    float* dq, void* dk, void* dv, int dtype, int bh, int sq,
-                   int sk, int d, int causal, float scale, uint32_t seed,
+                   int sk, int d, int causal, float scale, DropKey seed,
                    uint32_t thresh, int dropout, float inv, cudaStream_t st) {
   if (dtype == 1 && d == 64)
     return launch_bwd_tc<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq,
@@ -2269,7 +2289,7 @@ cudaError_t bwd_tc(const void* q, const void* k, const void* v,
 cudaError_t bwd_f32(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     float* dq, void* dk, void* dv, int bh, int sq, int sk,
-                    int d, int causal, float scale, uint32_t seed,
+                    int d, int causal, float scale, DropKey seed,
                     uint32_t thresh, int dropout, float inv,
                     cudaStream_t st) {
   if (d == 64)
@@ -2295,15 +2315,22 @@ bool geometry_ok(int bh, int sq, int sk, int causal) {
 // tc_route(dtype, d) (every entry point takes it). q/k/v/out/dout are
 // [bh, seq, d] contiguous; lse/delta [bh, sq] f32; the fused kernel's dq
 // [bh, sq, d] f32. dropout != 0 keeps an element when its
-// hash word is >= thresh. Returns 0 on success, else a cudaError_t (a
+// hash word is >= thresh; local_heads, total_heads, batch_offset and
+// head_offset map a launch's b*head index to the global one (DropKey). Returns 0 on success, else a cudaError_t (a
 // refused launch, or a geometry outside what the kernels take).
 extern "C" int fleetx_flash_fwd(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int bh, int sq, int sk,
                                 int d, int causal, int dtype, float scale,
-                                uint32_t seed, uint32_t thresh, int dropout,
+                                uint32_t seed_word, int local_heads, int total_heads,
+    int batch_offset, int head_offset, uint32_t thresh, int dropout,
                                 float keep_prob, int tc, void* stream) {
   if (!geometry_ok(bh, sq, sk, causal) || (tc != 0) != tc_route(dtype, d))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (local_heads < 1 || total_heads < local_heads || batch_offset < 0 ||
+      head_offset < 0 || head_offset + local_heads > total_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DropKey seed{seed_word, local_heads, total_heads, batch_offset,
+                     head_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (tc) {
@@ -2328,11 +2355,17 @@ extern "C" int fleetx_flash_bwd_fused(const void* q, const void* k,
                                       const float* lse, const float* delta,
                                       float* dq, void* dk, void* dv, int bh,
                                       int sq, int sk, int d, int causal,
-                                      int dtype, float scale, uint32_t seed,
+                                      int dtype, float scale, uint32_t seed_word, int local_heads, int total_heads,
+    int batch_offset, int head_offset,
                                       uint32_t thresh, int dropout, float inv,
                                       int tc, void* stream) {
   if (!geometry_ok(bh, sq, sk, causal) || (tc != 0) != tc_route(dtype, d))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (local_heads < 1 || total_heads < local_heads || batch_offset < 0 ||
+      head_offset < 0 || head_offset + local_heads > total_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DropKey seed{seed_word, local_heads, total_heads, batch_offset,
+                     head_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (tc) {
@@ -2355,11 +2388,17 @@ extern "C" int fleetx_flash_bwd_dq(const void* q, const void* k,
                                    const float* lse, const float* delta,
                                    void* dq, int bh, int sq, int sk, int d,
                                    int causal, int dtype, float scale,
-                                   uint32_t seed, uint32_t thresh,
+                                   uint32_t seed_word, int local_heads, int total_heads,
+    int batch_offset, int head_offset, uint32_t thresh,
                                    int dropout, float keep_prob, int tc,
                                    void* stream) {
   if (!geometry_ok(bh, sq, sk, causal) || (tc != 0) != tc_route(dtype, d))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (local_heads < 1 || total_heads < local_heads || batch_offset < 0 ||
+      head_offset < 0 || head_offset + local_heads > total_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DropKey seed{seed_word, local_heads, total_heads, batch_offset,
+                     head_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (tc) {
@@ -2386,11 +2425,17 @@ extern "C" int fleetx_flash_bwd_dkv(const void* q, const void* k,
                                     const float* lse, const float* delta,
                                     void* dk, void* dv, int bh, int sq,
                                     int sk, int d, int causal, int dtype,
-                                    float scale, uint32_t seed,
+                                    float scale, uint32_t seed_word, int local_heads, int total_heads,
+    int batch_offset, int head_offset,
                                     uint32_t thresh, int dropout, float inv,
                                     int tc, void* stream) {
   if (!geometry_ok(bh, sq, sk, causal) || (tc != 0) != tc_route(dtype, d))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (local_heads < 1 || total_heads < local_heads || batch_offset < 0 ||
+      head_offset < 0 || head_offset + local_heads > total_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DropKey seed{seed_word, local_heads, total_heads, batch_offset,
+                     head_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (tc) {

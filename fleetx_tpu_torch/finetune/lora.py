@@ -275,10 +275,12 @@ class LoRAOptimizer:
         self._index = self._select(params)
         return self.inner.init(_adapter_tree(params))
 
-    def grad_norm(self, grads: list, grad_scale: float = 1.0
+    def grad_norm(self, grads: list, grad_scale: float = 1.0,
+                  axes: Optional[list] = None, mesh: Any = None
                   ) -> torch.Tensor:
-        """The global norm of every grad, base leaves included."""
-        return self.inner.grad_norm(grads, grad_scale)
+        """The global norm of every grad, base leaves included (over a
+        mesh's blocks with ``axes`` / ``mesh``)."""
+        return self.inner.grad_norm(grads, grad_scale, axes, mesh)
 
     def update(self, params: list, grads: list, state: dict,
                g_norm: Optional[torch.Tensor] = None,

@@ -21,8 +21,8 @@ Config surface (the ``FineTune:`` YAML section)::
         rank: 8
         alpha: 16.0
 
-The JAX module's ``spec_family`` (the partition-rule family of the
-adapted tree) has no counterpart on one device.
+``spec_family`` is the JAX module's: ``gpt_lora``, the partition-rule
+family of the adapted tree.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ _ADAPTER_SEED_SALT = 0x10A
 
 class LoRAGPTModule(GPTModule):
     """GPT fine-tuning task: frozen base + trainable low-rank adapters."""
+
+    @property
+    def spec_family(self) -> str:
+        """The adapted tree's partition-rule family."""
+        return "gpt_lora"
 
     def __init__(self, cfg: Any):
         ft = dict(cfg.get("FineTune") or {}) if isinstance(cfg, dict) else {}

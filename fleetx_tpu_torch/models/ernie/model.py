@@ -37,6 +37,8 @@ import torch.nn.functional as F
 
 from fleetx_tpu_torch.models.gpt.model import (
     DTYPES, DropoutRng, _dropout, _unstack, f32_layer_norm, recompute)
+from fleetx_tpu_torch.parallel import sharding as SH
+from fleetx_tpu_torch.parallel.mesh import psum_axes
 
 #: unmasked-position sentinel in ``mlm_labels`` (the datasets' convention)
 IGNORE_INDEX = -100
@@ -255,20 +257,28 @@ def ernie_for_pretraining(params: dict, cfg: ErnieConfig,
 
 def pretraining_criterion(mlm_logits: torch.Tensor, nsp_logits: torch.Tensor,
                           mlm_labels: torch.Tensor,
-                          nsp_labels: Optional[torch.Tensor] = None) -> tuple:
+                          nsp_labels: Optional[torch.Tensor] = None,
+                          shard=None) -> tuple:
     """``(loss, mlm_loss, nsp_loss)``: the f32 MLM cross entropy over the
     labelled positions (``mlm_labels != IGNORE_INDEX``), plus the NSP
-    cross entropy when ``nsp_labels`` is given (else ``nsp_loss`` is 0)."""
+    cross entropy when ``nsp_labels`` is given (else ``nsp_loss`` is 0).
+    On a mesh (``shard``, data parallel) both are the global batch's: the
+    MLM sum and count psum'd over the data ranks, the NSP mean over
+    them (``sharding.data_mean``)."""
     logits = mlm_logits.float()
     mask = mlm_labels != IGNORE_INDEX
     safe = torch.where(mask, mlm_labels, torch.zeros_like(mlm_labels)).long()
     logz = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, safe[..., None])[..., 0]
     mlm_losses = (logz - picked) * mask.float()
-    mlm_loss = mlm_losses.sum() / torch.clamp(mask.sum(), min=1)
+    num, den = mlm_losses.sum(), mask.sum()
+    if shard is not None:
+        num = SH.global_sum(num, shard.mesh)
+        den = psum_axes(den, SH.DATA_AXES, shard.mesh)
+    mlm_loss = num / torch.clamp(den, min=1)
     if nsp_labels is None:
         return mlm_loss, mlm_loss, torch.zeros((), device=logits.device)
     nsp_logp = torch.log_softmax(nsp_logits.float(), dim=-1)
-    nsp_loss = -torch.gather(nsp_logp, -1,
-                             nsp_labels.long()[:, None]).mean()
+    nsp_loss = SH.data_mean(-torch.gather(
+        nsp_logp, -1, nsp_labels.long()[:, None]).mean(), shard)
     return mlm_loss + nsp_loss, mlm_loss, nsp_loss

@@ -18,6 +18,9 @@ class ErnieModule(BasicModule):
     ``validation_loss`` (off) return ``(loss, {loss, mlm_loss,
     nsp_loss})``."""
 
+    #: the partition-rule family (``parallel/rules.py``)
+    spec_family = "ernie"
+
     def __init__(self, cfg: Any):
         model_cfg = dict(cfg.get("Model", cfg)) if isinstance(cfg, dict) \
             else dict(cfg)
@@ -49,7 +52,8 @@ class ErnieModule(BasicModule):
         nsp_labels = batch.get("next_sentence_labels") \
             if self.binary_head else None
         loss, mlm, nsp = E.pretraining_criterion(
-            mlm_logits, nsp_logits, batch["mlm_labels"], nsp_labels)
+            mlm_logits, nsp_logits, batch["mlm_labels"], nsp_labels,
+            self.shard)
         return loss, {"loss": loss, "mlm_loss": mlm, "nsp_loss": nsp}
 
     def training_loss(self, params: dict, batch: dict, seed: int,
@@ -57,7 +61,7 @@ class ErnieModule(BasicModule):
         """``(loss, metrics)`` with dropout on, its randomness from
         ``seed`` with ``step`` folded in."""
         rng = dropout_rng(seed, step, self.model_cfg.num_layers,
-                          batch["input_ids"].device)
+                          batch["input_ids"].device, self.shard)
         return self._forward_loss(params, batch, deterministic=False,
                                   rng=rng)
 

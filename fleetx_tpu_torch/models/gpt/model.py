@@ -17,6 +17,32 @@ and the dense decode cache generation runs on:
 ``MultiHeadAttention`` (:346-363) with ``_decode_attention`` (:443-460),
 and position ids from the cache index or the left-pad mask (:621-640).
 
+On a mesh (``cfg.shard``, a ``parallel/sharding.ShardCtx`` the engine
+sets; None for one rank) the training forward is Megatron's: each rank
+holds its ``nh/mp`` heads, the column-parallel ``qkv_kernel`` /
+``wi_kernel`` and the row-parallel ``out_kernel`` / ``wo_kernel`` blocks,
+and its ``vocab/mp`` rows of ``word_embeddings``; ``attention`` and
+``mlp`` enter their region through ``copy_to_tensor`` and leave it
+through ``reduce_from_tensor``, whose psum runs in the compute dtype
+before the bias is added once. The lookup is vocab-parallel (each rank's
+rows, a psum), and so is the LM head with its cross entropy
+(``cross_entropy_per_token``: a pmax of the row maxima, a psum of the
+exponent sums and of the label logit from the shard that owns it; the
+chunked head's chunks lie inside the rank's vocab slice). Under
+``sequence_parallel`` the residual stream, the LayerNorms and the
+residual dropouts hold the rank's block of the sequence, and the regions
+are entered by ``gather_seq`` and left by ``scatter_seq``; the
+LayerNorms' and the replicated biases' grads are then partial sums over
+``tensor``, which the engine's grad sync psums. At ZeRO stage 3 each
+layer's leaves are all-gathered over ``fsdp`` inside the layer
+(``ShardCtx.gathered``), so a recomputed layer gathers again in the
+backward. Every dropout mask is a function of global coordinates: the
+hidden masks are drawn at the global shape from the shared generator and
+sliced to the rank's rows and sequence block (``sharding.global_rand``),
+and the flash kernels' hash is keyed on the global batch-head index.
+Under QAT each abs-max covers the whole tensor: a ``pmax`` over the data
+axes, and over ``tensor`` where the operand is split there.
+
 Parameters are a nested dict of tensors shaped exactly like the flax
 pytree (``nn.scan`` stacks layer leaves on a leading ``[num_layers]`` dim;
 ``qkv_kernel [h, 3, nh, hd]``, ``out_kernel [nh, hd, h]``,
@@ -64,6 +90,8 @@ from fleetx_tpu_torch.ops import fused_norm as FN
 from fleetx_tpu_torch.ops import ring_attention as RA
 from fleetx_tpu_torch.ops import save_points as SP
 from fleetx_tpu_torch.ops.quantization import fake_quant
+from fleetx_tpu_torch.parallel import mesh as PM
+from fleetx_tpu_torch.parallel import sharding as SH
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -118,6 +146,9 @@ class GPTConfig:
     moe_aux_weight: float = 0.01
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # the mesh of a sharded run (``parallel/sharding.ShardCtx``), set by
+    # the engine; None on one rank. Not a YAML key.
+    shard: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def ffn_dim(self) -> int:
@@ -141,7 +172,7 @@ PRESETS = {
 def config_from_dict(d: dict) -> GPTConfig:
     """Build a GPTConfig from a YAML ``Model:`` section; keys it does not
     know are ignored, as the JAX loader ignores them."""
-    known = {f.name for f in dataclasses.fields(GPTConfig)}
+    known = {f.name for f in dataclasses.fields(GPTConfig)} - {"shard"}
     kwargs = {k: v for k, v in d.items() if k in known and v is not None}
     if str(kwargs.get("grad_accum_dtype")).lower() == "native":
         kwargs["grad_accum_dtype"] = None
@@ -229,17 +260,29 @@ def init_params(cfg: GPTConfig, seed: int = 0,
 class DropoutRng:
     """One training step's dropout randomness: a hash seed per layer for
     the flash kernels' in-kernel attention dropout, and a device generator
-    for every other dropout mask."""
+    for every other dropout mask. ``rows`` is ``(block, blocks)`` of a
+    rank that holds one of ``blocks`` equal blocks of the batch rows
+    (None on one rank): its masks are its rows of the global batch's."""
 
     layer_seeds: list
     gen: torch.Generator
+    rows: Optional[tuple] = None
+
+    def row_block(self, n: int) -> dict:
+        """``{0: (offset, total)}`` of a rank's ``n`` rows (empty on one
+        rank)."""
+        if self.rows is None or self.rows[1] == 1:
+            return {}
+        return {0: (self.rows[0] * n, self.rows[1] * n)}
 
 
 def dropout_rng(seed: int, step: int, num_layers: int,
-                device: Union[str, torch.device]) -> DropoutRng:
+                device: Union[str, torch.device],
+                shard: Any = None) -> DropoutRng:
     """Step ``step``'s randomness from ONE generator seeded by ``seed``
     with the step folded in (as ``jax.random.fold_in(rng, step)`` in the
-    JAX ``GPTModule.training_loss``)."""
+    JAX ``GPTModule.training_loss``); ``shard`` (a ``ShardCtx``) places
+    the rank's rows in the global batch."""
     host = torch.Generator()
     host.manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
                      | (int(step) & 0xFFFFFFFF))
@@ -247,14 +290,82 @@ def dropout_rng(seed: int, step: int, num_layers: int,
                           generator=host).tolist()
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(draws[-1])
-    return DropoutRng(draws[:-1], gen)
+    rows = None if shard is None else (shard.data_index(), shard.data_world)
+    return DropoutRng(draws[:-1], gen, rows)
 
 
-def _dropout(x: torch.Tensor, rate: float, rng: DropoutRng) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, rng: DropoutRng,
+             blocks: Optional[dict] = None) -> torch.Tensor:
     """``flax.linen.Dropout``: keep with probability ``1 - rate``, scale
-    kept values by ``1 / (1 - rate)`` in ``x``'s dtype."""
-    keep = torch.rand(x.shape, generator=rng.gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    kept values by ``1 / (1 - rate)`` in ``x``'s dtype. Dim 0 is the
+    batch: on a mesh ``rng.rows`` places the rank's rows, and ``blocks``
+    (dim → ``(offset, total)``, ``_blocks``) its other blocks, in the
+    global tensor whose mask is drawn."""
+    blocks = {**rng.row_block(x.shape[0]), **(blocks or {})}
+    u = SH.global_rand(tuple(x.shape), blocks, rng.gen, x.device)
+    return torch.where(u >= rate, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _blocks(cfg: GPTConfig, x: torch.Tensor, seq_dim: Optional[int] = None,
+            head_dim: Optional[int] = None) -> dict:
+    """Where ``x`` sits in its global tensor on a mesh besides its rows
+    (``DropoutRng.rows``): ``seq_dim`` its sequence block under sequence
+    parallelism, ``head_dim`` its heads."""
+    sh = cfg.shard
+    if sh is None:
+        return {}
+    out = {}
+    if seq_dim is not None and sh.sp:
+        out[seq_dim] = sh.block("tensor", x.shape[seq_dim])
+    if head_dim is not None and sh.tensor > 1:
+        out[head_dim] = sh.block("tensor", x.shape[head_dim])
+    return out
+
+
+def _mesh(cfg: GPTConfig):
+    return None if cfg.shard is None else cfg.shard.mesh
+
+
+def _enter(x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """Into a tensor-parallel region: the whole sequence under sequence
+    parallelism (``gather_seq``), else ``copy_to_tensor``."""
+    sh = cfg.shard
+    if sh is None:
+        return x
+    return SH.gather_seq(x, sh.mesh) if sh.sp else \
+        SH.copy_to_tensor(x, sh.mesh)
+
+
+def _leave(y: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """Out of a row-parallel product: the summed rank's sequence block
+    under sequence parallelism (``scatter_seq``), else the psum
+    (``reduce_from_tensor``)."""
+    sh = cfg.shard
+    if sh is None:
+        return y
+    return SH.scatter_seq(y, sh.mesh) if sh.sp else \
+        SH.reduce_from_tensor(y, sh.mesh)
+
+
+def _fq(x: torch.Tensor, bits: int, cfg: GPTConfig, axis=None,
+        over_tensor: bool = False, over_data: bool = False
+        ) -> torch.Tensor:
+    """``fake_quant`` whose abs-max covers the whole tensor on a mesh:
+    a pmax over the data axes (an activation's rows) and over ``tensor``
+    (an operand split there)."""
+    sh = cfg.shard
+    axes = (SH.DATA_AXES if over_data else ()) + \
+        (("tensor",) if over_tensor else ())
+    if sh is None or all(sh.mesh.shape[a] == 1 for a in axes):
+        return fake_quant(x, bits, axis=axis)
+    if axis is None:
+        amax = x.detach().abs().amax()
+    else:
+        dims = (axis,) if isinstance(axis, int) else tuple(axis)
+        amax = x.detach().abs().amax(dim=dims, keepdim=True)
+    for a in axes:
+        amax = PM.pmax(amax, a, sh.mesh)
+    return fake_quant(x, bits, axis=axis, amax=amax)
 
 
 def recompute(fn, rng: Optional[DropoutRng], *args,
@@ -537,7 +648,7 @@ def _plain_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores, torch.finfo(scores.dtype).min))
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     if rate > 0.0:
-        probs = _dropout(probs, rate, rng)
+        probs = _dropout(probs, rate, rng, _blocks(cfg, probs, head_dim=1))
     return torch.einsum("bnqk,bknd->bqnd", probs, v)
 
 
@@ -562,12 +673,24 @@ def core_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         seed = rng.layer_seeds[layer] if rate > 0.0 else 0
         fn = functools.partial(FA.flash_attention, causal=True,
                                fused_bwd=cfg.flash_fused_bwd,
-                               dropout_rate=rate, dropout_seed=seed)
+                               dropout_rate=rate, dropout_seed=seed,
+                               heads=_head_map(cfg, q))
     else:
         fn = functools.partial(_plain_attn, cfg=cfg, rate=rate, rng=rng)
     if cfg.use_recompute and cfg.recompute_granularity == "core_attn":
         return recompute(fn, rng, q, k, v)
     return fn(q, k, v)
+
+
+def _head_map(cfg: GPTConfig, q: torch.Tensor) -> tuple:
+    """The flash kernels' head map of a rank's ``q [b, s, heads, hd]``:
+    ``(heads here, heads in all, first global row, first global head)``."""
+    if cfg.shard is None:
+        return FA.NO_SHARD
+    b, n = q.shape[0], q.shape[2]
+    row = cfg.shard.block(SH.DATA_AXES, b)[0]
+    head = cfg.shard.block("tensor", n)[0]
+    return (n, cfg.num_attention_heads, row, head)
 
 
 def attention(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
@@ -583,14 +706,19 @@ def attention(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
     ``qat_act_bits``, the kernels per output channel at ``qat_bits``. The
     port reduces the kernels after their reshape to 2-D, over axis 0: the
     same scales as JAX's ``axis=0`` of ``qkv_kernel [h, 3, nh, hd]`` and
-    ``axis=(0, 1)`` of ``out_kernel [nh, hd, h]``."""
-    b, s, h = x.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    ``axis=(0, 1)`` of ``out_kernel [nh, hd, h]``.
+
+    On a mesh ``x`` is the rank's rows (its sequence block under sequence
+    parallelism) and the kernels its heads' blocks: the region is entered
+    and left as ``_enter`` / ``_leave`` say, and ``out_bias`` is added
+    once, after the psum."""
     cached = cache is not None
-    x = x.to(cfg.dtype)
+    x = _enter(x.to(cfg.dtype), cfg)
+    b, s, h = x.shape
+    nh, hd = p["qkv_kernel"].shape[-2], cfg.head_dim
     w = p["qkv_kernel"].to(cfg.dtype).reshape(h, 3 * nh * hd)
     if cfg.use_qat:
-        x = fake_quant(x, cfg.qat_act_bits)
+        x = _fq(x, cfg.qat_act_bits, cfg, over_data=True)
         w = fake_quant(w, cfg.qat_bits, axis=0)
     qkv = save_residual(x, w, p["qkv_bias"].to(cfg.dtype), "res_qkv", cfg,
                         cached)
@@ -607,30 +735,44 @@ def attention(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
     out = out.reshape(b, s, nh * hd)
     w_out = p["out_kernel"].to(cfg.dtype).reshape(nh * hd, h)
     if cfg.use_qat:
-        out = fake_quant(out, cfg.qat_act_bits)
-        w_out = fake_quant(w_out, cfg.qat_bits, axis=0)
-    return save_residual(out, w_out, p["out_bias"].to(cfg.dtype),
-                         "res_attn_out", cfg, cached)
+        out = _fq(out, cfg.qat_act_bits, cfg, over_tensor=True,
+                  over_data=True)
+        w_out = _fq(w_out, cfg.qat_bits, cfg, axis=0, over_tensor=True)
+    return _row_parallel(out, w_out, p["out_bias"], "res_attn_out", cfg,
+                         cached)
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  name: str, cfg: GPTConfig, cached: bool) -> torch.Tensor:
+    """``save_residual(x, w, b)`` of a row-parallel product: on a mesh the
+    partial sums leave the region (``_leave``) and the bias is added once,
+    after them."""
+    if cfg.shard is None:
+        return save_residual(x, w, b.to(cfg.dtype), name, cfg, cached)
+    y = save_residual(x, w, torch.zeros_like(b, dtype=cfg.dtype), name, cfg,
+                      cached)
+    return _leave(y, cfg) + b.to(cfg.dtype)
 
 
 def mlp(p: dict, x: torch.Tensor, cfg: GPTConfig,
         cached: bool = False) -> torch.Tensor:
     """``GPTMlp``: dense 4h FFN with tanh-approximate GELU; under QAT the
     input, both kernels (per output channel) and the GELU output are
-    fake-quantized (``model.py:475-489``)."""
-    x = x.to(cfg.dtype)
+    fake-quantized (``model.py:475-489``). On a mesh ``wi_kernel`` is
+    column-parallel and ``wo_kernel`` row-parallel, ``wo_bias`` added once
+    after the psum."""
+    x = _enter(x.to(cfg.dtype), cfg)
     wi, wo = p["wi_kernel"].to(cfg.dtype), p["wo_kernel"].to(cfg.dtype)
     if cfg.use_qat:
-        x = fake_quant(x, cfg.qat_act_bits)
+        x = _fq(x, cfg.qat_act_bits, cfg, over_data=True)
         wi = fake_quant(wi, cfg.qat_bits, axis=0)
-        wo = fake_quant(wo, cfg.qat_bits, axis=0)
+        wo = _fq(wo, cfg.qat_bits, cfg, axis=0, over_tensor=True)
     y = save_residual(x, wi, p["wi_bias"].to(cfg.dtype), "res_mlp_wi", cfg,
                       cached)
     y = F.gelu(y, approximate="tanh")
     if cfg.use_qat:
-        y = fake_quant(y, cfg.qat_act_bits)
-    return save_residual(y, wo, p["wo_bias"].to(cfg.dtype), "res_mlp_wo",
-                         cfg, cached)
+        y = _fq(y, cfg.qat_act_bits, cfg, over_tensor=True, over_data=True)
+    return _row_parallel(y, wo, p["wo_bias"], "res_mlp_wo", cfg, cached)
 
 
 def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
@@ -643,6 +785,8 @@ def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
     is the MoE FFN's weighted load-balance loss (``moe.py``; the MoE FFN
     takes no QAT fake-quant, as in JAX), None for the dense FFN."""
     drop = cfg.hidden_dropout_prob > 0.0 and not deterministic
+    if cfg.shard is not None:
+        p = _gather_layer(p, cfg)
     residual = x
     y = layer_norm(p["ln1"], x, cfg)
 
@@ -656,7 +800,8 @@ def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
     else:
         y = attn(y)
     if drop:
-        y = _dropout(y, cfg.hidden_dropout_prob, rng)
+        y = _dropout(y, cfg.hidden_dropout_prob, rng,
+                     _blocks(cfg, y, seq_dim=1))
     y, x = layer_norm(p["ln2"], y, cfg, residual=residual)
     residual = x
     if cfg.moe_num_experts > 0:
@@ -664,8 +809,18 @@ def decoder_layer(p: dict, x: torch.Tensor, cfg: GPTConfig, *,
     else:
         y, aux = mlp(p["mlp"], y, cfg, cached=cache is not None), None
     if drop:
-        y = _dropout(y, cfg.hidden_dropout_prob, rng)
+        y = _dropout(y, cfg.hidden_dropout_prob, rng,
+                     _blocks(cfg, y, seq_dim=1))
     return residual + y, aux
+
+
+def _gather_layer(p: dict, cfg: GPTConfig, prefix: str = "gpt/layers"
+                  ) -> dict:
+    """One layer's leaves whole over ``fsdp`` where ZeRO stage 3 keeps
+    them sharded (inside the layer: a recomputed layer gathers again)."""
+    return {k: _gather_layer(v, cfg, f"{prefix}/{k}") if isinstance(v, dict)
+            else cfg.shard.gathered(f"{prefix}/{k}", v, stacked=True)
+            for k, v in p.items()}
 
 
 def _unstack(node: Any, n: int) -> list:
@@ -715,12 +870,18 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
             1, cache.positions(s),
             torch.ones_like(tokens, dtype=torch.bool)
             if attention_mask is None else attention_mask.bool())
-    emb = p["embeddings"]
-    x = (F.embedding(tokens, emb["word_embeddings"].to(cfg.dtype))
-         + F.embedding(position_ids, emb["position_embeddings"].to(
-             cfg.dtype)))
+    wte, wpe = _embedding_tables(params, cfg)
+    if cfg.shard is None:
+        x = F.embedding(tokens, wte) + F.embedding(position_ids, wpe)
+    else:
+        x = _leave(_vocab_lookup(tokens, wte, cfg), cfg)
+        if cfg.shard.sp:
+            lo, _ = cfg.shard.block("tensor", x.shape[1])
+            position_ids = position_ids[:, lo:lo + x.shape[1]]
+        x = x + F.embedding(position_ids, wpe)
     if cfg.hidden_dropout_prob > 0.0 and not deterministic:
-        x = _dropout(x, cfg.hidden_dropout_prob, rng)
+        x = _dropout(x, cfg.hidden_dropout_prob, rng,
+                     _blocks(cfg, x, seq_dim=1))
     remat = cfg.use_recompute and cache is None and \
         cfg.recompute_granularity in ("full", "dots")
     keep = dots_policy(cfg) if cfg.recompute_granularity == "dots" \
@@ -736,6 +897,8 @@ def gpt_model(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
     if cache is not None:
         cache.index = cache.index + s
     out = layer_norm(p["ln_f"], x, cfg)
+    if cfg.shard is not None and cfg.shard.sp:
+        out = SH.gather_seq(out, cfg.shard.mesh)
     if not return_aux:
         return out
     return out, (torch.stack(auxes).sum() if auxes else None)
@@ -759,17 +922,59 @@ def gpt_for_pretraining(params: dict, cfg: GPTConfig, tokens: torch.Tensor,
     x, aux = gpt_model(params, cfg, tokens, position_ids,
                        deterministic=deterministic, rng=rng, cache=cache,
                        attention_mask=attention_mask, return_aux=True)
-    wte = params["gpt"]["embeddings"]["word_embeddings"].to(cfg.dtype)
+    wte = _embedding_tables(params, cfg)[0]
     if cache is not None:
         return torch.einsum("bsh,vh->bsv", x, wte), cache
+    if cfg.shard is not None and not cfg.shard.sp:
+        x = SH.copy_to_tensor(x, cfg.shard.mesh)
     if cfg.vocab_chunk and labels is not None:
         losses = chunked_cross_entropy_per_token(x, wte, labels,
-                                                 int(cfg.vocab_chunk))
+                                                 int(cfg.vocab_chunk), cfg)
         mask = torch.ones_like(losses) if loss_mask is None else loss_mask
-        out = masked_mean(losses, mask)
+        out = masked_mean(losses, mask, cfg)
     else:
         out = torch.einsum("bsh,vh->bsv", x, wte)
     return (out, aux) if return_aux else out
+
+
+def _embedding_tables(params: dict, cfg: GPTConfig) -> tuple:
+    """``(word, position)`` tables in the compute dtype, whole over
+    ``fsdp`` on a mesh that keeps them sharded there (stage 3); the word
+    table is the rank's vocab rows under tensor parallelism."""
+    emb = params["gpt"]["embeddings"]
+    wte, wpe = emb["word_embeddings"], emb["position_embeddings"]
+    if cfg.shard is not None:
+        wte = cfg.shard.gathered("gpt/embeddings/word_embeddings", wte)
+        wpe = cfg.shard.gathered("gpt/embeddings/position_embeddings", wpe)
+    return wte.to(cfg.dtype), wpe.to(cfg.dtype)
+
+
+def vocab_offset(cfg: GPTConfig, local_vocab: int) -> int:
+    """The first vocab id of this rank's rows of the word table."""
+    if cfg.shard is None or cfg.shard.tensor == 1:
+        return 0
+    return cfg.shard.block("tensor", local_vocab)[0]
+
+
+def _vocab_lookup(tokens: torch.Tensor, wte: torch.Tensor,
+                  cfg: GPTConfig) -> torch.Tensor:
+    """The rank's share of the embedding lookup: the rows of its vocab
+    slice, zeros for the ids another rank owns (their sum over ``tensor``
+    is the lookup)."""
+    lo = vocab_offset(cfg, wte.shape[0])
+    if cfg.shard.tensor == 1:
+        return F.embedding(tokens, wte)
+    local = tokens - lo
+    own = (local >= 0) & (local < wte.shape[0])
+    e = F.embedding(torch.where(own, local, torch.zeros_like(local)), wte)
+    return torch.where(own[..., None], e, torch.zeros_like(e))
+
+
+def gather_logits(logits: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """The whole vocab of a rank's logits (its slice on ``tensor``)."""
+    if cfg.shard is None:
+        return logits
+    return PM.all_gather(logits, "tensor", cfg.shard.mesh, dim=-1)
 
 
 def chunk_geometry(vocab: int, vocab_chunk: int):
@@ -791,7 +996,9 @@ _MAX_UNROLLED_CHUNKS = 32
 
 def chunked_cross_entropy_per_token(x: torch.Tensor, wte: torch.Tensor,
                                     labels: torch.Tensor,
-                                    vocab_chunk: int) -> torch.Tensor:
+                                    vocab_chunk: int,
+                                    cfg: Optional[GPTConfig] = None
+                                    ) -> torch.Tensor:
     """Token-level LM loss without the ``[b, s, V]`` logits
     (``chunked_cross_entropy_per_token``, ``model.py:770-843``).
 
@@ -801,11 +1008,20 @@ def chunked_cross_entropy_per_token(x: torch.Tensor, wte: torch.Tensor,
     so its ``[b, s, chunk]`` f32 logits are freed after its stats and
     rebuilt in the backward: at most one such block is live. Padded ids of
     the last chunk score -1e30.
+
+    On a mesh with tensor parallelism ``wte`` is the rank's vocab slice:
+    the chunks lie inside it, and the slices' stats merge over ``tensor``
+    as ``cross_entropy_per_token``'s do.
     """
     vocab = wte.shape[0]
     chunk, n_chunks, pad = chunk_geometry(vocab, vocab_chunk)
     wte_p = F.pad(wte, (0, 0, 0, pad)) if pad else wte
     labels = labels.long()
+    if cfg is not None:
+        # the rank's vocab slice: ids of other slices land in no chunk
+        labels = labels - vocab_offset(cfg, vocab)
+        labels = torch.where((labels >= 0) & (labels < vocab), labels,
+                             torch.full_like(labels, -1))
 
     def one_chunk(x, w, ci):
         logits = torch.einsum("bsh,vh->bsv", x, w).float()
@@ -829,7 +1045,7 @@ def chunked_cross_entropy_per_token(x: torch.Tensor, wte: torch.Tensor,
         m = functools.reduce(torch.maximum, [p[0] for p in parts])
         l = sum(p[1] * torch.exp(p[0] - m) for p in parts)
         lab = sum(p[2] for p in parts)  # the label lands in one chunk
-        return m + torch.log(l) - lab
+        return _merge_vocab_slices(m, l, lab, cfg)
     b, s = labels.shape
     m = torch.full((b, s), -1e30, dtype=torch.float32, device=x.device)
     l = torch.zeros((b, s), dtype=torch.float32, device=x.device)
@@ -839,26 +1055,64 @@ def chunked_cross_entropy_per_token(x: torch.Tensor, wte: torch.Tensor,
         m_new = torch.maximum(m, cm)
         l = l * torch.exp(m - m_new) + cl * torch.exp(cm - m_new)
         m, lab = m_new, lab + clab
-    return m + torch.log(l) - lab
+    return _merge_vocab_slices(m, l, lab, cfg)
 
 
-def cross_entropy_per_token(logits: torch.Tensor,
-                            labels: torch.Tensor) -> torch.Tensor:
-    """Unreduced token-level LM loss, f32 logsumexp."""
+def _merge_vocab_slices(m: torch.Tensor, l: torch.Tensor, lab: torch.Tensor,
+                        cfg: Optional[GPTConfig]) -> torch.Tensor:
+    """``logsumexp - label logit`` from each rank's (row max, sum of exp
+    at that max, label logit) over its vocab slice: a pmax of the maxima
+    (a constant to autograd, as the logsumexp does not depend on it), a
+    psum of the rescaled sums and of the label logits (one owner)."""
+    mesh = _mesh(cfg) if cfg is not None else None
+    if mesh is None or mesh.shape["tensor"] == 1:
+        return m + torch.log(l) - lab
+    g = PM.pmax(m.detach(), "tensor", mesh)
+    l = SH.reduce_from_tensor(l * torch.exp(m - g), mesh)
+    return g + torch.log(l) - SH.reduce_from_tensor(lab, mesh)
+
+
+def cross_entropy_per_token(logits: torch.Tensor, labels: torch.Tensor,
+                            cfg: Optional[GPTConfig] = None
+                            ) -> torch.Tensor:
+    """Unreduced token-level LM loss, f32 logsumexp. On a mesh with
+    tensor parallelism ``logits`` is the rank's vocab slice: the label's
+    logit comes from the slice that owns it and the slices' stats merge
+    over ``tensor`` (``_merge_vocab_slices``)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    label_logits = logits.gather(-1, labels[..., None].long())[..., 0]
-    return logz - label_logits
+    mesh = _mesh(cfg) if cfg is not None else None
+    if mesh is None or mesh.shape["tensor"] == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        label_logits = logits.gather(-1, labels[..., None].long())[..., 0]
+        return logz - label_logits
+    v = logits.shape[-1]
+    local = labels.long() - vocab_offset(cfg, v)
+    own = (local >= 0) & (local < v)
+    picked = logits.gather(-1, torch.where(own, local, torch.zeros_like(
+        local))[..., None])[..., 0]
+    m = logits.amax(dim=-1)
+    l = torch.exp(logits - m[..., None]).sum(dim=-1)
+    return _merge_vocab_slices(
+        m, l, torch.where(own, picked, torch.zeros_like(picked)), cfg)
 
 
-def masked_mean(losses: torch.Tensor,
-                loss_mask: torch.Tensor) -> torch.Tensor:
-    """Mask-weighted mean of per-token losses."""
+def masked_mean(losses: torch.Tensor, loss_mask: torch.Tensor,
+                cfg: Optional[GPTConfig] = None) -> torch.Tensor:
+    """Mask-weighted mean of per-token losses; on a mesh the global one:
+    the psum of the ranks' masked sums over the psum of their masks (the
+    sum a ``global_sum``, so each rank's grads stay its share)."""
     loss_mask = loss_mask.float().reshape(losses.shape)
-    return (losses * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
+    num, den = (losses * loss_mask).sum(), loss_mask.sum()
+    mesh = _mesh(cfg) if cfg is not None else None
+    if mesh is not None:
+        num = SH.global_sum(num, mesh)
+        den = PM.psum_axes(den, SH.DATA_AXES, mesh)
+    return num / torch.clamp(den, min=1.0)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       loss_mask: torch.Tensor) -> torch.Tensor:
-    """Masked LM loss (``cross_entropy_loss``)."""
-    return masked_mean(cross_entropy_per_token(logits, labels), loss_mask)
+                       loss_mask: torch.Tensor,
+                       cfg: Optional[GPTConfig] = None) -> torch.Tensor:
+    """Masked LM loss (``cross_entropy_loss``); global on a mesh."""
+    return masked_mean(cross_entropy_per_token(logits, labels, cfg),
+                       loss_mask, cfg)

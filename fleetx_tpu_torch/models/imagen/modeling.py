@@ -27,6 +27,7 @@ import torch
 
 from fleetx_tpu_torch.models.gpt.model import DropoutRng
 from fleetx_tpu_torch.models.imagen import unet as U
+from fleetx_tpu_torch.parallel.sharding import global_draw
 
 
 @dataclasses.dataclass
@@ -139,34 +140,43 @@ class ImagenStage:
              noise: Optional[torch.Tensor] = None,
              cond_drop: Optional[torch.Tensor] = None,
              aug_noise: Optional[torch.Tensor] = None,
-             rng: Optional[DropoutRng] = None) -> torch.Tensor:
+             rng: Optional[DropoutRng] = None,
+             rows: Optional[dict] = None) -> torch.Tensor:
         """The stage's training loss (JAX's ``p_losses``): the MSE of the
         prediction against the noise (or v), p2-weighted when
         ``p2_loss_weight_gamma`` is above 0. Draws not passed in come from
-        ``gen``; ``rng`` drives the U-Net's dropout."""
+        ``gen``; ``rng`` drives the U-Net's dropout. ``rows`` (``{0:
+        (offset, total)}``) places a data rank's rows in the global batch,
+        whose draws it takes its rows of (``sharding.global_draw``)."""
         dc = self.diff_cfg
         dev = images.device
         b = images.shape[0]
         sched = self.schedule(dev)
+        rows = rows or {}
+
+        def randn(shape):
+            return global_draw(lambda full: torch.randn(
+                full, generator=gen, device=dev), tuple(shape), rows)
+
         if t is None:
-            t = torch.randint(0, dc.timesteps, (b,), generator=gen,
-                              device=dev)
+            t = global_draw(lambda full: torch.randint(
+                0, dc.timesteps, full, generator=gen, device=dev), (b,), rows)
         if noise is None:
-            noise = torch.randn(images.shape, generator=gen, device=dev)
+            noise = randn(images.shape)
         x0 = images.float()
         x_t = q_sample(sched, x0, t, noise)
         if text_embeds is not None and not deterministic:
             if cond_drop is None:
-                cond_drop = (torch.rand((b,), generator=gen, device=dev)
-                             >= dc.cond_drop_prob).float()
+                cond_drop = (global_draw(lambda full: torch.rand(
+                    full, generator=gen, device=dev), (b,), rows)
+                    >= dc.cond_drop_prob).float()
         else:
             cond_drop = None
         lowres_t = None
         if lowres_images is not None and dc.lowres_noise_aug > 0.0:
             lowres_t = self._lowres_t(b, dev)
             if aug_noise is None:
-                aug_noise = torch.randn(lowres_images.shape, generator=gen,
-                                        device=dev)
+                aug_noise = randn(lowres_images.shape)
             lowres_images = q_sample(sched, lowres_images.float(), lowres_t,
                                      aug_noise)
         pred = U.efficient_unet(params["unet"], self.unet_cfg, x_t, t,

@@ -20,6 +20,7 @@ from fleetx_tpu_torch.core.module import BasicModule
 from fleetx_tpu_torch.models.gpt.model import dropout_rng
 from fleetx_tpu_torch.models.imagen import unet as U
 from fleetx_tpu_torch.models.imagen.modeling import build_stage
+from fleetx_tpu_torch.parallel.sharding import DATA_AXES, data_mean
 from fleetx_tpu_torch.utils.log import logger
 
 
@@ -69,9 +70,11 @@ class ImagenModule(BasicModule):
         """``(loss, {"loss"})`` with the CFG dropout and the U-Net's
         dropout on."""
         images, te, tm, lowres = self._inputs(batch)
-        rng = dropout_rng(seed, step, 0, images.device)
+        rng = dropout_rng(seed, step, 0, images.device, self.shard)
         loss = self.stage.loss(params, images, te, tm, lowres,
-                               deterministic=False, gen=rng.gen, rng=rng)
+                               deterministic=False, gen=rng.gen, rng=rng,
+                               rows=rng.row_block(images.shape[0]))
+        loss = data_mean(loss, self.shard)
         return loss, {"loss": loss}
 
     def validation_loss(self, params: dict, batch: dict):
@@ -80,8 +83,11 @@ class ImagenModule(BasicModule):
         images, te, tm, lowres = self._inputs(batch)
         gen = torch.Generator(device=images.device)
         gen.manual_seed(0)
-        loss = self.stage.loss(params, images, te, tm, lowres,
-                               deterministic=True, gen=gen)
+        rows = {} if self.shard is None else {0: self.shard.block(
+            DATA_AXES, images.shape[0])}
+        loss = data_mean(self.stage.loss(params, images, te, tm, lowres,
+                                         deterministic=True, gen=gen,
+                                         rows=rows), self.shard)
         return loss, {"loss": loss}
 
     def sample_images(self, params: dict, batch_size: int,

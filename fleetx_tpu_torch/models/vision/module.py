@@ -12,6 +12,7 @@ from fleetx_tpu_torch.core.module import BasicModule
 from fleetx_tpu_torch.models.gpt.model import dropout_rng
 from fleetx_tpu_torch.models.vision import loss as L
 from fleetx_tpu_torch.models.vision import vit as V
+from fleetx_tpu_torch.parallel.sharding import data_mean
 from fleetx_tpu_torch.utils.log import logger
 
 #: ``Model`` keys that override the preset
@@ -25,6 +26,9 @@ class GeneralClsModule(BasicModule):
     """Classification: ``training_loss`` (dropout and DropPath on, the
     ``Model.loss.epsilon`` smoothing) and ``validation_loss`` (off, no
     smoothing, with ``top<k>`` for ``Model.metric.topk``)."""
+
+    #: the partition-rule family (``parallel/rules.py``)
+    spec_family = "vision"
 
     def __init__(self, cfg: Any):
         model_cfg = dict(cfg.get("Model", cfg) if isinstance(cfg, dict)
@@ -69,20 +73,24 @@ class GeneralClsModule(BasicModule):
         """``(loss, {"loss"})`` with dropout and DropPath on, their
         randomness from ``seed`` with ``step`` folded in."""
         rng = dropout_rng(seed, step, self.vit_cfg.num_layers,
-                          batch["images"].device)
+                          batch["images"].device, self.shard)
         logits = V.vit(params, self.vit_cfg, batch["images"],
                        deterministic=False, rng=rng)
-        loss = L.vit_cross_entropy(logits, batch["labels"],
-                                   self.label_smoothing)
+        loss = data_mean(L.vit_cross_entropy(logits, batch["labels"],
+                                             self.label_smoothing),
+                         self.shard)
         return loss, {"loss": loss}
 
     def validation_loss(self, params: dict, batch: dict):
         """``(loss, {"loss", "top<k>"...})`` with dropout off and no
         smoothing."""
         logits = V.vit(params, self.vit_cfg, batch["images"])
-        loss = L.cross_entropy(logits, batch["labels"])
+        loss = data_mean(L.cross_entropy(logits, batch["labels"]),
+                         self.shard)
         metrics = {"loss": loss}
-        metrics.update(L.topk_accuracy(logits, batch["labels"], self.topk))
+        metrics.update({k: data_mean(v, self.shard) for k, v in
+                        L.topk_accuracy(logits, batch["labels"],
+                                        self.topk).items()})
         return loss, metrics
 
     def training_step_end(self, log_dict: dict) -> None:

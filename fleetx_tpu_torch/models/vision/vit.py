@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from fleetx_tpu_torch.models.gpt.model import (
     DTYPES, DropoutRng, _dropout, _unstack, f32_layer_norm, recompute)
+from fleetx_tpu_torch.parallel import sharding as SH
 
 
 @dataclasses.dataclass
@@ -193,7 +194,8 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=rng.gen, device=x.device) < keep
+    mask = SH.global_rand(shape, rng.row_block(x.shape[0]), rng.gen,
+                          x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

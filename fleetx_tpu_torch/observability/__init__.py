@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 from typing import Any, Optional
 
@@ -49,6 +50,14 @@ __all__ = [
     "span", "get_tracer", "set_tracer", "Observability", "FlightRecorder",
     "MemoryMonitor", "sample_memory_stats",
 ]
+
+
+def _world_size() -> int:
+    """The process group's size (1 without one)."""
+    dist = getattr(sys.modules.get("torch"), "distributed", None)
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        return int(dist.get_world_size())
+    return 1
 
 
 class Observability:
@@ -98,7 +107,7 @@ class Observability:
             flight_dir = (os.environ.get(flight_mod.ENV_DIR)
                           or os.path.join(self.output_dir, "flight"))
             self.flight = FlightRecorder(
-                flight_dir, rank=self.rank, world=1,
+                flight_dir, rank=self.rank, world=_world_size(),
                 capacity=int(flight_cfg.get("capacity")
                              or flight_mod.DEFAULT_CAPACITY))
         flight_mod.install(self.flight)

@@ -65,7 +65,12 @@ block; those bits cannot be had on a GPU. Here the mask is one
 counter-based hash keyed per ELEMENT by ``(seed, b·head, row, col)``
 (``dropout_bits``: three rounds of a 32-bit integer mixer), written
 identically in the CUDA source and below in int64 arithmetic masked to
-32 bits. Forward, fused and split backward therefore see the same mask
+32 bits. ``b·head`` is the GLOBAL batch-head index: every function takes
+``heads = (local_heads, total_heads, batch_offset, head_offset)``, which
+maps a launch's index ``i`` to ``(batch_offset + i // local_heads) ·
+total_heads + head_offset + i % local_heads`` (``NO_SHARD``, the
+default, leaves it as it is), so a rank that holds a block of the batch
+rows and of the heads draws the masks one rank draws for them. Forward, fused and split backward therefore see the same mask
 whatever their tiling, and kernel and plain version use bit-identical
 masks. An element is kept when ``bits >= rate·2^32`` and scaled by
 ``1/(1-rate)``, as ``_dropout_mask`` decides.
@@ -99,6 +104,14 @@ _MASK32 = 0xFFFFFFFF
 #: operand dtypes and head_dims of the tensor-core kernels
 TC_DTYPES = (torch.bfloat16, torch.float16)
 TC_HEAD_DIMS = (64, 128)
+#: ``heads`` of an unsharded call: the launch's index is the global one
+NO_SHARD = (1, 1, 0, 0)
+
+
+def _map_kw(heads) -> dict:
+    """``heads`` as a keyword argument, none for an unsharded call (so a
+    call without a map is the call it was before maps)."""
+    return {} if tuple(heads) == NO_SHARD else {"heads": tuple(heads)}
 
 
 def tc_route(dtype: torch.dtype, head_dim: int) -> bool:
@@ -155,11 +168,20 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def global_heads(bh: int, heads=NO_SHARD, device=None) -> torch.Tensor:
+    """The global batch-head index of each of a launch's ``bh`` rows
+    (``heads`` as the module docstring says)."""
+    local, total, b_off, h_off = (int(x) for x in heads)
+    i = torch.arange(bh, dtype=torch.int64, device=device)
+    return (b_off + i // local) * total + h_off + i % local
+
+
 def dropout_bits(seed: int, bh: int, sq: int, sk: int,
-                 device=None) -> torch.Tensor:
+                 device=None, heads=NO_SHARD) -> torch.Tensor:
     """The kernels' 32-bit random word per element, ``[bh, sq, sk]`` int64:
-    ``mix32(mix32(mix32(seed ^ mix32(h ^ K0)) ^ row) ^ (col · K1))``."""
-    heads = torch.arange(bh, dtype=torch.int64, device=device)
+    ``mix32(mix32(mix32(seed ^ mix32(h ^ K0)) ^ row) ^ (col · K1))``, ``h``
+    the global batch-head index."""
+    heads = global_heads(bh, heads, device)
     rows = torch.arange(sq, dtype=torch.int64, device=device)
     cols = torch.arange(sk, dtype=torch.int64, device=device)
     k_head = _mix32((int(seed) & _MASK32) ^ _mix32(heads ^ 0x85EBCA6B))
@@ -174,9 +196,10 @@ def keep_threshold(rate: float) -> int:
 
 
 def dropout_keep(seed: int, bh: int, sq: int, sk: int, rate: float,
-                 device=None) -> torch.Tensor:
+                 device=None, heads=NO_SHARD) -> torch.Tensor:
     """The kernels' keep mask ``[bh, sq, sk]`` (bool)."""
-    return dropout_bits(seed, bh, sq, sk, device) >= keep_threshold(rate)
+    return dropout_bits(seed, bh, sq, sk, device, heads) >= \
+        keep_threshold(rate)
 
 
 # -------------------------------------------------------------- plain
@@ -192,7 +215,8 @@ def _scores(q3, k3, scale, causal):
 
 def fwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
               seed: int, scale: float, causal: bool = True,
-              rate: float = 0.0, round_operands: bool = False):
+              rate: float = 0.0, round_operands: bool = False,
+              heads=NO_SHARD):
     """The forward kernel's function, dense: ``(out, lse)``.
     ``round_operands`` rounds the dropped ``p`` to q's dtype before
     ``p @ v``, as the tensor-core kernel does; the normaliser keeps the
@@ -203,7 +227,7 @@ def fwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     l = p.sum(dim=-1)
     if rate > 0.0:
         keep = dropout_keep(seed, q3.shape[0], q3.shape[1], k3.shape[1],
-                            rate, q3.device)
+                            rate, q3.device, heads)
         p = torch.where(keep, p / (1.0 - rate), torch.zeros_like(p))
     if round_operands:
         p = p.to(q3.dtype).float()
@@ -213,7 +237,8 @@ def fwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     return out, m + torch.log(l_safe)
 
 
-def _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate):
+def _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate,
+                heads=NO_SHARD):
     """``p = exp(s - lse)``, ``dp = do · vᵀ`` and the keep mask (None
     without dropout), in f32, as every backward kernel recomputes them."""
     p = torch.exp(_scores(q3, k3, scale, causal) - lse[..., None])
@@ -221,18 +246,19 @@ def _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate):
     keep = None
     if rate > 0.0:
         keep = dropout_keep(seed, q3.shape[0], q3.shape[1], k3.shape[1],
-                            rate, q3.device)
+                            rate, q3.device, heads)
     return p, dp, keep
 
 
 def _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal, rate,
-              round_operands=False):
+              round_operands=False, heads=NO_SHARD):
     """``(ds, dk, dv)`` in f32, kept ``p`` and ``dp`` multiplied by
     ``1 / (1 - rate)`` (``_bwd_fused_kernel:484-493``,
     ``_bwd_dkv_kernel:347-360``); ``round_operands`` rounds the dropped
     ``p`` and ``ds`` to q's dtype before their products (``ds`` comes back
     unrounded)."""
-    p, dp, keep = _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate)
+    p, dp, keep = _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate,
+                              heads)
     pd = p
     if keep is not None:
         inv = 1.0 / (1.0 - rate)
@@ -251,13 +277,14 @@ def _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal, rate,
 def bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
               do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
               seed: int, scale: float, causal: bool = True,
-              rate: float = 0.0, round_operands: bool = False):
+              rate: float = 0.0, round_operands: bool = False,
+              heads=NO_SHARD):
     """The fused backward kernel's function, dense: ``(dq f32, dk, dv)``.
     ``round_operands`` rounds the dropped ``p`` (for dv) and ``ds`` (for
     dk and dq) to q's dtype before their products, as the tensor-core
     kernel does."""
     ds, dk, dv = _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal,
-                           rate, round_operands)
+                           rate, round_operands, heads)
     if round_operands:
         ds = ds.to(q3.dtype).float()
     dq = torch.einsum("bqk,bkd->bqd", ds, k3.float())
@@ -267,13 +294,14 @@ def bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
 def bwd_dq_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  seed: int, scale: float, causal: bool = True,
-                 rate: float = 0.0,
-                 round_operands: bool = False) -> torch.Tensor:
+                 rate: float = 0.0, round_operands: bool = False,
+                 heads=NO_SHARD) -> torch.Tensor:
     """The dq kernel's function, dense: dq in the operand dtype. Kept
     ``dp`` is divided by ``1 - rate`` (``_bwd_dq_kernel:301-305``).
     ``round_operands`` rounds ``ds`` to q's dtype before ``dq = ds k``, as
     the tensor-core kernel does."""
-    p, dp, keep = _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate)
+    p, dp, keep = _split_p_dp(q3, k3, v3, do, lse, seed, scale, causal, rate,
+                              heads)
     if keep is not None:
         dp = torch.where(keep, dp / (1.0 - rate), torch.zeros_like(dp))
     ds = p * (dp - delta[..., None]) * scale
@@ -285,13 +313,14 @@ def bwd_dq_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
 def bwd_dkv_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   seed: int, scale: float, causal: bool = True,
-                  rate: float = 0.0, round_operands: bool = False):
+                  rate: float = 0.0, round_operands: bool = False,
+                  heads=NO_SHARD):
     """The dk/dv kernel's function, dense: ``(dk, dv)`` in the k/v
     dtype. ``round_operands`` rounds the dropped ``pᵀ`` and ``dsᵀ`` to q's
     dtype before ``dv += pᵀ do`` and ``dk += dsᵀ q``, as the tensor-core
     kernel does."""
     _, dk, dv = _ds_dk_dv(q3, k3, v3, do, lse, delta, seed, scale, causal,
-                          rate, round_operands)
+                          rate, round_operands, heads)
     return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
@@ -306,8 +335,10 @@ def _fns():
            lib.fleetx_flash_bwd_dq, lib.fleetx_flash_bwd_dkv)
     if fns[0].argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        # ..., scale, seed, thresh, dropout, keep_prob / inv, the route (tc)
-        tail = [ctypes.c_float, u32, u32, i32, ctypes.c_float, i32]
+        # ..., scale, seed, the head map (4), thresh, dropout,
+        # keep_prob / inv, the route (tc)
+        tail = [ctypes.c_float, u32] + [i32] * 4 + \
+            [u32, i32, ctypes.c_float, i32]
         for fn, n_ptrs in zip(fns, (5, 9, 7, 8)):
             fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + tail + [ptr]
             fn.restype = i32
@@ -375,12 +406,23 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _head_map(heads, bh: int) -> tuple:
+    """The head map's four C arguments, checked."""
+    local, total, b_off, h_off = (int(x) for x in heads)
+    if local < 1 or total < local or b_off < 0 or h_off < 0 or \
+            h_off + local > total or bh % local:
+        raise ValueError(f"flash attention: head map {tuple(heads)} does "
+                         f"not fit {bh} rows")
+    return local, total, b_off, h_off
+
+
 def fwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
              seed: int, scale: float, causal: bool = True,
-             rate: float = 0.0):
+             rate: float = 0.0, heads=NO_SHARD):
     """Forward over ``[b·heads, seq, head_dim]``: ``(out, lse f32)``."""
     if q3.device.type == "cpu":
-        return fwd_plain(q3, k3, v3, seed, scale, causal, rate)
+        return fwd_plain(q3, k3, v3, seed, scale, causal, rate,
+                         **_map_kw(heads))
     _on_card("flash attention", q3)
     bh, sq, sk, d = _geometry(q3, k3, causal)
     _check("flash fwd", (q3, k3, v3), ((bh, sq, d), (bh, sk, d),
@@ -393,8 +435,8 @@ def fwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     _launch("flash attention forward", _fns()[0], q3.data_ptr(),
             k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
             sq, sk, d, int(causal), _DTYPE_CODES[q3.dtype], float(scale),
-            int(seed) & _MASK32, keep_threshold(rate), int(rate > 0.0),
-            1.0 - float(rate), int(tc), _stream(q3))
+            int(seed) & _MASK32, *_head_map(heads, bh), keep_threshold(rate),
+            int(rate > 0.0), 1.0 - float(rate), int(tc), _stream(q3))
     fwd_call.launches += 1
     fwd_call.tc_launches += int(tc)
     return out, lse
@@ -407,19 +449,21 @@ fwd_call.tc_launches = 0
 @torch.library.custom_op(
     "fleetx_tpu_torch::flash_fwd", mutates_args=(),
     schema="(Tensor q3, Tensor k3, Tensor v3, int seed, float scale, "
-           "bool causal, float rate) -> (Tensor, Tensor)")
+           "bool causal, float rate, int[] heads=[1, 1, 0, 0]) -> "
+           "(Tensor, Tensor)")
 def flash_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
-              seed: int, scale: float, causal: bool, rate: float):
+              seed: int, scale: float, causal: bool, rate: float,
+              heads: list = NO_SHARD):
     """``fwd_call`` as the custom op ``torch.ops.fleetx_tpu_torch.flash_fwd``:
     what an exported program (``torch.export``) records in place of the
     ctypes launch, which a fake tensor cannot trace. Its implementation is
     ``fwd_call`` itself (the plain version on a CPU tensor), so a run of an
     exported program counts its launches."""
-    return fwd_call(q3, k3, v3, seed, scale, causal, rate)
+    return fwd_call(q3, k3, v3, seed, scale, causal, rate, **_map_kw(heads))
 
 
 @flash_fwd.register_fake
-def _flash_fwd_fake(q3, k3, v3, seed, scale, causal, rate):
+def _flash_fwd_fake(q3, k3, v3, seed, scale, causal, rate, heads=NO_SHARD):
     return (torch.empty_like(q3),
             q3.new_empty((q3.shape[0], q3.shape[1]), dtype=torch.float32))
 
@@ -427,12 +471,12 @@ def _flash_fwd_fake(q3, k3, v3, seed, scale, causal, rate):
 def bwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
              seed: int, scale: float, causal: bool = True,
-             rate: float = 0.0):
+             rate: float = 0.0, heads=NO_SHARD):
     """Fused backward: ``(dq f32, dk, dv)`` (dk/dv in the input dtype);
     head_dim <= 128 (``fused_backward_supported``)."""
     if q3.device.type == "cpu":
         return bwd_plain(q3, k3, v3, do, lse, delta, seed, scale, causal,
-                         rate)
+                         rate, **_map_kw(heads))
     _on_card("flash attention", q3)
     bh, sq, sk, d = _bwd_operands("flash bwd", q3, k3, v3, do, lse, delta,
                                   causal)
@@ -449,8 +493,8 @@ def bwd_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
             k3.data_ptr(), v3.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
             sq, sk, d, int(causal), _DTYPE_CODES[q3.dtype], float(scale),
-            int(seed) & _MASK32, keep_threshold(rate), int(rate > 0.0),
-            float(inv), int(tc), _stream(q3))
+            int(seed) & _MASK32, *_head_map(heads, bh), keep_threshold(rate),
+            int(rate > 0.0), float(inv), int(tc), _stream(q3))
     bwd_call.launches += 1
     bwd_call.tc_launches += int(tc)
     return dq, dk, dv
@@ -463,11 +507,11 @@ bwd_call.tc_launches = 0
 def bwd_dq_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                 seed: int, scale: float, causal: bool = True,
-                rate: float = 0.0) -> torch.Tensor:
+                rate: float = 0.0, heads=NO_SHARD) -> torch.Tensor:
     """Split backward, dq kernel: dq in the operand dtype."""
     if q3.device.type == "cpu":
         return bwd_dq_plain(q3, k3, v3, do, lse, delta, seed, scale, causal,
-                            rate)
+                            rate, **_map_kw(heads))
     _on_card("flash attention", q3)
     bh, sq, sk, d = _bwd_operands("flash bwd dq", q3, k3, v3, do, lse,
                                   delta, causal)
@@ -477,8 +521,8 @@ def bwd_dq_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
             v3.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), bh, sq, sk, d, int(causal),
             _DTYPE_CODES[q3.dtype], float(scale), int(seed) & _MASK32,
-            keep_threshold(rate), int(rate > 0.0), 1.0 - float(rate),
-            int(tc), _stream(q3))
+            *_head_map(heads, bh), keep_threshold(rate), int(rate > 0.0),
+            1.0 - float(rate), int(tc), _stream(q3))
     bwd_dq_call.launches += 1
     bwd_dq_call.tc_launches += int(tc)
     return dq
@@ -491,11 +535,11 @@ bwd_dq_call.tc_launches = 0
 def bwd_dkv_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  seed: int, scale: float, causal: bool = True,
-                 rate: float = 0.0):
+                 rate: float = 0.0, heads=NO_SHARD):
     """Split backward, dk/dv kernel: ``(dk, dv)`` in the k/v dtype."""
     if q3.device.type == "cpu":
         return bwd_dkv_plain(q3, k3, v3, do, lse, delta, seed, scale,
-                             causal, rate)
+                             causal, rate, **_map_kw(heads))
     _on_card("flash attention", q3)
     bh, sq, sk, d = _bwd_operands("flash bwd dkv", q3, k3, v3, do, lse,
                                   delta, causal)
@@ -507,8 +551,8 @@ def bwd_dkv_call(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
             k3.data_ptr(), v3.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
             int(causal), _DTYPE_CODES[q3.dtype], float(scale),
-            int(seed) & _MASK32, keep_threshold(rate), int(rate > 0.0),
-            float(inv), int(tc), _stream(q3))
+            int(seed) & _MASK32, *_head_map(heads, bh), keep_threshold(rate),
+            int(rate > 0.0), float(inv), int(tc), _stream(q3))
     bwd_dkv_call.launches += 1
     bwd_dkv_call.tc_launches += int(tc)
     return dk, dv
@@ -531,15 +575,16 @@ class _Flash3(torch.autograd.Function):
     """Flash attention on ``[b·heads, seq, head_dim]`` operands."""
 
     @staticmethod
-    def forward(ctx, q3, k3, v3, seed, scale, causal, rate, fused=True):
+    def forward(ctx, q3, k3, v3, seed, scale, causal, rate, fused=True,
+                heads=NO_SHARD):
         """Forward kernel through the custom op ``flash_fwd`` (a save
         point of kind ``"kernel"``, ``ops/save_points.py``); saves the
         operands, ``out`` and ``lse``; ``fused`` picks the backward
         kernel(s)."""
-        out, lse = kept("kernel", lambda: flash_fwd(q3, k3, v3, seed, scale,
-                                                    causal, rate))
+        out, lse = kept("kernel", lambda: flash_fwd(
+            q3, k3, v3, seed, scale, causal, rate, list(heads)))
         ctx.save_for_backward(q3, k3, v3, out, lse)
-        ctx.args = (seed, scale, causal, rate, fused)
+        ctx.args = (seed, scale, causal, rate, fused, tuple(heads))
         return out
 
     @staticmethod
@@ -547,28 +592,32 @@ class _Flash3(torch.autograd.Function):
         """``delta = sum(out · do)`` here, then the fused kernel (its f32
         dq cast to the operand dtype) or the split dq + dk/dv pair."""
         q3, k3, v3, out, lse = ctx.saved_tensors
-        seed, scale, causal, rate, fused = ctx.args
+        seed, scale, causal, rate, fused, heads = ctx.args
         g = g.contiguous()
         delta = (out.float() * g.float()).sum(dim=-1)
         args = (q3, k3, v3, g, lse, delta, seed, scale, causal, rate)
         if fused:
-            dq, dk, dv = bwd_call(*args)
+            dq, dk, dv = bwd_call(*args, **_map_kw(heads))
             dq = dq.to(q3.dtype)
         else:
-            dq = bwd_dq_call(*args)
-            dk, dv = bwd_dkv_call(*args)
-        return dq, dk, dv, None, None, None, None, None
+            dq = bwd_dq_call(*args, **_map_kw(heads))
+            dk, dv = bwd_dkv_call(*args, **_map_kw(heads))
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     dropout_rate: float = 0.0, dropout_seed: int = 0,
-                    fused_bwd: bool = True) -> torch.Tensor:
+                    fused_bwd: bool = True,
+                    heads=NO_SHARD) -> torch.Tensor:
     """Blockwise causal attention; q/k/v ``[batch, seq, heads, head_dim]``.
 
     ``dropout_rate`` > 0 applies attention-probability dropout inside the
     kernels with the hash mask keyed by ``dropout_seed`` (vary it per step
-    and layer). The backward takes the single-pass fused kernel where
+    and layer); ``heads`` places the call's batch rows and heads in the
+    global ones the mask is keyed on (``(heads here, heads in all,
+    first batch row, first head)``). The backward takes the single-pass
+    fused kernel where
     ``fused_bwd`` is on and ``fused_backward_supported`` admits the shape,
     and the split dq + dk/dv kernels otherwise (``fused_bwd`` off, head_dim
     256), as the JAX ``flash_attention`` does. The port's fused predicate
@@ -589,8 +638,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     args = (to3(q, sq), to3(k, sk), to3(v, sk), int(dropout_seed),
             float(scale), bool(causal), float(dropout_rate))
+    heads = tuple(int(x) for x in heads)
+    if heads != NO_SHARD and heads[0] != n:
+        raise ValueError(f"flash_attention: head map {heads} for {n} "
+                         f"heads a row")
     if needs_grad(q, k, v):
-        out3 = _Flash3.apply(*args, fused)
+        out3 = _Flash3.apply(*args, fused, heads)
     else:
-        out3 = flash_fwd(*args)[0]
+        out3 = flash_fwd(*args, list(heads))[0]
     return out3.reshape(b, n, sq, d).transpose(1, 2)

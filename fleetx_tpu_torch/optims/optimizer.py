@@ -19,6 +19,12 @@ a loop over the parameter tensors, updating them in place:
 dict a checkpoint holds (``count``, ``decay``, ``mu/<leaf path>``,
 ``nu/<leaf path>``) and back, bit for bit.
 
+On a mesh each rank passes its blocks of the leaves (the engine's ZeRO
+slices, its tensor-parallel blocks) and the norm covers the whole tree:
+``global_norm(grads, axes, mesh)`` psums each leaf's sum of squares over
+the mesh axes that leaf is split on, so a replicated leaf counts once.
+The update itself is elementwise and runs on whatever blocks it is given.
+
 ``Momentum`` (``sgd``, :138-150) is ``optax.sgd`` after the same clip:
 ``trace = g + momentum · trace`` (zeros at init, the parameter's dtype),
 ``p += -lr(t) · trace``; no weight decay, as in the JAX chain.
@@ -59,9 +65,22 @@ def decay_mask(params: Any, path: tuple = ()) -> Any:
     return not is_no_decay_path(path)
 
 
-def global_norm(grads: list) -> torch.Tensor:
-    """``sqrt`` of the sum of every grad's sum of squares (a 0-d tensor)."""
-    return torch.sqrt(sum((g * g).sum() for g in grads))
+def global_norm(grads: list, axes: Optional[list] = None,
+                mesh: Any = None) -> torch.Tensor:
+    """``sqrt`` of the sum of every grad's sum of squares (a 0-d tensor).
+    With ``axes`` (per grad, the mesh axes its block is split over) the
+    sum covers the whole tree of a mesh: the leaves split the same way
+    are summed, that sum psum'd over their axes."""
+    if axes is None or mesh is None:
+        return torch.sqrt(sum((g * g).sum() for g in grads))
+    from fleetx_tpu_torch.parallel.mesh import psum_axes
+
+    groups: dict = {}
+    for g, ax in zip(grads, axes):
+        key = tuple(sorted(set(ax)))
+        groups[key] = groups.get(key, 0) + (g * g).sum()
+    return torch.sqrt(sum(psum_axes(v, k, mesh)
+                          for k, v in sorted(groups.items())))
 
 
 class AdamW:
@@ -92,13 +111,15 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def grad_norm(self, grads: list, grad_scale: float = 1.0) -> torch.Tensor:
+    def grad_norm(self, grads: list, grad_scale: float = 1.0,
+                  axes: Optional[list] = None,
+                  mesh: Any = None) -> torch.Tensor:
         """The global norm of ``grads · grad_scale`` (a 0-d tensor), taken
         on the grads as given and scaled after: with the loss scaler's
         power-of-two ``grad_scale`` the product is exact, so this equals
         the norm of the unscaled grads without a pass that unscales
-        them."""
-        g_norm = global_norm(grads)
+        them. ``axes`` / ``mesh``: a mesh's blocks (``global_norm``)."""
+        g_norm = global_norm(grads, axes, mesh)
         return g_norm if grad_scale == 1.0 else g_norm * grad_scale
 
     @torch.no_grad()
@@ -131,10 +152,15 @@ class AdamW:
             mu, nu = state["mu"][i], state["nu"][i]
             mu.mul_(b1).add_(g.to(mu.dtype), alpha=(1.0 - b1) * grad_scale)
             nu.mul_(b2).add_(g * g, alpha=(1.0 - b2) * grad_scale ** 2)
-            u = (mu / c1) / (torch.sqrt(nu / c2) + eps)
+            del g
+            # the chain's arithmetic, op for op, with the temporaries
+            # updated in place: two leaf-sized buffers at a time
+            denom = torch.sqrt(nu / c2).add_(eps)
+            u = (mu / c1).div_(denom)
+            del denom
             if self.weight_decay and state["decay"][i]:
-                u = u + self.weight_decay * p
-            p.add_((u * -lr).to(p.dtype))
+                u.add_(self.weight_decay * p)
+            p.add_(u.mul_(-lr).to(p.dtype))
         state["count"] = t
         return g_norm
 
@@ -191,9 +217,11 @@ class Momentum:
                           for _, p in tree_leaves_with_path(params)]}
 
     @torch.no_grad()
-    def grad_norm(self, grads: list, grad_scale: float = 1.0) -> torch.Tensor:
+    def grad_norm(self, grads: list, grad_scale: float = 1.0,
+                  axes: Optional[list] = None,
+                  mesh: Any = None) -> torch.Tensor:
         """As ``AdamW.grad_norm``."""
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, axes, mesh)
         return g_norm if grad_scale == 1.0 else g_norm * grad_scale
 
     @torch.no_grad()

@@ -7,9 +7,15 @@ layout of the process group's ranks in the same shape and order (rank
 device ``r``: ``tensor`` innermost), with one process group per axis
 (the ranks that differ only on that axis) and one CPU gloo group for the
 host messages a serving leader broadcasts. The collectives a sharded
-forward calls are the counterparts of ``jax.lax.axis_index``, ``pmax``,
-``psum`` and ``all_gather`` over a named axis; each is the identity at
-axis size 1, so one-rank code runs unchanged.
+forward and a sharded training step call are the counterparts of
+``jax.lax.axis_index``, ``pmax``, ``psum``, ``all_gather`` and
+``psum_scatter`` (``reduce_scatter``) over a named axis, and a
+``barrier``; each is the identity at axis size 1, so one-rank code runs
+unchanged.
+
+Gloo has no reduce-scatter: there ``reduce_scatter`` is an all-reduce
+that keeps the rank's block. Under NCCL it is ``reduce_scatter_tensor``
+(that branch runs only on a host with a card per rank).
 
 A collective runs on the tensor where it lies: a CUDA tensor over gloo
 (ranks sharing one card) is staged by gloo itself through pinned host
@@ -239,6 +245,50 @@ def all_gather(x: torch.Tensor, axis: str, mesh: Optional[Mesh],
     parts = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def psum_axes(x: torch.Tensor, axes, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Sum over the ranks of every axis in ``axes``, in turn."""
+    for axis in axes:
+        x = psum(x, axis, mesh)
+    return x
+
+
+def reduce_scatter(x: torch.Tensor, axis: str, mesh: Optional[Mesh],
+                   dim: int = 0) -> torch.Tensor:
+    """Sum over the ranks of ``axis`` and keep this rank's block of
+    ``dim`` (``jax.lax.psum_scatter(..., tiled=True)``); ``dim`` must
+    split evenly."""
+    group = _group(mesh, axis)
+    if group is None:
+        return x
+    import torch.distributed as dist
+
+    from fleetx_tpu_torch.utils.env import get_backend
+
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks of {axis!r}")
+    at = mesh.axis_index(axis)
+    if get_backend() == "nccl":
+        t = x.movedim(dim, 0).contiguous()
+        out = torch.empty((t.shape[0] // n, *t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        dist.reduce_scatter_tensor(out, t, group=group)
+        return out.movedim(0, dim)
+    total = _all_reduce(dist.ReduceOp.SUM, x, axis, mesh)
+    return total.narrow(dim, at * (x.shape[dim] // n),
+                        x.shape[dim] // n).contiguous()
+
+
+def barrier(mesh: Optional[Mesh]) -> None:
+    """Every rank of the mesh reaches this point (over the CPU group)."""
+    if mesh is None or mesh.cpu_group is None:
+        return
+    import torch.distributed as dist
+
+    dist.barrier(group=mesh.cpu_group)
 
 
 def broadcast_object(obj: Any, mesh: Mesh) -> Any:

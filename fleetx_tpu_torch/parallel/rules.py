@@ -1,4 +1,4 @@
-"""Partition rules of the port: the serving and GPT subset of
+"""Partition rules of the port: the rule tables and ZeRO helpers of
 ``fleetx_tpu/parallel/rules.py``, as plain data.
 
 The JAX registry maps named parameter leaves to ``PartitionSpec``s that
@@ -10,16 +10,20 @@ tables and resolution order are the JAX module's:
 - ``MESH_AXES``: the axis vocabulary ``(pipe, data, fsdp, seq, tensor)``;
 - ``SpecLayout``: the logical → mesh table (``axis_rules``,
   ``mesh_entry``, ``to_mesh``, ``from_dist_config``);
-- ``PARTITION_RULES``: the ``gpt`` family's leaf rules
-  (``fleetx_tpu/parallel/rules.py:208-230``) and the ``serving_kv`` pool;
-- ``spec_for`` (``:388``) and ``kv_pool_spec`` (``:541``).
+- ``PARTITION_RULES``: the families ``gpt``, ``gpt_moe``, ``gpt_lora``,
+  ``vision``, ``ernie``, ``imagen`` (``:208-323``) and the ``serving_kv``
+  pool;
+- ``spec_for`` (``:388``) and ``kv_pool_spec`` (``:541``);
+- the ZeRO helpers ``first_free_divisible_dim``, ``with_fsdp_axis``,
+  ``ZERO_STAGE_TERMS`` / ``stage_shards`` and ``batch_spec``
+  (``:484-556``).
 
 ``shard_tree`` is the one place a rank's weights are cut: it applies
 ``shard_leaf`` to every leaf of a full parameter dict under the family's
 rules.
 
-The ERNIE, ViT, MoE and LoRA families and the static audits come with
-distributed training (ROADMAP.md, port queue item 12).
+The static audits (``audit_leaves``, ``registry_fingerprint``) come with
+a later part of distributed training (ROADMAP.md, port queue item 12).
 """
 
 from __future__ import annotations
@@ -112,22 +116,86 @@ class SpecLayout:
         return canonicalize(resolved)
 
 
+#: the template of a leaf that replicates by declaration (Imagen)
+REPLICATED = "replicated"
+
+_GPT_ATTN_RULES = (
+    (r"attn/qkv_kernel$", ("embed", None, "heads", "kv")),
+    (r"attn/qkv_bias$", (None, "heads", "kv")),
+    (r"attn/out_kernel$", ("heads", "kv", "embed")),
+    (r"attn/out_bias$", ("embed",)),
+)
+
+_GPT_DENSE_MLP_RULES = (
+    (r"mlp/wi_kernel$", ("embed", "mlp")),
+    (r"mlp/wi_bias$", ("mlp",)),
+    (r"mlp/wo_kernel$", ("mlp", "embed")),
+    (r"mlp/wo_bias$", ("embed",)),
+)
+
+_GPT_MOE_MLP_RULES = (
+    (r"mlp/router_kernel$", ("embed", None)),
+    (r"mlp/wi_kernel$", ("expert", "embed", "mlp")),
+    (r"mlp/wi_bias$", ("expert", "mlp")),
+    (r"mlp/wo_kernel$", ("expert", "mlp", "embed")),
+    (r"mlp/wo_bias$", ("expert", None)),
+)
+
+_GPT_COMMON_RULES = (
+    (r"embeddings/word_embeddings$", ("vocab", "embed")),
+    (r"embeddings/position_embeddings$", (None, "embed")),
+    (r"(ln1|ln2|ln_f)/(scale|bias)$", ("norm",)),
+)
+
+# LoRA adapters: A replicates, B takes its base leaf's output-side axis
+_GPT_LORA_RULES = (
+    (r"attn/qkv_kernel_lora_a$", (None, None)),
+    (r"attn/qkv_kernel_lora_b$", (None, None, "heads", "kv")),
+    (r"attn/out_kernel_lora_a$", (None, None, None)),
+    (r"attn/out_kernel_lora_b$", (None, "embed")),
+    (r"mlp/wi_kernel_lora_a$", (None, None)),
+    (r"mlp/wi_kernel_lora_b$", (None, "mlp")),
+    (r"mlp/wo_kernel_lora_a$", (None, None)),
+    (r"mlp/wo_kernel_lora_b$", (None, "embed")),
+)
+
 #: family → ordered (regex, logical template) rules; first match wins.
 #: Templates name the TRAILING feature axes; stacked leaves get their
 #: leading dims from ``STACK_AXES`` (``STACK_MARKERS``)
 PARTITION_RULES: dict = {
-    "gpt": (
-        (r"attn/qkv_kernel$", ("embed", None, "heads", "kv")),
-        (r"attn/qkv_bias$", (None, "heads", "kv")),
-        (r"attn/out_kernel$", ("heads", "kv", "embed")),
-        (r"attn/out_bias$", ("embed",)),
-        (r"mlp/wi_kernel$", ("embed", "mlp")),
-        (r"mlp/wi_bias$", ("mlp",)),
-        (r"mlp/wo_kernel$", ("mlp", "embed")),
-        (r"mlp/wo_bias$", ("embed",)),
-        (r"embeddings/word_embeddings$", ("vocab", "embed")),
-        (r"embeddings/position_embeddings$", (None, "embed")),
+    "gpt": _GPT_ATTN_RULES + _GPT_DENSE_MLP_RULES + _GPT_COMMON_RULES,
+    "gpt_moe": _GPT_ATTN_RULES + _GPT_MOE_MLP_RULES + _GPT_COMMON_RULES,
+    "gpt_lora": _GPT_LORA_RULES + _GPT_ATTN_RULES + _GPT_DENSE_MLP_RULES
+    + _GPT_COMMON_RULES,
+    "vision": _GPT_ATTN_RULES + _GPT_DENSE_MLP_RULES + (
         (r"(ln1|ln2|ln_f)/(scale|bias)$", ("norm",)),
+        (r"(^|/)cls_token$", (None, None, "embed")),
+        (r"(^|/)pos_embed$", (None, None, "embed")),
+        (r"(^|/)patch_kernel$", (None, None, None, "embed")),
+        (r"(^|/)patch_bias$", ("embed",)),
+        (r"(^|/)head_kernel$", ("embed", "vocab")),
+        (r"(^|/)head_bias$", ("vocab",)),
+    ),
+    "ernie": _GPT_ATTN_RULES + (
+        (r"layers/wi_kernel$", ("embed", "mlp")),
+        (r"layers/wi_bias$", ("mlp",)),
+        (r"layers/wo_kernel$", ("mlp", "embed")),
+        (r"layers/wo_bias$", ("embed",)),
+        (r"(ln1|ln2|embed_ln|mlm_ln)/(scale|bias)$", ("norm",)),
+        (r"word_embeddings$", ("vocab", "embed")),
+        (r"(position|token_type)_embeddings$", (None, "embed")),
+        (r"pooler_kernel$", ("embed", None)),
+        (r"pooler_bias$", ("embed",)),
+        (r"(^|/)mlm_transform_kernel$", ("embed", None)),
+        (r"(^|/)mlm_transform_bias$", ("embed",)),
+        (r"(^|/)mlm_bias$", ("vocab",)),
+        (r"(^|/)nsp_kernel$", ("embed", None)),
+        (r"(^|/)nsp_bias$", (None,)),
+    ),
+    # the diffusion stages are data-parallel only: every leaf replicates
+    # by declaration
+    "imagen": (
+        (r".", REPLICATED),
     ),
     # the serving KV page pool: pages over the ZeRO axis, heads over the
     # Megatron axis
@@ -138,7 +206,13 @@ PARTITION_RULES: dict = {
 }
 
 #: family → regex marking stacked-layer leaves
-STACK_MARKERS: dict = {"gpt": r"(^|/)layers/"}
+STACK_MARKERS: dict = {
+    "gpt": r"(^|/)layers/",
+    "gpt_moe": r"(^|/)layers/",
+    "gpt_lora": r"(^|/)layers/",
+    "vision": r"(^|/)blocks/",
+    "ernie": r"(^|/)layers/",
+}
 
 
 def canonicalize(entries: Iterable[Any]) -> tuple:
@@ -159,6 +233,8 @@ def _is_scalar(shape: tuple) -> bool:
 def _stack_padded(family: str, name: str, template: tuple,
                   ndim: int) -> tuple:
     """Template → full-rank logical tuple, padding stacked leading dims."""
+    if template == REPLICATED:
+        return (None,) * ndim
     tpl = tuple(template)
     if len(tpl) == ndim:
         return tpl
@@ -194,6 +270,63 @@ def kv_pool_spec(layout: Optional[SpecLayout] = None) -> tuple:
     ``tensor`` (``(None, "fsdp", None, "tensor")``)."""
     return spec_for("serving_kv", "kv_pool/k", (1, 2, 2, 2, 2),
                     layout or SpecLayout())
+
+
+# ------------------------------------------------ ZeRO helpers (stage 1-3)
+
+def first_free_divisible_dim(shape: Iterable[int], spec: Iterable[Any],
+                             size: int) -> Optional[int]:
+    """First still-replicated dim divisible by (and at least) ``size``:
+    where a ZeRO axis may land."""
+    spec = list(spec)
+    for dim, d in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        if entry is None and int(d) % size == 0 and int(d) >= size:
+            return dim
+    return None
+
+
+def with_fsdp_axis(shape: tuple, spec: Iterable[Any], size: int,
+                   axis: str = "fsdp",
+                   only_if_replicated: bool = False) -> tuple:
+    """A canonical spec augmented with the ZeRO axis.
+
+    ``only_if_replicated`` is the optimizer-state mode (stage 1/2
+    ``zero_sharding``): a leaf already carrying any mesh axis keeps its
+    spec. Otherwise (the gradient mode, ``zero_grad_specs``) the existing
+    entries stay and ``axis`` lands on the first free divisible dim,
+    unless the spec already uses it."""
+    entries = list(spec)
+    entries += [None] * (len(shape) - len(entries))
+    used = set()
+    for entry in entries:
+        for a in (entry if isinstance(entry, (tuple, list)) else (entry,)):
+            if a is not None:
+                used.add(a)
+    if only_if_replicated and used:
+        return canonicalize(entries)
+    if size > 1 and axis not in used:
+        if only_if_replicated:
+            entries = [None] * len(shape)
+        dim = first_free_divisible_dim(shape, entries, size)
+        if dim is not None:
+            entries[dim] = axis
+    return canonicalize(entries)
+
+
+#: which memory term each ZeRO stage starts sharding over fsdp
+ZERO_STAGE_TERMS = {"moments": 1, "grads": 2, "weights": 3}
+
+
+def stage_shards(term: str, stage: int) -> bool:
+    """True when ZeRO ``stage`` shards ``term`` over the fsdp axis."""
+    return stage >= ZERO_STAGE_TERMS[term]
+
+
+def batch_spec() -> tuple:
+    """Global-batch placement: the ``batch`` logical axis' mesh entry,
+    ``(("data", "fsdp"),)`` (dp × sharding is the data world)."""
+    return canonicalize((SpecLayout().mesh_entry("batch"),))
 
 
 def block_range(size: int, parts: int, index: int) -> tuple:

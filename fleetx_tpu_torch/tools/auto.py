@@ -7,10 +7,9 @@
 ``tools/train.py``'s CLI with the layout planner on
 (``train.main(argv, auto_layout=True)``, as the JAX tool calls
 ``train.main(auto_layout=True)``): ``parallel/auto_layout.suggest_layout``
-picks the ``Distributed`` degrees before the batch derivations, unless the
-YAML pins explicit ones. The port trains on one device, so every planned
-degree is 1, and an explicit degree above 1 raises (ROADMAP.md, port queue
-item 12). The log names the resolved degrees and the planner's budget: the
+picks the ``Distributed`` degrees before the batch derivations, for the
+world of the gang (``FLEETX_NUM_PROCESSES``, 1 outside a gang), unless the
+YAML pins explicit ones. The log names the resolved degrees and the planner's budget: the
 YAML's ``Distributed.auto_layout.hbm_gb``, else the card's memory. As in
 the JAX package, the engine is ``EagerEngine``. It runs on ``cuda`` unless
 ``--device cpu`` is given.

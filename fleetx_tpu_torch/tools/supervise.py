@@ -14,10 +14,10 @@ It owns the training command's process lifecycle:
   ``FLEETX_PROCESS_ID``) for N > 1, which ``utils/env.init_dist_env``
   joins: a serving replica over a mesh of N ranks (``tools.serve`` with
   ``Distributed`` degrees whose product is N; rank 0 serves, the others
-  follow it), data-parallel ``tools.inference`` and the generation task;
-  the port's trainer refuses to be a member of such a gang (ROADMAP.md,
-  port queue item 12), so N = 1, the restart wrapper, is what it runs
-  under;
+  follow it), data-parallel ``tools.inference``, the generation task,
+  and a training gang (``tools.train`` with ``Distributed`` degrees whose
+  product is N: data parallel, ZeRO stages 1-3, tensor and sequence
+  parallel); N = 1 is the restart wrapper;
 - **monitor and restart**: when a member dies with a crash code the
   others are killed (SIGTERM, a grace wait, SIGKILL) and the whole gang
   restarts after ``--backoff`` seconds, up to ``--max-restart`` times;

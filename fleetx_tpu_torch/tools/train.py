@@ -81,9 +81,24 @@ process with 43.
 
 Under the supervisor (``python -m fleetx_tpu_torch.tools.supervise``):
 ``--num-procs 1`` restarts a crashed run, which resumes from its newest
-checkpoint; a gang member (``FLEETX_NUM_PROCESSES`` above 1) raises,
-since a multi-rank gang is not ported (ROADMAP.md, port queue item 12)
-and N copies of a one-device job would share one card.
+checkpoint. ``--num-procs N`` runs a training gang: each member
+(``FLEETX_NUM_PROCESSES`` = N) loads the config against a world of N
+(the ``Distributed`` degrees must multiply to N; an unset ``dp_degree``
+takes what is left), joins the process group (``utils/env.init_dist_env``:
+NCCL when each rank has a card of its own, gloo when they share one or
+run on the CPU with ``--device cpu``) and trains its shard of the step
+(``core/engine/eager_engine.py``: data parallel, ZeRO stages 1-3,
+tensor and sequence parallel)::
+
+    python -m fleetx_tpu_torch.tools.supervise --num-procs 4 -- \
+        python -m fleetx_tpu_torch.tools.train \
+        -c fleetx_tpu/configs/nlp/gpt/pretrain_gpt_345M_single_card.yaml \
+        -o Distributed.dp_degree=2 -o Distributed.mp_degree=2 \
+        -o Distributed.sequence_parallel=True
+
+A gang with ``Resilience.enable`` raises ``NotImplementedError`` before it
+joins the group (the gang resilience runtime is ROADMAP.md's port queue
+item 12), and a member without ``FLEETX_COORDINATOR`` raises.
 """
 
 from __future__ import annotations
@@ -93,14 +108,18 @@ from typing import Optional
 
 
 def load_config(path: str, overrides: Optional[list] = None,
-                auto_layout: bool = False, device=None):
-    """The YAML at ``path`` with dotted overrides, post-processed; the
-    layout planner runs under ``auto_layout`` or the YAML's
-    ``Distributed.auto_layout``, its budget sized by ``device``."""
+                auto_layout: bool = False, device=None,
+                world_size: Optional[int] = None):
+    """The YAML at ``path`` with dotted overrides, post-processed against
+    a world of ``world_size`` ranks (default the gang's,
+    ``FLEETX_NUM_PROCESSES``, 1 without one); the layout planner runs
+    under ``auto_layout`` or the YAML's ``Distributed.auto_layout``, its
+    budget sized by ``device``."""
     from fleetx_tpu_torch.utils.config import get_config
 
     return get_config(path, overrides, auto_layout=auto_layout,
-                      device=device)
+                      device=device, num_devices=world_size or gang_size(),
+                      training=True)
 
 
 def build_trainer(cfg: dict, device=None, wrap_optimizer=None):
@@ -153,15 +172,30 @@ def run(cfg: dict, device=None):
     return engine, losses
 
 
-def check_single_process() -> None:
-    """Refuse to run as a member of a multi-process gang."""
+def gang_size() -> int:
+    """The world of the gang this process is a member of
+    (``FLEETX_NUM_PROCESSES``; 1 outside a gang)."""
     import os
 
-    procs = int(os.environ.get("FLEETX_NUM_PROCESSES") or 1)
-    if procs > 1:
-        raise NotImplementedError(
-            f"FLEETX_NUM_PROCESSES={procs}: a multi-process gang is not "
-            f"ported yet (ROADMAP.md, port queue item 12)")
+    return int(os.environ.get("FLEETX_NUM_PROCESSES") or 1)
+
+
+def join_gang(cfg: dict, device=None) -> bool:
+    """A gang member joins the process group (True); a process outside a
+    gang does nothing (False). What a gang does not run yet raises first,
+    before any connection."""
+    from fleetx_tpu_torch.core.engine.eager_engine import _refuse_on_gang
+    from fleetx_tpu_torch.utils.env import init_dist_env
+
+    world = gang_size()
+    if world <= 1:
+        return False
+    _refuse_on_gang(cfg)
+    if not init_dist_env(device=device):
+        raise RuntimeError(f"FLEETX_NUM_PROCESSES={world} but no "
+                           f"FLEETX_COORDINATOR to join: start the gang "
+                           f"with tools.supervise --num-procs {world}")
+    return True
 
 
 def main(argv: Optional[list] = None, auto_layout: bool = False) -> int:
@@ -169,9 +203,9 @@ def main(argv: Optional[list] = None, auto_layout: bool = False) -> int:
     (``tools/auto.py``), and logs the ``Distributed`` degrees it
     resolved."""
     from fleetx_tpu_torch.utils.config import DEGREE_KEYS, parse_args
+    from fleetx_tpu_torch.utils.env import close_dist_env
     from fleetx_tpu_torch.utils.log import logger
 
-    check_single_process()
     args = parse_args("fleetx_tpu_torch "
                       + ("auto" if auto_layout else "train"), argv)
     cfg = load_config(args.config, args.override, auto_layout=auto_layout,
@@ -180,7 +214,12 @@ def main(argv: Optional[list] = None, auto_layout: bool = False) -> int:
         dist = cfg["Distributed"]
         logger.info("auto_layout: resolved Distributed %s",
                     {k: dist[k] for k in DEGREE_KEYS})
-    run(cfg, device=args.device)
+    ganged = join_gang(cfg, args.device)
+    try:
+        run(cfg, device=args.device)
+    finally:
+        if ganged:
+            close_dist_env()
     return 0
 
 

@@ -12,19 +12,24 @@ and ``parse_args`` (:454), and the engine's fp16 loss-scaler switch
 It reads the same YAML files by path, ``_base_`` chains included (the
 generation recipe inherits the 345M one, ``save_steps: 1000`` with it);
 sections the loader does not derive (``Generation``, ``Serving`` past
-its validation) pass through to their modules. The port trains on one
-device: without a device count (every training loader) a
-``Distributed`` degree above 1 raises ``NotImplementedError``
-(ROADMAP.md, port queue item 12). The serving, inference and generation
-entry points pass their world's size (``get_config(...,
-num_devices=N)``), and the degrees are JAX's math against it.
+its validation) pass through to their modules. The degrees are JAX's
+math against a world size: ``tools/train.py``, ``tools/auto.py`` and the
+serving, inference and generation entry points pass their world's size
+(``get_config(..., num_devices=N)``); the other loaders are one process
+(a world of 1). In the training loader (``get_config(...,
+training=True)``) what the sharded training step does not cover yet
+raises ``NotImplementedError`` naming ROADMAP.md's port queue item 12
+(``check_covered``; the engine checks it too): a pipeline (``pp_degree`` above 1), the ring over
+``seq_degree`` above 1, MoE over more than one rank, and tensor or
+sequence parallelism or ZeRO stage 3 for a family other than the dense
+GPT.
 
 ``Distributed.auto_layout`` (a bool, or ``{hbm_gb: N}``) or
 ``get_config(..., auto_layout=True)`` (``tools/auto.py``) runs the layout
 planner (``parallel/auto_layout.suggest_layout``) before the batch
 derivations, keeps explicit degrees, and pops the key, as
-``fleetx_tpu/utils/config.py:379-432`` does. The device count is 1, so
-every planned degree is 1 and an explicit degree above 1 still raises.
+``fleetx_tpu/utils/config.py:379-432`` does, for the world size it is
+given (1 by default).
 The planner's budget is ``hbm_gb`` where the YAML gives it; else, on a
 CUDA device, the card's own memory
 (``torch.cuda.get_device_properties(dev).total_memory``), not the JAX
@@ -44,7 +49,7 @@ from typing import Any, Optional
 import yaml
 
 __all__ = ["AttrDict", "parse_config", "override_config",
-           "process_dist_config", "process_global_configs",
+           "process_dist_config", "check_covered", "process_global_configs",
            "process_engine_config", "process_observability_config",
            "process_resilience_config",
            "process_serving_config", "loss_scaler", "layout_budget_gb",
@@ -168,42 +173,57 @@ DEGREE_KEYS = ("dp_degree", "mp_degree", "pp_degree", "fsdp_degree",
                "seq_degree")
 
 
-def check_single_device(dist: dict) -> None:
-    """Raise when a ``Distributed`` section asks for more than one device
-    (a degree above 1, or sequence parallelism)."""
-    degrees = {k: dist.get(k) for k in DEGREE_KEYS}
-    degrees["sharding.sharding_degree"] = (dist.get("sharding") or {}).get(
-        "sharding_degree")
-    sharded = {k: v for k, v in degrees.items()
-               if v not in (None, -1) and int(v) > 1}
-    if sharded or dist.get("sequence_parallel"):
-        raise NotImplementedError(
-            f"Distributed {sharded or 'sequence_parallel'} needs distributed "
-            f"training, not ported yet (ROADMAP.md, port queue item 12)")
+#: modules of the dense GPT family, the one family the tensor- and
+#: sequence-parallel step and ZeRO stage 3 cover
+DENSE_GPT_MODULES = ("GPTModule", "GPTEvalModule", "GPTGenerationModule")
+
+
+def _item12(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, port queue item 12)")
+
+
+def check_covered(config: dict) -> None:
+    """Raise on a resolved ``Distributed`` layout the sharded training
+    step does not cover: a pipeline, the ring over more than one ``seq``
+    rank, MoE over more than one rank, and tensor or sequence parallelism
+    or ZeRO stage 3 for a family other than the dense GPT."""
+    dist = config.get("Distributed") or {}
+    model = config.get("Model") or {}
+    pp, seq = int(dist.get("pp_degree") or 1), int(dist.get("seq_degree")
+                                                    or 1)
+    mp = int(dist.get("mp_degree") or 1)
+    fsdp = int(dist.get("fsdp_degree") or 1)
+    stage = int((dist.get("sharding") or {}).get("sharding_stage") or 0)
+    if pp > 1:
+        raise _item12(f"Distributed.pp_degree={pp} (the pipeline)")
+    if seq > 1:
+        raise _item12(f"Distributed.seq_degree={seq} (the ring over seq "
+                      f"ranks)")
+    world = int(dist.get("dp_degree") or 1) * fsdp * mp
+    if int(model.get("moe_num_experts") or 0) > 0 and world > 1:
+        raise _item12(f"MoE over {world} ranks (expert parallel over "
+                      f"tensor)")
+    module = model.get("module", "GPTModule")
+    if module not in DENSE_GPT_MODULES:
+        if mp > 1:
+            raise _item12(f"tensor parallel (mp_degree={mp}) for {module}")
+        if stage >= 3 and fsdp > 1:
+            raise _item12(f"ZeRO stage 3 for {module}")
 
 
 def process_dist_config(config: AttrDict,
                         num_devices: Optional[int] = None) -> AttrDict:
     """Validate and derive the mesh degrees (``process_dist_config``).
 
-    Given ``num_devices`` (the serving, inference and generation entry
-    points pass the world size), it is JAX's math: an unset ``dp_degree``
-    (None or -1) is derived so that the product of the degrees equals the
-    count, and a product that does not match raises JAX's message.
-    Without a count (every training loader) the run is one device: every
-    degree resolves to 1, and a degree above 1 raises
-    ``check_single_device``'s ``NotImplementedError``.
+    JAX's math against ``num_devices`` (the world size; 1 when not
+    given): an unset ``dp_degree`` (None or -1) is derived so that the
+    product of the degrees equals the count, and a product that does not
+    match raises JAX's message.
     """
-    dist = config.setdefault("Distributed", AttrDict())
     if num_devices is None:
-        check_single_device(dist)
-        for k in DEGREE_KEYS:
-            dist[k] = 1
-        sharding = dist.setdefault("sharding", AttrDict())
-        sharding.setdefault("sharding_degree", 1)
-        sharding.setdefault("sharding_stage", 0)
-        sharding.setdefault("sharding_offload", False)
-        return config
+        num_devices = 1
+    dist = config.setdefault("Distributed", AttrDict())
     degrees = {
         "pp_degree": int(dist.get("pp_degree") or 1),
         "fsdp_degree": int(dist.get("fsdp_degree") or (
@@ -400,23 +420,24 @@ def layout_budget_gb(auto_layout: Any, device=None) -> tuple:
     return DEFAULT_HBM_GB, "the JAX loader's default, on the CPU"
 
 
-def plan_layout(config: AttrDict, device=None) -> AttrDict:
-    """The planner step of ``get_config`` for one device: explicit degrees
-    are kept (and raise later in ``process_dist_config`` when above 1);
-    otherwise ``suggest_layout``'s degrees are merged into
-    ``Distributed``. Pops ``Distributed.auto_layout``."""
+def plan_layout(config: AttrDict, device=None,
+                num_devices: Optional[int] = None) -> AttrDict:
+    """The planner step of ``get_config`` for ``num_devices`` (1 when not
+    given): explicit degrees are kept (and checked later in
+    ``process_dist_config``); otherwise ``suggest_layout``'s degrees are
+    merged into ``Distributed``. Pops ``Distributed.auto_layout``."""
     from fleetx_tpu_torch.parallel.auto_layout import (
         advice_inputs, suggest_layout)
     from fleetx_tpu_torch.utils.log import logger
 
-    num_devices = 1
+    num_devices = int(num_devices or 1)
     dist = config.get("Distributed") or {}
     hbm_gb, source = layout_budget_gb(dist.get("auto_layout"), device)
     explicit = {k for k in DEGREE_KEYS if int(dist.get(k) or 0) > 1}
     if int((dist.get("sharding") or {}).get("sharding_degree") or 0) > 1:
         explicit.add("sharding.sharding_degree")
-    logger.info("auto_layout: %d device, budget %.2f GB (%s)", num_devices,
-                hbm_gb, source)
+    logger.info("auto_layout: %d device%s, budget %.2f GB (%s)",
+                num_devices, "" if num_devices == 1 else "s", hbm_gb, source)
     if explicit:
         logger.info("auto_layout: explicit degrees %s kept", explicit)
     else:
@@ -436,20 +457,26 @@ def plan_layout(config: AttrDict, device=None) -> AttrDict:
 
 def get_config(fname: str, overrides: Optional[list] = None,
                auto_layout: bool = False, device=None,
-               num_devices: Optional[int] = None) -> AttrDict:
+               num_devices: Optional[int] = None,
+               training: bool = False) -> AttrDict:
     """Load + override + post-process a config (``get_config``); with
     ``auto_layout`` or ``Distributed.auto_layout`` the layout planner runs
     first (``plan_layout``; ``device`` sizes its budget). ``num_devices``
-    (the world of a serving, inference or generation entry point) checks
-    the degrees against it; without it the config is a training one, for
-    one device (``process_dist_config``)."""
+    (the world of the entry point; 1 when not given) is what the degrees
+    are checked against (``process_dist_config``). ``training`` (the
+    training loader) refuses a layout the sharded training step does not
+    cover (``check_covered``), ahead of a world mismatch."""
     if not os.path.exists(fname):
         raise FileNotFoundError(f"config file {fname} not found")
     config = parse_config(fname)
     override_config(config, overrides)
     if auto_layout or (config.get("Distributed") or {}).get("auto_layout"):
-        plan_layout(config, device)
+        plan_layout(config, device, num_devices)
+    if training:
+        check_covered(config)
     process_dist_config(config, num_devices)
+    if training:
+        check_covered(config)
     process_global_configs(config)
     process_engine_config(config)
     process_observability_config(config)

@@ -6,16 +6,17 @@
   ``close_dist_env`` leaves it;
 - ``get_world_size``, ``get_rank``, ``get_local_world_size`` and
   ``get_local_rank``: the process group's ranks (1 and 0 without one);
-- ``rank_device``: the device of this rank,
-  ``cuda:{local_rank % device_count}``;
-- ``set_seed``: numpy, ``random`` and a CPU ``torch.Generator``.
+- ``rank_device``: the device of this rank, ``cuda:{local_rank}`` when
+  the host has a card per rank, ``cuda:0`` when its ranks share one; a
+  CUDA device that cannot be had raises, it never drops to the CPU;
+- ``set_seed``: numpy, ``random`` and a CPU ``torch.Generator``;
+- ``rng_streams``: name-keyed seeds (``fleetx_tpu/utils/env.py:89-100``).
 
 **The backend rule.** NCCL when every rank on this host has a CUDA
 device of its own; gloo otherwise, which covers the CPU and ranks that
 share one card (NCCL refuses two ranks on one device; gloo stages CUDA
 tensors through pinned host memory, so each rank's compute stays on the
-card). No knob chooses it. ``rng_streams`` comes with distributed
-training (ROADMAP.md, port queue item 12).
+card). No knob chooses it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from __future__ import annotations
 import datetime
 import os
 import random
+import zlib
 from typing import Optional, Union
 
 import numpy as np
@@ -146,13 +148,20 @@ def close_dist_env() -> None:
 def rank_device(device: Union[str, torch.device, None] = None
                 ) -> torch.device:
     """The device of this rank: a CUDA device without an index becomes
-    ``cuda:{local_rank % device_count}``; anything else is kept."""
+    ``cuda:{local_rank}`` when the host has a card for each of its ranks
+    and ``cuda:0`` when they share one; anything else is kept. A CUDA
+    device on a host without one raises."""
     dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and dev.index is None and \
-            torch.cuda.is_available():
-        dev = torch.device("cuda",
-                           get_local_rank() % torch.cuda.device_count())
-        torch.cuda.set_device(dev)
+    if dev.type != "cuda":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available for this rank; pass device='cpu' "
+            "(--device cpu) to run the gang on the CPU")
+    if dev.index is None:
+        own = get_local_world_size() <= torch.cuda.device_count()
+        dev = torch.device("cuda", get_local_rank() if own else 0)
+    torch.cuda.set_device(dev)
     return dev
 
 
@@ -165,3 +174,17 @@ def set_seed(seed: int) -> torch.Generator:
     gen = torch.Generator()
     gen.manual_seed(int(seed))
     return gen
+
+
+#: the named streams of a run
+STREAMS = ("params", "dropout", "data", "sample")
+
+
+def rng_streams(seed: int, names: tuple = STREAMS) -> dict:
+    """Name → seed of an independent stream: the root seed with the
+    crc32 of the stream's NAME folded in (as JAX's ``rng_streams`` folds
+    it into its key), so adding or reordering names never moves an
+    existing stream."""
+    root = (int(seed) & 0xFFFFFFFF) << 31
+    return {name: root | (zlib.crc32(name.encode()) & 0x7FFFFFFF)
+            for name in names}

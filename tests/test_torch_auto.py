@@ -110,10 +110,10 @@ def test_get_config_auto_layout_equals_jax(recipe):
     want = _loaded(lambda p: JC.get_config(p, num_devices=1,
                                            auto_layout=True), AUTO[recipe])
     if want[0] == "raises":
-        # a degree above 1 pinned by the recipe: JAX cannot lay it on one
-        # device, and the port refuses it (ROADMAP.md, port queue item 12)
+        # a degree above 1 pinned by the recipe: neither loader lays it on
+        # one device (JAX asserts, the port raises JAX's message)
         assert recipe in ("1.3B_dp8", "6.7B_sharding16")
-        assert got == ("raises", "NotImplementedError")
+        assert got == ("raises", "ValueError")
         return
     assert got == want
     assert got[1][0] == dict.fromkeys(DEGREES, 1) and not got[1][1]

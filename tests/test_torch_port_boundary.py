@@ -107,7 +107,8 @@ def test_the_scan_reaches_every_module_of_the_port():
                 "fleetx_tpu_torch/tools/supervise.py",
                 "fleetx_tpu_torch/serving/router.py",
                 "fleetx_tpu_torch/data/native/__init__.py",
-                "fleetx_tpu_torch/tools/multiprocess_tool.py"):
+                "fleetx_tpu_torch/tools/multiprocess_tool.py",
+                "fleetx_tpu_torch/parallel/sharding.py"):
         assert rel in scanned, rel
 
 
@@ -146,6 +147,8 @@ def test_entry_points_load_no_jax_modules():
             "import fleetx_tpu_torch.data.tokenizers.gpt_tokenizer\n"
             "import fleetx_tpu_torch.data.dataset.eval_dataset\n"
             "import fleetx_tpu_torch.core.engine.inference_engine\n"
+            "import fleetx_tpu_torch.parallel.sharding\n"
+            "import fleetx_tpu_torch.core.engine.eager_engine\n"
             "import fleetx_tpu_torch.utils.export\n"
             "import fleetx_tpu_torch.tools.eval\n"
             "import fleetx_tpu_torch.tools.export\n"
@@ -195,13 +198,16 @@ def test_the_mesh_modules_and_a_rank_process_load_no_jax():
     two-rank gloo world (``init_dist_env``, ``build_mesh``, the serving
     and inference modules) has no JAX module in its ``sys.modules``."""
     scanned = {os.path.relpath(p, PKG) for p in _port_sources()}
-    for name in ("parallel/mesh.py", "parallel/rules.py", "utils/env.py"):
+    for name in ("parallel/mesh.py", "parallel/rules.py",
+                 "parallel/sharding.py", "utils/env.py"):
         assert name in scanned, name
     code = ("import sys, json\n"
             "from fleetx_tpu_torch.utils.env import init_dist_env\n"
             "from fleetx_tpu_torch.parallel.mesh import build_mesh, psum\n"
             "import fleetx_tpu_torch.tools.serve, torch\n"
             "import fleetx_tpu_torch.core.engine.inference_engine\n"
+            "import fleetx_tpu_torch.parallel.sharding\n"
+            "import fleetx_tpu_torch.core.engine.eager_engine\n"
             "init_dist_env(device='cpu')\n"
             "mesh = build_mesh({'dp_degree': 2})\n"
             "assert psum(torch.ones(1), 'data', mesh).item() == 2.0\n"

@@ -393,8 +393,10 @@ def test_fault_step_restart_drill_through_the_port_trainer(tmp_path):
 
 
 def test_a_gang_member_refuses_to_train():
-    """A trainer started as a member of a gang of 2 raises naming item
-    12: a multi-rank gang is not ported."""
+    """A trainer started as a member of a gang of 2 with the resilience
+    runtime on raises naming item 12 (the gang resilience part), before
+    it joins the group; a training gang without it is ported
+    (``tests/test_torch_sharded_train.py``)."""
     from fleetx_tpu_torch.tools import train
 
     env = dict(os.environ, FLEETX_NUM_PROCESSES="2")
@@ -402,7 +404,11 @@ def test_a_gang_member_refuses_to_train():
     os.environ.update(env)
     try:
         with pytest.raises(NotImplementedError, match="item 12"):
-            train.main(["-c", SYNTH_YAML, "--device", "cpu"])
+            train.main(["-c", SYNTH_YAML, "--device", "cpu",
+                        "-o", "Distributed.dp_degree=2",
+                        "-o", "Global.local_batch_size=4",
+                        "-o", "Global.micro_batch_size=4",
+                        "-o", "Resilience.enable=True"])
     finally:
         os.environ.clear()
         os.environ.update(old)

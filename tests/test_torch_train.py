@@ -371,10 +371,12 @@ UNCOVERED = {
                     "Engine.save_load.per_rank_dirs=True"], "item 12"),
     "ckpt_dir": (["Engine.save_load.ckpt_dir=/nonexistent",
                   "Engine.save_load.async_save=True"], None),
+    # a degree above 1 is a gang's: in a world of one rank it is JAX's
+    # world mismatch (tools.supervise --num-procs 2 runs it)
     "dp_degree": (["Distributed.dp_degree=2",
-                   "Global.global_batch_size=4"], "item 12"),
-    "sequence_parallel": (["Distributed.sequence_parallel=True"],
-                          "item 12"),
+                   "Global.global_batch_size=4"], "world"),
+    # sequence parallelism is ported; at mp 1 it changes nothing
+    "sequence_parallel": (["Distributed.sequence_parallel=True"], None),
     "profiler": (["Profiler.enable=True"], None),
 }
 
@@ -405,12 +407,20 @@ def test_uncovered_config_values_raise(what, tmp_path):
         elif what == "ckpt_dir":
             # no checkpoint there: a warning, then training from step 0
             assert engine.async_save
+        elif what == "sequence_parallel":
+            assert engine.mesh is None and \
+                engine.cfg["Distributed"]["sequence_parallel"]
         else:
             assert mc.recompute_granularity == "dots" and \
                 mc.remat_save_dtype == torch.bfloat16
         engine.max_steps = 1
         losses = engine.fit(train_dl)
         assert len(losses) == 1 and np.isfinite(losses[0])
+        return
+    if item == "world":
+        with pytest.raises(ValueError, match=r"dp\(2\) .* != device count "
+                                             r"\(1\)"):
+            T.load_config(SYNTH_YAML, TINY + overrides)
         return
     with pytest.raises(NotImplementedError, match=item):
         T.build_trainer(T.load_config(SYNTH_YAML, TINY + overrides),
