@@ -15,8 +15,11 @@ sample the Imagen cascade (64² base, SR-256), train GPT-345M with
 the telemetry, the profiler window and the device prefetcher on,
 train it under the SDC sentinel with an asynchronous save and run the
 supervisor's preflight, serve it through the request router in front of
-replicas in process and of a supervised fleet under chaos, and train it
-on a blended corpus indexed by the native builder.
+replicas in process and of a supervised fleet under chaos, train it
+on a blended corpus indexed by the native builder, serve it over a mesh
+of ranks, and train it sharded over a gang of ranks with the gang
+resilience runtime (a preemption and its resume, a per-rank pair's
+collective outcomes).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-shapes   # row 7's three timings alone
@@ -42,7 +45,10 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
 
 0. environment: torch/CUDA versions, ``nvcc --version``, the card's name
    and power limit; TF32 is switched off for matmuls and cuDNN.
-1. kernels: build every CUDA kernel from ``fleetx_tpu_torch/csrc``. The
+1. kernels: build every CUDA kernel from ``fleetx_tpu_torch/csrc`` (one
+   ``nvcc`` a source, all at once, while phase 15 trains: its paths take
+   none of the kernels, and the card would otherwise idle through the
+   build). The
    paged decode kernel at the shapes GPT-345M serving gives it (B 16, nh
    16, hd 64, page 16, 64 pages per request, 513 pages) with three lens
    sets (``PAGED_SHAPES``: ragged, the main path's decode step, the full
@@ -218,7 +224,10 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    the loss within ``EVAL_F32_RTOL`` (f32) and ``EVAL_BF16_RTOL`` (bf16;
    reasons beside the constants); one batch is traced. The ``Data.Eval``
    path (a ``GPTDataset`` of the same text written by the port's
-   ``tools.preprocess_data``) runs 3 batches as its own process.
+   ``tools.preprocess_data``) runs 3 batches as its own process. The
+   three eval processes run while this one compares (for the time
+   limit: a process start is ~20 s; their ms per batch are taken beside
+   that work).
 11. export and inference: ``python -m fleetx_tpu_torch.tools.export`` of
    ``inference_gpt_345M_single_card.yaml`` from phase 8's cut checkpoint,
    target ``forward`` and then ``generation`` (batch 1, prompt 128, 64
@@ -232,8 +241,12 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    cut) and seeded sampling must equal eager generation token for
    token, with 9 launches of kernel 5 a model call; ms per decode step
    and new tokens/s. ``tools.inference`` and ``tasks.gpt.inference`` run
-   the bf16 export as their own processes. The temp dirs are removed
-   whether the run passed or failed.
+   the bf16 export as their own processes. For the time limit the f32
+   export runs while the two export processes do, and the two entry
+   points while this process checks the programs (their timings are
+   taken beside that work); phase 13's fine-tune process starts before
+   this phase, on phase 10's corpus. The temp dirs are removed whether
+   the run passed or failed.
 
 12. fp16 and resilience (345M full width and depth through
    ``build_trainer``; each part one JSON line): 20 fp16 steps at
@@ -260,7 +273,9 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    to step 10: steps 1-10 equal the same recipe's uninterrupted losses
    in this process bit for bit). The rollback and preemption drills run
    the recipe cut to ``DRILL_LAYERS`` (4) layers (a depth cut, for the
-   time limit: their saves and restores).
+   time limit: their saves and restores); the preempted process starts
+   with the phase and the resumed one beside the rollback drill (the
+   phase's step timings are taken beside them).
 13. LoRA fine-tuning and quantized serving (run before phase 12, while
    phase 8's checkpoint and phase 10's corpus exist): ``python -m
    fleetx_tpu_torch.tools.finetune`` on ``finetune_gpt_345M_lora.yaml``
@@ -310,11 +325,14 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    every planned degree 1, the card's memory as the planner's budget and
    no budget warning in its log, the first loss within 0.1 of ``ln(vocab)
    + hidden·r²/2``, ``FULL_PER_STEP`` launches a step on the tensor cores;
-   step ms, tokens/s, MFU, peak memory. Then rows 1 and 4 at the 1.3B
+   step ms, tokens/s, MFU, peak memory; it starts with the phase and
+   runs beside (a) and (b) (their step timings share the card with its
+   3 steps). Then rows 1 and 4 at the 1.3B
    attention shape ``[128, 1024, 128]`` bf16 (held and timed as in 1b).
 
-15. the encoder families (run after phase 14, each counted from 0 around
-   its own run; no kernel of the port is on their path, as no Pallas
+15. the encoder families (run first, while the kernels build; each
+   counted from 0 around its own run; no kernel of the port is on their
+   path, as no Pallas
    kernel is on JAX's, so every count must stay 0): (a)
    ``pretrain_ernie_345M.yaml`` through ``build_trainer`` → ``fit`` at full
    width (24 layers, hidden 1024, 16 heads, vocab 40000, seq 512, batch
@@ -366,7 +384,11 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    stage from (b)'s checkpoint, a seeded SR-256 stage, batch 2, guidance
    5.0, dynamic thresholding, ``CASCADE_TIMESTEPS`` steps a stage (cut
    from 1000): ms per denoise step of each stage, the output ``[2, 256,
-   256, 3]``, finite, within [-1, 1]; no kernel launches.
+   256, 3]``, finite, within [-1, 1]; no kernel launches. For the time
+   limit (b)'s base run and (c) are a process of their own
+   (``imagen_child``, its launches counted there) started with the
+   phase, beside (a) (host-bound, 6 GB; the timings of (a), (b) and (c)
+   share the card); the SR-256 step (28 GB) follows (a) here.
 
 17. telemetry (run after phase 16): ``pretrain_gpt_345M_synthetic.yaml``
    through ``build_trainer`` → ``fit`` at full width and depth for 10
@@ -481,22 +503,40 @@ Phases (each prints one JSON line; any failure raises, exit code != 0):
    ``main`` with the launch counts zeroed just before ``fit`` and read
    just after; one JSON report a rank), gloo over the shared card. 21a:
    phase 4's recipe (GPT-345M at full width and depth, its seed and
-   synthetic batches) at dp 2 × mp 2 with sequence parallelism for 4
-   steps: each rank holds 8 of the 16 heads, half the vocabulary and a
-   half of the sequence between the regions; its 4 losses within
-   ``MESH_345M_LOSS_ATOL`` of phase 4's first 4, every rank the same
-   losses, rows 1, 4, 5 and 6 launched 24 / 24 / 49 / 49 times a step on
-   every rank (tensor cores, the norms on route "rows"); each rank's peak
-   memory, step walls and collectives (count and host ms a step). 21b:
-   GPT-6.7B's recipe (``pretrain_gpt_6.7B_sharding16.yaml``: width 4096,
-   32 heads of 128, full recompute) at fsdp 4, ZeRO stage 2, cut to
-   ``SIXB_LAYERS`` layer and 2 rows a rank, 3 steps and the gang's save;
-   this process loads that checkpoint on one rank (an eval engine) and
-   its ``params_fingerprint`` must equal the one every rank computed on
-   its gathered parameters; 2 / 1 / 5 / 3 launches a step a rank. The two
-   gangs run at once (host-bound steps; each rank's allocator on
-   expandable segments, and the engine releases each leaf's raw grad as
-   it syncs it). Phase
+   synthetic batches) at dp 2 × mp 2 with sequence parallelism and the
+   gang resilience runtime (``MESH_RESILIENCE``: the gang watchdog's
+   barrier every step, the loop vote every step, the SDC sentinel every
+   2nd round, asynchronous saves, ``Observability.gang``), in two
+   generations: a SIGTERM on rank 1 alone (``MESH_FAULTS``) makes every
+   rank save step 3 through the two-phase commit and exit 75, the saved
+   parameters' fingerprint (each leaf's block sums psum'd) equal on every
+   rank and to the gathered tree's; a second ``tools.supervise`` resumes
+   every rank from that step (the restored fingerprint the saved one)
+   and trains step 4. Each rank holds 8 of the 16 heads, half the
+   vocabulary and a half of the sequence between the regions; the 4
+   losses within ``MESH_345M_LOSS_ATOL`` of phase 4's first 4, every
+   rank the same losses; one sentinel check with a clean census; a
+   gang-watchdog barrier a step; rank 0's ``metrics.gang.jsonl`` with the
+   4 windows of all 4 ranks; rows 1, 4, 5 and 6 launched 24 / 24 / 49 /
+   49 times a step and a replay on every rank in each generation (tensor
+   cores, the norms on route "rows"); each rank's peak memory, step
+   walls and collectives. 21b: GPT-6.7B's recipe
+   (``pretrain_gpt_6.7B_sharding16.yaml``: width 4096, 32 heads of 128,
+   full recompute) at fsdp 4, ZeRO stage 2, cut to ``SIXB_LAYERS`` layer
+   and 2 rows a rank, 3 steps and the gang's save; this process loads
+   that checkpoint on one rank (an eval engine) and its
+   ``params_fingerprint`` must equal the one every rank computed on its
+   gathered parameters; 2 / 1 / 5 / 3 launches a step a rank. 21c: a
+   per-rank pair (``per_rank_member``: two processes, each a 345M
+   replica at full width and ``DRILL_LAYERS`` deep on a mesh of one with
+   ``per_rank_dirs``); rank 1 alone gets a bit flip after step 2 and NaN
+   losses at steps 6-7 (``PAIR_FAULTS``): the census of round 5 counts
+   one fingerprint mismatch on both ranks, both roll back once to step 5,
+   and both abort at step 7 (exit 3). 21a's first generation and 21b run
+   at once (host-bound steps; each rank's allocator on expandable
+   segments, and the engine releases each leaf's raw grad as it syncs
+   it); when 21b exits, 21c and 21a's second generation start, the
+   second generation held at a gate until the first has exited. Phase
    1b holds rows 1-4 at a rank's block of the 345M launch
    (``OFFSET_HEADS``: rows 4-7, heads 8-15) against their plain versions
    with the same head map, in f32 and bf16, and recovers the four
@@ -864,12 +904,9 @@ def time_paged(PA, dev: torch.device, flush: torch.Tensor) -> dict:
     return out
 
 
-def phase_kernels(build, dev: torch.device) -> dict:
+def phase_kernels(build, dev: torch.device, build_s: float) -> dict:
     from fleetx_tpu_torch.ops import paged_attention as PA
 
-    t0 = time.monotonic()
-    build.build()
-    build_s = time.monotonic() - t0
     emit("build", seconds=build_s, libraries=sorted(build.SOURCES),
          ptxas=[l for log in build.build_logs.values()
                 for l in log.splitlines() if "registers" in l
@@ -3190,25 +3227,36 @@ F32_EXPORT_LAYERS = 2
 
 def _cli_start(module: str, args: list) -> tuple:
     """Start ``python -m fleetx_tpu_torch.<module> <args>`` as its own
-    process on this card; ``_cli_wait`` collects it."""
-    return module, subprocess.Popen(
+    process on this card; ``_cli_wait`` collects it. Its output goes to
+    unnamed temporary files, so a process left running beside this one's
+    work never stalls on a full pipe."""
+    logs = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+    proc = subprocess.Popen(
         [sys.executable, "-m", f"fleetx_tpu_torch.{module}"] + args,
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=REPO, stdout=logs[0], stderr=logs[1], text=True,
         env=dict(os.environ, PYTHONPATH=REPO))
+    proc.logs = logs
+    return module, proc
 
 
-def _cli_wait(started: tuple, timeout: int = 600) -> tuple:
-    """(its JSON lines, its stdout, its stderr); a failure raises with its
-    stderr, and a process past ``timeout`` is killed."""
+def _cli_wait(started: tuple, timeout: int = 600, want: int = 0) -> tuple:
+    """(its JSON lines, its stdout, its stderr); an exit code other than
+    ``want`` raises with its stderr, and a process past ``timeout`` is
+    killed."""
     module, proc = started
     try:
-        stdout, stderr = proc.communicate(timeout=timeout)
+        proc.wait(timeout=timeout)
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
-    check(proc.returncode == 0, f"{module} exited {proc.returncode}: "
-                                f"{stderr[-3000:]}")
+            proc.wait()
+    for f in proc.logs:
+        f.seek(0)
+    stdout, stderr = (f.read() for f in proc.logs)
+    for f in proc.logs:
+        f.close()
+    check(proc.returncode == want, f"{module} exited {proc.returncode}: "
+                                   f"{stderr[-3000:]}")
     lines = [json.loads(line) for line in stdout.splitlines()
              if line.startswith("{")]
     return lines, stdout, stderr
@@ -3276,67 +3324,12 @@ def _eval_module(dtype: str, kernels: bool):
         f"Model.fused_residual_norm={kernels}"] + CUT_DEPTH))
 
 
-def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
-               tok_dir: str, params: dict) -> dict:
-    """Phase 10: ``tools.eval`` on ``eval_gpt_345M_single_card.yaml`` from
-    phase 8's checkpoint cut to ``CUT_LAYERS`` layers (``ckpt_dir``), ppl
-    and acc, each its own process; the
-    ``Data.Eval`` path on a corpus written by the port's
-    ``preprocess_data``; in this process kernels on against off (f32 and
-    bf16) and one traced batch."""
-    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+def _eval_kernels_vs_plain(base: list, txt: str, params: dict) -> tuple:
+    """Phase 10 in this process: the eval on its first ``EVAL_PREFIX``
+    windows with the kernels on and off, f32 and bf16, on the
+    checkpoint's params; ``(comparison, the prefix dataset)``."""
     from fleetx_tpu_torch.tools.eval import eval_dataset, load_config
 
-    txt, jsonl, n_cloze = _eval_texts(root)
-    base = [f"Engine.save_load.ckpt_dir={ckpt_dir}",
-            f"Offline_Eval.tokenizer_dir={tok_dir}"] + CUT_DEPTH
-    runs = {}
-    # the two evals run at once, each its own process on the card
-    started = {kind: _cli_start("tools.eval", ["-c", EVAL_YAML] + _overrides(
-        base + [f"Offline_Eval.eval_path={path}",
-                f"Offline_Eval.eval_type={kind}"]))
-        for kind, path in (("ppl", txt), ("acc", jsonl))}
-    try:
-        outputs = {kind: _cli_wait(proc) for kind, proc in started.items()}
-    finally:
-        for _, proc in started.values():
-            if proc.poll() is None:   # the other one failed first
-                proc.kill()
-                proc.communicate()
-    for kind, (lines, _, _) in outputs.items():
-        rec = lines[-1]
-        check(rec["eval_type"] == kind and rec["device"].startswith("cuda"),
-              f"eval {kind}: {rec}")
-        check(np.isfinite(rec["loss"]) and np.isfinite(rec["ppl"])
-              and (kind != "acc" or 0.0 <= rec["acc"] <= 1.0),
-              f"eval {kind}: {rec}")
-        per_batch = {k: v / rec["batches"]
-                     for k, v in rec["launches"].items()}
-        check(per_batch == {"flash_attention_fwd": CUT_LAYERS,
-                            "fused_norm_fwd": 2 * CUT_LAYERS + 1,
-                            ROWS_COUNT: 2 * CUT_LAYERS + 1},
-              f"eval {kind}: launches per batch {per_batch}")
-        runs[kind] = dict(rec, launches_per_batch=per_batch)
-    tok = GPTTokenizer.from_pretrained(tok_dir)
-    stream = len(tok.encode(open(txt, encoding="utf-8").read()))
-    check(runs["ppl"]["stream_tokens"] == stream
-          and runs["acc"]["windows"] == n_cloze,
-          f"eval sizes: {stream} tokens, {n_cloze} cloze paragraphs")
-
-    # the Data.Eval path, in its own process while this one compares: a
-    # GPTDataset of the same text written by the port's preprocessing
-    # tool, a few batches through EagerEngine(mode="eval")
-    prefix_path = _docs_corpus(root, txt, tok_dir)
-    data_eval_run = _cli_start("tools.eval", ["-c", PRETRAIN_YAML]
-                               + _overrides([
-        f"Engine.save_load.ckpt_dir={ckpt_dir}",
-        f"Data.Eval.dataset.input_dir={prefix_path}", *CUT_DEPTH,
-        "Data.Eval.dataset.num_samples=32",
-        f"Data.Eval.dataset.eos_id={tok.eos_token_id}",
-        "Engine.eval_iters=3"]))
-
-    # in this process: the same eval on its first EVAL_PREFIX windows with
-    # the kernels on and off, f32 and bf16, on the checkpoint's params
     cfg = load_config(EVAL_YAML, base + [f"Offline_Eval.eval_path={txt}"])
     ds = eval_dataset(cfg)
     prefix = torch.utils.data.Subset(ds, range(min(EVAL_PREFIX, len(ds))))
@@ -3355,8 +3348,70 @@ def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
                               ppl_off=res[False]["ppl"], rel_diff=rel,
                               bound=rtol)
         torch.cuda.empty_cache()
+    return compare, prefix
 
-    _, stdout, _ = _cli_wait(data_eval_run)
+
+def phase_eval(dev: torch.device, card: str, root: str, ckpt_dir: str,
+               tok_dir: str, params: dict) -> dict:
+    """Phase 10: ``tools.eval`` on ``eval_gpt_345M_single_card.yaml`` from
+    phase 8's checkpoint cut to ``CUT_LAYERS`` layers (``ckpt_dir``), ppl
+    and acc, each its own process; the
+    ``Data.Eval`` path on a corpus written by the port's
+    ``preprocess_data``; in this process, while those run, kernels on
+    against off (f32 and bf16), then one traced batch."""
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+
+    txt, jsonl, n_cloze = _eval_texts(root)
+    base = [f"Engine.save_load.ckpt_dir={ckpt_dir}",
+            f"Offline_Eval.tokenizer_dir={tok_dir}"] + CUT_DEPTH
+    runs = {}
+    # the two evals, the corpus's preprocessing and then the Data.Eval
+    # path run as processes while this one compares (the smoke's time
+    # limit: each process start is ~20 s)
+    started = {kind: _cli_start("tools.eval", ["-c", EVAL_YAML] + _overrides(
+        base + [f"Offline_Eval.eval_path={path}",
+                f"Offline_Eval.eval_type={kind}"]))
+        for kind, path in (("ppl", txt), ("acc", jsonl))}
+    try:
+        tok = GPTTokenizer.from_pretrained(tok_dir)
+        # the Data.Eval path: a GPTDataset of the same text written by the
+        # port's preprocessing tool, a few batches through
+        # EagerEngine(mode="eval")
+        prefix_path = _docs_corpus(root, txt, tok_dir)
+        data_eval_run = _cli_start("tools.eval", ["-c", PRETRAIN_YAML]
+                                   + _overrides([
+            f"Engine.save_load.ckpt_dir={ckpt_dir}",
+            f"Data.Eval.dataset.input_dir={prefix_path}", *CUT_DEPTH,
+            "Data.Eval.dataset.num_samples=32",
+            f"Data.Eval.dataset.eos_id={tok.eos_token_id}",
+            "Engine.eval_iters=3"]))
+        started["data_eval"] = data_eval_run
+        compare, prefix = _eval_kernels_vs_plain(base, txt, params)
+        outputs = {kind: _cli_wait(started[kind]) for kind in ("ppl", "acc")}
+        _, stdout, _ = _cli_wait(data_eval_run)
+    finally:
+        for _, proc in started.values():
+            if proc.poll() is None:   # another one failed first
+                proc.kill()
+                proc.communicate()
+    for kind, (lines, _, _) in outputs.items():
+        rec = lines[-1]
+        check(rec["eval_type"] == kind and rec["device"].startswith("cuda"),
+              f"eval {kind}: {rec}")
+        check(np.isfinite(rec["loss"]) and np.isfinite(rec["ppl"])
+              and (kind != "acc" or 0.0 <= rec["acc"] <= 1.0),
+              f"eval {kind}: {rec}")
+        per_batch = {k: v / rec["batches"]
+                     for k, v in rec["launches"].items()}
+        check(per_batch == {"flash_attention_fwd": CUT_LAYERS,
+                            "fused_norm_fwd": 2 * CUT_LAYERS + 1,
+                            ROWS_COUNT: 2 * CUT_LAYERS + 1},
+              f"eval {kind}: launches per batch {per_batch}")
+        runs[kind] = dict(rec, launches_per_batch=per_batch)
+    stream = len(tok.encode(open(txt, encoding="utf-8").read()))
+    check(runs["ppl"]["stream_tokens"] == stream
+          and runs["acc"]["windows"] == n_cloze,
+          f"eval sizes: {stream} tokens, {n_cloze} cloze paragraphs")
     # one traced batch (bf16, kernels on), the card to itself again
     module = _eval_module("bfloat16", True)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
@@ -3519,10 +3574,59 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
                                       f"Inference.target={target}"]))
                for target, d in (("forward", fwd_dir),
                                  ("generation", gen_dir))}
+    # while they run: the generation prompt (batch 1, prompt 128, 64 new
+    # tokens) and the f32 export in this process
+    tok = GPTTokenizer.from_pretrained(tok_dir)
+    text = open(os.path.join(REPO, "README.md"), encoding="utf-8").read()
+    gcfg = X.load_config(INF_YAML, base)
+    width = int(gcfg["Inference"]["prompt_len"])
+    new_tokens = int(gcfg["Generation"]["max_dec_len"])
+    # a prompt of about three quarters of the exported width, left-padded
+    prompt = tok.encode(text)[:width * 3 // 4]
+    tokens, mask = G.left_pad([prompt], int(gcfg["Generation"][
+        "pad_token_id"]), width=width)
+    seed = np.array([0, int(gcfg["Global"]["seed"])], np.uint32)
+    generation = {}
+    # f32 greedy: an f32 export of the same target in this process, on the
+    # checkpoint's first F32_EXPORT_LAYERS layers (a depth cut: tracing
+    # time grows with the layers, and the f32 check is of the export
+    # itself, which the bf16 programs above run at full depth)
+    f32_dir = os.path.join(root, "exported_generation_f32")
+    f32_cfg = X.load_config(INF_YAML, base + [
+        "Model.dtype=float32", "Generation.decode_strategy=greedy_search",
+        f"Model.num_layers={F32_EXPORT_LAYERS}"])
+    module = GPTGenerationModule(f32_cfg)
+    cut = _first_layers(params, F32_EXPORT_LAYERS)
+    _, fns, example, meta = X.programs(f32_cfg, module, dev)
+    t0 = time.perf_counter()
+    export_model(fns, example, f32_dir, cut, meta=meta)
+    f32_export_s = time.perf_counter() - t0
+    del example
+    eng = InferenceEngine(f32_dir, device=dev)
+    ids, rec = _generate_timed(eng, [tokens, mask, seed], F32_EXPORT_LAYERS)
+    want = G.generate_rows(module.model_cfg, cut, module.gen_cfg,
+                           *G.to_tensors(tokens, mask, dev), False
+                           ).cpu().numpy()
+    check(np.array_equal(ids, want), "generation f32 greedy: exported vs "
+                                     "eager")
+    generation["greedy_f32"] = dict(rec, identical=True,
+                                    export_s=f32_export_s,
+                                    layers=F32_EXPORT_LAYERS)
+    del eng
+    torch.cuda.empty_cache()
+
     for target, proc in started.items():
         lines, _, _ = _cli_wait(proc)
         exports[target] = lines[-1]
         check(lines[-1]["target"] == target, f"export {lines[-1]}")
+    generation["export"] = exports["generation"]
+    # the entry points as processes on the bf16 generation export, while
+    # this one checks the programs
+    args = ["-c", INF_YAML] + _overrides(base + [
+        f"Inference.model_dir={gen_dir}",
+        f"Generation.tokenizer_dir={tok_dir}"])
+    started = [_cli_start(m, args) for m in ("tools.inference",
+                                             "tasks.gpt.inference")]
 
     # the forward program at [1, 1024] against the eager forward, both on
     # the checkpoint's params (the artifact's params.npz holds them)
@@ -3537,21 +3641,21 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
     seq, vocab = cfg.max_position_embeddings, cfg.vocab_size
     gen = torch.Generator(device="cpu")
     gen.manual_seed(11)
-    tokens = torch.randint(0, vocab, (1, seq), generator=gen)
+    fwd_tokens = torch.randint(0, vocab, (1, seq), generator=gen)
     pos = torch.arange(seq)[None]
     zero_counts()
     times = []
     for _ in range(FORWARD_CALLS + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = eng.predict([tokens.numpy(), pos.numpy()])[0]
+        logits = eng.predict([fwd_tokens.numpy(), pos.numpy()])[0]
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = read_counts()
 
     # where predict's time goes: the program alone on device inputs, and
     # the eager forward it was exported from
-    dev_in = (tokens.to(dev), pos.to(dev))
+    dev_in = (fwd_tokens.to(dev), pos.to(dev))
     with torch.no_grad():
         program_ms = p50_ms(lambda: eng.programs["model"](eng.params,
                                                           *dev_in))
@@ -3563,7 +3667,7 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
                        "fused_norm_fwd": 2 * CUT_LAYERS + 1},
           f"exported forward: launches per call {per_call}")
     with torch.no_grad():
-        want = M.gpt_for_pretraining(params, cfg, tokens.to(dev),
+        want = M.gpt_for_pretraining(params, cfg, fwd_tokens.to(dev),
                                      pos.to(dev)).float().cpu().numpy()
     fwd_diff = float(np.abs(logits - want).max())
     check(logits.shape == (1, seq, vocab) and np.isfinite(logits).all(),
@@ -3582,18 +3686,7 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
     del eng, logits, want
     torch.cuda.empty_cache()
 
-    # the generation programs (batch 1, prompt 128, 64 new tokens)
-    tok = GPTTokenizer.from_pretrained(tok_dir)
-    text = open(os.path.join(REPO, "README.md"), encoding="utf-8").read()
-    gcfg = X.load_config(INF_YAML, base)
-    width = int(gcfg["Inference"]["prompt_len"])
-    new_tokens = int(gcfg["Generation"]["max_dec_len"])
-    # a prompt of about three quarters of the exported width, left-padded
-    prompt = tok.encode(text)[:width * 3 // 4]
-    tokens, mask = G.left_pad([prompt], int(gcfg["Generation"][
-        "pad_token_id"]), width=width)
-    seed = np.array([0, int(gcfg["Global"]["seed"])], np.uint32)
-    generation = {"export": exports["generation"]}
+    # the bf16 generation programs against eager generation
     launches = 0
     eng = InferenceEngine(gen_dir, device=dev)
     sampling_cfg = eng.gen_cfg
@@ -3643,40 +3736,7 @@ def phase_export(dev: torch.device, card: str, root: str, ckpt_dir: str,
                 cache.key, cache.value, width, cache.mask)))
     del eng, cache
 
-    # f32 greedy: an f32 export of the same target in this process, on the
-    # checkpoint's first F32_EXPORT_LAYERS layers (a depth cut: tracing
-    # time grows with the layers, and the f32 check is of the export
-    # itself, which the bf16 programs above run at full depth)
-    f32_dir = os.path.join(root, "exported_generation_f32")
-    f32_cfg = X.load_config(INF_YAML, base + [
-        "Model.dtype=float32", "Generation.decode_strategy=greedy_search",
-        f"Model.num_layers={F32_EXPORT_LAYERS}"])
-    module = GPTGenerationModule(f32_cfg)
-    cut = _first_layers(params, F32_EXPORT_LAYERS)
-    _, fns, example, meta = X.programs(f32_cfg, module, dev)
-    t0 = time.perf_counter()
-    export_model(fns, example, f32_dir, cut, meta=meta)
-    f32_export_s = time.perf_counter() - t0
-    del example
-    eng = InferenceEngine(f32_dir, device=dev)
-    ids, rec = _generate_timed(eng, [tokens, mask, seed], F32_EXPORT_LAYERS)
-    want = G.generate_rows(module.model_cfg, cut, module.gen_cfg,
-                           *G.to_tensors(tokens, mask, dev), False
-                           ).cpu().numpy()
-    check(np.array_equal(ids, want), "generation f32 greedy: exported vs "
-                                     "eager")
-    generation["greedy_f32"] = dict(rec, identical=True,
-                                    export_s=f32_export_s,
-                                    layers=F32_EXPORT_LAYERS)
-    del eng
-    torch.cuda.empty_cache()
 
-    # the entry points as processes, on the bf16 generation export
-    args = ["-c", INF_YAML] + _overrides(base + [
-        f"Inference.model_dir={gen_dir}",
-        f"Generation.tokenizer_dir={tok_dir}"])
-    started = [_cli_start(m, args) for m in ("tools.inference",
-                                             "tasks.gpt.inference")]
     demo, _, _ = _cli_wait(started[0])
     _, task_out, _ = _cli_wait(started[1])
     check(demo[0]["shape"] == [1, new_tokens], f"tools.inference {demo}")
@@ -4219,52 +4279,72 @@ def _logged_losses(stderr: str) -> dict:
     return out
 
 
-def _preemption_drill(dev: torch.device, card: str, root: str) -> dict:
-    """``python -m fleetx_tpu_torch.tools.train`` at ``DRILL_LAYERS``
-    layers with ``sigterm_at: PREEMPT_AT``: it exits with ``PREEMPT_EXIT``
-    leaving a verified step-5 checkpoint; the same command without the
-    fault auto-resumes and trains to step 10, with the losses of the same
-    recipe's uninterrupted run in this process bit for bit (as f32: the
-    log prints 9 decimals)."""
+def _preempt_args(root: str) -> list:
+    """The preemption drill's ``tools.train`` arguments."""
+    return ["-c", TRAIN_YAML] + _overrides(_preempt_recipe() + [
+        "Engine.logging_freq=1",
+        f"Engine.save_load.output_dir={os.path.join(root, 'preempt')}"])
+
+
+def _preempt_recipe() -> list:
+    return DRILL_DEPTH + [
+        f"Engine.max_steps={TRAIN_STEPS}", "Resilience.enable=True",
+        f"Resilience.preemption.exit_code={PREEMPT_EXIT}"]
+
+
+def _preempt_start(root: str, fault: bool) -> tuple:
+    """One run of the preemption drill's CLI (``fault``: with
+    ``sigterm_at: PREEMPT_AT``) as a process; ``(started, start time)``."""
+    cmd = _preempt_args(root) + (_overrides([
+        f"Resilience.faults.sigterm_at={PREEMPT_AT}"]) if fault else [])
+    return _cli_start("tools.train", cmd), time.perf_counter()
+
+
+def _preempt_wait(started: tuple, want: int) -> tuple:
+    """``(its stderr, its wall)``; an exit code other than ``want``
+    raises."""
+    _, _, err = _cli_wait(started[0], timeout=900, want=want)
+    return err, time.perf_counter() - started[1]
+
+
+def _preempt_resume(root: str, preempted: tuple) -> tuple:
+    """Wait for the preempted run (exit ``PREEMPT_EXIT``, a verified
+    step-``PREEMPT_AT`` checkpoint) and start the resumed one; ``(the
+    preempted run, the resumed process)``."""
     from fleetx_tpu_torch.core import checkpoint as C
     from fleetx_tpu_torch.tools import verify_ckpt
 
     out_dir = os.path.join(root, "preempt")
-    recipe = DRILL_DEPTH + [
-        f"Engine.max_steps={TRAIN_STEPS}", "Resilience.enable=True",
-        f"Resilience.preemption.exit_code={PREEMPT_EXIT}"]
-    _, engine, dl = _trainer_345m(dev, recipe + [
+    run = _preempt_wait(preempted, PREEMPT_EXIT)
+    check(C.completed_steps(out_dir) == [PREEMPT_AT],
+          f"steps saved: {C.completed_steps(out_dir)}")
+    audit = verify_ckpt.audit_directory(out_dir)
+    check([s["status"] for s in audit["steps"]] == ["ok"],
+          f"audit of the preemption checkpoint: {audit}")
+    return run, _preempt_start(root, fault=False)
+
+
+def _preempt_reference(dev: torch.device, root: str) -> list:
+    """The preemption drill's recipe uninterrupted, in this process."""
+    _, engine, dl = _trainer_345m(dev, _preempt_recipe() + [
         "Engine.save_load.output_dir="
         f"{os.path.join(root, 'preempt_reference')}"], layers=DRILL_LAYERS)
     uninterrupted = engine.fit(dl)
     del engine, dl
     torch.cuda.empty_cache()
-    args = ["-c", TRAIN_YAML] + _overrides(recipe + [
-        "Engine.logging_freq=1", f"Engine.save_load.output_dir={out_dir}"])
-    runs = []
-    for fault in (True, False):
-        cmd = list(args) + (_overrides([
-            f"Resilience.faults.sigterm_at={PREEMPT_AT}"]) if fault else [])
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "fleetx_tpu_torch.tools.train"] + cmd,
-            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
-            capture_output=True, text=True, timeout=900)
-        runs.append((proc, time.perf_counter() - t0))
-        if fault:
-            check(proc.returncode == PREEMPT_EXIT,
-                  f"preempted run exited {proc.returncode}: "
-                  f"{proc.stderr[-3000:]}")
-            check(C.completed_steps(out_dir) == [PREEMPT_AT],
-                  f"steps saved: {C.completed_steps(out_dir)}")
-            audit = verify_ckpt.audit_directory(out_dir)
-            check([s["status"] for s in audit["steps"]] == ["ok"],
-                  f"audit of the preemption checkpoint: {audit}")
-        else:
-            check(proc.returncode == 0, f"resumed run exited "
-                                        f"{proc.returncode}: "
-                                        f"{proc.stderr[-3000:]}")
-    first, second = (_logged_losses(p.stderr) for p, _ in runs)
+    return uninterrupted
+
+
+def _preemption_drill(card: str, first: tuple, resumed: tuple,
+                      uninterrupted: list) -> dict:
+    """``python -m fleetx_tpu_torch.tools.train`` at ``DRILL_LAYERS``
+    layers with ``sigterm_at: PREEMPT_AT``: it exits with ``PREEMPT_EXIT``
+    leaving a verified step-5 checkpoint (``_preempt_resume``); the same
+    command without the fault auto-resumes and trains to step 10, with
+    the losses of the same recipe's uninterrupted run in this process
+    bit for bit (as f32: the log prints 9 decimals)."""
+    runs = [first, _preempt_wait(resumed, 0)]
+    first, second = (_logged_losses(err) for err, _ in runs)
     want = {s + 1: x for s, x in enumerate(uninterrupted[:TRAIN_STEPS])}
     check(sorted(first) == list(range(1, PREEMPT_AT + 1))
           and sorted(second) == list(range(PREEMPT_AT + 1, TRAIN_STEPS + 1)),
@@ -4274,10 +4354,10 @@ def _preemption_drill(dev: torch.device, card: str, root: str) -> dict:
     check(same, f"preempted + resumed losses {first} {second} vs the "
                 f"uninterrupted run's {want}")
     saved = re.search(r"preemption: saved step \d+ in ([0-9.]+) s",
-                      runs[0][0].stderr)
+                      runs[0][0])
     check(saved is not None and "auto-resume: restoring step "
-          f"{PREEMPT_AT}" in runs[1][0].stderr, "preemption log lines")
-    out = dict(sigterm_at=PREEMPT_AT, exit_code=runs[0][0].returncode,
+          f"{PREEMPT_AT}" in runs[1][0], "preemption log lines")
+    out = dict(sigterm_at=PREEMPT_AT, exit_code=PREEMPT_EXIT,
                checkpoint_steps=[PREEMPT_AT], audit="ok",
                losses_before=[first[s] for s in sorted(first)],
                losses_resumed=[second[s] for s in sorted(second)],
@@ -4299,13 +4379,28 @@ def phase_fp16_resilience(dev: torch.device, card: str) -> dict:
         check(free >= CKPT_MIN_FREE_BYTES,
               f"{root} has {free / 1e9:.1f} GB free; the 345M checkpoints "
               f"need {CKPT_MIN_FREE_BYTES / 1e9:.0f} GB")
-        result = dict(
-            fp16_train=_fp16_train(dev, card, root),
-            fp16_kernels_off=_fp16_kernels_off(dev, card, root),
-            overflow=_overflow_drill(dev, card, root),
-            guard=_guard_skip_and_cost(dev, card, root),
-            rollback=_rollback_drill(dev, card, root),
-            preemption=_preemption_drill(dev, card, root))
+        # the preemption drill's two processes run while this one trains
+        # (the smoke's time limit: each process start is ~20 s): the
+        # SIGTERM'd run from the start, the resumed one beside the
+        # rollback drill
+        preempted = _preempt_start(root, fault=True)
+        try:
+            result = dict(
+                fp16_train=_fp16_train(dev, card, root),
+                fp16_kernels_off=_fp16_kernels_off(dev, card, root),
+                overflow=_overflow_drill(dev, card, root),
+                guard=_guard_skip_and_cost(dev, card, root))
+            uninterrupted = _preempt_reference(dev, root)
+            first, resumed = _preempt_resume(root, preempted)
+            preempted = resumed
+            result["rollback"] = _rollback_drill(dev, card, root)
+            result["preemption"] = _preemption_drill(card, first, resumed,
+                                                     uninterrupted)
+        finally:
+            proc = preempted[0][1]
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     result["seconds"] = time.perf_counter() - t0
@@ -4339,33 +4434,55 @@ def _digest_pairs(digests: dict) -> dict:
             for k, v in digests.items()}
 
 
+def _finetune_overrides(root: str, ckpt_dir: str, tok_dir: str,
+                        prefix: str) -> list:
+    """Phase 13a's overrides of the LoRA recipe."""
+    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
+
+    tok = GPTTokenizer.from_pretrained(tok_dir)
+    ad_dir = os.path.join(root, "finetune", "adapter")
+    return [f"FineTune.base_ckpt={ckpt_dir}",
+            f"FineTune.adapter_dir={ad_dir}",
+            f"Engine.max_steps={FT_STEPS}", "Engine.logging_freq=1",
+            f"Engine.save_load.save_steps={FT_STEPS}",
+            "Engine.save_load.output_dir="
+            f"{os.path.join(root, 'finetune', 'state')}",
+            f"Data.Train.dataset.input_dir={prefix}",
+            f"Data.Train.dataset.num_samples={FT_STEPS * 8}",
+            f"Data.Train.dataset.eos_id={tok.eos_token_id}"] + FT_LR \
+        + CUT_DEPTH
+
+
+def _finetune_start(root: str, ckpt_dir: str, tok_dir: str,
+                    prefix: str) -> tuple:
+    """Phase 13a's ``tools.finetune`` process, started; ``(started, start
+    time)``."""
+    return (_cli_start("tools.finetune", ["-c", FT_YAML] + _overrides(
+        _finetune_overrides(root, ckpt_dir, tok_dir, prefix))),
+        time.perf_counter())
+
+
 def phase_finetune(dev: torch.device, card: str, root: str, ckpt_dir: str,
-                   tok_dir: str, prefix: str, trainer: dict) -> dict:
+                   tok_dir: str, prefix: str, trainer: dict,
+                   started: Optional[tuple] = None) -> dict:
     """Phase 13a: ``python -m fleetx_tpu_torch.tools.finetune`` on
     ``finetune_gpt_345M_lora.yaml`` from phase 8's checkpoint cut to
     ``CUT_LAYERS`` layers (``ckpt_dir``) on phase 10's corpus, as its own
-    process; its launch counts, loss, frozen base, moved adapters,
+    process (``started`` by ``_finetune_start`` beside phase 11 in the
+    whole run); its launch counts, loss, frozen base, moved adapters,
     trainable fraction and artifact."""
     from fleetx_tpu_torch.core import checkpoint as C
-    from fleetx_tpu_torch.data.tokenizers.gpt_tokenizer import GPTTokenizer
     from fleetx_tpu_torch.finetune import checkpoint as FT
     from fleetx_tpu_torch.finetune import lora
     from fleetx_tpu_torch.tools import verify_ckpt
     from fleetx_tpu_torch.tools.train import load_config
 
-    tok = GPTTokenizer.from_pretrained(tok_dir)
     ad_dir = os.path.join(root, "finetune", "adapter")
     state_dir = os.path.join(root, "finetune", "state")
-    overrides = [f"FineTune.base_ckpt={ckpt_dir}",
-                 f"FineTune.adapter_dir={ad_dir}",
-                 f"Engine.max_steps={FT_STEPS}", "Engine.logging_freq=1",
-                 f"Engine.save_load.save_steps={FT_STEPS}",
-                 f"Engine.save_load.output_dir={state_dir}",
-                 f"Data.Train.dataset.input_dir={prefix}",
-                 f"Data.Train.dataset.num_samples={FT_STEPS * 8}",
-                 f"Data.Train.dataset.eos_id={tok.eos_token_id}"] + FT_LR \
-        + CUT_DEPTH
-    cfg = load_config(FT_YAML, overrides)
+    if started is None:
+        started = _finetune_start(root, ckpt_dir, tok_dir, prefix)
+    cfg = load_config(FT_YAML, _finetune_overrides(root, ckpt_dir, tok_dir,
+                                                   prefix))
     mc, ft = cfg["Model"], cfg["FineTune"]
     check(mc["module"] == "LoRAGPTModule" and mc["num_layers"] == CUT_LAYERS
           and mc["hidden_size"] == 1024 and mc["num_attention_heads"] == 16
@@ -4373,10 +4490,8 @@ def phase_finetune(dev: torch.device, card: str, root: str, ckpt_dir: str,
           and float(ft["lora"]["alpha"]) == 16.0
           and cfg["Global"]["global_batch_size"] == 8,
           "not the full-width 345M LoRA recipe")
-    t0 = time.perf_counter()
-    lines, _, _ = _cli("tools.finetune",
-                       ["-c", FT_YAML] + _overrides(overrides))
-    process_s = time.perf_counter() - t0
+    lines, _, _ = _cli_wait(started[0])
+    process_s = time.perf_counter() - started[1]
     rec = lines[-1]
     check(rec["device"].startswith("cuda") and rec["steps"] == FT_STEPS,
           f"finetune ran {rec['steps']} steps on {rec['device']}")
@@ -4620,12 +4735,14 @@ def phase_quant_serving(dev: torch.device, card: str, ckpt_dir: str,
 
 def phase_finetune_serving(dev: torch.device, card: str, root: str,
                            ckpt_dir: str, tok_dir: str, prefix: str,
-                           trainer: dict, main_path: dict) -> tuple:
+                           trainer: dict, main_path: dict,
+                           started: Optional[tuple] = None) -> tuple:
     """Phase 13: the LoRA fine-tune from phase 8's checkpoint cut to
-    ``CUT_LAYERS`` layers (``ckpt_dir``) on phase 10's corpus, then its
-    quantized replica; ``(finetune, quant)``."""
+    ``CUT_LAYERS`` layers (``ckpt_dir``) on phase 10's corpus (its process
+    ``started`` already, or started now), then its quantized replica;
+    ``(finetune, quant)``."""
     finetune = timed("13 finetune", phase_finetune, dev, card, root,
-                     ckpt_dir, tok_dir, prefix, trainer)
+                     ckpt_dir, tok_dir, prefix, trainer, started)
     quant = timed("13 quant_serving", phase_quant_serving, dev, card,
                   ckpt_dir, finetune, tok_dir, main_path)
     return finetune, quant
@@ -4897,10 +5014,24 @@ _TRAIN_LINE = re.compile(
     r".* ips_total: ([0-9.]+) tokens/s(?:.*mfu: ([0-9.]+)%)?")
 
 
-def _auto_train(dev: torch.device, card: str) -> dict:
+def _auto_start() -> tuple:
+    """14c's process (``auto_child``) started, its output to unnamed
+    temporary files; ``(started, start time)``."""
+    logs = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.auto_child(sys.argv[1:]))", "-c", AUTO_YAML]
+        + _overrides(AUTO_OVERRIDES), cwd=REPO, stdout=logs[0],
+        stderr=logs[1], text=True, env=dict(os.environ, PYTHONPATH=REPO))
+    proc.logs = logs
+    return ("tools.auto", proc), time.perf_counter()
+
+
+def _auto_train(dev: torch.device, card: str, started: tuple) -> dict:
     """14c: ``python -m fleetx_tpu_torch.tools.auto`` on the 1.3B auto
     recipe, full width and depth, as its own process (through
-    ``auto_child``, which reads its launch counts)."""
+    ``auto_child``, which reads its launch counts), ``started`` by
+    ``_auto_start`` at the phase's start."""
     from fleetx_tpu_torch.tools.train import load_config
     from fleetx_tpu_torch.utils.hardware import peak_flops
 
@@ -4913,17 +5044,9 @@ def _auto_train(dev: torch.device, card: str) -> dict:
           and cfg["Global"]["max_seq_len"] == 1024
           and cfg["Global"]["global_batch_size"] == 8,
           "not the full-width GPT-1.3B auto recipe")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "sys.exit(chip_smoke.auto_child(sys.argv[1:]))", "-c", AUTO_YAML]
-        + _overrides(AUTO_OVERRIDES), cwd=REPO, capture_output=True,
-        text=True, timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
-    process_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"tools.auto exited {proc.returncode}: "
-                                f"{proc.stderr[-3000:]}")
-    rec = json.loads(proc.stdout.strip().splitlines()[-1])
-    log = proc.stderr
+    _, stdout, log = _cli_wait(started[0])
+    process_s = time.perf_counter() - started[1]
+    rec = json.loads(stdout.strip().splitlines()[-1])
     planned = re.search(r"auto layout for ([0-9.]+)B params on (\d+) "
                         r"devices: (\{.*\})", log)
     budget = re.search(r"auto_layout: 1 device, budget ([0-9.]+) GB "
@@ -4980,9 +5103,19 @@ def phase_gpt_knobs(dev: torch.device, card: str, trainer: dict) -> dict:
     """Phase 14: QAT, the dots granularity and the auto-layout entry point
     at full width (each counted from 0 around its own run), and rows 1 and
     4 at the 1.3B attention shape, which 14c is the first path to run."""
-    out = {"qat": _qat_train(dev, card, trainer),
-           "dots": _dots_train(dev, card, trainer),
-           "auto": _auto_train(dev, card)}
+    # 14c's process runs beside 14a-b (the smoke's time limit: it took
+    # ~19 s alone, most of it its start; its 3 steps share the card with
+    # theirs)
+    started = _auto_start()
+    try:
+        out = {"qat": _qat_train(dev, card, trainer),
+               "dots": _dots_train(dev, card, trainer),
+               "auto": _auto_train(dev, card, started)}
+    finally:
+        proc = started[0][1]
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = _flash_rows(torch.bfloat16, dev, flush, SHAPE_1_3B)
     del flush
@@ -5027,19 +5160,31 @@ def finetune_serving_alone(dev: torch.device, card: str) -> None:
 
 
 def eval_and_export(dev: torch.device, card: str, root: str,
-                    ckpt_dir: str, tok_dir: str) -> tuple:
+                    ckpt_dir: str, tok_dir: str,
+                    finetune: bool = False) -> tuple:
     """Phases 10 and 11 on the checkpoint under ``ckpt_dir``, its params
-    loaded once in this process for the in-process comparisons."""
+    loaded once in this process for the in-process comparisons; with
+    ``finetune``, phase 13's fine-tune process starts on phase 10's corpus
+    and runs beside phase 11 (the smoke's time limit). ``(evaluation,
+    export, the started fine-tune or None)``."""
     from fleetx_tpu_torch.core.checkpoint import load_params
 
     params = load_params(ckpt_dir, device=dev)
     evaluation = timed("10", phase_eval, dev, card, root, ckpt_dir, tok_dir,
                        params)
-    export = timed("11", phase_export, dev, card, root, ckpt_dir, tok_dir,
-                   params)
+    started = _finetune_start(root, ckpt_dir, tok_dir,
+                              evaluation["corpus_prefix"]) \
+        if finetune else None
+    try:
+        export = timed("11", phase_export, dev, card, root, ckpt_dir,
+                       tok_dir, params)
+    except BaseException:
+        if started is not None:
+            started[0][1].kill()
+        raise
     del params
     torch.cuda.empty_cache()
-    return evaluation, export
+    return evaluation, export, started
 
 
 def eval_export_alone(dev: torch.device, card: str) -> None:
@@ -5352,6 +5497,22 @@ def phase_encoders(dev: torch.device, card: str) -> dict:
             "epoch": _epoch_mode(dev, card)}
 
 
+def encoders_while_building(build, dev: torch.device, card: str) -> tuple:
+    """Phase 15 while every kernel compiles on a thread of its own (the
+    ``nvcc`` processes, ~30 s); ``(phase 15's result, the build's
+    seconds)``. Its zero launch counts still hold: a launch on its paths
+    would build its library and count."""
+    def timed_build() -> float:
+        t0 = time.monotonic()
+        build.build()
+        return time.monotonic() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        built = pool.submit(timed_build)
+        encoders = timed("15", phase_encoders, dev, card)
+        return encoders, built.result()
+
+
 # -------------------------------------------------------------- phase 16
 MOE_YAML = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
                         "pretrain_gpt_moe_8expert_mp4.yaml")
@@ -5633,7 +5794,7 @@ def _imagen_train(dev: torch.device, card: str, root: str) -> dict:
     """16b: Imagen ``base64`` through ``build_trainer`` → ``fit`` for 10
     steps at full width, batch 16, bf16 (counts zeroed just before and
     read just after; the final step saved under ``root``), a 3-step
-    trace; then one ``sr256`` step at the YAML's batch 8."""
+    trace."""
     from fleetx_tpu_torch.core.checkpoint import latest_step
     from fleetx_tpu_torch.models.imagen import unet as U
     from fleetx_tpu_torch.tools.train import build_trainer, load_config
@@ -5695,6 +5856,13 @@ def _imagen_train(dev: torch.device, card: str, root: str) -> dict:
     emit("imagen_trace", **out["trace"], nvidia_smi=card)
     del engine, batch
     torch.cuda.empty_cache()
+    return out
+
+
+def _imagen_sr256(dev: torch.device, card: str) -> dict:
+    """16b's ``sr256`` step: one step at the YAML's batch 8 (counts
+    zeroed just before and read just after)."""
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
 
     sr_cfg = load_config(IMAGEN_SR_YAML, IMAGEN_SR_OVERRIDES)
     engine, train_dl, _ = build_trainer(sr_cfg, device=dev)
@@ -5715,13 +5883,12 @@ def _imagen_train(dev: torch.device, card: str, root: str) -> dict:
     check(len(sr_losses) == 1 and np.isfinite(sr_losses[0])
           and np.isfinite(engine.history[0]["grad_norm"]),
           f"sr256 loss {sr_losses}")
-    out["sr256"] = dict(loss=sr_losses[0],
-                        step_ms=engine.history[0]["train_cost"] * 1e3,
-                        params=sum(p.numel() for p in engine._leaves),
-                        max_memory_allocated_gb=torch.cuda
-                        .max_memory_allocated(dev) / 2 ** 30,
-                        launches=sr_counts)
-    emit("imagen_sr256_step", **out["sr256"], nvidia_smi=card)
+    out = dict(loss=sr_losses[0],
+               step_ms=engine.history[0]["train_cost"] * 1e3,
+               params=sum(p.numel() for p in engine._leaves),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev)
+               / 2 ** 30, launches=sr_counts)
+    emit("imagen_sr256_step", **out, nvidia_smi=card)
     del engine
     torch.cuda.empty_cache()
     return out
@@ -5786,19 +5953,47 @@ def _imagen_cascade(dev: torch.device, card: str, ckpt: str) -> dict:
     return out
 
 
+def imagen_child(argv: list) -> int:
+    """The process of 16b's base run and 16c, under ``argv[0]``: their
+    JSON lines as they run, then one line of both results."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # as phase 0 sets
+    torch.backends.cudnn.allow_tf32 = False
+    dev, card = torch.device("cuda", 0), smi_line()
+    imagen = _imagen_train(dev, card, argv[0])
+    cascade = _imagen_cascade(dev, card, imagen["checkpoint"])
+    print(json.dumps({"imagen": imagen, "cascade": cascade}), flush=True)
+    return 0
+
+
 def phase_families(dev: torch.device, card: str) -> dict:
     """Phase 16: the 8-expert MoE GPT-345M (training, eval, generation),
     Imagen base 64² training, one SR-256 step, and the base → SR-256
-    cascade."""
+    cascade; the base run and the cascade in ``imagen_child``'s process,
+    beside the MoE's."""
     root = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    logs = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CHILD % (REPO, "imagen_child"), root],
+        cwd=REPO, stdout=logs[0], stderr=logs[1], text=True,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    proc.logs = logs
     try:
         moe = _moe_train(dev, card)
-        imagen = _imagen_train(dev, card, root)
-        cascade = _imagen_cascade(dev, card, imagen["checkpoint"])
+        sr256 = _imagen_sr256(dev, card)
+        _, stdout, _ = _cli_wait(("imagen_child", proc))
     finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
-    return {"moe": moe, "imagen": imagen, "cascade": cascade}
+    lines = stdout.strip().splitlines()
+    for line in lines[:-1]:             # the child's phase lines
+        if line.startswith('{"phase"'):
+            print(line, flush=True)
+    res = json.loads(lines[-1])
+    return {"moe": moe, "imagen": dict(res["imagen"], sr256=sr256),
+            "cascade": res["cascade"]}
 
 
 # --------------------------------------------------------------- phase 17
@@ -7723,17 +7918,100 @@ SIXB = ["Distributed.dp_degree=1", "Distributed.fsdp_degree=4",
         f"Engine.max_steps={SIXB_STEPS}", "Engine.logging_freq=1",
         "Engine.eval_freq=0", f"Engine.save_load.save_steps={SIXB_STEPS}"]
 MESH_TRAIN_TIMEOUT_S = 600
+#: 21a runs with the gang resilience runtime on: the gang watchdog's
+#: barrier after every step, the loop vote every step (preemption exits
+#: with 75, every rank saving the same step through the two-phase commit,
+#: asynchronously), the SDC sentinel every 2nd round (one check, with its
+#: fingerprint census, in generation 1) and ``Observability.gang``.
+#: Generation 1 gets a SIGTERM on rank 1 alone before step
+#: ``MESH_PREEMPT_AT + 1``; generation 2 resumes every rank from that step
+#: and trains to ``MESH_345M_STEPS``
+MESH_PREEMPT_AT = 3
+MESH_RESILIENCE = ["Resilience.enable=True",
+                   "Resilience.watchdog.enable=True",
+                   "Resilience.watchdog.gang_sync_steps=1",
+                   "Resilience.preemption.sync_every=1",
+                   f"Resilience.preemption.exit_code={PREEMPT_EXIT}",
+                   "Resilience.preemption.save_on_exit=True",
+                   "Resilience.integrity.sentinel_every=2",
+                   "Engine.save_load.async_save=True",
+                   "Observability.enable=True", "Observability.gang=True"]
+MESH_FAULTS = f"sigterm_at={MESH_PREEMPT_AT},only_rank=1"
+#: 21c: a per-rank pair, two processes each training their own 345M
+#: replica (full width, ``DRILL_LAYERS`` deep) on a mesh of one with
+#: ``per_rank_dirs``; rank 1 alone gets a bit flip after step
+#: ``PAIR_FLIP_AT`` (the sentinel's census at round ``PAIR_SENTINEL``, the
+#: only round it checks before the abort, must see it on both ranks) and
+#: NaN losses at batches ``PAIR_NAN_AT`` (steps 6 and 7): both ranks roll
+#: back once to the step-``PAIR_SENTINEL`` save, the replayed poison then
+#: aborts both at step ``PAIR_ABORT_STEP`` (exit 3)
+PAIR_RANKS = 2
+PAIR_FLIP_AT = 2
+PAIR_SENTINEL = 5
+PAIR_NAN_AT = (5, 6)
+PAIR_ABORT_STEP = 7
+PAIR_ABORT_EXIT = 3
+PAIR_OVERRIDES = DRILL_DEPTH + [
+    f"Engine.max_steps={TRAIN_STEPS}", "Engine.logging_freq=1",
+    f"Engine.save_load.save_steps={PAIR_SENTINEL}",
+    "Engine.save_load.per_rank_dirs=True", "Resilience.enable=True",
+    f"Resilience.integrity.sentinel_every={PAIR_SENTINEL}",
+    "Resilience.integrity.sentinel_action=log",
+    "Resilience.guard.nonfinite_action=rollback",
+    "Resilience.guard.nonfinite_streak=2",
+    "Resilience.guard.max_rollbacks=1",
+    "Resilience.guard.skip_nonfinite_update=False"]
+PAIR_FAULTS = (f"bitflip_param_at={PAIR_FLIP_AT},nan_loss_at="
+               f"{PAIR_NAN_AT[0]}:{PAIR_NAN_AT[1]},only_rank=1")
+
+
+def _runtime_report(engine) -> dict:
+    """The gang resilience runtime's evidence on this rank: its counters,
+    the gang watchdog's barriers and the commit votes (the agreements'
+    wait histograms count them)."""
+    from fleetx_tpu_torch.observability.metrics import get_registry
+
+    reg = get_registry()
+    out = {k: reg.counter(k).value for k in (
+        "sdc_checks_total", "sdc_replay_mismatches",
+        "sdc_fingerprint_mismatches", "ckpt_commit_aborts",
+        "preemption_exits", "rollbacks_total", "watchdog_gang_stalls",
+        "coord_timeouts_total", "coord_agreements_total")}
+    for name in ("gang_watchdog", "ckpt_commit", "loop_flags"):
+        out[f"{name}_agreements"] = reg.histogram(
+            f"coord_wait_ms.{name}").summary().get("count", 0)
+    out["barrier_wait_ms"] = reg.histogram("barrier_wait_ms").summary()
+    out["step"] = int(engine.step)
+    return out
+
+
+def _replay_launches(engine, out: dict) -> None:
+    """Count the launches of the SDC sentinel's replays apart (read
+    before and after each ``_sdc_check``; the counts run on)."""
+    check_fn = engine._sdc_check
+
+    def counted(*a, **k):
+        before = read_counts()
+        try:
+            return check_fn(*a, **k)
+        finally:
+            after = read_counts()
+            for name in ENCODER_ROWS:
+                out[name] = out.get(name, 0) + after[name] - before[name]
+
+    engine._sdc_check = counted
 
 
 def train_mesh_child(argv: list) -> int:
     """A member of phase 21's training gangs: ``tools.train``'s ``main``
     on ``argv[1:]``, its launch counts zeroed just before ``fit`` and read
-    just after; the rank's losses, step walls, peak memory, the
-    collectives' count and host wall, its mesh and blocks, and the
-    gathered parameters' fingerprint go to ``argv[0]/rank<r>.json``."""
+    just after (the sentinel's replays also apart); the rank's losses,
+    step walls, peak memory, the collectives' count and host wall, its
+    mesh and blocks, the gathered parameters' fingerprint, how ``fit``
+    ended, the runtime's counters and the fingerprints of a restore and
+    of a preemption's save go to ``argv[0]/rank<r>.json``."""
     from fleetx_tpu_torch.convert import jax_leaves
     from fleetx_tpu_torch.core.engine.eager_engine import EagerEngine
-    from fleetx_tpu_torch.parallel import mesh as PM
     from fleetx_tpu_torch.resilience.integrity import params_fingerprint
     from fleetx_tpu_torch.tools import train
     from fleetx_tpu_torch.utils.env import get_backend
@@ -7741,7 +8019,7 @@ def train_mesh_child(argv: list) -> int:
     import torch.distributed as dist
 
     out_dir, train_argv = argv[0], argv[1:]
-    report: dict = {}
+    report: dict = {"exit": "completed"}
     coll = {"calls": 0, "seconds": 0.0, "on": False}
 
     def timed_collective(fn):
@@ -7759,15 +8037,45 @@ def train_mesh_child(argv: list) -> int:
     # the collectives that reach the backend (an axis of size 1 makes none)
     for name in ("all_reduce", "all_gather", "reduce_scatter_tensor"):
         setattr(dist, name, timed_collective(getattr(dist, name)))
-    fit = EagerEngine.fit
+    fit, load = EagerEngine.fit, EagerEngine.load
+
+    def fingerprinted_load(self, *a, **k):
+        restored = load(self, *a, **k)
+        if restored:
+            report["restored_step"] = int(self.step)
+            report["restored_fingerprint"] = self.params_fingerprint()
+        return restored
+
+    EagerEngine.load = fingerprinted_load
+    replay: dict = {}
 
     def measured_fit(self, *a, **k):
+        # a generation started early waits here, built but before its
+        # first read of the checkpoint, until the smoke opens its gate
+        gate = os.environ.get("FLEETX_SMOKE_GATE")
+        deadline = time.monotonic() + MESH_TRAIN_TIMEOUT_S
+        while gate and not os.path.exists(gate) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
         torch.cuda.synchronize()
         reset_peak(self.device)
         zero_counts()                   # every count to 0 just before
+        _replay_launches(self, replay)
         coll.update(calls=0, seconds=0.0, on=True)
         t0 = time.perf_counter()
-        losses = fit(self, *a, **k)
+        try:
+            losses = fit(self, *a, **k)
+        except SystemExit:
+            # the preemption exit, on every rank at the same step: the
+            # saved step's parameters fingerprinted before the group goes
+            report.update(exit="preempted",
+                          saved_fingerprint=self.params_fingerprint())
+            fill(self, [h["loss"] for h in self.history], t0)
+            raise
+        fill(self, losses, t0)
+        return losses
+
+    def fill(self, losses: list, t0: float) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         coll["on"] = False
@@ -7792,34 +8100,98 @@ def train_mesh_child(argv: list) -> int:
                 "word_embeddings"].shape),
             moment_blocks=sorted({tuple(v.shape) for v in
                                   self.opt_state["mu"]}),
-            fingerprint=params_fingerprint(jax_leaves(self.full_params())))
-        return losses
+            fingerprint=params_fingerprint(jax_leaves(self.full_params())),
+            replay_launches=replay, runtime=_runtime_report(self))
 
     EagerEngine.fit = measured_fit
-    code = train.main(train_argv)
+    try:
+        code = train.main(train_argv)
+    except SystemExit as e:
+        code = e.code
     with open(os.path.join(out_dir, f"rank{report['rank']}.json"),
               "w") as f:
         json.dump(report, f)
     return code
 
 
-def _train_gang(root: str, name: str, yaml: str, overrides: list) -> dict:
-    """One of phase 21's gangs: ``tools.supervise --num-procs 4 --``
-    ``tools.train`` (through ``train_mesh_child``) on this card. Its
-    ranks' allocators grow expandable segments: eight ranks share the
-    card, and the blocks a rank keeps reserved but unused would hold the
-    others' memory."""
+def per_rank_member(argv: list) -> int:
+    """A member of 21c's per-rank pair: joins the gang, builds the
+    trainer of ``argv[1]`` with the overrides ``argv[2:]`` on a mesh of
+    one (its own replica, ``per_rank_dirs``), and fits with the launch
+    counts zeroed just before and read just after; how it ended, its
+    steps, losses, counters, the iterations whose census moved
+    ``sdc_fingerprint_mismatches`` and its completed checkpoint steps go
+    to ``argv[0]/rank<r>.json``; a ``TrainingAborted`` exits 3."""
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.parallel.mesh import build_mesh
+    from fleetx_tpu_torch.resilience import TrainingAborted
+    from fleetx_tpu_torch.tools.train import build_trainer, load_config
+    from fleetx_tpu_torch.utils.env import (close_dist_env, get_backend,
+                                            get_rank, init_dist_env)
+
+    out_dir, yaml, overrides = argv[0], argv[1], argv[2:]
+    init_dist_env()
+    rank = get_rank()
+    cfg = load_config(yaml, overrides, world_size=1)
+    engine, dl, _ = build_trainer(cfg, device="cuda",
+                                  mesh=build_mesh({}, world_size=1))
+    census, replay = [], {}
+    check_fn = engine._sdc_check
+
+    def noted(prev, batch, metrics, step, gang=False):
+        before = _counter("sdc_fingerprint_mismatches")
+        check_fn(prev, batch, metrics, step, gang)
+        census.append([int(step), _counter("sdc_fingerprint_mismatches")
+                       - before])
+
+    engine._sdc_check = noted
+    torch.cuda.synchronize()
+    zero_counts()                       # every count to 0 just before
+    _replay_launches(engine, replay)
+    report = dict(rank=rank, backend=get_backend(),
+                  device=str(engine.device), mesh=engine.mesh is None,
+                  per_rank=engine.per_rank_ckpt,
+                  output_dir=engine.output_dir, exit="completed", code=0)
+    try:
+        report["losses"] = engine.fit(dl)
+    except TrainingAborted as e:
+        report.update(exit="aborted", code=PAIR_ABORT_EXIT, error=str(e))
+    torch.cuda.synchronize()
+    report.update(launches=read_counts(), replay_launches=replay,
+                  census=census, runtime=_runtime_report(engine),
+                  completed=C.completed_steps(engine.output_dir),
+                  history_losses=[h["loss"] for h in engine.history])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    close_dist_env()
+    return report["code"]
+
+
+def _train_gang(root: str, name: str, yaml: str, overrides: list,
+                env: Optional[dict] = None, member: str = "train_mesh_child",
+                ranks: int = TRAIN_MESH_RANKS) -> dict:
+    """One of phase 21's gangs: ``tools.supervise --num-procs <ranks> --``
+    ``tools.train`` (through ``train_mesh_child``, or ``member``) on this
+    card, its flight dumps under ``<root>/flight_<name>``. Its ranks'
+    allocators grow expandable segments: the ranks share the card, and
+    the blocks a rank keeps reserved but unused would hold the others'
+    memory. ``env`` adds variables (a generation's fault plan)."""
     out = os.path.join(root, name)
     os.makedirs(out, exist_ok=True)
     gang = _mesh_supervised(
-        TRAIN_MESH_RANKS, [sys.executable, "-c", CHILD % (
-            REPO, "train_mesh_child"), out, "-c", yaml]
-        + _overrides(overrides), os.path.join(root, f"{name}.log"),
-        env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
-    return dict(gang, out=out)
+        ranks, [sys.executable, "-c", CHILD % (REPO, member), out]
+        + ([] if member == "per_rank_member" else ["-c"]) + [yaml]
+        + (overrides if member == "per_rank_member"
+           else _overrides(overrides)), os.path.join(root, f"{name}.log"),
+        env=dict({"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True",
+                  "FLEETX_FLIGHT_DIR": os.path.join(root, f"flight_{name}")},
+                 **(env or {})))
+    return dict(gang, out=out, ranks=ranks)
 
 
-def _train_reports(gang: dict, what: str) -> list:
+def _gang_exit(gang: dict, what: str, want: int = 0) -> list:
+    """Wait for a phase-21 gang, hold its exit code to ``want`` and return
+    its ranks' reports."""
     proc = gang["proc"]
     try:
         proc.wait(timeout=MESH_TRAIN_TIMEOUT_S)
@@ -7827,13 +8199,19 @@ def _train_reports(gang: dict, what: str) -> list:
         _stop_gang(gang)
     with open(gang["log"]) as f:
         tail = f.read()[-6000:]
-    check(proc.returncode == 0, f"{what} exited {proc.returncode}: {tail}")
+    check(proc.returncode == want,
+          f"{what} exited {proc.returncode}, not {want}: {tail}")
     reports = []
-    for r in range(TRAIN_MESH_RANKS):
+    for r in range(gang["ranks"]):
         with open(os.path.join(gang["out"], f"rank{r}.json")) as f:
             reports.append(json.load(f))
-    check([r["rank"] for r in reports] == list(range(TRAIN_MESH_RANKS)),
+    check([r["rank"] for r in reports] == list(range(gang["ranks"])),
           f"{what}: ranks {[r['rank'] for r in reports]}")
+    return reports
+
+
+def _train_reports(gang: dict, what: str, want: int = 0) -> list:
+    reports = _gang_exit(gang, what, want)
     for r in reports:
         check(r["backend"] == "gloo" and r["device"] == "cuda:0",
               f"{what}: rank {r['rank']} on {r['backend']}, {r['device']}")
@@ -7864,16 +8242,90 @@ def _per_rank_launches(what: str, reports: list, per_step: dict,
             for name in ENCODER_ROWS}
 
 
+def _check_generation(what: str, reports: list, steps: int,
+                      replays: int) -> dict:
+    """21a's checks on one generation: every rank's launches of rows 1,
+    4, 5 and 6 (``steps`` training steps and ``replays`` sentinel
+    replays, the replays' own counted apart), a gang-watchdog barrier
+    each step, no stall, no commit abort, no timeout."""
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd_fused": 24,
+                "fused_norm_fwd": 49, "fused_norm_bwd": 49}
+    launches = _per_rank_launches(what, reports, per_step, steps + replays)
+    for r in reports:
+        rt = r["runtime"]
+        check(all(r["replay_launches"].get(k, 0) == replays * n
+                  for k, n in per_step.items()),
+              f"{what}: rank {r['rank']} replay launches "
+              f"{r['replay_launches']}")
+        check(rt["gang_watchdog_agreements"] == steps
+              and rt["watchdog_gang_stalls"] == 0
+              and rt["ckpt_commit_aborts"] == 0
+              and rt["coord_timeouts_total"] == 0,
+              f"{what}: rank {r['rank']} runtime {rt}")
+    return launches
+
+
+def _check_pair(reports: list) -> dict:
+    """21c's checks: both ranks a replica of one rank in its own
+    ``rank_<i>`` directory; the census of round ``PAIR_SENTINEL`` counted
+    one fingerprint mismatch on both (the only check before the abort), no
+    replay mismatch; one rollback each to the step-``PAIR_SENTINEL``
+    save, both aborted at step ``PAIR_ABORT_STEP``; rows 1, 4, 5 and 6 a
+    step and a replay at ``DRILL_LAYERS`` layers on both."""
+    per_step = _per_step(DRILL_LAYERS)
+    # steps 1-7, the rollback, steps 6-7 again, one replay
+    runs = PAIR_ABORT_STEP + 2 + 1
+    launches = _per_rank_launches("21c", reports, per_step, runs)
+    for r in reports:
+        rt = r["runtime"]
+        check(r["mesh"] and r["per_rank"]
+              and r["output_dir"].endswith(f"rank_{r['rank']}")
+              and r["backend"] == "gloo" and r["device"] == "cuda:0",
+              f"21c: rank {r['rank']} is not a per-rank replica: {r}")
+        check(r["census"] == [[PAIR_SENTINEL, 1]]
+              and rt["sdc_checks_total"] == 1
+              and rt["sdc_fingerprint_mismatches"] == 1
+              and rt["sdc_replay_mismatches"] == 0,
+              f"21c: rank {r['rank']} census {r['census']}, {rt}")
+        check(r["exit"] == "aborted" and rt["step"] == PAIR_ABORT_STEP
+              and rt["rollbacks_total"] == 1
+              and r["completed"] == [PAIR_SENTINEL],
+              f"21c: rank {r['rank']} ended {r['exit']} at {rt['step']}, "
+              f"rollbacks {rt['rollbacks_total']}, saved {r['completed']}")
+        check(all(r["replay_launches"].get(k, 0) == per_step[k]
+                  for k in ENCODER_ROWS),
+              f"21c: rank {r['rank']} replay launches "
+              f"{r['replay_launches']}")
+    # the replicas diverge only through rank 1's faults
+    r0, r1 = (r["history_losses"] for r in reports)
+    check(r0[:PAIR_FLIP_AT] == r1[:PAIR_FLIP_AT]
+          and all(np.isfinite(r0)) and not all(np.isfinite(r1)),
+          f"21c: losses {r0} / {r1}")
+    return dict(launches=launches, census=reports[0]["census"],
+                losses=[r["history_losses"] for r in reports],
+                aborted_at=PAIR_ABORT_STEP, exit_code=PAIR_ABORT_EXIT,
+                checkpoint_steps=reports[0]["completed"],
+                runtime=[r["runtime"] for r in reports])
+
+
 def phase_train_mesh(dev: torch.device, card: str, losses4: list) -> dict:
     """Phase 21: sharded training over a gang of 4 ranks on this card,
     through ``tools.supervise --num-procs 4 -- tools.train`` (gloo: the
     ranks share the card). 21a: phase 4's GPT-345M at dp 2 × mp 2 with
-    sequence parallelism, 4 steps against phase 4's first 4 losses. 21b:
-    GPT-6.7B's width at fsdp 4, ZeRO stage 2, 3 steps and a save that
-    this process loads on one rank: its fingerprint must equal the
-    gang's. The two gangs run at once, eight ranks on the card: their
-    steps are host-bound (every collective a gloo round trip)."""
+    sequence parallelism and the gang resilience runtime, in two
+    generations: a SIGTERM on rank 1 alone before step 4 makes every rank
+    save step 3 through the two-phase commit and exit 75; the second
+    generation resumes every rank from it and trains step 4; the four
+    losses are held to phase 4's first 4. 21b: GPT-6.7B's width at fsdp
+    4, ZeRO stage 2, 3 steps and a save that this process loads on one
+    rank: its fingerprint must equal the gang's. 21c: a per-rank pair
+    (``per_rank_member``), whose faults on rank 1 alone end in collective
+    outcomes on both ranks. 21a's first generation and 21b run at once
+    (their steps are host-bound: every collective a gloo round trip);
+    21c and 21a's second generation start when 21b exits, the second
+    generation held at a gate until its first has exited."""
     from fleetx_tpu_torch.convert import jax_leaves
+    from fleetx_tpu_torch.core import checkpoint as C
     from fleetx_tpu_torch.core.engine import EagerEngine
     from fleetx_tpu_torch.core.module import GPTModule
     from fleetx_tpu_torch.resilience.integrity import params_fingerprint
@@ -7893,44 +8345,140 @@ def phase_train_mesh(dev: torch.device, card: str, losses4: list) -> dict:
     try:
         t0 = time.monotonic()
         ckpt = os.path.join(root, "ckpt_6.7B")
-        gangs.append(_train_gang(root, "345M", TRAIN_YAML, MESH_345M))
+        ckpt_a = os.path.join(root, "ckpt_345M")
+        tel_a = os.path.join(root, "telemetry_345M")
+        resilient = MESH_345M + MESH_RESILIENCE + [
+            f"Engine.save_load.output_dir={ckpt_a}",
+            f"Observability.output_dir={tel_a}"]
+        gangs.append(_train_gang(root, "345M", TRAIN_YAML, resilient,
+                                 env={"FLEETX_FAULTS": MESH_FAULTS}))
         gangs.append(_train_gang(root, "6.7B", SIXB_YAML, SIXB + [
             f"Engine.save_load.output_dir={ckpt}"]))
-        a = _train_reports(gangs[0], "21a")
-        out["a_s"] = time.monotonic() - t0
-        b = _train_reports(gangs[1], "21b")
-        out["b_s"] = time.monotonic() - t0
-        # 21a: full width and depth, the shard's blocks, SP, the losses
-        for r in a:
+        # when 21b exits, 21c starts and so does 21a's second generation,
+        # held at a gate (built, before its first read of the checkpoint)
+        # until the first generation has exited: never three gangs
+        # training on the card (21b's and 21a's ranks together leave ~10
+        # GB), and the second generation's start-up overlaps the first's
+        # last steps
+        gate = os.path.join(root, "resume_gate")
+        a_done = b_done = False
+        deadline = time.monotonic() + MESH_TRAIN_TIMEOUT_S
+        while not (a_done and b_done):
+            late = time.monotonic() > deadline
+            if not a_done and (gangs[0]["proc"].poll() is not None or late):
+                first = _train_reports(gangs[0], "21a (1)",
+                                       want=PREEMPT_EXIT)
+                out["a1_s"] = time.monotonic() - t0
+                committed = C.completed_steps(ckpt_a)
+                open(gate, "w").close()
+                a_done = True
+            elif not b_done and (gangs[1]["proc"].poll() is not None
+                                 or late):
+                b = _train_reports(gangs[1], "21b")
+                out["b_s"] = time.monotonic() - t0
+                pair_gang = _train_gang(
+                    root, "pair", TRAIN_YAML, PAIR_OVERRIDES + [
+                        "Engine.save_load.output_dir="
+                        f"{os.path.join(root, 'pair')}"],
+                    env={"FLEETX_FAULTS": PAIR_FAULTS},
+                    member="per_rank_member", ranks=PAIR_RANKS)
+                resume = _train_gang(root, "345M_resume", TRAIN_YAML,
+                                     resilient,
+                                     env={"FLEETX_SMOKE_GATE": gate})
+                gangs += [pair_gang, resume]
+                b_done = True
+            else:
+                time.sleep(0.2)
+        second = _train_reports(resume, "21a (2)")
+        out["a2_s"] = time.monotonic() - t0
+        pair = _gang_exit(pair_gang, "21c", want=PAIR_ABORT_EXIT)
+        out["c_s"] = time.monotonic() - t0
+        # 21a: full width and depth, the shard's blocks, SP
+        for r in first + second:
             check(r["mesh"] == {"pipe": 1, "data": 2, "fsdp": 1, "seq": 1,
                                 "tensor": 2} and r["sp"]
                   and r["qkv_block"] == [24, 1024, 3, 8, 64]
                   and r["wte_block"] == [25152, 1024],
                   f"21a: rank {r['rank']} is not the 345M dp2 x mp2 "
                   f"shard: {r['mesh']} {r['qkv_block']} {r['wte_block']}")
-        drift = [abs(x - y) for x, y in zip(a[0]["losses"],
+        # generation 1: every rank preempted at the same step, that step
+        # committed, the saved parameters' fingerprint the same on every
+        # rank; one sentinel check with a clean census
+        for r in first:
+            rt = r["runtime"]
+            check(r["exit"] == "preempted" and rt["step"] == MESH_PREEMPT_AT
+                  and rt["preemption_exits"] == 1
+                  and rt["ckpt_commit_agreements"] >= 1
+                  and r["saved_fingerprint"] == first[0]["saved_fingerprint"]
+                  and r["saved_fingerprint"] == r["fingerprint"],
+                  f"21a (1): rank {r['rank']} {r['exit']} at {rt['step']}: "
+                  f"{rt}")
+            check(rt["sdc_checks_total"] == 1
+                  and rt["sdc_replay_mismatches"] == 0
+                  and rt["sdc_fingerprint_mismatches"] == 0,
+                  f"21a (1): rank {r['rank']} sentinel {rt}")
+        check(committed == [MESH_PREEMPT_AT],
+              f"21a (1): committed steps {committed}")
+        # generation 2: every rank restored that step, its fingerprint
+        # the saved one, and trained to MESH_345M_STEPS
+        for r in second:
+            check(r["restored_step"] == MESH_PREEMPT_AT
+                  and r["restored_fingerprint"]
+                  == first[0]["saved_fingerprint"]
+                  and r["runtime"]["step"] == MESH_345M_STEPS,
+                  f"21a (2): rank {r['rank']} restored "
+                  f"{r.get('restored_step')}, fingerprint "
+                  f"{r.get('restored_fingerprint')} against "
+                  f"{first[0]['saved_fingerprint']}")
+        losses = first[0]["losses"] + second[0]["losses"]
+        drift = [abs(x - y) for x, y in zip(losses,
                                             losses4[:MESH_345M_STEPS])]
-        check(len(a[0]["losses"]) == MESH_345M_STEPS
+        check(len(losses) == MESH_345M_STEPS
               and max(drift) <= MESH_345M_LOSS_ATOL,
-              f"21a: losses {a[0]['losses']} against phase 4's "
+              f"21a: losses {losses} against phase 4's "
               f"{losses4[:MESH_345M_STEPS]}: drift {drift} above "
               f"{MESH_345M_LOSS_ATOL}")
+        launches_1 = _check_generation("21a (1)", first, MESH_PREEMPT_AT, 1)
+        launches_2 = _check_generation(
+            "21a (2)", second, MESH_345M_STEPS - MESH_PREEMPT_AT, 0)
+        with open(os.path.join(tel_a, "metrics.gang.jsonl")) as f:
+            merged = [json.loads(line) for line in f]
+        check([m["step"] for m in merged] == list(range(
+            1, MESH_345M_STEPS + 1)) and all(
+            m["ranks_reported"] == TRAIN_MESH_RANKS for m in merged),
+            f"21a: merged records {merged}")
+        steps_ms = [x for r in (first[0], second[0]) for x in r["step_ms"]]
         a_out = dict(
-            losses=a[0]["losses"], phase4_losses=losses4[:MESH_345M_STEPS],
-            loss_drift=drift, grad_norms=a[0]["grad_norms"],
-            step_ms=[r["step_ms"] for r in a],
-            step_ms_median=statistics.median(a[0]["step_ms"][1:]),
-            tokens_per_s=8 * 1024 / (statistics.median(
-                a[0]["step_ms"][1:]) / 1e3),
-            peak_gb=[r["max_memory_allocated_gb"] for r in a],
-            reserved_gb=[r["max_memory_reserved_gb"] for r in a],
-            collectives_per_step=a[0]["collectives"] / MESH_345M_STEPS,
+            losses=losses, phase4_losses=losses4[:MESH_345M_STEPS],
+            loss_drift=drift,
+            grad_norms=first[0]["grad_norms"] + second[0]["grad_norms"],
+            step_ms=[r["step_ms"] for r in first + second],
+            step_ms_median=statistics.median(steps_ms[1:]),
+            tokens_per_s=8 * 1024 / (statistics.median(steps_ms[1:])
+                                     / 1e3),
+            peak_gb=[r["max_memory_allocated_gb"] for r in first + second],
+            reserved_gb=[r["max_memory_reserved_gb"]
+                         for r in first + second],
+            # each generation's collectives reaching gloo over its fit
+            # (generation 1: its steps, the replay, the census and the
+            # save's gathers; 2: the restore's census and one step)
+            collectives=[first[0]["collectives"], second[0]["collectives"]],
             collective_ms_per_step=[r["collective_ms_per_step"]
-                                    for r in a],
-            launches=_per_rank_launches("21a", a, {
-                "flash_attention_fwd": 24, "flash_attention_bwd_fused": 24,
-                "fused_norm_fwd": 49, "fused_norm_bwd": 49},
-                MESH_345M_STEPS))
+                                    for r in first + second],
+            fit_s=[[r["fit_s"] for r in first], [r["fit_s"] for r in second]],
+            preempted_at=MESH_PREEMPT_AT, committed_steps=committed,
+            fingerprint=first[0]["saved_fingerprint"],
+            runtime=[[r["runtime"] for r in first],
+                     [r["runtime"] for r in second]],
+            merged_records=len(merged),
+            # the training steps' launches (the replay's apart), and all
+            # of both generations'
+            launches={k: [x - r["replay_launches"].get(k, 0) + y
+                          for x, y, r in zip(launches_1[k], launches_2[k],
+                                             first)]
+                      for k in launches_1},
+            gang_resilience_launches={k: [x + y for x, y in zip(
+                launches_1[k], launches_2[k])] for k in launches_1})
         emit("train_mesh_345M", **a_out, nvidia_smi=card)
         # 21b: the 6.7B width at fsdp 4, moments a quarter, the save
         for r in b:
@@ -7976,13 +8524,15 @@ def phase_train_mesh(dev: torch.device, card: str, losses4: list) -> dict:
                 "fused_norm_fwd": 4 * SIXB_LAYERS + 1,
                 "fused_norm_bwd": 2 * SIXB_LAYERS + 1}, SIXB_STEPS))
         emit("train_mesh_6.7B", **b_out, nvidia_smi=card)
-        out.update(a=a_out, b=b_out)
+        c_out = _check_pair(pair)
+        emit("per_rank_pair", **c_out, nvidia_smi=card)
+        out.update(a=a_out, b=b_out, c=c_out)
     finally:
         for gang in gangs:
             _stop_gang(gang)
         shutil.rmtree(root, ignore_errors=True)
     emit("train_mesh", **{k: v for k, v in out.items()
-                          if k not in ("a", "b")})
+                          if k not in ("a", "b", "c")})
     torch.cuda.empty_cache()
     return out
 
@@ -8072,9 +8622,7 @@ def main(argv) -> int:
             print(smi_line(), flush=True)
             return 0
         if "--encoders" in argv:
-            # built, so a launch on these plain paths would be counted
-            build.build(["flash_attention", "fused_norm"])
-            timed("15", phase_encoders, dev, card)
+            encoders_while_building(build, dev, card)
             reset_peak(dev)
             emit("encoders_alone", phase_walls=PHASE_WALLS,
                  collect_freed_bytes=COLLECT_FREED,
@@ -8131,7 +8679,8 @@ def main(argv) -> int:
             phase_trace(dev, card)
         print(smi_line(), flush=True)
         return 0
-    kernels = timed("1", phase_kernels, build, dev)
+    encoders, build_s = encoders_while_building(build, dev, card)
+    kernels = timed("1", phase_kernels, build, dev, build_s)
     train_kernels = timed("1b", phase_train_kernels, dev)
     seq8k_kernels = timed("1c", phase_split_kernels, dev)
     norm_fwd = timed("1d", phase_norm_fwd, build, dev, card)
@@ -8143,7 +8692,6 @@ def main(argv) -> int:
     seq8k = timed("6", phase_seq8k_trainer, dev, card)
     timed("7", phase_split_and_recompute_on_path, dev, card)
     knobs = timed("14", phase_gpt_knobs, dev, card, trainer)
-    encoders = timed("15", phase_encoders, dev, card)
     families = timed("16", phase_families, dev, card)
     telemetry = timed("17", phase_telemetry, dev, card, trainer["losses"],
                       main_path["serving_snapshot"])
@@ -8155,11 +8703,11 @@ def main(argv) -> int:
                          os.path.join(root, "ckpt"))
         tok_dir = os.path.join(root, "tokenizer")
         generation = timed("9", phase_generation, dev, card, ckpt_dir, root)
-        evaluation, export = eval_and_export(dev, card, root, ckpt_dir,
-                                             tok_dir)
+        evaluation, export, started = eval_and_export(
+            dev, card, root, ckpt_dir, tok_dir, finetune=True)
         finetune, quant = phase_finetune_serving(
             dev, card, root, ckpt_dir, tok_dir, evaluation["corpus_prefix"],
-            trainer, main_path)
+            trainer, main_path, started)
         router_corpus = timed("19", phase_router_corpus, dev, card, root,
                               ckpt_dir, tok_dir)
         mesh = timed("20", phase_mesh, dev, card, root,
@@ -8257,14 +8805,21 @@ def main(argv) -> int:
     for name in ENCODER_ROWS:
         by_path[name]["corpus_train"] = \
             router_corpus["corpus"]["launches"][name]
-    # phase 21: the training gangs, the four ranks' launches summed (21a:
-    # 4 steps of 24 / 24 / 49 / 49 a rank; 21b: 3 steps of 2 / 1 / 5 / 3 a
-    # rank, 1 layer under full recompute); per rank in the phase's lines
+    # phase 21: the training gangs, the ranks' launches summed (21a: its 4
+    # training steps of 24 / 24 / 49 / 49 a rank over both generations,
+    # and gang_resilience: all of both generations', the sentinel's replay
+    # included; 21b: 3 steps of 2 / 1 / 5 / 3 a rank, 1 layer under full
+    # recompute; 21c per_rank_pair: two 4-layer replicas, 9 steps and a
+    # replay each); per rank in the phase's lines
     for name in ENCODER_ROWS:
         by_path[name]["train_mesh_345M"] = sum(
             train_mesh["a"]["launches"][name])
+        by_path[name]["gang_resilience"] = sum(
+            train_mesh["a"]["gang_resilience_launches"][name])
         by_path[name]["train_mesh_6.7B"] = sum(
             train_mesh["b"]["launches"][name])
+        by_path[name]["per_rank_pair"] = sum(
+            train_mesh["c"]["launches"][name])
     # every path's norm forward launches by route: read_counts (and the
     # eval and fine-tune processes' own counts, checked where read) hold
     # each path's launches all on "rows", none on "row_block"

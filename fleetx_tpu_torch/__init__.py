@@ -30,6 +30,7 @@ What it runs, on one card:
 
 The hand-written Hopper kernels are in ``csrc/``. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` / ``--device cpu``.
-Training runs on one device: distributed training is ROADMAP.md's port
-queue item 12.
+Training runs on one device or a gang of ranks (data, ZeRO, tensor and
+sequence parallel, with the gang resilience runtime); the pipeline, the
+ring over ranks and MoE over ranks are ROADMAP.md's port queue item 12.
 """

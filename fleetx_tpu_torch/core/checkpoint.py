@@ -1,8 +1,11 @@
 """Checkpoint save / verify / load (port of
 ``fleetx_tpu/core/checkpoint.py``: the npz codec :190-277,
 ``save_checkpoint`` :281, the meta marker :431-473,
-``finalize_async_saves`` :481,
-``completed_steps`` / ``latest_step`` / ``latest_verified_step`` /
+``finalize_async_saves`` :481, the gang's two-phase commit
+(``set_gang_commit`` :132, the vote in ``save_checkpoint`` :383-400 and in
+``finalize_async_saves`` :516, ``join_commit_vote`` :554), the per-rank
+mode (``set_per_rank_mode`` / ``per_rank_mode`` :143-159, the meta-writer
+rule :162), ``completed_steps`` / ``latest_step`` / ``latest_verified_step`` /
 ``peek_meta`` :572-623, ``gc_checkpoints`` :637, the verify mode and the
 table of verified steps :83-130,
 ``_verify_payload_or_raise`` :680, ``load_params`` :727 and
@@ -12,9 +15,27 @@ The layout is topology-free on shared storage, as JAX's is: a gang's save
 (``save_gang``) is handed the full leaves its engine gathered, rank 0
 writes the same files a one-rank run writes and applies the retention,
 and every rank meets the others at a barrier after it; a load on any
-layout reads the full leaves, which the engine cuts to its blocks. A
-gang's asynchronous save is refused by the engine (its two-phase commit
-is item 12's gang resilience part).
+layout reads the full leaves, which the engine cuts to its blocks.
+
+Per-rank mode (``Engine.save_load.per_rank_dirs`` on a gang whose ranks
+each train a replica on a mesh of one; ``set_per_rank_mode``, set by the
+engine): each rank owns ``<output_dir>/rank_<i>`` outright and publishes
+its own meta (``_is_meta_writer``: every rank in per-rank mode, rank 0 on
+shared storage, which alone removes half-written steps and prunes).
+
+The gang's two-phase commit (``set_gang_commit``: the engine turns it on
+with the resilience runtime on a gang, whose loop exits are voted): no
+rank publishes a step's meta until every rank's write and read-back
+succeeded. After its write each rank votes its outcome into the
+``ckpt_commit`` agreement (``any_flag``); a failed vote anywhere aborts
+the commit on every rank (``ckpt_commit_aborts``, the step directory
+removed by its writer, training goes on). A write whose read-back fails
+past its retries is this rank's failed vote on a gang, a loud
+``WriteVerifyError`` off one. An asynchronous save votes in
+``finalize_async_saves``, so a save a peer abandoned is abandoned here
+too; in ``save_gang`` the ranks that write nothing vote their healthy
+outcome, and an idle rank of the voted loop joins the rendezvous with
+``join_commit_vote``.
 
 A checkpoint is a directory ``<dir>/step_<N>`` holding, written in this
 order:
@@ -77,10 +98,8 @@ most one save is outstanding: a new save finalizes the old one first. A
 process that dies with a save outstanding leaves a step directory without
 meta, a half-written save as above.
 
-Not ported, because they need more than one rank: Orbax's sharded
-codec, the gang two-phase commit and per-rank directories (ROADMAP item
-12); the config value that asks for them raises in
-``core/engine/eager_engine.py``.
+Not ported: Orbax's sharded codec (each rank's shards written by that
+rank); the shared layout here is rank 0's gathered npz.
 """
 
 from __future__ import annotations
@@ -106,7 +125,10 @@ from fleetx_tpu_torch.utils.log import logger
 
 __all__ = ["STATE_NAME", "META_NAME", "CheckpointIntegrityError",
            "WriteVerifyError", "set_verify_mode", "verify_mode",
-           "save_checkpoint", "finalize_async_saves", "reserve_host_buffers", "completed_steps", "latest_step",
+           "set_per_rank_mode", "per_rank_mode", "set_gang_commit",
+           "save_checkpoint", "save_gang", "finalize_async_saves",
+           "join_commit_vote", "reserve_host_buffers", "completed_steps",
+           "latest_step",
            "latest_verified_step", "peek_meta", "gc_checkpoints",
            "load_params", "load_checkpoint", "flatten", "unflatten",
            "step_dir", "step_dirs"]
@@ -126,6 +148,12 @@ _last_verified: dict = {}
 
 #: the outstanding asynchronous save, if any (at most one)
 _pending: list = []
+
+#: per-rank directories: every rank writes its own meta
+_per_rank = False
+
+#: checkpoint completion needs the gang's agreement (the commit vote)
+_gang_commit = True
 
 #: the writer's pinned host copy of each CUDA leaf, by name, allocated
 #: once and reused (at most one save is outstanding, and the next one
@@ -147,6 +175,67 @@ def set_verify_mode(on: bool) -> None:
 def verify_mode() -> bool:
     """True when saves write manifests and restores verify digests."""
     return _verify
+
+
+def set_gang_commit(on: bool) -> None:
+    """Whether checkpoint completion requires the gang agreement (the
+    two-phase commit vote). The engine turns it OFF when the resilience
+    runtime is off: without the runtime's voted loop exits, ranks can
+    leave ``fit`` at different times, and an unmatched vote would wedge a
+    healthy rank's save for the full agreement deadline."""
+    global _gang_commit
+    _gang_commit = bool(on)
+
+
+def set_per_rank_mode(on: bool) -> None:
+    """Select the per-rank-directory mode (the newest engine wins): each
+    process owns its checkpoint directory and publishes its own meta;
+    the commit vote still gates completion on ALL ranks' writes."""
+    global _per_rank
+    _per_rank = bool(on)
+
+
+def per_rank_mode() -> bool:
+    """True when every rank writes its own checkpoint directory."""
+    return _per_rank
+
+
+def _is_meta_writer() -> bool:
+    """Whether THIS process publishes meta files, removes half-written
+    steps and prunes: rank 0 on shared storage, every rank for its own
+    per-rank directory."""
+    if _per_rank:
+        return True
+    from fleetx_tpu_torch.utils.env import get_rank
+
+    return get_rank() == 0
+
+
+def _coordinator():
+    from fleetx_tpu_torch.resilience.coordination import get_coordinator
+
+    return get_coordinator()
+
+
+def _commit_vote(failed: bool, step: int, path: str) -> bool:
+    """The commit agreement: this rank's write outcome voted into
+    ``ckpt_commit`` (when the gang commit is on); True when the commit
+    is aborted, on every rank alike (``ckpt_commit_aborts``, the step's
+    directory removed by its writer)."""
+    aborted = failed
+    if _gang_commit:
+        aborted = _coordinator().any_flag("ckpt_commit", failed)
+    if aborted:
+        get_registry().counter("ckpt_commit_aborts").inc()
+        logger.error(
+            "checkpoint commit ABORTED for step %d (%s) — no completion "
+            "marker published on any rank; training continues and the "
+            "next periodic save retries", int(step),
+            "local shard failed read-back verification" if failed
+            else "a peer rank's shard failed verification")
+        if _is_meta_writer():
+            shutil.rmtree(path, ignore_errors=True)
+    return aborted
 
 
 def _record_verified(directory: str, step: int) -> None:
@@ -332,6 +421,7 @@ class _AsyncSave:
     def __init__(self, path: str, step: int, meta: dict, snapshot: dict,
                  retries):
         self.path, self.step, self.meta = path, int(step), meta
+        self.writer = True
         self.retries = retries
         self.digests: Optional[list] = None
         # a writer that ends any other way than by finishing abandons the
@@ -378,6 +468,18 @@ class _AsyncSave:
             self._snapshot = None
 
 
+class _VoteOnly:
+    """A rank's share of a gang's asynchronous save that another rank
+    writes: nothing to write, a healthy vote at finalize."""
+
+    writer = False
+    error = None
+    thread = None
+
+    def __init__(self, path: str, step: int):
+        self.path, self.step = path, int(step)
+
+
 def _snapshot(state: dict) -> dict:
     """A copy of every tensor leaf (on its device, enqueued on the
     current stream) and the scalars as they are."""
@@ -402,7 +504,10 @@ def save_checkpoint(directory: str, step: int, state: dict,
     later save calls first) publishes the manifest and the meta."""
     finalize_async_saves()  # at most one outstanding save
     path = os.path.abspath(step_dir(directory, step))
-    if os.path.isdir(path) and _read_meta(path) is None:
+    if _is_meta_writer() and os.path.isdir(path) and \
+            _read_meta(path) is None:
+        # meta-writer gated: ranks racing rmtree on shared storage crash
+        # each other
         logger.info("removing half-written checkpoint: %s", path)
         shutil.rmtree(path)
     os.makedirs(path, exist_ok=True)
@@ -418,10 +523,21 @@ def save_checkpoint(directory: str, step: int, state: dict,
         logger.info("async checkpoint started: %s", path)
     else:
         arrays, dtypes = _host_arrays(state)
-        digests = _write_payload(path, step, arrays, dtypes, retries)
-        with span("ckpt_finalize"):
-            _publish(path, full_meta, digests, retries)
-        logger.info("saved checkpoint: %s", path)
+        verify_failed, digests = False, None
+        try:
+            digests = _write_payload(path, step, arrays, dtypes, retries)
+        except WriteVerifyError:
+            # off a gang a loud refusal; on a gang this rank's failed
+            # vote, so the commit aborts everywhere, never half-publishes
+            if not _gang_commit or _coordinator().world == 1:
+                raise
+            verify_failed = True
+        # the phase boundary: every rank's state is durable and verified
+        # before ANY rank publishes a completion marker
+        if not _commit_vote(verify_failed, step, path):
+            with span("ckpt_finalize"):
+                _publish(path, full_meta, digests, retries)
+            logger.info("saved checkpoint: %s", path)
     # an asynchronous save reports its snapshot here; the write shows
     # under ckpt_finalize
     reg.histogram("ckpt_save").record(time.perf_counter() - t0)
@@ -432,19 +548,30 @@ def save_checkpoint(directory: str, step: int, state: dict,
 
 
 def save_gang(directory: str, step: int, state: dict, meta: dict, mesh,
-              keep_last: int = 0, keep_every: int = 0) -> str:
+              keep_last: int = 0, keep_every: int = 0,
+              async_save: bool = False) -> str:
     """A gang's save of the full ``state`` every rank gathered: rank 0
     writes it (``save_checkpoint``) and prunes to ``keep_last`` /
-    ``keep_every``, then every rank waits at a barrier, so no rank reads
-    or resumes past a save that is not complete. Returns the step's
+    ``keep_every``; under the gang commit the other ranks vote their
+    healthy outcome into the same agreement (at finalize for an
+    asynchronous save), so rank 0 publishes the meta only on a clean
+    vote. Every rank then waits at a barrier, so no rank reads or resumes
+    past a synchronous save that is not complete. Returns the step's
     directory."""
     from fleetx_tpu_torch.parallel.mesh import barrier
 
-    path = step_dir(directory, step)
+    finalize_async_saves()  # every rank's vote on the outstanding save
+    path = os.path.abspath(step_dir(directory, step))
     if mesh.rank == 0:
-        path = save_checkpoint(directory, step, state, meta=meta)
+        path = save_checkpoint(directory, step, state, meta=meta,
+                               async_save=async_save)
         if keep_last:
             gc_checkpoints(directory, keep_last, keep_every)
+    elif _gang_commit:
+        if async_save:
+            _pending.append(_VoteOnly(path, step))
+        else:
+            _commit_vote(False, step, path)
     barrier(mesh)
     return path
 
@@ -455,23 +582,56 @@ def finalize_async_saves() -> None:
     timer. A writer that failed past its retries abandons the save
     instead of ending training: the half-written directory goes at once
     (periodic saves never revisit its step), ``ckpt_failed_total``
-    counts it and an error says so."""
+    counts it and an error says so. Under the gang commit every rank
+    votes its writer's outcome into ``ckpt_commit`` first, so a save a
+    peer's writer lost is abandoned on every rank."""
     if not _pending:
         return
     reg = get_registry()
     with span("ckpt_finalize"), reg.timer("ckpt_finalize"):
         save = _pending.pop(0)
-        save.thread.join()
-        if save.error is not None:
+        if save.thread is not None:
+            save.thread.join()
+        # the phase boundary of the asynchronous form, fused with the
+        # failure vote: every rank votes its own outcome, on the failure
+        # path too, so the agreement's generations stay in lockstep
+        abandoned = save.error is not None
+        if _gang_commit:
+            abandoned = _coordinator().any_flag("ckpt_commit",
+                                                save.error is not None)
+        if abandoned:
             reg.counter("ckpt_failed_total").inc()
-            logger.error(
-                "async checkpoint write FAILED (%s: %s) — abandoning %s; "
-                "training continues, the next periodic save retries from "
-                "scratch", type(save.error).__name__, save.error, save.path)
-            shutil.rmtree(save.path, ignore_errors=True)
+            if save.error is not None:
+                logger.error(
+                    "async checkpoint write FAILED (%s: %s) — abandoning "
+                    "%s; training continues, the next periodic save "
+                    "retries from scratch", type(save.error).__name__,
+                    save.error, save.path)
+            else:
+                logger.error(
+                    "async checkpoint commit failed on a PEER rank — "
+                    "abandoning %s here too (a checkpoint is complete "
+                    "only when every rank's shards are)", save.path)
+            if _is_meta_writer():
+                shutil.rmtree(save.path, ignore_errors=True)
             return
-        _publish(save.path, save.meta, save.digests, save.retries)
-        logger.info("async checkpoint finalized: %s", save.path)
+        if save.writer:
+            _publish(save.path, save.meta, save.digests, save.retries)
+            logger.info("async checkpoint finalized: %s", save.path)
+
+
+def join_commit_vote() -> None:
+    """The idle side of the two-phase commit rendezvous: a gang rank
+    whose stream ran dry keeps matching its peers' save rendezvous, but
+    its state has not changed since its last save; this publishes ONLY
+    its (healthy) commit vote, and logs a peer's failed one. No-op when
+    the gang commit is off."""
+    if not _gang_commit:
+        return
+    if _coordinator().any_flag("ckpt_commit", False):
+        logger.error("checkpoint commit aborted by a peer rank at the "
+                     "save rendezvous (this rank was idle — nothing to "
+                     "abandon locally)")
 
 
 # ------------------------------------------------------------- discovery
@@ -535,7 +695,10 @@ def gc_checkpoints(directory: str, keep_last: int,
     step divisible by ``keep_every`` and the newest step this process
     verified survive; pruned steps count ``ckpt_gc_total``. Half-written
     directories (an outstanding asynchronous save's too) are left to
-    ``save_checkpoint``."""
+    ``save_checkpoint``. Meta-writer gated: on shared storage only rank
+    0 prunes; in per-rank mode every rank prunes its own directory."""
+    if not _is_meta_writer():
+        return 0
     steps = completed_steps(directory)
     keep = set(steps[-max(int(keep_last), 1):])
     if keep_every:

@@ -96,9 +96,8 @@ there is no generator state to keep. A mismatch counts
 (``quarantine``, ``sdc_quarantines``) or raises ``TrainingAborted``
 (``abort``). The fault plan's ``bitflip_param_at`` flips bit 0 of the
 first element of the first float parameter in JAX's leaf order after
-that step's check (``_apply_bitflip``); the fingerprint census that
-would catch it needs replicas on other ranks (item 12), as JAX's runs
-only on gangs.
+that step's check (``_apply_bitflip``); on a gang the fingerprint
+census catches it (below).
 
 ``Engine.save_load.async_save``: ``save`` returns once the state is
 snapshotted and the writer thread writes it (``core/checkpoint.py``);
@@ -171,11 +170,40 @@ and every collective is written by hand (``parallel/sharding.py``):
   layouts; ``evaluate`` and ``predict`` run on the mesh (``predict``
   returns the whole batch).
 
-What this slice does not cover raises ``NotImplementedError`` naming its
-ROADMAP item: per-rank checkpoint directories (item 12), the gang
-watchdog (item 12), ``Observability.gang`` (item 12), and on a gang the
-resilience runtime and asynchronous saves (item 12's gang resilience);
-the config loader refuses the layouts ``utils/config.check_covered``
+The gang resilience runtime (JAX ``:159-229``, ``:433-437``, the SDC
+census ``:769-800``, the voted loop ``:1023-1320``), with ``Resilience``
+enabled on a gang; every decision goes through the gang's coordinator
+(``resilience/coordination.py``, over the store ``utils/env.py`` builds):
+
+- ``per_rank_dirs``: a rank given a mesh of one trains its own replica
+  under ``<output_dir>/rank_<i>`` (the engine keeps ``mesh = None`` for
+  its step; its coordinator is still the gang's); a ``ckpt_dir`` without
+  the rank's subdirectory is a shared-layout warm start; the in-step skip
+  is forced off; a gang of ranks on meshes of one without
+  ``per_rank_dirs`` is refused with JAX's ``ValueError``;
+- the voted loop: one ``loop_flags`` agreement every
+  ``preemption.sync_every`` iterations (every one under the guard, the
+  gang watchdog, the sentinel or a mesh that spans ranks) carries every
+  rank's SIGTERM latch and dry stream (``max_steps`` included), so the
+  gang preempts (every rank saving the same step) and ends together;
+  saves, evals and sentinel rounds key on the lockstep iteration; a dry
+  rank idles in lockstep and joins the peers' commit
+  (``checkpoint.join_commit_vote``);
+- the checkpoint's two-phase commit (``core/checkpoint.py``) and the
+  resume step from a rank-0 broadcast (a rank that lacks it refuses:
+  "divergent checkpoint views"), each restore's verdict voted;
+- the rollback agreement (``rollback_enter``, ``rollback_step``,
+  ``rollback_pipeline_wedged``, ``rollback_rewind_dry``,
+  ``rollback_exit``);
+- the SDC census: the replay verdict voted, then the parameters'
+  fingerprints gathered (on a mesh each leaf's block sums psum'd over
+  its split axes, ``params_fingerprint``); every rank takes the same
+  action in the same iteration;
+- the gang watchdog (``watchdog.gang_sync_steps``) after every step, and
+  with ``Observability.gang`` the arrival hook and the window snapshots
+  on the loop vote.
+
+The config loader refuses the layouts ``utils/config.check_covered``
 names.
 
 The engine is family-neutral: the batch size is the leading dim of the
@@ -219,7 +247,7 @@ from fleetx_tpu_torch.resilience import coordination
 from fleetx_tpu_torch.resilience.integrity import atomic_write
 from fleetx_tpu_torch.utils.config import check_covered, loss_scaler
 from fleetx_tpu_torch.utils.device import resolve_device
-from fleetx_tpu_torch.utils.log import logger
+from fleetx_tpu_torch.utils.log import logger, set_rank_context
 
 #: finite steps in a row after which the loss scale doubles (the
 #: reference GradScaler's ``incr_every_n_steps``)
@@ -232,15 +260,8 @@ def _int(section: dict, key: str, default: int) -> int:
 
 
 def check_engine_config(cfg: dict) -> None:
-    """Raise on an Engine/Distributed value the training slice does not
-    cover (the ``Resilience`` block's raise in ``resilience.Resilience``,
-    ``Observability.gang``'s in ``observability.Observability``)."""
-    eng = dict(cfg.get("Engine") or {})
-    save_load = dict(eng.get("save_load") or {})
-    if save_load.get("per_rank_dirs"):
-        raise NotImplementedError(
-            "Engine.save_load.per_rank_dirs needs a multi-rank gang, not "
-            "ported yet (ROADMAP.md, port queue item 12)")
+    """Raise on a layout the training slice does not cover
+    (``utils/config.check_covered``)."""
     check_covered(cfg)
 
 
@@ -251,21 +272,6 @@ def _gang_mesh(cfg: dict):
     if get_world_size() <= 1:
         return None
     return PM.build_mesh(dict(cfg.get("Distributed") or {}))
-
-
-def _refuse_on_gang(cfg: dict) -> None:
-    """What a gang does not run yet: item 12's gang resilience part."""
-    if (cfg.get("Resilience") or {}).get("enable"):
-        raise NotImplementedError(
-            "Resilience.enable on a gang needs the gang resilience runtime "
-            "(coordinator, gang watchdog, two-phase commit), not ported yet "
-            "(ROADMAP.md, port queue item 12)")
-    save_load = dict((cfg.get("Engine") or {}).get("save_load") or {})
-    if save_load.get("async_save"):
-        raise NotImplementedError(
-            "Engine.save_load.async_save on a gang needs the gang's "
-            "two-phase commit, not ported yet (ROADMAP.md, port queue item "
-            "12)")
 
 
 def import_torch_dynamo() -> None:
@@ -309,10 +315,14 @@ class EagerEngine(BasicEngine):
         self.mesh = mesh if mesh is not None else _gang_mesh(self.cfg)
         if self.mesh is not None and self.mesh.size == 1:
             self.mesh = None
-        if self.mesh is not None:
+        # every recovery decision goes through the gang's coordinator:
+        # world 1 off a gang; on a gang the process group's, whatever the
+        # mesh (a per-rank replica's too)
+        self.coord = coordination.get_coordinator()
+        set_rank_context(self.coord.rank, self.coord.world)
+        if self.coord.world > 1:
             from fleetx_tpu_torch.utils.env import rank_device
 
-            _refuse_on_gang(self.cfg)
             device = rank_device(device)
         self.device = resolve_device(device)
         # the rank's placement of every leaf (``prepare``), in leaf order
@@ -331,6 +341,9 @@ class EagerEngine(BasicEngine):
         self.save_steps = _int(save_load, "save_steps", 0)
         self.output_dir = save_load.get("output_dir") or "./output"
         self.ckpt_dir = save_load.get("ckpt_dir")
+        # the fault-tolerant runtime: inert unless Resilience.enable
+        self.resilience = Resilience(self.cfg.get("Resilience"))
+        self._setup_gang_storage(save_load)
         # retention: the newest keep_last completed steps (+ every
         # keep_every-th); 0 keeps everything
         self.keep_last = _int(save_load, "keep_last", 0)
@@ -366,10 +379,8 @@ class EagerEngine(BasicEngine):
         # None: no restore tried yet; True once a checkpoint was restored
         self._restored: Optional[bool] = None
         self.last_saved_step: Optional[int] = None  # step of the last save
-        # the fault-tolerant runtime: inert unless Resilience.enable
-        self.resilience = Resilience(self.cfg.get("Resilience"))
-        # every recovery decision goes through the coordinator (world 1)
-        self.coord = coordination.get_coordinator()
+        # a gang fit's window records ride its loop vote (set by ``fit``)
+        self._gang_obs_active = False
         # manifests, read-backs and verified restores (default on,
         # whatever Resilience.enable says)
         ckpt_lib.set_verify_mode(self.resilience.integrity_verify)
@@ -389,6 +400,55 @@ class EagerEngine(BasicEngine):
         # extended to every dtype
         self.check_finite = self.scaler is not None or \
             self.resilience.guard_skip
+
+    def _setup_gang_storage(self, save_load: dict) -> None:
+        """JAX's gang storage setup (``eager_engine.py:165-229``): the
+        ``rank_<i>`` directories of ``per_rank_dirs`` (each process owns
+        ``<output_dir>/rank_<i>``; a ``ckpt_dir`` without this rank's
+        subdirectory is a shared-layout warm start and is loaded as it
+        is), the in-step skip forced off in per-rank mode, the checkpoint
+        layer's per-rank mode and two-phase commit, and the refusal of a
+        gang whose ranks each hold a mesh of one without per-rank
+        directories (N independent states publishing into one
+        directory)."""
+        world = self.coord.world
+        self.per_rank_ckpt = bool(save_load.get("per_rank_dirs")) and \
+            world > 1
+        if self.per_rank_ckpt:
+            suffix = f"rank_{self.coord.rank}"
+            self.output_dir = os.path.join(self.output_dir, suffix)
+            if self.ckpt_dir:
+                rank_dir = os.path.join(self.ckpt_dir, suffix)
+                if os.path.isdir(rank_dir):
+                    self.ckpt_dir = rank_dir
+                else:
+                    logger.warning(
+                        "per_rank_dirs: %s has no %s subdirectory — "
+                        "loading it as a shared-layout checkpoint",
+                        self.ckpt_dir, suffix)
+        res = self.resilience
+        if self.per_rank_ckpt and res.guard_skip:
+            # the in-step skip desynchronizes the per-rank step counters,
+            # the saves then carry divergent step names and a resume
+            # refuses them; the guard's rollback stays collective
+            logger.warning(
+                "per_rank_dirs: disabling guard.skip_nonfinite_update — "
+                "the in-step skip desynchronizes per-rank step counters "
+                "and a divergent-step resume is refused; use the guard's "
+                "rollback action on per-rank gangs instead")
+            res.guard_skip = False
+            if res.guard is not None:
+                res.guard.skip_active = False
+        ckpt_lib.set_per_rank_mode(self.per_rank_ckpt)
+        # the commit needs the runtime's voted loop exits: without them
+        # ranks leave fit at different times and an unmatched vote would
+        # wedge a healthy rank's save
+        ckpt_lib.set_gang_commit(res.enabled and world > 1)
+        if world > 1 and not self.per_rank_ckpt and self.mesh is None:
+            raise ValueError(
+                "a multi-process run on a process-local mesh requires "
+                "Engine.save_load.per_rank_dirs: true — shared checkpoint "
+                "storage only composes with a mesh that spans processes")
 
     def _refuse_offload(self, dist: dict) -> None:
         """JAX's ``sharding_offload`` warnings, in its order and words:
@@ -439,14 +499,20 @@ class EagerEngine(BasicEngine):
             p.requires_grad_(True)
         if self.optimizer is not None and self.opt_state is None:
             self.opt_state = self.optimizer.init(self._moment_template())
-        if self.async_save and self.device.type == "cuda":
-            # pinned once here, not by a save while training
+        if self.async_save and self.device.type == "cuda" and \
+                self.mesh is None:
+            # pinned once here, not by a save while training (a mesh's
+            # save gathers its state to host memory: nothing to pin)
             ckpt_lib.reserve_host_buffers(self.state_dict())
         if self.obs.enabled and self.obs.derived is None:
             fpt = self.module.flops_per_token() \
                 if hasattr(self.module, "flops_per_token") else None
             self.obs.init_derived(fpt, self.mesh.size if self.mesh else 1,
                                   device=self.device)
+            if self.obs.gang_enabled and self.coord.world > 1:
+                # every agreement's arrival census feeds the rolling
+                # per-rank skew from here on
+                self.obs.install_arrival_hook()
             if self.mesh is not None and self._stage >= 2:
                 # bytes of the grad leaves stage 2 spreads over fsdp
                 self.obs.registry.gauge("grad_bytes_sharded").set(float(sum(
@@ -990,24 +1056,110 @@ class EagerEngine(BasicEngine):
             if watchdog is not None:
                 watchdog.start()
                 cleanup.callback(watchdog.stop)
+            # the gang watchdog: a timed barrier over the store every K
+            # steps whose timeout names the straggler ranks (None off a
+            # gang)
+            gang_wd = res.make_gang_watchdog(self.coord)
+            # the voted loop: on a gang a locally observed event (a
+            # signal, a dry stream, max_steps) never changes control flow
+            # alone, or the peers would wait in their next agreement or
+            # collective; every exit happens on an agreed vote
+            gang_loop = res.enabled and self.coord.world > 1
+            # window snapshots ride the loop-control vote, and rank 0
+            # merges them into the gang's records
+            gang_obs = gang_loop and self.obs.enabled and \
+                self.obs.gang_enabled
+            self._gang_obs_active = gang_obs
             self.profiler.arm()  # each fit gets its own trace window
             wrap_stream(host_batches(start_step))
             first_step = True
-            while self.step < self.max_steps:
+            # the loop iteration is lockstep across a gang's ranks (the
+            # step can differ under the in-step skip): the gang's saves,
+            # evals and sentinel rounds key on it
+            vote_round = 0
+            last_save_round = last_eval_round = 0
+            stream_done = False  # this rank is dry, awaiting the vote
+            vote_every = res.preemption_sync_every
+            if gang_loop and (res.guard is not None or gang_wd is not None
+                              or sent_every > 0 or self.mesh is not None):
+                # the guard's window vote, the gang watchdog's barrier and
+                # the sentinel's census stay lockstep only while every
+                # rank runs every iteration's full body, and on a mesh
+                # that spans ranks every step is a collective: the exit
+                # vote then runs every iteration
+                vote_every = 1
+            while True:
+                if gang_loop:
+                    # a rank at max_steps idles as done until the vote
+                    if self.step >= self.max_steps:
+                        stream_done = True
+                elif self.step >= self.max_steps:
+                    break  # fleetx: noqa[FX008] -- off-gang arm (world-1 coordinator)
                 res.faults.maybe_sigterm(self.step, start_step=start_step)
-                if res.preempted:
-                    self._preemption_exit(quiet)
-                item = fetch_item()
-                if item is None:
-                    self.epoch = final_epoch[0]
-                    break  # fleetx: noqa[FX008] -- one process (world-1 coordinator); the gang's voted exit comes with item 12
+                if gang_loop:
+                    # fetch BEFORE the vote, so a dry stream is a flag of
+                    # this iteration's agreement; an agreed exit drops a
+                    # fetched batch, which a resume fetches again
+                    item = None
+                    if not stream_done:
+                        item = fetch_item()
+                        if item is None:
+                            stream_done = True
+                            self.epoch = final_epoch[0]
+                    if vote_round % vote_every == 0:
+                        # ONE agreement a round for every loop-control
+                        # flag: any rank's SIGTERM preempts the gang at
+                        # the same step, any rank's dry stream ends it
+                        payload = {"preempt": bool(res.preempted),
+                                   "done": stream_done}
+                        if gang_obs:
+                            payload["obs"] = self.obs.gang_take_pending()
+                        votes = self.coord.all_gather("loop_flags", payload)
+                        flags = votes.values()
+                        if gang_obs and self.coord.rank == 0:
+                            # before acting, so the last windows are
+                            # merged on the exit vote too
+                            self.obs.gang_merge_emit(votes)
+                        if any(f["preempt"] for f in flags):
+                            if res.preemption is not None:
+                                res.preemption.latch()
+                            self._preemption_exit(quiet)
+                        if any(f["done"] for f in flags):
+                            break
+                    vote_round += 1
+                    if item is None:
+                        # dry between votes: idle in lockstep, matching
+                        # the peers' save rendezvous (their two-phase
+                        # commit waits for this rank's vote)
+                        if self.save_steps and \
+                                vote_round % self.save_steps == 0 and \
+                                vote_round != last_save_round:
+                            last_save_round = vote_round
+                            with quiet():
+                                if self.step == last_save:
+                                    # nothing changed since this rank's
+                                    # last save: only the healthy vote
+                                    ckpt_lib.join_commit_vote()  # fleetx: noqa[FX007] -- both arms join the same ckpt_commit rendezvous
+                                else:
+                                    last_save = self.step
+                                    self.save()  # fleetx: noqa[FX007] -- both arms join the same ckpt_commit rendezvous
+                        continue  # fleetx: noqa[FX008] -- idle path matches every rendezvous; exit is voted
+                else:
+                    if res.preempted:
+                        self._preemption_exit(quiet)  # fleetx: noqa[FX007] -- off-gang arm (world-1 coordinator)
+                    item = fetch_item()
+                    if item is None:
+                        self.epoch = final_epoch[0]
+                        break  # fleetx: noqa[FX008] -- off-gang arm (world-1 coordinator)
                 self.epoch, batch = item
                 self.profiler.maybe_start(self.step)
                 # a sentinel step keeps what its replay needs from before
                 # the step (the JAX engine runs it through its non-donating
-                # twin for that)
-                prev = self._sentinel_snapshot() if sent_every and \
-                    (self.step + 1) % sent_every == 0 else None
+                # twin for that); keyed on the lockstep round on a gang
+                run_sentinel = bool(sent_every) and (
+                    (vote_round if gang_loop else self.step + 1)
+                    % sent_every == 0)
+                prev = self._sentinel_snapshot() if run_sentinel else None
                 with self.profiler.step_span(self.step):
                     if stream["prefetcher"] is None:
                         with self.obs.timed_span("shard_batch"):
@@ -1017,17 +1169,6 @@ class EagerEngine(BasicEngine):
                     # time (the step runs asynchronously)
                     with self.obs.span("train_step", step=self.step):
                         metrics = self.train_step(batch)
-                if prev is not None:
-                    # the replay is a full forward and backward: the stall
-                    # detector is suspended as for every long host phase;
-                    # ``batch`` stays referenced until it is done (the
-                    # prefetcher's record_stream keeps its memory valid)
-                    with self.obs.timed_span("sdc_sentinel"), quiet():
-                        self._sdc_check(prev, batch, metrics, self.step)
-                    prev = None
-                if res.faults.take_bitflip(self.step):
-                    # after this iteration's check, as the JAX engine
-                    self._apply_bitflip()
                 global_batch = leading_dim(batch) * self._data_world
                 if first_step:
                     first_step = False
@@ -1039,6 +1180,26 @@ class EagerEngine(BasicEngine):
                 window += 1
                 if watchdog is not None:
                     watchdog.beat(self.step)
+                if gang_wd is not None:
+                    # the barrier may block up to gang_timeout_s on a
+                    # wedged peer: the local stall detector is suspended
+                    # so the straggler census can fire first
+                    with quiet():
+                        gang_wd.check(self.step)
+                if prev is not None:
+                    # the replay is a full forward and backward and the
+                    # census can wait on a peer: the stall detector is
+                    # suspended as for every long host phase; ``batch``
+                    # stays referenced until it is done (the prefetcher's
+                    # record_stream keeps its memory valid)
+                    with self.obs.timed_span("sdc_sentinel"), quiet():
+                        self._sdc_check(prev, batch, metrics, self.step,  # fleetx: noqa[FX009] -- gang arm keys on lockstep vote_round; the step arm is single-process
+                                        gang_loop)
+                    prev = None
+                if res.faults.take_bitflip(self.step):
+                    # after this iteration's check, as the JAX engine: the
+                    # next sentinel round must catch it
+                    self._apply_bitflip()
                 if window % self.logging_freq == 0:
                     loss = float(metrics["loss"])  # one sync per window
                     now = time.time()
@@ -1059,6 +1220,8 @@ class EagerEngine(BasicEngine):
                     self.history.append(record)
                     self._emit_train_record(record)
                     if res.guard is not None:
+                        # the gang's verdict: any rank's rollback rolls
+                        # everyone back, any abort aborts everyone
                         decision = coordination.most_severe(
                             self.coord.all_gather(
                                 "guard_decision", res.guard.observe(
@@ -1068,15 +1231,11 @@ class EagerEngine(BasicEngine):
                             flight.note("guard", str(decision),
                                         step=self.step, loss=loss)
                         if decision == "rollback":
-                            if not close_stream():
-                                raise TrainingAborted(
-                                    "rollback aborted: the input pipeline "
-                                    "did not shut down cleanly, the data "
-                                    "position cannot be safely rewound")
                             with quiet():
                                 wrap_stream(self._rollback(
                                     train_data_loader, host_batches,
-                                    base_consumed, global_batch))
+                                    base_consumed, global_batch,
+                                    close_stream))
                             if self.logging_freq == 1:
                                 # the curve follows the rewound counter
                                 del losses[max(self.step - start_step, 0):]
@@ -1093,18 +1252,38 @@ class EagerEngine(BasicEngine):
                 # the window closes after draining the card, so its trace
                 # holds every kernel of its steps
                 self.profiler.maybe_stop(self.step)
-                if self.eval_freq and valid_data_loader is not None and \
-                        self.step % self.eval_freq == 0 and \
-                        self.step != last_eval:
+                if self.eval_freq and valid_data_loader is not None:
+                    if gang_loop:
+                        # keyed on the lockstep round, like the save
+                        eval_due = vote_round % self.eval_freq == 0 and \
+                            vote_round != last_eval_round
+                    else:
+                        eval_due = self.step % self.eval_freq == 0 and \
+                            self.step != last_eval
+                else:
+                    eval_due = False
+                if eval_due:
                     last_eval = self.step
+                    last_eval_round = vote_round
                     with quiet():
                         self.evaluate(valid_data_loader,
                                       global_step=self.step)
-                if self.save_steps and self.step % self.save_steps == 0 \
-                        and self.step != last_save:
+                if gang_loop:
+                    # keyed on the lockstep round, NOT the step: a rank
+                    # whose step lags would skip a save its peers' commit
+                    # waits on
+                    save_due = bool(self.save_steps) and \
+                        vote_round % self.save_steps == 0 and \
+                        vote_round != last_save_round
+                else:
+                    save_due = bool(self.save_steps) and \
+                        self.step % self.save_steps == 0 and \
+                        self.step != last_save
+                if save_due:
                     last_save = self.step
+                    last_save_round = vote_round
                     with quiet():
-                        self.save()
+                        self.save()  # fleetx: noqa[FX009] -- gang arm keys save_due on lockstep vote_round; the step-keyed arm is single-process
                 if self._fault_step and start_step == 0 and \
                         self.step >= self._fault_step:
                     # the restart drill: a fresh run dies hard after this
@@ -1123,8 +1302,9 @@ class EagerEngine(BasicEngine):
 
     def _preemption_exit(self, quiet) -> None:
         """Graceful shutdown at a step boundary: save the step (unless
-        ``save_on_exit`` is off), count ``preemption_exits``, note it in
-        the flight recorder, exit with ``preemption.exit_code``."""
+        ``save_on_exit`` is off; on a gang every rank saves the same step,
+        through the two-phase commit), count ``preemption_exits``, note it
+        in the flight recorder, exit with ``preemption.exit_code``."""
         res = self.resilience
         logger.warning("preemption: checkpoint-and-exit at step %d",
                        self.step)
@@ -1136,27 +1316,53 @@ class EagerEngine(BasicEngine):
             logger.warning("preemption: saved step %d in %.3f s", self.step,
                            time.perf_counter() - t0)
         res.registry.counter("preemption_exits").inc()
+        # the one clean dump: a gang post-mortem needs every rank's
+        # flight file, the survivors' included
         flight.note("preemption", "exit", step=self.step)
         flight.dump("preemption")
         self.obs.flush()
         raise SystemExit(res.preemption_exit_code)
 
     def _rollback(self, loader, host_batches, base_consumed: int,
-                  global_batch: int):
+                  global_batch: int, close_stream):
         """Guard rollback: restore the newest completed step under
         ``output_dir`` (falling back past a corrupt one), point the data
-        stream at its position and return the new batch generator. The
-        caller has closed the old stream, so no producer thread moves the
-        sampler during the rewind."""
+        stream at its position and return the new batch generator.
+
+        Gang form (JAX's ``restart_from_last_good``): a barrier on entry
+        (no rank restores while a peer still runs the abandoned step), the
+        step from a rank-0 broadcast (a rank that lacks it refuses), the
+        input pipeline torn down before the rewind with a wedged producer
+        voted (every rank refuses together), a dry rewind voted too, and a
+        barrier on exit (no rank re-enters the loop before every peer has
+        restored and rewound)."""
         res = self.resilience
         self.coord.barrier("rollback_enter")
         ckpt_lib.finalize_async_saves()
-        good = self.coord.broadcast("rollback_step",
-                                    ckpt_lib.latest_step(self.output_dir))
+        good_local = ckpt_lib.latest_step(self.output_dir)
+        good = self.coord.broadcast("rollback_step", good_local)
         if good is None:
             raise TrainingAborted(
                 f"rollback requested at step {self.step} but no completed "
-                f"checkpoint under {self.output_dir}")
+                f"checkpoint under {self.output_dir}"
+                + ("" if good_local is None else
+                   f" on rank 0 (this rank has step {good_local} — "
+                   f"divergent views, refusing a split rollback)"))
+        if good != good_local and \
+                good not in ckpt_lib.completed_steps(self.output_dir):
+            raise TrainingAborted(
+                f"divergent checkpoint views at rollback: rank 0 restores "
+                f"step {good} but this rank's {self.output_dir} lacks it "
+                f"(local latest: {good_local})")
+        # the old producer must be joined before the rewind, or its last
+        # sampler advance could stomp the rewound position; a wedged one
+        # is a rank-local fact, voted so every rank refuses together
+        pipeline_wedged = not close_stream()
+        if self.coord.any_flag("rollback_pipeline_wedged", pipeline_wedged):
+            raise TrainingAborted(
+                "rollback aborted: the input pipeline did not shut down "
+                "cleanly" + ("" if pipeline_wedged else " on a peer rank")
+                + ", the data position cannot be safely rewound")
         t0 = time.perf_counter()
         self.load(self.output_dir)
         logger.warning("rollback: restored step %d in %.3f s", self.step,
@@ -1173,10 +1379,17 @@ class EagerEngine(BasicEngine):
             skip = max((self.consumed_samples - base_consumed)
                        // max(global_batch, 1), 0)
         batches = host_batches(self.step - skip)
+        # a dry stream here is a rank-local fact: voted before the exit
+        # barrier, so every rank aborts together
+        rewind_dry = False
         for _ in range(skip):
             if next(batches, None) is None:
-                raise TrainingAborted(  # fleetx: noqa[FX008] -- one process (world-1 coordinator); the gang's vote comes with item 12
-                    "data stream exhausted while rewinding for rollback")
+                rewind_dry = True
+                break
+        if self.coord.any_flag("rollback_rewind_dry", rewind_dry):
+            raise TrainingAborted(
+                "data stream exhausted while rewinding for rollback"
+                + ("" if rewind_dry else " on a peer rank"))
         res.registry.counter("rollbacks_total").inc()
         if res.guard is not None:
             res.guard.note_rollback()
@@ -1190,9 +1403,18 @@ class EagerEngine(BasicEngine):
         newest checkpoint verifies, so ``prepare`` restores it (and
         ``fit`` rewinds the sampler to its position)."""
         target = self.ckpt_dir or self.output_dir
-        meta = self.coord.broadcast(
-            "resume_meta", ckpt_lib.peek_meta(target) if target else None)
+        local_meta = ckpt_lib.peek_meta(target) if target else None
+        # the resume decision is rank 0's: a rank whose own view
+        # disagrees refuses in ``load`` rather than training from another
+        # step
+        meta = self.coord.broadcast("resume_meta", local_meta)
         if not meta:
+            if local_meta:
+                raise RuntimeError(
+                    f"divergent checkpoint views: this rank sees step "
+                    f"{local_meta.get('step')} under {target} but rank 0 "
+                    f"found no completed checkpoint — refusing to resume "
+                    f"from two different steps")
             return
         self.ckpt_dir = target
         logger.info("auto-resume: restoring step %s from %s",
@@ -1227,12 +1449,30 @@ class EagerEngine(BasicEngine):
         metrics["grad_norm"] = self._grad_norm(grads, prev["inv"])
         return metrics
 
+    def params_fingerprint(self) -> int:
+        """``resilience/integrity.params_fingerprint`` of the live
+        parameters in JAX's leaf order: on a mesh each leaf's block sums
+        psum'd over the axes the leaf is split on (the sum is additive
+        over blocks, so no parameter is gathered), the whole tree's value
+        on every rank."""
+        from fleetx_tpu_torch.resilience.integrity import params_fingerprint
+
+        if self.mesh is None:
+            return params_fingerprint(jax_leaves(self.params))
+        axes = ckpt_lib.unflatten({k: SH.axes_of(pl.stored)
+                                   for k, pl in self._plan.items()})
+        return params_fingerprint(jax_leaves(self.params),
+                                  axes=jax_leaves(axes), mesh=self.mesh)
+
     def _sdc_check(self, prev: dict, batch: dict, metrics: dict,
-                   step: int) -> None:
+                   step: int, gang: bool = False) -> None:
         """One SDC sentinel check: replay the step and compare ``loss``
-        and ``grad_norm`` with the step's bit for bit; on a mismatch act
-        on ``sentinel_action`` (``log | quarantine | abort``). One rank:
-        no fingerprint census (item 12), as JAX's off-gang check."""
+        and ``grad_norm`` with the step's bit for bit; on a gang the
+        replay verdict is voted (``any_flag``) and the parameters'
+        fingerprints are gathered (``all_gather``): replicas hold the same
+        bits, so a census of more than one value is a flipped bit
+        somewhere. Every rank then takes the same ``sentinel_action``
+        (``log | quarantine | abort``) in the same iteration."""
         res = self.resilience
         reg = res.registry
         reg.counter("sdc_checks_total").inc()
@@ -1245,9 +1485,29 @@ class EagerEngine(BasicEngine):
             b = np.asarray(replay[key].detach().cpu())
             if a.tobytes() != b.tobytes():
                 evidence.append(f"replay {key}: {a!r} != {b!r}")
-        if not evidence:
+        mismatch = bool(evidence)
+        if mismatch:
+            reg.counter("sdc_replay_mismatches").inc()
+        if gang:
+            # the verdict is voted BEFORE acting: every rank mirrors the
+            # action in the same iteration, or its peers wedge in their
+            # next agreement
+            if self.coord.any_flag("sdc_replay", mismatch) and \
+                    not mismatch:
+                evidence.append("replay mismatch on a peer rank")
+                mismatch = True
+        fp_mismatch = False
+        if gang:
+            fp = self.params_fingerprint()
+            census = self.coord.all_gather("sdc_fingerprint", fp)
+            if len(set(census.values())) > 1:
+                fp_mismatch = True
+                reg.counter("sdc_fingerprint_mismatches").inc()
+                evidence.append(
+                    f"cross-replica param fingerprint diverged: {census} "
+                    f"(this rank: {fp})")
+        if not (mismatch or fp_mismatch):
             return
-        reg.counter("sdc_replay_mismatches").inc()
         flight.note("sdc", "mismatch", step=int(step), evidence=evidence)
         msg = f"SDC sentinel tripped at step {step}: " + "; ".join(evidence)
         if res.sentinel_action == "abort":
@@ -1382,6 +1642,14 @@ class EagerEngine(BasicEngine):
             record["grad_norm"] = float(log_dict["grad_norm"])
         if "loss_scale" in log_dict:
             record["loss_scale"] = float(log_dict["loss_scale"])
+        if self._gang_obs_active:
+            # the rolling straggler skew rides every window record, and
+            # the window waits for the next loop-control vote, where rank
+            # 0 merges every rank's
+            skew = obs.own_skew()
+            if skew is not None:
+                record["rank_skew"] = skew
+            obs.gang_stash(record)
         obs.registry.gauge("loss").set(record["loss"])
         obs.registry.histogram("step_time").record(record["step_time"])
         obs.emit(record)
@@ -1470,8 +1738,11 @@ class EagerEngine(BasicEngine):
         meta ``consumed_samples`` / ``epoch`` / ``seed`` (asynchronously
         under ``async_save``), then apply the retention (the newest
         completed step always survives; an outstanding save is not yet
-        completed). On a gang every leaf is gathered, rank 0 writes and
-        the ranks meet at a barrier (``core/checkpoint.save_gang``)."""
+        completed). On a mesh every leaf is gathered, rank 0 writes and
+        the ranks meet at a barrier (``core/checkpoint.save_gang``); a
+        per-rank replica writes its own directory. On a gang with the
+        resilience runtime the step completes through the two-phase
+        commit."""
         self.prepare()
         if self.mesh is not None:
             with self.obs.span("checkpoint_save", step=self.step):
@@ -1480,7 +1751,7 @@ class EagerEngine(BasicEngine):
                     meta={"consumed_samples": self.consumed_samples,
                           "epoch": self.epoch, "seed": self.seed},
                     mesh=self.mesh, keep_last=self.keep_last,
-                    keep_every=self.keep_every)
+                    keep_every=self.keep_every, async_save=self.async_save)
             self.last_saved_step = self.step
             return path
         # span only: the seconds and bytes are core/checkpoint.py's
@@ -1513,10 +1784,19 @@ class EagerEngine(BasicEngine):
         directory = directory or self.output_dir
         if self.params is None:
             self.prepare()
-        step = ckpt_lib.latest_step(directory)
+        gang_vote = self.resilience.enabled and self.coord.world > 1
+        local = ckpt_lib.latest_step(directory)
         refused: list = []
         while True:
+            # the step is rank 0's, never each rank's own scan
+            step = self.coord.broadcast("resume_step", local)
             if step is None:
+                if local is not None:
+                    raise RuntimeError(
+                        f"divergent checkpoint views: this rank has step "
+                        f"{local} under {directory} but rank 0 found no "
+                        f"completed checkpoint — refusing to resume from "
+                        f"two different steps")
                 if refused:
                     raise RuntimeError(
                         f"every checkpoint under {directory} failed "
@@ -1525,20 +1805,35 @@ class EagerEngine(BasicEngine):
                 logger.warning("no completed checkpoint under %s — training "
                                "starts from step 0", directory)
                 return False
+            if step != local:
+                if step not in ckpt_lib.completed_steps(directory):
+                    raise RuntimeError(
+                        f"divergent checkpoint views: rank 0 resumes step "
+                        f"{step} but this rank's {directory} lacks it "
+                        f"(local latest: {local})")
+                logger.error("divergent checkpoint views: local latest %s "
+                             "!= rank-0 step %d — resuming from the "
+                             "rank-0 step", local, step)
+            failed_local = False
             try:
                 state, meta = ckpt_lib.load_checkpoint(directory, step)
-                break
             except ckpt_lib.CheckpointIntegrityError as e:
+                failed_local = True
                 logger.error("refusing checkpoint step %d: %s", step, e)
-                self.resilience.registry.counter(
-                    "ckpt_verify_fallbacks").inc()
-                refused.append(step)
-                older = [s for s in ckpt_lib.completed_steps(directory)
-                         if s < step]
-                step = older[-1] if older else None
-                logger.warning("falling back past corrupt checkpoint step %d "
-                               "to the newest older completed step (%s)",
-                               refused[-1], step)
+            # on a gang each attempt's verdict is voted: one rank's
+            # corrupt step moves every rank to the same older one
+            failed = (self.coord.any_flag("restore_verify", failed_local)
+                      if gang_vote else failed_local)
+            if not failed:
+                break
+            self.resilience.registry.counter("ckpt_verify_fallbacks").inc()
+            refused.append(step)
+            older = [s for s in ckpt_lib.completed_steps(directory)
+                     if s < step]
+            local = older[-1] if older else None
+            logger.warning("falling back past corrupt checkpoint step %d "
+                           "to the newest older completed step (%s)",
+                           refused[-1], local)
         self._apply_state(state)
         self.consumed_samples = int(meta.get("consumed_samples", 0))
         self.epoch = int(meta.get("epoch", 0))

@@ -10,7 +10,8 @@ window and its trace decomposition (port of
 - ``perf``    — Kineto trace decomposition into the MFU-gap report;
 - ``memory``  — device-memory samples and the planner's model error;
 - ``sinks``   — rank-0 JSONL / CSV / Prometheus-textfile emitters;
-- ``schema``  — the record validators; ``gang`` — the cross-rank merges;
+- ``schema``  — the record validators; ``gang`` — the collective-wait
+  metrics and the cross-rank merges;
 - ``flight``, ``tsan``, ``slo`` — the crash recorder, the lock sanitizer
   and the serving SLO registry.
 
@@ -18,6 +19,16 @@ window and its trace decomposition (port of
 ``Observability:`` YAML block, it owns the tracer, the sink fan-out, the
 flight ring, the perf stream and the derived-metric state, and is a no-op
 (``contextlib.nullcontext`` spans) when the block is absent or disabled.
+
+Gang mode (``Observability.gang``, JAX :82-125 and :249-305): every rank
+writes its own ``metrics.rank<i>.jsonl`` (``.rank<i>`` files, each record
+stamped with ``rank``, ``world`` and ``schema_version``); the engine's
+voted loop carries each rank's window snapshots on its ``loop_flags``
+vote (``gang_stash`` / ``gang_take_pending``) and rank 0 merges them into
+``metrics.gang.jsonl`` (``gang_merge_emit``); ``install_arrival_hook``
+routes every agreement's arrival census into the rolling per-rank skew
+(the ``rank_skew`` gauge and record key). At world 1 it writes the
+suffixed files and merges nothing, as in JAX.
 Importing the package does not import torch.
 """
 
@@ -30,6 +41,7 @@ import time
 from typing import Any, Optional
 
 from fleetx_tpu_torch.observability import flight as flight_mod
+from fleetx_tpu_torch.observability import gang as gang_mod
 from fleetx_tpu_torch.observability.flight import FlightRecorder  # noqa: F401
 from fleetx_tpu_torch.observability.memory import (  # noqa: F401
     MemoryMonitor, sample_memory_stats)
@@ -66,17 +78,11 @@ class Observability:
     ``Observability(cfg_block)`` with a falsy/disabled block yields an
     object whose every method is a no-op, so the engines call it
     unconditionally and pay nothing when telemetry is off.
-    ``Observability.gang`` (per-rank files merged across a gang) needs
-    several ranks and raises ``NotImplementedError``.
     """
 
     def __init__(self, cfg: Optional[dict] = None,
                  default_output_dir: str = "./output"):
         cfg = dict(cfg or {})
-        if cfg.get("gang"):
-            raise NotImplementedError(
-                "Observability.gang needs a multi-rank gang, not ported yet "
-                "(ROADMAP.md, port queue item 12)")
         self.enabled = bool(cfg.get("enable"))
         self.output_dir = str(cfg.get("output_dir")
                               or os.path.join(default_output_dir, "telemetry"))
@@ -90,7 +96,15 @@ class Observability:
         self.tracer: Optional[Tracer] = None
         self._trace_path: Optional[str] = None
         self.derived: Optional[DerivedMetrics] = None
+        # gang mode: per-rank sinks and cross-rank merging piggybacked on
+        # the loop-control vote; off by default
+        self.gang_enabled = bool(cfg.get("gang"))
         self.rank = _process_index()
+        self.world = _world_size()
+        self._gang_sink: Optional[Sink] = None
+        self._pending_snaps: list = []
+        self._stash_window = 0
+        self._arrival_hook = None
         # trace decomposition of closed profiler windows: on whenever
         # telemetry is; it costs nothing until a window closes
         perf_cfg = dict(cfg.get("perf") or {})
@@ -107,7 +121,7 @@ class Observability:
             flight_dir = (os.environ.get(flight_mod.ENV_DIR)
                           or os.path.join(self.output_dir, "flight"))
             self.flight = FlightRecorder(
-                flight_dir, rank=self.rank, world=_world_size(),
+                flight_dir, rank=self.rank, world=self.world,
                 capacity=int(flight_cfg.get("capacity")
                              or flight_mod.DEFAULT_CAPACITY))
         flight_mod.install(self.flight)
@@ -116,8 +130,12 @@ class Observability:
         window = cfg.get("histogram_window")
         self.registry.set_default_window(1024 if window is None
                                          else int(window))
-        self.sinks = build_sinks(cfg.get("sinks") or ["jsonl"],
-                                 self.output_dir)
+        self.sinks = build_sinks(
+            cfg.get("sinks") or ["jsonl"], self.output_dir,
+            # gang mode: every rank writes its own rank-suffixed files
+            # (the per-rank inputs tools/metrics_report.py merges)
+            rank0_only=not self.gang_enabled,
+            suffix=f".rank{self.rank}" if self.gang_enabled else "")
         trace_cfg = dict(cfg.get("trace") or {})
         if trace_cfg.get("enable", True):
             self.tracer = Tracer(
@@ -180,9 +198,15 @@ class Observability:
     # -- record fan-out ------------------------------------------------------
     def emit(self, record: dict) -> None:
         """Fan one step record out to every sink (never raises); a slim
-        form goes to the flight ring."""
+        form goes to the flight ring. Gang mode stamps the record with
+        this rank's identity and the schema version first."""
         if not self.enabled:
             return
+        if self.gang_enabled:
+            from fleetx_tpu_torch.observability.schema import SCHEMA_VERSION
+
+            record = dict(record, rank=self.rank, world=self.world,
+                          schema_version=SCHEMA_VERSION)
         if self.flight is not None:
             self.flight.record(
                 "metrics", "window", step=record.get("step"),
@@ -223,6 +247,63 @@ class Observability:
         except OSError as e:  # a full disk must not kill training
             logger.warning("perf sink emit failed: %s", e)
 
+    # -- gang aggregation ----------------------------------------------------
+    def gang_stash(self, record: dict) -> None:
+        """Queue one window's record for the next loop-control vote. The
+        stash counter is the window-alignment key: lockstep loop
+        iterations mean every rank's N-th stash describes the same gang
+        window."""
+        self._pending_snaps.append(gang_mod.snapshot(
+            record, self.registry, self.rank, self._stash_window))
+        self._stash_window += 1
+
+    def gang_take_pending(self) -> list:
+        """Drain the stashed snapshots (the vote payload's ``obs`` field)."""
+        pending, self._pending_snaps = self._pending_snaps, []
+        return pending
+
+    def gang_merge_emit(self, votes: dict) -> None:
+        """Rank 0: merge every rank's piggybacked snapshots into
+        gang-scoped records and append them to ``metrics.gang.jsonl`` (a
+        file of its own: summed counters and slowest-rank throughput
+        would double-count beside rank 0's own records)."""
+        snaps = {r: f.get("obs") for r, f in votes.items()
+                 if isinstance(f, dict) and f.get("obs")}
+        if not snaps:
+            return
+        merged = gang_mod.merge_snapshots(snaps, world=self.world)
+        if not merged:
+            return
+        if self._gang_sink is None:
+            self._gang_sink = JsonlSink(
+                os.path.join(self.output_dir, "metrics.gang.jsonl"))
+        for record in merged:
+            try:
+                self._gang_sink.emit(record)
+            except OSError as e:  # a full disk must not kill training
+                logger.warning("gang sink emit failed: %s", e)
+
+    def install_arrival_hook(self) -> None:
+        """Route coordination arrival censuses into the skew estimator
+        (call once the DerivedMetrics layer exists)."""
+        if self.derived is None:
+            return
+
+        def _on_arrivals(arrivals: dict) -> None:
+            self.derived.update_arrivals(arrivals)
+            own = self.derived.rank_skew().get(self.rank)
+            if own is not None:
+                self.registry.gauge("rank_skew").set(own)
+
+        self._arrival_hook = _on_arrivals
+        gang_mod.set_arrival_hook(_on_arrivals)
+
+    def own_skew(self) -> Optional[float]:
+        """This rank's rolling arrival skew in seconds (None off-gang)."""
+        if self.derived is None:
+            return None
+        return self.derived.rank_skew().get(self.rank)
+
     def flight_dump(self, reason: str) -> None:
         """Dump the flight ring (no-op without a recorder; never raises)."""
         if self.flight is not None:
@@ -234,6 +315,8 @@ class Observability:
             return
         for sink in self.sinks:
             sink.flush()
+        if self._gang_sink is not None:
+            self._gang_sink.flush()
         if self._perf_sink is not None:
             self._perf_sink.flush()
         if self.tracer is not None and self._trace_path and \
@@ -248,6 +331,9 @@ class Observability:
         for sink in self.sinks:
             sink.close()
         self.sinks = []
+        if self._gang_sink is not None:
+            self._gang_sink.close()
+            self._gang_sink = None
         if self._perf_sink is not None:
             self._perf_sink.close()
             self._perf_sink = None
@@ -255,3 +341,8 @@ class Observability:
             set_tracer(None)
         if flight_mod.get_recorder() is self.flight:
             flight_mod.install(None)
+        # identity-guarded like the tracer and the recorder: closing an
+        # old facade must not uninstall a newer engine's skew hook
+        if self._arrival_hook is not None and \
+                gang_mod.get_arrival_hook() is self._arrival_hook:
+            gang_mod.set_arrival_hook(None)

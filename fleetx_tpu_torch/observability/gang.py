@@ -1,22 +1,40 @@
-"""Cross-rank merging of window records (the pure functions of
-``fleetx_tpu/observability/gang.py:119-232``).
+"""Gang-wide observability: collective-wait metrics and cross-rank
+merging (port of ``fleetx_tpu/observability/gang.py``).
 
-:func:`snapshot` packages one logging window's record and resilience
-counters; :func:`merge_snapshots` turns every rank's snapshots into
-gang-scoped records (counters summed, step-time min / median / max with
-the extreme rank, the fleet's throughput from the slowest rank);
-:func:`merge_rank_records` runs the same arithmetic offline over per-rank
-JSONL files for ``tools/metrics_report.py``. The live half (the arrival
-hook, the snapshots riding the loop-control vote) needs several ranks and
-comes with ROADMAP item 12. Stdlib only.
+- **collective-wait instrumentation** (:61-117) —
+  ``resilience/coordination.py`` calls :func:`note_agreement` on every
+  completed agreement: the wait lands in the ``barrier_wait_ms``
+  histogram (and a per-name ``coord_wait_ms.<name>`` one),
+  ``coord_agreements_total`` counts it, the last-arriving rank goes to
+  the ``coord_last_rank`` gauge, and the per-rank publish times feed the
+  installed arrival hook (``DerivedMetrics.update_arrivals``; the engine's
+  ``Observability.install_arrival_hook`` sets the ``rank_skew`` gauge
+  from it), so a slow rank is named while the run is healthy;
+  :func:`note_timeout` counts ``coord_timeouts_total`` and notes the
+  census in the flight ring;
+- **cross-rank merging** (:119-232) — :func:`snapshot` packages one
+  logging window's record and resilience counters for the loop-control
+  vote; :func:`merge_snapshots` turns every rank's snapshots into
+  gang-scoped records (counters summed, step-time min / median / max with
+  the extreme rank, the fleet's throughput from the slowest rank);
+  :func:`merge_rank_records` runs the same arithmetic offline over
+  per-rank JSONL files for ``tools/metrics_report.py``.
+
+Stdlib only (the registry and the flight ring are stdlib too), so the
+coordination layer imports it without torch.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+from fleetx_tpu_torch.observability import flight
+from fleetx_tpu_torch.observability.metrics import get_registry
 
 __all__ = ["GANG_SCHEMA_VERSION", "GANG_COUNTERS", "GANG_HISTOGRAMS",
-           "snapshot", "merge_snapshots", "merge_rank_records"]
+           "set_arrival_hook", "get_arrival_hook", "note_agreement",
+           "note_timeout", "snapshot", "merge_snapshots",
+           "merge_rank_records"]
 
 #: records that carry cross-rank context declare this version; plain
 #: single-process records carry none and count as version 1
@@ -35,6 +53,59 @@ GANG_COUNTERS = (
 #: pooled (count-weighted mean, min of mins, max of maxes with the extreme
 #: rank) into the gang record
 GANG_HISTOGRAMS = ("barrier_wait_ms",)
+
+# the arrival hook: installed by the engine once its DerivedMetrics
+# exists, so the skew arithmetic stays in metrics.py and the coordination
+# call sites need no plumbing
+_arrival_hook: Optional[Callable[[Dict[int, float]], None]] = None
+
+
+def set_arrival_hook(
+        fn: Optional[Callable[[Dict[int, float]], None]]
+) -> Optional[Callable[[Dict[int, float]], None]]:
+    """Install (or clear) the per-agreement arrival-timestamp consumer;
+    returns the previous hook."""
+    global _arrival_hook
+    prev = _arrival_hook
+    _arrival_hook = fn
+    return prev
+
+
+def get_arrival_hook() -> Optional[Callable[[Dict[int, float]], None]]:
+    """The installed hook (identity checks on facade teardown)."""
+    return _arrival_hook
+
+
+def note_agreement(name: str, waited_s: float,
+                   arrivals: Optional[Dict[int, float]] = None,
+                   rank: int = 0, world: int = 1) -> None:
+    """One completed agreement's wait evidence → the shared registry.
+
+    ``waited_s`` is this rank's entry-to-completion wall time (the skew it
+    paid); ``arrivals`` maps rank → publish wall-clock time (ranks on one
+    host share a clock).
+    """
+    reg = get_registry()
+    wait_ms = max(float(waited_s), 0.0) * 1000.0
+    reg.histogram("barrier_wait_ms").record(wait_ms)
+    reg.histogram(f"coord_wait_ms.{name}").record(wait_ms)
+    reg.counter("coord_agreements_total").inc()
+    if arrivals and len(arrivals) > 1:
+        last = max(arrivals, key=lambda r: arrivals[r])
+        reg.gauge("coord_last_rank").set(last)
+        hook = _arrival_hook
+        if hook is not None:
+            hook(dict(arrivals))
+
+
+def note_timeout(name: str, arrived: Iterable[int],
+                 missing: Iterable[int]) -> None:
+    """An expired agreement: the counter and a flight-recorder event
+    carrying the census (the straggler set is the post-mortem's first
+    question)."""
+    get_registry().counter("coord_timeouts_total").inc()
+    flight.note("coord_timeout", name, arrived=sorted(arrived),
+                missing=sorted(missing))
 
 
 def snapshot(record: dict, registry, rank: int, window: int) -> dict:

@@ -11,8 +11,8 @@ last flushed record:
 - ``PrometheusTextfileSink`` — node-exporter textfile-collector format,
   atomically rewritten per record.
 
-``build_sinks`` writes from rank 0 only; the port runs one process (the
-multi-rank gang is ROADMAP item 12), so every caller here is rank 0.
+``build_sinks`` writes from rank 0 only, unless ``Observability.gang``
+asks every rank for its own rank-suffixed files.
 Stdlib only.
 """
 

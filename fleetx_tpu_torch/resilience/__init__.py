@@ -1,5 +1,6 @@
 """Fault-tolerant training runtime (port of
-``fleetx_tpu/resilience/__init__.py``; the ``Resilience`` facade :66-177).
+``fleetx_tpu/resilience/__init__.py``; the ``Resilience`` facade :66-177,
+``make_gang_watchdog`` :170).
 
 One module per failure mode, as in the JAX package:
 
@@ -9,9 +10,12 @@ One module per failure mode, as in the JAX package:
   next step boundary (also the serving replica's drain latch);
 - ``guard``        — non-finite-streak / loss-spike policy with
   ``skip | rollback | abort`` actions;
-- ``watchdog``     — hung-step heartbeat with stack dumps;
+- ``watchdog``     — hung-step heartbeat with stack dumps, plus the gang
+  barrier mode that names straggler ranks;
 - ``faults``       — deterministic fault injection driving the drills;
-- ``coordination`` — the agreement primitives, world-1 here;
+- ``coordination`` — the agreement primitives (timed barrier, rank-0
+  broadcast, any-rank OR, majority vote) over the gang's store, which
+  turn each of the above into a gang-wide decision;
 - ``integrity``    — checkpoint digest manifests and verified restore,
   the parameter fingerprint and the preflight selftest.
 
@@ -29,9 +33,6 @@ The state-integrity knobs (``Resilience.integrity``):
 the runtime enabled, the SDC sentinel's cadence ``sentinel_every`` (0:
 off) and its ``sentinel_action`` (``log | quarantine | abort``), which
 the engine's ``fit`` runs (``core/engine/eager_engine.py``).
-
-Not ported here: the gang watchdog (``watchdog.gang_sync_steps`` above 0
-raises, ROADMAP.md, port queue item 12).
 """
 
 from __future__ import annotations
@@ -51,11 +52,13 @@ from fleetx_tpu_torch.resilience.policy import (  # noqa: F401
     RetryPolicy, call_with_retry, is_transient, set_default_policy)
 from fleetx_tpu_torch.resilience.preemption import (  # noqa: F401
     PreemptionHandler)
-from fleetx_tpu_torch.resilience.watchdog import StepWatchdog  # noqa: F401
+from fleetx_tpu_torch.resilience.watchdog import (  # noqa: F401
+    GangWatchdog, StepWatchdog)
 
 __all__ = [
     "Resilience", "RetryPolicy", "TrainingGuard", "TrainingAborted",
-    "PreemptionHandler", "StepWatchdog", "FaultPlan", "InjectedFault",
+    "PreemptionHandler", "StepWatchdog", "GangWatchdog", "FaultPlan",
+    "InjectedFault",
     "CoordinationTimeout", "call_with_retry", "is_transient",
     "set_default_policy", "get_coordinator", "most_severe",
 ]
@@ -88,6 +91,7 @@ class Resilience:
         self.preemption_exit_code = 0
         self.watchdog_enabled = False
         self._watchdog_cfg: dict = {}
+        self.preemption_sync_every = 1
         self.faults = FaultPlan()
         # manifests and verified restores default on even with the
         # runtime off; the sentinel is opt-in (cadence 0: the loop is what
@@ -132,14 +136,12 @@ class Resilience:
             self.preemption = PreemptionHandler(pre_cfg.get("signals"))
         self.preemption_save = _on(pre_cfg.get("save_on_exit"))
         self.preemption_exit_code = int(pre_cfg.get("exit_code") or 0)
+        # iterations between gang preemption votes (a gang only): 1 makes
+        # every step boundary a gang-wide exit point
+        self.preemption_sync_every = max(int(pre_cfg.get("sync_every") or 1),
+                                         1)
         wd_cfg = dict(cfg.get("watchdog") or {})
         self.watchdog_enabled = bool(wd_cfg.get("enable"))
-        if self.watchdog_enabled and \
-                int(wd_cfg.get("gang_sync_steps") or 0) > 0:
-            raise NotImplementedError(
-                "Resilience.watchdog.gang_sync_steps > 0 (the gang "
-                "watchdog) needs a multi-process gang, not ported yet "
-                "(ROADMAP.md, port queue item 12)")
         self._watchdog_cfg = wd_cfg
         self.faults = FaultPlan.from_cfg(cfg.get("faults"))
         # module-level install so core/checkpoint.py's injection points
@@ -156,4 +158,14 @@ class Resilience:
         if not (self.enabled and self.watchdog_enabled):
             return None
         return StepWatchdog.from_cfg(self._watchdog_cfg, on_stall=on_stall,
+                                     registry=self.registry)
+
+    def make_gang_watchdog(self, coord) -> Optional[GangWatchdog]:
+        """The distributed watchdog mode (timed gang barrier every K
+        steps), or None when the watchdog / gang mode is off or the gang
+        has one member. Independent of the heartbeat thread: a gang can
+        run both."""
+        if not (self.enabled and self.watchdog_enabled):
+            return None
+        return GangWatchdog.from_cfg(self._watchdog_cfg, coord,
                                      registry=self.registry)

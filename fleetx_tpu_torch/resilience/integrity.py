@@ -526,7 +526,8 @@ def verify_checkpoint_dir(path: str, files_only: bool = False) -> dict:
 _BITS_AS = {1: "int8", 2: "int16", 4: "int32"}
 
 
-def params_fingerprint(leaves: Iterable[Any]) -> int:
+def params_fingerprint(leaves: Iterable[Any], axes: Optional[list] = None,
+                       mesh: Any = None) -> int:
     """A bit-content reduction of parameter tensors, on their device.
 
     JAX's (``fleetx_tpu/resilience/integrity.py:311``): every leaf's bits
@@ -538,11 +539,17 @@ def params_fingerprint(leaves: Iterable[Any]) -> int:
     most 32 bits cannot overflow), and the mix runs on the host after one
     read of all the sums. Equal to the JAX value when ``leaves`` are in
     ``jax.tree.leaves`` order (``convert.jax_leaves``); the sum of a leaf
-    does not depend on its layout."""
+    does not depend on its layout.
+
+    On a mesh, ``leaves`` are a rank's blocks and ``axes`` (one entry a
+    leaf) the mesh axes each is split on: a leaf's sum is additive over
+    its blocks, so each block's exact sum is psum'd over those axes and
+    every rank gets the fingerprint of the whole tree without gathering
+    a parameter."""
     import torch
 
     sums = []
-    for x in leaves:
+    for i, x in enumerate(leaves):
         x = x.detach()
         if x.numel() >= 2 ** 31:
             raise ValueError(f"a leaf of {x.numel()} elements could "
@@ -557,7 +564,12 @@ def params_fingerprint(leaves: Iterable[Any]) -> int:
                 .to(torch.int64).bitwise_and_((1 << (8 * width)) - 1)
         else:
             v = x.to(torch.int64).bitwise_and_(0xFFFFFFFF)
-        sums.append(v.sum())
+        total = v.sum()
+        if axes is not None and axes[i]:
+            from fleetx_tpu_torch.parallel.mesh import psum_axes
+
+            total = psum_axes(total, axes[i], mesh)
+        sums.append(total)
     total = 0
     for s in (torch.stack(sums).tolist() if sums else []):
         total = (total * 1000003 + (s & 0xFFFFFFFF)) & 0xFFFFFFFF

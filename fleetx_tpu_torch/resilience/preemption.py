@@ -1,4 +1,5 @@
-"""Graceful preemption (copy of ``fleetx_tpu/resilience/preemption.py``).
+"""Graceful preemption (copy of ``fleetx_tpu/resilience/preemption.py``,
+``latch`` :98-117 included).
 
 SIGTERM/SIGINT → drain at the next step boundary.
 
@@ -94,6 +95,26 @@ class PreemptionHandler:
                        "checkpoint-and-exit at the next step boundary "
                        "(signal again to force the default behaviour)",
                        signum)
+
+    def latch(self, reason: str = "gang agreement") -> None:
+        """Latch without a local signal — the gang propagation path.
+
+        When the preemption vote (``loop_flags`` in the engine's fit)
+        reports that ANOTHER rank received SIGTERM, every rank latches
+        locally so the whole gang takes the same checkpoint-and-exit at
+        the same step boundary; the local latch also keeps the
+        second-signal escalation if this rank later receives its own
+        signal.
+        """
+        if not self._flag.is_set():
+            self._flag.set()
+            # flight evidence from the vote path only — never from the
+            # signal handler itself (the ring's lock is not signal-safe)
+            from fleetx_tpu_torch.observability import flight
+
+            flight.note("preemption", "latched", via=str(reason))
+            logger.warning("preemption latched via %s — checkpoint-and-exit "
+                           "at the next step boundary", reason)
 
     @property
     def triggered(self) -> bool:

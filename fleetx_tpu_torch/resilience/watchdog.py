@@ -1,5 +1,6 @@
 """Step watchdog: detect a hung step, dump stacks, flush telemetry (port
-of ``fleetx_tpu/resilience/watchdog.py``: ``StepWatchdog`` :63-226).
+of ``fleetx_tpu/resilience/watchdog.py``: ``StepWatchdog`` :63-226,
+``GangWatchdog`` :207-277).
 
 A deadlocked collective, a wedged host-to-device transfer or a stuck data
 producer leaves the train loop silent forever — the run *looks* alive to
@@ -24,10 +25,11 @@ falls back to the watchdog's own observed beat intervals before the first
 window closes. "The first step's XLA compile" below is, in the port, the
 first step's kernel builds and CUDA warm-up.
 
-The gang mode (``GangWatchdog``, a timed barrier every
-``gang_sync_steps`` steps that names straggler ranks) needs a
-multi-process gang: ``Resilience`` raises ``NotImplementedError`` for a
-``gang_sync_steps`` above 0 (ROADMAP.md, port queue item 12).
+The gang mode (``GangWatchdog``): a timed barrier every
+``gang_sync_steps`` steps over the gang's store (never over a gloo or
+NCCL collective, so a wedged collective cannot hide the census), whose
+timeout names the straggler ranks in the log and the flight ring;
+``action: abort`` then exits with 43 so the supervisor restarts the gang.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from typing import Callable, Optional
 from fleetx_tpu_torch.observability.metrics import get_registry
 from fleetx_tpu_torch.utils.log import logger
 
-__all__ = ["StepWatchdog", "ABORT_EXIT_CODE"]
+__all__ = ["StepWatchdog", "GangWatchdog", "ABORT_EXIT_CODE"]
 
 #: distinct from fault-injection's 17 so supervisors can tell them apart
 ABORT_EXIT_CODE = 43
@@ -207,5 +209,79 @@ class StepWatchdog:
                     logger.warning("watchdog on_stall callback failed: %s", e)
             if self.action == "abort":
                 logger.error("watchdog: aborting process (exit %d)",
+                             ABORT_EXIT_CODE)
+                os._exit(ABORT_EXIT_CODE)
+
+
+class GangWatchdog:
+    """Distributed hang detector: a timed gang barrier every K steps.
+
+    The per-process :class:`StepWatchdog` sees a silent train loop but
+    cannot say WHO wedged the collective — on a gang, every healthy rank's
+    watchdog fires identically while the one hung rank says nothing. This
+    runs ``coordination.barrier`` on the train-loop thread every
+    ``sync_steps`` steps: when it times out, the raised
+    ``CoordinationTimeout`` carries the arrival census, so the log names
+    the exact straggler set (the missing ranks) next to this rank's own
+    stack dump. ``action: abort`` then exits with the watchdog code (43)
+    so a gang supervisor tears the survivors down and restarts from the
+    last checkpoint.
+
+    ``check()`` is a collective: every rank must call it once per step
+    (the internal call counter, not the step, selects barrier rounds so
+    all ranks agree on which calls rendezvous).
+    """
+
+    def __init__(self, coord, sync_steps: int, timeout_s: float = 300.0,
+                 action: str = "log", registry=None):
+        assert action in ("log", "abort"), action
+        self.coord = coord
+        self.sync_steps = max(int(sync_steps), 1)
+        self.timeout_s = float(timeout_s)
+        self.action = action
+        self.registry = registry or get_registry()
+        self._calls = 0
+
+    @classmethod
+    def from_cfg(cls, cfg: Optional[dict], coord, registry=None
+                 ) -> Optional["GangWatchdog"]:
+        """Build from a ``Resilience.watchdog`` block, or None when the
+        gang mode is off (``gang_sync_steps`` unset/0) or the gang has a
+        single member (nothing to rendezvous with)."""
+        cfg = dict(cfg or {})
+        sync_steps = int(cfg.get("gang_sync_steps") or 0)
+        if sync_steps < 1 or getattr(coord, "world", 1) < 2:
+            return None
+        return cls(coord, sync_steps,
+                   timeout_s=float(cfg.get("gang_timeout_s") or 300.0),
+                   action=str(cfg.get("action") or "log"),
+                   registry=registry)
+
+    def check(self, step: int) -> None:
+        """Rendezvous round (every ``sync_steps``-th call); on timeout log
+        the straggler set + this rank's stacks, then log or abort."""
+        from fleetx_tpu_torch.observability import flight
+        from fleetx_tpu_torch.resilience.coordination import \
+            CoordinationTimeout
+
+        self._calls += 1
+        if self._calls % self.sync_steps:
+            return
+        try:
+            self.coord.barrier("gang_watchdog", timeout_s=self.timeout_s)
+        except CoordinationTimeout as e:
+            self.registry.counter("watchdog_gang_stalls").inc()
+            logger.error(
+                "gang watchdog: barrier at step %d timed out after %.1fs — "
+                "straggler ranks %s (arrived: %s); dumping local stacks\n%s",
+                step, self.timeout_s, e.missing, e.arrived,
+                _format_all_stacks())
+            # the flight ring is this rank's half of the post-mortem the
+            # straggler census starts: dump it BEFORE a possible abort
+            flight.note("watchdog", "gang_stall", step=int(step),
+                        missing=e.missing, arrived=e.arrived)
+            flight.dump("gang_watchdog_stall")
+            if self.action == "abort":
+                logger.error("gang watchdog: aborting process (exit %d)",
                              ABORT_EXIT_CODE)
                 os._exit(ABORT_EXIT_CODE)

@@ -96,9 +96,23 @@ tensor and sequence parallel)::
         -o Distributed.dp_degree=2 -o Distributed.mp_degree=2 \
         -o Distributed.sequence_parallel=True
 
-A gang with ``Resilience.enable`` raises ``NotImplementedError`` before it
-joins the group (the gang resilience runtime is ROADMAP.md's port queue
-item 12), and a member without ``FLEETX_COORDINATOR`` raises.
+A resilient gang (``Resilience.enable``) takes every recovery decision
+together (``core/engine/eager_engine.py``'s voted loop over the gang's
+store): one rank's SIGTERM saves the same step on every rank through the
+two-phase commit and exits every rank with the preemption code, which
+the supervisor treats as a clean stop; a second supervisor run resumes
+every rank from that step::
+
+    python -m fleetx_tpu_torch.tools.supervise --num-procs 4 \
+        --preemption-code 75 -- python -m fleetx_tpu_torch.tools.train \
+        -c fleetx_tpu/configs/nlp/gpt/pretrain_gpt_345M_single_card.yaml \
+        -o Distributed.dp_degree=2 -o Distributed.mp_degree=2 \
+        -o Resilience.enable=True -o Resilience.preemption.exit_code=75 \
+        -o Engine.save_load.output_dir=ckpt
+
+(``Resilience.watchdog.gang_sync_steps``, ``Observability.gang`` and
+``Engine.save_load.async_save`` run on a gang too). A member without
+``FLEETX_COORDINATOR`` raises.
 """
 
 from __future__ import annotations
@@ -122,10 +136,12 @@ def load_config(path: str, overrides: Optional[list] = None,
                       training=True)
 
 
-def build_trainer(cfg: dict, device=None, wrap_optimizer=None):
+def build_trainer(cfg: dict, device=None, wrap_optimizer=None, mesh=None):
     """``(engine, train_loader, eval_loader or None)`` from a config;
     ``wrap_optimizer`` (e.g. ``finetune.lora_optimizer``) wraps the
-    configured optimizer."""
+    configured optimizer; ``mesh`` is the engine's (default: the process
+    group's; a mesh of one rank makes a gang member a per-rank replica,
+    which needs ``Engine.save_load.per_rank_dirs``)."""
     from fleetx_tpu_torch.core.engine import EagerEngine
     from fleetx_tpu_torch.data import build_dataloader
     from fleetx_tpu_torch.models import build_module
@@ -141,7 +157,7 @@ def build_trainer(cfg: dict, device=None, wrap_optimizer=None):
     if wrap_optimizer is not None:
         optimizer = wrap_optimizer(optimizer)
     engine = EagerEngine(cfg, module, optimizer=optimizer, lr_schedule=lr,
-                         device=device)
+                         device=device, mesh=mesh)
     data_cfg = cfg.get("Data") or {}
     shape_kwargs = dict(
         seq_length=int(glb.get("max_seq_len", 1024)),
@@ -182,15 +198,13 @@ def gang_size() -> int:
 
 def join_gang(cfg: dict, device=None) -> bool:
     """A gang member joins the process group (True); a process outside a
-    gang does nothing (False). What a gang does not run yet raises first,
-    before any connection."""
-    from fleetx_tpu_torch.core.engine.eager_engine import _refuse_on_gang
+    gang does nothing (False). A member without a coordinator to join
+    raises."""
     from fleetx_tpu_torch.utils.env import init_dist_env
 
     world = gang_size()
     if world <= 1:
         return False
-    _refuse_on_gang(cfg)
     if not init_dist_env(device=device):
         raise RuntimeError(f"FLEETX_NUM_PROCESSES={world} but no "
                            f"FLEETX_COORDINATOR to join: start the gang "

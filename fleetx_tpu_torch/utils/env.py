@@ -2,8 +2,11 @@
 
 - ``init_dist_env``: joins the process group that
   ``tools/supervise.py --num-procs N`` describes in ``FLEETX_COORDINATOR``,
-  ``FLEETX_NUM_PROCESSES`` and ``FLEETX_PROCESS_ID`` (JAX's variables);
-  ``close_dist_env`` leaves it;
+  ``FLEETX_NUM_PROCESSES`` and ``FLEETX_PROCESS_ID`` (JAX's variables),
+  over one ``torch.distributed.TCPStore`` it builds itself (rank 0 hosts
+  it at the coordinator's address); ``get_store`` returns that store, on
+  which the resilience runtime's agreements run
+  (``resilience/coordination.py``); ``close_dist_env`` leaves the group;
 - ``get_world_size``, ``get_rank``, ``get_local_world_size`` and
   ``get_local_rank``: the process group's ranks (1 and 0 without one);
 - ``rank_device``: the device of this rank, ``cuda:{local_rank}`` when
@@ -36,6 +39,8 @@ from fleetx_tpu_torch.utils.log import logger, set_rank_context
 _initialized: Optional[bool] = None
 #: the backend the process group was created with
 _backend: Optional[str] = None
+#: the gang's key-value store (rank 0 hosts it), None off-gang
+_store = None
 
 #: how long a rank waits in a collective of the default group
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
@@ -90,6 +95,11 @@ def get_backend() -> Optional[str]:
     return _backend
 
 
+def get_store():
+    """The gang's ``TCPStore`` (None off-gang)."""
+    return _store
+
+
 def init_dist_env(coordinator_address: Optional[str] = None,
                   num_processes: Optional[int] = None,
                   process_id: Optional[int] = None,
@@ -97,14 +107,17 @@ def init_dist_env(coordinator_address: Optional[str] = None,
     """Join the process group when a coordinator is given (argument or
     ``FLEETX_COORDINATOR``); returns whether one is active.
 
-    ``init_process_group(init_method="tcp://<coordinator>")`` runs once.
-    A second call returns the first call's verdict and does nothing, where
+    Rank 0 hosts a ``TCPStore`` at the coordinator's ``host:port``, every
+    other rank connects to it, and ``init_process_group(store=...)`` runs
+    on that store, once. A rank that cannot reach the store within
+    ``DEFAULT_TIMEOUT`` raises: it never goes on as a world of one. A
+    second call returns the first call's verdict and does nothing, where
     JAX's ``jax.distributed.initialize`` would raise. A call that raises
     (the coordinator is not up) leaves the verdict unset, so a retry can
     try again. ``device`` (default ``cuda``) feeds the backend rule: the
     CPU always takes gloo.
     """
-    global _initialized, _backend
+    global _initialized, _backend, _store
     if _initialized is not None:
         return _initialized
     coordinator_address = coordinator_address or os.environ.get(
@@ -121,11 +134,13 @@ def init_dist_env(coordinator_address: Optional[str] = None,
                                else "cuda").type
     local = _env_int("LOCAL_WORLD_SIZE", world)
     backend = backend_for(device_type, local)
-    dist.init_process_group(backend=backend,
-                            init_method=f"tcp://{coordinator_address}",
+    host, _, port = coordinator_address.rpartition(":")
+    store = dist.TCPStore(host or "127.0.0.1", int(port), world,
+                          is_master=rank == 0, timeout=DEFAULT_TIMEOUT)
+    dist.init_process_group(backend=backend, store=store,
                             world_size=world, rank=rank,
                             timeout=DEFAULT_TIMEOUT)
-    _backend = backend
+    _backend, _store = backend, store
     set_rank_context(rank, world)
     logger.info("process group: rank %d/%d over %s (%d ranks on this host)",
                 rank, world, backend, local)
@@ -133,16 +148,39 @@ def init_dist_env(coordinator_address: Optional[str] = None,
     return True
 
 
+#: how long rank 0, which hosts the store, waits at exit for the other
+#: ranks to be done with it
+EXIT_TIMEOUT = datetime.timedelta(seconds=60)
+
+
 def close_dist_env() -> None:
     """Leave the process group, if this process joined one: a gang
     member's last act once its collectives are done (a process that
-    exits with the group alive can abort in its threads' teardown)."""
-    global _initialized, _backend
+    exits with the group alive can abort in its threads' teardown).
+
+    Every rank marks its exit in the store, and rank 0 waits for the
+    others' marks (at most ``EXIT_TIMEOUT``) before it goes: its process
+    hosts the store, and a peer still reading the last agreement's keys
+    would lose its connection. The agreements' coordinator goes with the
+    store."""
+    global _initialized, _backend, _store
     import torch.distributed as dist
 
+    from fleetx_tpu_torch.resilience.coordination import reset_coordinator
+
+    if _store is not None:
+        rank, world = get_rank(), get_world_size()
+        try:
+            _store.set(f"fleetx/exit/{rank}", "1")
+            if rank == 0 and world > 1:
+                _store.wait([f"fleetx/exit/{r}" for r in range(1, world)],
+                            EXIT_TIMEOUT)
+        except RuntimeError as e:  # a peer gone, or its mark late
+            logger.warning("gang exit: %s", str(e).splitlines()[0])
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
-    _initialized, _backend = None, None
+    _initialized, _backend, _store = None, None, None
+    reset_coordinator()
 
 
 def rank_device(device: Union[str, torch.device, None] = None

@@ -94,12 +94,19 @@ def _loader(ds, bs: int = 4):
         len(ds), bs, num_replicas=1, rank=0, drop_last=False))
 
 
-def _cli(args: list) -> subprocess.CompletedProcess:
+def _cli_start(args: list) -> subprocess.Popen:
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("CUDA_VISIBLE_DEVICES", None)
-    return subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-m", "fleetx_tpu_torch.tools.eval"] + args,
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _data_eval_overrides(corpus) -> list:
+    return TINY + [f"Data.Eval.dataset.input_dir={corpus}",
+                   "Data.Eval.dataset.num_samples=8",
+                   "Data.Eval.loader.batch_size=2", "Engine.eval_iters=3"]
 
 
 @pytest.fixture(scope="module")
@@ -119,23 +126,72 @@ def checkpoint(files):
                  for k, v in flatten(eng.params).items()}
 
 
+@pytest.fixture(scope="module")
+def eval_runs(files, checkpoint):
+    """This file's four ``tools.eval --device cpu`` runs, started at once
+    (each is a torch import and a short eval): the offline ppl and acc
+    evals from the checkpoint, the ``Data.Eval`` path over a corpus
+    written by ``write_corpus`` with no checkpoint, and the eval of a
+    corrupted copy of the checkpoint; name → the finished process."""
+    import shutil
+
+    from fleetx_tpu_torch.core import checkpoint as C
+    from fleetx_tpu_torch.data import write_corpus
+
+    ckpt = checkpoint[0]
+    offline = ["-c", EVAL_YAML, "--device", "cpu"]
+    argv = {kind: offline + sum((["-o", o] for o in TINY + [
+        f"Engine.save_load.ckpt_dir={ckpt}",
+        f"Offline_Eval.tokenizer_dir={files['tok']}",
+        f"Offline_Eval.eval_path={path}",
+        f"Offline_Eval.eval_type={kind}",
+        "Offline_Eval.batch_size=4"]), [])
+        for kind, path in (("ppl", files["txt"]), ("acc", files["jsonl"]))}
+    rng = np.random.RandomState(2)
+    corpus = files["root"] / "c"
+    write_corpus(str(corpus),
+                 [list(rng.randint(0, VOCAB, n)) for n in (300, 700, 90)])
+    argv["data_eval"] = ["-c", PRETRAIN_YAML, "--device", "cpu"] + sum(
+        (["-o", o] for o in _data_eval_overrides(corpus)), [])
+    bad = str(files["root"] / "bad")
+    shutil.copytree(ckpt, bad)
+    step = C.completed_steps(bad)[-1]
+    target = os.path.join(C.step_dir(bad, step), C.STATE_NAME)
+    size = os.path.getsize(target)
+    with open(target, "r+b") as f:
+        f.seek(size // 2)
+        byte = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    argv["corrupt"] = offline + sum((["-o", o] for o in TINY + [
+        f"Engine.save_load.ckpt_dir={bad}",
+        f"Offline_Eval.tokenizer_dir={files['tok']}",
+        f"Offline_Eval.eval_path={files['txt']}"]), [])
+    procs = {name: _cli_start(args) for name, args in argv.items()}
+    out = {"corpus": corpus}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=120)
+            out[name] = subprocess.CompletedProcess(
+                proc.args, proc.returncode, stdout, stderr)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
 @pytest.mark.parametrize("kind", ["ppl", "acc"])
-def test_eval_cli_offline_paths(files, checkpoint, kind):
+def test_eval_cli_offline_paths(files, checkpoint, eval_runs, kind):
     """``tools.eval --device cpu`` on the eval recipe shrunk to the tiny
     model, from the checkpoint: the printed results equal
     ``run_offline_eval`` in this process on the checkpoint's weights."""
     from fleetx_tpu_torch.core.checkpoint import unflatten
     from fleetx_tpu_torch.core.module import GPTEvalModule
 
-    ckpt, flat = checkpoint
-    path = files["jsonl"] if kind == "acc" else files["txt"]
-    out = _cli(["-c", EVAL_YAML, "--device", "cpu"] + sum(
-        (["-o", o] for o in TINY + [
-            f"Engine.save_load.ckpt_dir={ckpt}",
-            f"Offline_Eval.tokenizer_dir={files['tok']}",
-            f"Offline_Eval.eval_path={path}",
-            f"Offline_Eval.eval_type={kind}",
-            "Offline_Eval.batch_size=4"]), []))
+    _, flat = checkpoint
+    out = eval_runs[kind]
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO CHECKPOINT FOUND" not in out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
@@ -153,29 +209,17 @@ def test_eval_cli_offline_paths(files, checkpoint, kind):
                                "fused_norm_fwd_rows": 0}  # plain on the CPU
 
 
-def test_eval_cli_data_eval_path_and_no_checkpoint_warning(files, tmp_path):
+def test_eval_cli_data_eval_path_and_no_checkpoint_warning(eval_runs):
     """Without ``Offline_Eval``: ``EagerEngine(mode="eval").evaluate`` over
     a ``GPTDataset`` written by the port's ``write_corpus``; with no
     checkpoint configured the tool warns and evaluates seeded weights."""
     from fleetx_tpu_torch.core.engine import EagerEngine
-    from fleetx_tpu_torch.data import build_dataloader, write_corpus
+    from fleetx_tpu_torch.data import build_dataloader
     from fleetx_tpu_torch.models import build_module
     from fleetx_tpu_torch.utils.config import get_config
 
-    rng = np.random.RandomState(2)
-    write_corpus(str(tmp_path / "c"),
-                 [list(rng.randint(0, VOCAB, n)) for n in (300, 700, 90)])
-    overrides = TINY + [f"Data.Eval.dataset.input_dir={tmp_path / 'c'}",
-                        "Data.Eval.dataset.num_samples=8",
-                        "Data.Eval.loader.batch_size=2",
-                        "Engine.eval_iters=3"]
-    out = subprocess.run(
-        [sys.executable, "-m", "fleetx_tpu_torch.tools.eval", "-c",
-         PRETRAIN_YAML, "--device", "cpu"] + sum(
-            (["-o", o] for o in overrides), []),
-        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
-        capture_output=True,
-        text=True, timeout=120)
+    overrides = _data_eval_overrides(eval_runs["corpus"])
+    out = eval_runs["data_eval"]
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO CHECKPOINT FOUND" in out.stderr
     got = float(out.stdout.strip().splitlines()[-1].split(": ")[1])
@@ -186,28 +230,10 @@ def test_eval_cli_data_eval_path_and_no_checkpoint_warning(files, tmp_path):
     assert got == pytest.approx(np.log(VOCAB), abs=0.1)  # untrained
 
 
-def test_eval_cli_refuses_a_corrupt_checkpoint(files, checkpoint, tmp_path):
+def test_eval_cli_refuses_a_corrupt_checkpoint(eval_runs):
     """A configured checkpoint that fails its audit raises; it never
     falls back to random weights."""
-    import shutil
-
-    from fleetx_tpu_torch.core import checkpoint as C
-
-    ckpt = str(tmp_path / "bad")
-    shutil.copytree(checkpoint[0], ckpt)
-    step = C.completed_steps(ckpt)[-1]
-    target = os.path.join(C.step_dir(ckpt, step), C.STATE_NAME)
-    size = os.path.getsize(target)
-    with open(target, "r+b") as f:
-        f.seek(size // 2)
-        byte = f.read(1)
-        f.seek(size // 2)
-        f.write(bytes([byte[0] ^ 0xFF]))
-    out = _cli(["-c", EVAL_YAML, "--device", "cpu"] + sum(
-        (["-o", o] for o in TINY + [
-            f"Engine.save_load.ckpt_dir={ckpt}",
-            f"Offline_Eval.tokenizer_dir={files['tok']}",
-            f"Offline_Eval.eval_path={files['txt']}"]), []))
+    out = eval_runs["corrupt"]
     assert out.returncode != 0
     assert "CheckpointIntegrityError" in out.stderr
     assert "NO CHECKPOINT FOUND" not in out.stderr

@@ -252,9 +252,74 @@ def test_gang_merges_match_jax():
 
 
 def test_gang_mode_raises_naming_item_12(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        obs.Observability({"enable": True, "gang": True,
-                           "output_dir": str(tmp_path)})
+    """``Observability.gang`` is ported: at world 1, as JAX's facade, it
+    writes ``metrics.rank0.jsonl`` with ``rank`` / ``world`` /
+    ``schema_version`` stamped on every record, stashes a window per
+    record and merges the vote's snapshots into ``metrics.gang.jsonl``
+    (the same keys and record-derived values as JAX's; the counters are
+    each package's own registry's)."""
+    out = {}
+    for name, mod in (("port", obs), ("jax", jobs)):
+        d = tmp_path / name
+        facade = mod.Observability({"enable": True, "gang": True,
+                                    "sinks": ["jsonl"],
+                                    "trace": {"enable": False},
+                                    "output_dir": str(d)})
+        try:
+            assert facade.gang_enabled and facade.world == 1
+            for rec in (_window(1, 0.5, 20.0, 2.0),
+                        _window(2, 0.6, 21.0, 1.5)):
+                facade.emit(rec)
+                facade.gang_stash(rec)
+            pending = facade.gang_take_pending()
+            assert [p["w"] for p in pending] == [0, 1]
+            assert facade.gang_take_pending() == []
+            facade.gang_merge_emit({0: {"preempt": False, "done": False,
+                                        "obs": pending}})
+            facade.flush()
+        finally:
+            facade.close()
+        with open(d / "metrics.rank0.jsonl") as f:
+            per_rank = [json.loads(line) for line in f]
+        with open(d / "metrics.gang.jsonl") as f:
+            merged = [json.loads(line) for line in f]
+        out[name] = (per_rank, merged)
+    assert out["port"][0] == out["jax"][0]
+    assert out["port"][0][0]["rank"] == 0 and \
+        out["port"][0][0]["world"] == 1 and \
+        out["port"][0][0]["schema_version"] == 2
+    counters = set(gang.GANG_COUNTERS) | {
+        k for rec in out["jax"][1] for k in rec if k.startswith("barrier")}
+    for got, want in zip(out["port"][1], out["jax"][1]):
+        assert sorted(got) == sorted(want)
+        assert {k: v for k, v in got.items() if k not in counters} == \
+            {k: v for k, v in want.items() if k not in counters}
+    assert len(out["port"][1]) == len(out["jax"][1]) == 2
+
+
+def test_arrival_side_matches_jax(monkeypatch):
+    """``note_agreement`` / ``note_timeout`` and the arrival hook: the
+    same registry entries and hook calls as JAX's on the same census."""
+    for mod, metrics_mod in ((gang, obs), (jgang, jobs)):
+        reg = metrics_mod.MetricsRegistry()
+        monkeypatch.setattr(mod, "get_registry", lambda reg=reg: reg)
+        calls = []
+        prev = mod.set_arrival_hook(calls.append)
+        try:
+            assert mod.get_arrival_hook() == calls.append
+            mod.note_agreement("loop_flags", 0.25,
+                               arrivals={0: 10.0, 1: 10.5}, rank=0, world=2)
+            mod.note_agreement("resume_step", 0.1, rank=1, world=2)
+            mod.note_timeout("x#3", [0], [1])
+        finally:
+            mod.set_arrival_hook(prev)
+        assert calls == [{0: 10.0, 1: 10.5}]
+        assert reg.counter("coord_agreements_total").value == 2
+        assert reg.counter("coord_timeouts_total").value == 1
+        assert reg.gauge("coord_last_rank").value == 1
+        assert reg.histogram("barrier_wait_ms").summary()["count"] == 2
+        assert reg.histogram("coord_wait_ms.loop_flags").summary()[
+            "count"] == 1
 
 
 # ------------------------------------------------------- profiler window
@@ -700,16 +765,47 @@ del eng
 print("FREED" if ref() is None else "ALIVE")
 """
 
-def test_finished_engine_is_freed_without_the_cyclic_collector(tmp_path):
+@pytest.fixture(scope="module")
+def trainer_processes(tmp_path_factory):
+    """This file's three training processes, started at once (each takes
+    ~10-25 s on the CPU alone): the debug recipe through the port's CLI,
+    the same recipe dying in its data path, and the freed-engine check;
+    name → (the finished process, its working directory)."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    cli = ["-m", "fleetx_tpu_torch.tools.train", "-c", DEBUG_YAML,
+           "--device", "cpu", "-o", "Engine.max_steps=4"]
+    runs = {"telemetry": (cli, dict(env, JAX_PLATFORMS="cpu")),
+            "crash": (cli + ["-o", "Resilience.enable=True", "-o",
+                             "Resilience.faults.data_raise_at=2"],
+                      dict(env, JAX_PLATFORMS="cpu")),
+            "freed": (["-c", FREED_AFTER_DEL.format(lr=LR)], env)}
+    dirs = {name: tmp_path_factory.mktemp(name) for name in runs}
+    procs = {name: subprocess.Popen(
+        [sys.executable] + argv, cwd=str(dirs[name]), env=e,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (argv, e) in runs.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            out[name] = (subprocess.CompletedProcess(
+                proc.args, proc.returncode, stdout, stderr), dirs[name])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def test_finished_engine_is_freed_without_the_cyclic_collector(
+        trainer_processes):
     """A fresh process (torch's lazy imports not yet done) trains the tiny
     GPT through the custom ops, recompute, the prefetcher, telemetry and
     the profiler window with the cyclic collector off: the engine dies
     with its last name, so its parameters and optimizer state leave the
     card at once."""
-    code = FREED_AFTER_DEL.format(lr=LR)
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, cwd=str(tmp_path), env=env, timeout=300)
+    proc, _ = trainer_processes["freed"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "FREED"
 
@@ -802,12 +898,11 @@ def _serving_stream(path):
             f.write(json.dumps(engine.serving_snapshot()) + "\n")
 
 
-def test_cli_telemetry_run_and_the_report_tools(tmp_path):
+def test_cli_telemetry_run_and_the_report_tools(tmp_path, trainer_processes):
     # the debug recipe through the port's CLI, steps cut to 4
-    out = _run(["-m", "fleetx_tpu_torch.tools.train", "-c", DEBUG_YAML,
-                "--device", "cpu", "-o", "Engine.max_steps=4"], tmp_path)
+    out, run_dir = trainer_processes["telemetry"]
     assert out.returncode == 0, out.stderr[-3000:]
-    tel = tmp_path / "output" / "debug_obs" / "telemetry"
+    tel = run_dir / "output" / "debug_obs" / "telemetry"
     assert {"metrics.jsonl", "metrics.csv", "metrics.prom",
             "trace.json"} <= set(os.listdir(tel))
     assert jschema.validate_jsonl(str(tel / "metrics.jsonl")) == (2, [])
@@ -837,12 +932,7 @@ def test_cli_telemetry_run_and_the_report_tools(tmp_path):
                 tmp_path).returncode == 1
 
     # a run that dies in its data path leaves a flight dump
-    crash = tmp_path / "crash"
-    crash.mkdir()
-    out = _run(["-m", "fleetx_tpu_torch.tools.train", "-c", DEBUG_YAML,
-                "--device", "cpu", "-o", "Engine.max_steps=4", "-o",
-                "Resilience.enable=True", "-o",
-                "Resilience.faults.data_raise_at=2"], crash)
+    out, crash = trainer_processes["crash"]
     assert out.returncode != 0 and "data_raise_at" in out.stderr
     flight_dir = crash / "output" / "debug_obs" / "telemetry" / "flight"
     dump = json.loads((flight_dir / "flight_rank0.json").read_text())

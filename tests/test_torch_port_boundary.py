@@ -108,7 +108,13 @@ def test_the_scan_reaches_every_module_of_the_port():
                 "fleetx_tpu_torch/serving/router.py",
                 "fleetx_tpu_torch/data/native/__init__.py",
                 "fleetx_tpu_torch/tools/multiprocess_tool.py",
-                "fleetx_tpu_torch/parallel/sharding.py"):
+                "fleetx_tpu_torch/parallel/sharding.py",
+                "fleetx_tpu_torch/utils/env.py",
+                "fleetx_tpu_torch/observability/__init__.py",
+                "fleetx_tpu_torch/observability/gang.py",
+                "fleetx_tpu_torch/resilience/preemption.py",
+                "fleetx_tpu_torch/core/engine/eager_engine.py",
+                "fleetx_tpu_torch/tools/train.py"):
         assert rel in scanned, rel
 
 
@@ -208,9 +214,12 @@ def test_the_mesh_modules_and_a_rank_process_load_no_jax():
             "import fleetx_tpu_torch.core.engine.inference_engine\n"
             "import fleetx_tpu_torch.parallel.sharding\n"
             "import fleetx_tpu_torch.core.engine.eager_engine\n"
+            "from fleetx_tpu_torch.resilience.coordination import "
+            "get_coordinator\n"
             "init_dist_env(device='cpu')\n"
             "mesh = build_mesh({'dp_degree': 2})\n"
             "assert psum(torch.ones(1), 'data', mesh).item() == 2.0\n"
+            "assert get_coordinator().any_flag('probe', mesh.rank == 1)\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -263,18 +272,12 @@ def test_a_cuda_device_without_an_index_gets_the_current_one(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_train_cli_without_device_raises_when_no_cuda():
+def test_train_cli_without_device_raises_when_no_cuda(no_device_runs):
     """``python -m fleetx_tpu_torch.tools.train`` defaults to cuda: on a
     host without a GPU it fails instead of training on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    yaml_path = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
-                             "pretrain_gpt_345M_synthetic.yaml")
-    env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run(
-        [sys.executable, "-m", "fleetx_tpu_torch.tools.train", "-c",
-         yaml_path, "-o", "Model.num_layers=1", "-o", "Engine.max_steps=1"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    out = no_device_runs["tools.train"]
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert "[train]" not in out.stderr
@@ -301,16 +304,43 @@ _SLICE8_CLIS = {
 }
 
 
+@pytest.fixture(scope="module")
+def no_device_runs():
+    """Every entry point of the no-GPU tests run without ``--device``, the
+    processes started at once (each is a torch import and a refusal):
+    module → the finished process. Nothing runs where a card is present."""
+    if torch.cuda.is_available():
+        return {}
+    yaml_path = os.path.join(REPO, "fleetx_tpu", "configs", "nlp", "gpt",
+                             "pretrain_gpt_345M_synthetic.yaml")
+    argv = dict(_SLICE8_CLIS)
+    argv["tools.train"] = ["-c", yaml_path, "-o", "Model.num_layers=1",
+                           "-o", "Engine.max_steps=1"]
+    procs = {cli: subprocess.Popen(
+        [sys.executable, "-m", f"fleetx_tpu_torch.{cli}"] + args, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for cli, args in argv.items()}
+    out = {}
+    try:
+        for cli, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=120)
+            out[cli] = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                                   stdout, stderr)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
 @pytest.mark.parametrize("cli", sorted(_SLICE8_CLIS))
-def test_slice8_clis_without_device_raise_when_no_cuda(cli, tmp_path):
+def test_slice8_clis_without_device_raise_when_no_cuda(cli, no_device_runs):
     """Each eval / export / inference / preprocessing entry point defaults
     to cuda: on a host without a GPU it fails before any work."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    out = subprocess.run(
-        [sys.executable, "-m", f"fleetx_tpu_torch.{cli}"]
-        + _SLICE8_CLIS[cli], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
-        capture_output=True, text=True, timeout=120)
+    out = no_device_runs[cli]
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr, out.stderr[-2000:]
     assert not os.path.exists(os.path.join(REPO, "no_such_prefix_ids.npy"))

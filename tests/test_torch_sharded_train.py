@@ -342,9 +342,45 @@ def _worker(workdir: str) -> None:
         "output_dir": os.path.join(workdir, "gang_resume_out")}
     eng = _port_engine("gpt", cfg)
     results["resume_gang"] = {"losses": eng.fit(_gpt_batches(STEPS)[2:])}
-    # a one-rank engine inside the gang's process, beside the gang
-    eng = _port_engine("gpt", _cfg("gpt", {}, {}, {}), one_rank=True)
-    results["one_rank_in_gang"] = {"mesh": eng.mesh is None}
+    # the dp2 x mp2 gang with the gang resilience runtime: the SDC
+    # sentinel's replay and fingerprint census every 2nd step, the gang
+    # watchdog's barrier every step, asynchronous saves through the
+    # two-phase commit
+    from fleetx_tpu_torch.convert import jax_leaves
+    from fleetx_tpu_torch.observability.metrics import get_registry
+    from fleetx_tpu_torch.resilience.integrity import params_fingerprint
+
+    cfg = _cfg("gpt", CKPT_DIST, {}, {})
+    cfg["Engine"]["save_load"] = {
+        "save_steps": 2, "async_save": True,
+        "output_dir": os.path.join(workdir, "resilient_ckpt")}
+    cfg["Resilience"] = {"enable": True,
+                         "integrity": {"sentinel_every": 2},
+                         "watchdog": {"enable": True, "gang_sync_steps": 1}}
+    eng = _port_engine("gpt", cfg)
+    eng.params = _init_params(workdir, "gpt")
+    reg = get_registry()
+    results["resilient_dp2_mp2"] = dict(
+        losses=eng.fit(_gpt_batches(STEPS)),
+        fingerprint=eng.params_fingerprint(),
+        full_fingerprint=params_fingerprint(jax_leaves(eng.full_params())),
+        **{k: reg.counter(k).value for k in (
+            "sdc_checks_total", "sdc_replay_mismatches",
+            "sdc_fingerprint_mismatches", "ckpt_commit_aborts")})
+    # a one-rank engine inside the gang's process: a per-rank replica with
+    # per_rank_dirs, JAX's ValueError without
+    cfg = _cfg("gpt", {}, {}, {})
+    cfg["Engine"]["save_load"] = {"per_rank_dirs": True,
+                                  "output_dir": os.path.join(workdir, "pr")}
+    eng = _port_engine("gpt", cfg, one_rank=True)
+    refused = None
+    try:
+        _port_engine("gpt", _cfg("gpt", {}, {}, {}), one_rank=True)
+    except ValueError as e:
+        refused = str(e)
+    results["one_rank_in_gang"] = {
+        "mesh": eng.mesh is None, "per_rank": eng.per_rank_ckpt,
+        "output_dir": eng.output_dir, "refused": refused}
     build_mesh(CKPT_DIST)  # every rank still answers after the cases
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
@@ -566,7 +602,12 @@ def test_checkpoints_move_between_a_gang_and_one_rank(gang):
     for rank in gang["ranks"]:
         np.testing.assert_allclose(rank["resume_gang"]["losses"],
                                    one_run[2:], rtol=0, atol=1e-5)
-        assert rank["one_rank_in_gang"]["mesh"]
+        one = rank["one_rank_in_gang"]
+        assert one["mesh"] and one["per_rank"]
+        assert one["output_dir"].endswith(f"rank_{gang['ranks'].index(rank)}")
+        assert one["refused"].startswith(
+            "a multi-process run on a process-local mesh requires "
+            "Engine.save_load.per_rank_dirs: true")
     # the gang's gathered final parameters against the checkpoint
     from fleetx_tpu_torch.core import checkpoint as ckpt_lib
 
@@ -725,20 +766,40 @@ def test_tensor_parallel_and_stage_3_are_dense_gpt_only(what):
 
 @pytest.mark.parametrize("what", ["resilience", "async_save", "no_group"])
 def test_a_gang_member_refuses_before_it_joins(what, monkeypatch):
-    """Resilience and asynchronous saves on a gang raise naming item 12
-    before any connection; a member without a coordinator raises."""
+    """Nothing refuses a gang member before it joins: resilience and
+    asynchronous saves run on a gang (``test_resilient_gang_*`` here,
+    ``tests/test_torch_gang_resilience.py``), so every member goes on to
+    join, and one without a coordinator raises."""
     from fleetx_tpu_torch.tools import train as T
 
     monkeypatch.setenv("FLEETX_NUM_PROCESSES", "2")
     monkeypatch.delenv("FLEETX_COORDINATOR", raising=False)
     cfg = {"Resilience": {"enable": what == "resilience"},
            "Engine": {"save_load": {"async_save": what == "async_save"}}}
-    if what == "no_group":
-        with pytest.raises(RuntimeError, match="no FLEETX_COORDINATOR"):
-            T.join_gang(cfg, "cpu")
-        return
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(RuntimeError, match="no FLEETX_COORDINATOR"):
         T.join_gang(cfg, "cpu")
+
+
+def test_resilient_gang_trains_as_the_plain_gang(gang):
+    """dp 2 × mp 2 with ``Resilience.enable``: the losses are the plain
+    gang's bit for bit (the sentinel's replays and the agreements move no
+    state), two sentinel checks with no mismatch, steps 2 and 4 committed
+    through the two-phase commit, and every rank's block fingerprint (each
+    leaf's block sums psum'd over its split axes) is the fingerprint of
+    the gathered full tree."""
+    from fleetx_tpu_torch.core import checkpoint as ckpt_lib
+
+    for rank in gang["ranks"]:
+        got = rank["resilient_dp2_mp2"]
+        assert got["losses"] == rank["dp2_mp2"]["losses"]
+        assert got["sdc_checks_total"] == 2
+        assert got["sdc_replay_mismatches"] == 0
+        assert got["sdc_fingerprint_mismatches"] == 0
+        assert got["ckpt_commit_aborts"] == 0
+        assert got["fingerprint"] == got["full_fingerprint"] == \
+            gang["ranks"][0]["resilient_dp2_mp2"]["fingerprint"]
+    assert ckpt_lib.completed_steps(
+        os.path.join(gang["workdir"], "resilient_ckpt")) == [2, 4]
 
 
 if __name__ == "__main__":

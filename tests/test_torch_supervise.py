@@ -392,23 +392,37 @@ def test_fault_step_restart_drill_through_the_port_trainer(tmp_path):
     assert C.latest_step(out) == 6 and C.completed_steps(out) == [2, 4, 6]
 
 
-def test_a_gang_member_refuses_to_train():
-    """A trainer started as a member of a gang of 2 with the resilience
-    runtime on raises naming item 12 (the gang resilience part), before
-    it joins the group; a training gang without it is ported
-    (``tests/test_torch_sharded_train.py``)."""
-    from fleetx_tpu_torch.tools import train
-
-    env = dict(os.environ, FLEETX_NUM_PROCESSES="2")
-    old = os.environ.copy()
-    os.environ.update(env)
-    try:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            train.main(["-c", SYNTH_YAML, "--device", "cpu",
-                        "-o", "Distributed.dp_degree=2",
-                        "-o", "Global.local_batch_size=4",
-                        "-o", "Global.micro_batch_size=4",
-                        "-o", "Resilience.enable=True"])
-    finally:
-        os.environ.clear()
-        os.environ.update(old)
+def test_a_gang_member_refuses_to_train(tmp_path):
+    """A training gang of 2 with the resilience runtime on trains, as the
+    JAX trainer does: ``tools.supervise --num-procs 2 -- tools.train`` at
+    dp 2 with ``Resilience.enable``, the gang watchdog, asynchronous saves
+    through the two-phase commit and ``Observability.gang`` exits 0 with
+    both steps committed, every rank's metrics file and rank 0's merged
+    records."""
+    out, tel = tmp_path / "ckpt", tmp_path / "telemetry"
+    rc, _, err = _supervise(
+        "port", ["--num-procs", "2", "--max-restart", "0"],
+        [sys.executable, "-m", "fleetx_tpu_torch.tools.train", "-c",
+         SYNTH_YAML, "--device", "cpu"] + [
+            a for o in TINY + [
+                "Distributed.dp_degree=2", "Global.local_batch_size=1",
+                "Global.micro_batch_size=1", "Engine.max_steps=2",
+                "Engine.save_load.save_steps=1",
+                "Engine.save_load.async_save=True",
+                f"Engine.save_load.output_dir={out}",
+                "Resilience.enable=True", "Resilience.watchdog.enable=True",
+                "Resilience.watchdog.gang_sync_steps=1",
+                "Observability.enable=True", "Observability.gang=True",
+                f"Observability.output_dir={tel}"] for a in ("-o", o)],
+        timeout_s=240)
+    assert rc == 0, err[-4000:]
+    assert C.completed_steps(str(out)) == [1, 2]
+    for rank in (0, 1):
+        with open(tel / f"metrics.rank{rank}.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        assert [r["step"] for r in records] == [1, 2]
+        assert all(r["rank"] == rank and r["world"] == 2 for r in records)
+    with open(tel / "metrics.gang.jsonl") as f:
+        merged = [json.loads(line) for line in f]
+    assert [r["step"] for r in merged] == [1, 2]
+    assert all(r["ranks_reported"] == 2 for r in merged)

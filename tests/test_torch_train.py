@@ -348,9 +348,11 @@ UNCOVERED = {
     "recompute_dots": (["Model.use_recompute=True",
                         "Model.recompute_granularity=dots",
                         "Model.remat_save_dtype=bfloat16"], None),
-    # telemetry and the profiler window are ported; gang mode is not
+    # telemetry, the profiler window and gang mode are ported (at world 1
+    # gang mode writes its rank-suffixed files and merges nothing, as JAX)
     "observability": (["Observability.enable=True"], None),
-    "observability_gang": (["Observability.gang=True"], "item 12"),
+    "observability_gang": (["Observability.enable=True",
+                            "Observability.gang=True"], None),
     "seq_degree": (["Distributed.seq_degree=2",
                     "Model.use_ring_attention=True",
                     "Model.attention_probs_dropout_prob=0.0"], "item 12"),
@@ -358,17 +360,17 @@ UNCOVERED = {
     "moe": (["Model.moe_num_experts=4"], None),
     "qat": (["Quantization.enable=True", "Quantization.weight_bits=4"],
             None),
-    # fp16, Resilience.enable and the SDC sentinel are ported; the gang
-    # watchdog is not
+    # fp16, Resilience.enable, the SDC sentinel and the gang watchdog are
+    # ported (the gang watchdog and per-rank directories are inert at
+    # world 1, as in JAX)
     "resilience": (["Resilience.enable=True",
                     "Resilience.integrity.sentinel_every=5"], None),
     "gang_watchdog": (["Resilience.enable=True",
                        "Resilience.watchdog.enable=True",
-                       "Resilience.watchdog.gang_sync_steps=2"], "item 12"),
-    # checkpoints and asynchronous saves are ported; their multi-rank
-    # options are not
+                       "Resilience.watchdog.gang_sync_steps=2"], None),
+    # checkpoints, asynchronous saves and per-rank directories are ported
     "save_steps": (["Engine.save_load.save_steps=10",
-                    "Engine.save_load.per_rank_dirs=True"], "item 12"),
+                    "Engine.save_load.per_rank_dirs=True"], None),
     "ckpt_dir": (["Engine.save_load.ckpt_dir=/nonexistent",
                   "Engine.save_load.async_save=True"], None),
     # a degree above 1 is a gang's: in a world of one rank it is JAX's
@@ -404,6 +406,16 @@ def test_uncovered_config_values_raise(what, tmp_path):
                 engine.module.spec_family == "gpt_moe"
         elif what == "resilience":
             assert engine.resilience.sentinel_every == 5
+        elif what == "observability_gang":
+            assert engine.obs.gang_enabled and engine.obs.world == 1
+            assert [os.path.basename(s.path) for s in engine.obs.sinks] \
+                == ["metrics.rank0.jsonl"]
+        elif what == "gang_watchdog":
+            assert engine.resilience.watchdog_enabled
+            assert engine.resilience.make_gang_watchdog(engine.coord) is None
+        elif what == "save_steps":
+            assert engine.save_steps == 10 and not engine.per_rank_ckpt
+            assert "rank_" not in engine.output_dir
         elif what == "ckpt_dir":
             # no checkpoint there: a warning, then training from step 0
             assert engine.async_save
